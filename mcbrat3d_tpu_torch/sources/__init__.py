@@ -1,0 +1,1 @@
+"""sources layer of the PyTorch port (see mcbrat3d_tpu_torch)."""

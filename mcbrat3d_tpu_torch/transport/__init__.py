@@ -1,0 +1,1 @@
+"""transport layer of the PyTorch port (see mcbrat3d_tpu_torch)."""
