@@ -1,36 +1,58 @@
 #!/usr/bin/env python3
 """Smoke check of the PyTorch/CUDA port (mcbrat3d_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE,...]
 
 Phases, each asserting; any failure exits non-zero:
 
 1. print the card (nvidia-smi name and power limit) and build the CUDA
-   record kernel from mcbrat3d_tpu_torch/csrc, reporting the build time;
-2. kernel against its plain PyTorch version on the card, same seeds: the
-   step cloud at 2^20 photons for macro_factor 0 and 8, both tally
+   record kernel from mcbrat3d_tpu_torch/csrc, reporting the build time
+   and ptxas registers/spills;
+2. flux kernel against its plain PyTorch version on the card, same seeds:
+   the step cloud at 2^20 photons for macro_factor 0 and 8, both tally
    layouts, plus the tabulated-phase configuration the namelist deck runs
    and a reflecting surface without roulette;
    domain-mean R/T/A within 2e-3 and per-pixel fluxes within 5 sigma;
+2b. radiance kernel against its plain version, same seeds, on the step
+   cloud with the radiance deck's 6 directions: exact estimator with
+   analytic HG, Iwabuchi roulette with the hybrid table, the original
+   table, and a contribution cap low enough to clip; per-direction
+   domain-mean gap, per-pixel gap and z < 5, kernel reruns within 1e-5;
+   plus an image too large for shared memory (global-atomic tally);
+2c. analytic radiance anchors: a thin isotropic slab (I = tau / (4 pi mu))
+   and a clear atmosphere over a Lambertian surface (I = albedo / pi per
+   unit incident flux on the horizontal);
 3. the main path through the command line: mkdomain step_cloud (512
    Legendre moments), then run/step_cloud_mono.nml (16 x 1,048,576
    photons, 3D absorption tally)
    on cuda; n_bad == 0, R/T/A within 4.5 sigma of the frozen step-cloud
    goldens, output files written, the kernel launched and the plain step
    never run;
+3b. the radiance deck through the command line on cuda:
+   run/step_cloud_radiance.nml (8 x 262,144 photons, 6 directions) with a
+   netCDF output added; n_bad == 0, radiance file and netCDF written, the
+   radiance kernel launched and the plain step never run, R/T/A within
+   4.5 sigma of the goldens, domain-mean radiances within 4.5 combined
+   sigma of values frozen from the JAX package; then
+   run/step_cloud_radiance_648.nml at 2 x 32,768 photons (11 chunked
+   passes): image (32, 1, 648), n_bad == 0;
 4. one headline batch (macro_factor 16, 2^16 lanes x 1024 photons, flux
    tallies only): photons/s of the kernel, and of the plain version at the
-   same lane count.
+   same lane count;
+4b. a radiance headline: one step-cloud batch of the radiance deck at 6
+   and at 64 directions (32 rows of 128 lanes), kernel and plain
+   photons/s and ms per launch, and the kernel once more at 512 rows.
 
 Prints the card line, then one JSON line describing each kernel, then the
-final JSON status line.
+final JSON status line. ``--only`` runs a subset of the phases (1 always
+runs) and prints no result lines.
 """
 
 import contextlib
 import io
 import json
 import os
-import shutil
+import re
 import subprocess
 import sys
 import tempfile
@@ -44,6 +66,37 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN_RTA = (0.47656, 0.32485, 0.19860)
 RTA_TOL_KERNEL_VS_PLAIN = 2e-3
 HEADLINE_PLAIN_PPL = 16
+# Radiance kernel vs plain, same seeds and so the same photon paths: the
+# per-direction domain means differ by float rounding (~1e-6) unless a
+# photon's path diverges after a 1-ulp difference in a transcendental (the
+# flux phase shows such photons at ~3e-5 of all). Radiance is heavy
+# tailed: the few diverged photons among 65,536 carry long local-estimate
+# histories and moved the means by 1.2e-3 to 1.9e-3 on an H100 (the same
+# code emulated on the CPU, with fewer divergences, agrees to ~1e-6);
+# 5e-3 relative leaves room for that and still flags a systematic error
+# of the estimator (any wrong branch shifts a mean by whole percents).
+RAD_REL_TOL_KERNEL_VS_PLAIN = 5e-3
+# Per-pixel limit of the same comparison, on the normalized images (pixels
+# of 0.1 to 0.5): the diverged photons moved single pixels by up to 5.8e-3
+# on an H100, while a contribution tallied in the wrong column (exit
+# column, x/y wrap) moves pixels by a large part of their value.
+RAD_PIXEL_TOL_KERNEL_VS_PLAIN = 0.02
+# Contribution cap of the capped 2b case: low enough that the forward
+# peak's contributions clip (checked: the image must change).
+RAD_LOW_CAP = 0.1
+# Shared memory the kernel's tallies may take (csrc/record_kernel.cu
+# kMaxSmem); a larger radiance image goes to global atomics.
+KERNEL_SMEM_BUDGET = 200 * 1024
+# Domain-mean radiances of run/step_cloud_radiance.nml from the JAX
+# package on the CPU (XLA wave kernel with its own local estimator and
+# threefry streams, independent of the port's kernel), on a step-cloud file
+# of 512 Legendre moments with ssa 0.99: 16 batches of 262,144 photons,
+# iseed 10; mean and standard error over batches, in the deck's direction
+# order (mu 1, 1, 0.866, 0.866, 0.5, 0.5 x phi 0, 90).
+JAX_RADIANCE = (0.10267673, 0.10264964, 0.14451702, 0.11127655, 0.28103105,
+                0.13953311)
+JAX_RADIANCE_SE = (0.00012624, 0.00013953, 0.00018308, 0.00016109,
+                   0.00034415, 0.00038115)
 
 
 def _sync():
@@ -128,41 +181,51 @@ def phase_compare(rk, make_step_cloud, Surface, illumination, KernelConfig,
     return max_err
 
 
+def _run_cli_deck(cli, rk, deck_text):
+    """mkdomain + run a deck through the CLI on cuda in the current
+    directory; returns the JSON line, the seconds and the launches of the
+    run (all, radiance), and asserts the plain step never ran."""
+    Path("deck.nml").write_text(deck_text)
+    # 512 Legendre moments: the file stores the phase function as moments,
+    # and the default 64 shift R by -1.9e-3 against the analytic-HG
+    # goldens (the JAX file path shows the same shift)
+    assert cli.main(["mkdomain", "step_cloud", "StepCloud.dom",
+                     "ssa=0.99", "n_legendre=512"]) == 0
+    plain_steps = []
+    plain = rk.record_launch_plain
+
+    def counting_plain(*args, **kwargs):
+        plain_steps.append(1)
+        return plain(*args, **kwargs)
+
+    rk.record_launch_plain = counting_plain
+    buf = io.StringIO()
+    rk.LAUNCHES = rk.RADIANCE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["run", "deck.nml", "--device", "cuda"])
+    finally:
+        rk.record_launch_plain = plain
+    seconds = time.perf_counter() - t0
+    launches = (rk.LAUNCHES, rk.RADIANCE_LAUNCHES)
+    assert rc == 0
+    assert launches[0] > 0, "the deck did not launch the record kernel"
+    assert not plain_steps, "the deck ran the plain PyTorch step"
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), seconds, \
+        launches
+
+
 def phase_main_path(rk, cli):
     """The namelist deck through the CLI on cuda."""
+    cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        shutil.copy(ROOT / "run" / "step_cloud_mono.nml", tmp / "deck.nml")
-        cwd = os.getcwd()
         os.chdir(tmp)
         try:
-            # 512 Legendre moments: the file stores the phase function as
-            # moments, and the default 64 shift R by -1.9e-3 against the
-            # analytic-HG goldens (the JAX file path shows the same shift)
-            assert cli.main(["mkdomain", "step_cloud", "StepCloud.dom",
-                             "ssa=0.99", "n_legendre=512"]) == 0
-            plain_steps = []
-            plain = rk.record_launch_plain
-
-            def counting_plain(*args, **kwargs):
-                plain_steps.append(1)
-                return plain(*args, **kwargs)
-
-            rk.record_launch_plain = counting_plain
-            buf = io.StringIO()
-            rk.LAUNCHES = 0
-            t0 = time.perf_counter()
-            try:
-                with contextlib.redirect_stdout(buf):
-                    rc = cli.main(["run", "deck.nml", "--device", "cuda"])
-            finally:
-                rk.record_launch_plain = plain
-            seconds = time.perf_counter() - t0
-            launches = rk.LAUNCHES
-            assert rc == 0
-            out = json.loads(buf.getvalue().strip().splitlines()[-1])
+            out, seconds, (launches, _) = _run_cli_deck(
+                cli, rk, (ROOT / "run" / "step_cloud_mono.nml").read_text())
             for f in ("StepCloud_flux.out", "StepCloud_results.nc"):
-                assert (tmp / f).stat().st_size > 0, f
+                assert Path(f).stat().st_size > 0, f
         finally:
             os.chdir(cwd)
     n = out["total_photons"]
@@ -174,12 +237,322 @@ def phase_main_path(rk, cli):
           f"{launches} kernel launches", flush=True)
     assert n == 16 * 1_048_576 and out["n_batches"] == 16
     assert out["n_bad"] == 0
-    assert launches > 0, "the main path did not launch the record kernel"
-    assert not plain_steps, "the main path ran the plain PyTorch step"
     for got, want, name in zip(rta, GOLDEN_RTA, "RTA"):
         sigma = (max(want * (1 - want), 1e-8) / n) ** 0.5 + 8e-5
         assert abs(got - want) < 4.5 * sigma, (name, got, want, 4.5 * sigma)
     return launches
+
+
+def _deck_directions(config, le, deck, n=None):
+    mus, phis = config.load_config(str(ROOT / "run" / deck)).radiance_directions()
+    mus, phis = (mus, phis) if n is None else (mus[:n], phis[:n])
+    return le.make_intensity_directions(mus, phis, device="cuda")
+
+
+def _image_gap(a, b, n_a, n_b):
+    """Per-pixel z of two raw images (the formula of tests/test_pallas.py)
+    and the largest absolute difference of the per-photon images."""
+    a = a.double().cpu() / n_a
+    b = b.double().cpu() / n_b
+    sigma = (a / n_a + b / n_b + 1e-12).sqrt()
+    return float(((a - b).abs() / sigma.clamp(min=1e-9)).max()), float(
+        (a - b).abs().max())
+
+
+def phase_radiance_compare(rk, le, make_step_cloud, make_slab,
+                           PhaseFunction, Surface, illumination,
+                           KernelConfig, rng, dirs):
+    """Radiance kernel vs plain on the card; returns the largest per-pixel
+    difference of the per-photon images."""
+    import dataclasses
+
+    source = illumination.directional(0.5, 0.0)
+    surface = Surface.lambertian(0.2)  # reflections estimate too
+    n_dirs = dirs.shape[1]
+    cases = [
+        ("exact estimator, analytic HG", True,
+         dict(use_russian_roulette=False, use_hybrid_phase=False)),
+        ("Iwabuchi roulette, hybrid table", True,
+         dict(use_russian_roulette=True, use_hybrid_phase=True)),
+        ("original table (all_hg=False)", False,
+         dict(use_russian_roulette=True, use_hybrid_phase=False)),
+        (f"contribution cap {RAD_LOW_CAP}", True,
+         dict(use_russian_roulette=False, use_hybrid_phase=True,
+              limit_contributions=True, max_contribution=RAD_LOW_CAP)),
+    ]
+    cfg = KernelConfig(n_lanes=4096, photons_per_lane=16, max_steps=100_000,
+                       need_volume_absorption=False)
+    max_err = 0.0
+    for i, (name, all_hg, kw) in enumerate(cases):
+        dom = make_step_cloud(ssa=0.99, macro_factor=8, n_cdf_steps=10001,
+                              compute_intensity_tables=True,
+                              hybrid_width_deg=7.0, device="cuda")
+        if not all_hg:
+            dom = dataclasses.replace(dom, all_hg=False)
+        icfg = le.IntensityConfig(n_dirs=n_dirs, **kw)
+        seed = rng.batch_seed(20, i)
+
+        def run(launch=rk.record_launch, icfg=icfg):
+            return rk.run_batch_record_tallies(
+                dom, surface, source, seed, cfg, launch=launch,
+                intensity_config=icfg, intensity_dirs=dirs)
+
+        before = rk.RADIANCE_LAUNCHES
+        tk, sk = _timed(run)
+        assert rk.RADIANCE_LAUNCHES > before, "kernel was not launched"
+        tk2 = run()
+        tot_k, tot_k2 = (t.intensity.double().sum(dim=(0, 1)) for t in (tk, tk2))
+        rerun = float(((tot_k2 - tot_k).abs() / tot_k.abs()).max())
+        assert rerun < 1e-5, f"kernel reruns differ by {rerun:.2e}"
+        tp, sp = _timed(lambda: run(rk.record_launch_plain))
+        n = tk.n_photons
+        assert n == tp.n_photons == 4096 * 16, (n, tp.n_photons)
+        assert tk.n_bad == 0 and tp.n_bad == 0, (tk.n_bad, tp.n_bad)
+        mean_k, mean_p = (t.normalized(dom.grid).intensity.double()
+                          .mean(dim=(0, 1)) for t in (tk, tp))
+        gap = float(((mean_k - mean_p).abs() / mean_p.abs()).max())
+        flux_gap = max(abs(a - b) for a, b in zip(_rta(tk), _rta(tp)))
+        z_max, err = _image_gap(tk.intensity, tp.intensity, n, n)
+        # per-photon image difference times the columns: the normalized one
+        err *= tk.intensity[..., 0].numel()
+        max_err = max(max_err, err)
+        extra = ""
+        if kw.get("limit_contributions"):
+            # the cap must clip: against the uncapped kernel run the image
+            # changes while each direction's total is redistributed intact
+            tu = run(icfg=dataclasses.replace(icfg, limit_contributions=False))
+            tot_u = tu.intensity.double().sum(dim=(0, 1))
+            moved = float((tu.intensity - tk.intensity).abs().max()
+                          / tu.intensity.abs().max())
+            kept = float(((tot_u - tot_k).abs() / tot_u).max())
+            extra = f" cap moved {moved:.2e} of the peak, totals kept {kept:.1e}"
+            assert moved > 1e-3, "the cap did not clip"
+            assert kept < 1e-4, kept
+        print(f"radiance compare [{name}]: per-direction mean radiance "
+              f"kernel {[round(float(v), 6) for v in mean_k]} "
+              f"gap {gap:.2e} (R/T/A gap {flux_gap:.1e}), pixel gap "
+              f"{err:.2e}, pixel z_max {z_max:.2f}, rerun rel "
+              f"{rerun:.1e}, kernel {sk:.3f} s plain {sp:.3f} s{extra}",
+              flush=True)
+        assert gap < RAD_REL_TOL_KERNEL_VS_PLAIN, gap
+        assert err < RAD_PIXEL_TOL_KERNEL_VS_PLAIN, err
+        assert z_max < 5.0, z_max
+
+    # an image past the kernel's shared-memory budget (64 x 64 columns x
+    # 16 directions = 256 KB) is tallied with global atomics instead
+    slab = make_slab(tau=2.0, ssa=0.99, nx=64, ny=64, nz=4,
+                     n_cdf_steps=1001, compute_intensity_tables=True,
+                     phase=PhaseFunction.henyey_greenstein(0.85, 64),
+                     device="cuda")
+    mus = [1.0 - 0.05 * i for i in range(16)]
+    dirs16 = le.make_intensity_directions(mus, [22.5 * i for i in range(16)],
+                                          device="cuda")
+    icfg = le.IntensityConfig(n_dirs=16, use_russian_roulette=False)
+    prm = rk.RecordParams.make(slab, surface, source, True, 1.0, False, icfg,
+                               dirs16)
+    assert 4 * (prm.n_acc + prm.n_exc + prm.n_img) > KERNEL_SMEM_BUDGET
+    cfg = KernelConfig(n_lanes=4096, photons_per_lane=4, max_steps=100_000,
+                       need_volume_absorption=False)
+    tk, tp = (rk.run_batch_record_tallies(
+        slab, surface, source, rng.batch_seed(21, 0), cfg, launch=launch,
+        intensity_config=icfg, intensity_dirs=dirs16)
+        for launch in (rk.record_launch, rk.record_launch_plain))
+    assert tk.n_bad == tp.n_bad == 0
+    mean_k, mean_p = (t.normalized(slab.grid).intensity.double()
+                      .mean(dim=(0, 1)) for t in (tk, tp))
+    gap = float(((mean_k - mean_p).abs() / mean_p.abs()).max())
+    z_max, err = _image_gap(tk.intensity, tp.intensity, tk.n_photons,
+                            tp.n_photons)
+    err *= tk.intensity[..., 0].numel()
+    max_err = max(max_err, err)
+    print(f"radiance compare [image in global memory, 64x64 columns x 16 "
+          f"dirs]: gap {gap:.2e}, pixel gap {err:.2e}, pixel z_max "
+          f"{z_max:.2f}", flush=True)
+    assert gap < RAD_REL_TOL_KERNEL_VS_PLAIN, gap
+    assert err < RAD_PIXEL_TOL_KERNEL_VS_PLAIN, err
+    assert z_max < 5.0, z_max
+    return max_err
+
+
+def phase_radiance_anchors(le, make_slab, Surface, illumination,
+                           KernelConfig, run_batch, rng):
+    """Analytic radiance oracles through run_batch on the card."""
+    import math
+
+    # thin isotropic slab at normal incidence: first order
+    # I(mu_v) = ssa tau P / (4 pi mu_v), P = 1 (tests/test_intensity.py
+    # :46-63, same photon count so the same 4 sigma + 3% tolerance)
+    tau = 0.05
+    dom = make_slab(tau=tau, ssa=1.0, nx=2, ny=2, nz=4, n_cdf_steps=501,
+                    compute_intensity_tables=True, device="cuda")
+    mus = [1.0, 0.5]
+    icfg = le.IntensityConfig(n_dirs=2, use_russian_roulette=False)
+    t = run_batch(dom, Surface.lambertian(0.0),
+                  illumination.directional(1.0, 0.0), rng.batch_seed(0, 0),
+                  KernelConfig(n_lanes=1 << 13, photons_per_lane=8,
+                               max_steps=2000),
+                  intensity_config=icfg,
+                  intensity_dirs=le.make_intensity_directions(
+                      mus, [0.0, 0.0], device="cuda"))
+    assert t.n_bad == 0
+    rad = t.normalized(dom.grid).intensity.mean(dim=(0, 1)).tolist()
+    for mu_v, got in zip(mus, rad):
+        expect = tau / (4 * math.pi * mu_v)
+        sigma = expect / math.sqrt(tau * t.n_photons)
+        print(f"anchor thin slab mu_v={mu_v}: I={got:.6g} first order "
+              f"{expect:.6g} (tolerance {4 * sigma + 0.03 * expect:.3g})",
+              flush=True)
+        assert abs(got - expect) < 4 * sigma + 0.03 * expect, (mu_v, got)
+
+    # clear atmosphere over a Lambertian surface: every photon reflects
+    # once, so the domain mean is albedo / pi per unit incident flux on
+    # the horizontal (albedo mu0 F0 / pi with F0 mu0 = 1), exactly up to
+    # the slab's exp(-1e-6 / mu); 1e-3 covers float32 tally rounding
+    albedo = 0.4
+    dom = make_slab(tau=1e-6, ssa=1.0, nx=2, ny=2, nz=2, n_cdf_steps=101,
+                    compute_intensity_tables=True, device="cuda")
+    t = run_batch(dom, Surface.lambertian(albedo),
+                  illumination.directional(0.7, 0.0), rng.batch_seed(0, 1),
+                  KernelConfig(n_lanes=1 << 13, photons_per_lane=8,
+                               max_steps=500),
+                  intensity_config=le.IntensityConfig(
+                      n_dirs=2, use_russian_roulette=False),
+                  intensity_dirs=le.make_intensity_directions(
+                      [1.0, 0.5], [0.0, 45.0], device="cuda"))
+    assert t.n_bad == 0
+    rad = t.normalized(dom.grid).intensity.mean(dim=(0, 1)).tolist()
+    expect = albedo / math.pi
+    print(f"anchor Lambertian surface: I={rad} expected {expect:.6g}",
+          flush=True)
+    for got in rad:
+        assert abs(got / expect - 1.0) < 1e-3, (got, expect)
+
+
+def _with_netcdf(text, name):
+    return text.replace("&fileNames\n", "&fileNames\n  outputNetcdfFile = "
+                        f"'{name}'\n")
+
+
+def phase_radiance_deck(rk, cli):
+    """The radiance decks through the CLI on cuda."""
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    deck = (ROOT / "run" / "step_cloud_radiance.nml").read_text()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            out, seconds, (_, launches) = _run_cli_deck(
+                cli, rk, _with_netcdf(deck, "StepCloud_radiance.nc"))
+            assert (tmp / "StepCloud_radiance.out").stat().st_size > 0
+            with netcdf_file(str(tmp / "StepCloud_radiance.nc"), "r",
+                             mmap=False) as nc:
+                shape = nc.variables["intensity"].shape
+                assert {"intensityMus", "intensityPhis",
+                        "intensity_StdErr"} <= set(nc.variables)
+        finally:
+            os.chdir(cwd)
+    n = out["total_photons"]
+    rta = (out["mean_flux_up"], out["mean_flux_down"],
+           out["mean_flux_absorbed"])
+    rad, rad_se = out["mean_intensity"], out["mean_intensity_stderr"]
+    print(f"radiance deck: {n} photons in {out['n_batches']} batches, "
+          f"n_bad={out['n_bad']}, R/T/A={rta}, {seconds:.2f} s "
+          f"({n / seconds:.4g} photons/s incl. setup and output), "
+          f"{launches} radiance kernel launches, netCDF intensity {shape}",
+          flush=True)
+    print(f"radiance deck: domain-mean radiance {rad} +- {rad_se}; JAX "
+          f"package {JAX_RADIANCE} +- {JAX_RADIANCE_SE}", flush=True)
+    assert n == 8 * 262_144 and out["n_batches"] == 8
+    assert out["n_bad"] == 0
+    assert launches > 0, "the deck did not launch the radiance kernel"
+    assert shape == (6, 1, 32), shape
+    for got, want, name in zip(rta, GOLDEN_RTA, "RTA"):
+        sigma = (max(want * (1 - want), 1e-8) / n) ** 0.5 + 8e-5
+        assert abs(got - want) < 4.5 * sigma, (name, got, want, 4.5 * sigma)
+    for d, (got, se, want, want_se) in enumerate(
+            zip(rad, rad_se, JAX_RADIANCE, JAX_RADIANCE_SE)):
+        sigma = (se ** 2 + want_se ** 2) ** 0.5
+        assert abs(got - want) < 4.5 * sigma, (d, got, want, 4.5 * sigma)
+
+    # the production 648-direction grid, chunked into 11 passes of <= 64
+    deck = (ROOT / "run" / "step_cloud_radiance_648.nml").read_text()
+    deck = deck.replace("numPhotonsPerBatch = 262144",
+                        "numPhotonsPerBatch = 32768")
+    deck = deck.replace("numBatches = 4", "numBatches = 2")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            out, seconds, (_, launches648) = _run_cli_deck(
+                cli, rk, _with_netcdf(deck, "StepCloud_radiance648.nc"))
+            assert (tmp / "StepCloud_radiance648.out").stat().st_size > 0
+            with netcdf_file(str(tmp / "StepCloud_radiance648.nc"), "r",
+                             mmap=False) as nc:
+                image = nc.variables["intensity"][:].T.copy()
+        finally:
+            os.chdir(cwd)
+    print(f"648-direction deck: {out['total_photons']} photons, n_bad="
+          f"{out['n_bad']}, image {image.shape}, {seconds:.2f} s, "
+          f"{launches648} radiance kernel launches", flush=True)
+    assert out["total_photons"] == 2 * 32_768 and launches648 > 0
+    assert image.shape == (32, 1, 648), image.shape
+    assert out["n_bad"] == 0
+    means = image.mean(axis=(0, 1))
+    assert np.isfinite(image).all() and (means > 0).all(), means.min()
+    return launches
+
+
+def phase_radiance_headline(rk, le, config, make_step_cloud, Surface,
+                            illumination, KernelConfig, rng):
+    """One batch of the radiance deck's configuration (262,144 photons,
+    hybrid table, roulette, file-read domain) at 6 and 64 directions:
+    kernel and plain photons/s and ms per launch at the default 32 rows,
+    and the kernel at 512 rows."""
+    import dataclasses
+
+    dom = make_step_cloud(ssa=0.99, n_legendre=512, macro_factor=8,
+                          n_cdf_steps=10001, compute_intensity_tables=True,
+                          hybrid_width_deg=7.0, device="cuda")
+    dom = dataclasses.replace(dom, all_hg=False)  # as read from the file
+    surface = Surface.lambertian(0.0)
+    source = illumination.directional(0.5, 0.0)
+    res = {}
+    for n_dirs, deck in ((6, "step_cloud_radiance.nml"),
+                         (64, "step_cloud_radiance_648.nml")):
+        dirs = _deck_directions(config, le, deck, n_dirs)
+        icfg = le.IntensityConfig(n_dirs=n_dirs)
+        for name, n_lanes, ppl, launch, rows in (
+                ("kernel", 131072, 2, rk.record_launch, rk.RADIANCE_ROWS),
+                ("plain", 4096, 2, rk.record_launch_plain, rk.RADIANCE_ROWS),
+                ("kernel512", 131072, 2, rk.record_launch, 512)):
+            cfg = KernelConfig(n_lanes=n_lanes, photons_per_lane=ppl,
+                               max_steps=100_000,
+                               need_volume_absorption=False)
+
+            def run(seed):
+                return rk.run_batch_record_tallies(
+                    dom, surface, source, seed, cfg, launch=launch,
+                    intensity_config=icfg, intensity_dirs=dirs,
+                    radiance_rows=rows)
+
+            if name != "plain":  # warm-up batch
+                run(rng.batch_seed(0, 98))
+            t, sec = _timed(lambda: run(rng.batch_seed(0, 1)))
+            assert t.n_bad == 0 and t.n_photons == n_lanes * ppl
+            n_launch = t.n_steps // 128
+            res[(n_dirs, name)] = dict(
+                photons_per_s=t.n_photons / sec,
+                ms_per_launch=1e3 * sec / n_launch, photons=t.n_photons,
+                seconds=sec, launches=n_launch, rows=min(rows, 512))
+            print(f"radiance headline {n_dirs} dirs {name}: {t.n_photons} "
+                  f"photons in {sec:.3f} s = {t.n_photons / sec:.6g} "
+                  f"photons/s, {n_launch} launches, "
+                  f"{1e3 * sec / n_launch:.4f} ms/launch, "
+                  f"R/T/A={_rta(t)}", flush=True)
+    return res
 
 
 def phase_headline(rk, make_step_cloud, Surface, illumination, KernelConfig,
@@ -214,7 +587,19 @@ def phase_headline(rk, make_step_cloud, Surface, illumination, KernelConfig,
     return res
 
 
-def main() -> int:
+PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated phases to run after the build")
+    only = set(ap.parse_args(argv).only.split(","))
+    if not only <= set(PHASES):
+        ap.error(f"phases are {PHASES}")
+
     import torch
 
     if not torch.cuda.is_available():
@@ -227,12 +612,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from mcbrat3d_tpu_torch import _build
     from mcbrat3d_tpu_torch.core import rng
-    from mcbrat3d_tpu_torch.driver import cli
+    from mcbrat3d_tpu_torch.driver import cli, config
+    from mcbrat3d_tpu_torch.physics.phase_function import PhaseFunction
     from mcbrat3d_tpu_torch.physics.surface import Surface
+    from mcbrat3d_tpu_torch.scenes.plane_parallel import make_slab
     from mcbrat3d_tpu_torch.scenes.step_cloud import make_step_cloud
     from mcbrat3d_tpu_torch.sources import illumination
+    from mcbrat3d_tpu_torch.transport import local_estimate as le
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
-    from mcbrat3d_tpu_torch.transport.integrator import KernelConfig
+    from mcbrat3d_tpu_torch.transport.integrator import KernelConfig, run_batch
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -246,25 +634,62 @@ def main() -> int:
     info = _build.BUILD_INFO["record_kernel"]
     print(f"record_kernel built in {info['seconds']:.2f} s "
           f"(load {time.perf_counter() - t0:.2f} s)", flush=True)
+    name = ""
     for line in info["log"].splitlines():
+        # record_steps<MACRO, VOL, ANALYTIC, LE> in its mangled name
+        flags = re.search(r"record_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+        if flags:
+            name = "macro={} vol={} analytic={} LE={}".format(*flags.groups())
         if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+            print(f"  ptxas [{name}]:", line.strip())
 
     args = (rk, make_step_cloud, Surface, illumination, KernelConfig, rng)
-    max_err = phase_compare(*args)
-    launches = phase_main_path(rk, cli)
-    head = phase_headline(*args)
+    dirs6 = _deck_directions(config, le, "step_cloud_radiance.nml")
+    out = {}
+    if "2" in only:
+        out["max_err"] = phase_compare(*args)
+    if "2b" in only:
+        out["rad_max_err"] = phase_radiance_compare(
+            rk, le, make_step_cloud, make_slab, PhaseFunction, Surface,
+            illumination, KernelConfig, rng, dirs6)
+    if "2c" in only:
+        phase_radiance_anchors(le, make_slab, Surface, illumination,
+                               KernelConfig, run_batch, rng)
+    if "3" in only:
+        out["launches"] = phase_main_path(rk, cli)
+    if "3b" in only:
+        out["rad_launches"] = phase_radiance_deck(rk, cli)
+    if "4" in only:
+        out["head"] = phase_headline(*args)
+    if "4b" in only:
+        out["rad_head"] = phase_radiance_headline(
+            rk, le, config, make_step_cloud, Surface, illumination,
+            KernelConfig, rng)
+    if only != set(PHASES):
+        print(f"chip_smoke: phases {sorted(only)} passed; no result lines "
+              "for a partial run")
+        return 0
 
+    head, rad_head = out["head"], out["rad_head"]
     print(card)
     print(json.dumps({"kernels": [{
         "name": "record_kernel",
         "route": "cuda",
         "source": "mcbrat3d_tpu_torch/csrc/record_kernel.cu",
         "replaces": "mcbrat3d_tpu/transport/pallas_kernel.py:712",
-        "launches": launches,
-        "max_abs_err": max_err,
+        "launches": out["launches"],
+        "max_abs_err": out["max_err"],
         "ms": head["kernel"]["ms_per_launch"],
         "plain_ms": head["plain"]["ms_per_launch"],
+    }, {
+        "name": "record_kernel_radiance",
+        "route": "cuda",
+        "source": "mcbrat3d_tpu_torch/csrc/record_kernel.cu",
+        "replaces": "mcbrat3d_tpu/transport/pallas_kernel.py:1515",
+        "launches": out["rad_launches"],
+        "max_abs_err": out["rad_max_err"],
+        "ms": rad_head[(6, "kernel")]["ms_per_launch"],
+        "plain_ms": rad_head[(6, "plain")]["ms_per_launch"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,8 @@ SITE_COLLIDE = 4
 SITE_ANGLE = 5
 SITE_AZIMUTH = 6
 SITE_ROULETTE = 7
+# Radiance direction d draws its Iwabuchi roulette uniforms at sites
+# 16 + 2d and 17 + 2d (d < 64, so every site stays below N_SITES).
 
 _GOLDEN = 0x9E37_79B9
 _C1 = 0x85EB_CA6B
@@ -54,13 +56,18 @@ def batch_seed(iseed: int, batch: int) -> int:
 
 
 def make_uniform(lane: torch.Tensor, seed: int):
-    """Returns ``u(counter, site)`` -> float32 uniforms in [0, 1) for the
-    int64 lane indices ``lane``; ``counter`` is the transport step."""
+    """Returns ``u(counter, site, lanes=lane)`` -> float32 uniforms in
+    [0, 1) for the int64 lane indices ``lane`` (or ``lanes``); ``counter``
+    is the transport step, ``site`` an int or an int64 tensor of sites (the
+    radiance roulette draws one site per direction)."""
     seed = int(seed) & _M32
 
-    def u(counter: int, site: int) -> torch.Tensor:
-        c = ((int(counter) * N_SITES + int(site)) * _GOLDEN) & _M32
-        x = fmix32(lane ^ c)
+    def u(counter: int, site, lanes: torch.Tensor = lane) -> torch.Tensor:
+        if isinstance(site, torch.Tensor):
+            c = ((int(counter) * N_SITES + site) * _GOLDEN) & _M32
+        else:
+            c = ((int(counter) * N_SITES + int(site)) * _GOLDEN) & _M32
+        x = fmix32(lanes ^ c)
         x = fmix32(x ^ (seed ^ ((c * _C3) & _M32)))
         return (x >> 8).to(torch.float32) * _INV_2_24
 

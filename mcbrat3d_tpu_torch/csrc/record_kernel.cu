@@ -1,10 +1,18 @@
-// Record-kernel flux path for NVIDIA Hopper (sm_90a).
+// Record kernel for NVIDIA Hopper (sm_90a): flux path and in-kernel
+// radiance by local estimation.
 //
 // Replaces: mcbrat3d_tpu/transport/pallas_kernel.py `_build_kernel`, flux
 // path (refill, Woodcock jump against the optional two-level macro
 // majorant, record fetch, null-collision test, Russian roulette, HG or
 // inverse-CDF scatter + rotation, uniform Lambertian reflection, fused
-// flux / absorption tally), as launched by `_make_launch`.
+// flux / absorption tally), as launched by `_make_launch`; and its local
+// estimation section (`_build_kernel` :1515-2115, configured by
+// `run_batch_pallas_tallies` :3278-3325): at every real scatter and every
+// surface reflection, for each radiance direction, the phase value (HG or
+// a forward table uniform in sin(theta/2)), one cell DDA march to the
+// domain top with the periodic x/y wrap, the exact or Iwabuchi roulette
+// estimator, optional contribution capping, and the tally at the exit
+// column.
 //
 // Design. One thread per photon lane; lane = blockIdx.x * 128 + threadIdx.x,
 // the TPU kernel's row * 128 + lane, so the counter-based uniforms (the
@@ -24,6 +32,23 @@
 // shared-atomic contention on hot tally entries. It does no matrix work
 // and streams no large tiles, so wgmma and TMA do not apply.
 //
+// Radiance (template flag LE). A thread that scatters or reflects loops
+// over the directions and marches each one cell by cell to the top in a
+// loop that ends when the ray leaves the top (the TPU kernel's column
+// formulations and static per-direction bounds were Mosaic cost-model
+// choices; a per-thread early exit does their job). The march is still
+// bounded (k_dda, local_estimate.march_bound), and a march that reaches
+// the bound is counted (counts[2], folded into n_bad) so a stall is never
+// silent. Its cost is divergence: lanes without an event idle while
+// others march, and marches differ in length. The image tally
+// [section][direction][column]
+// lives in shared memory when it fits (flushed once per launch like the
+// flux tally); past the shared-memory budget the launcher sends it to
+// global atomics. The direction cap of 64 per launch comes from the
+// uniforms: they are keyed by step * 256 + site, and direction d draws
+// its roulette numbers at sites 16 + 2d and 17 + 2d, so 64 directions keep
+// every site below 144 and clear of the next step's draws.
+//
 // Arithmetic follows the JAX kernel operation by operation in float32.
 // The periodic wrap uses fmodf plus a divisor-sign correction, which is
 // exactly jnp.mod / torch.remainder (sign of the divisor). The library is
@@ -39,13 +64,35 @@ constexpr int kThreads = 128;
 constexpr float kTiny = 1e-30f;
 constexpr float kBig = 3e38f;
 constexpr uint32_t kNSites = 256u;
+constexpr int kMaxDirs = 64;
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kInvPi = 0.31830988618379067154f;
+constexpr float kFourPi = 12.56637061435917295384f;
+// Shared memory a block may take for its tallies (the H100 offers 227 KB).
+constexpr size_t kMaxSmem = 200 * 1024;
 
-// params[] slots (mcbrat3d_tpu_torch/transport/record_kernel.py PARAM_*).
+// params[] slots (mcbrat3d_tpu_torch/transport/record_kernel.py P_*).
 enum {
   P_BETA_MAX, P_INV_BETA_MAX, P_ALBEDO, P_SMU, P_SUX, P_SUY, P_RR_W,
   P_X0, P_LX, P_Y0, P_LY, P_Z0, P_LZ, P_INV_DX, P_INV_DY, P_INV_DZ,
   P_ZMAX, P_ZEPS, P_BXW, P_BYW, P_BZW, P_NUDGE, P_TWO_PI, P_HALF_RR,
-  P_ZTOP, P_ZBOT, N_PARAMS
+  P_ZTOP, P_ZBOT, P_DXC, P_DYC, P_DZC, P_MNUDGE, P_ZETA, P_MAXC, N_PARAMS
+};
+
+// Local-estimate phase source (record_kernel.py PHASE_*).
+enum { PHASE_HG, PHASE_TABLE_ROW0, PHASE_TABLE };
+
+// Radiance switches of one launch.
+struct LeArgs {
+  int n_dirs;   // 0 = flux only
+  int phase;    // PHASE_*
+  int n_s;      // forward-table points per row
+  int rr;       // Iwabuchi roulette estimator
+  int cap;      // limitIntensityContributions
+  int k_dda;    // march iteration bound
+  int n_img;    // image entries: [n_sec][n_dirs][nxy]
+  int n_exc;    // capped-excess entries: [n_sec][n_dirs] (0 without cap)
+  int img_smem; // image tallied in shared memory (else global atomics)
 };
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -92,7 +139,139 @@ __device__ __forceinline__ float face_dist(float p, float p0, float u,
   return fabsf(u) > 1e-12f ? t / u : kBig;
 }
 
-template <bool MACRO, bool VOL, bool ANALYTIC>
+// Local estimate of one event toward every direction (pallas_kernel.py
+// :1515-2084, cell march). refl: a surface reflection at (sx, sy, sz) with
+// phase value 1/pi; else a scatter with incoming direction (uxi, uyi, uzi)
+// and phase field f2 (HG g, or the table row). Adds w_ev * npf * exp(-tau)
+// (or its roulette form) into img at the exit column.
+__device__ __forceinline__ void local_estimate(
+    const float* __restrict__ prm, const float* __restrict__ rec, int stride,
+    const float* s_dirs, const float* __restrict__ fwd_v0,
+    const float* __restrict__ fwd_dd, float* img, float* s_exc, int* s_bad,
+    const LeArgs& le, int nx, int ny, int nz, uint32_t lane, uint32_t seed,
+    uint32_t ctr, bool refl, float sx, float sy, float sz, float w_ev,
+    float uxi, float uyi, float uzi, float f2) {
+  const float x0 = prm[P_X0], lx = prm[P_LX], y0 = prm[P_Y0];
+  const float ly = prm[P_LY], z0 = prm[P_Z0], z_max = prm[P_ZMAX];
+  const float inv_dx = prm[P_INV_DX], inv_dy = prm[P_INV_DY];
+  const float inv_dz = prm[P_INV_DZ], dxc = prm[P_DXC], dyc = prm[P_DYC];
+  const float dzc = prm[P_DZC], mnudge = prm[P_MNUDGE];
+  const float zeta = prm[P_ZETA], cap = prm[P_MAXC];
+  const int nxy = nx * ny;
+  const int slot = refl ? 0 : 1;
+  for (int d = 0; d < le.n_dirs; ++d) {
+    const float ddx = s_dirs[d], ddy = s_dirs[kMaxDirs + d];
+    const float ddz = s_dirs[2 * kMaxDirs + d];  // > 0 by eligibility
+    float npf;
+    if (refl) {
+      npf = kInvPi;
+    } else {
+      const float cosb = (uxi * ddx + uyi * ddy) + uzi * ddz;
+      float pv;
+      if (le.phase == PHASE_HG) {
+        const float g = f2;
+        const float q = fmaxf((1.f + g * g) - (2.f * g) * cosb, 1e-12f);
+        pv = (1.f - g * g) / (q * sqrtf(q));
+      } else {
+        // table uniform in s = sin(theta/2): the index needs a sqrt only
+        const float s_v = sqrtf(fmaxf((1.f - cosb) * 0.5f, 0.f));
+        const float tpos = s_v * static_cast<float>(le.n_s - 1);
+        int k = static_cast<int>(tpos);
+        k = k < 0 ? 0 : (k > le.n_s - 2 ? le.n_s - 2 : k);
+        const float frac = tpos - static_cast<float>(k);
+        const int flat =
+            (le.phase == PHASE_TABLE ? static_cast<int>(f2) * le.n_s : 0) + k;
+        pv = __ldg(fwd_v0 + flat) + frac * __ldg(fwd_dd + flat);
+      }
+      npf = pv / (kFourPi * ddz);
+    }
+    // Iwabuchi roulette: the stopping depth is known before the march
+    float u_i1 = 0.f, tau_free = 0.f, npf_pi = 0.f, tau_max = 0.f;
+    float tau_stop = kBig;
+    bool small = false;
+    if (le.rr) {
+      u_i1 = uniform(lane, seed, ctr, 16u + 2u * d);
+      tau_free = -log1pf(-uniform(lane, seed, ctr, 17u + 2u * d));
+      npf_pi = kPi * npf;
+      small = npf_pi <= zeta;
+      tau_max = -logf(zeta / fmaxf(npf_pi, kTiny));
+      tau_stop = small ? tau_free : tau_max + tau_free;
+    }
+    const float sdx = fabsf(ddx) > 1e-12f ? ddx : 1e-12f;
+    const float sdy = fabsf(ddy) > 1e-12f ? ddy : 1e-12f;
+    // index-space nudge along the march: a face landing names the cell
+    // being entered for either direction sign
+    const float ndx = signf(ddx) * 1e-4f, ndy = signf(ddy) * 1e-4f;
+    float px = sx, py = sy, pz = sz, tau = 0.f;
+    int ex_col = 0;
+    bool act = true;
+    for (int it = 0; act && it < le.k_dda; ++it) {
+      const float pxw = x0 + wrap(px - x0, lx);
+      const float pyw = y0 + wrap(py - y0, ly);
+      const int ixm = clampi(static_cast<int>((pxw - x0) * inv_dx + ndx),
+                             nx - 1);
+      const int iym = clampi(static_cast<int>((pyw - y0) * inv_dy + ndy),
+                             ny - 1);
+      const int izm = clampi(static_cast<int>((pz - z0) * inv_dz), nz - 1);
+      const float beta_m =
+          __ldg(rec + static_cast<size_t>((ixm * ny + iym) * nz + izm) *
+                          stride);
+      const float fx =
+          static_cast<float>(ddx >= 0.f ? ixm + 1 : ixm) * dxc + x0;
+      const float fy =
+          static_cast<float>(ddy >= 0.f ? iym + 1 : iym) * dyc + y0;
+      const float fz = static_cast<float>(izm + 1) * dzc + z0;
+      const float tx = fabsf(ddx) > 1e-12f ? (fx - pxw) / sdx : kBig;
+      const float ty = fabsf(ddy) > 1e-12f ? (fy - pyw) / sdy : kBig;
+      const float tz = (fz - pz) / ddz;
+      const float ds = fmaxf(fminf(tx, fminf(ty, tz)), 0.f) + mnudge;
+      tau = tau + beta_m * ds;
+      const float pz2 = pz + ddz * ds;
+      if (pz2 >= z_max) {
+        const float tb = (z_max - pz) / ddz;
+        const float exx = x0 + wrap((pxw + ddx * tb) - x0, lx);
+        const float exy = y0 + wrap((pyw + ddy * tb) - y0, ly);
+        ex_col = clampi(static_cast<int>((exx - x0) * inv_dx), nx - 1) * ny +
+                 clampi(static_cast<int>((exy - y0) * inv_dy), ny - 1);
+        act = false;
+      } else if (le.rr && !(tau < tau_stop)) {
+        act = false;
+      }
+      px = pxw + ddx * ds;
+      py = pyw + ddy * ds;
+      pz = pz2;
+    }
+    if (act) {  // cut by the iteration bound: contributes nothing, counted
+      atomicAdd(s_bad, 1);
+      continue;
+    }
+    float contrib;
+    if (le.rr) {
+      const float w_rrc = (w_ev * zeta) * kInvPi;
+      if (small) {
+        contrib = (tau < tau_free && u_i1 * zeta <= npf_pi) ? w_rrc : 0.f;
+      } else if (tau < tau_max) {
+        contrib = (w_ev * npf) * expf(-tau);
+      } else {
+        contrib = (tau - tau_max < tau_free) ? w_rrc : 0.f;
+      }
+    } else {
+      contrib = (w_ev * npf) * expf(-tau);
+    }
+    int sec = 0;
+    if (le.cap) {
+      const float over = fmaxf(contrib - cap, 0.f);
+      contrib = fminf(contrib, cap);
+      if (over > 0.f) atomicAdd(&s_exc[slot * le.n_dirs + d], over);
+      sec = slot;
+    }
+    if (contrib != 0.f) {
+      atomicAdd(&img[(sec * le.n_dirs + d) * nxy + ex_col], contrib);
+    }
+  }
+}
+
+template <bool MACRO, bool VOL, bool ANALYTIC, bool LE>
 __global__ void __launch_bounds__(kThreads)
 record_steps(const float* __restrict__ prm,
              const float* __restrict__ rec,
@@ -104,13 +283,32 @@ record_steps(const float* __restrict__ prm,
              float* __restrict__ ws, float* __restrict__ bls,
              int* __restrict__ quotas, int* __restrict__ alives,
              float* __restrict__ acc, int* __restrict__ counts,
+             const float* __restrict__ dirs,
+             const float* __restrict__ fwd_v0,
+             const float* __restrict__ fwd_dd, float* __restrict__ g_img,
+             float* __restrict__ g_exc, LeArgs le,
              int n_lanes, int nx, int ny, int nz, int stride, int off_ssa,
              int off_f2, int inv_n_steps, int use_rr, int n_acc,
              uint32_t seed, uint32_t step0, int k_steps) {
+  constexpr int kCounts = LE ? 3 : 2;
   extern __shared__ float s_acc[];
-  __shared__ int s_counts[2];
+  __shared__ int s_counts[kCounts];
+  __shared__ float s_dirs[LE ? 3 * kMaxDirs : 1];
+  // radiance tallies follow the flux tally in shared memory
+  float* s_exc = s_acc + n_acc;
+  float* img = g_img;
+  if (LE && le.img_smem) img = s_exc + le.n_exc;  // else global atomics
   for (int i = threadIdx.x; i < n_acc; i += blockDim.x) s_acc[i] = 0.f;
-  if (threadIdx.x < 2) s_counts[threadIdx.x] = 0;
+  if constexpr (LE) {
+    for (int i = threadIdx.x; i < le.n_exc; i += blockDim.x) s_exc[i] = 0.f;
+    if (le.img_smem) {
+      for (int i = threadIdx.x; i < le.n_img; i += blockDim.x) img[i] = 0.f;
+    }
+    for (int i = threadIdx.x; i < 3 * le.n_dirs; i += blockDim.x) {
+      s_dirs[(i / le.n_dirs) * kMaxDirs + i % le.n_dirs] = dirs[i];
+    }
+  }
+  for (int i = threadIdx.x; i < kCounts; i += blockDim.x) s_counts[i] = 0;
   __syncthreads();
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -200,6 +398,12 @@ record_steps(const float* __restrict__ prm,
           if (w_refl <= kTiny) {
             alive = false;
           } else {
+            if constexpr (LE) {
+              local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img,
+                             s_exc, &s_counts[2], le, nx, ny, nz, ul, seed,
+                             ctr, true, xe, ye, z_bot, w_refl, 0.f, 0.f,
+                             0.f, 0.f);
+            }
             const float mu_new =
                 sqrtf(fmaxf(uniform(ul, seed, ctr, 5), 1e-12f));
             const float sin_new = sqrtf(fmaxf(0.f, 1.f - mu_new * mu_new));
@@ -241,6 +445,11 @@ record_steps(const float* __restrict__ prm,
       const float f2 = __ldg(r + off_f2);
       atomicAdd(&s_acc[2 * nxy + (VOL ? cell : col_c)], w * (1.f - ssa));
       w = w * ssa;
+      if constexpr (LE) {  // post-absorption, pre-roulette weight, incoming dir
+        local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img, s_exc,
+                       &s_counts[2], le, nx, ny, nz, ul, seed, ctr, false, x,
+                       y, z, w, ux, uy, uz, f2);
+      }
       if (use_rr && w < half_rr) {
         w = uniform(ul, seed, ctr, 7) < w / rr_w ? rr_w : 0.f;
       }
@@ -310,23 +519,45 @@ record_steps(const float* __restrict__ prm,
     const float v = s_acc[i];
     if (v != 0.f) atomicAdd(&acc[i], v);
   }
-  if (threadIdx.x < 2 && s_counts[threadIdx.x]) {
-    atomicAdd(&counts[threadIdx.x], s_counts[threadIdx.x]);
+  if constexpr (LE) {
+    for (int i = threadIdx.x; i < le.n_exc; i += blockDim.x) {
+      const float v = s_exc[i];
+      if (v != 0.f) atomicAdd(&g_exc[i], v);
+    }
+    if (le.img_smem) {
+      for (int i = threadIdx.x; i < le.n_img; i += blockDim.x) {
+        const float v = img[i];
+        if (v != 0.f) atomicAdd(&g_img[i], v);
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < kCounts; i += blockDim.x) {
+    if (s_counts[i]) atomicAdd(&counts[i], s_counts[i]);
   }
 }
 
-template <bool MACRO, bool VOL, bool ANALYTIC>
+template <bool MACRO, bool VOL, bool ANALYTIC, bool LE>
 cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
                    const float* inv_dd, float* x, float* y, float* z,
                    float* ux, float* uy, float* uz, float* w, float* bl,
                    int* quota, int* alive, float* acc, int* counts,
+                   const float* dirs, const float* fwd_v0,
+                   const float* fwd_dd, float* img, float* exc, LeArgs le,
                    int n_lanes, int nx, int ny, int nz, int stride,
                    int off_ssa, int off_f2, int inv_n_steps, int use_rr,
                    int n_acc, uint32_t seed, uint32_t step0, int k_steps,
                    cudaStream_t stream) {
-  auto kernel = record_steps<MACRO, VOL, ANALYTIC>;
-  const size_t smem = static_cast<size_t>(n_acc) * sizeof(float);
-  if (smem > 48 * 1024) {
+  auto kernel = record_steps<MACRO, VOL, ANALYTIC, LE>;
+  size_t smem = static_cast<size_t>(n_acc) * sizeof(float);
+  if (LE) {
+    smem += static_cast<size_t>(le.n_exc) * sizeof(float);
+    const size_t img_bytes = static_cast<size_t>(le.n_img) * sizeof(float);
+    le.img_smem = smem + img_bytes <= kMaxSmem;
+    if (le.img_smem) smem += img_bytes;
+  }
+  // past 48 KB of static + dynamic shared memory a launch needs the
+  // opt-in; the static part (counts, directions) is under 1 KB
+  if (smem > 47 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -335,8 +566,9 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
   const int blocks = (n_lanes + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, smem, stream>>>(
       prm, rec, inv_a0, inv_dd, x, y, z, ux, uy, uz, w, bl, quota, alive,
-      acc, counts, n_lanes, nx, ny, nz, stride, off_ssa, off_f2,
-      inv_n_steps, use_rr, n_acc, seed, step0, k_steps);
+      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, le, n_lanes, nx, ny, nz,
+      stride, off_ssa, off_f2, inv_n_steps, use_rr, n_acc, seed, step0,
+      k_steps);
   return cudaGetLastError();
 }
 
@@ -345,22 +577,32 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
 extern "C" int record_kernel_num_params() { return N_PARAMS; }
 
 // Advance every lane by k_steps transport steps. Adds the tally into acc,
-// the photons started into counts[0] and the lanes with work left
-// (alive or quota > 0) into counts[1]. Returns cudaGetLastError().
+// the photons started into counts[0], the lanes with work left (alive or
+// quota > 0) into counts[1] and, with radiance (n_dirs > 0), the image
+// into img, the capped excess into exc and the marches cut by the
+// iteration bound into counts[2]. Returns cudaGetLastError().
 extern "C" int record_kernel_launch(
     const float* prm, const float* rec, const float* inv_a0,
     const float* inv_dd, float* x, float* y, float* z, float* ux,
     float* uy, float* uz, float* w, float* bl, int* quota, int* alive,
-    float* acc, int* counts, int n_lanes, int nx, int ny, int nz,
-    int stride, int off_ssa, int off_f2, int inv_n_steps, int use_rr,
-    int n_acc, uint32_t seed, uint32_t step0, int k_steps, int macro,
-    int vol, int analytic, void* stream) {
+    float* acc, int* counts, const float* dirs, const float* fwd_v0,
+    const float* fwd_dd, float* img, float* exc, int n_lanes, int nx,
+    int ny, int nz, int stride, int off_ssa, int off_f2, int inv_n_steps,
+    int use_rr, int n_acc, uint32_t seed, uint32_t step0, int k_steps,
+    int macro, int vol, int analytic, int n_dirs, int le_phase, int fwd_n_s,
+    int le_rr, int le_cap, int k_dda, int n_img, int n_exc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MCB_LAUNCH(M, V, A)                                                  \
-  return static_cast<int>(launch<M, V, A>(                                   \
+  if (n_dirs < 0 || n_dirs > kMaxDirs) return cudaErrorInvalidValue;
+  const LeArgs le{n_dirs, le_phase, fwd_n_s, le_rr, le_cap,
+                  k_dda,  n_img,    n_exc,   0};
+#define MCB_CALL(M, V, A, L)                                                 \
+  static_cast<int>(launch<M, V, A, L>(                                       \
       prm, rec, inv_a0, inv_dd, x, y, z, ux, uy, uz, w, bl, quota, alive,    \
-      acc, counts, n_lanes, nx, ny, nz, stride, off_ssa, off_f2,             \
-      inv_n_steps, use_rr, n_acc, seed, step0, k_steps, s))
+      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, le, n_lanes, nx, ny, nz,  \
+      stride, off_ssa, off_f2, inv_n_steps, use_rr, n_acc, seed, step0,      \
+      k_steps, s))
+#define MCB_LAUNCH(M, V, A) \
+  return n_dirs > 0 ? MCB_CALL(M, V, A, true) : MCB_CALL(M, V, A, false)
   if (macro) {
     if (vol) {
       if (analytic) MCB_LAUNCH(true, true, true);
@@ -376,4 +618,5 @@ extern "C" int record_kernel_launch(
   if (analytic) MCB_LAUNCH(false, false, true);
   MCB_LAUNCH(false, false, false);
 #undef MCB_LAUNCH
+#undef MCB_CALL
 }

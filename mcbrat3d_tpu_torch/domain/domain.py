@@ -7,9 +7,9 @@ the float32 results on the grid's device, so both packages see
 bit-identical records for the same inputs.
 
 Covered here: ``device_fields="full"`` with the packed ``cell_records``
-layout, the two-level macro-cell majorant and the ``uniform_ssa`` /
-``uniform_hg`` flags. The column/separable template detection, compact
-domains and the radiance (forward / hybrid) phase tables belong to kernels
+layout, the two-level macro-cell majorant, the ``uniform_ssa`` /
+``uniform_hg`` flags and the radiance (forward / hybrid) phase tables. The
+column/separable template detection and compact domains belong to kernels
 that are not ported yet and raise ``NotImplementedError``.
 """
 
@@ -22,8 +22,10 @@ import numpy as np
 import torch
 
 from mcbrat3d_tpu_torch.core.grid import Grid
+from mcbrat3d_tpu_torch.physics.hybrid import hybrid_phase_values
 from mcbrat3d_tpu_torch.physics.inverse_cdf import inverse_cdf_table
-from mcbrat3d_tpu_torch.physics.phase_function import PhaseFunctionTable
+from mcbrat3d_tpu_torch.physics.phase_function import (PhaseFunctionTable,
+                                                       forward_tabulate)
 
 
 @dataclasses.dataclass
@@ -74,10 +76,16 @@ class DeviceTables:
     """Stacked phase-function matrices on the device.
 
     ``inverse``: [total_entries, n_cdf_steps] scattering angle vs CDF.
+    ``forward``: [total_entries, n_forward_angles] phase values on a
+    uniform angle grid for local estimation (hybridized when a hybrid
+    width is given), or [total_entries, 1] zeros without radiance tables.
+    ``forward_orig``: the same before hybridization.
     ``offsets``: [ncomp] row offset of each component's table.
     """
 
     inverse: torch.Tensor
+    forward: torch.Tensor
+    forward_orig: torch.Tensor
     offsets: torch.Tensor
 
 
@@ -143,9 +151,11 @@ def build_domain(grid: Grid, components: Sequence[OpticalComponent],
     """Flatten components into the solver arrays and stack phase tables.
 
     Same arithmetic as ``mcbrat3d_tpu.domain.domain.build_domain`` for
-    ``device_fields="full"``; arrays land on the grid's device.
+    ``device_fields="full"``; arrays land on the grid's device. With
+    ``compute_intensity_tables`` the forward phase tables are tabulated on
+    ``n_forward_angles`` angles and, for ``hybrid_width_deg > 0``,
+    hybridized (reference: src/opticalProperties.f95:1872-2050).
     """
-    del n_forward_angles  # only the radiance tables use it
     if not components:
         raise ValueError("need at least one optical component")
     if device_fields == "compact":
@@ -154,9 +164,6 @@ def build_domain(grid: Grid, components: Sequence[OpticalComponent],
     if device_fields != "full":
         raise ValueError(f"device_fields={device_fields!r} "
                          "(expected 'full' or 'compact')")
-    if compute_intensity_tables or hybrid_width_deg > 0.0:
-        raise _not_ported("forward/hybrid radiance phase tables",
-                          "the record kernel's radiance path (K2)")
     nx, ny, nz = grid.shape
     ncomp = len(components)
 
@@ -182,14 +189,24 @@ def build_domain(grid: Grid, components: Sequence[OpticalComponent],
 
     total = ext.sum(axis=-1)
 
-    # --- stacked inverse-CDF table (rows per component entry) ---
-    inv_list, offsets, row = [], [], 0
+    # --- stacked inverse-CDF (and forward) tables, rows per entry ---
+    inv_list, fwd_list, offsets, row = [], [], [], 0
     for comp in components:
         offsets.append(row)
         row += comp.phase_function_table.n_entries
         inv_list.append(inverse_cdf_table(comp.phase_function_table,
                                           n_cdf_steps))
+        if compute_intensity_tables:
+            fwd_list.append(forward_tabulate(comp.phase_function_table,
+                                             n_forward_angles))
     inverse = np.concatenate(inv_list, axis=0)
+    if compute_intensity_tables:
+        forward_orig = np.concatenate(fwd_list, axis=0)
+        forward = (hybrid_phase_values(
+            np.linspace(0.0, np.pi, n_forward_angles), forward_orig,
+            hybrid_width_deg) if hybrid_width_deg > 0.0 else forward_orig)
+    else:
+        forward = forward_orig = np.zeros((row, 1), np.float64)
 
     all_hg = all(p.hg_g is not None
                  for comp in components
@@ -248,8 +265,8 @@ def build_domain(grid: Grid, components: Sequence[OpticalComponent],
         z_edges=grid.edges_f32()[2], xy_regular=grid.xy_regular,
         z_regular=grid.z_regular,
         total_ext=total, cum_ext=cum_frac, ssa=ssa, phase_index=pfi,
-        cell_records=rec, inverse=inverse,
-        offsets=np.asarray(offsets, np.int32), all_hg=all_hg,
+        cell_records=rec, inverse=inverse, forward=forward,
+        forward_orig=forward_orig, offsets=np.asarray(offsets, np.int32), all_hg=all_hg,
         uniform_ssa=uniform_ssa, uniform_hg=uniform_hg,
         macro_factor=int(macro_factor), temps=temps,
         lambda_um=float(lambda_um)), device=grid.device)
@@ -261,10 +278,11 @@ def domain_from_numpy(arrays: dict, device="cpu") -> OpticalDomain:
     ``arrays`` holds the JAX ``OpticalDomain``'s fields as NumPy arrays or
     Python scalars: ``x_edges``/``y_edges``/``z_edges``, ``xy_regular``,
     ``z_regular``, ``total_ext``, ``cum_ext``, ``ssa``, ``phase_index``,
-    ``cell_records``, ``inverse`` (``tables.inverse``), ``offsets``,
-    ``all_hg``, ``uniform_ssa``, ``uniform_hg``, ``macro_factor`` and
-    optionally ``temps`` and ``lambda_um``. Float fields are stored as
-    float32, so a JAX domain converted here computes on the same data.
+    ``cell_records``, ``inverse``, ``forward`` and ``forward_orig``
+    (``tables.*``), ``offsets``, ``all_hg``, ``uniform_ssa``,
+    ``uniform_hg``, ``macro_factor`` and optionally ``temps`` and
+    ``lambda_um``. Float fields are stored as float32, so a JAX domain
+    converted here computes on the same data.
     """
     def f32(name):
         return torch.tensor(np.asarray(arrays[name], np.float32),
@@ -285,6 +303,8 @@ def domain_from_numpy(arrays: dict, device="cpu") -> OpticalDomain:
         cell_records=f32("cell_records").contiguous(),
         tables=DeviceTables(
             inverse=f32("inverse").contiguous(),
+            forward=f32("forward").contiguous(),
+            forward_orig=f32("forward_orig").contiguous(),
             offsets=torch.tensor(np.asarray(arrays["offsets"], np.int32),
                                  device=device)),
         all_hg=bool(arrays["all_hg"]),

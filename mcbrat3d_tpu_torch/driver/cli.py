@@ -34,6 +34,12 @@ def _cmd_run(args) -> int:
     device = _resolve_device(args.device)
     cfg = load_config(args.namelist)
     results, written = simulate_from_config(cfg, device)
+    radiance = {}
+    if "mean_intensity" in results.mean:
+        radiance = {
+            "mean_intensity": results.mean["mean_intensity"].tolist(),
+            "mean_intensity_stderr":
+                results.stderr["mean_intensity"].tolist()}
     print(json.dumps({
         "total_photons": results.total_photons,
         "n_batches": results.n_batches,
@@ -41,6 +47,7 @@ def _cmd_run(args) -> int:
         "mean_flux_up": float(results.mean["mean_flux_up"]),
         "mean_flux_down": float(results.mean["mean_flux_down"]),
         "mean_flux_absorbed": float(results.mean["mean_flux_absorbed"]),
+        **radiance,
         "elapsed_seconds": round(results.elapsed_seconds, 3),
         "device": str(device),
         "outputs": written,

@@ -1,9 +1,10 @@
 """Result writers: ASCII files with provenance headers, mirroring the
-reference's output structure (flux, absorption profile, 3D absorption;
-reference: Drivers/monteCarloDriver.f95:1324-1495 writeResults_ASCII),
-in the JAX driver's format. Radiance and per-order outputs arrive with
-the port's radiance path. Every value carries its standard error. The netCDF
-writer lives in domain/io_netcdf.py-adjacent module results_netcdf().
+reference's output structure (flux, absorption profile, 3D absorption,
+radiance; reference: Drivers/monteCarloDriver.f95:1324-1495
+writeResults_ASCII), in the JAX driver's format. Per-order outputs arrive
+with the port's scattering-order tallies. Every value carries its standard
+error. The netCDF writer lives in domain/io_netcdf.py-adjacent module
+results_netcdf().
 """
 
 from __future__ import annotations
@@ -79,6 +80,24 @@ def write_volume_absorption_file(path: str, results: Results, grid) -> None:
                             f"{vol[i, j, k]:.8e} {err[i, j, k]:.8e}\n")
 
 
+def write_radiance_file(path: str, results: Results, grid) -> None:
+    cfg = results.config
+    mus, phis = cfg.radiance_directions()
+    rad = results.mean["intensity"]
+    err = results.stderr["intensity"]
+    nx, ny, nd = rad.shape
+    with open(path, "w") as f:
+        f.write(_header(results, extra=f"numRadianceDirections = {nd}"))
+        f.write("! idir mu phi then rows: ix iy radiance stderr\n")
+        for d in range(nd):
+            f.write(f"# direction {d + 1}: mu = {mus[d]:.6f} "
+                    f"phi = {phis[d]:.2f}\n")
+            for j in range(ny):
+                for i in range(nx):
+                    f.write(f"{i + 1:5d} {j + 1:5d} "
+                            f"{rad[i, j, d]:.8e} {err[i, j, d]:.8e}\n")
+
+
 def write_all(results: Results, grid) -> list:
     """Write every output the config names; return the paths written."""
     cfg = results.config
@@ -92,6 +111,9 @@ def write_all(results: Results, grid) -> list:
     if cfg.output_abs_volume_file and "volume_absorption" in results.mean:
         write_volume_absorption_file(cfg.output_abs_volume_file, results, grid)
         written.append(cfg.output_abs_volume_file)
+    if cfg.output_rad_file and "intensity" in results.mean:
+        write_radiance_file(cfg.output_rad_file, results, grid)
+        written.append(cfg.output_rad_file)
     if cfg.output_netcdf_file:
         from mcbrat3d_tpu_torch.driver.results_netcdf import write_results_netcdf
         write_results_netcdf(cfg.output_netcdf_file, results, grid)

@@ -57,6 +57,17 @@ def write_results_netcdf(path: str, results: Results, grid) -> None:
                 "absorbedVolume_StdErr", "f8", ("z", "y", "x"))[:] = (
                 s["volume_absorption"].T)
 
+        if "intensity" in m:
+            mus, phis = cfg.radiance_directions()
+            nd = mus.size
+            nc.createDimension("direction", nd)
+            nc.createVariable("intensityMus", "f8", ("direction",))[:] = mus
+            nc.createVariable("intensityPhis", "f8", ("direction",))[:] = phis
+            nc.createVariable("intensity", "f8", ("direction", "y", "x"))[:] = (
+                m["intensity"].T)
+            nc.createVariable("intensity_StdErr", "f8",
+                              ("direction", "y", "x"))[:] = s["intensity"].T
+
         # classic netCDF has no 64-bit attribute type; store as double
         nc.totalPhotons = np.float64(results.total_photons)
         nc.numBatches = np.int32(results.n_batches)

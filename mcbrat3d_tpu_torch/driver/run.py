@@ -5,7 +5,9 @@ PyTorch counterpart of ``mcbrat3d_tpu.driver.run`` for one device
 per-photon-normalized tallies are accumulated as photon-weighted first and
 second moments; the mean is scaled by the incident flux and the standard
 error is sqrt(max(0, E[x^2] - E[x]^2)/(nBatches - 1)). Batch b runs with
-the kernel seed ``rng.batch_seed(iseed, b)``.
+the kernel seed ``rng.batch_seed(iseed, b)``. Decks with radiance
+directions also accumulate the top-of-domain radiance image and its
+per-direction domain mean.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from mcbrat3d_tpu_torch.driver.config import SimulationConfig
 from mcbrat3d_tpu_torch.physics.surface import Surface
 from mcbrat3d_tpu_torch.sources import illumination
 from mcbrat3d_tpu_torch.transport.integrator import KernelConfig, run_batch
+from mcbrat3d_tpu_torch.transport.local_estimate import (
+    IntensityConfig, make_intensity_directions)
 
 
 @dataclasses.dataclass
@@ -71,16 +75,27 @@ def run_simulation(domain: OpticalDomain,
     """Run cfg.num_batches batches on the domain's device and return
     finalized statistics. ``solar_flux`` scales all outputs (reference:
     Drivers/monteCarloDriver.f95:1188-1228)."""
-    if cfg.compute_intensity:
-        raise NotImplementedError(
-            "radiance (intensity directions) is not in the PyTorch port yet")
     kcfg = kernel_config_from(cfg)
+    icfg = idirs = None
+    if cfg.compute_intensity:
+        mus, phis = cfg.radiance_directions()
+        idirs = make_intensity_directions(mus, phis, device=domain.device)
+        icfg = IntensityConfig(
+            n_dirs=int(mus.size),
+            use_russian_roulette=cfg.use_russian_roulette_intensity,
+            zeta_min=cfg.zeta_min,
+            use_hybrid_phase=cfg.use_hybrid_phase_funs,
+            n_orders_orig_phase=cfg.num_orders_orig_phase,
+            limit_contributions=cfg.limit_intensity_contributions,
+            max_contribution=cfg.max_intensity_contribution,
+        )
     acc = MomentAccumulator()
     n_bad = 0
     t0 = time.time()
     for b in range(cfg.num_batches):
         t = run_batch(domain, surface, source, rng.batch_seed(cfg.iseed, b),
-                      kcfg, n_photons=cfg.num_photons_per_batch)
+                      kcfg, n_photons=cfg.num_photons_per_batch,
+                      intensity_config=icfg, intensity_dirs=idirs)
         n_bad += int(t.n_bad)
         t = t.normalized(domain.grid)
         arrays = {
@@ -98,6 +113,10 @@ def run_simulation(domain: OpticalDomain,
         if t.volume_absorption is not None:
             arrays["absorption_profile"] = arrays[
                 "volume_absorption"].mean(axis=(0, 1))
+        if t.intensity is not None:
+            arrays["intensity"] = t.intensity.cpu().numpy()
+            # per-direction domain mean, so its standard error is known
+            arrays["mean_intensity"] = arrays["intensity"].mean(axis=(0, 1))
         acc.add(float(t.n_photons), arrays)
 
     elapsed = time.time() - t0

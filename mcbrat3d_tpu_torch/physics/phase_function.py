@@ -6,7 +6,8 @@ Legendre moments c_1..c_L (c_0 == 1 implied) or as (angle, value) pairs;
 tables are keyed by effective radius and carry per-entry extinction and
 single-scattering albedo. All table construction is setup-time (float64
 NumPy); the transport kernel consumes only the flattened device matrices
-produced in :mod:`mcbrat3d_tpu_torch.physics.inverse_cdf`.
+produced in :mod:`mcbrat3d_tpu_torch.physics.inverse_cdf` and
+:mod:`mcbrat3d_tpu_torch.physics.hybrid`.
 
 Normalization convention: integral over mu of P(mu) dmu = 2
 (reference: src/scatteringPhaseFunctions.f95:1520-1536).
@@ -89,6 +90,11 @@ class PhaseFunction:
                              description=description or f"HG g={g}",
                              hg_g=float(g))
 
+    @staticmethod
+    def isotropic() -> "PhaseFunction":
+        return PhaseFunction(coefficients=np.zeros(0), description="isotropic",
+                             hg_g=0.0)
+
 
 @dataclasses.dataclass
 class PhaseFunctionTable:
@@ -119,3 +125,20 @@ class PhaseFunctionTable:
     @property
     def n_entries(self) -> int:
         return len(self.phase_functions)
+
+    def evaluate_all(self, angles_rad: np.ndarray) -> np.ndarray:
+        """[n_entries, n_angles] forward values on a shared angle grid
+        (reference: src/scatteringPhaseFunctions.f95:533-650)."""
+        return np.stack([p.evaluate(angles_rad) for p in self.phase_functions])
+
+
+def forward_tabulate(table: PhaseFunctionTable, n_angles: int) -> np.ndarray:
+    """Tabulate each entry on a uniform-in-angle grid [0, pi].
+
+    This is the matrix the local-estimation path interpolates
+    (reference: src/opticalProperties.f95:1872-1934 tabulateForwardPhaseFunctions;
+    lookup in Integrators/monteCarloRadiativeTransfer.f95:1834-1873).
+    Returns [n_entries, n_angles] float64.
+    """
+    angles = np.linspace(0.0, np.pi, n_angles)
+    return table.evaluate_all(angles)

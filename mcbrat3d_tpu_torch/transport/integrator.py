@@ -3,9 +3,11 @@
 Counterpart of ``mcbrat3d_tpu.transport.integrator``: ``KernelConfig``,
 ``Tallies`` and ``run_batch``, plus the analytic HG sampling and direction
 rotation the record kernel's plain step uses. ``run_batch`` dispatches to
-the record kernel (``transport.record_kernel``) or raises naming every
-failing predicate: the XLA wave kernel, the JAX package's general
-fallback, is not ported yet.
+the record kernel (``transport.record_kernel``), with in-kernel radiance
+when radiance directions are given (grids above ``MAX_KERNEL_DIRS`` run as
+direction-chunked passes over the same photons), or raises naming every
+failing predicate: the XLA wave kernel and its local estimator, the JAX
+package's general fallback, are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from mcbrat3d_tpu_torch.core.grid import Grid
 from mcbrat3d_tpu_torch.domain.domain import OpticalDomain
 from mcbrat3d_tpu_torch.physics.surface import Surface
 from mcbrat3d_tpu_torch.sources import illumination
+from mcbrat3d_tpu_torch.transport import local_estimate as le
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,15 +55,17 @@ class Tallies:
     flux_down: torch.Tensor  # [nx, ny]
     flux_absorbed: torch.Tensor  # [nx, ny]
     volume_absorption: Optional[torch.Tensor]  # [nx, ny, nz] or None
+    intensity: Optional[torch.Tensor] = None  # [nx, ny, n_dirs] or None
     n_photons: int = 0  # photons started
-    n_bad: int = 0  # photons still alive at the step cap
+    n_bad: int = 0  # photons alive at the step cap + n_cut
     n_steps: int = 0  # transport steps executed
+    n_cut: int = 0  # radiance marches cut by the iteration bound
 
     def normalized(self, grid: Grid) -> "Tallies":
         """Per-column normalization (reference:
-        Integrators/monteCarloRadiativeTransfer.f95:326-389): fluxes divided
-        by photons per column (weighted by column area); volume absorption
-        also by cell depth * 1000 (km -> m)."""
+        Integrators/monteCarloRadiativeTransfer.f95:326-389): fluxes and
+        intensity divided by photons per column (weighted by column area);
+        volume absorption also by cell depth * 1000 (km -> m)."""
         n = max(float(self.n_photons), 1.0)
         xe = grid.x_edges
         ye = grid.y_edges
@@ -74,8 +79,10 @@ class Tallies:
             volume_absorption=None if self.volume_absorption is None
             else self.volume_absorption
             / (per_col[:, :, None] * dz[None, None, :] * 1000.0),
+            intensity=None if self.intensity is None
+            else self.intensity / per_col[:, :, None],
             n_photons=self.n_photons, n_bad=self.n_bad,
-            n_steps=self.n_steps)
+            n_steps=self.n_steps, n_cut=self.n_cut)
 
 
 def sample_hg_cos(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -119,13 +126,35 @@ def run_batch(domain: OpticalDomain,
               source: illumination.Source,
               seed: int,
               config: KernelConfig,
-              n_photons: Optional[int] = None) -> Tallies:
+              n_photons: Optional[int] = None,
+              intensity_config: Optional[le.IntensityConfig] = None,
+              intensity_dirs: Optional[torch.Tensor] = None) -> Tallies:
     """Trace one batch of photons; return unnormalized tallies.
 
     ``seed`` is the batch's uint32 kernel seed (``core.rng.batch_seed``);
     results are deterministic in (seed, config) on the CPU. ``n_photons``
-    overrides ``config.photons_per_batch`` (it must not exceed it)."""
+    overrides ``config.photons_per_batch`` (it must not exceed it). With
+    ``intensity_config`` and ``intensity_dirs`` ([3, n_dirs]) the tallies
+    carry the top-of-domain radiance image [nx, ny, n_dirs]."""
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
+
+    if intensity_config is not None:
+        if intensity_config.n_dirs > le.MAX_KERNEL_DIRS:
+            return _run_batch_dir_chunked(domain, surface, source, seed,
+                                          config, intensity_config,
+                                          intensity_dirs, n_photons)
+        reasons = rk.intensity_ineligibility_reasons(
+            domain, surface, source, config.lw_mode,
+            config.record_scattering_orders, config.use_ray_tracing,
+            intensity_config, intensity_dirs)
+        if reasons:
+            raise NotImplementedError(
+                "radiance configuration outside the ported record kernel "
+                "(and the XLA local estimator is not ported yet); failing "
+                "predicates: " + "; ".join(reasons))
+        return rk.run_batch_record_tallies(
+            domain, surface, source, seed, config, n_photons=n_photons,
+            intensity_config=intensity_config, intensity_dirs=intensity_dirs)
 
     reasons = rk.ineligibility_reasons(
         domain, surface, source, lw_mode=config.lw_mode,
@@ -150,3 +179,28 @@ def run_batch(domain: OpticalDomain,
             + "; ".join(reasons))
     return rk.run_batch_record_tallies(domain, surface, source, seed, config,
                                        n_photons=n_photons)
+
+
+def _run_batch_dir_chunked(domain, surface, source, seed, config, icfg,
+                           dirs, n_photons) -> Tallies:
+    """Direction-chunked radiance (port of
+    ``integrator._run_batch_dir_chunked``): split a grid of more than
+    ``MAX_KERNEL_DIRS`` directions into kernel-sized passes over the SAME
+    photons (same seed, so the same paths). Fluxes are identical across
+    chunks and chunk 0's are kept; the images are concatenated, and
+    ``n_bad`` adds every later chunk's cut marches to chunk 0's. Directions
+    of different chunks share roulette sites, a correlation of the same
+    order as the path sharing all directions already have."""
+    max_dirs = le.MAX_KERNEL_DIRS
+    parts = []
+    for lo in range(0, icfg.n_dirs, max_dirs):
+        hi = min(icfg.n_dirs, lo + max_dirs)
+        parts.append(run_batch(domain, surface, source, seed, config,
+                               n_photons,
+                               dataclasses.replace(icfg, n_dirs=hi - lo),
+                               dirs[:, lo:hi]))
+    n_cut_later = sum(t.n_cut for t in parts[1:])
+    return dataclasses.replace(
+        parts[0], intensity=torch.cat([t.intensity for t in parts], dim=-1),
+        n_bad=parts[0].n_bad + n_cut_later,
+        n_cut=parts[0].n_cut + n_cut_later)

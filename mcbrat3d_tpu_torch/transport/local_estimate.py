@@ -1,0 +1,120 @@
+"""Local estimation of top-of-domain radiances: configuration and host-side
+helpers.
+
+PyTorch counterpart of the host parts of
+``mcbrat3d_tpu.transport.local_estimate`` (reference:
+Integrators/monteCarloRadiativeTransfer.f95:1623-1832). At every scattering
+or surface-reflection event, each radiance direction d receives
+
+    contribution = w * Pn(theta_d) * exp(-tau_d)
+
+where Pn is P/(4 pi mu_d) for a scatter and 1/pi for a Lambertian
+reflection, and tau_d is the optical depth from the event to the top of the
+domain along d; the contribution is tallied at the column where the ray
+leaves the top. The estimator itself runs inside the record kernel
+(``transport.record_kernel``, ``csrc/record_kernel.cu``); this module holds
+what the host decides before a launch: the knobs, the direction cosines,
+the march bounds and the post-batch redistribution of capped excess.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# Directions per kernel pass. The per-direction Iwabuchi roulette draws use
+# sites 16 + 2d and 17 + 2d of the counter uniform, whose step stride is 256
+# sites (core.rng.N_SITES), so 64 directions keep every site below 144 and
+# no direction aliases the next step's transport draws. Larger grids (the
+# reference goes to 648, Drivers/monteCarloDriver.f95:61) run as chunked
+# transport passes over the same photons (integrator.run_batch).
+MAX_KERNEL_DIRS = 64
+# Radiance directions need mu >= MIN_MU (the JAX package's default
+# pallas_min_mu): dda_iteration_bound is sized from it.
+MIN_MU = 0.15
+
+
+@dataclasses.dataclass(frozen=True)
+class IntensityConfig:
+    """Static knobs for radiance computation (subset of the reference's
+    ``algorithms`` namelist; reference: Drivers/monteCarloDriver.f95:110-118)."""
+
+    n_dirs: int
+    use_russian_roulette: bool = True
+    zeta_min: float = 0.3  # Iwabuchi zetaMin
+    use_hybrid_phase: bool = True
+    n_orders_orig_phase: int = 0  # original phase funcs for the first k orders
+    # Contribution capping: spikes are clipped at max_contribution and the
+    # clipped excess is redistributed across the image after the batch,
+    # proportionally to each (direction, component)'s accumulated intensity
+    # (reference: Integrators/monteCarloRadiativeTransfer.f95:1815-1826
+    # capping, :294-322 redistribution).
+    limit_contributions: bool = False
+    max_contribution: float = 77.0
+
+
+def make_intensity_directions(mus, phis_deg, device="cpu") -> torch.Tensor:
+    """[3, ndir] float32 unit direction cosines for the radiance detectors.
+
+    mus > 0 look up through the top of the domain (the reference requires
+    nonzero mu; reference: Drivers/monteCarloDriver.f95:242-277).
+    """
+    mus = np.asarray(mus, np.float64).ravel()
+    phis = np.deg2rad(np.asarray(phis_deg, np.float64).ravel())
+    if mus.shape != phis.shape:
+        raise ValueError("mus and phis must have equal length")
+    if np.any(mus == 0.0):
+        raise ValueError("radiance directions must have nonzero mu")
+    sin_t = np.sqrt(1.0 - mus**2)
+    dirs = np.stack([sin_t * np.cos(phis), sin_t * np.sin(phis), mus])
+    return torch.tensor(dirs.astype(np.float32), device=device)
+
+
+def dirs_mu_floor_ok(dirs: torch.Tensor) -> bool:
+    """Every direction's mu is at or above the march-bound floor MIN_MU
+    (port of ``pallas_kernel.dirs_mu_floor_ok``)."""
+    return bool(torch.all(dirs[2] >= MIN_MU))
+
+
+def dda_iteration_bound(grid) -> int:
+    """Bound on the cell-face crossings of one march from the domain
+    bottom to the top along the shallowest admissible direction
+    (mu >= MIN_MU), plus margin (``pallas_kernel.dda_iteration_bound``)."""
+    nx, ny, nz = grid.shape
+    xe, ye, ze = grid.edges_np()
+    lz, dxc, dyc = ze[-1] - ze[0], (xe[-1] - xe[0]) / nx, (ye[-1] - ye[0]) / ny
+    mu = MIN_MU
+    sin_max = float(np.sqrt(max(0.0, 1.0 - mu * mu)))
+    return int(np.ceil(nz + lz / mu * sin_max / min(dxc, dyc))) + 8
+
+
+def march_bound(grid, dirs: torch.Tensor) -> int:
+    """Iteration bound of a launch's marches: the larger of
+    ``dda_iteration_bound`` and the crossings each concrete direction can
+    make (``pallas_kernel.march_bound_for_dir``, cell march), so a
+    diagonal direction near the mu floor, which crosses x and y faces
+    both, is never cut short where the JAX kernel would march on."""
+    nx, ny, nz = grid.shape
+    xe, ye, ze = grid.edges_np()
+    lz, dxc, dyc = ze[-1] - ze[0], (xe[-1] - xe[0]) / nx, (ye[-1] - ye[0]) / ny
+    bound = dda_iteration_bound(grid)
+    for ux, uy, uz in dirs.double().cpu().T.tolist():
+        uzf = max(uz, 1e-3)
+        bound = max(bound, nz + int(np.ceil(lz * abs(ux) / uzf / dxc)) + 1
+                    + int(np.ceil(lz * abs(uy) / uzf / dyc)) + 1 + 6)
+    return bound
+
+
+def redistribute_excess(intensity: torch.Tensor, by_component: torch.Tensor,
+                        excess: torch.Tensor) -> torch.Tensor:
+    """Spread capped excess across the image, proportionally to each
+    (direction, component)'s accumulated intensity pattern (reference:
+    Integrators/monteCarloRadiativeTransfer.f95:294-322).
+
+    ``intensity`` [n_dirs, nxy], ``by_component`` [ncomp+1, n_dirs, nxy]
+    (slot 0 = surface), ``excess`` [n_dirs, ncomp+1]."""
+    sums = by_component.sum(dim=2)
+    weightings = by_component / torch.clamp(sums[:, :, None], min=1e-30)
+    return intensity + torch.einsum("cdp,dc->dp", weightings, excess)

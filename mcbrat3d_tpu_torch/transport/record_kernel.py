@@ -1,22 +1,29 @@
-"""Record kernel, flux path: the CUDA kernel, its plain PyTorch step and the
-relaunch loop around them.
+"""Record kernel: the CUDA kernel, its plain PyTorch step and the relaunch
+loop around them, for the flux path (K1) and in-kernel radiance (K2).
 
 PyTorch counterpart of ``mcbrat3d_tpu.transport.pallas_kernel`` for the
-flux path of the record megakernel (``_build_kernel``, ``_make_launch``,
-``run_batch_pallas``, ``run_batch_pallas_tallies``). Every lane carries one
-photon through ``steps_per_call`` transport steps per launch: refill from
-the source, Woodcock jump against the (optional two-level macro-cell)
-majorant, record fetch, null-collision test, absorption weight, Russian
-roulette, HG or inverse-CDF scatter + rotation, Lambertian reflection and
-the fused tally of flux up/down per column and absorption per column
-(``vol_tally=False``, the JAX ``flux_abs_2d``) or per cell.
+record megakernel (``_build_kernel``, ``_make_launch``, ``run_batch_pallas``,
+``run_batch_pallas_tallies``). Every lane carries one photon through
+``steps_per_call`` transport steps per launch: refill from the source,
+Woodcock jump against the (optional two-level macro-cell) majorant, record
+fetch, null-collision test, absorption weight, Russian roulette, HG or
+inverse-CDF scatter + rotation, Lambertian reflection and the fused tally
+of flux up/down per column and absorption per column (``vol_tally=False``,
+the JAX ``flux_abs_2d``) or per cell. With radiance directions, every real
+scatter and every surface reflection also runs a local estimate per
+direction: one cell DDA march to the domain top with the periodic x/y wrap,
+the phase value from analytic HG or a forward table resampled uniform in
+sin(theta/2), the exact or the Iwabuchi roulette estimator and optional
+contribution capping, tallied at the column where the ray leaves the top
+(``pallas_kernel.py:1515-2115``).
 
 Two implementations of one launch:
 
 * ``csrc/record_kernel.cu``, one CUDA thread per lane (``_launch_cuda``);
 * ``record_step_plain``, the same step on ``[n_lanes]`` tensors with masked
   ``torch.where`` selects, bit-faithful to the JAX kernel's float32
-  arithmetic on the CPU.
+  arithmetic on the CPU; its local estimate marches every (event,
+  direction) pair at once.
 
 ``record_launch`` sends CUDA tensors to the kernel and CPU tensors to the
 plain step; there is no fallback between them. Both draw the same counter
@@ -38,6 +45,7 @@ from mcbrat3d_tpu_torch.core import rng
 from mcbrat3d_tpu_torch.domain.domain import OpticalDomain
 from mcbrat3d_tpu_torch.physics.surface import Surface
 from mcbrat3d_tpu_torch.sources import illumination
+from mcbrat3d_tpu_torch.transport import local_estimate as le
 from mcbrat3d_tpu_torch.transport.integrator import (Tallies,
                                                      rotate_direction,
                                                      sample_hg_cos)
@@ -50,16 +58,34 @@ MAX_INV_ENTRIES = 1024 * 128
 # The dense tiled kernel (K5) takes eligible domains past this many cells.
 TILE_MIN_CELLS = 128 * 128
 
-# Kernel launches made by ``_launch_cuda`` in this process.
+# Radiance launch geometry (pallas_kernel.py:3278-3291): local estimation
+# runs per event and per direction, so lane occupancy decides its cost; the
+# JAX package trades wave width for per-lane quota (at most 32 rows), and
+# the port keeps those lane streams by default.
+RADIANCE_ROWS = 32
+# Forward phase table resampled on this many points uniform in
+# s = sin(theta/2) (pallas_kernel._pack_forward_table).
+FWD_N_S = 2048
+
+# Kernel launches made by ``_launch_cuda`` in this process, all of them,
+# and those that ran the local estimate.
 LAUNCHES = 0
+RADIANCE_LAUNCHES = 0
 
 # Slots of the float32 parameter vector (csrc/record_kernel.cu P_*).
 (P_BETA_MAX, P_INV_BETA_MAX, P_ALBEDO, P_SMU, P_SUX, P_SUY, P_RR_W,
  P_X0, P_LX, P_Y0, P_LY, P_Z0, P_LZ, P_INV_DX, P_INV_DY, P_INV_DZ,
  P_ZMAX, P_ZEPS, P_BXW, P_BYW, P_BZW, P_NUDGE, P_TWO_PI, P_HALF_RR,
- P_ZTOP, P_ZBOT, N_PARAMS) = range(27)
+ P_ZTOP, P_ZBOT, P_DXC, P_DYC, P_DZC, P_MNUDGE, P_ZETA, P_MAXC,
+ N_PARAMS) = range(33)
+
+# Local-estimate phase source (csrc/record_kernel.cu PHASE_*): analytic HG,
+# forward table row 0 (all-HG domains), forward table row = the record's
+# phase index.
+PHASE_HG, PHASE_TABLE_ROW0, PHASE_TABLE = range(3)
 
 _TINY = 1e-30
+_F32 = np.float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,7 +141,7 @@ def ineligibility_reasons(domain: OpticalDomain, surface: Surface,
         (f"source kind {source.kind!r} not ported (directional only)",
          source.kind == illumination.DIRECTIONAL),
         ("lw_mode (emission is not ported yet)", not lw_mode),
-        ("compute_intensity (radiance, K2, is not ported yet)",
+        ("compute_intensity outside intensity_ineligibility_reasons",
          not compute_intensity),
         ("record_scattering_orders > 0", record_scattering_orders == 0),
         ("use_ray_tracing=True (the kernel is max-cross-section only)",
@@ -127,9 +153,90 @@ def ineligibility_reasons(domain: OpticalDomain, surface: Surface,
     return [name for name, ok in checks if not ok]
 
 
+def intensity_ineligibility_reasons(domain: OpticalDomain, surface: Surface,
+                                    source: illumination.Source,
+                                    lw_mode: bool,
+                                    record_scattering_orders: int,
+                                    use_ray_tracing: bool,
+                                    icfg: "le.IntensityConfig",
+                                    dirs) -> list:
+    """Names of every failing in-kernel local-estimation predicate (empty =
+    eligible): the flux predicates plus those of
+    ``pallas_kernel.intensity_ineligibility_reasons``."""
+    reasons = ineligibility_reasons(
+        domain, surface, source, lw_mode, compute_intensity=False,
+        record_scattering_orders=record_scattering_orders,
+        use_ray_tracing=use_ray_tracing)
+    fwd = domain.tables.forward
+    hyb_ok = (not icfg.use_hybrid_phase) or (
+        fwd.shape[1] > 1 and (not domain.all_hg or fwd.shape[0] == 1))
+    shape_ok = dirs is not None and tuple(dirs.shape) == (3, icfg.n_dirs)
+    checks = (
+        ("intensity needs phase values: an all-HG domain or computed "
+         "forward tables (build_domain(compute_intensity_tables=True))",
+         domain.all_hg or domain.tables.forward_orig.shape[1] > 1),
+        ("use_hybrid_phase=True without usable forward tables (need "
+         "compute_intensity_tables=True and, for all-HG domains, a single "
+         "shared table row)", hyb_ok),
+        ("n_orders_orig_phase > 0", icfg.n_orders_orig_phase == 0),
+        (f"n_dirs={icfg.n_dirs} > {le.MAX_KERNEL_DIRS}",
+         icfg.n_dirs <= le.MAX_KERNEL_DIRS),
+        ("intensity_dirs is None" if dirs is None else
+         f"dirs shape {tuple(dirs.shape)} != (3, {icfg.n_dirs})", shape_ok),
+        (f"a direction's mu is below the floor MIN_MU={le.MIN_MU} (the "
+         "march bound would cut its marches short)",
+         shape_ok and le.dirs_mu_floor_ok(dirs)),
+        ("intensity with a non-Lambertian surface",
+         surface.is_uniform_lambertian),
+    )
+    reasons.extend(name for name, ok in checks if not ok)
+    return reasons
+
+
 # ---------------------------------------------------------------------------
 # Kernel inputs
 # ---------------------------------------------------------------------------
+
+def _phase_source(domain: OpticalDomain, icfg) -> int:
+    """PHASE_* for a radiance run (pallas_kernel.run_batch_pallas_tallies:
+    hybrid table, else analytic HG for all-HG domains, else the original
+    table; a table's row is 0 on all-HG domains)."""
+    if not icfg.use_hybrid_phase and domain.all_hg:
+        return PHASE_HG
+    return PHASE_TABLE_ROW0 if domain.all_hg else PHASE_TABLE
+
+
+def _interp_rows(x: torch.Tensor, xp: torch.Tensor,
+                 fp: torch.Tensor) -> torch.Tensor:
+    """``jnp.interp`` per row of ``fp`` [rows, n], in float32."""
+    n = xp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, n - 1)
+    f = fp[:, i - 1] + ((x - xp[i - 1]) / (xp[i] - xp[i - 1])) * (
+        fp[:, i] - fp[:, i - 1])
+    f = torch.where(x < xp[0], fp[:, :1], f)
+    return torch.where(x > xp[-1], fp[:, -1:], f)
+
+
+def forward_table(domain: OpticalDomain, use_hybrid: bool):
+    """(v0, delta): the forward phase table resampled onto ``FWD_N_S`` points
+    uniform in s = sin(theta/2), flattened row-major, with forward
+    differences for the lerp (port of ``pallas_kernel._pack_forward_table``
+    without its bf16 hi/lo split). The index of a scattering cosine c is
+    then sqrt((1 - c)/2) * (FWD_N_S - 1): a square root, no arccos. Computed in
+    float32 on the host and cached on the domain."""
+    cache = domain.__dict__.setdefault("_forward_table_cache", {})
+    key = bool(use_hybrid)
+    if key not in cache:
+        table = (domain.tables.forward if use_hybrid
+                 else domain.tables.forward_orig).cpu()
+        angles = torch.linspace(0.0, np.pi, table.shape[1])
+        theta_s = 2.0 * torch.asin(torch.linspace(0.0, 1.0, FWD_N_S))
+        flat = _interp_rows(theta_s, angles, table).reshape(-1)
+        delta = torch.cat([flat[1:], flat[-1:]]) - flat
+        cache[key] = (flat.to(domain.device).contiguous(),
+                      delta.to(domain.device).contiguous())
+    return cache[key]
+
 
 @dataclasses.dataclass
 class RecordState:
@@ -168,30 +275,46 @@ class RecordState:
 
 @dataclasses.dataclass(frozen=True)
 class RecordTables:
-    """Device tables the step reads: records [n_cells, stride] f32 and
-    the flat inverse-CDF angles with their forward differences."""
+    """Device tables the step reads: records [n_cells, stride] f32, the
+    flat inverse-CDF angles with their forward differences and, for
+    radiance, the direction cosines [3, n_dirs] and the resampled forward
+    phase table (``forward_table``); one-element placeholders otherwise."""
 
     records: torch.Tensor
     inv_a0: torch.Tensor
     inv_dd: torch.Tensor
+    dirs: torch.Tensor
+    fwd_v0: torch.Tensor
+    fwd_dd: torch.Tensor
 
     @staticmethod
-    def from_domain(domain: OpticalDomain) -> "RecordTables":
+    def from_domain(domain: OpticalDomain, intensity_config=None,
+                    intensity_dirs=None) -> "RecordTables":
         rec = domain.cell_records.contiguous()
+        zero = torch.zeros(1, dtype=torch.float32, device=rec.device)
         if domain.all_hg:
-            a0 = dd = torch.zeros(1, dtype=torch.float32, device=rec.device)
+            a0 = dd = zero
         else:
             # same float32 deltas as pallas_kernel._pack_inverse_table
             a0 = domain.tables.inverse.reshape(-1).contiguous()
             dd = (torch.cat([a0[1:], a0[-1:]]) - a0).contiguous()
-        return RecordTables(records=rec, inv_a0=a0, inv_dd=dd)
+        dirs, v0, fdd = zero, zero, zero
+        if intensity_config is not None:
+            dirs = intensity_dirs.to(device=rec.device,
+                                     dtype=torch.float32).contiguous()
+            if _phase_source(domain, intensity_config) != PHASE_HG:
+                v0, fdd = forward_table(domain,
+                                        intensity_config.use_hybrid_phase)
+        return RecordTables(records=rec, inv_a0=a0, inv_dd=dd, dirs=dirs,
+                            fwd_v0=v0, fwd_dd=fdd)
 
 
 @dataclasses.dataclass(frozen=True)
 class RecordParams:
     """Scalars of one batch: ``values`` is the float32 parameter vector
     (P_* slots, computed in float32 as the JAX launch computes them),
-    ``device_values`` its copy on the kernel's device."""
+    ``device_values`` its copy on the kernel's device. ``n_dirs`` > 0
+    turns on the local estimate with the ``le_*`` switches."""
 
     values: np.ndarray
     device_values: torch.Tensor
@@ -206,6 +329,11 @@ class RecordParams:
     inv_n_steps: int
     use_rr: bool
     vol_tally: bool
+    n_dirs: int = 0
+    le_phase: int = PHASE_HG
+    le_rr: bool = False      # Iwabuchi roulette estimator
+    le_cap: bool = False     # limitIntensityContributions
+    k_dda: int = 0           # march iteration bound
 
     def __getitem__(self, slot: int) -> float:
         return float(self.values[slot])
@@ -216,12 +344,28 @@ class RecordParams:
         nxy = self.nx * self.ny
         return 2 * nxy + (nxy * self.nz if self.vol_tally else nxy)
 
+    @property
+    def n_sec(self) -> int:
+        """Image sections: one, or with the cap one per component slot
+        (slot 0 = surface reflection, slot 1 = the scattering component)."""
+        return 2 if self.le_cap else 1
+
+    @property
+    def n_img(self) -> int:
+        """Radiance tally entries: [section][direction][column]."""
+        return self.n_sec * self.n_dirs * self.nx * self.ny
+
+    @property
+    def n_exc(self) -> int:
+        """Capped excess entries: [slot][direction] (0 without the cap)."""
+        return self.n_sec * self.n_dirs if self.le_cap else 0
+
     @staticmethod
     def make(domain: OpticalDomain, surface: Surface,
              source: illumination.Source, use_russian_roulette: bool,
-             russian_roulette_weight: float,
-             vol_tally: bool) -> "RecordParams":
-        f = np.float32
+             russian_roulette_weight: float, vol_tally: bool,
+             intensity_config=None, intensity_dirs=None) -> "RecordParams":
+        f = _F32
         nx, ny, nz = domain.grid.shape
         xe, ye, ze = domain.grid.edges_f32()
         beta_max = max(f(domain.max_extinction), f(_TINY))
@@ -234,6 +378,7 @@ class RecordParams:
                          lz / f(nz) * f(mf))
         rr_w = f(russian_roulette_weight)
         z_max, z_eps = ze[0] + lz, lz * f(1e-6)
+        dxc, dyc, dzc = lx / f(nx), ly / f(ny), lz / f(nz)
         vals = np.zeros(N_PARAMS, np.float32)
         vals[[P_BETA_MAX, P_INV_BETA_MAX, P_ALBEDO, P_SMU, P_SUX, P_SUY,
               P_RR_W]] = (beta_max, f(1.0) / beta_max, f(surface.albedo),
@@ -246,6 +391,20 @@ class RecordParams:
             bxw, byw, bzw, f(1e-5) * min(bxw, min(byw, bzw)))
         vals[[P_TWO_PI, P_HALF_RR, P_ZTOP, P_ZBOT]] = (
             f(2.0 * np.pi), f(0.5) * rr_w, z_max - z_eps, ze[0] + z_eps)
+        # local-estimate march: cell sizes and the distance nudge of
+        # pallas_kernel.py:1538-1541
+        vals[[P_DXC, P_DYC, P_DZC, P_MNUDGE]] = (
+            dxc, dyc, dzc, f(1e-6) * min(dzc, min(dxc, dyc)))
+        icfg = intensity_config
+        le_kw = {}
+        if icfg is not None:
+            vals[[P_ZETA, P_MAXC]] = (f(icfg.zeta_min),
+                                      f(icfg.max_contribution))
+            le_kw = dict(n_dirs=int(icfg.n_dirs),
+                         le_phase=_phase_source(domain, icfg),
+                         le_rr=bool(icfg.use_russian_roulette),
+                         le_cap=bool(icfg.limit_contributions),
+                         k_dda=le.march_bound(domain.grid, intensity_dirs))
         ncomp = domain.n_components
         return RecordParams(
             values=vals,
@@ -255,22 +414,45 @@ class RecordParams:
             off_f2=(2 + 3 * ncomp if domain.all_hg else 2 + 2 * ncomp),
             analytic_hg=bool(domain.all_hg),
             inv_n_steps=int(domain.tables.inverse.shape[1]),
-            use_rr=bool(use_russian_roulette), vol_tally=bool(vol_tally))
+            use_rr=bool(use_russian_roulette), vol_tally=bool(vol_tally),
+            **le_kw)
 
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch step
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class RecordTally:
+    """What a launch adds into: ``acc`` the flux tally [prm.n_acc] f32,
+    ``img`` the radiance tally [max(1, prm.n_img)] f32, ``exc`` the capped
+    excess [max(1, prm.n_exc)] f32 and ``counts`` int32 [photons started,
+    lanes with work left, radiance marches cut by the iteration bound]."""
+
+    acc: torch.Tensor
+    img: torch.Tensor
+    exc: torch.Tensor
+    counts: torch.Tensor
+
+    @staticmethod
+    def zeros(prm: RecordParams, device) -> "RecordTally":
+        def z(n, dtype=torch.float32):
+            return torch.zeros(max(1, n), dtype=dtype, device=device)
+
+        return RecordTally(acc=z(prm.n_acc), img=z(prm.n_img),
+                           exc=z(prm.n_exc), counts=z(3, torch.int32))
+
+
 def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
                       lane: torch.Tensor, seed: int, ctr: int,
-                      acc: torch.Tensor) -> torch.Tensor:
+                      tally: RecordTally) -> torch.Tensor:
     """One transport step for every lane; returns the photons started.
 
     ``lane`` holds the int64 lane indices, ``ctr`` the step counter;
-    ``acc`` ([prm.n_acc] f32) receives this step's tally. Operation for
-    operation the JAX kernel's float32 arithmetic (pallas_kernel.py
-    _build_kernel, flux sections)."""
+    ``tally`` receives this step's flux (and radiance) tallies. Operation
+    for operation the JAX kernel's float32 arithmetic (pallas_kernel.py
+    _build_kernel)."""
+    acc = tally.acc
     p = prm
     u = rng.make_uniform(lane, seed)
     x0, lx, y0, ly = p[P_X0], p[P_LX], p[P_Y0], p[P_LY]
@@ -363,6 +545,9 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
         bl = torch.where(moved, rec[:, 1], bl)
     absorbed = torch.where(real, w * (1.0 - ssa), 0.0)
     w = torch.where(real, w * ssa, w)
+    # the local estimate takes the post-absorption, pre-roulette weight and
+    # the incoming direction (pallas_kernel.py:1317-1322)
+    w_int, ux_in, uy_in, uz_in = w, ux, uy, uz
 
     # ---- Russian roulette ----
     if p.use_rr:
@@ -406,6 +591,20 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
         bl = torch.where(exit_bot, beta_max, bl)
     alive = alive & ~exit_top & ~died_weight & ~died_surface
 
+    # ---- local estimate: scatters at the collision point, reflections
+    # just above the surface (disjoint per lane) ----
+    if p.n_dirs > 0:
+        ev = torch.nonzero(real | reflected).squeeze(1)
+        if ev.numel():
+            refl = reflected[ev]
+            local_estimate_plain(
+                tab, prm, u, ctr, ev, refl,
+                torch.where(refl, xe[ev], xc[ev]),
+                torch.where(refl, ye[ev], yc[ev]),
+                torch.where(refl, p[P_ZBOT], zc[ev]),
+                torch.where(refl, w_refl[ev], w_int[ev]),
+                ux_in[ev], uy_in[ev], uz_in[ev], f2[ev], tally)
+
     # ---- fused tally: one entry per lane (exit or absorption) ----
     t_val = torch.where(exit_top, w, torch.where(exit_bot, w_down, absorbed))
     t_val = torch.where(exits | real, t_val, 0.0)
@@ -420,19 +619,136 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     return started
 
 
+def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
+                         ev: torch.Tensor, refl: torch.Tensor,
+                         sx, sy, sz, w_ev, ux_in, uy_in, uz_in, f2,
+                         tally: RecordTally) -> None:
+    """Local estimate of the event lanes ``ev`` (int64 lane indices; the
+    other arguments are per event) toward every direction, tallied into
+    ``tally.img`` / ``tally.exc``; marches cut by the iteration bound are
+    counted into ``tally.counts[2]``.
+
+    Same float32 arithmetic as pallas_kernel.py:1515-2084 with the cell
+    march: all (event, direction) pairs march together, each until it
+    leaves the top (or, with roulette, passes its stopping depth)."""
+    p = prm
+    nx, ny, nz, nxy, n_dirs = p.nx, p.ny, p.nz, p.nx * p.ny, p.n_dirs
+    x0, lx, y0, ly, z0 = p[P_X0], p[P_LX], p[P_Y0], p[P_LY], p[P_Z0]
+    z_max, inv_dx, inv_dy = p[P_ZMAX], p[P_INV_DX], p[P_INV_DY]
+    inv_dz, dxc, dyc, dzc = p[P_INV_DZ], p[P_DXC], p[P_DYC], p[P_DZC]
+    n_ev = ev.shape[0]
+
+    def pairs(v):  # per event -> per (event, direction), event-major
+        return v.repeat_interleave(n_dirs)
+
+    d_idx = torch.arange(n_dirs, device=ev.device).repeat(n_ev)
+    ddx, ddy, ddz = (tab.dirs[i][d_idx] for i in range(3))
+    refl_p = pairs(refl)
+    cosb = (pairs(ux_in) * ddx + pairs(uy_in) * ddy) + pairs(uz_in) * ddz
+    if p.le_phase == PHASE_HG:
+        g = pairs(f2)
+        q = torch.clamp((1.0 + g * g) - (2.0 * g) * cosb, min=1e-12)
+        pv = (1.0 - g * g) / (q * torch.sqrt(q))
+    else:
+        # table uniform in s = sin(theta/2): the index needs a sqrt only
+        s_v = torch.sqrt(torch.clamp((1.0 - cosb) * 0.5, min=0.0))
+        tpos = s_v * float(FWD_N_S - 1)
+        k_f = tpos.to(torch.int32).clamp(0, FWD_N_S - 2)
+        frac = tpos - k_f.to(torch.float32)
+        flat = k_f.long()
+        if p.le_phase == PHASE_TABLE:
+            flat = flat + pairs(f2).to(torch.int64) * FWD_N_S
+        pv = tab.fwd_v0[flat] + frac * tab.fwd_dd[flat]
+    npf = torch.where(refl_p, float(_F32(1.0 / np.pi)),
+                      pv / (float(_F32(4.0 * np.pi)) * ddz))
+    sdx = torch.where(ddx.abs() > 1e-12, ddx, 1e-12)
+    sdy = torch.where(ddy.abs() > 1e-12, ddy, 1e-12)
+    ndx, ndy = torch.sign(ddx) * 1e-4, torch.sign(ddy) * 1e-4
+    if p.le_rr:
+        # Iwabuchi roulette draws, sites 16 + 2d and 17 + 2d
+        lane_p = pairs(ev)
+        u_i1 = u(ctr, 16 + 2 * d_idx, lane_p)
+        tau_free = -torch.log1p(-u(ctr, 17 + 2 * d_idx, lane_p))
+        zeta = p[P_ZETA]
+        npf_pi = float(_F32(np.pi)) * npf
+        small = npf_pi <= zeta
+        tau_max = -torch.log(zeta / torch.clamp(npf_pi, min=_TINY))
+        tau_stop = torch.where(small, tau_free, tau_max + tau_free)
+
+    px, py, pz = pairs(sx), pairs(sy), pairs(sz)
+    tau = torch.zeros_like(px)
+    ex_col = torch.zeros(px.shape, dtype=torch.int64, device=px.device)
+    act = torch.ones(px.shape, dtype=torch.bool, device=px.device)
+    for _ in range(p.k_dda):
+        if not bool(act.any()):
+            break
+        pxw = x0 + torch.remainder(px - x0, lx)
+        pyw = y0 + torch.remainder(py - y0, ly)
+        # index-space nudge along the march: a face landing names the
+        # cell being entered for either direction sign
+        ixm = ((pxw - x0) * inv_dx + ndx).to(torch.int32).clamp(0, nx - 1)
+        iym = ((pyw - y0) * inv_dy + ndy).to(torch.int32).clamp(0, ny - 1)
+        izm = ((pz - z0) * inv_dz).to(torch.int32).clamp(0, nz - 1)
+        beta_m = tab.records[((ixm * ny + iym) * nz + izm).long(), 0]
+        fx = torch.where(ddx >= 0, ixm + 1, ixm).to(torch.float32) * dxc + x0
+        fy = torch.where(ddy >= 0, iym + 1, iym).to(torch.float32) * dyc + y0
+        fz = (izm + 1).to(torch.float32) * dzc + z0
+        tx = torch.where(ddx.abs() > 1e-12, (fx - pxw) / sdx, 3e38)
+        ty = torch.where(ddy.abs() > 1e-12, (fy - pyw) / sdy, 3e38)
+        tz = (fz - pz) / ddz
+        ds = torch.clamp(torch.minimum(tx, torch.minimum(ty, tz)),
+                         min=0.0) + p[P_MNUDGE]
+        tau = torch.where(act, tau + beta_m * ds, tau)
+        pz2 = pz + ddz * ds
+        top = pz2 >= z_max
+        tb = (z_max - pz) / ddz
+        exx = x0 + torch.remainder((pxw + ddx * tb) - x0, lx)
+        exy = y0 + torch.remainder((pyw + ddy * tb) - y0, ly)
+        exc = (((exx - x0) * inv_dx).to(torch.int32).clamp(0, nx - 1) * ny
+               + ((exy - y0) * inv_dy).to(torch.int32).clamp(0, ny - 1))
+        ex_col = torch.where(act & top, exc.long(), ex_col)
+        act = act & ~top
+        if p.le_rr:
+            act = act & (tau < tau_stop)
+        px, py, pz = pxw + ddx * ds, pyw + ddy * ds, pz2
+    tally.counts[2] += act.sum().to(torch.int32)
+    hit = ~act
+    w_p = pairs(w_ev)
+    if p.le_rr:
+        w_rrc = (w_p * zeta) * float(_F32(1.0 / np.pi))
+        c_a = torch.where(hit & (tau < tau_free) & (u_i1 * zeta <= npf_pi),
+                          w_rrc, 0.0)
+        c_b = torch.where(hit & (tau < tau_max),
+                          (w_p * npf) * torch.exp(-tau),
+                          torch.where(hit & (tau - tau_max < tau_free),
+                                      w_rrc, 0.0))
+        contrib = torch.where(small, c_a, c_b)
+    else:
+        contrib = torch.where(hit, (w_p * npf) * torch.exp(-tau), 0.0)
+    if p.le_cap:
+        cap = p[P_MAXC]
+        over = torch.clamp(contrib - cap, min=0.0)
+        contrib = torch.clamp(contrib, max=cap)
+        slot = (~refl_p).to(torch.int64)  # 0 surface, 1 the component
+        tally.exc.index_add_(0, slot * n_dirs + d_idx, over)
+        tally.img.index_add_(0, (slot * n_dirs + d_idx) * nxy + ex_col,
+                             contrib)
+    else:
+        tally.img.index_add_(0, d_idx * nxy + ex_col, contrib)
+
+
 def record_launch_plain(st: RecordState, tab: RecordTables,
                         prm: RecordParams, seed: int, step0: int,
-                        k_steps: int, acc: torch.Tensor,
-                        counts: torch.Tensor) -> None:
-    """``k_steps`` plain steps; adds [started, lanes with work left] into
-    ``counts`` -- the contract of one kernel launch."""
+                        k_steps: int, tally: RecordTally) -> None:
+    """``k_steps`` plain steps; adds [started, lanes with work left, cut
+    marches] into ``tally.counts`` -- the contract of one kernel launch."""
     lane = torch.arange(st.x.shape[0], dtype=torch.int64, device=st.x.device)
     started = torch.zeros((), dtype=torch.int64, device=st.x.device)
     for k in range(k_steps):
         started = started + record_step_plain(st, tab, prm, lane, seed,
-                                              step0 + k, acc)
+                                              step0 + k, tally)
     work = ((st.alive > 0) | (st.quota > 0)).sum()
-    counts += torch.stack([started, work]).to(counts.dtype)
+    tally.counts[:2] += torch.stack([started, work]).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -452,7 +768,7 @@ def _library():
         lib.record_kernel_num_params.argtypes = []
         lib.record_kernel_launch.restype = _I
         lib.record_kernel_launch.argtypes = (
-            [_P] * 16 + [_I] * 10 + [_U, _U] + [_I] * 4 + [_P])
+            [_P] * 21 + [_I] * 10 + [_U, _U] + [_I] * 4 + [_I] * 8 + [_P])
         if lib.record_kernel_num_params() != N_PARAMS:
             raise RuntimeError("csrc/record_kernel.cu and record_kernel.py "
                                "disagree on the parameter layout")
@@ -471,9 +787,9 @@ def _check(t: torch.Tensor, name: str, dtype, n: int, device) -> None:
 
 
 def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
-                 seed: int, step0: int, k_steps: int, acc: torch.Tensor,
-                 counts: torch.Tensor) -> None:
-    global LAUNCHES
+                 seed: int, step0: int, k_steps: int,
+                 tally: RecordTally) -> None:
+    global LAUNCHES, RADIANCE_LAUNCHES
     dev = st.x.device
     n = st.x.shape[0]
     for name in RecordState.FLOAT_FIELDS:
@@ -485,33 +801,50 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
     _check(tab.inv_a0, "inv_a0", torch.float32, tab.inv_a0.numel(), dev)
     _check(tab.inv_dd, "inv_dd", torch.float32, tab.inv_a0.numel(), dev)
     _check(prm.device_values, "params", torch.float32, N_PARAMS, dev)
-    _check(acc, "acc", torch.float32, prm.n_acc, dev)
-    _check(counts, "counts", torch.int32, 2, dev)
+    _check(tally.acc, "acc", torch.float32, prm.n_acc, dev)
+    _check(tally.img, "img", torch.float32, max(1, prm.n_img), dev)
+    _check(tally.exc, "exc", torch.float32, max(1, prm.n_exc), dev)
+    _check(tally.counts, "counts", torch.int32, 3, dev)
+    if prm.n_dirs:
+        if prm.n_dirs > le.MAX_KERNEL_DIRS:
+            raise ValueError(f"{prm.n_dirs} radiance directions > "
+                             f"{le.MAX_KERNEL_DIRS} per launch")
+        _check(tab.dirs, "dirs", torch.float32, 3 * prm.n_dirs, dev)
+        if prm.le_phase != PHASE_HG:
+            _check(tab.fwd_v0, "fwd_v0", torch.float32, tab.fwd_v0.numel(),
+                   dev)
+            _check(tab.fwd_dd, "fwd_dd", torch.float32, tab.fwd_v0.numel(),
+                   dev)
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [prm.device_values, tab.records, tab.inv_a0, tab.inv_dd,
             *(getattr(st, k) for k in RecordState.FLOAT_FIELDS),
-            st.quota, st.alive, acc, counts]
+            st.quota, st.alive, tally.acc, tally.counts, tab.dirs,
+            tab.fwd_v0, tab.fwd_dd, tally.img, tally.exc]
     err = lib.record_kernel_launch(
         *(t.data_ptr() for t in ptrs), n, prm.nx, prm.ny, prm.nz,
         prm.stride, prm.off_ssa, prm.off_f2, prm.inv_n_steps,
         int(prm.use_rr), prm.n_acc, seed & 0xFFFF_FFFF,
         step0 & 0xFFFF_FFFF, k_steps, int(prm.macro_factor > 0),
-        int(prm.vol_tally), int(prm.analytic_hg), stream)
+        int(prm.vol_tally), int(prm.analytic_hg), prm.n_dirs, prm.le_phase,
+        FWD_N_S, int(prm.le_rr), int(prm.le_cap), prm.k_dda, prm.n_img,
+        prm.n_exc, stream)
     LAUNCHES += 1
+    if prm.n_dirs:
+        RADIANCE_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f"record_kernel launch failed: CUDA error {err}")
 
 
 def record_launch(st: RecordState, tab: RecordTables, prm: RecordParams,
-                  seed: int, step0: int, k_steps: int, acc: torch.Tensor,
-                  counts: torch.Tensor) -> None:
+                  seed: int, step0: int, k_steps: int,
+                  tally: RecordTally) -> None:
     """Advance every lane by ``k_steps`` steps: the CUDA kernel for state on
     a CUDA device, the plain PyTorch step for state on the CPU."""
     if st.x.is_cuda:
-        _launch_cuda(st, tab, prm, seed, step0, k_steps, acc, counts)
+        _launch_cuda(st, tab, prm, seed, step0, k_steps, tally)
     elif st.x.device.type == "cpu":
-        record_launch_plain(st, tab, prm, seed, step0, k_steps, acc, counts)
+        record_launch_plain(st, tab, prm, seed, step0, k_steps, tally)
     else:
         raise ValueError(f"no record kernel for device {st.x.device}")
 
@@ -525,17 +858,23 @@ def run_batch_record(domain: OpticalDomain, surface: Surface,
                      rcfg: RecordConfig, photons_per_lane: int,
                      n_photons=None, use_russian_roulette: bool = True,
                      russian_roulette_weight: float = 1.0,
-                     launch=record_launch):
+                     launch=record_launch, intensity_config=None,
+                     intensity_dirs=None):
     """Run one photon batch; returns (flux_up [nx,ny], flux_down [nx,ny],
     absorbed ([nx,ny,nz] with ``rcfg.vol_tally``, else [nx,ny]),
-    n_started, n_bad, n_calls).
+    n_started, n_bad, n_calls), plus the raw radiance image
+    [nx, ny, n_dirs] and the count of cut marches when
+    ``intensity_config`` is given.
 
     Port of ``run_batch_pallas`` + ``_make_launch``: launch
     ``steps_per_call`` steps, add up the photons started and the lanes with
     work left, rebalance the unspent quota evenly over the lanes, and stop
-    when no work is left or at ``max_steps``. ``seed`` is the uint32 kernel
-    seed; ``launch`` is ``record_launch`` (or, to compare the two on one
-    device, ``record_launch_plain``)."""
+    when no work is left or at ``max_steps``. ``n_bad`` counts photons
+    still alive at the step cap plus radiance marches cut by the iteration
+    bound. ``seed`` is the uint32 kernel seed; ``launch`` is
+    ``record_launch`` (or, to compare the two on one device,
+    ``record_launch_plain``). With capping the excess is redistributed
+    over the image after the batch (pallas_kernel.py:3014-3033)."""
     n_lanes = rcfg.n_lanes
     if n_lanes * photons_per_lane >= 2 ** 31:
         raise ValueError(
@@ -543,8 +882,9 @@ def run_batch_record(domain: OpticalDomain, surface: Surface,
             f"overflows the int32 quota budget; split into more batches")
     dev = domain.device
     prm = RecordParams.make(domain, surface, source, use_russian_roulette,
-                            russian_roulette_weight, rcfg.vol_tally)
-    tab = RecordTables.from_domain(domain)
+                            russian_roulette_weight, rcfg.vol_tally,
+                            intensity_config, intensity_dirs)
+    tab = RecordTables.from_domain(domain, intensity_config, intensity_dirs)
     lane_i = torch.arange(n_lanes, dtype=torch.int32, device=dev)
     if n_photons is None:
         quota0 = torch.full((n_lanes,), photons_per_lane, dtype=torch.int32,
@@ -553,14 +893,13 @@ def run_batch_record(domain: OpticalDomain, surface: Surface,
         n_ph = min(int(n_photons), n_lanes * photons_per_lane)
         quota0 = (n_ph // n_lanes + (lane_i < n_ph % n_lanes)).to(torch.int32)
     st = RecordState.initial(quota0, prm[P_BETA_MAX])
-    acc = torch.zeros(prm.n_acc, dtype=torch.float32, device=dev)
-    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    tally = RecordTally.zeros(prm, dev)
     k = rcfg.steps_per_call
     n_started, n_calls, work = 0, 0, True
     while work and n_calls * k < rcfg.max_steps:
-        counts.zero_()
-        launch(st, tab, prm, seed, n_calls * k, k, acc, counts)
-        started, work_left = counts.tolist()
+        tally.counts[:2] = 0
+        launch(st, tab, prm, seed, n_calls * k, k, tally)
+        started, work_left = tally.counts[:2].tolist()
         n_started += started
         work = work_left > 0
         # any lane may run any photon: streams are keyed by (lane, step)
@@ -570,32 +909,55 @@ def run_batch_record(domain: OpticalDomain, surface: Surface,
         n_calls += 1
     nx, ny, nz = domain.grid.shape
     nxy = nx * ny
+    acc = tally.acc
     flux_up = acc[:nxy].reshape(nx, ny)
     flux_down = acc[nxy:2 * nxy].reshape(nx, ny)
     absorbed = acc[2 * nxy:].reshape((nx, ny, nz) if rcfg.vol_tally
                                      else (nx, ny))
-    n_bad = int(st.alive.sum())
-    return flux_up, flux_down, absorbed, n_started, n_bad, n_calls
+    n_cut = int(tally.counts[2])
+    n_bad = int(st.alive.sum()) + n_cut
+    out = (flux_up, flux_down, absorbed, n_started, n_bad, n_calls)
+    if not prm.n_dirs:
+        return out
+    img = tally.img[:prm.n_img].reshape(prm.n_sec, prm.n_dirs, nxy)
+    if prm.le_cap:
+        excess = tally.exc.reshape(prm.n_sec, prm.n_dirs).T
+        image = le.redistribute_excess(img.sum(dim=0), img, excess)
+    else:
+        image = img[0]
+    return out + (image.T.reshape(nx, ny, prm.n_dirs), n_cut)
 
 
 def run_batch_record_tallies(domain, surface, source, seed: int, config,
-                             n_photons=None, launch=record_launch):
-    """``run_batch``-compatible entry (port of ``run_batch_pallas_tallies``
-    without radiance): returns a ``transport.integrator.Tallies``."""
+                             n_photons=None, launch=record_launch,
+                             intensity_config=None, intensity_dirs=None,
+                             radiance_rows: int = RADIANCE_ROWS):
+    """``run_batch``-compatible entry (port of ``run_batch_pallas_tallies``):
+    returns a ``transport.integrator.Tallies``. A radiance run uses at most
+    ``radiance_rows`` rows of 128 lanes and folds the rest of the batch
+    into per-lane quota (pallas_kernel.py:3278-3291)."""
     # absorption per column unless the 3D field or its profile is wanted
     vol = config.need_volume_absorption or config.need_absorption_profile
     rcfg, ppl = config_for(config.n_lanes, config.photons_per_lane,
                            config.max_steps, vol_tally=vol)
+    if intensity_config is not None:
+        rows = min(rcfg.rows, radiance_rows)
+        ppl = -(-config.photons_per_batch // (rows * LANES_PER_ROW))
+        rcfg = dataclasses.replace(rcfg, rows=rows)
     if n_photons is None:
         n_photons = config.photons_per_batch
-    fu, fd, ab, n_started, n_bad, n_calls = run_batch_record(
+    out = run_batch_record(
         domain, surface, source, seed, rcfg, ppl, n_photons=n_photons,
         use_russian_roulette=config.use_russian_roulette,
         russian_roulette_weight=config.russian_roulette_weight,
-        launch=launch)
+        launch=launch, intensity_config=intensity_config,
+        intensity_dirs=intensity_dirs)
+    fu, fd, ab, n_started, n_bad, n_calls = out[:6]
     return Tallies(
         flux_up=fu, flux_down=fd,
         flux_absorbed=ab.sum(dim=2) if vol else ab,
         volume_absorption=ab if vol else None,
+        intensity=out[6] if len(out) > 6 else None,
         n_photons=n_started, n_bad=n_bad,
+        n_cut=out[7] if len(out) > 6 else 0,
         n_steps=n_calls * rcfg.steps_per_call)

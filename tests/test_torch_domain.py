@@ -46,6 +46,8 @@ def jax_arrays(dom):
                 phase_index=np.asarray(dom.phase_index),
                 cell_records=np.asarray(dom.cell_records),
                 inverse=np.asarray(dom.tables.inverse),
+                forward=np.asarray(dom.tables.forward),
+                forward_orig=np.asarray(dom.tables.forward_orig),
                 offsets=np.asarray(dom.tables.offsets), all_hg=dom.all_hg,
                 uniform_ssa=dom.uniform_ssa, uniform_hg=dom.uniform_hg,
                 macro_factor=dom.macro_factor)
@@ -63,6 +65,10 @@ def assert_same_domain(tdom, jdom):
                                   np.asarray(jdom.phase_index))
     np.testing.assert_array_equal(tdom.tables.inverse.numpy(),
                                   np.asarray(jdom.tables.inverse))
+    np.testing.assert_array_equal(tdom.tables.forward.numpy(),
+                                  np.asarray(jdom.tables.forward))
+    np.testing.assert_array_equal(tdom.tables.forward_orig.numpy(),
+                                  np.asarray(jdom.tables.forward_orig))
     np.testing.assert_array_equal(tdom.grid.z_edges.numpy(),
                                   np.asarray(jdom.grid.z_edges))
     assert tdom.max_extinction == float(jdom.max_extinction)
@@ -87,6 +93,21 @@ def random_hg_components(port: bool):
                  PF.henyey_greenstein(-0.3, 32)], key=[1.0, 2.0])
     grid = G.regular(nx, ny, nz, 0.1, 0.2, 0.05)
     return grid, [Comp("rand", ext, ssa, pfi, table)]
+
+
+def peaked_components(port: bool):
+    """Two-entry domain whose first entry (HG g = 0.9, 256 moments) is
+    peaked enough for the 7-degree hybrid transform to replace its peak."""
+    rs = np.random.default_rng(7)
+    nx, ny, nz = 4, 2, 3
+    ext = rs.uniform(0.5, 2.0, (nx, ny, nz))
+    pfi = rs.integers(0, 2, (nx, ny, nz)).astype(np.int32)
+    PF, PFT, Comp, G = ((PhaseFunction, PhaseFunctionTable, OpticalComponent,
+                         Grid) if port else (JPF, JPFT, JComp, JGrid))
+    table = PFT([PF.henyey_greenstein(0.9, 256),
+                 PF.henyey_greenstein(0.5, 32)], key=[1.0, 2.0])
+    grid = G.regular(nx, ny, nz, 0.1, 0.2, 0.05)
+    return grid, [Comp("peaked", ext, np.full_like(ext, 0.99), pfi, table)]
 
 
 @pytest.mark.parametrize("macro_factor", [0, 8, 16])
@@ -116,8 +137,26 @@ def test_unported_domain_options_raise():
     tg, tc, _ = step_cloud_scene()
     with pytest.raises(NotImplementedError, match="K4"):
         build_domain(tg, tc, device_fields="compact")
-    with pytest.raises(NotImplementedError, match="K2"):
-        build_domain(tg, tc, compute_intensity_tables=True)
+
+
+@pytest.mark.parametrize("hybrid_width_deg", [0.0, 7.0])
+def test_forward_tables_match_jax(hybrid_width_deg):
+    """Radiance phase tables (forward, and hybridized with a Gaussian
+    peak of the given width) equal the JAX package's, also when the JAX
+    domain is carried across by domain_from_numpy; with a hybrid width
+    the forward table differs from forward_orig."""
+    kw = dict(n_cdf_steps=301, n_forward_angles=901,
+              compute_intensity_tables=True,
+              hybrid_width_deg=hybrid_width_deg)
+    tg, tc = peaked_components(port=True)
+    jg, jc = peaked_components(port=False)
+    tdom, jdom = build_domain(tg, tc, **kw), jbuild(jg, jc, **kw)
+    assert tdom.tables.forward.shape == (2, 901)
+    assert_same_domain(tdom, jdom)
+    assert_same_domain(domain_from_numpy(jax_arrays(jdom)), jdom)
+    hybridized = not np.array_equal(tdom.tables.forward.numpy(),
+                                    tdom.tables.forward_orig.numpy())
+    assert hybridized == (hybrid_width_deg > 0)
 
 
 def _component_fields(c):

@@ -110,6 +110,83 @@ def test_cli_outputs_have_the_jax_schema(tmp_path, capsys):
         assert sorted(a._attributes) == sorted(b._attributes)
 
 
+def test_cli_radiance_outputs_have_the_jax_schema(tmp_path, capsys):
+    """run/step_cloud_radiance.nml at 2 x 1,024 photons (with a netCDF
+    output added): the radiance file and the netCDF intensity variables
+    equal what the JAX writers make of the same numbers."""
+    with open(os.path.join(ROOT, "run", "step_cloud_radiance.nml")) as f:
+        text = f.read()
+    text = text.replace("numPhotonsPerBatch = 262144",
+                        "numPhotonsPerBatch = 1024")
+    text = text.replace("numBatches = 8", "numBatches = 2")
+    text = text.replace("&fileNames\n", "&fileNames\n  outputNetcdfFile = "
+                        "'StepCloud_radiance.nc'\n")
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        assert cli.main(["mkdomain", "step_cloud", "StepCloud.dom",
+                         "ssa=0.99"]) == 0
+        with open("deck.nml", "w") as f:
+            f.write(text)
+        capsys.readouterr()
+        assert cli.main(["run", "deck.nml", "--device", "cpu"]) == 0
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    finally:
+        os.chdir(cwd)
+    assert out["total_photons"] == 2048 and out["n_bad"] == 0
+    assert len(out["mean_intensity"]) == 6
+    assert min(out["mean_intensity"]) > 0
+    cfg = jload(str(tmp_path / "deck.nml"))
+    mean, err = {}, {}
+    with netcdf_file(str(tmp_path / "StepCloud_radiance.nc"), "r",
+                     mmap=False) as nc:
+        v = nc.variables
+        for key, name in (("flux_up", "fluxUp"), ("flux_down", "fluxDown"),
+                          ("flux_absorbed", "fluxAbsorbed"),
+                          ("intensity", "intensity")):
+            mean[key] = np.array(v[name][:]).T
+            err[key] = np.array(v[name + "_StdErr"][:]).T
+        assert mean["intensity"].shape == (32, 1, 6)
+        total, n_batches = int(nc.totalPhotons), int(nc.numBatches)
+    results = JResults(mean=mean, stderr=err, total_photons=total,
+                       n_batches=n_batches, solar_flux=1.0,
+                       elapsed_seconds=0.0, config=cfg)
+    grid = jio.read_domain(str(tmp_path / "StepCloud.dom"))[0]
+    jdir = tmp_path / "jax"
+    jdir.mkdir()
+    os.chdir(jdir)
+    try:
+        written = joutput.write_all(results, grid)
+    finally:
+        os.chdir(cwd)
+    assert sorted(written) == sorted(out["outputs"])
+    with open(tmp_path / "StepCloud_radiance.out") as f:
+        port_text = f.read()
+    with open(jdir / "StepCloud_radiance.out") as f:
+        assert port_text == f.read()
+    with netcdf_file(str(tmp_path / "StepCloud_radiance.nc"), "r",
+                     mmap=False) as a, \
+            netcdf_file(str(jdir / "StepCloud_radiance.nc"), "r",
+                        mmap=False) as b:
+        assert dict(a.dimensions) == dict(b.dimensions)
+        assert sorted(a.variables) == sorted(b.variables)
+        for name in a.variables:
+            assert a.variables[name].dimensions == \
+                b.variables[name].dimensions
+            np.testing.assert_array_equal(a.variables[name][:],
+                                          b.variables[name][:])
+
+
+def test_cli_cuda_without_a_card_raises(monkeypatch):
+    """--device cuda (the default) never falls back to the CPU path."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    deck = os.path.join(ROOT, "run", "step_cloud_radiance.nml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["run", deck, "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["run", deck])
+
+
 def test_cli_matches_step_cloud_goldens(tmp_path, capsys):
     """2^18 photons through the deck against the goldens, with
     tests/test_golden.py's 4.5-sigma formula. The domain file stores the
@@ -131,6 +208,7 @@ def test_port_imports_no_jax():
             "import mcbrat3d_tpu_torch.driver.cli\n"
             "import mcbrat3d_tpu_torch.driver.simulate\n"
             "import mcbrat3d_tpu_torch.transport.record_kernel\n"
+            "import mcbrat3d_tpu_torch.scenes.plane_parallel\n"
             "import mcbrat3d_tpu_torch._build\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'mcbrat3d_tpu.'))]\n"

@@ -197,4 +197,4 @@ def test_wrapper_refuses_other_devices(step_cloud):
         torch.ones(128, dtype=torch.int32, device="meta"), 1.0)
     with pytest.raises(ValueError, match="meta"):
         rk.record_launch(st, rk.RecordTables.from_domain(step_cloud), prm,
-                         0, 0, 1, torch.zeros(prm.n_acc), torch.zeros(2))
+                         0, 0, 1, rk.RecordTally.zeros(prm, "cpu"))
