@@ -6,8 +6,8 @@
 Phases, each asserting; any failure exits non-zero:
 
 1. print the card (nvidia-smi name and power limit) and build the CUDA
-   record kernel from mcbrat3d_tpu_torch/csrc, reporting the build time
-   and ptxas registers/spills;
+   record and column kernels from mcbrat3d_tpu_torch/csrc (one nvcc each,
+   started together), reporting the build times and ptxas registers/spills;
 2. flux kernel against its plain PyTorch version on the card, same seeds:
    the step cloud at 2^20 photons for macro_factor 0 and 8, both tally
    layouts, plus the tabulated-phase configuration the namelist deck runs
@@ -22,6 +22,16 @@ Phases, each asserting; any failure exits non-zero:
 2c. analytic radiance anchors: a thin isotropic slab (I = tau / (4 pi mu))
    and a clear atmosphere over a Lambertian surface (I = albedo / pi per
    unit incident flux on the horizontal);
+2d. column kernel against its plain version, same seeds, on the
+   128 x 128 x 64 broken cloud at 2^17 photons (2^16 lanes x 2; the plain
+   step takes ~0.7 s per launch, so 2^20 would take most of the time
+   limit): macro_factor 8 with analytic HG and the tabulated row, each
+   with and without the 3D tally, macro_factor 0 with HG and no 3D tally
+   and with the table and the 3D tally, plus a table too large for shared
+   memory, the random-azimuth and flux sources, and roulette off;
+   domain-mean R/T/A within 2e-3, per-column fluxes within 1e-5 and the
+   z profile within 5e-4 of its peak (float32 atomic order: same paths),
+   per-pixel fluxes within 5 sigma, kernel reruns within 1e-5;
 3. the main path through the command line: mkdomain step_cloud (512
    Legendre moments), then run/step_cloud_mono.nml (16 x 1,048,576
    photons, 3D absorption tally)
@@ -36,15 +46,24 @@ Phases, each asserting; any failure exits non-zero:
    sigma of values frozen from the JAX package; then
    run/step_cloud_radiance_648.nml at 2 x 32,768 photons (11 chunked
    passes): image (32, 1, 648), n_bad == 0;
+3c. the Landsat-scale deck through the command line: mkdomain broken_cloud,
+   then run/landsat_scale.nml (16 x 1,048,576 photons, absorption profile)
+   on cuda; n_bad == 0, flux and netCDF files written, the column kernel
+   launched and no plain step run, R/T/A and the profile's column integral
+   within 4.5 combined sigma of values frozen from the JAX package;
 4. one headline batch (macro_factor 16, 2^16 lanes x 1024 photons, flux
    tallies only): photons/s of the kernel, and of the plain version at the
    same lane count;
 4b. a radiance headline: one step-cloud batch of the radiance deck at 6
    and at 64 directions (32 rows of 128 lanes), kernel and plain
-   photons/s and ms per launch, and the kernel once more at 512 rows.
+   photons/s and ms per launch, and the kernel once more at 512 rows;
+4c. the Landsat headline (bench.py:497-545: the broken cloud with analytic
+   HG, macro_factor 8, 2^16 lanes x 16 photons, no 3D tally): kernel
+   photons/s and ms per launch, plain ms per launch at the same lanes.
 
-Prints the card line, then one JSON line describing each kernel, then the
-final JSON status line. ``--only`` runs a subset of the phases (1 always
+Prints the card line, then one JSON line describing each kernel (with its
+time, the least time the card could take for the same work and what bounds
+that), then the final JSON status line. ``--only`` runs a subset of the phases (1 always
 runs) and prints no result lines.
 """
 
@@ -84,6 +103,16 @@ RAD_PIXEL_TOL_KERNEL_VS_PLAIN = 0.02
 # Contribution cap of the capped 2b case: low enough that the forward
 # peak's contributions clip (checked: the image must change).
 RAD_LOW_CAP = 0.1
+# Column kernel vs plain, same seeds: both divide and round alike, so every
+# photon takes the same path (equal lane-steps on an H100) and the tallies
+# differ only by float32 atomic order. Per column, on the fluxes normalized
+# by photons per column (values of 0.1 to 0.6), the gap was <= 9.5e-7; on
+# the z profile, relative to its largest level, <= 4.5e-5 (64 levels, each
+# a sum of ~1e5 weights). A tally in the wrong column (x/y swapped, a
+# wrong wrap) or a profile flushed into the wrong levels moves single
+# columns or levels by a large part of their value.
+COL_PIXEL_TOL_KERNEL_VS_PLAIN = 1e-5
+COL_PROFILE_TOL_KERNEL_VS_PLAIN = 5e-4
 # Shared memory the kernel's tallies may take (csrc/record_kernel.cu
 # kMaxSmem); a larger radiance image goes to global atomics.
 KERNEL_SMEM_BUDGET = 200 * 1024
@@ -97,6 +126,31 @@ JAX_RADIANCE = (0.10267673, 0.10264964, 0.14451702, 0.11127655, 0.28103105,
                 0.13953311)
 JAX_RADIANCE_SE = (0.00012624, 0.00013953, 0.00018308, 0.00016109,
                    0.00034415, 0.00038115)
+# run/landsat_scale.nml from the JAX package on the CPU (XLA wave kernel,
+# independent of the port's kernels), on the file of `mkdomain
+# broken_cloud` (64 Legendre moments, macro factor 8): 16 batches of
+# 131,072 photons, iseed 10; domain-mean R, T, A and the absorption
+# profile's column integral (sum of profile * dz * 1000), each with its
+# standard error over batches (the integral's is A's: it is the same
+# quantity).
+JAX_LANDSAT_RTA = (0.4628094509243965, 0.3781909700483084,
+                   0.15901039727032185)
+JAX_LANDSAT_RTA_SE = (2.66297028e-04, 2.85904954e-04, 8.17650074e-05)
+JAX_LANDSAT_PROFILE_TOTAL = 0.15901039629769975
+# Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): device
+# memory bytes/s and float32 operations/s outside
+# the tensor cores.
+H100_BYTES_PER_S = 3.35e12
+H100_F32_OPS_PER_S = 67e12
+# Operations of one transport step of a lane with a live photon, counted
+# from the kernel sources: five to seven counter uniforms of ~20 integer
+# operations each, log1pf, the divisions, the wrap, cell indexing, the
+# tally atomic, and on a scatter the sampling, sincosf and the rotation
+# (transcendentals as their instruction expansions). Integer operations
+# are charged at the float32 rate, which is the card's faster one, so the
+# bound stays a lower bound. The radiance kernel's march operations are
+# not counted: its bound is the flux step's.
+OPS_PER_LANE_STEP = {"record_kernel": 300, "col_kernel": 320}
 
 
 def _sync():
@@ -116,6 +170,34 @@ def _timed(fn):
     out = fn()
     _sync()
     return out, time.perf_counter() - t0
+
+
+def _bound(lane_steps, n_launch, ops_per_step, n_lanes, state_bytes,
+           table_bytes, tally_bytes):
+    """(bound_ms, bound_by) per launch: the least time the card could take
+    for one launch's work, the larger of its bytes (state read and written
+    once, tables read once, tallies written once) over the memory rate and
+    its operations (this run's lane-steps with a live photon) over the
+    float32 rate."""
+    nbytes = 2 * state_bytes * n_lanes + table_bytes + tally_bytes
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = lane_steps / max(n_launch, 1) * ops_per_step / H100_F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def _pixel_z(pairs, n):
+    """Largest per-pixel z of tally pairs and largest difference of the
+    normalized fluxes (photons per column as the normalizer)."""
+    z_max = err = 0.0
+    for a, b in pairs:
+        a = a.double().cpu()
+        b = b.double().cpu()
+        per_col = n / a[..., 0].numel() if a.dim() == 3 else n / a.numel()
+        sigma = ((a + b).clamp(min=1.0) / 2).sqrt()
+        z_max = max(z_max, float(((a - b).abs() / sigma).max()))
+        err = max(err, float((a - b).abs().max()) / per_col)
+    return z_max, err
 
 
 def phase_compare(rk, make_step_cloud, Surface, illumination, KernelConfig,
@@ -160,16 +242,10 @@ def phase_compare(rk, make_step_cloud, Surface, illumination, KernelConfig,
         assert tk.n_bad == 0 and tp.n_bad == 0, (tk.n_bad, tp.n_bad)
         rta_k, rta_p = _rta(tk), _rta(tp)
         gap = max(abs(a - b) for a, b in zip(rta_k, rta_p))
-        n = tk.n_photons
-        z_max = 0.0
-        for a, b in ((tk.flux_up, tp.flux_up), (tk.flux_down, tp.flux_down),
-                     (tk.flux_absorbed, tp.flux_absorbed)):
-            a = a.double().cpu()
-            b = b.double().cpu()
-            per_col = n / a.numel()
-            sigma = ((a + b).clamp(min=1.0) / 2).sqrt()
-            z_max = max(z_max, float(((a - b).abs() / sigma).max()))
-            max_err = max(max_err, float((a - b).abs().max()) / per_col)
+        z_max, err = _pixel_z(
+            [(tk.flux_up, tp.flux_up), (tk.flux_down, tp.flux_down),
+             (tk.flux_absorbed, tp.flux_absorbed)], tk.n_photons)
+        max_err = max(max_err, err)
         print(f"compare macro={mf} vol={vol} analytic={analytic} "
               f"albedo={albedo} roulette={rr}: "
               f"kernel R/T/A={rta_k} plain={rta_p} gap={gap:.3e} "
@@ -181,37 +257,52 @@ def phase_compare(rk, make_step_cloud, Surface, illumination, KernelConfig,
     return max_err
 
 
-def _run_cli_deck(cli, rk, deck_text):
+# 512 Legendre moments: the file stores the phase function as moments, and
+# the default 64 shift R by -1.9e-3 against the analytic-HG goldens (the
+# JAX file path shows the same shift)
+STEP_CLOUD_DOMAIN = ("step_cloud", "StepCloud.dom", "ssa=0.99",
+                     "n_legendre=512")
+
+
+def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN):
     """mkdomain + run a deck through the CLI on cuda in the current
     directory; returns the JSON line, the seconds and the launches of the
-    run (all, radiance), and asserts the plain step never ran."""
+    run (record kernel, its radiance launches, column kernel), and asserts
+    that no plain step ran. Every count is set to 0 just before the run
+    and read just after it."""
     Path("deck.nml").write_text(deck_text)
-    # 512 Legendre moments: the file stores the phase function as moments,
-    # and the default 64 shift R by -1.9e-3 against the analytic-HG
-    # goldens (the JAX file path shows the same shift)
-    assert cli.main(["mkdomain", "step_cloud", "StepCloud.dom",
-                     "ssa=0.99", "n_legendre=512"]) == 0
+    assert cli.main(["mkdomain", *domain]) == 0
     plain_steps = []
-    plain = rk.record_launch_plain
+    patched = [(rk, "record_launch_plain")]
+    if ck is not None:
+        patched.append((ck, "col_launch_plain"))
+    originals = [getattr(m, name) for m, name in patched]
 
-    def counting_plain(*args, **kwargs):
-        plain_steps.append(1)
-        return plain(*args, **kwargs)
+    def counting(plain):
+        def run_plain(*args, **kwargs):
+            plain_steps.append(1)
+            return plain(*args, **kwargs)
+        return run_plain
 
-    rk.record_launch_plain = counting_plain
+    for (m, name), plain in zip(patched, originals):
+        setattr(m, name, counting(plain))
     buf = io.StringIO()
     rk.LAUNCHES = rk.RADIANCE_LAUNCHES = 0
+    if ck is not None:
+        ck.COL_LAUNCHES = 0
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["run", "deck.nml", "--device", "cuda"])
     finally:
-        rk.record_launch_plain = plain
+        for (m, name), plain in zip(patched, originals):
+            setattr(m, name, plain)
     seconds = time.perf_counter() - t0
-    launches = (rk.LAUNCHES, rk.RADIANCE_LAUNCHES)
+    launches = (rk.LAUNCHES, rk.RADIANCE_LAUNCHES,
+                ck.COL_LAUNCHES if ck is not None else 0)
     assert rc == 0
-    assert launches[0] > 0, "the deck did not launch the record kernel"
-    assert not plain_steps, "the deck ran the plain PyTorch step"
+    assert launches[0] + launches[2] > 0, "the deck launched no kernel"
+    assert not plain_steps, "the deck ran a plain PyTorch step"
     return json.loads(buf.getvalue().strip().splitlines()[-1]), seconds, \
         launches
 
@@ -222,12 +313,13 @@ def phase_main_path(rk, cli):
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            out, seconds, (launches, _) = _run_cli_deck(
+            out, seconds, (launches, _, _) = _run_cli_deck(
                 cli, rk, (ROOT / "run" / "step_cloud_mono.nml").read_text())
             for f in ("StepCloud_flux.out", "StepCloud_results.nc"):
                 assert Path(f).stat().st_size > 0, f
         finally:
             os.chdir(cwd)
+    assert launches > 0, "the deck did not launch the record kernel"
     n = out["total_photons"]
     rta = (out["mean_flux_up"], out["mean_flux_down"],
            out["mean_flux_absorbed"])
@@ -444,7 +536,7 @@ def phase_radiance_deck(rk, cli):
         tmp = Path(tmp)
         os.chdir(tmp)
         try:
-            out, seconds, (_, launches) = _run_cli_deck(
+            out, seconds, (_, launches, _) = _run_cli_deck(
                 cli, rk, _with_netcdf(deck, "StepCloud_radiance.nc"))
             assert (tmp / "StepCloud_radiance.out").stat().st_size > 0
             with netcdf_file(str(tmp / "StepCloud_radiance.nc"), "r",
@@ -486,7 +578,7 @@ def phase_radiance_deck(rk, cli):
         tmp = Path(tmp)
         os.chdir(tmp)
         try:
-            out, seconds, (_, launches648) = _run_cli_deck(
+            out, seconds, (_, launches648, _) = _run_cli_deck(
                 cli, rk, _with_netcdf(deck, "StepCloud_radiance648.nc"))
             assert (tmp / "StepCloud_radiance648.out").stat().st_size > 0
             with netcdf_file(str(tmp / "StepCloud_radiance648.nc"), "r",
@@ -546,7 +638,14 @@ def phase_radiance_headline(rk, le, config, make_step_cloud, Surface,
             res[(n_dirs, name)] = dict(
                 photons_per_s=t.n_photons / sec,
                 ms_per_launch=1e3 * sec / n_launch, photons=t.n_photons,
-                seconds=sec, launches=n_launch, rows=min(rows, 512))
+                seconds=sec, launches=n_launch, rows=min(rows, 512),
+                lane_steps=t.n_lane_steps,
+                # run_batch_record_tallies' radiance geometry
+                n_lanes=128 * min(max(8, min(512, n_lanes // 128)), rows),
+                table_bytes=4 * (dom.cell_records.numel() + 3 * n_dirs
+                                 + 2 * rk.FWD_N_S
+                                 * dom.tables.forward.shape[0]),
+                tally_bytes=4 * (3 + n_dirs) * dom.grid.nx * dom.grid.ny)
             print(f"radiance headline {n_dirs} dirs {name}: {t.n_photons} "
                   f"photons in {sec:.3f} s = {t.n_photons / sec:.6g} "
                   f"photons/s, {n_launch} launches, "
@@ -579,7 +678,10 @@ def phase_headline(rk, make_step_cloud, Surface, illumination, KernelConfig,
         res[name] = dict(photons_per_s=t.n_photons / sec,
                          ms_per_launch=1e3 * sec / n_launch,
                          photons=t.n_photons, seconds=sec,
-                         launches=n_launch, rta=_rta(t))
+                         launches=n_launch, rta=_rta(t),
+                         lane_steps=t.n_lane_steps,
+                         table_bytes=4 * dom.cell_records.numel(),
+                         tally_bytes=4 * 3 * dom.grid.nx * dom.grid.ny)
         print(f"headline {name}: {t.n_photons} photons in {sec:.3f} s = "
               f"{t.n_photons / sec:.6g} photons/s, {n_launch} launches, "
               f"{1e3 * sec / n_launch:.4f} ms/launch, R/T/A={_rta(t)}",
@@ -587,7 +689,196 @@ def phase_headline(rk, make_step_cloud, Surface, illumination, KernelConfig,
     return res
 
 
-PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b")
+def _broken_cloud(broken_cloud_scene, build_domain, macro_factor,
+                  n_cdf_steps):
+    """The Landsat-class broken cloud (128 x 128 x 64, analytic HG) on the
+    card."""
+    grid, comps, _ = broken_cloud_scene(device="cuda")
+    return build_domain(grid, comps, n_cdf_steps=n_cdf_steps,
+                        macro_factor=macro_factor)
+
+
+def phase_col_compare(ck, broken_cloud_scene, build_domain, Surface,
+                      illumination, KernelConfig, rng):
+    """Column kernel vs plain on the card; returns the largest per-pixel
+    difference of the normalized fluxes."""
+    import dataclasses
+
+    sources = {"directional": illumination.directional(0.5, 0.0),
+               "random_azimuth": illumination.random_azimuth(0.5),
+               "flux": illumination.flux()}
+    surface = Surface.lambertian(0.2)
+    # (macro_factor, analytic HG, 3D tally, inverse-CDF steps, source,
+    # roulette): every combination of the first three at macro 8; at macro
+    # 0 two that still take each flag both ways (its long null-collision
+    # tails keep the plain step ~60 s per case). The 20,001-step table
+    # (160 KB) is past the shared-memory budget, so the kernel reads it
+    # through __ldg. The last three rows take the other two sources and
+    # roulette off, each a template flag of its own.
+    cases = [(0, True, False, 10001), (0, False, True, 10001)]
+    cases += [(8, analytic, vol, 10001) for analytic in (True, False)
+              for vol in (False, True)]
+    cases.append((8, False, False, 20001))
+    cases = [c + ("directional", True) for c in cases]
+    cases += [(8, True, False, 10001, "random_azimuth", True),
+              (8, False, False, 10001, "flux", True),
+              (8, True, True, 10001, "directional", False)]
+    domains = {}
+    max_err = 0.0
+    for i, (mf, analytic, vol, n_cdf, src, rr) in enumerate(cases):
+        if (mf, n_cdf) not in domains:
+            domains[(mf, n_cdf)] = _broken_cloud(
+                broken_cloud_scene, build_domain, mf, n_cdf)
+        dom = domains[(mf, n_cdf)]
+        if not analytic:  # as read from a file: the tabulated row
+            dom = dataclasses.replace(dom, all_hg=False)
+        cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=2,
+                           max_steps=400_000, need_volume_absorption=vol,
+                           use_russian_roulette=rr)
+        seed = rng.batch_seed(30, i)
+
+        def run(launch=ck.col_launch):
+            return ck.run_batch_col_tallies(dom, surface, sources[src], seed,
+                                            cfg, launch=launch)
+
+        before = ck.COL_LAUNCHES
+        tk, sk = _timed(run)
+        assert ck.COL_LAUNCHES > before, "kernel was not launched"
+        tk2 = run()
+        assert (tk2.n_photons, tk2.n_bad) == (tk.n_photons, tk.n_bad)
+        rerun = max(abs(float(a.sum()) / float(b.sum()) - 1.0)
+                    for a, b in ((tk.flux_up, tk2.flux_up),
+                                 (tk.flux_down, tk2.flux_down),
+                                 (tk.flux_absorbed, tk2.flux_absorbed)))
+        assert rerun < 1e-5, f"kernel reruns differ by {rerun:.2e}"
+        tp, sp = _timed(lambda: run(ck.col_launch_plain))
+        assert tk.n_photons == tp.n_photons == 1 << 17, (tk.n_photons,
+                                                         tp.n_photons)
+        assert tk.n_bad == 0 and tp.n_bad == 0, (tk.n_bad, tp.n_bad)
+        rta_k, rta_p = _rta(tk), _rta(tp)
+        gap = max(abs(a - b) for a, b in zip(rta_k, rta_p))
+        pairs = [(tk.flux_up, tp.flux_up), (tk.flux_down, tp.flux_down),
+                 (tk.flux_absorbed, tp.flux_absorbed)]
+        if vol:
+            pairs.append((tk.volume_absorption, tp.volume_absorption))
+        z_max, err = _pixel_z(pairs, tk.n_photons)
+        max_err = max(max_err, err)
+        # each tally's profile and 3D field sum to its column absorption
+        for t in (tk, tp):
+            total = float(t.flux_absorbed.double().sum())
+            assert abs(float(t.absorption_profile.double().sum()) / total
+                       - 1) < 1e-4
+            if vol:
+                assert abs(float(t.volume_absorption.double().sum())
+                           / total - 1) < 1e-4
+        prof_gap = float((tk.absorption_profile.double()
+                          - tp.absorption_profile.double()).abs().max()
+                         / tp.absorption_profile.double().abs().max())
+        print(f"col compare macro={mf} analytic={analytic} vol={vol} "
+              f"n_cdf={n_cdf} source={src} roulette={rr}: kernel "
+              f"R/T/A={rta_k} plain={rta_p} "
+              f"gap={gap:.3e} pixel z_max={z_max:.2f} pixel gap={err:.2e} "
+              f"profile gap={prof_gap:.2e} rerun rel={rerun:.1e} "
+              f"lane-steps {tk.n_lane_steps} / {tp.n_lane_steps}, "
+              f"kernel {sk:.3f} s plain {sp:.3f} s", flush=True)
+        assert gap < RTA_TOL_KERNEL_VS_PLAIN, gap
+        assert err < COL_PIXEL_TOL_KERNEL_VS_PLAIN, err
+        assert prof_gap < COL_PROFILE_TOL_KERNEL_VS_PLAIN, prof_gap
+        assert z_max < 5.0, z_max
+    return max_err
+
+
+def phase_landsat_deck(ck, rk, cli):
+    """run/landsat_scale.nml through the CLI on cuda against the JAX
+    package's frozen values."""
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    deck = (ROOT / "run" / "landsat_scale.nml").read_text()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            out, seconds, (rec_launches, _, launches) = _run_cli_deck(
+                cli, rk, deck, ck=ck,
+                domain=("broken_cloud", "BrokenCloud.dom"))
+            # the flux file's first data line: the domain means, each
+            # followed by its standard error over batches
+            with open(tmp / "landsat_flux.out") as f:
+                means = [float(v) for v in next(
+                    ln for ln in f if not ln.startswith("!")).split()]
+            with netcdf_file(str(tmp / "landsat_results.nc"), "r",
+                             mmap=False) as nc:
+                prof = np.array(nc.variables["absorptionProfile"][:])
+                dz = np.diff(np.array(nc.variables["z-Edges"][:],
+                                      np.float64))
+        finally:
+            os.chdir(cwd)
+    n = out["total_photons"]
+    rta = (out["mean_flux_up"], out["mean_flux_down"],
+           out["mean_flux_absorbed"])
+    se = tuple(means[1::2])
+    assert all(abs(a / b - 1) < 1e-6 for a, b in zip(means[0::2], rta))
+    prof_total = float((prof * dz * 1000.0).sum())
+    print(f"landsat deck: {n} photons in {out['n_batches']} batches, "
+          f"n_bad={out['n_bad']}, R/T/A={rta} +- {se}, profile integral "
+          f"{prof_total:.8f}, {seconds:.2f} s ({n / seconds:.4g} photons/s "
+          f"incl. setup and output), {launches} column kernel launches; "
+          f"JAX package {JAX_LANDSAT_RTA} +- {JAX_LANDSAT_RTA_SE}, profile "
+          f"integral {JAX_LANDSAT_PROFILE_TOTAL:.8f}", flush=True)
+    assert n == 16 * 1_048_576 and out["n_batches"] == 16
+    assert out["n_bad"] == 0
+    assert launches > 0 and rec_launches == 0, (launches, rec_launches)
+    assert prof.shape == (64,) and np.isfinite(prof).all()
+    # the profile integrates to the domain-mean absorption (one tally)
+    assert abs(prof_total / rta[2] - 1.0) < 1e-4, (prof_total, rta[2])
+    for got, got_se, want, want_se, name in zip(
+            rta + (prof_total,), se + (se[2],),
+            JAX_LANDSAT_RTA + (JAX_LANDSAT_PROFILE_TOTAL,),
+            JAX_LANDSAT_RTA_SE + (JAX_LANDSAT_RTA_SE[2],),
+            ("R", "T", "A", "profile")):
+        sigma = (got_se ** 2 + want_se ** 2) ** 0.5
+        assert abs(got - want) < 4.5 * sigma, (name, got, want, 4.5 * sigma)
+    return launches
+
+
+def phase_col_headline(ck, broken_cloud_scene, build_domain, Surface,
+                       illumination, KernelConfig, rng):
+    """The Landsat headline of bench.py:497-545: kernel photons/s and ms
+    per launch at 2^16 lanes x 16 photons, plain ms per launch at the same
+    lanes (2 photons each)."""
+    dom = _broken_cloud(broken_cloud_scene, build_domain, 8, 201)
+    surface = Surface.lambertian(0.2)
+    source = illumination.directional(0.5, 0.0)
+    res = {}
+    for name, ppl, launch in (("kernel", 16, ck.col_launch),
+                              ("plain", 2, ck.col_launch_plain)):
+        cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=ppl,
+                           max_steps=400_000, need_volume_absorption=False)
+        if name == "kernel":  # warm-up batch
+            ck.run_batch_col_tallies(dom, surface, source,
+                                     rng.batch_seed(0, 99), cfg)
+        t, sec = _timed(lambda: ck.run_batch_col_tallies(
+            dom, surface, source, rng.batch_seed(0, 0), cfg, launch=launch))
+        assert t.volume_absorption is None and t.n_bad == 0
+        assert t.n_photons == (1 << 16) * ppl
+        n_launch = t.n_steps // 128
+        res[name] = dict(photons_per_s=t.n_photons / sec,
+                         ms_per_launch=1e3 * sec / n_launch,
+                         photons=t.n_photons, seconds=sec,
+                         launches=n_launch, rta=_rta(t),
+                         lane_steps=t.n_lane_steps,
+                         nxy=dom.grid.nx * dom.grid.ny, nz=dom.grid.nz,
+                         n_blk=dom.macro_table.shape[0])
+        print(f"landsat headline {name}: {t.n_photons} photons in "
+              f"{sec:.3f} s = {t.n_photons / sec:.6g} photons/s, "
+              f"{n_launch} launches, {1e3 * sec / n_launch:.4f} ms/launch, "
+              f"{t.n_lane_steps} lane-steps, R/T/A={_rta(t)}", flush=True)
+    return res
+
+
+PHASES = ("2", "2b", "2c", "2d", "3", "3b", "3c", "4", "4b", "4c")
 
 
 def main(argv=None) -> int:
@@ -612,12 +903,15 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from mcbrat3d_tpu_torch import _build
     from mcbrat3d_tpu_torch.core import rng
+    from mcbrat3d_tpu_torch.domain.domain import build_domain
     from mcbrat3d_tpu_torch.driver import cli, config
     from mcbrat3d_tpu_torch.physics.phase_function import PhaseFunction
     from mcbrat3d_tpu_torch.physics.surface import Surface
+    from mcbrat3d_tpu_torch.scenes.collection import broken_cloud_scene
     from mcbrat3d_tpu_torch.scenes.plane_parallel import make_slab
     from mcbrat3d_tpu_torch.scenes.step_cloud import make_step_cloud
     from mcbrat3d_tpu_torch.sources import illumination
+    from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import local_estimate as le
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
     from mcbrat3d_tpu_torch.transport.integrator import KernelConfig, run_batch
@@ -628,20 +922,28 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}", flush=True)
+          f"device {torch.cuda.get_device_name(0)}; card {card}", flush=True)
     t0 = time.perf_counter()
-    _build.load("record_kernel")
-    info = _build.BUILD_INFO["record_kernel"]
-    print(f"record_kernel built in {info['seconds']:.2f} s "
-          f"(load {time.perf_counter() - t0:.2f} s)", flush=True)
-    name = ""
-    for line in info["log"].splitlines():
-        # record_steps<MACRO, VOL, ANALYTIC, LE> in its mangled name
-        flags = re.search(r"record_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
-        if flags:
-            name = "macro={} vol={} analytic={} LE={}".format(*flags.groups())
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas [{name}]:", line.strip())
+    _build.build_all(["record_kernel", "col_kernel"])
+    print(f"kernels built in {time.perf_counter() - t0:.2f} s (one nvcc "
+          "each, started together)", flush=True)
+    # record_steps<MACRO, VOL, ANALYTIC, LE> and
+    # col_steps<MACRO, ANALYTIC, VOL, RR, SRC> in their mangled names
+    patterns = {
+        "record_kernel": (r"record_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                          "macro={} vol={} analytic={} LE={}"),
+        "col_kernel": (r"col_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E",
+                       "macro={} analytic={} vol={} rr={} src={}")}
+    for lib, (pattern, fmt) in patterns.items():
+        info = _build.BUILD_INFO[lib]
+        print(f"{lib}: nvcc {info['seconds']:.2f} s", flush=True)
+        name = ""
+        for line in info["log"].splitlines():
+            flags = re.search(pattern, line)
+            if flags:
+                name = fmt.format(*flags.groups())
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {lib} [{name}]:", line.strip())
 
     args = (rk, make_step_cloud, Surface, illumination, KernelConfig, rng)
     dirs6 = _deck_directions(config, le, "step_cloud_radiance.nml")
@@ -655,24 +957,48 @@ def main(argv=None) -> int:
     if "2c" in only:
         phase_radiance_anchors(le, make_slab, Surface, illumination,
                                KernelConfig, run_batch, rng)
+    col_args = (ck, broken_cloud_scene, build_domain, Surface, illumination,
+                KernelConfig, rng)
+    if "2d" in only:
+        out["col_max_err"] = phase_col_compare(*col_args)
     if "3" in only:
         out["launches"] = phase_main_path(rk, cli)
     if "3b" in only:
         out["rad_launches"] = phase_radiance_deck(rk, cli)
+    if "3c" in only:
+        out["col_launches"] = phase_landsat_deck(ck, rk, cli)
     if "4" in only:
         out["head"] = phase_headline(*args)
     if "4b" in only:
         out["rad_head"] = phase_radiance_headline(
             rk, le, config, make_step_cloud, Surface, illumination,
             KernelConfig, rng)
+    if "4c" in only:
+        out["col_head"] = phase_col_headline(*col_args)
     if only != set(PHASES):
         print(f"chip_smoke: phases {sorted(only)} passed; no result lines "
               "for a partial run")
         return 0
 
     head, rad_head = out["head"], out["rad_head"]
-    print(card)
-    print(json.dumps({"kernels": [{
+    rad6, col_head = rad_head[(6, "kernel")], out["col_head"]
+    bounds = {
+        "record_kernel": _bound(
+            head["kernel"]["lane_steps"], head["kernel"]["launches"],
+            OPS_PER_LANE_STEP["record_kernel"], 1 << 16, 40,
+            head["kernel"]["table_bytes"], head["kernel"]["tally_bytes"]),
+        "record_kernel_radiance": _bound(
+            rad6["lane_steps"], rad6["launches"],
+            OPS_PER_LANE_STEP["record_kernel"], rad6["n_lanes"], 40,
+            rad6["table_bytes"], rad6["tally_bytes"]),
+        "col_kernel": _bound(
+            col_head["kernel"]["lane_steps"], col_head["kernel"]["launches"],
+            OPS_PER_LANE_STEP["col_kernel"], 1 << 16, 44,
+            4 * (2 * col_head["kernel"]["nxy"]
+                 + 2 * col_head["kernel"]["n_blk"]),
+            4 * (3 * col_head["kernel"]["nxy"] + col_head["kernel"]["nz"])),
+    }
+    kernels = [{
         "name": "record_kernel",
         "route": "cuda",
         "source": "mcbrat3d_tpu_torch/csrc/record_kernel.cu",
@@ -688,9 +1014,24 @@ def main(argv=None) -> int:
         "replaces": "mcbrat3d_tpu/transport/pallas_kernel.py:1515",
         "launches": out["rad_launches"],
         "max_abs_err": out["rad_max_err"],
-        "ms": rad_head[(6, "kernel")]["ms_per_launch"],
+        "ms": rad6["ms_per_launch"],
         "plain_ms": rad_head[(6, "plain")]["ms_per_launch"],
-    }]}))
+    }, {
+        "name": "col_kernel",
+        "route": "cuda",
+        "source": "mcbrat3d_tpu_torch/csrc/col_kernel.cu",
+        "replaces": "mcbrat3d_tpu/transport/pallas_col.py:280",
+        "launches": out["col_launches"],
+        "max_abs_err": out["col_max_err"],
+        "ms": col_head["kernel"]["ms_per_launch"],
+        "plain_ms": col_head["plain"]["ms_per_launch"],
+    }]
+    for k in kernels:
+        # no single PyTorch call computes a transport step
+        k["bound_ms"], k["bound_by"] = bounds[k["name"]]
+        k["library_ms"] = None
+    print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

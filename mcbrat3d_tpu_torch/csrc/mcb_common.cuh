@@ -1,0 +1,101 @@
+// Device helpers shared by the port's transport kernels (record_kernel.cu,
+// col_kernel.cu): the counter-based uniforms, the periodic wrap, the
+// clamped macro-block face distance, analytic Henyey-Greenstein sampling and
+// the scattering rotation. Each follows the JAX kernels' float32 arithmetic
+// operation for operation; the kernels are built with -fmad=false so no
+// multiply-add is contracted away from the plain PyTorch steps.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace mcb {
+
+constexpr float kTiny = 1e-30f;
+constexpr float kBig = 3e38f;
+constexpr uint32_t kNSites = 256u;
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// pallas_kernel._make_uniform, murmur mode: uniform in [0, 1) for
+// (lane, step counter, draw site, seed).
+__device__ __forceinline__ float uniform(uint32_t lane, uint32_t seed,
+                                         uint32_t ctr, uint32_t site) {
+  const uint32_t c = (ctr * kNSites + site) * 0x9E3779B9u;
+  uint32_t x = fmix32(lane ^ c);
+  x = fmix32(x ^ seed ^ (c * 0x85649F3Du));
+  return static_cast<float>(x >> 8) * 5.9604644775390625e-8f;  // 2^-24
+}
+
+// jnp.mod / torch.remainder for float32: fmod (exact) then move the result
+// to the divisor's sign.
+__device__ __forceinline__ float wrap(float v, float l) {
+  float m = fmodf(v, l);
+  if (m != 0.f && ((m < 0.f) != (l < 0.f))) m += l;
+  return m;
+}
+
+__device__ __forceinline__ int clampi(int v, int hi) {
+  return v < 0 ? 0 : (v > hi ? hi : v);
+}
+
+__device__ __forceinline__ float signf(float v) {
+  return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
+}
+
+// Distance from p to the macro-block face along u, the face clamped to the
+// domain edge [0, len] so a partial last block never reaches past the
+// periodic seam (pallas_kernel.py:1052-1066, pallas_col.py:527-536).
+__device__ __forceinline__ float face_dist(float p, float p0, float u,
+                                           float bw, float len) {
+  float f = (floorf((p - p0) / bw) + (u >= 0.f ? 1.f : 0.f)) * bw;
+  f = fminf(fmaxf(f, 0.f), len);
+  const float t = (f + p0) - p;
+  return fabsf(u) > 1e-12f ? t / u : kBig;
+}
+
+// Analytic Henyey-Greenstein scattering cosine (exact inverse CDF),
+// isotropic for |g| < 1e-5.
+__device__ __forceinline__ float hg_cos(float g, float u) {
+  if (fabsf(g) < 1e-5f) return 2.f * u - 1.f;
+  const float s = (1.f - g * g) / ((1.f - g) + (2.f * g) * u);
+  const float ct = ((1.f + g * g) - s * s) / (2.f * g);
+  return fminf(fmaxf(ct, -1.f), 1.f);
+}
+
+// Rotate (ux, uy, uz) by the scattering angle (cos_t) and azimuth phi, with
+// the |uz| >= 1e-4 guard and the renormalization of the JAX kernels.
+__device__ __forceinline__ void rotate(float& ux, float& uy, float& uz,
+                                       float cos_t, float phi) {
+  const float sin_t = sqrtf(fmaxf(0.f, 1.f - cos_t * cos_t));
+  float sp, cp;
+  sincosf(phi, &sp, &cp);
+  const float denom = sqrtf(fmaxf(1.f - uz * uz, 0.f));
+  float ox, oy, oz;
+  if (denom > 1e-6f) {
+    const float inv_denom = 1.f / fmaxf(denom, 1e-12f);
+    ox = ux * cos_t + (sin_t * ((ux * uz) * cp - uy * sp)) * inv_denom;
+    oy = uy * cos_t + (sin_t * ((uy * uz) * cp + ux * sp)) * inv_denom;
+    oz = uz * cos_t - (sin_t * cp) * denom;
+  } else {
+    const float sgn = signf(uz == 0.f ? 1.f : uz);
+    ox = sin_t * cp;
+    oy = (sgn * sin_t) * sp;
+    oz = sgn * cos_t;
+  }
+  if (fabsf(oz) < 1e-4f) oz = signf(oz == 0.f ? 1.f : oz) * 1e-4f;
+  const float inv_norm = rsqrtf((ox * ox + oy * oy) + oz * oz);
+  ux = ox * inv_norm;
+  uy = oy * inv_norm;
+  uz = oz * inv_norm;
+}
+
+}  // namespace mcb

@@ -58,18 +58,28 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mcb_common.cuh"
+
 namespace {
 
+using mcb::clampi;
+using mcb::face_dist;
+using mcb::kBig;
+using mcb::kTiny;
+using mcb::signf;
+using mcb::uniform;
+using mcb::wrap;
+
 constexpr int kThreads = 128;
-constexpr float kTiny = 1e-30f;
-constexpr float kBig = 3e38f;
-constexpr uint32_t kNSites = 256u;
 constexpr int kMaxDirs = 64;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInvPi = 0.31830988618379067154f;
 constexpr float kFourPi = 12.56637061435917295384f;
 // Shared memory a block may take for its tallies (the H100 offers 227 KB).
 constexpr size_t kMaxSmem = 200 * 1024;
+// counts[]: photons started, lanes with work left, lane-steps run with a
+// live photon, radiance marches cut by the iteration bound.
+constexpr int kCounts = 4;
 
 // params[] slots (mcbrat3d_tpu_torch/transport/record_kernel.py P_*).
 enum {
@@ -94,50 +104,6 @@ struct LeArgs {
   int n_exc;    // capped-excess entries: [n_sec][n_dirs] (0 without cap)
   int img_smem; // image tallied in shared memory (else global atomics)
 };
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-// pallas_kernel._make_uniform, murmur mode: uniform in [0, 1).
-__device__ __forceinline__ float uniform(uint32_t lane, uint32_t seed,
-                                         uint32_t ctr, uint32_t site) {
-  const uint32_t c = (ctr * kNSites + site) * 0x9E3779B9u;
-  uint32_t x = fmix32(lane ^ c);
-  x = fmix32(x ^ seed ^ (c * 0x85649F3Du));
-  return static_cast<float>(x >> 8) * 5.9604644775390625e-8f;  // 2^-24
-}
-
-// jnp.mod / torch.remainder for float32: fmod (exact) then move the result
-// to the divisor's sign.
-__device__ __forceinline__ float wrap(float v, float l) {
-  float m = fmodf(v, l);
-  if (m != 0.f && ((m < 0.f) != (l < 0.f))) m += l;
-  return m;
-}
-
-__device__ __forceinline__ int clampi(int v, int hi) {
-  return v < 0 ? 0 : (v > hi ? hi : v);
-}
-
-__device__ __forceinline__ float signf(float v) {
-  return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
-}
-
-// Distance from p to the macro-block face along u, the face clamped to
-// the domain edge [0, len] (pallas_kernel.py:1052-1066).
-__device__ __forceinline__ float face_dist(float p, float p0, float u,
-                                           float bw, float len) {
-  float f = (floorf((p - p0) / bw) + (u >= 0.f ? 1.f : 0.f)) * bw;
-  f = fminf(fmaxf(f, 0.f), len);
-  const float t = (f + p0) - p;
-  return fabsf(u) > 1e-12f ? t / u : kBig;
-}
 
 // Local estimate of one event toward every direction (pallas_kernel.py
 // :1515-2084, cell march). refl: a surface reflection at (sx, sy, sz) with
@@ -290,7 +256,6 @@ record_steps(const float* __restrict__ prm,
              int n_lanes, int nx, int ny, int nz, int stride, int off_ssa,
              int off_f2, int inv_n_steps, int use_rr, int n_acc,
              uint32_t seed, uint32_t step0, int k_steps) {
-  constexpr int kCounts = LE ? 3 : 2;
   extern __shared__ float s_acc[];
   __shared__ int s_counts[kCounts];
   __shared__ float s_dirs[LE ? 3 * kMaxDirs : 1];
@@ -331,7 +296,7 @@ record_steps(const float* __restrict__ prm,
     float w = ws[lane], bl = bls[lane];
     int quota = quotas[lane];
     bool alive = alives[lane] > 0;
-    int started = 0;
+    int started = 0, steps = 0;
     const uint32_t ul = static_cast<uint32_t>(lane);
 
     for (int k = 0; k < k_steps; ++k) {
@@ -351,6 +316,7 @@ record_steps(const float* __restrict__ prm,
         if (MACRO) bl = beta_max;
       }
       if (!alive) continue;
+      steps += 1;
 
       // ---- Woodcock jump ----
       const float tau = -log1pf(-uniform(ul, seed, ctr, 3));
@@ -400,7 +366,7 @@ record_steps(const float* __restrict__ prm,
           } else {
             if constexpr (LE) {
               local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img,
-                             s_exc, &s_counts[2], le, nx, ny, nz, ul, seed,
+                             s_exc, &s_counts[3], le, nx, ny, nz, ul, seed,
                              ctr, true, xe, ye, z_bot, w_refl, 0.f, 0.f,
                              0.f, 0.f);
             }
@@ -447,7 +413,7 @@ record_steps(const float* __restrict__ prm,
       w = w * ssa;
       if constexpr (LE) {  // post-absorption, pre-roulette weight, incoming dir
         local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img, s_exc,
-                       &s_counts[2], le, nx, ny, nz, ul, seed, ctr, false, x,
+                       &s_counts[3], le, nx, ny, nz, ul, seed, ctr, false, x,
                        y, z, w, ux, uy, uz, f2);
       }
       if (use_rr && w < half_rr) {
@@ -462,14 +428,7 @@ record_steps(const float* __restrict__ prm,
       const float u_ang = uniform(ul, seed, ctr, 5);
       float cos_t;
       if (ANALYTIC) {
-        const float g = f2;
-        if (fabsf(g) < 1e-5f) {
-          cos_t = 2.f * u_ang - 1.f;
-        } else {
-          const float s = (1.f - g * g) / ((1.f - g) + (2.f * g) * u_ang);
-          const float ct = ((1.f + g * g) - s * s) / (2.f * g);
-          cos_t = fminf(fmaxf(ct, -1.f), 1.f);
-        }
+        cos_t = mcb::hg_cos(f2, u_ang);
       } else {
         const float t_u = u_ang * static_cast<float>(inv_n_steps - 1);
         int ki = static_cast<int>(t_u);
@@ -478,27 +437,7 @@ record_steps(const float* __restrict__ prm,
         const int flat = static_cast<int>(f2) * inv_n_steps + ki;
         cos_t = cosf(__ldg(inv_a0 + flat) + frac * __ldg(inv_dd + flat));
       }
-      const float sin_t = sqrtf(fmaxf(0.f, 1.f - cos_t * cos_t));
-      float sp, cp;
-      sincosf(phi_rot, &sp, &cp);
-      const float denom = sqrtf(fmaxf(1.f - uz * uz, 0.f));
-      float ox, oy, oz;
-      if (denom > 1e-6f) {
-        const float inv_denom = 1.f / fmaxf(denom, 1e-12f);
-        ox = ux * cos_t + (sin_t * ((ux * uz) * cp - uy * sp)) * inv_denom;
-        oy = uy * cos_t + (sin_t * ((uy * uz) * cp + ux * sp)) * inv_denom;
-        oz = uz * cos_t - (sin_t * cp) * denom;
-      } else {
-        const float sgn = signf(uz == 0.f ? 1.f : uz);
-        ox = sin_t * cp;
-        oy = (sgn * sin_t) * sp;
-        oz = sgn * cos_t;
-      }
-      if (fabsf(oz) < 1e-4f) oz = signf(oz == 0.f ? 1.f : oz) * 1e-4f;
-      const float inv_norm = rsqrtf((ox * ox + oy * oy) + oz * oz);
-      ux = ox * inv_norm;
-      uy = oy * inv_norm;
-      uz = oz * inv_norm;
+      mcb::rotate(ux, uy, uz, cos_t, phi_rot);
     }
 
     xs[lane] = x;
@@ -513,6 +452,7 @@ record_steps(const float* __restrict__ prm,
     alives[lane] = alive ? 1 : 0;
     if (started) atomicAdd(&s_counts[0], started);
     if (alive || quota > 0) atomicAdd(&s_counts[1], 1);
+    if (steps) atomicAdd(&s_counts[2], steps);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
@@ -578,9 +518,10 @@ extern "C" int record_kernel_num_params() { return N_PARAMS; }
 
 // Advance every lane by k_steps transport steps. Adds the tally into acc,
 // the photons started into counts[0], the lanes with work left (alive or
-// quota > 0) into counts[1] and, with radiance (n_dirs > 0), the image
-// into img, the capped excess into exc and the marches cut by the
-// iteration bound into counts[2]. Returns cudaGetLastError().
+// quota > 0) into counts[1], the lane-steps run with a live photon into
+// counts[2] and, with radiance (n_dirs > 0), the image into img, the capped
+// excess into exc and the marches cut by the iteration bound into
+// counts[3]. Returns cudaGetLastError().
 extern "C" int record_kernel_launch(
     const float* prm, const float* rec, const float* inv_a0,
     const float* inv_dd, float* x, float* y, float* z, float* ux,

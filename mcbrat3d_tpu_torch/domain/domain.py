@@ -8,9 +8,13 @@ bit-identical records for the same inputs.
 
 Covered here: ``device_fields="full"`` with the packed ``cell_records``
 layout, the two-level macro-cell majorant, the ``uniform_ssa`` /
-``uniform_hg`` flags and the radiance (forward / hybrid) phase tables. The
-column/separable template detection and compact domains belong to kernels
-that are not ported yet and raise ``NotImplementedError``.
+``uniform_hg`` flags, the radiance (forward / hybrid) phase tables and the
+one-component column-template detection with its xy-block majorant table
+(the column kernel's inputs). The two-component (cloud + gas) column
+template, the column emission tables, the separable template and compact
+domains belong to kernels that are not ported yet: such domains get
+``col_template=False`` (the column kernel's eligibility names why) or raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -118,6 +122,17 @@ class OpticalDomain:
     macro_factor: int = 0
     temps: Optional[torch.Tensor] = None
     lambda_um: float = 0.0
+    # Column-template structure (one component; detected on the float32
+    # total extinction): beta(x, y, z) = col_scale[ix*ny+iy] *
+    # (iz < col_height[ix*ny+iy]), the shape of Landsat-style scenes
+    # (reference: Domain-Files/i3rcLandsatCloud.f95:82-90). With
+    # macro_factor > 0, macro_table [nbx*nby, 2] holds each xy block's
+    # majorant scale (rounded up to bfloat16, as the JAX package stores it)
+    # and its highest cloud top in cells.
+    col_template: bool = False
+    col_scale: Optional[torch.Tensor] = None    # [nx*ny] f32
+    col_height: Optional[torch.Tensor] = None   # [nx*ny] f32, cells from z=0
+    macro_table: Optional[torch.Tensor] = None  # [nbx*nby, 2] f32
 
     @property
     def n_components(self) -> int:
@@ -260,7 +275,13 @@ def build_domain(grid: Grid, components: Sequence[OpticalComponent],
     if uniform_hg:
         rec[:, 2 + 3 * ncomp] = g0[0]
 
+    col = {}
+    if ncomp == 1 and grid.xy_regular and grid.z_regular:
+        col = detect_column_template(np.asarray(total, np.float32),
+                                     macro_factor)
+
     return domain_from_numpy(dict(
+        **col,
         x_edges=grid.edges_f32()[0], y_edges=grid.edges_f32()[1],
         z_edges=grid.edges_f32()[2], xy_regular=grid.xy_regular,
         z_regular=grid.z_regular,
@@ -272,6 +293,51 @@ def build_domain(grid: Grid, components: Sequence[OpticalComponent],
         lambda_um=float(lambda_um)), device=grid.device)
 
 
+def _round_up_bf16(v: np.ndarray) -> np.ndarray:
+    """float32 values rounded to bfloat16 (to nearest even) and, where that
+    lands below the value, the value bumped by 1 + 2^-6 and rounded again:
+    a bfloat16 majorant that is never below ``v`` (domain.py:724-730 of the
+    JAX package, with torch.bfloat16 in place of ml_dtypes)."""
+    t = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+    b16 = t.to(torch.bfloat16).float()
+    bumped = (t * (1.0 + 2.0 ** -6)).to(torch.bfloat16).float()
+    return torch.where(b16 < t, bumped, b16).numpy()
+
+
+def detect_column_template(total: np.ndarray, macro_factor: int) -> dict:
+    """One-component column-template detection on the float32 total
+    extinction [nx, ny, nz] (port of the JAX ``build_domain``
+    :633-733 for one component): every column is one uniform block from
+    z = 0. Returns the ``col_*`` / ``macro_table`` fields, empty when the
+    field is not a column template."""
+    nx, ny, nz = total.shape
+    t2 = total.reshape(nx * ny, nz)
+    h = (t2 > 0.0).sum(axis=1).astype(np.int64)
+    iz_row = np.arange(nz)[None, :]
+    if not bool(np.all((t2 > 0.0) == (iz_row < h[:, None]))):
+        return {}
+    scale = t2[np.arange(nx * ny), np.maximum(h - 1, 0)]
+    scale = np.where(h > 0, scale, 0.0).astype(np.float32)
+    if not bool(np.all(t2 == scale[:, None] * (iz_row < h[:, None]))):
+        return {}
+    out = dict(col_template=True, col_scale=scale,
+               col_height=h.astype(np.float32))
+    if macro_factor > 0:
+        # per xy block: the majorant scale (rounded up to bfloat16) and the
+        # highest cloud top; blocks span the full z range
+        f = macro_factor
+        nbx, nby = -(-nx // f), -(-ny // f)
+        s2 = np.zeros((nbx * f, nby * f), np.float32)
+        h2 = np.zeros((nbx * f, nby * f), np.float32)
+        s2[:nx, :ny] = scale.reshape(nx, ny)
+        h2[:nx, :ny] = h.reshape(nx, ny).astype(np.float32)
+        bs = s2.reshape(nbx, f, nby, f).max(axis=(1, 3))
+        bh = h2.reshape(nbx, f, nby, f).max(axis=(1, 3))
+        out["macro_table"] = np.stack(
+            [_round_up_bf16(bs).reshape(-1), bh.reshape(-1)], 1)
+    return out
+
+
 def domain_from_numpy(arrays: dict, device="cpu") -> OpticalDomain:
     """Build the port's domain from plain arrays.
 
@@ -280,13 +346,20 @@ def domain_from_numpy(arrays: dict, device="cpu") -> OpticalDomain:
     ``z_regular``, ``total_ext``, ``cum_ext``, ``ssa``, ``phase_index``,
     ``cell_records``, ``inverse``, ``forward`` and ``forward_orig``
     (``tables.*``), ``offsets``, ``all_hg``, ``uniform_ssa``,
-    ``uniform_hg``, ``macro_factor`` and optionally ``temps`` and
-    ``lambda_um``. Float fields are stored as float32, so a JAX domain
-    converted here computes on the same data.
+    ``uniform_hg``, ``macro_factor`` and optionally ``temps``,
+    ``lambda_um`` and the column-template fields ``col_template``,
+    ``col_scale``, ``col_height`` and ``macro_table``. Float fields are
+    stored as float32, so a JAX domain converted here computes on the same
+    data.
     """
     def f32(name):
         return torch.tensor(np.asarray(arrays[name], np.float32),
                             device=device)
+
+    def opt_f32(name):
+        v = arrays.get(name)
+        return None if v is None else torch.tensor(
+            np.asarray(v, np.float32), device=device).contiguous()
 
     xe, ye, ze = (np.asarray(arrays[k], np.float32)
                   for k in ("x_edges", "y_edges", "z_edges"))
@@ -314,4 +387,8 @@ def domain_from_numpy(arrays: dict, device="cpu") -> OpticalDomain:
         temps=None if temps is None else torch.tensor(
             np.asarray(temps, np.float32), device=device),
         lambda_um=float(arrays.get("lambda_um", 0.0)),
+        col_template=bool(arrays.get("col_template", False)),
+        col_scale=opt_f32("col_scale"),
+        col_height=opt_f32("col_height"),
+        macro_table=opt_f32("macro_table"),
     )

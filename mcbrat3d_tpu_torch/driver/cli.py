@@ -1,11 +1,12 @@
 """Command-line driver of the PyTorch port.
 
     python -m mcbrat3d_tpu_torch.driver.cli mkdomain step_cloud Step.dom ssa=0.99
+    python -m mcbrat3d_tpu_torch.driver.cli mkdomain broken_cloud BrokenCloud.dom
     python -m mcbrat3d_tpu_torch.driver.cli run deck.nml [--device cuda]
 
 Counterpart of ``mcbrat3d_tpu.driver.cli`` (reference:
 Drivers/monteCarloDriver.f95:103-121,230-238) with the ``run`` and
-``mkdomain step_cloud`` subcommands. ``--device`` defaults to ``cuda`` and
+``mkdomain step_cloud|broken_cloud`` subcommands. ``--device`` defaults to ``cuda`` and
 fails when no CUDA device is present; pass ``cpu`` to run the plain
 PyTorch path.
 """
@@ -71,9 +72,11 @@ def _parse_params(pairs):
 
 def _cmd_mkdomain(args) -> int:
     from mcbrat3d_tpu_torch.domain import io_netcdf
+    from mcbrat3d_tpu_torch.scenes.collection import broken_cloud_scene
     from mcbrat3d_tpu_torch.scenes.step_cloud import step_cloud_scene
 
-    scenes = {"step_cloud": step_cloud_scene}
+    scenes = {"step_cloud": step_cloud_scene,
+              "broken_cloud": broken_cloud_scene}
     if args.scene not in scenes:
         print(f"unknown scene {args.scene!r}; available: {sorted(scenes)}")
         return 2
@@ -97,7 +100,7 @@ def main(argv=None) -> int:
     p_run.set_defaults(fn=_cmd_run)
 
     p_dom = sub.add_parser("mkdomain", help="generate a scene domain file")
-    p_dom.add_argument("scene", help="step_cloud")
+    p_dom.add_argument("scene", help="step_cloud or broken_cloud")
     p_dom.add_argument("output")
     p_dom.add_argument("params", nargs="*", help="key=value overrides")
     p_dom.set_defaults(fn=_cmd_mkdomain)

@@ -110,7 +110,11 @@ def run_simulation(domain: OpticalDomain,
         arrays["mean_flux_up"] = arrays["flux_up"].mean()
         arrays["mean_flux_down"] = arrays["flux_down"].mean()
         arrays["mean_flux_absorbed"] = arrays["flux_absorbed"].mean()
-        if t.volume_absorption is not None:
+        # the column kernel tallies the z marginal itself; otherwise it is
+        # the column mean of the 3D field
+        if t.absorption_profile is not None:
+            arrays["absorption_profile"] = t.absorption_profile.cpu().numpy()
+        elif t.volume_absorption is not None:
             arrays["absorption_profile"] = arrays[
                 "volume_absorption"].mean(axis=(0, 1))
         if t.intensity is not None:

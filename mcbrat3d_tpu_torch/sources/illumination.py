@@ -1,10 +1,12 @@
-"""Photon sources (PyTorch port): the directional solar beam.
+"""Photon sources (PyTorch port): the directional solar beam, the beam
+with a random azimuth and the isotropic (cosine-weighted) flux.
 
 Counterpart of ``mcbrat3d_tpu.sources.illumination`` (reference:
 src/monteCarloIllumination.f95:62-101). The transport kernel samples the
 source on the fly when a lane refills, so a Source is a few parameters.
-Only ``directional`` is ported; the other kinds arrive with the record
-kernel's envelope (ROADMAP Queue 1 items 4 and 10).
+The record kernel takes ``directional`` only; the column kernel all three.
+Spotlight and emission sources arrive with the record kernel's envelope
+(ROADMAP Queue 1 items 4 and 10).
 """
 
 from __future__ import annotations
@@ -39,3 +41,16 @@ def directional(solar_mu: float, solar_azimuth_deg: float) -> Source:
                   solar_mu=float(np.float32(abs(solar_mu))),
                   solar_azimuth=float(np.float32(
                       np.deg2rad(solar_azimuth_deg))))
+
+
+def random_azimuth(solar_mu: float) -> Source:
+    """Beam at |mu0| with an azimuth drawn per photon."""
+    if abs(solar_mu) > 1.0 or abs(solar_mu) < 1e-30:
+        raise ValueError("solar_mu out of bounds")
+    return Source(kind=RANDOM_AZIMUTH,
+                  solar_mu=float(np.float32(abs(solar_mu))))
+
+
+def flux() -> Source:
+    """Isotropic downward flux: mu = -sqrt(u), azimuth uniform."""
+    return Source(kind=FLUX)

@@ -2,12 +2,15 @@
 
 Counterpart of ``mcbrat3d_tpu.transport.integrator``: ``KernelConfig``,
 ``Tallies`` and ``run_batch``, plus the analytic HG sampling and direction
-rotation the record kernel's plain step uses. ``run_batch`` dispatches to
-the record kernel (``transport.record_kernel``), with in-kernel radiance
-when radiance directions are given (grids above ``MAX_KERNEL_DIRS`` run as
-direction-chunked passes over the same photons), or raises naming every
+rotation the plain steps use. ``run_batch`` dispatches in the JAX
+package's order (``integrator._run_batch_impl``): the record kernel
+(``transport.record_kernel``), with in-kernel radiance when radiance
+directions are given (grids above ``MAX_KERNEL_DIRS`` run as
+direction-chunked passes over the same photons), then the column-template
+kernel (``transport.col_kernel``) for flux runs, or raises naming every
 failing predicate: the XLA wave kernel and its local estimator, the JAX
-package's general fallback, are not ported yet.
+package's general fallback, and the separable and tiled kernels are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -60,12 +63,17 @@ class Tallies:
     n_bad: int = 0  # photons alive at the step cap + n_cut
     n_steps: int = 0  # transport steps executed
     n_cut: int = 0  # radiance marches cut by the iteration bound
+    # z marginal of the absorption [nz], tallied by the column kernel
+    absorption_profile: Optional[torch.Tensor] = None
+    n_lane_steps: int = 0  # lane-steps run with a live photon
 
     def normalized(self, grid: Grid) -> "Tallies":
         """Per-column normalization (reference:
         Integrators/monteCarloRadiativeTransfer.f95:326-389): fluxes and
         intensity divided by photons per column (weighted by column area);
-        volume absorption also by cell depth * 1000 (km -> m)."""
+        volume absorption also by cell depth * 1000 (km -> m); the
+        absorption profile (the horizontal mean of that field) by the
+        photon count times cell depth * 1000."""
         n = max(float(self.n_photons), 1.0)
         xe = grid.x_edges
         ye = grid.y_edges
@@ -81,8 +89,11 @@ class Tallies:
             / (per_col[:, :, None] * dz[None, None, :] * 1000.0),
             intensity=None if self.intensity is None
             else self.intensity / per_col[:, :, None],
+            absorption_profile=None if self.absorption_profile is None
+            else self.absorption_profile / (n * dz * 1000.0),
             n_photons=self.n_photons, n_bad=self.n_bad,
-            n_steps=self.n_steps, n_cut=self.n_cut)
+            n_steps=self.n_steps, n_cut=self.n_cut,
+            n_lane_steps=self.n_lane_steps)
 
 
 def sample_hg_cos(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -136,6 +147,7 @@ def run_batch(domain: OpticalDomain,
     overrides ``config.photons_per_batch`` (it must not exceed it). With
     ``intensity_config`` and ``intensity_dirs`` ([3, n_dirs]) the tallies
     carry the top-of-domain radiance image [nx, ny, n_dirs]."""
+    from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
 
     if intensity_config is not None:
@@ -148,6 +160,9 @@ def run_batch(domain: OpticalDomain,
             config.record_scattering_orders, config.use_ray_tracing,
             intensity_config, intensity_dirs)
         if reasons:
+            if domain.col_template:
+                reasons.append("column-kernel slab-scan radiance is not "
+                               "ported yet")
             raise NotImplementedError(
                 "radiance configuration outside the ported record kernel "
                 "(and the XLA local estimator is not ported yet); failing "
@@ -165,20 +180,30 @@ def run_batch(domain: OpticalDomain,
     if (not reasons and nx * ny * nz > rk.TILE_MIN_CELLS
             and not config.need_volume_absorption
             and not config.need_absorption_profile):
-        # the JAX package sends such dense domains to its tiled kernel
-        # when that kernel has a tile plan for them; the port must not
-        # silently run them on the record kernel instead
+        # the JAX package skips the record kernel for such dense domains
+        # when its tiled kernel has a plan for them, and then tries the
+        # column kernel before the tiled one (integrator.py:461-491)
         reasons.append(
             f"{nx * ny * nz} cells > {rk.TILE_MIN_CELLS} without the 3D "
-            "tally: the tiled dense-domain kernel (K5) takes this domain "
-            "and is not ported yet")
-    if reasons:
-        raise NotImplementedError(
-            "configuration outside the ported record kernel (and the XLA "
-            "wave-kernel fallback is not ported yet); failing predicates: "
-            + "; ".join(reasons))
-    return rk.run_batch_record_tallies(domain, surface, source, seed, config,
-                                       n_photons=n_photons)
+            "tally or the profile: the column kernel (K3) or the tiled "
+            "dense-domain kernel (K5) takes this domain")
+    if not reasons:
+        return rk.run_batch_record_tallies(domain, surface, source, seed,
+                                           config, n_photons=n_photons)
+    col_reasons = ck.col_ineligibility_reasons(
+        domain, surface, source, config.lw_mode, compute_intensity=False,
+        record_scattering_orders=config.record_scattering_orders,
+        use_ray_tracing=config.use_ray_tracing,
+        need_volume_absorption=config.need_volume_absorption)
+    if not col_reasons:
+        return ck.run_batch_col_tallies(domain, surface, source, seed,
+                                        config, n_photons=n_photons)
+    raise NotImplementedError(
+        "configuration outside the ported record and column kernels (and "
+        "the XLA wave-kernel fallback, the separable kernel K4 and the "
+        "tiled kernel K5 are not ported yet); failing record-kernel "
+        "predicates: " + "; ".join(reasons)
+        + "; failing column-kernel predicates: " + "; ".join(col_reasons))
 
 
 def _run_batch_dir_chunked(domain, surface, source, seed, config, icfg,

@@ -238,6 +238,14 @@ def forward_table(domain: OpticalDomain, use_hybrid: bool):
     return cache[key]
 
 
+def inverse_table(domain: OpticalDomain):
+    """(a0, delta): the stacked inverse-CDF angle table flattened row-major
+    (flat index row * n_steps + k) and its forward differences for the
+    lerp, the same float32 deltas as pallas_kernel._pack_inverse_table."""
+    a0 = domain.tables.inverse.reshape(-1).contiguous()
+    return a0, (torch.cat([a0[1:], a0[-1:]]) - a0).contiguous()
+
+
 @dataclasses.dataclass
 class RecordState:
     """Per-lane photon state, struct of arrays ([n_lanes] each)."""
@@ -292,12 +300,7 @@ class RecordTables:
                     intensity_dirs=None) -> "RecordTables":
         rec = domain.cell_records.contiguous()
         zero = torch.zeros(1, dtype=torch.float32, device=rec.device)
-        if domain.all_hg:
-            a0 = dd = zero
-        else:
-            # same float32 deltas as pallas_kernel._pack_inverse_table
-            a0 = domain.tables.inverse.reshape(-1).contiguous()
-            dd = (torch.cat([a0[1:], a0[-1:]]) - a0).contiguous()
+        a0, dd = (zero, zero) if domain.all_hg else inverse_table(domain)
         dirs, v0, fdd = zero, zero, zero
         if intensity_config is not None:
             dirs = intensity_dirs.to(device=rec.device,
@@ -422,12 +425,31 @@ class RecordParams:
 # Plain PyTorch step
 # ---------------------------------------------------------------------------
 
+def div_scalar(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` rounded as the kernels round it: PyTorch's CUDA division
+    by a host scalar multiplies by the scalar's reciprocal instead, which is
+    one ulp off for some quotients."""
+    return a / torch.full_like(a, b)
+
+
+def face_distance(pos, p0, d, bw, length):
+    """Distance along ``d`` to the next macro-block face, the face clamped
+    to the domain edge [0, length] (a partial last block's outer face lies
+    past the periodic seam; pallas_kernel.py:1052-1066)."""
+    t = (torch.clamp((torch.floor(div_scalar(pos - p0, bw))
+                      + (d >= 0).to(torch.float32)) * bw,
+                     0.0, length) + p0) - pos
+    return torch.where(d.abs() > 1e-12, t / torch.where(d == 0, 1.0, d),
+                       3e38)
+
+
 @dataclasses.dataclass(frozen=True)
 class RecordTally:
     """What a launch adds into: ``acc`` the flux tally [prm.n_acc] f32,
     ``img`` the radiance tally [max(1, prm.n_img)] f32, ``exc`` the capped
     excess [max(1, prm.n_exc)] f32 and ``counts`` int32 [photons started,
-    lanes with work left, radiance marches cut by the iteration bound]."""
+    lanes with work left, lane-steps run with a live photon, radiance
+    marches cut by the iteration bound] (``relaunch_loop`` layout)."""
 
     acc: torch.Tensor
     img: torch.Tensor
@@ -440,7 +462,7 @@ class RecordTally:
             return torch.zeros(max(1, n), dtype=dtype, device=device)
 
         return RecordTally(acc=z(prm.n_acc), img=z(prm.n_img),
-                           exc=z(prm.n_exc), counts=z(3, torch.int32))
+                           exc=z(prm.n_exc), counts=z(4, torch.int32))
 
 
 def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
@@ -476,23 +498,16 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     alive = alive | need
     quota = st.quota - need.to(torch.int32)
     started = need.sum()
+    tally.counts[2] += alive.sum().to(torch.int32)
 
     # ---- Woodcock jump ----
     tau = -torch.log1p(-u(ctr, rng.SITE_TAU))
     if macro:
         bl = torch.where(need, beta_max, bl)
-
-        def face(pos, p0, d, bw, length):
-            t = (torch.clamp((torch.floor((pos - p0) / bw)
-                              + (d >= 0).to(torch.float32)) * bw,
-                             0.0, length) + p0) - pos
-            return torch.where(d.abs() > 1e-12,
-                               t / torch.where(d == 0, 1.0, d), 3e38)
-
         t_raw = torch.minimum(
-            face(x, x0, ux, p[P_BXW], lx),
-            torch.minimum(face(y, y0, uy, p[P_BYW], ly),
-                          face(z, z0, uz, p[P_BZW], p[P_LZ])))
+            face_distance(x, x0, ux, p[P_BXW], lx),
+            torch.minimum(face_distance(y, y0, uy, p[P_BYW], ly),
+                          face_distance(z, z0, uz, p[P_BZW], p[P_LZ])))
         escape = t_raw <= 0.0
         bl = torch.where(escape, beta_max, bl)
         d_samp = torch.where(bl > 0, tau / torch.where(bl == 0, 1.0, bl),
@@ -553,7 +568,7 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     if p.use_rr:
         rr_w = p[P_RR_W]
         play = real & (w < p[P_HALF_RR])
-        survive = u(ctr, rng.SITE_ROULETTE) < w / rr_w
+        survive = u(ctr, rng.SITE_ROULETTE) < div_scalar(w, rr_w)
         w = torch.where(play, torch.where(survive, rr_w, 0.0), w)
     died_weight = real & (w <= _TINY)
 
@@ -626,7 +641,7 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
     """Local estimate of the event lanes ``ev`` (int64 lane indices; the
     other arguments are per event) toward every direction, tallied into
     ``tally.img`` / ``tally.exc``; marches cut by the iteration bound are
-    counted into ``tally.counts[2]``.
+    counted into ``tally.counts[3]``.
 
     Same float32 arithmetic as pallas_kernel.py:1515-2084 with the cell
     march: all (event, direction) pairs march together, each until it
@@ -711,7 +726,7 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
         if p.le_rr:
             act = act & (tau < tau_stop)
         px, py, pz = pxw + ddx * ds, pyw + ddy * ds, pz2
-    tally.counts[2] += act.sum().to(torch.int32)
+    tally.counts[3] += act.sum().to(torch.int32)
     hit = ~act
     w_p = pairs(w_ev)
     if p.le_rr:
@@ -804,7 +819,7 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
     _check(tally.acc, "acc", torch.float32, prm.n_acc, dev)
     _check(tally.img, "img", torch.float32, max(1, prm.n_img), dev)
     _check(tally.exc, "exc", torch.float32, max(1, prm.n_exc), dev)
-    _check(tally.counts, "counts", torch.int32, 3, dev)
+    _check(tally.counts, "counts", torch.int32, 4, dev)
     if prm.n_dirs:
         if prm.n_dirs > le.MAX_KERNEL_DIRS:
             raise ValueError(f"{prm.n_dirs} radiance directions > "
@@ -853,6 +868,95 @@ def record_launch(st: RecordState, tab: RecordTables, prm: RecordParams,
 # Relaunch loop
 # ---------------------------------------------------------------------------
 
+def relaunch_loop(st, counts: torch.Tensor, launch_steps,
+                  steps_per_call: int, max_steps: int) -> tuple:
+    """The host loop around a transport kernel, shared by the record and
+    column kernels (``run_batch_pallas`` / ``run_batch_pallas_col``):
+    ``launch_steps(step0)`` advances every lane by ``steps_per_call``
+    steps from step ``step0``; after each launch the photons started and
+    the lanes with work left are read back, the unspent quota is
+    rebalanced evenly over the lanes, and the loop stops when no work is
+    left or at ``max_steps``.
+
+    ``st`` is the state (its int32 ``quota`` is rebound), ``counts`` the
+    int32 launch counters [started, work left, lane-steps with a live
+    photon, ...]; the first three are zeroed before each launch. Returns
+    (photons started, launches, lane-steps with a live photon)."""
+    n_lanes = st.quota.shape[0]
+    lane_i = torch.arange(n_lanes, dtype=torch.int32, device=st.quota.device)
+    n_started = n_calls = lane_steps = 0
+    work = True
+    while work and n_calls * steps_per_call < max_steps:
+        counts[:3] = 0
+        launch_steps(n_calls * steps_per_call)
+        started, work_left, steps = counts[:3].tolist()
+        n_started += started
+        lane_steps += steps
+        work = work_left > 0
+        # any lane may run any photon: streams are keyed by (lane, step)
+        total_q = st.quota.sum()
+        st.quota = (total_q // n_lanes
+                    + (lane_i < total_q % n_lanes)).to(torch.int32)
+        n_calls += 1
+    return n_started, n_calls, lane_steps
+
+
+def initial_quota(n_lanes: int, photons_per_lane: int, n_photons,
+                  device) -> torch.Tensor:
+    """Per-lane photon quota of a batch: ``photons_per_lane`` each, or
+    ``n_photons`` (clamped to the lanes' budget) spread evenly, the first
+    ``n_photons % n_lanes`` lanes taking one more (the exact n_photons
+    clamp of pallas_kernel.py / pallas_col.py:1363-1371)."""
+    if n_lanes * photons_per_lane >= 2 ** 31:
+        raise ValueError(
+            f"n_lanes*photons_per_lane = {n_lanes * photons_per_lane} "
+            f"overflows the int32 quota budget; split into more batches")
+    if n_photons is None:
+        return torch.full((n_lanes,), photons_per_lane, dtype=torch.int32,
+                          device=device)
+    lane_i = torch.arange(n_lanes, dtype=torch.int32, device=device)
+    n_ph = min(int(n_photons), n_lanes * photons_per_lane)
+    return (n_ph // n_lanes + (lane_i < n_ph % n_lanes)).to(torch.int32)
+
+
+def _record_batch(domain, surface, source, seed, rcfg, photons_per_lane,
+                  n_photons, use_russian_roulette, russian_roulette_weight,
+                  launch, intensity_config, intensity_dirs):
+    """``run_batch_record``'s tuple and the lane-steps with a live photon."""
+    dev = domain.device
+    prm = RecordParams.make(domain, surface, source, use_russian_roulette,
+                            russian_roulette_weight, rcfg.vol_tally,
+                            intensity_config, intensity_dirs)
+    tab = RecordTables.from_domain(domain, intensity_config, intensity_dirs)
+    quota0 = initial_quota(rcfg.n_lanes, photons_per_lane, n_photons, dev)
+    st = RecordState.initial(quota0, prm[P_BETA_MAX])
+    tally = RecordTally.zeros(prm, dev)
+    k = rcfg.steps_per_call
+    n_started, n_calls, lane_steps = relaunch_loop(
+        st, tally.counts,
+        lambda step0: launch(st, tab, prm, seed, step0, k, tally),
+        k, rcfg.max_steps)
+    nx, ny, nz = domain.grid.shape
+    nxy = nx * ny
+    acc = tally.acc
+    flux_up = acc[:nxy].reshape(nx, ny)
+    flux_down = acc[nxy:2 * nxy].reshape(nx, ny)
+    absorbed = acc[2 * nxy:].reshape((nx, ny, nz) if rcfg.vol_tally
+                                     else (nx, ny))
+    n_cut = int(tally.counts[3])
+    n_bad = int(st.alive.sum()) + n_cut
+    out = (flux_up, flux_down, absorbed, n_started, n_bad, n_calls)
+    if not prm.n_dirs:
+        return out, lane_steps
+    img = tally.img[:prm.n_img].reshape(prm.n_sec, prm.n_dirs, nxy)
+    if prm.le_cap:
+        excess = tally.exc.reshape(prm.n_sec, prm.n_dirs).T
+        image = le.redistribute_excess(img.sum(dim=0), img, excess)
+    else:
+        image = img[0]
+    return out + (image.T.reshape(nx, ny, prm.n_dirs), n_cut), lane_steps
+
+
 def run_batch_record(domain: OpticalDomain, surface: Surface,
                      source: illumination.Source, seed: int,
                      rcfg: RecordConfig, photons_per_lane: int,
@@ -866,66 +970,17 @@ def run_batch_record(domain: OpticalDomain, surface: Surface,
     [nx, ny, n_dirs] and the count of cut marches when
     ``intensity_config`` is given.
 
-    Port of ``run_batch_pallas`` + ``_make_launch``: launch
-    ``steps_per_call`` steps, add up the photons started and the lanes with
-    work left, rebalance the unspent quota evenly over the lanes, and stop
-    when no work is left or at ``max_steps``. ``n_bad`` counts photons
-    still alive at the step cap plus radiance marches cut by the iteration
-    bound. ``seed`` is the uint32 kernel seed; ``launch`` is
-    ``record_launch`` (or, to compare the two on one device,
-    ``record_launch_plain``). With capping the excess is redistributed
-    over the image after the batch (pallas_kernel.py:3014-3033)."""
-    n_lanes = rcfg.n_lanes
-    if n_lanes * photons_per_lane >= 2 ** 31:
-        raise ValueError(
-            f"n_lanes*photons_per_lane = {n_lanes * photons_per_lane} "
-            f"overflows the int32 quota budget; split into more batches")
-    dev = domain.device
-    prm = RecordParams.make(domain, surface, source, use_russian_roulette,
-                            russian_roulette_weight, rcfg.vol_tally,
-                            intensity_config, intensity_dirs)
-    tab = RecordTables.from_domain(domain, intensity_config, intensity_dirs)
-    lane_i = torch.arange(n_lanes, dtype=torch.int32, device=dev)
-    if n_photons is None:
-        quota0 = torch.full((n_lanes,), photons_per_lane, dtype=torch.int32,
-                            device=dev)
-    else:
-        n_ph = min(int(n_photons), n_lanes * photons_per_lane)
-        quota0 = (n_ph // n_lanes + (lane_i < n_ph % n_lanes)).to(torch.int32)
-    st = RecordState.initial(quota0, prm[P_BETA_MAX])
-    tally = RecordTally.zeros(prm, dev)
-    k = rcfg.steps_per_call
-    n_started, n_calls, work = 0, 0, True
-    while work and n_calls * k < rcfg.max_steps:
-        tally.counts[:2] = 0
-        launch(st, tab, prm, seed, n_calls * k, k, tally)
-        started, work_left = tally.counts[:2].tolist()
-        n_started += started
-        work = work_left > 0
-        # any lane may run any photon: streams are keyed by (lane, step)
-        total_q = st.quota.sum()
-        st.quota = (total_q // n_lanes
-                    + (lane_i < total_q % n_lanes)).to(torch.int32)
-        n_calls += 1
-    nx, ny, nz = domain.grid.shape
-    nxy = nx * ny
-    acc = tally.acc
-    flux_up = acc[:nxy].reshape(nx, ny)
-    flux_down = acc[nxy:2 * nxy].reshape(nx, ny)
-    absorbed = acc[2 * nxy:].reshape((nx, ny, nz) if rcfg.vol_tally
-                                     else (nx, ny))
-    n_cut = int(tally.counts[2])
-    n_bad = int(st.alive.sum()) + n_cut
-    out = (flux_up, flux_down, absorbed, n_started, n_bad, n_calls)
-    if not prm.n_dirs:
-        return out
-    img = tally.img[:prm.n_img].reshape(prm.n_sec, prm.n_dirs, nxy)
-    if prm.le_cap:
-        excess = tally.exc.reshape(prm.n_sec, prm.n_dirs).T
-        image = le.redistribute_excess(img.sum(dim=0), img, excess)
-    else:
-        image = img[0]
-    return out + (image.T.reshape(nx, ny, prm.n_dirs), n_cut)
+    Port of ``run_batch_pallas`` + ``_make_launch`` around
+    ``relaunch_loop``. ``n_bad`` counts photons still alive at the step cap
+    plus radiance marches cut by the iteration bound. ``seed`` is the
+    uint32 kernel seed; ``launch`` is ``record_launch`` (or, to compare the
+    two on one device, ``record_launch_plain``). With capping the excess is
+    redistributed over the image after the batch
+    (pallas_kernel.py:3014-3033)."""
+    return _record_batch(domain, surface, source, seed, rcfg,
+                         photons_per_lane, n_photons, use_russian_roulette,
+                         russian_roulette_weight, launch, intensity_config,
+                         intensity_dirs)[0]
 
 
 def run_batch_record_tallies(domain, surface, source, seed: int, config,
@@ -946,12 +1001,10 @@ def run_batch_record_tallies(domain, surface, source, seed: int, config,
         rcfg = dataclasses.replace(rcfg, rows=rows)
     if n_photons is None:
         n_photons = config.photons_per_batch
-    out = run_batch_record(
-        domain, surface, source, seed, rcfg, ppl, n_photons=n_photons,
-        use_russian_roulette=config.use_russian_roulette,
-        russian_roulette_weight=config.russian_roulette_weight,
-        launch=launch, intensity_config=intensity_config,
-        intensity_dirs=intensity_dirs)
+    out, lane_steps = _record_batch(
+        domain, surface, source, seed, rcfg, ppl, n_photons,
+        config.use_russian_roulette, config.russian_roulette_weight,
+        launch, intensity_config, intensity_dirs)
     fu, fd, ab, n_started, n_bad, n_calls = out[:6]
     return Tallies(
         flux_up=fu, flux_down=fd,
@@ -960,4 +1013,4 @@ def run_batch_record_tallies(domain, surface, source, seed: int, config,
         intensity=out[6] if len(out) > 6 else None,
         n_photons=n_started, n_bad=n_bad,
         n_cut=out[7] if len(out) > 6 else 0,
-        n_steps=n_calls * rcfg.steps_per_call)
+        n_steps=n_calls * rcfg.steps_per_call, n_lane_steps=lane_steps)
