@@ -6,15 +6,18 @@
 Phases, each asserting; any failure exits non-zero:
 
 1. print the card (nvidia-smi name and power limit) and build the CUDA
-   record and column kernels from mcbrat3d_tpu_torch/csrc (one nvcc each,
-   started together), reporting the build times and ptxas registers/spills;
+   record, column and separable kernels from mcbrat3d_tpu_torch/csrc (one
+   nvcc each, started together), reporting the build times and ptxas
+   registers/spills;
 2. flux kernel against its plain PyTorch version on the card, same seeds:
    the step cloud at 2^20 photons for macro_factor 0 and 8, both tally
    layouts, plus the tabulated-phase configuration the namelist deck runs
    and a reflecting surface without roulette;
    domain-mean R/T/A within 2e-3 and per-pixel fluxes within 5 sigma;
 2b. radiance kernel against its plain version, same seeds, on the step
-   cloud with the radiance deck's 6 directions: exact estimator with
+   cloud with the radiance deck's 6 directions, 16,384 photons per case
+   (4,096 lanes x 4; the plain step runs 50-80 s per 65,536): exact
+   estimator with
    analytic HG, Iwabuchi roulette with the hybrid table, the original
    table, and a contribution cap low enough to clip; per-direction
    domain-mean gap, per-pixel gap and z < 5, kernel reruns within 1e-5;
@@ -25,13 +28,25 @@ Phases, each asserting; any failure exits non-zero:
 2d. column kernel against its plain version, same seeds, on the
    128 x 128 x 64 broken cloud at 2^17 photons (2^16 lanes x 2; the plain
    step takes ~0.7 s per launch, so 2^20 would take most of the time
-   limit): macro_factor 8 with analytic HG and the tabulated row, each
+   limit; the two macro_factor 0 cases, whose null-collision tails take
+   the plain step 80-110 s at 2^17, run 2^16): macro_factor 8 with
+   analytic HG and the tabulated row, each
    with and without the 3D tally, macro_factor 0 with HG and no 3D tally
    and with the table and the 3D tally, plus a table too large for shared
    memory, the random-azimuth and flux sources, and roulette off;
    domain-mean R/T/A within 2e-3, per-column fluxes within 1e-5 and the
    z profile within 5e-4 of its peak (float32 atomic order: same paths),
    per-pixel fluxes within 5 sigma, kernel reruns within 1e-5;
+2e. separable-template kernel against its plain version, same seeds, on
+   the LW flagship scene at 16 x 16 x 150 (macro 8 and 0), its two-slice
+   cut 132 x 132 x 60 (17,424 columns) and the deck's 325 x 325 x 150
+   with the 9,001-step row (~93 KB of tables in shared memory, past the
+   48 KB opt-in): separable emission with LW pre-credits (roulette on and
+   off), the directional, random-azimuth and flux sources, analytic HG and
+   the tabulated row, and the block ceilings and the row read from global
+   memory (a zero table budget); 2^16 lanes x 2 photons; equal photons,
+   n_bad and lane-steps, per-column fluxes and net absorption within 1e-5
+   and the z profile within 5e-4 of its largest level;
 3. the main path through the command line: mkdomain step_cloud (512
    Legendre moments), then run/step_cloud_mono.nml (16 x 1,048,576
    photons, 3D absorption tally)
@@ -51,6 +66,15 @@ Phases, each asserting; any failure exits non-zero:
    on cuda; n_bad == 0, flux and netCDF files written, the column kernel
    launched and no plain step run, R/T/A and the profile's column integral
    within 4.5 combined sigma of values frozen from the JAX package;
+3d. the broadband-LW flagship through the command line: the port's
+   write_lw_flagship_inputs writes common325.nc and ssp_thermal.nc (325 x
+   325 x 150, 64 bins) into a temporary directory, then
+   run/I3RC_bench_LW_325.nml (16 x 4,194,304 photons) on cuda: 67,108,864
+   photons, n_bad == 0, the separable kernel launched and no record,
+   column or plain step, flux and netCDF files written; then the same
+   generator's 48 x 48 x 150 deck with 8 bins (16 x 131,072 photons):
+   domain-mean up, down and net absorbed flux within 4.5 combined sigma of
+   values frozen from the JAX package;
 4. one headline batch (macro_factor 16, 2^16 lanes x 1024 photons, flux
    tallies only): photons/s of the kernel, and of the plain version at the
    same lane count;
@@ -59,7 +83,11 @@ Phases, each asserting; any failure exits non-zero:
    photons/s and ms per launch, and the kernel once more at 512 rows;
 4c. the Landsat headline (bench.py:497-545: the broken cloud with analytic
    HG, macro_factor 8, 2^16 lanes x 16 photons, no 3D tally): kernel
-   photons/s and ms per launch, plain ms per launch at the same lanes.
+   photons/s and ms per launch, plain ms per launch at the same lanes;
+4d. the separable headline (bench.py:454-494: the 325 x 325 x 150
+   flagship scene, compact, macro 8, 201 CDF steps, 10 um, separable
+   emission, LW, 2^16 lanes x 256 photons): kernel photons/s and ms per
+   launch, plain ms per launch at the same lanes (2 photons each).
 
 Prints the card line, then one JSON line describing each kernel (with its
 time, the least time the card could take for the same work and what bounds
@@ -137,6 +165,23 @@ JAX_LANDSAT_RTA = (0.4628094509243965, 0.3781909700483084,
                    0.15901039727032185)
 JAX_LANDSAT_RTA_SE = (2.66297028e-04, 2.85904954e-04, 8.17650074e-05)
 JAX_LANDSAT_PROFILE_TOTAL = 0.15901039629769975
+# Separable kernel vs plain, same seeds: as for the column kernel, every
+# photon takes the same path (equal lane-steps) and the tallies differ only
+# by float32 atomic order; the same per-column and profile limits apply.
+SEP_COLUMN_TOL_KERNEL_VS_PLAIN = 1e-5
+SEP_PROFILE_TOL_KERNEL_VS_PLAIN = 5e-4
+# The 48 x 48 x 150, 8-bin cut of run/I3RC_bench_LW_325.nml (the same
+# generator, write_lw_flagship_inputs(nx=48, ny=48, n_lambda=8), 16 batches
+# of 131,072 photons, iseed 31) from the JAX package on the CPU with
+# usePallas = 'off' (its XLA wave kernel with a per-voxel emission alias and
+# threefry streams, independent of the port's kernel): domain-mean up, down
+# and net absorbed flux [W m^-2] and their standard errors over its 19
+# batches, and the total emitted flux that scales them (the setup pass,
+# deterministic: the JAX package without its separable plan sums the cells,
+# the port through its plan of float32 amplitudes; they agree to 7.3e-10).
+JAX_LW48 = (89.51026173281286, 118.68254518942129, -73.32991880564167)
+JAX_LW48_SE = (2.22200146, 1.59225717, 2.51300316)
+JAX_LW48_TOTAL_FLUX = 2054.728052554276
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): device
 # memory bytes/s and float32 operations/s outside
 # the tensor cores.
@@ -150,7 +195,8 @@ H100_F32_OPS_PER_S = 67e12
 # are charged at the float32 rate, which is the card's faster one, so the
 # bound stays a lower bound. The radiance kernel's march operations are
 # not counted: its bound is the flux step's.
-OPS_PER_LANE_STEP = {"record_kernel": 300, "col_kernel": 320}
+OPS_PER_LANE_STEP = {"record_kernel": 300, "col_kernel": 320,
+                     "sep_kernel": 360}
 
 
 def _sync():
@@ -264,18 +310,22 @@ STEP_CLOUD_DOMAIN = ("step_cloud", "StepCloud.dom", "ssa=0.99",
                      "n_legendre=512")
 
 
-def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN):
-    """mkdomain + run a deck through the CLI on cuda in the current
-    directory; returns the JSON line, the seconds and the launches of the
-    run (record kernel, its radiance launches, column kernel), and asserts
-    that no plain step ran. Every count is set to 0 just before the run
-    and read just after it."""
+def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
+                  sk=None):
+    """mkdomain (unless ``domain`` is None) + run a deck through the CLI on
+    cuda in the current directory; returns the JSON line, the seconds and
+    the launches of the run (record kernel, its radiance launches, column
+    kernel, separable kernel), and asserts that no plain step ran. Every
+    count is set to 0 just before the run and read just after it."""
     Path("deck.nml").write_text(deck_text)
-    assert cli.main(["mkdomain", *domain]) == 0
+    if domain is not None:
+        assert cli.main(["mkdomain", *domain]) == 0
     plain_steps = []
     patched = [(rk, "record_launch_plain")]
     if ck is not None:
         patched.append((ck, "col_launch_plain"))
+    if sk is not None:
+        patched.append((sk, "sep_launch_plain"))
     originals = [getattr(m, name) for m, name in patched]
 
     def counting(plain):
@@ -290,6 +340,8 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN):
     rk.LAUNCHES = rk.RADIANCE_LAUNCHES = 0
     if ck is not None:
         ck.COL_LAUNCHES = 0
+    if sk is not None:
+        sk.SEP_LAUNCHES = 0
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
@@ -299,9 +351,11 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN):
             setattr(m, name, plain)
     seconds = time.perf_counter() - t0
     launches = (rk.LAUNCHES, rk.RADIANCE_LAUNCHES,
-                ck.COL_LAUNCHES if ck is not None else 0)
+                ck.COL_LAUNCHES if ck is not None else 0,
+                sk.SEP_LAUNCHES if sk is not None else 0)
     assert rc == 0
-    assert launches[0] + launches[2] > 0, "the deck launched no kernel"
+    assert launches[0] + launches[2] + launches[3] > 0, \
+        "the deck launched no kernel"
     assert not plain_steps, "the deck ran a plain PyTorch step"
     return json.loads(buf.getvalue().strip().splitlines()[-1]), seconds, \
         launches
@@ -313,7 +367,7 @@ def phase_main_path(rk, cli):
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            out, seconds, (launches, _, _) = _run_cli_deck(
+            out, seconds, (launches, _, _, _) = _run_cli_deck(
                 cli, rk, (ROOT / "run" / "step_cloud_mono.nml").read_text())
             for f in ("StepCloud_flux.out", "StepCloud_results.nc"):
                 assert Path(f).stat().st_size > 0, f
@@ -372,7 +426,7 @@ def phase_radiance_compare(rk, le, make_step_cloud, make_slab,
          dict(use_russian_roulette=False, use_hybrid_phase=True,
               limit_contributions=True, max_contribution=RAD_LOW_CAP)),
     ]
-    cfg = KernelConfig(n_lanes=4096, photons_per_lane=16, max_steps=100_000,
+    cfg = KernelConfig(n_lanes=4096, photons_per_lane=4, max_steps=100_000,
                        need_volume_absorption=False)
     max_err = 0.0
     for i, (name, all_hg, kw) in enumerate(cases):
@@ -398,7 +452,7 @@ def phase_radiance_compare(rk, le, make_step_cloud, make_slab,
         assert rerun < 1e-5, f"kernel reruns differ by {rerun:.2e}"
         tp, sp = _timed(lambda: run(rk.record_launch_plain))
         n = tk.n_photons
-        assert n == tp.n_photons == 4096 * 16, (n, tp.n_photons)
+        assert n == tp.n_photons == 4096 * 4, (n, tp.n_photons)
         assert tk.n_bad == 0 and tp.n_bad == 0, (tk.n_bad, tp.n_bad)
         mean_k, mean_p = (t.normalized(dom.grid).intensity.double()
                           .mean(dim=(0, 1)) for t in (tk, tp))
@@ -536,7 +590,7 @@ def phase_radiance_deck(rk, cli):
         tmp = Path(tmp)
         os.chdir(tmp)
         try:
-            out, seconds, (_, launches, _) = _run_cli_deck(
+            out, seconds, (_, launches, _, _) = _run_cli_deck(
                 cli, rk, _with_netcdf(deck, "StepCloud_radiance.nc"))
             assert (tmp / "StepCloud_radiance.out").stat().st_size > 0
             with netcdf_file(str(tmp / "StepCloud_radiance.nc"), "r",
@@ -578,7 +632,7 @@ def phase_radiance_deck(rk, cli):
         tmp = Path(tmp)
         os.chdir(tmp)
         try:
-            out, seconds, (_, launches648, _) = _run_cli_deck(
+            out, seconds, (_, launches648, _, _) = _run_cli_deck(
                 cli, rk, _with_netcdf(deck, "StepCloud_radiance648.nc"))
             assert (tmp / "StepCloud_radiance648.out").stat().st_size > 0
             with netcdf_file(str(tmp / "StepCloud_radiance648.nc"), "r",
@@ -732,7 +786,8 @@ def phase_col_compare(ck, broken_cloud_scene, build_domain, Surface,
         dom = domains[(mf, n_cdf)]
         if not analytic:  # as read from a file: the tabulated row
             dom = dataclasses.replace(dom, all_hg=False)
-        cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=2,
+        ppl = 1 if mf == 0 else 2
+        cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=ppl,
                            max_steps=400_000, need_volume_absorption=vol,
                            use_russian_roulette=rr)
         seed = rng.batch_seed(30, i)
@@ -752,8 +807,8 @@ def phase_col_compare(ck, broken_cloud_scene, build_domain, Surface,
                                  (tk.flux_absorbed, tk2.flux_absorbed)))
         assert rerun < 1e-5, f"kernel reruns differ by {rerun:.2e}"
         tp, sp = _timed(lambda: run(ck.col_launch_plain))
-        assert tk.n_photons == tp.n_photons == 1 << 17, (tk.n_photons,
-                                                         tp.n_photons)
+        assert tk.n_photons == tp.n_photons == ppl << 16, (tk.n_photons,
+                                                           tp.n_photons)
         assert tk.n_bad == 0 and tp.n_bad == 0, (tk.n_bad, tp.n_bad)
         rta_k, rta_p = _rta(tk), _rta(tp)
         gap = max(abs(a - b) for a, b in zip(rta_k, rta_p))
@@ -800,7 +855,7 @@ def phase_landsat_deck(ck, rk, cli):
         tmp = Path(tmp)
         os.chdir(tmp)
         try:
-            out, seconds, (rec_launches, _, launches) = _run_cli_deck(
+            out, seconds, (rec_launches, _, launches, _) = _run_cli_deck(
                 cli, rk, deck, ck=ck,
                 domain=("broken_cloud", "BrokenCloud.dom"))
             # the flux file's first data line: the domain means, each
@@ -878,7 +933,267 @@ def phase_col_headline(ck, broken_cloud_scene, build_domain, Surface,
     return res
 
 
-PHASES = ("2", "2b", "2c", "2d", "3", "3b", "3c", "4", "4b", "4c")
+def _lw_scene(lw_flagship_scene, build_domain, nx, nz, macro_factor,
+              cloud_base_level=55, cloud_top_level=85, n_cdf_steps=201,
+              **kw):
+    """The LW flagship scene (or a cut of it) as a compact separable
+    domain on the card, with its emission tables at 10 um."""
+    grid, comps, temps = lw_flagship_scene(
+        nx=nx, ny=nx, nz=nz, cloud_base_level=cloud_base_level,
+        cloud_top_level=cloud_top_level, device="cuda", **kw)
+    return build_domain(grid, comps, temps=temps, macro_factor=macro_factor,
+                        n_cdf_steps=n_cdf_steps, lambda_um=10.0,
+                        device_fields="compact")
+
+
+def _sep_smem(prm, emission, budget):
+    """A separable-kernel block's shared memory as csrc/sep_kernel.cu lays it
+    out: (bytes, block ceilings in shared memory, inverse-CDF row in shared
+    memory)."""
+    smem = 4 * (3 * prm.nz + (4 * prm.nz + 3 * prm.n_groups if emission
+                              else 0))
+    blk = smem + 4 * prm.n_blk <= budget
+    smem += 4 * prm.n_blk if blk else 0
+    inv = not prm.analytic_hg and smem + 8 * prm.inv_n_steps <= budget
+    smem += 8 * prm.inv_n_steps if inv else 0
+    return smem, blk, inv
+
+
+def phase_sep_compare(sk, lw_flagship_scene, build_domain, Surface,
+                      illumination, KernelConfig, rng):
+    """Separable kernel vs plain on the card; returns the largest per-column
+    difference of the normalized fluxes."""
+    import dataclasses
+    import functools
+
+    surface = Surface.lambertian(0.05)
+    # the configurations of tests/test_torch_sep_kernel.py at 2^17 photons,
+    # the two-slice cut (columns past 16,384) with emission, that cut with
+    # the block ceilings and the inverse-CDF row read from global memory (a
+    # zero table budget), and the deck's own shape: 325 x 325 x 150, macro
+    # 8, emission with LW pre-credits and the 9,001-step row of
+    # nPhaseIntervals, whose ~93 KB of tables take the shared-memory opt-in
+    defaults = dict(mf=8, rr=True, analytic=True, slab=(55, 85),
+                    n_cdf=201, ppl=2, budget=sk.TABLE_SMEM,
+                    kw=dict(cloud_beta_max=8.0))
+    cases = [
+        dict(label="emission", nx=16, nz=150, src="emission"),
+        dict(label="emission, no roulette, table", nx=16, nz=150, mf=0,
+             src="emission", rr=False, analytic=False),
+        dict(label="directional, table", nx=16, nz=150, src="directional",
+             analytic=False),
+        dict(label="random azimuth, no roulette", nx=16, nz=150,
+             src="random_azimuth", rr=False),
+        dict(label="flux, slab to the top", nx=16, nz=150, mf=0, src="flux",
+             slab=(55, 150)),
+        dict(label="two slices, emission, table", nx=132, nz=60,
+             src="emission", analytic=False, slab=(20, 35)),
+        dict(label="two slices, emission, table from global memory", nx=132,
+             nz=60, src="emission", analytic=False, slab=(20, 35), budget=0),
+        dict(label="the deck's shape, emission, 9001-step table", nx=325,
+             nz=150, src="emission", analytic=False, n_cdf=9001, kw={}),
+    ]
+    max_err = 0.0
+    for i, case in enumerate(cases):
+        c = {**defaults, **case}
+        label, nx, nz, mf, src = (c[k] for k in ("label", "nx", "nz", "mf",
+                                                 "src"))
+        dom = _lw_scene(lw_flagship_scene, build_domain, nx, nz, mf,
+                        *c["slab"], n_cdf_steps=c["n_cdf"], **c["kw"])
+        if not c["analytic"]:  # as an SSP table gives it: the tabulated row
+            dom = dataclasses.replace(dom, sep_analytic_hg=False)
+        source = {"emission": lambda: illumination.emission_separable(
+                      dom, 288.0, 0.95),
+                  "directional": lambda: illumination.directional(0.5, 0.0),
+                  "random_azimuth": lambda: illumination.random_azimuth(0.5),
+                  "flux": illumination.flux}[src]()
+        cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=c["ppl"],
+                           max_steps=400_000, need_volume_absorption=False,
+                           use_russian_roulette=c["rr"],
+                           lw_mode=src == "emission")
+        seed = rng.batch_seed(40, i)
+        prm = sk.SepParams.make(dom, surface, source, c["rr"], 1.0,
+                                src == "emission")
+        smem, blk_s, inv_s = _sep_smem(prm, src == "emission", c["budget"])
+        if c["budget"] == 0:
+            assert not (blk_s or inv_s), label
+        if nx == 325:  # the deck's tables all in shared memory, opted in
+            assert blk_s and inv_s and smem > 48 * 1024, (label, smem)
+        kernel = functools.partial(sk.sep_launch, table_smem=c["budget"])
+
+        def run(launch=kernel):
+            return sk.run_batch_sep_tallies(dom, surface, source, seed, cfg,
+                                            launch=launch)
+
+        before = sk.SEP_LAUNCHES
+        tk, s_k = _timed(run)
+        assert sk.SEP_LAUNCHES > before, "kernel was not launched"
+        tk2 = run()
+        assert (tk2.n_photons, tk2.n_bad) == (tk.n_photons, tk.n_bad)
+        rerun = max(float((a - b).abs().max())
+                    for a, b in ((tk.flux_up, tk2.flux_up),
+                                 (tk.flux_down, tk2.flux_down),
+                                 (tk.flux_absorbed, tk2.flux_absorbed)))
+        tp, s_p = _timed(lambda: run(sk.sep_launch_plain))
+        assert tk.n_photons == tp.n_photons == (1 << 16) * c["ppl"], (
+            tk.n_photons, tp.n_photons)
+        assert tk.n_bad == 0 and tp.n_bad == 0, (tk.n_bad, tp.n_bad)
+        per_col = tk.n_photons / tk.flux_up.numel()
+        err = max(float((a.double() - b.double()).abs().max()) / per_col
+                  for a, b in ((tk.flux_up, tp.flux_up),
+                               (tk.flux_down, tp.flux_down),
+                               (tk.flux_absorbed, tp.flux_absorbed)))
+        max_err = max(max_err, err)
+        prof_gap = float((tk.absorption_profile.double()
+                          - tp.absorption_profile.double()).abs().max()
+                         / tp.absorption_profile.double().abs().max())
+        # the z profile is the column field's z marginal (one tally)
+        for t in (tk, tp):
+            total = float(t.flux_absorbed.double().sum())
+            assert abs(float(t.absorption_profile.double().sum()) - total) \
+                < 1e-4 * max(abs(total), 1.0), label
+        print(f"sep compare [{label}] {nx}x{nx}x{nz} macro={mf} "
+              f"roulette={c['rr']} analytic={c['analytic']} cdf steps "
+              f"{c['n_cdf']}: shared memory {smem} B (ceilings "
+              f"{'shared' if blk_s else 'global'}, row "
+              f"{'shared' if inv_s else 'global'}); kernel R/T/A="
+              f"{_rta(tk)} plain={_rta(tp)} column gap={err:.2e} profile "
+              f"gap={prof_gap:.2e} rerun abs={rerun:.1e} lane-steps "
+              f"{tk.n_lane_steps} / {tp.n_lane_steps}, kernel {s_k:.3f} s "
+              f"plain {s_p:.3f} s", flush=True)
+        assert tk.n_lane_steps == tp.n_lane_steps, label
+        assert err < SEP_COLUMN_TOL_KERNEL_VS_PLAIN, (label, err)
+        assert prof_gap < SEP_PROFILE_TOL_KERNEL_VS_PLAIN, (label, prof_gap)
+    return max_err
+
+
+def _flux_file_means(path):
+    """The flux file's domain means, each with its standard error, and the
+    flux that scales them: ((up, down, absorbed), (their standard errors),
+    solarFlux)."""
+    with open(path) as f:
+        lines = f.readlines()
+    flux = float(next(ln for ln in lines if ln.startswith("! solarFlux"))
+                 .split("=")[1])
+    vals = [float(v) for v in next(
+        ln for ln in lines if not ln.startswith("!")).split()]
+    return tuple(vals[0::2][:3]), tuple(vals[1::2][:3]), flux
+
+
+def phase_lw_deck(sk, ck, rk, cli, write_lw_flagship_inputs):
+    """run/I3RC_bench_LW_325.nml through the CLI on cuda on the port's
+    generated inputs, then the same generator's 48 x 48 x 150 x 8-bin deck
+    against the JAX package's frozen values."""
+    deck = (ROOT / "run" / "I3RC_bench_LW_325.nml").read_text()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            write_lw_flagship_inputs()
+            gen_s = time.perf_counter() - t0
+            inputs_mb = sum((tmp / f).stat().st_size for f in
+                            ("common325.nc", "ssp_thermal.nc")) / 2 ** 20
+            out, seconds, launches = _run_cli_deck(cli, rk, deck, ck=ck,
+                                                   domain=None, sk=sk)
+            for f in ("LW325_flux.out", "LW325_results.nc"):
+                assert (tmp / f).stat().st_size > 0, f
+            means, se, _ = _flux_file_means(tmp / "LW325_flux.out")
+        finally:
+            os.chdir(cwd)
+    n = out["total_photons"]
+    print(f"LW flagship deck: inputs written in {gen_s:.2f} s "
+          f"({inputs_mb:.0f} MiB); {n} photons in {out['n_batches']} "
+          f"batches, n_bad={out['n_bad']}, up/down/absorbed={means} +- "
+          f"{se}; CLI {seconds:.2f} s (setup {out['setup_seconds']} s before "
+          f"the first transport, run {out['elapsed_seconds']} s), launches "
+          f"record/radiance/column/separable {launches}", flush=True)
+    assert n == 16 * 4_194_304 and out["n_batches"] >= 16
+    assert out["n_bad"] == 0
+    assert launches[3] > 0 and launches[0] == launches[2] == 0, launches
+    assert all(abs(a / b - 1) < 1e-6 for a, b in zip(
+        means, (out["mean_flux_up"], out["mean_flux_down"],
+                out["mean_flux_absorbed"])))
+    flagship = dict(out=out, seconds=seconds, gen_s=gen_s,
+                    launches=launches[3])
+
+    deck48 = (deck.replace("numLambda = 64", "numLambda = 8")
+              .replace("numPhotonsPerBatch = 4194304",
+                       "numPhotonsPerBatch = 131072")
+              .replace("common325.nc", "common48.nc")
+              .replace("ssp_thermal.nc", "ssp48.nc"))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            write_lw_flagship_inputs("common48.nc", "ssp48.nc", nx=48, ny=48,
+                                     nz=150, n_lambda=8)
+            out48, seconds48, launches48 = _run_cli_deck(
+                cli, rk, deck48, ck=ck, domain=None, sk=sk)
+            means48, se48, flux48 = _flux_file_means(tmp / "LW325_flux.out")
+        finally:
+            os.chdir(cwd)
+    print(f"LW 48x48x150 deck: {out48['total_photons']} photons, n_bad="
+          f"{out48['n_bad']}, up/down/absorbed={means48} +- {se48}, "
+          f"{seconds48:.2f} s, {launches48[3]} separable launches, total "
+          f"flux {flux48!r}; JAX package {JAX_LW48} +- {JAX_LW48_SE}, total "
+          f"flux {JAX_LW48_TOTAL_FLUX!r}", flush=True)
+    assert out48["total_photons"] == 16 * 131_072 and out48["n_bad"] == 0
+    assert out48["n_batches"] == 19, out48["n_batches"]
+    assert abs(flux48 / JAX_LW48_TOTAL_FLUX - 1.0) < 1e-8, flux48
+    assert launches48[3] > 0 and launches48[0] == launches48[2] == 0
+    for got, got_se, want, want_se, name in zip(
+            means48, se48, JAX_LW48, JAX_LW48_SE, ("up", "down", "net")):
+        sigma = (got_se ** 2 + want_se ** 2) ** 0.5
+        assert abs(got - want) < 4.5 * sigma, (name, got, want, 4.5 * sigma)
+    return flagship
+
+
+def phase_sep_headline(sk, lw_flagship_scene, build_domain, Surface,
+                       illumination, KernelConfig, rng):
+    """The separable headline of bench.py:454-494: kernel photons/s and ms
+    per launch at 2^16 lanes x 256 photons, plain ms per launch at the same
+    lanes (2 photons each)."""
+    t0 = time.perf_counter()
+    dom = _lw_scene(lw_flagship_scene, build_domain, 325, 150, 8)
+    build_s = time.perf_counter() - t0
+    surface = Surface.lambertian(0.05)
+    source = illumination.emission_separable(dom, 288.0, 0.95)
+    res = {}
+    for name, ppl, launch in (("kernel", 256, sk.sep_launch),
+                              ("plain", 2, sk.sep_launch_plain)):
+        cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=ppl,
+                           max_steps=1_600_000, lw_mode=True,
+                           need_volume_absorption=False)
+        if name == "kernel":  # warm-up batch
+            sk.run_batch_sep_tallies(dom, surface, source,
+                                     rng.batch_seed(0, 99), cfg)
+        t, sec = _timed(lambda: sk.run_batch_sep_tallies(
+            dom, surface, source, rng.batch_seed(0, 0), cfg, launch=launch))
+        assert t.volume_absorption is None and t.n_bad == 0
+        assert t.n_photons == (1 << 16) * ppl
+        n_launch = t.n_steps // 128
+        nxy = dom.grid.nx * dom.grid.ny
+        res[name] = dict(
+            photons_per_s=t.n_photons / sec,
+            ms_per_launch=1e3 * sec / n_launch, photons=t.n_photons,
+            seconds=sec, launches=n_launch, lane_steps=t.n_lane_steps,
+            # amp (padded to whole groups), block ceilings, p, q, z
+            # aliases, group tables; tallies: 3 per column + the profile
+            table_bytes=4 * (-(-nxy // 128) * (128 + 3)
+                             + dom.sep_block.numel() + 6 * dom.grid.nz),
+            tally_bytes=4 * (3 * nxy + dom.grid.nz))
+        print(f"separable headline {name}: {t.n_photons} photons in "
+              f"{sec:.3f} s = {t.n_photons / sec:.6g} photons/s, {n_launch} "
+              f"launches, {1e3 * sec / n_launch:.4f} ms/launch, "
+              f"{t.n_lane_steps} lane-steps, R/T/A={_rta(t)} (domain build "
+              f"{build_s:.2f} s)", flush=True)
+    return res
+
+
+PHASES = ("2", "2b", "2c", "2d", "2e", "3", "3b", "3c", "3d", "4", "4b",
+          "4c", "4d")
 
 
 def main(argv=None) -> int:
@@ -907,13 +1222,15 @@ def main(argv=None) -> int:
     from mcbrat3d_tpu_torch.driver import cli, config
     from mcbrat3d_tpu_torch.physics.phase_function import PhaseFunction
     from mcbrat3d_tpu_torch.physics.surface import Surface
-    from mcbrat3d_tpu_torch.scenes.collection import broken_cloud_scene
+    from mcbrat3d_tpu_torch.scenes.collection import (
+        broken_cloud_scene, lw_flagship_scene, write_lw_flagship_inputs)
     from mcbrat3d_tpu_torch.scenes.plane_parallel import make_slab
     from mcbrat3d_tpu_torch.scenes.step_cloud import make_step_cloud
     from mcbrat3d_tpu_torch.sources import illumination
     from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import local_estimate as le
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
+    from mcbrat3d_tpu_torch.transport import sep_kernel as sk
     from mcbrat3d_tpu_torch.transport.integrator import KernelConfig, run_batch
 
     smi = subprocess.run(
@@ -924,16 +1241,19 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}; card {card}", flush=True)
     t0 = time.perf_counter()
-    _build.build_all(["record_kernel", "col_kernel"])
+    _build.build_all(["record_kernel", "col_kernel", "sep_kernel"])
     print(f"kernels built in {time.perf_counter() - t0:.2f} s (one nvcc "
           "each, started together)", flush=True)
-    # record_steps<MACRO, VOL, ANALYTIC, LE> and
-    # col_steps<MACRO, ANALYTIC, VOL, RR, SRC> in their mangled names
+    # record_steps<MACRO, VOL, ANALYTIC, LE>,
+    # col_steps<MACRO, ANALYTIC, VOL, RR, SRC> and
+    # sep_steps<SRC, ANALYTIC, RR, LW> in their mangled names
     patterns = {
         "record_kernel": (r"record_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
                           "macro={} vol={} analytic={} LE={}"),
         "col_kernel": (r"col_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E",
-                       "macro={} analytic={} vol={} rr={} src={}")}
+                       "macro={} analytic={} vol={} rr={} src={}"),
+        "sep_kernel": (r"sep_stepsILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                       "src={} analytic={} rr={} lw={}")}
     for lib, (pattern, fmt) in patterns.items():
         info = _build.BUILD_INFO[lib]
         print(f"{lib}: nvcc {info['seconds']:.2f} s", flush=True)
@@ -961,12 +1281,19 @@ def main(argv=None) -> int:
                 KernelConfig, rng)
     if "2d" in only:
         out["col_max_err"] = phase_col_compare(*col_args)
+    sep_args = (sk, lw_flagship_scene, build_domain, Surface, illumination,
+                KernelConfig, rng)
+    if "2e" in only:
+        out["sep_max_err"] = phase_sep_compare(*sep_args)
     if "3" in only:
         out["launches"] = phase_main_path(rk, cli)
     if "3b" in only:
         out["rad_launches"] = phase_radiance_deck(rk, cli)
     if "3c" in only:
         out["col_launches"] = phase_landsat_deck(ck, rk, cli)
+    if "3d" in only:
+        out["lw_deck"] = phase_lw_deck(sk, ck, rk, cli,
+                                       write_lw_flagship_inputs)
     if "4" in only:
         out["head"] = phase_headline(*args)
     if "4b" in only:
@@ -975,6 +1302,8 @@ def main(argv=None) -> int:
             KernelConfig, rng)
     if "4c" in only:
         out["col_head"] = phase_col_headline(*col_args)
+    if "4d" in only:
+        out["sep_head"] = phase_sep_headline(*sep_args)
     if only != set(PHASES):
         print(f"chip_smoke: phases {sorted(only)} passed; no result lines "
               "for a partial run")
@@ -982,6 +1311,7 @@ def main(argv=None) -> int:
 
     head, rad_head = out["head"], out["rad_head"]
     rad6, col_head = rad_head[(6, "kernel")], out["col_head"]
+    sep_head = out["sep_head"]["kernel"]
     bounds = {
         "record_kernel": _bound(
             head["kernel"]["lane_steps"], head["kernel"]["launches"],
@@ -997,6 +1327,10 @@ def main(argv=None) -> int:
             4 * (2 * col_head["kernel"]["nxy"]
                  + 2 * col_head["kernel"]["n_blk"]),
             4 * (3 * col_head["kernel"]["nxy"] + col_head["kernel"]["nz"])),
+        "sep_kernel": _bound(
+            sep_head["lane_steps"], sep_head["launches"],
+            OPS_PER_LANE_STEP["sep_kernel"], 1 << 16, 40,
+            sep_head["table_bytes"], sep_head["tally_bytes"]),
     }
     kernels = [{
         "name": "record_kernel",
@@ -1025,6 +1359,15 @@ def main(argv=None) -> int:
         "max_abs_err": out["col_max_err"],
         "ms": col_head["kernel"]["ms_per_launch"],
         "plain_ms": col_head["plain"]["ms_per_launch"],
+    }, {
+        "name": "sep_kernel",
+        "route": "cuda",
+        "source": "mcbrat3d_tpu_torch/csrc/sep_kernel.cu",
+        "replaces": "mcbrat3d_tpu/transport/pallas_sep.py:295",
+        "launches": out["lw_deck"]["launches"],
+        "max_abs_err": out["sep_max_err"],
+        "ms": sep_head["ms_per_launch"],
+        "plain_ms": out["sep_head"]["plain"]["ms_per_launch"],
     }]
     for k in kernels:
         # no single PyTorch call computes a transport step

@@ -8,13 +8,15 @@ bit-identical records for the same inputs.
 
 Covered here: ``device_fields="full"`` with the packed ``cell_records``
 layout, the two-level macro-cell majorant, the ``uniform_ssa`` /
-``uniform_hg`` flags, the radiance (forward / hybrid) phase tables and the
+``uniform_hg`` flags, the radiance (forward / hybrid) phase tables, the
 one-component column-template detection with its xy-block majorant table
-(the column kernel's inputs). The two-component (cloud + gas) column
-template, the column emission tables, the separable template and compact
-domains belong to kernels that are not ported yet: such domains get
-``col_template=False`` (the column kernel's eligibility names why) or raise
-``NotImplementedError``.
+(the column kernel's inputs), and the separable-template detection with
+its bf16-bumped block ceilings and separable emission tables (the
+separable kernel's inputs), also as a ``device_fields="compact"`` domain
+that carries only those. The two-component (cloud + gas) column template
+and the column emission tables belong to parts of the column kernel that
+are not ported yet: such domains get ``col_template=False`` (the column
+kernel's eligibility names why).
 """
 
 from __future__ import annotations
@@ -110,11 +112,12 @@ class OpticalDomain:
     """
 
     grid: Grid
-    total_ext: torch.Tensor     # [nx, ny, nz] f32
-    cum_ext: torch.Tensor       # [nx, ny, nz, ncomp] f32
-    ssa: torch.Tensor           # [nx, ny, nz, ncomp] f32
-    phase_index: torch.Tensor   # [nx, ny, nz, ncomp] i32
-    cell_records: torch.Tensor  # [nx*ny*nz, 2 + 4*ncomp] f32
+    # the per-cell fields are None on a compact domain
+    total_ext: Optional[torch.Tensor]     # [nx, ny, nz] f32
+    cum_ext: Optional[torch.Tensor]       # [nx, ny, nz, ncomp] f32
+    ssa: Optional[torch.Tensor]           # [nx, ny, nz, ncomp] f32
+    phase_index: Optional[torch.Tensor]   # [nx, ny, nz, ncomp] i32
+    cell_records: Optional[torch.Tensor]  # [nx*ny*nz, 2 + 4*ncomp] f32
     tables: DeviceTables
     all_hg: bool = False
     uniform_ssa: bool = False
@@ -133,14 +136,53 @@ class OpticalDomain:
     col_scale: Optional[torch.Tensor] = None    # [nx*ny] f32
     col_height: Optional[torch.Tensor] = None   # [nx*ny] f32, cells from z=0
     macro_table: Optional[torch.Tensor] = None  # [nbx*nby, 2] f32
+    # Separable-template structure (two components at most; detected on
+    # the float32 fields): beta(x, y, z) = sep_amp[ix*ny+iy] * sep_pz[iz]
+    # + sep_qz[iz], a rank-1 scattering "cloud" over a horizontally
+    # uniform pure absorber, the shape of the reference's broadband-LW
+    # flagship (reference: run/I3RC_bench_LW.deck:45). sep_block holds each
+    # xy block's in-slab ceiling (block max amp * max p + max in-slab q,
+    # bumped up to bfloat16 as the JAX package stores it); sep_scalars are
+    # (ssa_cloud, g_cloud, q max below the slab [sep_zb, sep_zt), q max
+    # above it, the largest block ceiling, the largest amplitude).
+    sep_template: bool = False
+    sep_amp: Optional[torch.Tensor] = None     # [nx*ny] f32
+    sep_pz: Optional[torch.Tensor] = None      # [nz] f32
+    sep_qz: Optional[torch.Tensor] = None      # [nz] f32
+    sep_block: Optional[torch.Tensor] = None   # [nbx*nby] f32
+    sep_tz: Optional[torch.Tensor] = None      # [nz] f32 temps (z-uniform)
+    sep_scalars: Optional[np.ndarray] = None   # [6] f32 (host)
+    sep_zb: int = 0
+    sep_zt: int = 0
+    # the cloud scatters by analytic HG (g = sep_scalars[1]) or by row
+    # sep_inv_row of tables.inverse
+    sep_analytic_hg: bool = False
+    sep_inv_row: int = 0
+    sep_tz_uniform: bool = False
+    # Separable emission tables (z-uniform temps and lambda_um > 0): the
+    # emission density kabs * B(T(z)) = a[col] * P1[z] + Q1[z] with
+    # P1 = p (1 - ssa_cloud) B, Q1 = q B; sep_em_zpa holds the Walker z
+    # aliases of P1 and Q1 (cloud prob, cloud alias, gas prob, gas alias),
+    # sep_em_pb the probability of the cloud branch and sep_em_atm the
+    # total atmospheric emission in emission_weighting's units. The column
+    # is drawn by the kernel's group-rejection sampler over the host copy
+    # sep_amp_np (float64), so no per-column alias is kept.
+    sep_em_zpa: Optional[torch.Tensor] = None  # [4, nz] f32
+    sep_em_pb: Optional[np.ndarray] = None     # [1] f32 (host)
+    sep_em_atm: float = 0.0
+    sep_amp_np: Optional[np.ndarray] = None    # [nx*ny] f64 (host)
+    # component count of a compact domain (no per-cell fields)
+    ncomp_hint: int = 0
 
     @property
     def n_components(self) -> int:
-        return self.cum_ext.shape[-1]
+        if self.cum_ext is not None:
+            return self.cum_ext.shape[-1]
+        return self.ncomp_hint
 
     @property
     def device(self) -> torch.device:
-        return self.cell_records.device
+        return self.grid.device
 
     @property
     def max_extinction(self) -> float:
@@ -148,10 +190,31 @@ class OpticalDomain:
         return float(torch.max(self.total_ext))
 
 
-def _not_ported(what: str, where: str):
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet; it arrives with {where} "
-        "(see ROADMAP.md)")
+def stack_phase_tables(phase_tables, n_cdf_steps: int,
+                       n_forward_angles: int, compute_intensity_tables: bool,
+                       hybrid_width_deg: float) -> dict:
+    """The stacked phase tables of ``phase_tables`` (one per component) as
+    NumPy arrays under ``domain_from_numpy``'s names: ``inverse`` rows per
+    entry, ``forward`` / ``forward_orig`` (zeros [rows, 1] without radiance
+    tables) and the per-component row ``offsets`` (port of
+    ``domain._build_device_tables``)."""
+    inv_list, fwd_list, offsets, row = [], [], [], 0
+    for tbl in phase_tables:
+        offsets.append(row)
+        row += tbl.n_entries
+        inv_list.append(inverse_cdf_table(tbl, n_cdf_steps))
+        if compute_intensity_tables:
+            fwd_list.append(forward_tabulate(tbl, n_forward_angles))
+    inverse = np.concatenate(inv_list, axis=0)
+    if compute_intensity_tables:
+        forward_orig = np.concatenate(fwd_list, axis=0)
+        forward = (hybrid_phase_values(
+            np.linspace(0.0, np.pi, n_forward_angles), forward_orig,
+            hybrid_width_deg) if hybrid_width_deg > 0.0 else forward_orig)
+    else:
+        forward = forward_orig = np.zeros((row, 1), np.float64)
+    return dict(inverse=inverse, forward=forward, forward_orig=forward_orig,
+                offsets=np.asarray(offsets, np.int32))
 
 
 def build_domain(grid: Grid, components: Sequence[OpticalComponent],
@@ -165,18 +228,22 @@ def build_domain(grid: Grid, components: Sequence[OpticalComponent],
                  device_fields: str = "full") -> OpticalDomain:
     """Flatten components into the solver arrays and stack phase tables.
 
-    Same arithmetic as ``mcbrat3d_tpu.domain.domain.build_domain`` for
-    ``device_fields="full"``; arrays land on the grid's device. With
-    ``compute_intensity_tables`` the forward phase tables are tabulated on
-    ``n_forward_angles`` angles and, for ``hybrid_width_deg > 0``,
-    hybridized (reference: src/opticalProperties.f95:1872-2050).
+    Same arithmetic as ``mcbrat3d_tpu.domain.domain.build_domain``; arrays
+    land on the grid's device. With ``compute_intensity_tables`` the
+    forward phase tables are tabulated on ``n_forward_angles`` angles and,
+    for ``hybrid_width_deg > 0``, hybridized (reference:
+    src/opticalProperties.f95:1872-2050). With ``temps`` (z-uniform) and
+    ``lambda_um > 0`` a separable domain also carries its emission tables.
+
+    ``device_fields="compact"`` builds only the separable-template fields
+    and the phase tables (the per-cell fields are None): the only kernel
+    that runs such a domain is the separable one, and at flagship scale
+    the per-cell fields are ~1 GB it never reads. Raises ValueError when
+    the domain is not separable.
     """
     if not components:
         raise ValueError("need at least one optical component")
-    if device_fields == "compact":
-        raise _not_ported("build_domain(device_fields='compact')",
-                          "the separable-template kernel (K4)")
-    if device_fields != "full":
+    if device_fields not in ("full", "compact"):
         raise ValueError(f"device_fields={device_fields!r} "
                          "(expected 'full' or 'compact')")
     nx, ny, nz = grid.shape
@@ -205,28 +272,47 @@ def build_domain(grid: Grid, components: Sequence[OpticalComponent],
     total = ext.sum(axis=-1)
 
     # --- stacked inverse-CDF (and forward) tables, rows per entry ---
-    inv_list, fwd_list, offsets, row = [], [], [], 0
-    for comp in components:
-        offsets.append(row)
-        row += comp.phase_function_table.n_entries
-        inv_list.append(inverse_cdf_table(comp.phase_function_table,
-                                          n_cdf_steps))
-        if compute_intensity_tables:
-            fwd_list.append(forward_tabulate(comp.phase_function_table,
-                                             n_forward_angles))
-    inverse = np.concatenate(inv_list, axis=0)
-    if compute_intensity_tables:
-        forward_orig = np.concatenate(fwd_list, axis=0)
-        forward = (hybrid_phase_values(
-            np.linspace(0.0, np.pi, n_forward_angles), forward_orig,
-            hybrid_width_deg) if hybrid_width_deg > 0.0 else forward_orig)
-    else:
-        forward = forward_orig = np.zeros((row, 1), np.float64)
-
+    tables = stack_phase_tables(
+        [comp.phase_function_table for comp in components], n_cdf_steps,
+        n_forward_angles, compute_intensity_tables, hybrid_width_deg)
     all_hg = all(p.hg_g is not None
                  for comp in components
                  for p in comp.phase_function_table.phase_functions)
+    geometry = dict(
+        x_edges=grid.edges_f32()[0], y_edges=grid.edges_f32()[1],
+        z_edges=grid.edges_f32()[2], xy_regular=grid.xy_regular,
+        z_regular=grid.z_regular)
     n_cells = nx * ny * nz
+
+    if device_fields == "compact":
+        # uniformity flags from the component arrays (the packed records
+        # they normally come from are skipped), then the separable
+        # detection and nothing else (domain.py:542-580 of the JAX package)
+        occ = total > 0.0
+        uniform_ssa = uniform_hg = False
+        if ncomp == 1:
+            sv = ssa[..., 0][occ] if occ.any() else ssa.flat[:1]
+            gs = np.array(
+                [pf.hg_g if pf.hg_g is not None else 0.0
+                 for pf in components[0].phase_function_table.phase_functions],
+                np.float32)
+            gv = gs[pfi[..., 0][occ]] if occ.any() else gs[:1]
+            uniform_ssa = bool(np.all(sv == sv.flat[0]))
+            uniform_hg = bool(np.all(gv == gv.flat[0]))
+        sep = detect_separable(grid, components, ext, ssa, pfi,
+                               macro_factor, temps, False, float(lambda_um))
+        if not sep:
+            raise ValueError(
+                "build_domain(device_fields='compact') requires a "
+                "separable domain (beta = a[col]*p[z] + q[z], one rank-1 "
+                "scattering component plus at most one horizontally "
+                "uniform pure absorber); this one is not -- rebuild with "
+                "device_fields='full'")
+        return domain_from_numpy(dict(
+            **geometry, **tables, **sep, all_hg=all_hg,
+            uniform_ssa=uniform_ssa, uniform_hg=uniform_hg,
+            macro_factor=int(macro_factor), lambda_um=float(lambda_um),
+            ncomp_hint=ncomp), device=grid.device)
 
     cum = np.cumsum(ext, axis=-1)
     with np.errstate(invalid="ignore", divide="ignore"):
@@ -279,15 +365,13 @@ def build_domain(grid: Grid, components: Sequence[OpticalComponent],
     if ncomp == 1 and grid.xy_regular and grid.z_regular:
         col = detect_column_template(np.asarray(total, np.float32),
                                      macro_factor)
+    sep = detect_separable(grid, components, ext, ssa, pfi, macro_factor,
+                           temps, bool(col), float(lambda_um))
 
     return domain_from_numpy(dict(
-        **col,
-        x_edges=grid.edges_f32()[0], y_edges=grid.edges_f32()[1],
-        z_edges=grid.edges_f32()[2], xy_regular=grid.xy_regular,
-        z_regular=grid.z_regular,
+        **col, **sep, **geometry, **tables,
         total_ext=total, cum_ext=cum_frac, ssa=ssa, phase_index=pfi,
-        cell_records=rec, inverse=inverse, forward=forward,
-        forward_orig=forward_orig, offsets=np.asarray(offsets, np.int32), all_hg=all_hg,
+        cell_records=rec, all_hg=all_hg,
         uniform_ssa=uniform_ssa, uniform_hg=uniform_hg,
         macro_factor=int(macro_factor), temps=temps,
         lambda_um=float(lambda_um)), device=grid.device)
@@ -338,57 +422,248 @@ def detect_column_template(total: np.ndarray, macro_factor: int) -> dict:
     return out
 
 
+def sep_blockmax(a: np.ndarray, nx: int, ny: int,
+                 macro_factor: int) -> np.ndarray:
+    """Per-xy-macro-block max of the column amplitude field [nbx, nby]
+    (one block without a macro factor)."""
+    f = macro_factor if macro_factor > 0 else max(nx, ny)
+    nbx, nby = -(-nx // f), -(-ny // f)
+    a2 = np.zeros((nbx * f, nby * f), np.float32)
+    a2[:nx, :ny] = a
+    return a2.reshape(nbx, f, nby, f).max(axis=(1, 3))
+
+
+def sep_block_ceiling(blockmax: np.ndarray, pmax: float,
+                      qmax_slab: float) -> np.ndarray:
+    """In-slab extinction ceiling per block, computed in float32 as the JAX
+    package does and bumped up to bfloat16 so that the stored bound never
+    falls below the true one (``domain._sep_block_ceiling``)."""
+    return _round_up_bf16(blockmax * pmax + qmax_slab)
+
+
+def sep_emission_tables(p: np.ndarray, q: np.ndarray, tz: np.ndarray,
+                        amp_sum: float, ssa_cloud: float, lambda_um: float,
+                        nxy: int, nz: int, dz_km: float) -> dict:
+    """Separable emission tables (see OpticalDomain.sep_em_*; port of
+    ``domain._sep_emission_tables`` without its per-column alias, which
+    only the JAX kernel's A/B control reads). Reference sampling being
+    replaced: the 3-level CDF scan of src/monteCarloIllumination.f95:
+    495-498."""
+    from mcbrat3d_tpu_torch.core.planck import planck_radiance
+    from mcbrat3d_tpu_torch.sources.illumination import _walker_alias
+
+    b = np.where(tz > 0, planck_radiance(lambda_um, np.maximum(tz, 1.0)),
+                 0.0)
+    p1 = p * (1.0 - ssa_cloud) * b
+    q1 = q * b
+    w_cloud = float(amp_sum * p1.sum())
+    w_gas = float(nxy * q1.sum())
+    tot = w_cloud + w_gas
+    pb = w_cloud / tot if tot > 0 else 0.0
+
+    def z_alias(dens):
+        s = dens.sum()
+        return _walker_alias(dens / s if s > 0 else np.full(nz, 1.0 / nz))
+
+    zp_c, za_c = z_alias(p1)
+    zp_g, za_g = z_alias(q1)
+    return dict(
+        sep_em_zpa=np.stack([zp_c, za_c, zp_g, za_g]).astype(np.float32),
+        sep_em_pb=np.asarray([pb], np.float32),
+        # total atmospheric emission in emission_weighting's units
+        # (4 pi B kabs dz summed over the voxels), for the
+        # atmosphere/surface split of illumination.emission_separable
+        sep_em_atm=4.0 * np.pi * float(dz_km) * tot)
+
+
+def detect_separable(grid: Grid, components, ext, ssa, pfi,
+                     macro_factor: int, temps, col_template: bool,
+                     lambda_um: float = 0.0) -> dict:
+    """Detect beta = a[x,y] * p[z] + q[z] on the float64 component fields
+    [nx, ny, nz, ncomp] (port of ``domain._detect_separable``): the rank-1
+    "cloud" component has one phase entry and a uniform ssa over its
+    occupied cells; the horizontally uniform "gas" component (if any) is a
+    pure absorber. Up to 131,072 columns and 256 levels on a regular grid.
+    Returns the ``sep_*`` fields, empty when the domain is not separable."""
+    nx, ny, nz = grid.shape
+    ncomp = len(components)
+    if (col_template or ncomp > 2 or nz > 256 or nx * ny > 131072
+            or not (grid.xy_regular and grid.z_regular)):
+        return {}
+    uniform = [bool(np.all(ext[:, :, :, c] == ext[:1, :1, :, c]))
+               for c in range(ncomp)]
+    if ncomp == 2:
+        if uniform[0] == uniform[1]:
+            return {}
+        cloud_c, gas_c = (1, 0) if uniform[0] else (0, 1)
+    else:
+        if uniform[0]:
+            return {}
+        cloud_c, gas_c = 0, None
+
+    e_c = np.asarray(ext[:, :, :, cloud_c], np.float32)
+    occ_c = e_c > 0
+    if not occ_c.any():
+        return {}
+    # the gas must be a pure absorber (else the scattering component would
+    # depend on position and the single-phase kernel would be biased)
+    if gas_c is not None:
+        q = np.asarray(ext[0, 0, :, gas_c], np.float32)
+        occ_g = ext[:, :, :, gas_c] > 0
+        if occ_g.any() and float(np.abs(ssa[:, :, :, gas_c][occ_g]).max()) > 0:
+            return {}
+    else:
+        q = np.zeros(nz, np.float32)
+
+    # rank-1 factorization from the strongest column
+    ij = np.unravel_index(np.argmax(e_c.sum(axis=2)), (nx, ny))
+    p = e_c[ij[0], ij[1], :].astype(np.float32)
+    zref = int(np.argmax(p))
+    if p[zref] <= 0:
+        return {}
+    a = (e_c[:, :, zref] / p[zref]).astype(np.float32)
+    # columns with zero amplitude at zref must be empty columns
+    if bool(np.any(occ_c.any(axis=2) & (a <= 0))):
+        return {}
+    approx = a[:, :, None] * p[None, None, :]
+    tol = 4e-6 * float(e_c.max())
+    if not bool(np.all(np.abs(e_c - approx) <= tol + 4e-6 * approx)):
+        return {}
+
+    # cloud uniformity: one ssa, one phase entry over occupied cells
+    ssa_c_vals = ssa[:, :, :, cloud_c][occ_c]
+    pfi_c_vals = pfi[:, :, :, cloud_c][occ_c]
+    if (not bool(np.all(ssa_c_vals == ssa_c_vals.flat[0]))
+            or not bool(np.all(pfi_c_vals == pfi_c_vals.flat[0]))):
+        return {}
+    ssa_cloud = float(ssa_c_vals.flat[0])
+    entry = int(pfi_c_vals.flat[0])
+    g_cloud = components[cloud_c].phase_function_table.phase_functions[
+        entry].hg_g
+    offset = sum(components[c].phase_function_table.n_entries
+                 for c in range(cloud_c))
+
+    # slab bounds + region ceilings
+    nzp = np.nonzero(p > 0)[0]
+    zb, zt = int(nzp[0]), int(nzp[-1]) + 1
+    tz = None
+    if temps is not None:
+        t = np.asarray(temps)
+        if bool(np.all(t == t[0:1, 0:1, :])):
+            # the emission tables see the float32 temperatures, as in JAX
+            tz = t[0, 0, :].astype(np.float32).astype(np.float64)
+    ze = grid.edges_np()[2]
+    amp = a.reshape(-1)
+    return sep_fields(amp, p, q, zb, zt, sep_blockmax(a, nx, ny, macro_factor),
+                      ssa_cloud, g_cloud, offset + entry, tz, lambda_um,
+                      dz_km=(ze[-1] - ze[0]) / nz,
+                      amp_sum=float(amp.astype(np.float64).sum()))
+
+
+def sep_fields(amp: np.ndarray, p: np.ndarray, q: np.ndarray, zb: int,
+               zt: int, blockmax: np.ndarray, ssa_cloud: float, g_cloud,
+               inv_row: int, tz, lambda_um: float, dz_km: float,
+               amp_sum: float) -> dict:
+    """The ``sep_*`` fields of a separable domain from its factors:
+    float32 amplitudes [nx*ny], profiles p, q [nz], the slab [zb, zt), the
+    per-block amplitude maxima, the cloud's ssa, HG g (None for a
+    tabulated phase) and inverse-CDF row, and the z-uniform temperatures
+    (None when they vary or are absent); shared by ``detect_separable``
+    and the per-bin plan rebuild."""
+    nz = p.size
+    qmax_below = float(q[:zb].max()) if zb > 0 else 0.0
+    qmax_above = float(q[zt:].max()) if zt < nz else 0.0
+    qmax_slab = float(q[zb:zt].max())
+    bceil16 = sep_block_ceiling(blockmax, float(p.max()), qmax_slab)
+    analytic = g_cloud is not None
+    out = dict(
+        sep_template=True, sep_amp=amp, sep_pz=p, sep_qz=q,
+        sep_block=bceil16.reshape(-1),
+        sep_tz=(np.zeros(nz, np.float32) if tz is None
+                else tz.astype(np.float32)),
+        sep_scalars=np.asarray(
+            [ssa_cloud, float(g_cloud) if analytic else 0.0, qmax_below,
+             qmax_above, float(bceil16.max()), float(amp.max())],
+            np.float32),
+        sep_zb=zb, sep_zt=zt, sep_analytic_hg=bool(analytic),
+        sep_inv_row=int(inv_row), sep_tz_uniform=tz is not None,
+        sep_amp_np=amp.astype(np.float64))
+    if tz is not None and lambda_um > 0.0:
+        out.update(sep_emission_tables(
+            p.astype(np.float64), q.astype(np.float64), tz, amp_sum,
+            ssa_cloud, float(lambda_um), amp.size, nz, dz_km))
+    return out
+
+
 def domain_from_numpy(arrays: dict, device="cpu") -> OpticalDomain:
     """Build the port's domain from plain arrays.
 
     ``arrays`` holds the JAX ``OpticalDomain``'s fields as NumPy arrays or
     Python scalars: ``x_edges``/``y_edges``/``z_edges``, ``xy_regular``,
     ``z_regular``, ``total_ext``, ``cum_ext``, ``ssa``, ``phase_index``,
-    ``cell_records``, ``inverse``, ``forward`` and ``forward_orig``
+    ``cell_records`` (all five absent for a compact domain, which then
+    gives ``ncomp_hint``), ``inverse``, ``forward`` and ``forward_orig``
     (``tables.*``), ``offsets``, ``all_hg``, ``uniform_ssa``,
     ``uniform_hg``, ``macro_factor`` and optionally ``temps``,
-    ``lambda_um`` and the column-template fields ``col_template``,
-    ``col_scale``, ``col_height`` and ``macro_table``. Float fields are
-    stored as float32, so a JAX domain converted here computes on the same
-    data.
+    ``lambda_um``, the column-template fields ``col_template``,
+    ``col_scale``, ``col_height`` and ``macro_table``, and the separable
+    fields ``sep_*`` (``sep_em_zpa``, ``sep_em_pb`` and ``sep_em_atm`` only
+    with emission tables). Float fields are stored as float32, so a JAX
+    domain converted here computes on the same data.
     """
-    def f32(name):
-        return torch.tensor(np.asarray(arrays[name], np.float32),
-                            device=device)
-
     def opt_f32(name):
         v = arrays.get(name)
         return None if v is None else torch.tensor(
             np.asarray(v, np.float32), device=device).contiguous()
 
+    def opt_host(name, dtype):
+        v = arrays.get(name)
+        return None if v is None else np.asarray(v, dtype)
+
     xe, ye, ze = (np.asarray(arrays[k], np.float32)
                   for k in ("x_edges", "y_edges", "z_edges"))
     grid = Grid._make(xe, ye, ze, bool(arrays["xy_regular"]),
                       bool(arrays["z_regular"]), device)
-    temps = arrays.get("temps")
+    pfi = arrays.get("phase_index")
     return OpticalDomain(
         grid=grid,
-        total_ext=f32("total_ext"),
-        cum_ext=f32("cum_ext"),
-        ssa=f32("ssa"),
-        phase_index=torch.tensor(
-            np.asarray(arrays["phase_index"], np.int32), device=device),
-        cell_records=f32("cell_records").contiguous(),
+        total_ext=opt_f32("total_ext"),
+        cum_ext=opt_f32("cum_ext"),
+        ssa=opt_f32("ssa"),
+        phase_index=None if pfi is None else torch.tensor(
+            np.asarray(pfi, np.int32), device=device),
+        cell_records=opt_f32("cell_records"),
         tables=DeviceTables(
-            inverse=f32("inverse").contiguous(),
-            forward=f32("forward").contiguous(),
-            forward_orig=f32("forward_orig").contiguous(),
+            inverse=opt_f32("inverse"),
+            forward=opt_f32("forward"),
+            forward_orig=opt_f32("forward_orig"),
             offsets=torch.tensor(np.asarray(arrays["offsets"], np.int32),
                                  device=device)),
         all_hg=bool(arrays["all_hg"]),
         uniform_ssa=bool(arrays["uniform_ssa"]),
         uniform_hg=bool(arrays["uniform_hg"]),
         macro_factor=int(arrays["macro_factor"]),
-        temps=None if temps is None else torch.tensor(
-            np.asarray(temps, np.float32), device=device),
+        temps=opt_f32("temps"),
         lambda_um=float(arrays.get("lambda_um", 0.0)),
         col_template=bool(arrays.get("col_template", False)),
         col_scale=opt_f32("col_scale"),
         col_height=opt_f32("col_height"),
         macro_table=opt_f32("macro_table"),
+        sep_template=bool(arrays.get("sep_template", False)),
+        sep_amp=opt_f32("sep_amp"),
+        sep_pz=opt_f32("sep_pz"),
+        sep_qz=opt_f32("sep_qz"),
+        sep_block=opt_f32("sep_block"),
+        sep_tz=opt_f32("sep_tz"),
+        sep_scalars=opt_host("sep_scalars", np.float32),
+        sep_zb=int(arrays.get("sep_zb", 0)),
+        sep_zt=int(arrays.get("sep_zt", 0)),
+        sep_analytic_hg=bool(arrays.get("sep_analytic_hg", False)),
+        sep_inv_row=int(arrays.get("sep_inv_row", 0)),
+        sep_tz_uniform=bool(arrays.get("sep_tz_uniform", False)),
+        sep_em_zpa=opt_f32("sep_em_zpa"),
+        sep_em_pb=opt_host("sep_em_pb", np.float32),
+        sep_em_atm=float(arrays.get("sep_em_atm", 0.0)),
+        sep_amp_np=opt_host("sep_amp_np", np.float64),
+        ncomp_hint=int(arrays.get("ncomp_hint", 0)),
     )

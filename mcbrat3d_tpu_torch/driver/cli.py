@@ -28,6 +28,16 @@ def _resolve_device(name: str) -> torch.device:
     return dev
 
 
+def _launches() -> dict:
+    """Kernel launches of this process, per kernel."""
+    from mcbrat3d_tpu_torch.transport import col_kernel as ck
+    from mcbrat3d_tpu_torch.transport import record_kernel as rk
+    from mcbrat3d_tpu_torch.transport import sep_kernel as sk
+    return {"record_kernel": rk.LAUNCHES,
+            "record_kernel_radiance": rk.RADIANCE_LAUNCHES,
+            "col_kernel": ck.COL_LAUNCHES, "sep_kernel": sk.SEP_LAUNCHES}
+
+
 def _cmd_run(args) -> int:
     from mcbrat3d_tpu_torch.driver.config import load_config
     from mcbrat3d_tpu_torch.driver.simulate import simulate_from_config
@@ -50,6 +60,8 @@ def _cmd_run(args) -> int:
         "mean_flux_absorbed": float(results.mean["mean_flux_absorbed"]),
         **radiance,
         "elapsed_seconds": round(results.elapsed_seconds, 3),
+        "setup_seconds": round(results.setup_seconds, 3),
+        "launches": _launches(),
         "device": str(device),
         "outputs": written,
     }))

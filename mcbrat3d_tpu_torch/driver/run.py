@@ -3,10 +3,12 @@
 PyTorch counterpart of ``mcbrat3d_tpu.driver.run`` for one device
 (reference: Drivers/monteCarloDriver.f95:889-1228): per batch the
 per-photon-normalized tallies are accumulated as photon-weighted first and
-second moments; the mean is scaled by the incident flux and the standard
-error is sqrt(max(0, E[x^2] - E[x]^2)/(nBatches - 1)). Batch b runs with
-the kernel seed ``rng.batch_seed(iseed, b)``. Decks with radiance
-directions also accumulate the top-of-domain radiance image and its
+second moments on the domain's device (``DeviceMomentAccumulator``, the
+layout the broadband loop uses too; one host fetch at the end); the mean
+is scaled by the incident flux and the standard error is
+sqrt(max(0, E[x^2] - E[x]^2)/(nBatches - 1)). Batch b runs with the kernel
+seed ``rng.batch_seed(iseed, b)``. Decks with radiance directions also
+accumulate the top-of-domain radiance image and its
 per-direction domain mean.
 """
 
@@ -17,7 +19,7 @@ import time
 from typing import Optional
 
 from mcbrat3d_tpu_torch.core import rng
-from mcbrat3d_tpu_torch.core.accumulate import MomentAccumulator
+from mcbrat3d_tpu_torch.core.accumulate import DeviceMomentAccumulator
 from mcbrat3d_tpu_torch.domain.domain import OpticalDomain
 from mcbrat3d_tpu_torch.driver.config import SimulationConfig
 from mcbrat3d_tpu_torch.physics.surface import Surface
@@ -40,6 +42,7 @@ class Results:
     config: Optional[SimulationConfig] = None
     grid: object = None
     n_bad: int = 0  # photons cut by the step cap, summed over batches
+    setup_seconds: float = 0.0  # before the first transport (broadband)
 
     def __getitem__(self, name):
         return self.mean[name]
@@ -89,7 +92,7 @@ def run_simulation(domain: OpticalDomain,
             limit_contributions=cfg.limit_intensity_contributions,
             max_contribution=cfg.max_intensity_contribution,
         )
-    acc = MomentAccumulator()
+    dacc = DeviceMomentAccumulator()
     n_bad = 0
     t0 = time.time()
     for b in range(cfg.num_batches):
@@ -97,31 +100,8 @@ def run_simulation(domain: OpticalDomain,
                       kcfg, n_photons=cfg.num_photons_per_batch,
                       intensity_config=icfg, intensity_dirs=idirs)
         n_bad += int(t.n_bad)
-        t = t.normalized(domain.grid)
-        arrays = {
-            "flux_up": t.flux_up.cpu().numpy(),
-            "flux_down": t.flux_down.cpu().numpy(),
-            "flux_absorbed": t.flux_absorbed.cpu().numpy(),
-        }
-        if t.volume_absorption is not None:
-            arrays["volume_absorption"] = t.volume_absorption.cpu().numpy()
-        # domain means + horizontally averaged absorption profile
-        # (reference: Integrators/monteCarloRadiativeTransfer.f95:845-1042)
-        arrays["mean_flux_up"] = arrays["flux_up"].mean()
-        arrays["mean_flux_down"] = arrays["flux_down"].mean()
-        arrays["mean_flux_absorbed"] = arrays["flux_absorbed"].mean()
-        # the column kernel tallies the z marginal itself; otherwise it is
-        # the column mean of the 3D field
-        if t.absorption_profile is not None:
-            arrays["absorption_profile"] = t.absorption_profile.cpu().numpy()
-        elif t.volume_absorption is not None:
-            arrays["absorption_profile"] = arrays[
-                "volume_absorption"].mean(axis=(0, 1))
-        if t.intensity is not None:
-            arrays["intensity"] = t.intensity.cpu().numpy()
-            # per-direction domain mean, so its standard error is known
-            arrays["mean_intensity"] = arrays["intensity"].mean(axis=(0, 1))
-        acc.add(float(t.n_photons), arrays)
+        dacc.add_tallies(t, domain.grid)
+    acc = dacc.finalize()
 
     elapsed = time.time() - t0
     mean = {k: solar_flux * acc.mean(k) for k in acc._sum_wx}

@@ -1,9 +1,10 @@
 """High-level simulation assembly: config -> domain -> run -> outputs.
 
-PyTorch counterpart of ``mcbrat3d_tpu.driver.simulate`` for the
-monochromatic path (read domain, directional solar source, batches;
-reference: Drivers/monteCarloDriver.f95:289-505). Broadband and longwave
-runs are not ported yet.
+PyTorch counterpart of ``mcbrat3d_tpu.driver.simulate``: the
+monochromatic path (read domain, directional solar source, batches) and
+the broadband path through ``spectral.broadband.run_broadband`` (longwave
+decks with a separable per-bin plan; reference:
+Drivers/monteCarloDriver.f95:289-505).
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ from mcbrat3d_tpu_torch.sources import illumination
 def simulate_from_config(cfg: SimulationConfig,
                          device) -> Tuple[Results, List[str]]:
     if cfg.num_lambda > 1 or cfg.is_longwave:
-        raise NotImplementedError(
-            "broadband and longwave runs are not in the PyTorch port yet "
-            "(ROADMAP Queue 1 item 11)")
+        from mcbrat3d_tpu_torch.spectral.broadband import run_broadband
+        results = run_broadband(cfg, device)
+        written = output_mod.write_all(results, results.grid)
+        return results, written
     if not cfg.domain_file:
         raise ValueError("monochromatic runs need domainFileName")
     grid, components, temps, attrs = io_netcdf.read_domain(cfg.domain_file,

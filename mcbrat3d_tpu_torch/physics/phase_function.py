@@ -95,6 +95,14 @@ class PhaseFunction:
         return PhaseFunction(coefficients=np.zeros(0), description="isotropic",
                              hg_g=0.0)
 
+    @staticmethod
+    def rayleigh() -> "PhaseFunction":
+        """Rayleigh phase function as Legendre moments (c_2 = 0.1; the
+        reference stores (0, 0.5) scaled by 1/(2l+1); reference:
+        src/opticalProperties.f95:2080-2082)."""
+        return PhaseFunction(coefficients=np.array([0.0, 0.5 / 5.0]),
+                             description="Rayleigh")
+
 
 @dataclasses.dataclass
 class PhaseFunctionTable:

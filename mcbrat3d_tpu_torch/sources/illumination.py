@@ -1,12 +1,14 @@
 """Photon sources (PyTorch port): the directional solar beam, the beam
-with a random azimuth and the isotropic (cosine-weighted) flux.
+with a random azimuth, the isotropic (cosine-weighted) flux and thermal
+emission backed by a separable domain's tables.
 
 Counterpart of ``mcbrat3d_tpu.sources.illumination`` (reference:
-src/monteCarloIllumination.f95:62-101). The transport kernel samples the
-source on the fly when a lane refills, so a Source is a few parameters.
-The record kernel takes ``directional`` only; the column kernel all three.
-Spotlight and emission sources arrive with the record kernel's envelope
-(ROADMAP Queue 1 items 4 and 10).
+src/monteCarloIllumination.f95:62-101, 431-522). The transport kernel
+samples the source on the fly when a lane refills, so a Source is a few
+parameters. The record kernel takes ``directional`` only; the column
+kernel the first three; the separable kernel all four. Spotlight and the
+per-voxel emission source (``emission``, a Walker alias over every voxel)
+arrive with the record kernel's envelope (ROADMAP Queue 1 items 4 and 10).
 """
 
 from __future__ import annotations
@@ -29,6 +31,13 @@ class Source:
     kind: str
     solar_mu: float = 0.0       # |mu0|; photons travel with mu = -|mu0|
     solar_azimuth: float = 0.0  # radians
+    # emission: probability that a photon is emitted by the atmosphere
+    # rather than the surface (fracAtmsPower), and the grid shape
+    atms_fraction: float = 0.0
+    grid_shape: tuple = None
+    # emission sampled from the domain's separable tables (sep_em_*); only
+    # the separable kernel samples such a source
+    em_sep: bool = False
 
 
 def directional(solar_mu: float, solar_azimuth_deg: float) -> Source:
@@ -54,3 +63,70 @@ def random_azimuth(solar_mu: float) -> Source:
 def flux() -> Source:
     """Isotropic downward flux: mu = -sqrt(u), azimuth uniform."""
     return Source(kind=FLUX)
+
+
+def emission_separable(domain, surface_temp: float,
+                       surface_emissivity: float) -> Source:
+    """Thermal emission source backed by the domain's separable tables
+    (port of ``illumination.emission_separable``).
+
+    The separable kernel samples the emitting voxel from the domain's
+    ``sep_em_*`` tables, so the source carries only the atmosphere/surface
+    power split, exact in the factorized form:
+      frac = atm / (atm + pi * emissivity * B(Tsfc))
+    (fracAtmsPower; reference: src/monteCarloIllumination.f95:457-522).
+    Needs a separable domain built with z-uniform temps and lambda_um > 0.
+    """
+    from mcbrat3d_tpu_torch.core.planck import planck_radiance
+
+    if getattr(domain, "sep_em_zpa", None) is None:
+        raise ValueError(
+            "emission_separable needs a separable domain built with "
+            "temps and lambda_um (domain.sep_em_zpa is None)")
+    nx, ny, nz = domain.grid.shape
+    # per-column mean, matching emission_weighting's
+    # atms_power = atms_total * area / (nx*ny) vs pi*e*B*area
+    atm = float(domain.sep_em_atm) / (nx * ny)
+    if surface_emissivity > 0.0 and surface_temp > 0.0:
+        sfc = np.pi * surface_emissivity * planck_radiance(
+            float(domain.lambda_um), float(surface_temp))
+    else:
+        sfc = 0.0
+    tot = atm + sfc
+    frac = atm / tot if tot > 0.0 else 0.0
+    return Source(kind=EMISSION, atms_fraction=float(np.float32(frac)),
+                  grid_shape=(int(nx), int(ny), int(nz)), em_sep=True)
+
+
+def _walker_alias(p: np.ndarray):
+    """Vose's O(n) alias table of the distribution ``p`` (need not be
+    normalized): sample j uniform in {0..n-1}, accept j with probability
+    prob[j], else take alias[j].
+
+    Builds the tables the JAX package builds with ``native/alias.cpp``
+    (``illumination._walker_alias``): p scaled by n / sum(p), the sum taken
+    left to right in float64, then the same stack order; leftovers accept
+    with probability 1. Returns (prob f64, alias int64)."""
+    p = np.ascontiguousarray(p, np.float64)
+    n = p.size
+    total = float(np.cumsum(p)[-1]) if n else 0.0
+    # an empty or all-zero p makes alias.cpp refuse; the JAX package then
+    # takes its Python fallback, which scales by n unnormalized
+    scaled = p * (n / total) if total > 0.0 else p * n
+    prob = np.zeros(n, np.float64)
+    alias = np.arange(n, dtype=np.int64)
+    small = [i for i in range(n) if scaled[i] < 1.0]
+    large = [i for i in range(n) if scaled[i] >= 1.0]
+    scaled = scaled.tolist()
+    while small and large:
+        s_i = small.pop()
+        l_i = large.pop()
+        prob[s_i] = scaled[s_i]
+        alias[s_i] = l_i
+        scaled[l_i] = (scaled[l_i] + scaled[s_i]) - 1.0
+        (small if scaled[l_i] < 1.0 else large).append(l_i)
+    for i in large:
+        prob[i] = 1.0
+    for i in small:  # numerical leftovers
+        prob[i] = 1.0
+    return prob, alias

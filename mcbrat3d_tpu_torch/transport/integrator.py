@@ -6,11 +6,12 @@ rotation the plain steps use. ``run_batch`` dispatches in the JAX
 package's order (``integrator._run_batch_impl``): the record kernel
 (``transport.record_kernel``), with in-kernel radiance when radiance
 directions are given (grids above ``MAX_KERNEL_DIRS`` run as
-direction-chunked passes over the same photons), then the column-template
-kernel (``transport.col_kernel``) for flux runs, or raises naming every
-failing predicate: the XLA wave kernel and its local estimator, the JAX
-package's general fallback, and the separable and tiled kernels are not
-ported yet.
+direction-chunked passes over the same photons), then for flux runs the
+column-template kernel (``transport.col_kernel``), then the
+separable-template kernel (``transport.sep_kernel``), or raises naming
+every failing predicate: the tiled kernel (K5) and the XLA wave kernel,
+the JAX package's general fallback, are not ported yet. A compact domain
+or a separable emission source must reach the separable kernel.
 """
 
 from __future__ import annotations
@@ -149,6 +150,7 @@ def run_batch(domain: OpticalDomain,
     carry the top-of-domain radiance image [nx, ny, n_dirs]."""
     from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
+    from mcbrat3d_tpu_torch.transport import sep_kernel as sk
 
     if intensity_config is not None:
         if intensity_config.n_dirs > le.MAX_KERNEL_DIRS:
@@ -190,20 +192,39 @@ def run_batch(domain: OpticalDomain,
     if not reasons:
         return rk.run_batch_record_tallies(domain, surface, source, seed,
                                            config, n_photons=n_photons)
-    col_reasons = ck.col_ineligibility_reasons(
-        domain, surface, source, config.lw_mode, compute_intensity=False,
+    kernel_args = dict(
+        lw_mode=config.lw_mode, compute_intensity=False,
         record_scattering_orders=config.record_scattering_orders,
         use_ray_tracing=config.use_ray_tracing,
         need_volume_absorption=config.need_volume_absorption)
+    col_reasons = ck.col_ineligibility_reasons(domain, surface, source,
+                                               **kernel_args)
     if not col_reasons:
         return ck.run_batch_col_tallies(domain, surface, source, seed,
                                         config, n_photons=n_photons)
+    sep_reasons = sk.sep_ineligibility_reasons(domain, surface, source,
+                                               **kernel_args)
+    if not sep_reasons:
+        return sk.run_batch_sep_tallies(domain, surface, source, seed,
+                                        config, n_photons=n_photons)
+    if domain.cell_records is None or source.em_sep:
+        # compact domains and separable emission sources carry no per-cell
+        # fields: only the separable kernel runs them
+        # (integrator.py:539-554)
+        what = ("domain was built with device_fields='compact'"
+                if domain.cell_records is None
+                else "source is emission_separable")
+        raise ValueError(
+            f"{what}, which only the separable kernel supports, but the run "
+            "did not dispatch there; failing predicates: "
+            + "; ".join(sep_reasons))
     raise NotImplementedError(
-        "configuration outside the ported record and column kernels (and "
-        "the XLA wave-kernel fallback, the separable kernel K4 and the "
-        "tiled kernel K5 are not ported yet); failing record-kernel "
-        "predicates: " + "; ".join(reasons)
-        + "; failing column-kernel predicates: " + "; ".join(col_reasons))
+        "configuration outside the ported record, column and separable "
+        "kernels (and the XLA wave-kernel fallback and the tiled kernel K5 "
+        "are not ported yet); failing record-kernel predicates: "
+        + "; ".join(reasons)
+        + "; failing column-kernel predicates: " + "; ".join(col_reasons)
+        + "; failing separable-kernel predicates: " + "; ".join(sep_reasons))
 
 
 def _run_batch_dir_chunked(domain, surface, source, seed, config, icfg,

@@ -130,6 +130,8 @@ def ineligibility_reasons(domain: OpticalDomain, surface: Surface,
     vol_base = -(-2 * nx * ny // 128) * 128
     inv_size = domain.tables.inverse.numel()
     checks = (
+        ("domain has no cell records (built with device_fields='compact')",
+         domain.cell_records is not None),
         (f"inverse-CDF table has {inv_size} entries > {MAX_INV_ENTRIES}",
          domain.all_hg or inv_size <= MAX_INV_ENTRIES),
         (f"n_components={domain.n_components} > 1 (multi-component "

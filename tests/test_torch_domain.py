@@ -134,9 +134,19 @@ def test_domain_from_numpy_of_jax_domain():
 
 
 def test_unported_domain_options_raise():
+    """device_fields='compact' arrived with the separable kernel (K4): the
+    step cloud (one rank-1 component) builds compactly, as in the JAX
+    package; an unknown device_fields value raises."""
     tg, tc, _ = step_cloud_scene()
-    with pytest.raises(NotImplementedError, match="K4"):
-        build_domain(tg, tc, device_fields="compact")
+    jg, jc, _ = jscene()
+    td = build_domain(tg, tc, device_fields="compact")
+    jd = jbuild(jg, jc, device_fields="compact")
+    assert td.sep_template and jd.sep_template and td.cell_records is None
+    np.testing.assert_array_equal(td.sep_amp.numpy(), np.asarray(jd.sep_amp))
+    np.testing.assert_array_equal(td.sep_block.numpy(),
+                                  np.asarray(jd.sep_block))
+    with pytest.raises(ValueError, match="device_fields"):
+        build_domain(tg, tc, device_fields="sparse")
 
 
 @pytest.mark.parametrize("hybrid_width_deg", [0.0, 7.0])
