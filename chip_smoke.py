@@ -6,9 +6,9 @@
 Phases, each asserting; any failure exits non-zero:
 
 1. print the card (nvidia-smi name and power limit) and build the CUDA
-   record, column and separable kernels from mcbrat3d_tpu_torch/csrc (one
-   nvcc each, started together), reporting the build times and ptxas
-   registers/spills;
+   record, column, separable and tiled kernels from
+   mcbrat3d_tpu_torch/csrc (one nvcc each, started together), reporting
+   the build times and ptxas registers/spills;
 2. flux kernel against its plain PyTorch version on the card, same seeds:
    the step cloud at 2^20 photons for macro_factor 0 and 8, both tally
    layouts, plus the tabulated-phase configuration the namelist deck runs
@@ -47,6 +47,18 @@ Phases, each asserting; any failure exits non-zero:
    memory (a zero table budget); 2^16 lanes x 2 photons; equal photons,
    n_bad and lane-steps, per-column fluxes and net absorption within 1e-5
    and the z profile within 5e-4 of its largest level;
+2f. tiled dense-domain kernel against its plain pass, same seeds and
+   injection, whole runs of 2^16 photons through a pool of 2^15 slots
+   (the JAX package's pool / 64 drain floor, then a tail of 4 passes of 64
+   steps in which photons follow their paths across tiles) on the bench's
+   128 x 128 x 64 dense scene: analytic HG, per-cell ssa, the 10,001-step
+   row in shared memory (past the 48 KB opt-in), from global memory (a
+   zero budget) and a 20,001-step row past the budget, 2 and 3 components
+   (gas, Rayleigh), an empty half (the skip chain), the random-azimuth,
+   flux and spotlight sources, roulette off; equal photons, passes, tail
+   passes, n_bad, lane-steps and real collisions, per-column fluxes and
+   absorption within 1e-5 (of the photons per column, or of a hotter
+   column's value) and R/T/A within 1e-6;
 3. the main path through the command line: mkdomain step_cloud (512
    Legendre moments), then run/step_cloud_mono.nml (16 x 1,048,576
    photons, 3D absorption tally)
@@ -75,6 +87,15 @@ Phases, each asserting; any failure exits non-zero:
    generator's 48 x 48 x 150 deck with 8 bins (16 x 131,072 photons):
    domain-mean up, down and net absorbed flux within 4.5 combined sigma of
    values frozen from the JAX package;
+3e. the dense MODIS-class deck through the command line: the port's
+   write_domain of dense_cloud_scene() (surface albedo 0.2) as
+   DenseCloud.dom in a temporary directory, then run/dense_cloud_mono.nml
+   (16 x 2,097,152 photons) on cuda: n_bad <= 16 (photons reflected at
+   the reference's floor mu = 1e-6, ~1 per deck), flux and netCDF files
+   written, the tiled kernel launched once per pass and no record,
+   column, separable or plain step; then the deck cut to 16 x 262,144
+   photons (nLanes 32,768): R/T/A within 4.5 combined sigma of values
+   frozen from the JAX package's CLI on the CPU;
 4. one headline batch (macro_factor 16, 2^16 lanes x 1024 photons, flux
    tallies only): photons/s of the kernel, and of the plain version at the
    same lane count;
@@ -87,7 +108,13 @@ Phases, each asserting; any failure exits non-zero:
 4d. the separable headline (bench.py:454-494: the 325 x 325 x 150
    flagship scene, compact, macro 8, 201 CDF steps, 10 um, separable
    emission, LW, 2^16 lanes x 256 photons): kernel photons/s and ms per
-   launch, plain ms per launch at the same lanes (2 photons each).
+   launch, plain ms per launch at the same lanes (2 photons each);
+4e. the dense headline (bench.py:306-342: 128 x 128 x 64, 2^18-slot pool,
+   2,097,152 photons, through run_batch): kernel photons/s, passes per
+   batch, kernel and wall ms per pass, live lane-steps per photon, the
+   card's busy share (kernel time from CUDA events over the batch's wall
+   time), the same batch with the JAX package's pool / 64 drain floor,
+   and kernel and plain ms per pass over the first 8 passes.
 
 Prints the card line, then one JSON line describing each kernel (with its
 time, the least time the card could take for the same work and what bounds
@@ -182,6 +209,31 @@ SEP_PROFILE_TOL_KERNEL_VS_PLAIN = 5e-4
 JAX_LW48 = (89.51026173281286, 118.68254518942129, -73.32991880564167)
 JAX_LW48_SE = (2.22200146, 1.59225717, 2.51300316)
 JAX_LW48_TOTAL_FLUX = 2054.728052554276
+# Tiled kernel vs plain, same seeds and injection: as for the column and
+# separable kernels every photon takes the same path (equal lane-steps,
+# passes and n_bad), and the tallies differ only by float32 atomic order.
+TILE_COLUMN_TOL_KERNEL_VS_PLAIN = 1e-5
+TILE_RTA_TOL_KERNEL_VS_PLAIN = 1e-6
+# 2f's runs: 2^16 photons through a pool of 2^15 slots, the JAX package's
+# drain floor (pool / 64), then a tail of 4 passes of 64 steps (the plain
+# pass takes ~1.5 ms per step at this pool, so a longer tail costs seconds)
+TILE_COMPARE_POOL, TILE_COMPARE_PHOTONS = 1 << 15, 1 << 16
+TILE_COMPARE_TAIL = dict(tail_steps=64, tail_passes=4)
+# run/dense_cloud_mono.nml cut to 16 batches of 262,144 photons (nLanes
+# 32,768), from the JAX package's CLI on the CPU (its XLA wave kernel with
+# threefry streams, independent of the port's kernel), on the file that
+# write_domain makes of dense_cloud_scene() with surface albedo 0.2 (64
+# Legendre moments, so a tabulated phase row), iseed 10: domain-mean R, T,
+# A and their standard errors over batches.
+JAX_DENSE_RTA = (0.45576259680092335, 0.5423019416630268,
+                 0.11056571174412966)
+JAX_DENSE_RTA_SE = (2.65830903e-04, 2.9748027e-04, 5.08438043e-05)
+# The dense deck's n_bad: a Lambertian reflection whose uniform is exactly 0
+# (probability 2^-24 per surface hit, about one per 16 x 2,097,152 photons)
+# leaves with the reference's floor mu = 1e-6 and stays in the clear bottom
+# layer of the scene past any step cap (mcbrat3d_tpu_torch/tools/
+# dense_stragglers.py prints such photons), as it does in the reference.
+DENSE_DECK_MAX_BAD = 16
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): device
 # memory bytes/s and float32 operations/s outside
 # the tensor cores.
@@ -196,7 +248,7 @@ H100_F32_OPS_PER_S = 67e12
 # bound stays a lower bound. The radiance kernel's march operations are
 # not counted: its bound is the flux step's.
 OPS_PER_LANE_STEP = {"record_kernel": 300, "col_kernel": 320,
-                     "sep_kernel": 360}
+                     "sep_kernel": 360, "tile_kernel": 340}
 
 
 def _sync():
@@ -311,12 +363,13 @@ STEP_CLOUD_DOMAIN = ("step_cloud", "StepCloud.dom", "ssa=0.99",
 
 
 def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
-                  sk=None):
+                  sk=None, tk=None):
     """mkdomain (unless ``domain`` is None) + run a deck through the CLI on
     cuda in the current directory; returns the JSON line, the seconds and
     the launches of the run (record kernel, its radiance launches, column
-    kernel, separable kernel), and asserts that no plain step ran. Every
-    count is set to 0 just before the run and read just after it."""
+    kernel, separable kernel, tiled kernel), and asserts that no plain step
+    ran. Every count is set to 0 just before the run and read just after
+    it."""
     Path("deck.nml").write_text(deck_text)
     if domain is not None:
         assert cli.main(["mkdomain", *domain]) == 0
@@ -326,6 +379,8 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
         patched.append((ck, "col_launch_plain"))
     if sk is not None:
         patched.append((sk, "sep_launch_plain"))
+    if tk is not None:
+        patched.append((tk, "tile_pass_plain"))
     originals = [getattr(m, name) for m, name in patched]
 
     def counting(plain):
@@ -342,6 +397,8 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
         ck.COL_LAUNCHES = 0
     if sk is not None:
         sk.SEP_LAUNCHES = 0
+    if tk is not None:
+        tk.TILE_LAUNCHES = 0
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
@@ -352,10 +409,10 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
     seconds = time.perf_counter() - t0
     launches = (rk.LAUNCHES, rk.RADIANCE_LAUNCHES,
                 ck.COL_LAUNCHES if ck is not None else 0,
-                sk.SEP_LAUNCHES if sk is not None else 0)
+                sk.SEP_LAUNCHES if sk is not None else 0,
+                tk.TILE_LAUNCHES if tk is not None else 0)
     assert rc == 0
-    assert launches[0] + launches[2] + launches[3] > 0, \
-        "the deck launched no kernel"
+    assert launches[0] + sum(launches[2:]) > 0, "the deck launched no kernel"
     assert not plain_steps, "the deck ran a plain PyTorch step"
     return json.loads(buf.getvalue().strip().splitlines()[-1]), seconds, \
         launches
@@ -367,7 +424,7 @@ def phase_main_path(rk, cli):
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            out, seconds, (launches, _, _, _) = _run_cli_deck(
+            out, seconds, (launches, _, _, _, _) = _run_cli_deck(
                 cli, rk, (ROOT / "run" / "step_cloud_mono.nml").read_text())
             for f in ("StepCloud_flux.out", "StepCloud_results.nc"):
                 assert Path(f).stat().st_size > 0, f
@@ -590,7 +647,7 @@ def phase_radiance_deck(rk, cli):
         tmp = Path(tmp)
         os.chdir(tmp)
         try:
-            out, seconds, (_, launches, _, _) = _run_cli_deck(
+            out, seconds, (_, launches, _, _, _) = _run_cli_deck(
                 cli, rk, _with_netcdf(deck, "StepCloud_radiance.nc"))
             assert (tmp / "StepCloud_radiance.out").stat().st_size > 0
             with netcdf_file(str(tmp / "StepCloud_radiance.nc"), "r",
@@ -632,7 +689,7 @@ def phase_radiance_deck(rk, cli):
         tmp = Path(tmp)
         os.chdir(tmp)
         try:
-            out, seconds, (_, launches648, _, _) = _run_cli_deck(
+            out, seconds, (_, launches648, _, _, _) = _run_cli_deck(
                 cli, rk, _with_netcdf(deck, "StepCloud_radiance648.nc"))
             assert (tmp / "StepCloud_radiance648.out").stat().st_size > 0
             with netcdf_file(str(tmp / "StepCloud_radiance648.nc"), "r",
@@ -855,7 +912,7 @@ def phase_landsat_deck(ck, rk, cli):
         tmp = Path(tmp)
         os.chdir(tmp)
         try:
-            out, seconds, (rec_launches, _, launches, _) = _run_cli_deck(
+            out, seconds, (rec_launches, _, launches, _, _) = _run_cli_deck(
                 cli, rk, deck, ck=ck,
                 domain=("broken_cloud", "BrokenCloud.dom"))
             # the flux file's first data line: the domain means, each
@@ -1192,8 +1249,275 @@ def phase_sep_headline(sk, lw_flagship_scene, build_domain, Surface,
     return res
 
 
-PHASES = ("2", "2b", "2c", "2d", "2e", "3", "3b", "3c", "3d", "4", "4b",
-          "4c", "4d")
+def _dense_domain(dense_cloud_scene, build_domain, OpticalComponent,
+                  PhaseFunction, PhaseFunctionTable, n_cdf_steps=201,
+                  cell_ssa=False, empty_half=False, ncomp=1):
+    """The bench's dense MODIS-class scene (128 x 128 x 64, ssa 0.99, HG
+    0.85) on the card, optionally with per-cell ssa, an empty half (empty
+    tiles for the skip chain) or a uniform absorbing gas (and a
+    Rayleigh-like scatterer) as further components."""
+    import numpy as np
+
+    grid, comps, _ = dense_cloud_scene(ssa=0.99, device="cuda")
+    cloud = comps[0]
+    rs = np.random.RandomState(3)
+    if cell_ssa:
+        cloud.single_scattering_albedo = np.clip(
+            0.99 - 0.3 * rs.rand(*cloud.extinction.shape), 0.05, 1.0)
+    if empty_half:
+        cloud.extinction[64:] = 0.0
+    for beta, ssa, g in [(0.002, 0.0, 0.0), (0.001, 1.0, 0.1)][:ncomp - 1]:
+        ext = np.full(cloud.extinction.shape, beta)
+        comps.append(OpticalComponent(
+            f"gas {g}", ext, np.full_like(ext, ssa),
+            np.zeros(ext.shape, np.int32),
+            PhaseFunctionTable([PhaseFunction.henyey_greenstein(g, 64)],
+                               key=[1.0])))
+    return build_domain(grid, comps, macro_factor=0, n_cdf_steps=n_cdf_steps)
+
+
+def phase_tile_compare(tk, dense_args, Surface, illumination, rng):
+    """Tiled kernel vs plain on the card, same seeds and injection, whole
+    runs of 2^16 photons through a pool of 2^15 (the JAX package's drain
+    floor, pool / 64, then a short tail); returns the largest per-column
+    difference of the normalized fluxes."""
+    import dataclasses
+    import functools
+
+    sources = {"directional": illumination.directional(0.5, 0.0),
+               "random_azimuth": illumination.random_azimuth(0.5),
+               "flux": illumination.flux(),
+               "spotlight": illumination.spotlight(0.6, 30.0, 0.5, 0.5)}
+    surface = Surface.lambertian(0.2)
+    tcfg = tk.TileConfig(**TILE_COMPARE_TAIL)
+    defaults = dict(n_cdf=201, tab=False, budget=tk.TABLE_SMEM, rr=True,
+                    src="directional", scene={})
+    cases = [
+        dict(label="bench scene, HG"),
+        dict(label="per-cell ssa", scene=dict(cell_ssa=True)),
+        dict(label="10001-step row in shared memory (opt-in)", n_cdf=10001,
+             tab=True),
+        dict(label="10001-step row from global memory", n_cdf=10001,
+             tab=True, budget=0),
+        dict(label="20001-step row past the budget", n_cdf=20001, tab=True),
+        dict(label="2 components", scene=dict(ncomp=2)),
+        dict(label="3 components, tabulated", scene=dict(ncomp=3),
+             tab=True),
+        dict(label="empty half (skip chain)", scene=dict(empty_half=True)),
+        dict(label="random azimuth", src="random_azimuth"),
+        dict(label="flux", src="flux"),
+        dict(label="spotlight", src="spotlight"),
+        dict(label="no roulette", rr=False),
+    ]
+    domains = {}
+    max_err = 0.0
+    for i, case in enumerate(cases):
+        c = {**defaults, **case}
+        key = (c["n_cdf"], tuple(sorted(c["scene"].items())))
+        if key not in domains:
+            domains[key] = _dense_domain(*dense_args, n_cdf_steps=c["n_cdf"],
+                                         **c["scene"])
+        dom = domains[key]
+        if c["tab"]:  # as read from a file: the tabulated rows
+            dom = dataclasses.replace(dom, all_hg=False)
+        inv_bytes = 8 * dom.tables.inverse.numel()
+        table = ("analytic HG" if not c["tab"] else
+                 f"table {inv_bytes} B in "
+                 + ("shared memory" if inv_bytes <= c["budget"]
+                    else "global memory"))
+        if c["n_cdf"] == 10001 and c["budget"]:
+            assert 48 * 1024 < inv_bytes <= c["budget"], inv_bytes
+        seed = rng.batch_seed(50, i)
+
+        def run(launch):
+            return tk.run_batch_tile(dom, surface, sources[c["src"]], seed,
+                                     tcfg, TILE_COMPARE_POOL,
+                                     TILE_COMPARE_PHOTONS,
+                                     use_russian_roulette=c["rr"],
+                                     launch=launch)
+
+        before = tk.TILE_LAUNCHES
+        rk_, s_k = _timed(lambda: run(functools.partial(
+            tk.tile_pass, table_smem=c["budget"])))
+        assert tk.TILE_LAUNCHES - before == rk_.n_passes, "kernel not run"
+        rp, s_p = _timed(lambda: run(tk.tile_pass_plain))
+        n = rk_.n_started
+        per_col = n / rk_.flux_up.numel()
+        # per column, relative to the photons per column or, in a column
+        # that holds more (the spotlight's), to its own value
+        err = max(float(((a.double() - b.double()).abs()
+                         / b.double().abs().clamp(min=per_col)).max())
+                  for a, b in ((rk_.flux_up, rp.flux_up),
+                               (rk_.flux_down, rp.flux_down),
+                               (rk_.flux_absorbed, rp.flux_absorbed)))
+        rta_k = tuple(float(a.double().sum()) / n for a in (
+            rk_.flux_up, rk_.flux_down, rk_.flux_absorbed))
+        rta_p = tuple(float(a.double().sum()) / rp.n_started for a in (
+            rp.flux_up, rp.flux_down, rp.flux_absorbed))
+        gap = max(abs(a - b) for a, b in zip(rta_k, rta_p))
+        max_err = max(max_err, err)
+        print(f"tile compare [{c['label']}] plan {tk.plan_for(dom)}, "
+              f"{c['src']}, roulette={c['rr']}, {table}: kernel "
+              f"R/T/A={rta_k} plain={rta_p} gap={gap:.2e} column "
+              f"gap={err:.2e}; photons {n}/{rp.n_started} passes "
+              f"{rk_.n_passes}/{rp.n_passes} (tail {rk_.n_tail}/"
+              f"{rp.n_tail}) n_bad {rk_.n_bad}/{rp.n_bad} "
+              f"lane-steps {rk_.lane_steps}/{rp.lane_steps}; kernel "
+              f"{s_k:.3f} s plain {s_p:.3f} s", flush=True)
+        assert n == rp.n_started == TILE_COMPARE_PHOTONS, c["label"]
+        assert rk_.n_tail > 0, c["label"]  # the follow mode ran
+        assert (rk_.n_passes, rk_.n_tail, rk_.n_bad, rk_.lane_steps,
+                rk_.n_real) == (rp.n_passes, rp.n_tail, rp.n_bad,
+                                rp.lane_steps, rp.n_real), c["label"]
+        assert err < TILE_COLUMN_TOL_KERNEL_VS_PLAIN, (c["label"], err)
+        assert gap < TILE_RTA_TOL_KERNEL_VS_PLAIN, (c["label"], gap)
+    return max_err
+
+
+def phase_dense_deck(tk, sk, ck, rk, cli, io_netcdf, dense_cloud_scene):
+    """run/dense_cloud_mono.nml through the CLI on cuda on the port's
+    DenseCloud.dom, then the deck cut to 16 x 262,144 photons against the
+    JAX package's frozen values."""
+    deck = (ROOT / "run" / "dense_cloud_mono.nml").read_text()
+    cut = (deck.replace("numPhotonsPerBatch = 2097152",
+                        "numPhotonsPerBatch = 262144")
+           .replace("nLanes = 262144", "nLanes = 32768"))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            grid, comps, _ = dense_cloud_scene()
+            io_netcdf.write_domain("DenseCloud.dom", grid, comps,
+                                   surface_albedo=0.2)
+            out, seconds, launches = _run_cli_deck(
+                cli, rk, deck, ck=ck, domain=None, sk=sk, tk=tk)
+            for f in ("dense_flux.out", "dense_results.nc"):
+                assert (tmp / f).stat().st_size > 0, f
+            out_c, seconds_c, launches_c = _run_cli_deck(
+                cli, rk, cut, ck=ck, domain=None, sk=sk, tk=tk)
+            means, se, _ = _flux_file_means(tmp / "dense_flux.out")
+        finally:
+            os.chdir(cwd)
+    n = out["total_photons"]
+    rta = (out["mean_flux_up"], out["mean_flux_down"],
+           out["mean_flux_absorbed"])
+    print(f"dense deck: {n} photons in {out['n_batches']} batches, "
+          f"n_bad={out['n_bad']}, R/T/A={rta}, {seconds:.2f} s "
+          f"({n / seconds:.4g} photons/s incl. setup and output), "
+          f"{out['tile_passes']} passes, launches "
+          f"record/radiance/column/separable/tiled {launches}", flush=True)
+    assert n == 16 * 2_097_152 and out["n_batches"] == 16
+    assert out["n_bad"] <= DENSE_DECK_MAX_BAD, out["n_bad"]
+    assert launches[4] == out["tile_passes"] > 0, launches
+    assert launches[0] == launches[2] == launches[3] == 0, launches
+    n_c = out_c["total_photons"]
+    print(f"dense deck at 16 x 262,144: R/T/A={means} +- {se}, "
+          f"n_bad={out_c['n_bad']}, {seconds_c:.2f} s, {launches_c[4]} tiled "
+          f"launches; JAX package "
+          f"{JAX_DENSE_RTA} +- {JAX_DENSE_RTA_SE}", flush=True)
+    assert n_c == 16 * 262_144 and out_c["n_bad"] <= DENSE_DECK_MAX_BAD
+    assert launches_c[4] > 0 and sum(launches_c[:4]) == 0, launches_c
+    assert all(abs(a / b - 1) < 1e-6 for a, b in zip(
+        means, (out_c["mean_flux_up"], out_c["mean_flux_down"],
+                out_c["mean_flux_absorbed"])))
+    for got, got_se, want, want_se, name in zip(
+            means, se, JAX_DENSE_RTA, JAX_DENSE_RTA_SE, "RTA"):
+        sigma = (got_se ** 2 + want_se ** 2) ** 0.5
+        assert abs(got - want) < 4.5 * sigma, (name, got, want, 4.5 * sigma)
+    return dict(launches=launches[4], passes=out["tile_passes"],
+                seconds=seconds, out=out)
+
+
+def _event_timed(fn):
+    """``fn`` with CUDA events recorded around each call; returns (the
+    wrapper, the list of (start, end) events)."""
+    import torch
+
+    events = []
+
+    def timed(*args, **kwargs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn(*args, **kwargs)
+        e1.record()
+        events.append((e0, e1))
+
+    return timed, events
+
+
+def phase_tile_headline(tk, dense_cloud_scene, build_domain, Surface,
+                        illumination, KernelConfig, run_batch, rng):
+    """The dense headline of bench.py:306-342 through run_batch: kernel
+    photons/s, passes, kernel and wall ms per pass, lane-steps per photon
+    and the card's busy share (kernel time over the batch's wall time, CUDA
+    events); the JAX package's drain floor for comparison; kernel and plain
+    ms per pass over the first 8 passes at the same pool."""
+    grid, comps, _ = dense_cloud_scene(128, 128, 64, ssa=0.99, device="cuda")
+    t0 = time.perf_counter()
+    dom = build_domain(grid, comps, macro_factor=0, n_cdf_steps=201)
+    build_s = time.perf_counter() - t0
+    surface = Surface.lambertian(0.2)
+    source = illumination.directional(0.5, 0.0)
+    cfg = KernelConfig(n_lanes=1 << 18, photons_per_lane=8,
+                       max_steps=1_000_000, need_volume_absorption=False)
+    run_batch(dom, surface, source, rng.batch_seed(0, 99), cfg)  # warm-up
+    orig = tk._launch_cuda
+    tk._launch_cuda, events = _event_timed(orig)
+    try:
+        t, sec = _timed(lambda: run_batch(dom, surface, source,
+                                          rng.batch_seed(0, 0), cfg))
+    finally:
+        tk._launch_cuda = orig
+    _sync()
+    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    assert len(events) == t.n_passes > 0 and t.n_bad == 0
+    assert t.n_photons == 1 << 21 and t.volume_absorption is None
+    res = dict(photons_per_s=t.n_photons / sec, seconds=sec,
+               passes=t.n_passes, kernel_ms_per_pass=kernel_ms / t.n_passes,
+               wall_ms_per_pass=1e3 * sec / t.n_passes,
+               lane_steps=t.n_lane_steps,
+               lane_steps_per_photon=t.n_lane_steps / t.n_photons,
+               busy=kernel_ms / (1e3 * sec),
+               n_pad=(1 << 18) + tk.TileParams.make(
+                   dom, surface, source, tk.plan_for(dom), tk.TileConfig(),
+                   True, 1.0).n_tiles * tk.TileConfig().cohort,
+               n_f=tk.tile_fields(dom)[0], n_cells=dom.grid.nx
+               * dom.grid.ny * dom.grid.nz, nxy=dom.grid.nx * dom.grid.ny)
+    print(f"dense headline (run_batch, drained to empty): {t.n_photons} "
+          f"photons in {sec:.3f} s = {res['photons_per_s']:.6g} photons/s, "
+          f"{t.n_passes} passes, kernel {res['kernel_ms_per_pass']:.4f} "
+          f"ms/pass, wall {res['wall_ms_per_pass']:.4f} ms/pass, "
+          f"{res['lane_steps_per_photon']:.2f} lane-steps/photon, busy "
+          f"share {res['busy']:.3f}, R/T/A={_rta(t)} (domain build "
+          f"{build_s:.2f} s)", flush=True)
+    # the JAX package's default drain floor: stop at pool / 64 alive
+    t64, sec64 = _timed(lambda: tk.run_batch_tile_tallies(
+        dom, surface, source, rng.batch_seed(0, 0), cfg,
+        tcfg=tk.TileConfig()))
+    res["drain64"] = dict(photons_per_s=t64.n_photons / sec64,
+                          passes=t64.n_passes, n_bad=t64.n_bad)
+    print(f"dense headline with the pool / 64 drain floor: "
+          f"{t64.n_photons / sec64:.6g} photons/s, {t64.n_passes} passes, "
+          f"n_bad {t64.n_bad}", flush=True)
+    # kernel and plain over the first 8 passes, same pool and photons
+    for name, fn in (("kernel", tk.tile_pass), ("plain", tk.tile_pass_plain)):
+        launch, ev = _event_timed(fn)
+        tk.run_batch_tile(dom, surface, source, rng.batch_seed(0, 1),
+                          tk.TileConfig(drain_div=0, max_passes=8), 1 << 18,
+                          1 << 21, launch=launch)
+        _sync()
+        res[f"{name}_ms_first8"] = sum(a.elapsed_time(b)
+                                       for a, b in ev) / len(ev)
+    print(f"dense headline, first 8 passes: kernel "
+          f"{res['kernel_ms_first8']:.4f} ms/pass, plain "
+          f"{res['plain_ms_first8']:.4f} ms/pass", flush=True)
+    return res
+
+
+PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "3", "3b", "3c", "3d", "3e",
+          "4", "4b", "4c", "4d", "4e")
 
 
 def main(argv=None) -> int:
@@ -1218,12 +1542,16 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from mcbrat3d_tpu_torch import _build
     from mcbrat3d_tpu_torch.core import rng
-    from mcbrat3d_tpu_torch.domain.domain import build_domain
+    from mcbrat3d_tpu_torch.domain import io_netcdf
+    from mcbrat3d_tpu_torch.domain.domain import (OpticalComponent,
+                                                  build_domain)
     from mcbrat3d_tpu_torch.driver import cli, config
-    from mcbrat3d_tpu_torch.physics.phase_function import PhaseFunction
+    from mcbrat3d_tpu_torch.physics.phase_function import (
+        PhaseFunction, PhaseFunctionTable)
     from mcbrat3d_tpu_torch.physics.surface import Surface
     from mcbrat3d_tpu_torch.scenes.collection import (
-        broken_cloud_scene, lw_flagship_scene, write_lw_flagship_inputs)
+        broken_cloud_scene, dense_cloud_scene, lw_flagship_scene,
+        write_lw_flagship_inputs)
     from mcbrat3d_tpu_torch.scenes.plane_parallel import make_slab
     from mcbrat3d_tpu_torch.scenes.step_cloud import make_step_cloud
     from mcbrat3d_tpu_torch.sources import illumination
@@ -1231,6 +1559,7 @@ def main(argv=None) -> int:
     from mcbrat3d_tpu_torch.transport import local_estimate as le
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
     from mcbrat3d_tpu_torch.transport import sep_kernel as sk
+    from mcbrat3d_tpu_torch.transport import tile_kernel as tk
     from mcbrat3d_tpu_torch.transport.integrator import KernelConfig, run_batch
 
     smi = subprocess.run(
@@ -1241,19 +1570,23 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}; card {card}", flush=True)
     t0 = time.perf_counter()
-    _build.build_all(["record_kernel", "col_kernel", "sep_kernel"])
+    _build.build_all(["record_kernel", "col_kernel", "sep_kernel",
+                     "tile_kernel"])
     print(f"kernels built in {time.perf_counter() - t0:.2f} s (one nvcc "
           "each, started together)", flush=True)
     # record_steps<MACRO, VOL, ANALYTIC, LE>,
-    # col_steps<MACRO, ANALYTIC, VOL, RR, SRC> and
-    # sep_steps<SRC, ANALYTIC, RR, LW> in their mangled names
+    # col_steps<MACRO, ANALYTIC, VOL, RR, SRC>,
+    # sep_steps<SRC, ANALYTIC, RR, LW> and tile_steps<NCOMP, ANALYTIC, RR>
+    # in their mangled names
     patterns = {
         "record_kernel": (r"record_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
                           "macro={} vol={} analytic={} LE={}"),
         "col_kernel": (r"col_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E",
                        "macro={} analytic={} vol={} rr={} src={}"),
         "sep_kernel": (r"sep_stepsILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
-                       "src={} analytic={} rr={} lw={}")}
+                       "src={} analytic={} rr={} lw={}"),
+        "tile_kernel": (r"tile_stepsILi(\d)ELb(\d)ELb(\d)E",
+                        "ncomp={} analytic={} rr={}")}
     for lib, (pattern, fmt) in patterns.items():
         info = _build.BUILD_INFO[lib]
         print(f"{lib}: nvcc {info['seconds']:.2f} s", flush=True)
@@ -1285,6 +1618,11 @@ def main(argv=None) -> int:
                 KernelConfig, rng)
     if "2e" in only:
         out["sep_max_err"] = phase_sep_compare(*sep_args)
+    dense_args = (dense_cloud_scene, build_domain, OpticalComponent,
+                  PhaseFunction, PhaseFunctionTable)
+    if "2f" in only:
+        out["tile_max_err"] = phase_tile_compare(tk, dense_args, Surface,
+                                                 illumination, rng)
     if "3" in only:
         out["launches"] = phase_main_path(rk, cli)
     if "3b" in only:
@@ -1294,6 +1632,9 @@ def main(argv=None) -> int:
     if "3d" in only:
         out["lw_deck"] = phase_lw_deck(sk, ck, rk, cli,
                                        write_lw_flagship_inputs)
+    if "3e" in only:
+        out["dense_deck"] = phase_dense_deck(tk, sk, ck, rk, cli, io_netcdf,
+                                             dense_cloud_scene)
     if "4" in only:
         out["head"] = phase_headline(*args)
     if "4b" in only:
@@ -1304,6 +1645,10 @@ def main(argv=None) -> int:
         out["col_head"] = phase_col_headline(*col_args)
     if "4d" in only:
         out["sep_head"] = phase_sep_headline(*sep_args)
+    if "4e" in only:
+        out["tile_head"] = phase_tile_headline(
+            tk, dense_cloud_scene, build_domain, Surface, illumination,
+            KernelConfig, run_batch, rng)
     if only != set(PHASES):
         print(f"chip_smoke: phases {sorted(only)} passed; no result lines "
               "for a partial run")
@@ -1312,6 +1657,7 @@ def main(argv=None) -> int:
     head, rad_head = out["head"], out["rad_head"]
     rad6, col_head = rad_head[(6, "kernel")], out["col_head"]
     sep_head = out["sep_head"]["kernel"]
+    tile_head = out["tile_head"]
     bounds = {
         "record_kernel": _bound(
             head["kernel"]["lane_steps"], head["kernel"]["launches"],
@@ -1331,6 +1677,13 @@ def main(argv=None) -> int:
             sep_head["lane_steps"], sep_head["launches"],
             OPS_PER_LANE_STEP["sep_kernel"], 1 << 16, 40,
             sep_head["table_bytes"], sep_head["tally_bytes"]),
+        # per pass: the pool's state (7 floats and the tile id) read and
+        # written once, the fields read once, the tallies written once
+        "tile_kernel": _bound(
+            tile_head["lane_steps"], tile_head["passes"],
+            OPS_PER_LANE_STEP["tile_kernel"], tile_head["n_pad"], 32,
+            4 * tile_head["n_f"] * tile_head["n_cells"],
+            4 * 3 * tile_head["nxy"]),
     }
     kernels = [{
         "name": "record_kernel",
@@ -1368,6 +1721,15 @@ def main(argv=None) -> int:
         "max_abs_err": out["sep_max_err"],
         "ms": sep_head["ms_per_launch"],
         "plain_ms": out["sep_head"]["plain"]["ms_per_launch"],
+    }, {
+        "name": "tile_kernel",
+        "route": "cuda",
+        "source": "mcbrat3d_tpu_torch/csrc/tile_kernel.cu",
+        "replaces": "mcbrat3d_tpu/transport/pallas_tile.py:335",
+        "launches": out["dense_deck"]["launches"],
+        "max_abs_err": out["tile_max_err"],
+        "ms": tile_head["kernel_ms_per_pass"],
+        "plain_ms": tile_head["plain_ms_first8"],
     }]
     for k in kernels:
         # no single PyTorch call computes a transport step

@@ -33,9 +33,11 @@ def _launches() -> dict:
     from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
     from mcbrat3d_tpu_torch.transport import sep_kernel as sk
+    from mcbrat3d_tpu_torch.transport import tile_kernel as tk
     return {"record_kernel": rk.LAUNCHES,
             "record_kernel_radiance": rk.RADIANCE_LAUNCHES,
-            "col_kernel": ck.COL_LAUNCHES, "sep_kernel": sk.SEP_LAUNCHES}
+            "col_kernel": ck.COL_LAUNCHES, "sep_kernel": sk.SEP_LAUNCHES,
+            "tile_kernel": tk.TILE_LAUNCHES}
 
 
 def _cmd_run(args) -> int:
@@ -62,6 +64,7 @@ def _cmd_run(args) -> int:
         "elapsed_seconds": round(results.elapsed_seconds, 3),
         "setup_seconds": round(results.setup_seconds, 3),
         "launches": _launches(),
+        "tile_passes": results.n_passes,
         "device": str(device),
         "outputs": written,
     }))

@@ -42,6 +42,7 @@ class Results:
     config: Optional[SimulationConfig] = None
     grid: object = None
     n_bad: int = 0  # photons cut by the step cap, summed over batches
+    n_passes: int = 0  # tiled-kernel passes, summed over batches
     setup_seconds: float = 0.0  # before the first transport (broadband)
 
     def __getitem__(self, name):
@@ -93,13 +94,14 @@ def run_simulation(domain: OpticalDomain,
             max_contribution=cfg.max_intensity_contribution,
         )
     dacc = DeviceMomentAccumulator()
-    n_bad = 0
+    n_bad = n_passes = 0
     t0 = time.time()
     for b in range(cfg.num_batches):
         t = run_batch(domain, surface, source, rng.batch_seed(cfg.iseed, b),
                       kcfg, n_photons=cfg.num_photons_per_batch,
                       intensity_config=icfg, intensity_dirs=idirs)
         n_bad += int(t.n_bad)
+        n_passes += int(t.n_passes)
         dacc.add_tallies(t, domain.grid)
     acc = dacc.finalize()
 
@@ -111,4 +113,4 @@ def run_simulation(domain: OpticalDomain,
                    n_batches=acc.n_batches,
                    solar_flux=solar_flux,
                    elapsed_seconds=elapsed,
-                   config=cfg, n_bad=n_bad)
+                   config=cfg, n_bad=n_bad, n_passes=n_passes)

@@ -1,7 +1,9 @@
-"""Landsat-class broken-cloud and broadband-LW flagship scenes.
+"""Landsat-class broken-cloud, dense MODIS-class and broadband-LW flagship
+scenes.
 
-PyTorch-port counterparts of ``broken_cloud_scene``, ``lw_flagship_scene``,
-``lw_flagship_physical`` and ``write_lw_flagship_inputs`` in
+PyTorch-port counterparts of ``broken_cloud_scene``, ``dense_cloud_scene``,
+``lw_flagship_scene``, ``lw_flagship_physical`` and
+``write_lw_flagship_inputs`` in
 ``mcbrat3d_tpu.scenes.collection`` (pure NumPy, copied so the port stands
 alone):
 
@@ -10,6 +12,10 @@ alone):
   case-4 scene without its proprietary data files (reference:
   Domain-Files/i3rcLandsatCloud.f95:82-90), taken by the column-template
   kernel (``transport.col_kernel``);
+* the dense cloud, a full-rank field (correlated amplitude x vertical ramp
+  x per-cell noise), neither column-template nor separable: the
+  BASELINE.md "MODIS-retrieved 3D domain" class, taken by the tiled
+  dense-domain kernel (``transport.tile_kernel``);
 * the 325 x 325 x 150 broadband-LW flagship, a rank-1 stratocumulus layer
   over a horizontally uniform gas absorber (separable:
   beta = a[col] * p[z] + q[z]), as optical components or as the
@@ -59,6 +65,36 @@ def broken_cloud_scene(nx: int = 128, ny: int = 128, nz: int = 64,
         single_scattering_albedo=np.full_like(ext, ssa),
         phase_function_index=np.zeros(ext.shape, np.int32),
         phase_function_table=_hg_table(g, n_legendre, "broken-cloud HG"))
+    return grid, [comp], None
+
+
+def dense_cloud_scene(nx: int = 128, ny: int = 128, nz: int = 64,
+                      ssa: float = 0.99, g: float = 0.85,
+                      dx: float = 30.0, dy: float = 30.0,
+                      dz: float = 20.0, max_scale: float = 0.04,
+                      seed: int = 2, n_legendre: int = 64, device="cpu"):
+    """(grid, components, temps) of the dense non-template broken cloud:
+    correlated horizontal amplitude x adiabatic-like vertical ramp x
+    per-cell noise, so the extinction field is full rank (the reference's
+    replicated-domain model covers any such field,
+    src/opticalProperties.f95:77-115)."""
+    rs = np.random.RandomState(seed)
+    f = rs.rand(nx, ny)
+    for _ in range(3):
+        f = (f + np.roll(f, 1, 0) + np.roll(f, -1, 0)
+             + np.roll(f, 1, 1) + np.roll(f, -1, 1)) / 5.0
+    amp = (f > np.quantile(f, 0.5)) * f
+    zc = (np.arange(nz) + 0.5) / nz
+    prof = np.clip(1.5 * zc - 0.2, 0.0, 1.0) * (zc < 0.8)
+    ext = max_scale * amp[:, :, None] * prof[None, None, :]
+    ext *= (0.5 + rs.rand(nx, ny, nz))  # per-cell noise -> full rank
+    grid = Grid.regular(nx=int(nx), ny=int(ny), nz=int(nz),
+                        dx=dx, dy=dy, dz=dz, device=device)
+    comp = OpticalComponent(
+        name="dense cloud", extinction=ext,
+        single_scattering_albedo=np.full_like(ext, ssa),
+        phase_function_index=np.zeros(ext.shape, np.int32),
+        phase_function_table=_hg_table(g, n_legendre, "dense-cloud HG"))
     return grid, [comp], None
 
 

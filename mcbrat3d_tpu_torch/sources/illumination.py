@@ -1,14 +1,16 @@
 """Photon sources (PyTorch port): the directional solar beam, the beam
-with a random azimuth, the isotropic (cosine-weighted) flux and thermal
-emission backed by a separable domain's tables.
+with a random azimuth, the isotropic (cosine-weighted) flux, the spotlight
+(a slanted beam entering one point of the top) and thermal emission backed
+by a separable domain's tables.
 
 Counterpart of ``mcbrat3d_tpu.sources.illumination`` (reference:
-src/monteCarloIllumination.f95:62-101, 431-522). The transport kernel
-samples the source on the fly when a lane refills, so a Source is a few
+src/monteCarloIllumination.f95:62-216, 431-522). The transport kernel
+samples the source on the fly when a photon starts, so a Source is a few
 parameters. The record kernel takes ``directional`` only; the column
-kernel the first three; the separable kernel all four. Spotlight and the
+kernel directional, random azimuth and flux; the separable kernel those
+and separable emission; the tiled kernel every kind but emission. The
 per-voxel emission source (``emission``, a Walker alias over every voxel)
-arrive with the record kernel's envelope (ROADMAP Queue 1 items 4 and 10).
+arrives with the record kernel's envelope (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ class Source:
     # emission sampled from the domain's separable tables (sep_em_*); only
     # the separable kernel samples such a source
     em_sep: bool = False
+    # spotlight: the entry point as fractions of the domain's x and y size
+    solar_x: float = 0.5
+    solar_y: float = 0.5
 
 
 def directional(solar_mu: float, solar_azimuth_deg: float) -> Source:
@@ -63,6 +68,21 @@ def random_azimuth(solar_mu: float) -> Source:
 def flux() -> Source:
     """Isotropic downward flux: mu = -sqrt(u), azimuth uniform."""
     return Source(kind=FLUX)
+
+
+def spotlight(solar_mu: float, solar_azimuth_deg: float,
+              solar_x: float, solar_y: float) -> Source:
+    """Beam at |mu0| and azimuth entering the top at one point, at the
+    fractions (solar_x, solar_y) of the domain's x and y size (reference:
+    src/monteCarloIllumination.f95:178-216)."""
+    if not (0.0 < solar_x <= 1.0 and 0.0 < solar_y <= 1.0):
+        raise ValueError("spotlight x/y must be in (0, 1]")
+    return Source(kind=SPOTLIGHT,
+                  solar_mu=float(np.float32(abs(solar_mu))),
+                  solar_azimuth=float(np.float32(
+                      np.deg2rad(solar_azimuth_deg))),
+                  solar_x=float(np.float32(solar_x)),
+                  solar_y=float(np.float32(solar_y)))
 
 
 def emission_separable(domain, surface_temp: float,

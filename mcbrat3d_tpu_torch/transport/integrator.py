@@ -7,11 +7,13 @@ package's order (``integrator._run_batch_impl``): the record kernel
 (``transport.record_kernel``), with in-kernel radiance when radiance
 directions are given (grids above ``MAX_KERNEL_DIRS`` run as
 direction-chunked passes over the same photons), then for flux runs the
-column-template kernel (``transport.col_kernel``), then the
-separable-template kernel (``transport.sep_kernel``), or raises naming
-every failing predicate: the tiled kernel (K5) and the XLA wave kernel,
-the JAX package's general fallback, are not ported yet. A compact domain
-or a separable emission source must reach the separable kernel.
+column-template kernel (``transport.col_kernel``), the separable-template
+kernel (``transport.sep_kernel``) and the tiled dense-domain kernel
+(``transport.tile_kernel``), or raises naming every failing predicate: the
+XLA wave kernel, the JAX package's general fallback, is not ported yet. A
+record-eligible domain of more than ``TILE_MIN_CELLS`` cells skips the
+record kernel when the tiled kernel takes it. A compact domain or a
+separable emission source must reach the separable kernel.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ class Tallies:
     # z marginal of the absorption [nz], tallied by the column kernel
     absorption_profile: Optional[torch.Tensor] = None
     n_lane_steps: int = 0  # lane-steps run with a live photon
+    n_passes: int = 0  # sort + transport passes of the tiled kernel
 
     def normalized(self, grid: Grid) -> "Tallies":
         """Per-column normalization (reference:
@@ -94,7 +97,7 @@ class Tallies:
             else self.absorption_profile / (n * dz * 1000.0),
             n_photons=self.n_photons, n_bad=self.n_bad,
             n_steps=self.n_steps, n_cut=self.n_cut,
-            n_lane_steps=self.n_lane_steps)
+            n_lane_steps=self.n_lane_steps, n_passes=self.n_passes)
 
 
 def sample_hg_cos(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -151,6 +154,7 @@ def run_batch(domain: OpticalDomain,
     from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
     from mcbrat3d_tpu_torch.transport import sep_kernel as sk
+    from mcbrat3d_tpu_torch.transport import tile_kernel as tk
 
     if intensity_config is not None:
         if intensity_config.n_dirs > le.MAX_KERNEL_DIRS:
@@ -178,25 +182,26 @@ def run_batch(domain: OpticalDomain,
         compute_intensity=False,
         record_scattering_orders=config.record_scattering_orders,
         use_ray_tracing=config.use_ray_tracing)
-    nx, ny, nz = domain.grid.shape
-    if (not reasons and nx * ny * nz > rk.TILE_MIN_CELLS
-            and not config.need_volume_absorption
-            and not config.need_absorption_profile):
-        # the JAX package skips the record kernel for such dense domains
-        # when its tiled kernel has a plan for them, and then tries the
-        # column kernel before the tiled one (integrator.py:461-491)
-        reasons.append(
-            f"{nx * ny * nz} cells > {rk.TILE_MIN_CELLS} without the 3D "
-            "tally or the profile: the column kernel (K3) or the tiled "
-            "dense-domain kernel (K5) takes this domain")
-    if not reasons:
-        return rk.run_batch_record_tallies(domain, surface, source, seed,
-                                           config, n_photons=n_photons)
     kernel_args = dict(
         lw_mode=config.lw_mode, compute_intensity=False,
         record_scattering_orders=config.record_scattering_orders,
         use_ray_tracing=config.use_ray_tracing,
         need_volume_absorption=config.need_volume_absorption)
+    tile_reasons = tk.tile_ineligibility_reasons(
+        domain, surface, source,
+        need_absorption_profile=config.need_absorption_profile,
+        **kernel_args)
+    nx, ny, nz = domain.grid.shape
+    if not reasons and nx * ny * nz > tk.TILE_MIN_CELLS and not tile_reasons:
+        # past 16,384 cells the JAX package skips the record kernel for a
+        # domain its tiled kernel takes, and tries the column and separable
+        # kernels first (integrator.py:455-471)
+        reasons.append(
+            f"{nx * ny * nz} cells > {tk.TILE_MIN_CELLS} and the tiled "
+            "dense-domain kernel (K5) takes this domain")
+    if not reasons:
+        return rk.run_batch_record_tallies(domain, surface, source, seed,
+                                           config, n_photons=n_photons)
     col_reasons = ck.col_ineligibility_reasons(domain, surface, source,
                                                **kernel_args)
     if not col_reasons:
@@ -207,6 +212,9 @@ def run_batch(domain: OpticalDomain,
     if not sep_reasons:
         return sk.run_batch_sep_tallies(domain, surface, source, seed,
                                         config, n_photons=n_photons)
+    if not tile_reasons:
+        return tk.run_batch_tile_tallies(domain, surface, source, seed,
+                                         config, n_photons=n_photons)
     if domain.cell_records is None or source.em_sep:
         # compact domains and separable emission sources carry no per-cell
         # fields: only the separable kernel runs them
@@ -219,12 +227,13 @@ def run_batch(domain: OpticalDomain,
             "did not dispatch there; failing predicates: "
             + "; ".join(sep_reasons))
     raise NotImplementedError(
-        "configuration outside the ported record, column and separable "
-        "kernels (and the XLA wave-kernel fallback and the tiled kernel K5 "
-        "are not ported yet); failing record-kernel predicates: "
-        + "; ".join(reasons)
+        "configuration outside the ported record, column, separable and "
+        "tiled kernels (and the XLA wave-kernel fallback is not ported "
+        "yet); failing record-kernel predicates: " + "; ".join(reasons)
         + "; failing column-kernel predicates: " + "; ".join(col_reasons)
-        + "; failing separable-kernel predicates: " + "; ".join(sep_reasons))
+        + "; failing separable-kernel predicates: " + "; ".join(sep_reasons)
+        + "; failing tiled-kernel (K5) predicates: "
+        + "; ".join(tile_reasons))
 
 
 def _run_batch_dir_chunked(domain, surface, source, seed, config, icfg,

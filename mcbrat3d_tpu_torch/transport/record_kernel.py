@@ -55,8 +55,6 @@ LANES_PER_ROW = 128
 # domains (pallas_kernel.MAX_CELLS / MAX_INV_ENTRIES).
 MAX_CELLS = 288 * 128
 MAX_INV_ENTRIES = 1024 * 128
-# The dense tiled kernel (K5) takes eligible domains past this many cells.
-TILE_MIN_CELLS = 128 * 128
 
 # Radiance launch geometry (pallas_kernel.py:3278-3291): local estimation
 # runs per event and per direction, so lane occupancy decides its cost; the

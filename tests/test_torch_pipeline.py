@@ -212,6 +212,7 @@ def test_port_imports_no_jax():
             "import mcbrat3d_tpu_torch.scenes.collection\n"
             "import mcbrat3d_tpu_torch.spectral.broadband\n"
             "import mcbrat3d_tpu_torch.transport.sep_kernel\n"
+            "import mcbrat3d_tpu_torch.transport.tile_kernel\n"
             "import mcbrat3d_tpu_torch.physics.rayleigh\n"
             "import mcbrat3d_tpu_torch._build\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

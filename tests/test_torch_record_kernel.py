@@ -177,11 +177,17 @@ def test_run_batch_flux_only_layout(step_cloud):
 
 
 def test_dispatch_raises_outside_the_port():
-    dense = make_step_cloud(ssa=0.99, n_columns=32, n_layers=520,
+    """Past the record kernel's cells, a domain that is no template, with
+    the absorption profile (which the tiled kernel does not tally), is
+    outside every ported kernel; the error names the tiled kernel's
+    failing predicate."""
+    dense = make_step_cloud(ssa=0.99, n_columns=32, n_layers=1200,
                             n_cdf_steps=101)
     cfg = KernelConfig(n_lanes=1024, photons_per_lane=1,
-                       need_volume_absorption=False)
-    with pytest.raises(NotImplementedError, match="K5"):
+                       need_volume_absorption=False,
+                       need_absorption_profile=True)
+    with pytest.raises(NotImplementedError,
+                       match="K5.*need_absorption_profile"):
         run_batch(dense, Surface.lambertian(0.0), SRC, 0, cfg)
     with pytest.raises(NotImplementedError, match="use_ray_tracing"):
         run_batch(make_step_cloud(n_cdf_steps=101), Surface.lambertian(0.0),

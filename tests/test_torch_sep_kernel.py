@@ -66,6 +66,7 @@ from mcbrat3d_tpu_torch.sources import illumination
 from mcbrat3d_tpu_torch.transport import col_kernel as ck
 from mcbrat3d_tpu_torch.transport import record_kernel as rk
 from mcbrat3d_tpu_torch.transport import sep_kernel as sk
+from mcbrat3d_tpu_torch.transport import tile_kernel as tk
 from mcbrat3d_tpu_torch.transport.integrator import KernelConfig, run_batch
 
 torch.set_num_threads(1)
@@ -375,17 +376,18 @@ def _components(case, port):
 @pytest.mark.parametrize("case", ["compact", "full", "template", "dense"])
 def test_dispatch_picks_the_kernel_jax_picks(monkeypatch, case):
     """A compact LW flagship bin and its full build go to the separable
-    kernel, a column template to the column kernel, in the port as in the
-    JAX package (use_pallas="on", the choice taken at trace time, no kernel
-    run); a dense field past every template goes to the JAX tiled kernel
-    (K5), which the port names when it raises."""
+    kernel, a column template to the column kernel and a dense field past
+    every template to the tiled kernel (K5), in the port as in the JAX
+    package (use_pallas="on", the choice taken at trace time, no kernel
+    run)."""
     for mod, fn, name in ((jpk, "run_batch_pallas_tallies", "record"),
                           (jpc, "run_batch_pallas_col_tallies", "column"),
                           (jsep, "run_batch_pallas_sep_tallies", "separable"),
                           (jtile, "run_batch_pallas_tile_tallies", "tiled"),
                           (rk, "run_batch_record_tallies", "record"),
                           (ck, "run_batch_col_tallies", "column"),
-                          (sk, "run_batch_sep_tallies", "separable")):
+                          (sk, "run_batch_sep_tallies", "separable"),
+                          (tk, "run_batch_tile_tallies", "tiled")):
         monkeypatch.setattr(mod, fn, _picker(name))
     lw = case == "compact"
     if case in ("compact", "full"):
@@ -416,11 +418,6 @@ def test_dispatch_picks_the_kernel_jax_picks(monkeypatch, case):
     expect = {"compact": "separable", "full": "separable",
               "template": "column", "dense": "tiled"}[case]
     assert str(jax_pick.value) == expect
-    if case == "dense":
-        with pytest.raises(NotImplementedError, match="K5"):
-            run_batch(td, Surface.lambertian(0.05), tsrc, 0,
-                      KernelConfig(**kw))
-        return
     with pytest.raises(_Picked) as port_pick:
         run_batch(td, Surface.lambertian(0.05), tsrc, 0, KernelConfig(**kw))
     assert str(port_pick.value) == expect
