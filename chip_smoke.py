@@ -12,14 +12,19 @@ Phases, each asserting; any failure exits non-zero:
 2. flux kernel against its plain PyTorch version on the card, same seeds:
    the step cloud at 2^20 photons for macro_factor 0 and 8, both tally
    layouts, plus the tabulated-phase configuration the namelist deck runs
-   and a reflecting surface without roulette;
+   and a reflecting surface without roulette; then, at 2^18 photons, the
+   random-azimuth, flux and spotlight sources and the step cloud with gas
+   (2 components) and with gas and Rayleigh (3), analytic and tabulated
+   (10,001 steps), roulette on and off (albedo 0.3);
    domain-mean R/T/A within 2e-3 and per-pixel fluxes within 5 sigma;
 2b. radiance kernel against its plain version, same seeds, on the step
    cloud with the radiance deck's 6 directions, 16,384 photons per case
    (4,096 lanes x 4; the plain step runs 50-80 s per 65,536): exact
    estimator with
    analytic HG, Iwabuchi roulette with the hybrid table, the original
-   table, and a contribution cap low enough to clip; per-direction
+   table, a contribution cap low enough to clip, and that cap on the
+   tabulated 3-component step cloud with the random-azimuth source (one
+   excess slot per component); per-direction
    domain-mean gap, per-pixel gap and z < 5, kernel reruns within 1e-5;
    plus an image too large for shared memory (global-atomic tally);
 2c. analytic radiance anchors: a thin isotropic slab (I = tau / (4 pi mu))
@@ -96,6 +101,13 @@ Phases, each asserting; any failure exits non-zero:
    column, separable or plain step; then the deck cut to 16 x 262,144
    photons (nLanes 32,768): R/T/A within 4.5 combined sigma of values
    frozen from the JAX package's CLI on the CPU;
+3f. the 3-component deck through the command line: the port's write_domain
+   of step_cloud_multi_scene(analytic=False) (gas + cloud + Rayleigh with
+   its true phase, so three tabulated rows) as StepCloudMulti3.dom, then
+   run/step_cloud_multi3_mono.nml (16 x 1,048,576 photons, 3D tally) on
+   cuda: n_bad == 0, flux and netCDF files written, only the record kernel
+   launched and no plain step, R/T/A within 4.5 combined sigma of values
+   frozen from the JAX package's CLI on the CPU;
 4. one headline batch (macro_factor 16, 2^16 lanes x 1024 photons, flux
    tallies only): photons/s of the kernel, and of the plain version at the
    same lane count;
@@ -114,7 +126,12 @@ Phases, each asserting; any failure exits non-zero:
    batch, kernel and wall ms per pass, live lane-steps per photon, the
    card's busy share (kernel time from CUDA events over the batch's wall
    time), the same batch with the JAX package's pool / 64 drain floor,
-   and kernel and plain ms per pass over the first 8 passes.
+   and kernel and plain ms per pass over the first 8 passes;
+4f. the 3-component headline (bench.py:150-170: gas + cloud + Rayleigh,
+   analytic, macro_factor 8, 2^16 lanes x 256 photons, 3D tally, through
+   run_batch): kernel photons/s, launches per batch, kernel ms per launch
+   from CUDA events, the card's busy share, and plain ms per launch over 4
+   launches at the same lanes.
 
 Prints the card line, then one JSON line describing each kernel (with its
 time, the least time the card could take for the same work and what bounds
@@ -139,6 +156,10 @@ ROOT = Path(__file__).resolve().parent
 # native C++ tracer at 40M photons (one-sigma ~8e-5).
 GOLDEN_RTA = (0.47656, 0.32485, 0.19860)
 RTA_TOL_KERNEL_VS_PLAIN = 2e-3
+# Real collisions of K1 against its plain step, relative: equal on all
+# fifteen cases of phase 2 on the H100; the limit leaves room for a few
+# photons parted by float32 rounding.
+REAL_TOL_KERNEL_VS_PLAIN = 1e-4
 HEADLINE_PLAIN_PPL = 16
 # Radiance kernel vs plain, same seeds and so the same photon paths: the
 # per-direction domain means differ by float rounding (~1e-6) unless a
@@ -234,6 +255,15 @@ JAX_DENSE_RTA_SE = (2.65830903e-04, 2.9748027e-04, 5.08438043e-05)
 # layer of the scene past any step cap (mcbrat3d_tpu_torch/tools/
 # dense_stragglers.py prints such photons), as it does in the reference.
 DENSE_DECK_MAX_BAD = 16
+# run/step_cloud_multi3_mono.nml cut to 16 batches of 262,144 photons, from
+# the JAX package's CLI on the CPU (its XLA wave kernel with threefry
+# streams, independent of the port's kernel), on the file that write_domain
+# makes of step_cloud_multi_scene(analytic=False) (64 Legendre moments for
+# the cloud, the Rayleigh moments, an isotropic gas), iseed 10: domain-mean
+# R, T, A and their standard errors over batches.
+JAX_MULTI3_RTA = (0.2938315160572529, 0.10033707739785314,
+                  0.6058054529130459)
+JAX_MULTI3_RTA_SE = (2.32650321e-04, 1.21101785e-04, 2.88821516e-04)
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): device
 # memory bytes/s and float32 operations/s outside
 # the tensor cores.
@@ -249,6 +279,16 @@ H100_F32_OPS_PER_S = 67e12
 # not counted: its bound is the flux step's.
 OPS_PER_LANE_STEP = {"record_kernel": 300, "col_kernel": 320,
                      "sep_kernel": 360, "tile_kernel": 340}
+# Operations the 2-3 component record adds to the record kernel, counted
+# from csrc/record_kernel.cu's component choice, which runs on a real
+# collision only (the kernel counts those): the uniform at site 8, 26
+# integer operations (3 to form the counter, 1 xor with the lane, 2 x 8
+# for the two fmix32 rounds, 3 to key the second round with the seed, 3
+# to scale to float), then the two compares, the ncomp == 3 test and
+# their and (4) and the two selects of the phase entry (2). The record's
+# two float4 loads replace the one-component record's scalar loads and
+# are charged as table bytes.
+OPS_PER_COMPONENT_CHOICE = 32
 
 
 def _sync():
@@ -271,15 +311,16 @@ def _timed(fn):
 
 
 def _bound(lane_steps, n_launch, ops_per_step, n_lanes, state_bytes,
-           table_bytes, tally_bytes):
+           table_bytes, tally_bytes, extra_ops=0):
     """(bound_ms, bound_by) per launch: the least time the card could take
     for one launch's work, the larger of its bytes (state read and written
     once, tables read once, tallies written once) over the memory rate and
-    its operations (this run's lane-steps with a live photon) over the
-    float32 rate."""
+    its operations (this run's lane-steps with a live photon, plus
+    ``extra_ops`` over the whole run) over the float32 rate."""
     nbytes = 2 * state_bytes * n_lanes + table_bytes + tally_bytes
     t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = lane_steps / max(n_launch, 1) * ops_per_step / H100_F32_OPS_PER_S
+    t_ops = ((lane_steps * ops_per_step + extra_ops) / max(n_launch, 1)
+             / H100_F32_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -298,27 +339,57 @@ def _pixel_z(pairs, n):
     return z_max, err
 
 
-def phase_compare(rk, make_step_cloud, Surface, illumination, KernelConfig,
-                  rng):
+def _sources(illumination):
+    """The record kernel's sources by name, as phases 2 and 2b drive
+    them."""
+    return {"directional": illumination.directional(0.5, 0.0),
+            "random_azimuth": illumination.random_azimuth(0.6),
+            "flux": illumination.flux(),
+            "spotlight": illumination.spotlight(0.8, 20.0, 0.3, 0.6)}
+
+
+def phase_compare(rk, make_step_cloud, make_step_cloud_multi, Surface,
+                  illumination, KernelConfig, rng):
     """Kernel vs plain on the card; returns the largest per-pixel
-    difference of the normalized fluxes."""
+    difference of the normalized fluxes, over the directional one-component
+    cases and over the envelope's."""
     import dataclasses
 
-    source = illumination.directional(0.5, 0.0)
-    # (macro_factor, 3D tally, analytic HG, surface albedo, roulette)
-    cases = [(mf, vol, True, 0.0, True) for mf in (0, 8)
-             for vol in (False, True)]
-    cases.append((8, True, False, 0.0, True))  # tabulated, as the deck runs
-    cases.append((8, False, True, 0.3, False))  # reflection, no roulette
-    max_err = 0.0
-    for i, (mf, vol, analytic, albedo, rr) in enumerate(cases):
+    sources = _sources(illumination)
+    # (macro_factor, 3D tally, components, analytic HG, surface albedo,
+    # roulette, source, photons per lane)
+    cases = [(mf, vol, 1, True, 0.0, True, "directional", 16)
+             for mf in (0, 8) for vol in (False, True)]
+    # tabulated, as the deck runs; reflection without roulette
+    cases.append((8, True, 1, False, 0.0, True, "directional", 16))
+    cases.append((8, False, 1, True, 0.3, False, "directional", 16))
+    # the source and component envelope (K1-a, K1-b), at 2^18 photons
+    cases += [(8, True, 1, True, 0.0, True, "random_azimuth", 4),
+              (0, False, 1, True, 0.0, True, "flux", 4),
+              (8, True, 1, True, 0.0, True, "spotlight", 4),
+              (8, False, 2, True, 0.0, True, "directional", 4),
+              (0, True, 2, False, 0.0, True, "random_azimuth", 4),
+              (8, True, 3, True, 0.0, True, "directional", 4),
+              (8, True, 3, False, 0.0, True, "flux", 4),
+              (8, False, 3, False, 0.3, False, "spotlight", 4),
+              # run/step_cloud_multi3_mono.nml's own configuration
+              (8, True, 3, False, 0.0, True, "directional", 4)]
+    max_err = [0.0, 0.0]
+    for i, (mf, vol, ncomp, analytic, albedo, rr, src,
+            ppl) in enumerate(cases):
         surface = Surface.lambertian(albedo)
-        dom = make_step_cloud(ssa=0.99, macro_factor=mf, n_cdf_steps=10001,
-                              device="cuda")
+        source = sources[src]
+        kw = dict(ssa=0.99, macro_factor=mf, n_cdf_steps=10001,
+                  device="cuda")
+        if ncomp == 1:
+            dom = make_step_cloud(**kw)
+        else:  # gas + cloud (+ Rayleigh, its true phase when tabulated)
+            dom = make_step_cloud_multi(n_components=ncomp,
+                                        analytic=analytic, **kw)
         if not analytic:
             # a file-read domain carries Legendre moments, not hg_g
             dom = dataclasses.replace(dom, all_hg=False)
-        cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=16,
+        cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=ppl,
                            max_steps=100_000, need_volume_absorption=vol,
                            use_russian_roulette=rr)
         seed = rng.batch_seed(10, i)
@@ -335,24 +406,30 @@ def phase_compare(rk, make_step_cloud, Surface, illumination, KernelConfig,
         assert rerun < 1e-5, f"kernel reruns differ by {rerun:.2e}"
         tp, sp = _timed(lambda: rk.run_batch_record_tallies(
             dom, surface, source, seed, cfg, launch=rk.record_launch_plain))
-        assert tk.n_photons == tp.n_photons == 1 << 20, (tk.n_photons,
-                                                         tp.n_photons)
+        assert tk.n_photons == tp.n_photons == ppl << 16, (tk.n_photons,
+                                                           tp.n_photons)
         assert tk.n_bad == 0 and tp.n_bad == 0, (tk.n_bad, tp.n_bad)
         rta_k, rta_p = _rta(tk), _rta(tp)
         gap = max(abs(a - b) for a, b in zip(rta_k, rta_p))
         z_max, err = _pixel_z(
             [(tk.flux_up, tp.flux_up), (tk.flux_down, tp.flux_down),
              (tk.flux_absorbed, tp.flux_absorbed)], tk.n_photons)
-        max_err = max(max_err, err)
-        print(f"compare macro={mf} vol={vol} analytic={analytic} "
-              f"albedo={albedo} roulette={rr}: "
+        envelope = ncomp > 1 or src != "directional"
+        max_err[envelope] = max(max_err[envelope], err)
+        print(f"compare macro={mf} vol={vol} components={ncomp} "
+              f"analytic={analytic} albedo={albedo} roulette={rr} "
+              f"source={src}: "
               f"kernel R/T/A={rta_k} plain={rta_p} gap={gap:.3e} "
               f"pixel z_max={z_max:.2f} rerun rel={rerun:.1e} "
+              f"real collisions {tk.n_real}/{tp.n_real} "
               f"kernel {sk:.3f} s plain {sp:.3f} s",
               flush=True)
         assert gap < RTA_TOL_KERNEL_VS_PLAIN, gap
         assert z_max < 5.0, z_max
-    return max_err
+        real_gap = abs(tk.n_real - tp.n_real)
+        assert real_gap <= REAL_TOL_KERNEL_VS_PLAIN * tp.n_real, (
+            tk.n_real, tp.n_real)
+    return tuple(max_err)
 
 
 # 512 Legendre moments: the file stores the phase function as moments, and
@@ -462,34 +539,48 @@ def _image_gap(a, b, n_a, n_b):
         (a - b).abs().max())
 
 
-def phase_radiance_compare(rk, le, make_step_cloud, make_slab,
-                           PhaseFunction, Surface, illumination,
+def phase_radiance_compare(rk, le, make_step_cloud, make_step_cloud_multi,
+                           make_slab, PhaseFunction, Surface, illumination,
                            KernelConfig, rng, dirs):
     """Radiance kernel vs plain on the card; returns the largest per-pixel
     difference of the per-photon images."""
     import dataclasses
 
-    source = illumination.directional(0.5, 0.0)
     surface = Surface.lambertian(0.2)  # reflections estimate too
     n_dirs = dirs.shape[1]
+    cap = dict(limit_contributions=True, max_contribution=RAD_LOW_CAP)
+    # (name, all_hg, intensity knobs, components, source)
     cases = [
         ("exact estimator, analytic HG", True,
-         dict(use_russian_roulette=False, use_hybrid_phase=False)),
+         dict(use_russian_roulette=False, use_hybrid_phase=False), 1,
+         "directional"),
         ("Iwabuchi roulette, hybrid table", True,
-         dict(use_russian_roulette=True, use_hybrid_phase=True)),
+         dict(use_russian_roulette=True, use_hybrid_phase=True), 1,
+         "directional"),
         ("original table (all_hg=False)", False,
-         dict(use_russian_roulette=True, use_hybrid_phase=False)),
+         dict(use_russian_roulette=True, use_hybrid_phase=False), 1,
+         "directional"),
         (f"contribution cap {RAD_LOW_CAP}", True,
-         dict(use_russian_roulette=False, use_hybrid_phase=True,
-              limit_contributions=True, max_contribution=RAD_LOW_CAP)),
+         dict(use_russian_roulette=False, use_hybrid_phase=True, **cap), 1,
+         "directional"),
+        # one slot per component: the tabulated gas + cloud + Rayleigh
+        (f"3 components, random azimuth, cap {RAD_LOW_CAP}", False,
+         dict(use_russian_roulette=False, use_hybrid_phase=False, **cap), 3,
+         "random_azimuth"),
     ]
     cfg = KernelConfig(n_lanes=4096, photons_per_lane=4, max_steps=100_000,
                        need_volume_absorption=False)
     max_err = 0.0
-    for i, (name, all_hg, kw) in enumerate(cases):
-        dom = make_step_cloud(ssa=0.99, macro_factor=8, n_cdf_steps=10001,
-                              compute_intensity_tables=True,
-                              hybrid_width_deg=7.0, device="cuda")
+    for i, (name, all_hg, kw, ncomp, src) in enumerate(cases):
+        source = _sources(illumination)[src]
+        dkw = dict(ssa=0.99, macro_factor=8, n_cdf_steps=10001,
+                   compute_intensity_tables=True, hybrid_width_deg=7.0,
+                   device="cuda")
+        if ncomp == 1:
+            dom = make_step_cloud(**dkw)
+        else:
+            dom = make_step_cloud_multi(n_components=ncomp,
+                                        analytic=all_hg, **dkw)
         if not all_hg:
             dom = dataclasses.replace(dom, all_hg=False)
         icfg = le.IntensityConfig(n_dirs=n_dirs, **kw)
@@ -543,6 +634,7 @@ def phase_radiance_compare(rk, le, make_step_cloud, make_slab,
 
     # an image past the kernel's shared-memory budget (64 x 64 columns x
     # 16 directions = 256 KB) is tallied with global atomics instead
+    source = illumination.directional(0.5, 0.0)
     slab = make_slab(tau=2.0, ssa=0.99, nx=64, ny=64, nz=4,
                      n_cdf_steps=1001, compute_intensity_tables=True,
                      phase=PhaseFunction.henyey_greenstein(0.85, 64),
@@ -1516,8 +1608,104 @@ def phase_tile_headline(tk, dense_cloud_scene, build_domain, Surface,
     return res
 
 
+def phase_multi_deck(rk, ck, sk, tk, cli, io_netcdf, step_cloud_multi_scene):
+    """run/step_cloud_multi3_mono.nml through the CLI on cuda on the
+    file its header writes; only the record kernel may launch; the means
+    against the JAX package's frozen values."""
+    deck = (ROOT / "run" / "step_cloud_multi3_mono.nml").read_text()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            grid, comps, temps = step_cloud_multi_scene(analytic=False,
+                                                        device="cpu")
+            io_netcdf.write_domain("StepCloudMulti3.dom", grid, comps,
+                                   temps=temps)
+            out, seconds, launches = _run_cli_deck(
+                cli, rk, deck, ck=ck, domain=None, sk=sk, tk=tk)
+            for f in ("StepCloudMulti3_flux.out",
+                      "StepCloudMulti3_results.nc"):
+                assert (tmp / f).stat().st_size > 0, f
+            means, se, _ = _flux_file_means(tmp / "StepCloudMulti3_flux.out")
+        finally:
+            os.chdir(cwd)
+    n = out["total_photons"]
+    print(f"3-component deck: {n} photons in {out['n_batches']} batches, "
+          f"n_bad={out['n_bad']}, R/T/A={means} +- {se}, {seconds:.2f} s "
+          f"({n / seconds:.4g} photons/s incl. setup and output), launches "
+          f"record/radiance/column/separable/tiled {launches}; JAX package "
+          f"{JAX_MULTI3_RTA} +- {JAX_MULTI3_RTA_SE}", flush=True)
+    assert n == 16 * 1_048_576 and out["n_batches"] == 16
+    assert out["n_bad"] == 0, out["n_bad"]
+    assert launches[0] > 0 and sum(launches[1:]) == 0, launches
+    for got, got_se, want, want_se, name in zip(
+            means, se, JAX_MULTI3_RTA, JAX_MULTI3_RTA_SE, "RTA"):
+        sigma = (got_se ** 2 + want_se ** 2) ** 0.5
+        assert abs(got - want) < 4.5 * sigma, (name, got, want, 4.5 * sigma)
+    return dict(launches=launches[0], seconds=seconds, out=out)
+
+
+def phase_multi_headline(rk, make_step_cloud_multi, Surface, illumination,
+                         KernelConfig, run_batch, rng):
+    """bench.py:150-170's multi_component_3_step_cloud through run_batch:
+    kernel photons/s, launches per batch, kernel ms per launch (CUDA events)
+    and the card's busy share; plain ms per launch over 4 launches at the
+    same lanes."""
+    dom = make_step_cloud_multi(ssa=0.99, n_components=3, macro_factor=8,
+                                device="cuda")
+    surface = Surface.lambertian(0.0)
+    source = illumination.directional(0.5, 0.0)
+    cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=256,
+                       max_steps=800_000)
+    run_batch(dom, surface, source, rng.batch_seed(0, 99), cfg)  # warm-up
+    orig = rk._launch_cuda
+    rk._launch_cuda, events = _event_timed(orig)
+    try:
+        t, sec = _timed(lambda: run_batch(dom, surface, source,
+                                          rng.batch_seed(0, 0), cfg))
+    finally:
+        rk._launch_cuda = orig
+    _sync()
+    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    n_launch = len(events)
+    assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
+    assert t.n_photons == 1 << 24 and t.volume_absorption is not None
+    assert 0 < t.n_real <= t.n_lane_steps, (t.n_real, t.n_lane_steps)
+    nx, ny, nz = dom.grid.shape
+    res = dict(photons_per_s=t.n_photons / sec, seconds=sec,
+               launches=n_launch, kernel_ms_per_launch=kernel_ms / n_launch,
+               wall_ms_per_launch=1e3 * sec / n_launch,
+               busy=kernel_ms / (1e3 * sec), lane_steps=t.n_lane_steps,
+               real_collisions=t.n_real, table_bytes=4 * 8 * nx * ny * nz,
+               tally_bytes=4 * (2 * nx * ny + nx * ny * nz))
+    bound_ms, bound_by = _bound(
+        t.n_lane_steps, n_launch, OPS_PER_LANE_STEP["record_kernel"],
+        1 << 16, 40, res["table_bytes"], res["tally_bytes"],
+        extra_ops=t.n_real * OPS_PER_COMPONENT_CHOICE)
+    print(f"3-component headline (run_batch): {t.n_photons} photons in "
+          f"{sec:.3f} s = {res['photons_per_s']:.6g} photons/s, {n_launch} "
+          f"launches, kernel {res['kernel_ms_per_launch']:.4f} ms/launch "
+          f"(bound {bound_ms:.4f} ms by {bound_by}), wall "
+          f"{res['wall_ms_per_launch']:.4f} ms/launch, busy share "
+          f"{res['busy']:.3f}, {t.n_lane_steps / t.n_photons:.2f} lane-steps"
+          f"/photon, {t.n_real / t.n_photons:.2f} real collisions/photon, "
+          f"R/T/A={_rta(t)}", flush=True)
+    res["bound"] = (bound_ms, bound_by)
+    plain, ev = _event_timed(rk.record_launch_plain)
+    rk.run_batch_record(dom, surface, source, rng.batch_seed(0, 1),
+                        rk.RecordConfig(rows=512, max_steps=4 * 128), 256,
+                        launch=plain)
+    _sync()
+    res["plain_ms_per_launch"] = sum(a.elapsed_time(b)
+                                     for a, b in ev) / len(ev)
+    print(f"3-component headline: plain {res['plain_ms_per_launch']:.4f} "
+          f"ms/launch over {len(ev)} launches", flush=True)
+    return res
+
+
 PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "3", "3b", "3c", "3d", "3e",
-          "4", "4b", "4c", "4d", "4e")
+          "3f", "4", "4b", "4c", "4d", "4e", "4f")
 
 
 def main(argv=None) -> int:
@@ -1553,7 +1741,8 @@ def main(argv=None) -> int:
         broken_cloud_scene, dense_cloud_scene, lw_flagship_scene,
         write_lw_flagship_inputs)
     from mcbrat3d_tpu_torch.scenes.plane_parallel import make_slab
-    from mcbrat3d_tpu_torch.scenes.step_cloud import make_step_cloud
+    from mcbrat3d_tpu_torch.scenes.step_cloud import (
+        make_step_cloud, make_step_cloud_multi, step_cloud_multi_scene)
     from mcbrat3d_tpu_torch.sources import illumination
     from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import local_estimate as le
@@ -1602,11 +1791,13 @@ def main(argv=None) -> int:
     dirs6 = _deck_directions(config, le, "step_cloud_radiance.nml")
     out = {}
     if "2" in only:
-        out["max_err"] = phase_compare(*args)
+        out["max_err"], out["env_max_err"] = phase_compare(
+            rk, make_step_cloud, make_step_cloud_multi, Surface,
+            illumination, KernelConfig, rng)
     if "2b" in only:
         out["rad_max_err"] = phase_radiance_compare(
-            rk, le, make_step_cloud, make_slab, PhaseFunction, Surface,
-            illumination, KernelConfig, rng, dirs6)
+            rk, le, make_step_cloud, make_step_cloud_multi, make_slab,
+            PhaseFunction, Surface, illumination, KernelConfig, rng, dirs6)
     if "2c" in only:
         phase_radiance_anchors(le, make_slab, Surface, illumination,
                                KernelConfig, run_batch, rng)
@@ -1635,6 +1826,9 @@ def main(argv=None) -> int:
     if "3e" in only:
         out["dense_deck"] = phase_dense_deck(tk, sk, ck, rk, cli, io_netcdf,
                                              dense_cloud_scene)
+    if "3f" in only:
+        out["multi_deck"] = phase_multi_deck(rk, ck, sk, tk, cli, io_netcdf,
+                                             step_cloud_multi_scene)
     if "4" in only:
         out["head"] = phase_headline(*args)
     if "4b" in only:
@@ -1649,6 +1843,10 @@ def main(argv=None) -> int:
         out["tile_head"] = phase_tile_headline(
             tk, dense_cloud_scene, build_domain, Surface, illumination,
             KernelConfig, run_batch, rng)
+    if "4f" in only:
+        out["multi_head"] = phase_multi_headline(
+            rk, make_step_cloud_multi, Surface, illumination, KernelConfig,
+            run_batch, rng)
     if only != set(PHASES):
         print(f"chip_smoke: phases {sorted(only)} passed; no result lines "
               "for a partial run")
@@ -1658,6 +1856,7 @@ def main(argv=None) -> int:
     rad6, col_head = rad_head[(6, "kernel")], out["col_head"]
     sep_head = out["sep_head"]["kernel"]
     tile_head = out["tile_head"]
+    multi_head = out["multi_head"]
     bounds = {
         "record_kernel": _bound(
             head["kernel"]["lane_steps"], head["kernel"]["launches"],
@@ -1684,6 +1883,7 @@ def main(argv=None) -> int:
             OPS_PER_LANE_STEP["tile_kernel"], tile_head["n_pad"], 32,
             4 * tile_head["n_f"] * tile_head["n_cells"],
             4 * 3 * tile_head["nxy"]),
+        "record_kernel_multi3": multi_head["bound"],
     }
     kernels = [{
         "name": "record_kernel",
@@ -1730,6 +1930,18 @@ def main(argv=None) -> int:
         "max_abs_err": out["tile_max_err"],
         "ms": tile_head["kernel_ms_per_pass"],
         "plain_ms": tile_head["plain_ms_first8"],
+    }, {
+        # the same kernel on 2-3 component records and the other sources
+        # (K1-a, K1-b): launches on the 3-component deck, times on
+        # bench.py's multi_component_3_step_cloud
+        "name": "record_kernel_multi3",
+        "route": "cuda",
+        "source": "mcbrat3d_tpu_torch/csrc/record_kernel.cu",
+        "replaces": "mcbrat3d_tpu/transport/pallas_kernel.py:1296",
+        "launches": out["multi_deck"]["launches"],
+        "max_abs_err": out["env_max_err"],
+        "ms": multi_head["kernel_ms_per_launch"],
+        "plain_ms": multi_head["plain_ms_per_launch"],
     }]
     for k in kernels:
         # no single PyTorch call computes a transport step

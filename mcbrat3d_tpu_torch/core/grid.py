@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from mcbrat3d_tpu_torch.core.device import resolve
+
 
 def _regular(e: np.ndarray) -> bool:
     d = np.diff(e)
@@ -24,7 +26,8 @@ def _regular(e: np.ndarray) -> bool:
 class Grid:
     """Cell-edge geometry of the 3D domain (periodic in x and y).
 
-    Edge tensors have length n+1 for n cells (float32, on ``device``).
+    Edge tensors have length n+1 for n cells (float32, on ``device``: the
+    card unless the caller asks for the CPU; raises where there is none).
     """
 
     x_edges: torch.Tensor
@@ -34,7 +37,7 @@ class Grid:
     z_regular: bool = True
 
     @staticmethod
-    def from_edges(x_edges, y_edges, z_edges, device="cpu") -> "Grid":
+    def from_edges(x_edges, y_edges, z_edges, device="cuda") -> "Grid":
         """Build a Grid, detecting regular spacing on the float32 edges
         (same rule as the JAX package)."""
         xe = np.asarray(x_edges, np.float32)
@@ -45,7 +48,7 @@ class Grid:
 
     @staticmethod
     def regular(nx, ny, nz, dx, dy, dz, x0=0.0, y0=0.0, z0=0.0,
-                device="cpu") -> "Grid":
+                device="cuda") -> "Grid":
         xe = (x0 + dx * np.arange(nx + 1)).astype(np.float32)
         ye = (y0 + dy * np.arange(ny + 1)).astype(np.float32)
         ze = (z0 + dz * np.arange(nz + 1)).astype(np.float32)
@@ -53,6 +56,7 @@ class Grid:
 
     @staticmethod
     def _make(xe, ye, ze, xy_regular, z_regular, device) -> "Grid":
+        device = resolve(device)
         g = Grid(x_edges=torch.tensor(xe, device=device),
                  y_edges=torch.tensor(ye, device=device),
                  z_edges=torch.tensor(ze, device=device),

@@ -20,14 +20,21 @@ import torch
 _M32 = 0xFFFF_FFFF
 N_SITES = 256
 
-# Draw sites of the record kernel's flux path (one stream per purpose).
+# Draw sites of the record kernel's flux path (one stream per purpose;
+# pallas_kernel.py:891-1017, :1133).
 SITE_X = 0
 SITE_Y = 1
+# random-azimuth source: the beam's azimuth; flux source: its mu
+SITE_SOURCE = 2
 SITE_TAU = 3
 SITE_COLLIDE = 4
 SITE_ANGLE = 5
 SITE_AZIMUTH = 6
 SITE_ROULETTE = 7
+# the scattering component, drawn only on domains of 2-3 components
+SITE_COMPONENT = 8
+# flux source: the azimuth
+SITE_SOURCE_PHI = 9
 # Radiance direction d draws its Iwabuchi roulette uniforms at sites
 # 16 + 2d and 17 + 2d (d < 64, so every site stays below N_SITES).
 

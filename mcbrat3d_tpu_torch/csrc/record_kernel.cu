@@ -2,10 +2,12 @@
 // radiance by local estimation.
 //
 // Replaces: mcbrat3d_tpu/transport/pallas_kernel.py `_build_kernel`, flux
-// path (refill, Woodcock jump against the optional two-level macro
-// majorant, record fetch, null-collision test, Russian roulette, HG or
-// inverse-CDF scatter + rotation, uniform Lambertian reflection, fused
-// flux / absorption tally), as launched by `_make_launch`; and its local
+// path (refill from the directional, random-azimuth, flux or spotlight
+// source, Woodcock jump against the optional two-level macro majorant,
+// record fetch with the component choice of 2-3 component domains,
+// null-collision test, Russian roulette, HG or inverse-CDF scatter +
+// rotation, uniform Lambertian reflection, fused flux / absorption tally),
+// as launched by `_make_launch`; and its local
 // estimation section (`_build_kernel` :1515-2115, configured by
 // `run_batch_pallas_tallies` :3278-3325): at every real scatter and every
 // surface reflection, for each radiance direction, the phase value (HG or
@@ -21,7 +23,13 @@
 // its SoA state into registers, runs `k_steps` transport steps and writes
 // the state back. The record table ([n_cells, stride] f32) and the
 // inverse-CDF angle table are read with per-thread loads through L1/L2
-// (the step cloud's 1,024 x 6 floats stay cached). Tallies accumulate in
+// (the step cloud's 1,024 x 6 floats stay cached). A domain of 2-3
+// components has 8-float records [beta, majorant, ssa_eff, cs_0, cs_1,
+// f2_0, f2_1, f2_2] (domain.multi_component_records), 32-byte rows read as
+// two float4 loads; one uniform against the cumulative scattering
+// fractions picks the component whose f2 (HG g or table row) scatters.
+// The source kind and the component count are launch arguments, uniform
+// across a launch, so their branches never diverge. Tallies accumulate in
 // shared memory with shared atomics and are flushed once per block per
 // launch with global atomics. The TPU workarounds (one-hot MXU gathers and
 // tallies, bf16 hi/lo splits, [*, 128] lane blocks) are not carried over.
@@ -38,7 +46,7 @@
 // formulations and static per-direction bounds were Mosaic cost-model
 // choices; a per-thread early exit does their job). The march is still
 // bounded (k_dda, local_estimate.march_bound), and a march that reaches
-// the bound is counted (counts[2], folded into n_bad) so a stall is never
+// the bound is counted (counts[4], folded into n_bad) so a stall is never
 // silent. Its cost is divergence: lanes without an event idle while
 // others march, and marches differ in length. The image tally
 // [section][direction][column]
@@ -78,15 +86,25 @@ constexpr float kFourPi = 12.56637061435917295384f;
 // Shared memory a block may take for its tallies (the H100 offers 227 KB).
 constexpr size_t kMaxSmem = 200 * 1024;
 // counts[]: photons started, lanes with work left, lane-steps run with a
-// live photon, radiance marches cut by the iteration bound.
-constexpr int kCounts = 4;
+// live photon, real collisions, radiance marches cut by the iteration bound.
+constexpr int kCounts = 5;
 
 // params[] slots (mcbrat3d_tpu_torch/transport/record_kernel.py P_*).
 enum {
   P_BETA_MAX, P_INV_BETA_MAX, P_ALBEDO, P_SMU, P_SUX, P_SUY, P_RR_W,
   P_X0, P_LX, P_Y0, P_LY, P_Z0, P_LZ, P_INV_DX, P_INV_DY, P_INV_DZ,
   P_ZMAX, P_ZEPS, P_BXW, P_BYW, P_BZW, P_NUDGE, P_TWO_PI, P_HALF_RR,
-  P_ZTOP, P_ZBOT, P_DXC, P_DYC, P_DZC, P_MNUDGE, P_ZETA, P_MAXC, N_PARAMS
+  P_ZTOP, P_ZBOT, P_DXC, P_DYC, P_DZC, P_MNUDGE, P_ZETA, P_MAXC,
+  P_SPOT_X, P_SPOT_Y, N_PARAMS
+};
+
+// Source kinds (record_kernel.py SOURCE_KINDS).
+enum { SRC_DIRECTIONAL, SRC_RANDOM_AZIMUTH, SRC_FLUX, SRC_SPOTLIGHT };
+
+// Uniform draw sites (core/rng.py SITE_*).
+enum {
+  S_X = 0, S_Y = 1, S_SOURCE = 2, S_TAU = 3, S_COLLIDE = 4, S_ANGLE = 5,
+  S_PHI = 6, S_ROULETTE = 7, S_COMPONENT = 8, S_SOURCE_PHI = 9
 };
 
 // Local-estimate phase source (record_kernel.py PHASE_*).
@@ -108,15 +126,17 @@ struct LeArgs {
 // Local estimate of one event toward every direction (pallas_kernel.py
 // :1515-2084, cell march). refl: a surface reflection at (sx, sy, sz) with
 // phase value 1/pi; else a scatter with incoming direction (uxi, uyi, uzi)
-// and phase field f2 (HG g, or the table row). Adds w_ev * npf * exp(-tau)
-// (or its roulette form) into img at the exit column.
+// and phase field f2 (HG g, or the table row) of the chosen component.
+// Adds w_ev * npf * exp(-tau) (or its roulette form) into img at the exit
+// column; with the cap, into the section of the event's slot (0 the
+// surface, 1 + c component c).
 __device__ __forceinline__ void local_estimate(
     const float* __restrict__ prm, const float* __restrict__ rec, int stride,
     const float* s_dirs, const float* __restrict__ fwd_v0,
     const float* __restrict__ fwd_dd, float* img, float* s_exc, int* s_bad,
     const LeArgs& le, int nx, int ny, int nz, uint32_t lane, uint32_t seed,
-    uint32_t ctr, bool refl, float sx, float sy, float sz, float w_ev,
-    float uxi, float uyi, float uzi, float f2) {
+    uint32_t ctr, bool refl, int slot, float sx, float sy, float sz,
+    float w_ev, float uxi, float uyi, float uzi, float f2) {
   const float x0 = prm[P_X0], lx = prm[P_LX], y0 = prm[P_Y0];
   const float ly = prm[P_LY], z0 = prm[P_Z0], z_max = prm[P_ZMAX];
   const float inv_dx = prm[P_INV_DX], inv_dy = prm[P_INV_DY];
@@ -124,7 +144,6 @@ __device__ __forceinline__ void local_estimate(
   const float dzc = prm[P_DZC], mnudge = prm[P_MNUDGE];
   const float zeta = prm[P_ZETA], cap = prm[P_MAXC];
   const int nxy = nx * ny;
-  const int slot = refl ? 0 : 1;
   for (int d = 0; d < le.n_dirs; ++d) {
     const float ddx = s_dirs[d], ddy = s_dirs[kMaxDirs + d];
     const float ddz = s_dirs[2 * kMaxDirs + d];  // > 0 by eligibility
@@ -255,7 +274,8 @@ record_steps(const float* __restrict__ prm,
              float* __restrict__ g_exc, LeArgs le,
              int n_lanes, int nx, int ny, int nz, int stride, int off_ssa,
              int off_f2, int inv_n_steps, int use_rr, int n_acc,
-             uint32_t seed, uint32_t step0, int k_steps) {
+             uint32_t seed, uint32_t step0, int k_steps, int src,
+             int ncomp) {
   extern __shared__ float s_acc[];
   __shared__ int s_counts[kCounts];
   __shared__ float s_dirs[LE ? 3 * kMaxDirs : 1];
@@ -289,6 +309,7 @@ record_steps(const float* __restrict__ prm,
     const float nudge = prm[P_NUDGE], two_pi = prm[P_TWO_PI];
     const float half_rr = prm[P_HALF_RR], z_top = prm[P_ZTOP];
     const float z_bot = prm[P_ZBOT];
+    const float spot_x = prm[P_SPOT_X], spot_y = prm[P_SPOT_Y];
     const int nxy = nx * ny;
 
     float x = xs[lane], y = ys[lane], z = zs[lane];
@@ -296,19 +317,40 @@ record_steps(const float* __restrict__ prm,
     float w = ws[lane], bl = bls[lane];
     int quota = quotas[lane];
     bool alive = alives[lane] > 0;
-    int started = 0, steps = 0;
+    int started = 0, steps = 0, reals = 0;
     const uint32_t ul = static_cast<uint32_t>(lane);
 
     for (int k = 0; k < k_steps; ++k) {
       const uint32_t ctr = step0 + static_cast<uint32_t>(k);
-      // ---- refill a dead lane from the directional source ----
+      // ---- refill a dead lane from the source (pallas_kernel.py
+      // :988-1027) ----
       if (!alive && quota > 0) {
-        x = x0 + uniform(ul, seed, ctr, 0) * lx;
-        y = y0 + uniform(ul, seed, ctr, 1) * ly;
+        if (src == SRC_SPOTLIGHT) {  // one entry point
+          x = x0 + spot_x * lx;
+          y = y0 + spot_y * ly;
+        } else {
+          x = x0 + uniform(ul, seed, ctr, S_X) * lx;
+          y = y0 + uniform(ul, seed, ctr, S_Y) * ly;
+        }
         z = z_top;
-        ux = sux;
-        uy = suy;
-        uz = -smu;
+        if (src == SRC_DIRECTIONAL || src == SRC_SPOTLIGHT) {
+          ux = sux;
+          uy = suy;
+          uz = -smu;
+        } else {
+          float s_mu, s_phi;
+          if (src == SRC_RANDOM_AZIMUTH) {
+            s_mu = -smu;
+            s_phi = two_pi * uniform(ul, seed, ctr, S_SOURCE);
+          } else {  // flux: mu = -sqrt(u), the azimuth at its own site
+            s_mu = -sqrtf(fmaxf(uniform(ul, seed, ctr, S_SOURCE), 1e-12f));
+            s_phi = two_pi * uniform(ul, seed, ctr, S_SOURCE_PHI);
+          }
+          const float s_sin = sqrtf(fmaxf(0.f, 1.f - s_mu * s_mu));
+          ux = s_sin * cosf(s_phi);
+          uy = s_sin * sinf(s_phi);
+          uz = s_mu;
+        }
         w = 1.f;
         alive = true;
         quota -= 1;
@@ -319,7 +361,7 @@ record_steps(const float* __restrict__ prm,
       steps += 1;
 
       // ---- Woodcock jump ----
-      const float tau = -log1pf(-uniform(ul, seed, ctr, 3));
+      const float tau = -log1pf(-uniform(ul, seed, ctr, S_TAU));
       float d;
       bool clipped = false;
       if (MACRO) {
@@ -340,7 +382,7 @@ record_steps(const float* __restrict__ prm,
       const bool exit_bot = !exit_top && zn <= z0;
       const bool moved = !exit_top && !exit_bot;
       const bool collide = moved && !clipped;
-      const float phi_rot = two_pi * uniform(ul, seed, ctr, 6);
+      const float phi_rot = two_pi * uniform(ul, seed, ctr, S_PHI);
 
       if (!moved) {
         // ---- boundary exit: tally, then reflect off the surface ----
@@ -366,12 +408,12 @@ record_steps(const float* __restrict__ prm,
           } else {
             if constexpr (LE) {
               local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img,
-                             s_exc, &s_counts[3], le, nx, ny, nz, ul, seed,
-                             ctr, true, xe, ye, z_bot, w_refl, 0.f, 0.f,
+                             s_exc, &s_counts[4], le, nx, ny, nz, ul, seed,
+                             ctr, true, 0, xe, ye, z_bot, w_refl, 0.f, 0.f,
                              0.f, 0.f);
             }
             const float mu_new =
-                sqrtf(fmaxf(uniform(ul, seed, ctr, 5), 1e-12f));
+                sqrtf(fmaxf(uniform(ul, seed, ctr, S_ANGLE), 1e-12f));
             const float sin_new = sqrtf(fmaxf(0.f, 1.f - mu_new * mu_new));
             float sp, cp;
             sincosf(phi_rot, &sp, &cp);
@@ -401,23 +443,49 @@ record_steps(const float* __restrict__ prm,
       // ---- record fetch; null-collision test against the majorant the
       // jump sampled with, then carry the destination block's majorant ----
       const float* r = rec + static_cast<size_t>(cell) * stride;
-      const float beta = __ldg(r);
+      float beta, maj = 0.f, ssa = 0.f, cs0 = 0.f;
+      if (ncomp > 1) {  // [beta, majorant, ssa_eff, cs_0 | ...]
+        const float4 a = __ldg(reinterpret_cast<const float4*>(r));
+        beta = a.x;
+        maj = a.y;
+        ssa = a.z;
+        cs0 = a.w;
+      } else {
+        beta = __ldg(r);
+        if (MACRO) maj = __ldg(r + 1);
+      }
       const float ceiling = MACRO ? bl : beta_max;
-      if (MACRO) bl = __ldg(r + 1);
-      if (!collide || !(uniform(ul, seed, ctr, 4) * ceiling < beta)) continue;
+      if (MACRO) bl = maj;
+      if (!collide ||
+          !(uniform(ul, seed, ctr, S_COLLIDE) * ceiling < beta)) {
+        continue;
+      }
 
-      // ---- real collision: absorption weight, tally, roulette ----
-      const float ssa = __ldg(r + off_ssa);
-      const float f2 = __ldg(r + off_f2);
+      // ---- real collision: the scattering component (pallas_kernel.py
+      // :1296-1309), absorption weight, tally, roulette ----
+      ++reals;
+      float f2;
+      int slot = 1;  // local-estimate slot of the component (cap)
+      if (ncomp > 1) {  // [... | cs_1, f2_0, f2_1, f2_2]
+        const float4 b = __ldg(reinterpret_cast<const float4*>(r) + 1);
+        const float u_cmp = uniform(ul, seed, ctr, S_COMPONENT);
+        const bool past0 = u_cmp >= cs0;
+        const bool past1 = ncomp == 3 && u_cmp >= b.x;
+        f2 = past1 ? b.w : (past0 ? b.z : b.y);
+        slot += static_cast<int>(past0) + static_cast<int>(past1);
+      } else {
+        ssa = __ldg(r + off_ssa);
+        f2 = __ldg(r + off_f2);
+      }
       atomicAdd(&s_acc[2 * nxy + (VOL ? cell : col_c)], w * (1.f - ssa));
       w = w * ssa;
       if constexpr (LE) {  // post-absorption, pre-roulette weight, incoming dir
         local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img, s_exc,
-                       &s_counts[3], le, nx, ny, nz, ul, seed, ctr, false, x,
-                       y, z, w, ux, uy, uz, f2);
+                       &s_counts[4], le, nx, ny, nz, ul, seed, ctr, false,
+                       slot, x, y, z, w, ux, uy, uz, f2);
       }
       if (use_rr && w < half_rr) {
-        w = uniform(ul, seed, ctr, 7) < w / rr_w ? rr_w : 0.f;
+        w = uniform(ul, seed, ctr, S_ROULETTE) < w / rr_w ? rr_w : 0.f;
       }
       if (w <= kTiny) {
         alive = false;
@@ -425,7 +493,7 @@ record_steps(const float* __restrict__ prm,
       }
 
       // ---- scatter: sample cos(theta), rotate the direction ----
-      const float u_ang = uniform(ul, seed, ctr, 5);
+      const float u_ang = uniform(ul, seed, ctr, S_ANGLE);
       float cos_t;
       if (ANALYTIC) {
         cos_t = mcb::hg_cos(f2, u_ang);
@@ -453,6 +521,7 @@ record_steps(const float* __restrict__ prm,
     if (started) atomicAdd(&s_counts[0], started);
     if (alive || quota > 0) atomicAdd(&s_counts[1], 1);
     if (steps) atomicAdd(&s_counts[2], steps);
+    if (reals) atomicAdd(&s_counts[3], reals);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
@@ -486,7 +555,7 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
                    int n_lanes, int nx, int ny, int nz, int stride,
                    int off_ssa, int off_f2, int inv_n_steps, int use_rr,
                    int n_acc, uint32_t seed, uint32_t step0, int k_steps,
-                   cudaStream_t stream) {
+                   int src, int ncomp, cudaStream_t stream) {
   auto kernel = record_steps<MACRO, VOL, ANALYTIC, LE>;
   size_t smem = static_cast<size_t>(n_acc) * sizeof(float);
   if (LE) {
@@ -508,7 +577,7 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
       prm, rec, inv_a0, inv_dd, x, y, z, ux, uy, uz, w, bl, quota, alive,
       acc, counts, dirs, fwd_v0, fwd_dd, img, exc, le, n_lanes, nx, ny, nz,
       stride, off_ssa, off_f2, inv_n_steps, use_rr, n_acc, seed, step0,
-      k_steps);
+      k_steps, src, ncomp);
   return cudaGetLastError();
 }
 
@@ -516,12 +585,15 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
 
 extern "C" int record_kernel_num_params() { return N_PARAMS; }
 
-// Advance every lane by k_steps transport steps. Adds the tally into acc,
+// Advance every lane by k_steps transport steps, refilling from source kind
+// src (SRC_*) on a domain of ncomp components (records of `stride` floats;
+// 8, 16-byte aligned, when ncomp > 1). Adds the tally into acc,
 // the photons started into counts[0], the lanes with work left (alive or
 // quota > 0) into counts[1], the lane-steps run with a live photon into
-// counts[2] and, with radiance (n_dirs > 0), the image into img, the capped
-// excess into exc and the marches cut by the iteration bound into
-// counts[3]. Returns cudaGetLastError().
+// counts[2], the real collisions into counts[3] and, with radiance
+// (n_dirs > 0), the image into img, the capped excess into exc and the
+// marches cut by the iteration bound into counts[4]. Returns
+// cudaGetLastError().
 extern "C" int record_kernel_launch(
     const float* prm, const float* rec, const float* inv_a0,
     const float* inv_dd, float* x, float* y, float* z, float* ux,
@@ -530,10 +602,17 @@ extern "C" int record_kernel_launch(
     const float* fwd_dd, float* img, float* exc, int n_lanes, int nx,
     int ny, int nz, int stride, int off_ssa, int off_f2, int inv_n_steps,
     int use_rr, int n_acc, uint32_t seed, uint32_t step0, int k_steps,
-    int macro, int vol, int analytic, int n_dirs, int le_phase, int fwd_n_s,
-    int le_rr, int le_cap, int k_dda, int n_img, int n_exc, void* stream) {
+    int macro, int vol, int analytic, int src, int ncomp, int n_dirs,
+    int le_phase, int fwd_n_s, int le_rr, int le_cap, int k_dda, int n_img,
+    int n_exc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_dirs < 0 || n_dirs > kMaxDirs) return cudaErrorInvalidValue;
+  if (src < SRC_DIRECTIONAL || src > SRC_SPOTLIGHT) {
+    return cudaErrorInvalidValue;
+  }
+  if (ncomp < 1 || ncomp > 3 || (ncomp > 1 && stride != 8)) {
+    return cudaErrorInvalidValue;
+  }
   const LeArgs le{n_dirs, le_phase, fwd_n_s, le_rr, le_cap,
                   k_dda,  n_img,    n_exc,   0};
 #define MCB_CALL(M, V, A, L)                                                 \
@@ -541,7 +620,7 @@ extern "C" int record_kernel_launch(
       prm, rec, inv_a0, inv_dd, x, y, z, ux, uy, uz, w, bl, quota, alive,    \
       acc, counts, dirs, fwd_v0, fwd_dd, img, exc, le, n_lanes, nx, ny, nz,  \
       stride, off_ssa, off_f2, inv_n_steps, use_rr, n_acc, seed, step0,      \
-      k_steps, s))
+      k_steps, src, ncomp, s))
 #define MCB_LAUNCH(M, V, A) \
   return n_dirs > 0 ? MCB_CALL(M, V, A, true) : MCB_CALL(M, V, A, false)
   if (macro) {

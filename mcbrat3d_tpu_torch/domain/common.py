@@ -95,7 +95,7 @@ def write_common(path: str, common: CommonDomain,
                 common.reff.T)
 
 
-def read_common(path: str, device="cpu") -> CommonDomain:
+def read_common(path: str, device="cuda") -> CommonDomain:
     """Read a physical-properties file (reference: read_Common); the grid
     is placed on ``device``."""
     with netcdf_file(path, "r", mmap=False) as nc:

@@ -190,6 +190,52 @@ class OpticalDomain:
         return float(torch.max(self.total_ext))
 
 
+def multi_component_records(domain: OpticalDomain) -> torch.Tensor:
+    """The record kernel's per-cell record of a 2-3 component domain:
+    [n_cells, 8] float32, on the domain's device, built once per domain.
+
+    Columns: total extinction, local majorant, effective ssa
+    (sum_c frac_c * ssa_c), the cumulative scattering fractions cs_0, cs_1
+    (0 with two components; 1 in cells that do not scatter), and f2 per
+    component (0 for a missing third): its HG g on an all-HG domain, else
+    its global stacked phase row ``phase index + tables.offsets[c]``. The
+    values of ``pallas_kernel._pack_tables`` (scattering-coefficient
+    formulation), computed in float32 in its order: the extinction
+    fractions by differences of the cumulative fractions, ``frac * ssa``,
+    their sum, then the running sums over max(ssa_eff, 1e-30). Rows are 32
+    bytes, so the kernel reads a record as two aligned float4 loads."""
+    cache = domain.__dict__
+    if "_multi_component_records" not in cache:
+        c = domain.n_components
+        if not 2 <= c <= 3 or domain.cell_records is None:
+            raise ValueError("multi-component records need the per-cell "
+                             "records of a domain of 2 or 3 components "
+                             f"(this one has {c})")
+        rec = domain.cell_records.cpu().numpy()
+        cumf = rec[:, 2:2 + c]
+        frac = np.diff(cumf, axis=1, prepend=np.float32(0.0))
+        scat = frac * rec[:, 2 + c:2 + 2 * c]
+        ssa_eff = scat[:, 0] + scat[:, 1]
+        if c == 3:
+            ssa_eff = ssa_eff + scat[:, 2]
+        cs = (np.cumsum(scat, axis=1, dtype=np.float32)
+              / np.maximum(ssa_eff, np.float32(1e-30))[:, None])
+        cs = np.where(ssa_eff[:, None] > 0, cs, np.float32(1.0))
+        if domain.all_hg:
+            f2 = rec[:, 2 + 3 * c:2 + 4 * c]
+        else:
+            offs = domain.tables.offsets.cpu().numpy().astype(np.float32)
+            f2 = rec[:, 2 + 2 * c:2 + 3 * c] + offs[None, :]
+        out = np.zeros((rec.shape[0], 8), np.float32)
+        out[:, 0:2] = rec[:, 0:2]
+        out[:, 2] = ssa_eff
+        out[:, 3:2 + c] = cs[:, :c - 1]
+        out[:, 5:5 + c] = f2
+        cache["_multi_component_records"] = torch.tensor(
+            out, device=domain.device).contiguous()
+    return cache["_multi_component_records"]
+
+
 def stack_phase_tables(phase_tables, n_cdf_steps: int,
                        n_forward_angles: int, compute_intensity_tables: bool,
                        hybrid_width_deg: float) -> dict:
@@ -595,7 +641,7 @@ def sep_fields(amp: np.ndarray, p: np.ndarray, q: np.ndarray, zb: int,
     return out
 
 
-def domain_from_numpy(arrays: dict, device="cpu") -> OpticalDomain:
+def domain_from_numpy(arrays: dict, device="cuda") -> OpticalDomain:
     """Build the port's domain from plain arrays.
 
     ``arrays`` holds the JAX ``OpticalDomain``'s fields as NumPy arrays or

@@ -198,7 +198,7 @@ def write_domain(path: str, grid: Grid, components, temps=None,
             add_phase_function_table(nc, comp.phase_function_table, prefix=p)
 
 
-def read_domain(path: str, device="cpu"):
+def read_domain(path: str, device="cuda"):
     """Read a domain file -> (Grid, [OpticalComponent], temps, attrs dict).
 
     The grid's edge tensors are placed on ``device``.

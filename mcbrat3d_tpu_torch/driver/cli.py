@@ -17,15 +17,7 @@ import argparse
 import json
 import sys
 
-import torch
-
-
-def _resolve_device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda requested but no CUDA device is "
-                           "available (pass --device cpu for the CPU path)")
-    return dev
+from mcbrat3d_tpu_torch.core.device import resolve
 
 
 def _launches() -> dict:
@@ -44,7 +36,7 @@ def _cmd_run(args) -> int:
     from mcbrat3d_tpu_torch.driver.config import load_config
     from mcbrat3d_tpu_torch.driver.simulate import simulate_from_config
 
-    device = _resolve_device(args.device)
+    device = resolve(args.device)
     cfg = load_config(args.namelist)
     results, written = simulate_from_config(cfg, device)
     radiance = {}
@@ -95,8 +87,9 @@ def _cmd_mkdomain(args) -> int:
     if args.scene not in scenes:
         print(f"unknown scene {args.scene!r}; available: {sorted(scenes)}")
         return 2
+    # the scene is only written to the file: build it on the host
     grid, components, temps = scenes[args.scene](
-        **_parse_params(args.params))
+        **{"device": "cpu", **_parse_params(args.params)})
     io_netcdf.write_domain(args.output, grid, components, temps=temps)
     print(f"wrote {args.output}")
     return 0

@@ -42,7 +42,7 @@ def broken_cloud_scene(nx: int = 128, ny: int = 128, nz: int = 64,
                        ssa: float = 0.99, g: float = 0.85,
                        dx: float = 30.0, dy: float = 30.0, dz: float = 20.0,
                        max_scale: float = 0.05, cloud_fraction: float = 0.45,
-                       seed: int = 1, n_legendre: int = 64, device="cpu"):
+                       seed: int = 1, n_legendre: int = 64, device="cuda"):
     """(grid, components, temps) of the synthetic broken-cloud deck; feed
     to build_domain for transport or io_netcdf.write_domain for a
     reference-schema file."""
@@ -72,7 +72,7 @@ def dense_cloud_scene(nx: int = 128, ny: int = 128, nz: int = 64,
                       ssa: float = 0.99, g: float = 0.85,
                       dx: float = 30.0, dy: float = 30.0,
                       dz: float = 20.0, max_scale: float = 0.04,
-                      seed: int = 2, n_legendre: int = 64, device="cpu"):
+                      seed: int = 2, n_legendre: int = 64, device="cuda"):
     """(grid, components, temps) of the dense non-template broken cloud:
     correlated horizontal amplitude x adiabatic-like vertical ramp x
     per-cell noise, so the extinction field is full rank (the reference's
@@ -105,7 +105,7 @@ def lw_flagship_scene(nx: int = 325, ny: int = 325, nz: int = 150,
                       cloud_g: float = 0.85, gas_beta0: float = 0.6,
                       gas_scale_km: float = 2.0, cloud_fraction: float = 0.7,
                       t_surface: float = 288.0, lapse_km: float = 6.5,
-                      seed: int = 7, n_legendre: int = 64, device="cpu"):
+                      seed: int = 7, n_legendre: int = 64, device="cuda"):
     """The I3RC broadband-LW benchmark shape: a 325 x 325 x 150 domain
     (reference: run/I3RC_bench_LW.deck:45 runs LWbench_325x325x150.nml at
     2000 ranks in <= 1 h). The reference's actual namelist/domain files are
@@ -162,7 +162,7 @@ def lw_flagship_physical(nx: int = 325, ny: int = 325, nz: int = 150,
                          cloud_fraction: float = 0.7,
                          t_surface: float = 288.0, lapse_km: float = 6.5,
                          surface_albedo: float = 0.05,
-                         seed: int = 7, device="cpu"):
+                         seed: int = 7, device="cuda"):
     """(CommonDomain, SSPTable) pair for the FILE-DRIVEN broadband-LW
     flagship deck (run/I3RC_bench_LW_325.nml): the physical-properties +
     single-scattering-property route the reference's I3RC_bench_LW.deck
@@ -266,7 +266,9 @@ def write_lw_flagship_inputs(common_path: str = "common325.nc",
     from mcbrat3d_tpu_torch.domain.common import write_common
     from mcbrat3d_tpu_torch.domain.ssp import write_ssp_table
 
-    common, tbl, pressure_hpa = lw_flagship_physical(**kw)
+    # only written to the files: built on the host
+    common, tbl, pressure_hpa = lw_flagship_physical(**{"device": "cpu",
+                                                        **kw})
     write_common(common_path, common, pressure_hpa=pressure_hpa)
     write_ssp_table(ssp_path, tbl)
     return common_path, ssp_path

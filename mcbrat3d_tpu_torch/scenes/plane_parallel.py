@@ -24,7 +24,7 @@ def plane_parallel_scene(tau: float = 1.0,
                          nx: int = 4, ny: int = 4, nz: int = 8,
                          domain_size_km: float = 1.0,
                          thickness_km: float = 1.0,
-                         device="cpu"):
+                         device="cuda"):
     """(grid, components, temps) for a uniform slab of optical depth tau."""
     if phase is None:
         phase = (PhaseFunction.henyey_greenstein(g) if g
@@ -49,7 +49,7 @@ def make_slab(tau: float = 1.0,
               nx: int = 4, ny: int = 4, nz: int = 8,
               domain_size_km: float = 1.0,
               thickness_km: float = 1.0,
-              device="cpu",
+              device="cuda",
               **build_kwargs) -> OpticalDomain:
     """Uniform slab of optical depth ``tau`` with the given phase function
     (isotropic by default), on ``device``."""

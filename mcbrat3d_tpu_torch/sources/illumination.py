@@ -6,11 +6,11 @@ by a separable domain's tables.
 Counterpart of ``mcbrat3d_tpu.sources.illumination`` (reference:
 src/monteCarloIllumination.f95:62-216, 431-522). The transport kernel
 samples the source on the fly when a photon starts, so a Source is a few
-parameters. The record kernel takes ``directional`` only; the column
-kernel directional, random azimuth and flux; the separable kernel those
-and separable emission; the tiled kernel every kind but emission. The
-per-voxel emission source (``emission``, a Walker alias over every voxel)
-arrives with the record kernel's envelope (ROADMAP Queue 1 item 10).
+parameters. The record and tiled kernels take every kind but emission; the
+column kernel directional, random azimuth and flux; the separable kernel
+those and separable emission. The per-voxel emission source
+(``emission``, a Walker alias over every voxel) arrives with the record
+kernel's emission refill (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations

@@ -617,7 +617,7 @@ def run_batch_col(domain: OpticalDomain, surface: Surface,
     st = ColState.initial(quota0, prm[C_BETA_MAX], prm.nz)
     tally = ColTally.zeros(prm, dev)
     k = ccfg.steps_per_call
-    n_started, n_calls, lane_steps = rk.relaunch_loop(
+    n_started, n_calls, lane_steps, _ = rk.relaunch_loop(
         st, tally.counts,
         lambda step0: launch(st, tab, prm, seed, step0, k, tally),
         k, ccfg.max_steps)

@@ -4,16 +4,19 @@ Counterpart of ``mcbrat3d_tpu.transport.integrator``: ``KernelConfig``,
 ``Tallies`` and ``run_batch``, plus the analytic HG sampling and direction
 rotation the plain steps use. ``run_batch`` dispatches in the JAX
 package's order (``integrator._run_batch_impl``): the record kernel
-(``transport.record_kernel``), with in-kernel radiance when radiance
-directions are given (grids above ``MAX_KERNEL_DIRS`` run as
+(``transport.record_kernel``: 1-3 components, the directional,
+random-azimuth, flux and spotlight sources), with in-kernel radiance when
+radiance directions are given (grids above ``MAX_KERNEL_DIRS`` run as
 direction-chunked passes over the same photons), then for flux runs the
 column-template kernel (``transport.col_kernel``), the separable-template
 kernel (``transport.sep_kernel``) and the tiled dense-domain kernel
 (``transport.tile_kernel``), or raises naming every failing predicate: the
 XLA wave kernel, the JAX package's general fallback, is not ported yet. A
 record-eligible domain of more than ``TILE_MIN_CELLS`` cells skips the
-record kernel when the tiled kernel takes it. A compact domain or a
-separable emission source must reach the separable kernel.
+record kernel when the tiled kernel takes it, so a small domain of any
+size below that stays on the record kernel whatever its source or
+component count, as in the JAX package. A compact domain or a separable
+emission source must reach the separable kernel.
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ class Tallies:
     absorption_profile: Optional[torch.Tensor] = None
     n_lane_steps: int = 0  # lane-steps run with a live photon
     n_passes: int = 0  # sort + transport passes of the tiled kernel
+    n_real: int = 0  # real collisions (record and tiled kernels)
 
     def normalized(self, grid: Grid) -> "Tallies":
         """Per-column normalization (reference:
@@ -97,7 +101,8 @@ class Tallies:
             else self.absorption_profile / (n * dz * 1000.0),
             n_photons=self.n_photons, n_bad=self.n_bad,
             n_steps=self.n_steps, n_cut=self.n_cut,
-            n_lane_steps=self.n_lane_steps, n_passes=self.n_passes)
+            n_lane_steps=self.n_lane_steps, n_passes=self.n_passes,
+            n_real=self.n_real)
 
 
 def sample_hg_cos(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

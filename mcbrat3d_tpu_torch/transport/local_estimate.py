@@ -24,6 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from mcbrat3d_tpu_torch.core.device import resolve
+
 # Directions per kernel pass. The per-direction Iwabuchi roulette draws use
 # sites 16 + 2d and 17 + 2d of the counter uniform, whose step stride is 256
 # sites (core.rng.N_SITES), so 64 directions keep every site below 144 and
@@ -55,7 +57,7 @@ class IntensityConfig:
     max_contribution: float = 77.0
 
 
-def make_intensity_directions(mus, phis_deg, device="cpu") -> torch.Tensor:
+def make_intensity_directions(mus, phis_deg, device="cuda") -> torch.Tensor:
     """[3, ndir] float32 unit direction cosines for the radiance detectors.
 
     mus > 0 look up through the top of the domain (the reference requires
@@ -69,7 +71,7 @@ def make_intensity_directions(mus, phis_deg, device="cpu") -> torch.Tensor:
         raise ValueError("radiance directions must have nonzero mu")
     sin_t = np.sqrt(1.0 - mus**2)
     dirs = np.stack([sin_t * np.cos(phis), sin_t * np.sin(phis), mus])
-    return torch.tensor(dirs.astype(np.float32), device=device)
+    return torch.tensor(dirs.astype(np.float32), device=resolve(device))
 
 
 def dirs_mu_floor_ok(dirs: torch.Tensor) -> bool:

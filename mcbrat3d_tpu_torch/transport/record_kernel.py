@@ -4,18 +4,21 @@ loop around them, for the flux path (K1) and in-kernel radiance (K2).
 PyTorch counterpart of ``mcbrat3d_tpu.transport.pallas_kernel`` for the
 record megakernel (``_build_kernel``, ``_make_launch``, ``run_batch_pallas``,
 ``run_batch_pallas_tallies``). Every lane carries one photon through
-``steps_per_call`` transport steps per launch: refill from the source,
-Woodcock jump against the (optional two-level macro-cell) majorant, record
-fetch, null-collision test, absorption weight, Russian roulette, HG or
-inverse-CDF scatter + rotation, Lambertian reflection and the fused tally
-of flux up/down per column and absorption per column (``vol_tally=False``,
-the JAX ``flux_abs_2d``) or per cell. With radiance directions, every real
-scatter and every surface reflection also runs a local estimate per
-direction: one cell DDA march to the domain top with the periodic x/y wrap,
-the phase value from analytic HG or a forward table resampled uniform in
-sin(theta/2), the exact or the Iwabuchi roulette estimator and optional
-contribution capping, tallied at the column where the ray leaves the top
-(``pallas_kernel.py:1515-2115``).
+``steps_per_call`` transport steps per launch: refill from the source
+(directional, random-azimuth, flux or spotlight), Woodcock jump against
+the (optional two-level macro-cell) majorant, record fetch (one component,
+or 2-3 components chosen by one uniform against the cell's cumulative
+scattering fractions), null-collision test, absorption weight, Russian
+roulette, HG or inverse-CDF scatter + rotation, Lambertian reflection and
+the fused tally of flux up/down per column and absorption per column
+(``vol_tally=False``, the JAX ``flux_abs_2d``) or per cell. With radiance
+directions, every real scatter and every surface reflection also runs a
+local estimate per direction: one cell DDA march to the domain top with the
+periodic x/y wrap, the phase value (of the chosen component) from analytic
+HG or a forward table resampled uniform in sin(theta/2), the exact or the
+Iwabuchi roulette estimator and optional contribution capping with one
+excess slot per component, tallied at the column where the ray leaves the
+top (``pallas_kernel.py:1515-2115``).
 
 Two implementations of one launch:
 
@@ -42,7 +45,8 @@ import numpy as np
 import torch
 
 from mcbrat3d_tpu_torch.core import rng
-from mcbrat3d_tpu_torch.domain.domain import OpticalDomain
+from mcbrat3d_tpu_torch.domain.domain import (OpticalDomain,
+                                              multi_component_records)
 from mcbrat3d_tpu_torch.physics.surface import Surface
 from mcbrat3d_tpu_torch.sources import illumination
 from mcbrat3d_tpu_torch.transport import local_estimate as le
@@ -55,6 +59,11 @@ LANES_PER_ROW = 128
 # domains (pallas_kernel.MAX_CELLS / MAX_INV_ENTRIES).
 MAX_CELLS = 288 * 128
 MAX_INV_ENTRIES = 1024 * 128
+MAX_COMPONENTS = 3
+# Sources the kernel refills from, by their code (csrc/record_kernel.cu
+# SRC_*).
+SOURCE_KINDS = (illumination.DIRECTIONAL, illumination.RANDOM_AZIMUTH,
+                illumination.FLUX, illumination.SPOTLIGHT)
 
 # Radiance launch geometry (pallas_kernel.py:3278-3291): local estimation
 # runs per event and per direction, so lane occupancy decides its cost; the
@@ -75,7 +84,7 @@ RADIANCE_LAUNCHES = 0
  P_X0, P_LX, P_Y0, P_LY, P_Z0, P_LZ, P_INV_DX, P_INV_DY, P_INV_DZ,
  P_ZMAX, P_ZEPS, P_BXW, P_BYW, P_BZW, P_NUDGE, P_TWO_PI, P_HALF_RR,
  P_ZTOP, P_ZBOT, P_DXC, P_DYC, P_DZC, P_MNUDGE, P_ZETA, P_MAXC,
- N_PARAMS) = range(33)
+ P_SPOT_X, P_SPOT_Y, N_PARAMS) = range(35)
 
 # Local-estimate phase source (csrc/record_kernel.cu PHASE_*): analytic HG,
 # forward table row 0 (all-HG domains), forward table row = the record's
@@ -120,9 +129,9 @@ def ineligibility_reasons(domain: OpticalDomain, surface: Surface,
                           use_ray_tracing: bool) -> list:
     """Names of every failing record-kernel predicate (empty = eligible).
 
-    Port of ``pallas_kernel.ineligibility_reasons`` restricted to what the
-    port's kernel covers: one component, a uniform Lambertian surface and
-    a directional source, flux tallies only."""
+    Port of ``pallas_kernel.ineligibility_reasons`` without what is still
+    to port: the BBEmission refill and the lw_mode pre-credits (K1-c) and
+    the uniform RPV and per-pixel Lambertian surfaces (K1-d)."""
     nx, ny, nz = domain.grid.shape
     n_cells = nx * ny * nz
     vol_base = -(-2 * nx * ny // 128) * 128
@@ -132,15 +141,20 @@ def ineligibility_reasons(domain: OpticalDomain, surface: Surface,
          domain.cell_records is not None),
         (f"inverse-CDF table has {inv_size} entries > {MAX_INV_ENTRIES}",
          domain.all_hg or inv_size <= MAX_INV_ENTRIES),
-        (f"n_components={domain.n_components} > 1 (multi-component "
-         "records are not ported yet)", domain.n_components == 1),
+        (f"n_components={domain.n_components} > {MAX_COMPONENTS}",
+         domain.n_components <= MAX_COMPONENTS),
         ("irregular grid spacing",
          domain.grid.xy_regular and domain.grid.z_regular),
-        ("surface is not uniform Lambertian (RPV and per-pixel albedo "
-         "are not ported yet)", surface.is_uniform_lambertian),
-        (f"source kind {source.kind!r} not ported (directional only)",
-         source.kind == illumination.DIRECTIONAL),
-        ("lw_mode (emission is not ported yet)", not lw_mode),
+        ("surface is not uniform Lambertian (K1-d: uniform RPV and "
+         "per-pixel Lambertian are not ported yet)",
+         surface.is_uniform_lambertian),
+        (f"source kind {source.kind!r} not in-kernel (K1-c: the "
+         "BBEmission refill is not ported yet)"
+         if source.kind == illumination.EMISSION
+         else f"source kind {source.kind!r} not in-kernel",
+         source.kind in SOURCE_KINDS),
+        ("lw_mode (K1-c: the emission pre-credits are not ported yet)",
+         not lw_mode),
         ("compute_intensity outside intensity_ineligibility_reasons",
          not compute_intensity),
         ("record_scattering_orders > 0", record_scattering_orders == 0),
@@ -283,10 +297,12 @@ class RecordState:
 
 @dataclasses.dataclass(frozen=True)
 class RecordTables:
-    """Device tables the step reads: records [n_cells, stride] f32, the
-    flat inverse-CDF angles with their forward differences and, for
-    radiance, the direction cosines [3, n_dirs] and the resampled forward
-    phase table (``forward_table``); one-element placeholders otherwise."""
+    """Device tables the step reads: records [n_cells, stride] f32 (the
+    domain's ``cell_records`` for one component, its
+    ``multi_component_records`` for 2-3), the flat inverse-CDF angles with
+    their forward differences and, for radiance, the direction cosines
+    [3, n_dirs] and the resampled forward phase table (``forward_table``);
+    one-element placeholders otherwise."""
 
     records: torch.Tensor
     inv_a0: torch.Tensor
@@ -298,7 +314,9 @@ class RecordTables:
     @staticmethod
     def from_domain(domain: OpticalDomain, intensity_config=None,
                     intensity_dirs=None) -> "RecordTables":
-        rec = domain.cell_records.contiguous()
+        rec = (domain.cell_records.contiguous()
+               if domain.n_components == 1
+               else multi_component_records(domain))
         zero = torch.zeros(1, dtype=torch.float32, device=rec.device)
         a0, dd = (zero, zero) if domain.all_hg else inverse_table(domain)
         dirs, v0, fdd = zero, zero, zero
@@ -316,8 +334,10 @@ class RecordTables:
 class RecordParams:
     """Scalars of one batch: ``values`` is the float32 parameter vector
     (P_* slots, computed in float32 as the JAX launch computes them),
-    ``device_values`` its copy on the kernel's device. ``n_dirs`` > 0
-    turns on the local estimate with the ``le_*`` switches."""
+    ``device_values`` its copy on the kernel's device. ``source_kind``
+    indexes ``SOURCE_KINDS``; ``ncomp`` > 1 reads the 8-column
+    multi-component record. ``n_dirs`` > 0 turns on the local estimate with
+    the ``le_*`` switches."""
 
     values: np.ndarray
     device_values: torch.Tensor
@@ -332,6 +352,8 @@ class RecordParams:
     inv_n_steps: int
     use_rr: bool
     vol_tally: bool
+    source_kind: int = 0
+    ncomp: int = 1
     n_dirs: int = 0
     le_phase: int = PHASE_HG
     le_rr: bool = False      # Iwabuchi roulette estimator
@@ -349,9 +371,9 @@ class RecordParams:
 
     @property
     def n_sec(self) -> int:
-        """Image sections: one, or with the cap one per component slot
-        (slot 0 = surface reflection, slot 1 = the scattering component)."""
-        return 2 if self.le_cap else 1
+        """Image sections: one, or with the cap one per slot (slot 0 =
+        surface reflection, slot 1 + c = scattering component c)."""
+        return self.ncomp + 1 if self.le_cap else 1
 
     @property
     def n_img(self) -> int:
@@ -398,6 +420,11 @@ class RecordParams:
         # pallas_kernel.py:1538-1541
         vals[[P_DXC, P_DYC, P_DZC, P_MNUDGE]] = (
             dxc, dyc, dzc, f(1e-6) * min(dzc, min(dxc, dyc)))
+        # spotlight entry point as fractions of the domain (JAX params
+        # 17/18, read from solar_x/solar_y; pallas_kernel.py:2755-2758)
+        if source.kind == illumination.SPOTLIGHT:
+            vals[[P_SPOT_X, P_SPOT_Y]] = (f(source.solar_x),
+                                          f(source.solar_y))
         icfg = intensity_config
         le_kw = {}
         if icfg is not None:
@@ -409,15 +436,19 @@ class RecordParams:
                          le_cap=bool(icfg.limit_contributions),
                          k_dda=le.march_bound(domain.grid, intensity_dirs))
         ncomp = domain.n_components
+        if ncomp == 1:  # the domain's cell_records
+            layout = dict(stride=6, off_ssa=3, off_f2=5 if domain.all_hg
+                          else 4)
+        else:  # multi_component_records: ssa_eff, f2 of component 0
+            layout = dict(stride=8, off_ssa=2, off_f2=5)
         return RecordParams(
             values=vals,
             device_values=torch.as_tensor(vals, device=domain.device),
-            nx=nx, ny=ny, nz=nz, macro_factor=mf,
-            stride=2 + 4 * ncomp, off_ssa=2 + ncomp,
-            off_f2=(2 + 3 * ncomp if domain.all_hg else 2 + 2 * ncomp),
+            nx=nx, ny=ny, nz=nz, macro_factor=mf, **layout,
             analytic_hg=bool(domain.all_hg),
             inv_n_steps=int(domain.tables.inverse.shape[1]),
             use_rr=bool(use_russian_roulette), vol_tally=bool(vol_tally),
+            source_kind=SOURCE_KINDS.index(source.kind), ncomp=ncomp,
             **le_kw)
 
 
@@ -448,8 +479,9 @@ class RecordTally:
     """What a launch adds into: ``acc`` the flux tally [prm.n_acc] f32,
     ``img`` the radiance tally [max(1, prm.n_img)] f32, ``exc`` the capped
     excess [max(1, prm.n_exc)] f32 and ``counts`` int32 [photons started,
-    lanes with work left, lane-steps run with a live photon, radiance
-    marches cut by the iteration bound] (``relaunch_loop`` layout)."""
+    lanes with work left, lane-steps run with a live photon, real
+    collisions, radiance marches cut by the iteration bound]
+    (``relaunch_loop`` layout, the first four per launch)."""
 
     acc: torch.Tensor
     img: torch.Tensor
@@ -462,7 +494,7 @@ class RecordTally:
             return torch.zeros(max(1, n), dtype=dtype, device=device)
 
         return RecordTally(acc=z(prm.n_acc), img=z(prm.n_img),
-                           exc=z(prm.n_exc), counts=z(4, torch.int32))
+                           exc=z(prm.n_exc), counts=z(5, torch.int32))
 
 
 def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
@@ -485,15 +517,37 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     x, y, z, ux, uy, uz, w, bl = (st.x, st.y, st.z, st.ux, st.uy, st.uz,
                                   st.w, st.bl)
 
-    # ---- refill dead lanes from the source ----
+    # ---- refill dead lanes from the source (pallas_kernel.py:988-1027) ----
     alive = st.alive > 0
     need = ~alive & (st.quota > 0)
-    x = torch.where(need, x0 + u(ctr, rng.SITE_X) * lx, x)
-    y = torch.where(need, y0 + u(ctr, rng.SITE_Y) * ly, y)
+    kind = SOURCE_KINDS[p.source_kind]
+    if kind == illumination.SPOTLIGHT:  # one entry point
+        x = torch.where(need, float(_F32(x0) + _F32(p[P_SPOT_X]) * _F32(lx)),
+                        x)
+        y = torch.where(need, float(_F32(y0) + _F32(p[P_SPOT_Y]) * _F32(ly)),
+                        y)
+    else:
+        x = torch.where(need, x0 + u(ctr, rng.SITE_X) * lx, x)
+        y = torch.where(need, y0 + u(ctr, rng.SITE_Y) * ly, y)
     z = torch.where(need, p[P_ZTOP], z)
-    ux = torch.where(need, p[P_SUX], ux)
-    uy = torch.where(need, p[P_SUY], uy)
-    uz = torch.where(need, -p[P_SMU], uz)
+    if kind in (illumination.DIRECTIONAL, illumination.SPOTLIGHT):
+        s_mu = torch.full_like(x, -p[P_SMU])
+        sux = torch.full_like(x, p[P_SUX])
+        suy = torch.full_like(x, p[P_SUY])
+    else:
+        if kind == illumination.RANDOM_AZIMUTH:
+            s_mu = torch.full_like(x, -p[P_SMU])
+            s_phi = p[P_TWO_PI] * u(ctr, rng.SITE_SOURCE)
+        else:  # flux: mu = -sqrt(u), the azimuth at its own site
+            s_mu = -torch.sqrt(torch.clamp(u(ctr, rng.SITE_SOURCE),
+                                           min=1e-12))
+            s_phi = p[P_TWO_PI] * u(ctr, rng.SITE_SOURCE_PHI)
+        s_sin = torch.sqrt(torch.clamp(1.0 - s_mu * s_mu, min=0.0))
+        sux = s_sin * torch.cos(s_phi)
+        suy = s_sin * torch.sin(s_phi)
+    ux = torch.where(need, sux, ux)
+    uy = torch.where(need, suy, uy)
+    uz = torch.where(need, s_mu, uz)
     w = torch.where(need, 1.0, w)
     alive = alive | need
     quota = st.quota - need.to(torch.int32)
@@ -552,10 +606,24 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     beta = rec[:, 0]
     ssa = rec[:, p.off_ssa]
     f2 = rec[:, p.off_f2]
+    # local-estimate slot of a scatter (0 is the surface's)
+    slot_sc = torch.ones_like(cell, dtype=torch.int64)
+    if p.ncomp > 1:
+        # one uniform picks the scattering component against the cell's
+        # cumulative scattering fractions (pallas_kernel.py:1296-1309)
+        u_cmp = u(ctr, rng.SITE_COMPONENT)
+        past0 = u_cmp >= rec[:, 3]
+        f2 = torch.where(past0, rec[:, 6], f2)
+        slot_sc = slot_sc + past0.to(torch.int64)
+        if p.ncomp == 3:
+            past1 = u_cmp >= rec[:, 4]
+            f2 = torch.where(past1, rec[:, 7], f2)
+            slot_sc = slot_sc + past1.to(torch.int64)
     # null-collision test against the majorant this step sampled with,
     # then carry the destination block's majorant
     ceiling = bl if macro else beta_max
     real = collide & (u(ctr, rng.SITE_COLLIDE) * ceiling < beta)
+    tally.counts[3] += real.sum().to(torch.int32)
     if macro:
         bl = torch.where(moved, rec[:, 1], bl)
     absorbed = torch.where(real, w * (1.0 - ssa), 0.0)
@@ -614,6 +682,7 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
             refl = reflected[ev]
             local_estimate_plain(
                 tab, prm, u, ctr, ev, refl,
+                torch.where(refl, 0, slot_sc[ev]),
                 torch.where(refl, xe[ev], xc[ev]),
                 torch.where(refl, ye[ev], yc[ev]),
                 torch.where(refl, p[P_ZBOT], zc[ev]),
@@ -636,12 +705,14 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
 
 def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
                          ev: torch.Tensor, refl: torch.Tensor,
+                         slot: torch.Tensor,
                          sx, sy, sz, w_ev, ux_in, uy_in, uz_in, f2,
                          tally: RecordTally) -> None:
     """Local estimate of the event lanes ``ev`` (int64 lane indices; the
     other arguments are per event) toward every direction, tallied into
     ``tally.img`` / ``tally.exc``; marches cut by the iteration bound are
-    counted into ``tally.counts[3]``.
+    counted into ``tally.counts[4]``. ``slot`` is the capped-excess slot
+    of each event (0 a reflection, 1 + c a scatter by component c).
 
     Same float32 arithmetic as pallas_kernel.py:1515-2084 with the cell
     march: all (event, direction) pairs march together, each until it
@@ -726,7 +797,7 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
         if p.le_rr:
             act = act & (tau < tau_stop)
         px, py, pz = pxw + ddx * ds, pyw + ddy * ds, pz2
-    tally.counts[3] += act.sum().to(torch.int32)
+    tally.counts[4] += act.sum().to(torch.int32)
     hit = ~act
     w_p = pairs(w_ev)
     if p.le_rr:
@@ -744,9 +815,9 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
         cap = p[P_MAXC]
         over = torch.clamp(contrib - cap, min=0.0)
         contrib = torch.clamp(contrib, max=cap)
-        slot = (~refl_p).to(torch.int64)  # 0 surface, 1 the component
-        tally.exc.index_add_(0, slot * n_dirs + d_idx, over)
-        tally.img.index_add_(0, (slot * n_dirs + d_idx) * nxy + ex_col,
+        slot_p = pairs(slot)
+        tally.exc.index_add_(0, slot_p * n_dirs + d_idx, over)
+        tally.img.index_add_(0, (slot_p * n_dirs + d_idx) * nxy + ex_col,
                              contrib)
     else:
         tally.img.index_add_(0, d_idx * nxy + ex_col, contrib)
@@ -755,8 +826,9 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
 def record_launch_plain(st: RecordState, tab: RecordTables,
                         prm: RecordParams, seed: int, step0: int,
                         k_steps: int, tally: RecordTally) -> None:
-    """``k_steps`` plain steps; adds [started, lanes with work left, cut
-    marches] into ``tally.counts`` -- the contract of one kernel launch."""
+    """``k_steps`` plain steps; adds [started, lanes with work left,
+    lane-steps, real collisions, cut marches] into ``tally.counts`` -- the
+    contract of one kernel launch."""
     lane = torch.arange(st.x.shape[0], dtype=torch.int64, device=st.x.device)
     started = torch.zeros((), dtype=torch.int64, device=st.x.device)
     for k in range(k_steps):
@@ -783,7 +855,7 @@ def _library():
         lib.record_kernel_num_params.argtypes = []
         lib.record_kernel_launch.restype = _I
         lib.record_kernel_launch.argtypes = (
-            [_P] * 21 + [_I] * 10 + [_U, _U] + [_I] * 4 + [_I] * 8 + [_P])
+            [_P] * 21 + [_I] * 10 + [_U, _U] + [_I] * 6 + [_I] * 8 + [_P])
         if lib.record_kernel_num_params() != N_PARAMS:
             raise RuntimeError("csrc/record_kernel.cu and record_kernel.py "
                                "disagree on the parameter layout")
@@ -813,13 +885,16 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
         _check(getattr(st, name), name, torch.int32, n, dev)
     n_cells = prm.nx * prm.ny * prm.nz
     _check(tab.records, "records", torch.float32, n_cells * prm.stride, dev)
+    if prm.ncomp > 1 and tab.records.data_ptr() % 16:
+        raise ValueError("multi-component records must be 16-byte aligned "
+                         "(the kernel reads them as float4)")
     _check(tab.inv_a0, "inv_a0", torch.float32, tab.inv_a0.numel(), dev)
     _check(tab.inv_dd, "inv_dd", torch.float32, tab.inv_a0.numel(), dev)
     _check(prm.device_values, "params", torch.float32, N_PARAMS, dev)
     _check(tally.acc, "acc", torch.float32, prm.n_acc, dev)
     _check(tally.img, "img", torch.float32, max(1, prm.n_img), dev)
     _check(tally.exc, "exc", torch.float32, max(1, prm.n_exc), dev)
-    _check(tally.counts, "counts", torch.int32, 4, dev)
+    _check(tally.counts, "counts", torch.int32, 5, dev)
     if prm.n_dirs:
         if prm.n_dirs > le.MAX_KERNEL_DIRS:
             raise ValueError(f"{prm.n_dirs} radiance directions > "
@@ -841,7 +916,8 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
         prm.stride, prm.off_ssa, prm.off_f2, prm.inv_n_steps,
         int(prm.use_rr), prm.n_acc, seed & 0xFFFF_FFFF,
         step0 & 0xFFFF_FFFF, k_steps, int(prm.macro_factor > 0),
-        int(prm.vol_tally), int(prm.analytic_hg), prm.n_dirs, prm.le_phase,
+        int(prm.vol_tally), int(prm.analytic_hg), prm.source_kind,
+        prm.ncomp, prm.n_dirs, prm.le_phase,
         FWD_N_S, int(prm.le_rr), int(prm.le_cap), prm.k_dda, prm.n_img,
         prm.n_exc, stream)
     LAUNCHES += 1
@@ -869,7 +945,8 @@ def record_launch(st: RecordState, tab: RecordTables, prm: RecordParams,
 # ---------------------------------------------------------------------------
 
 def relaunch_loop(st, counts: torch.Tensor, launch_steps,
-                  steps_per_call: int, max_steps: int) -> tuple:
+                  steps_per_call: int, max_steps: int,
+                  n_per_launch: int = 3) -> tuple:
     """The host loop around a transport kernel, shared by the record and
     column kernels (``run_batch_pallas`` / ``run_batch_pallas_col``):
     ``launch_steps(step0)`` advances every lane by ``steps_per_call``
@@ -880,25 +957,28 @@ def relaunch_loop(st, counts: torch.Tensor, launch_steps,
 
     ``st`` is the state (its int32 ``quota`` is rebound), ``counts`` the
     int32 launch counters [started, work left, lane-steps with a live
-    photon, ...]; the first three are zeroed before each launch. Returns
-    (photons started, launches, lane-steps with a live photon)."""
+    photon, real collisions (``n_per_launch`` = 4), ...]; the first
+    ``n_per_launch`` are zeroed before each launch, so none overflows.
+    Returns (photons started, launches, lane-steps with a live photon,
+    real collisions or 0)."""
     n_lanes = st.quota.shape[0]
     lane_i = torch.arange(n_lanes, dtype=torch.int32, device=st.quota.device)
-    n_started = n_calls = lane_steps = 0
+    n_started = n_calls = lane_steps = n_real = 0
     work = True
     while work and n_calls * steps_per_call < max_steps:
-        counts[:3] = 0
+        counts[:n_per_launch] = 0
         launch_steps(n_calls * steps_per_call)
-        started, work_left, steps = counts[:3].tolist()
+        started, work_left, steps, *real = counts[:n_per_launch].tolist()
         n_started += started
         lane_steps += steps
+        n_real += sum(real)
         work = work_left > 0
         # any lane may run any photon: streams are keyed by (lane, step)
         total_q = st.quota.sum()
         st.quota = (total_q // n_lanes
                     + (lane_i < total_q % n_lanes)).to(torch.int32)
         n_calls += 1
-    return n_started, n_calls, lane_steps
+    return n_started, n_calls, lane_steps, n_real
 
 
 def initial_quota(n_lanes: int, photons_per_lane: int, n_photons,
@@ -922,7 +1002,8 @@ def initial_quota(n_lanes: int, photons_per_lane: int, n_photons,
 def _record_batch(domain, surface, source, seed, rcfg, photons_per_lane,
                   n_photons, use_russian_roulette, russian_roulette_weight,
                   launch, intensity_config, intensity_dirs):
-    """``run_batch_record``'s tuple and the lane-steps with a live photon."""
+    """``run_batch_record``'s tuple, the lane-steps with a live photon and
+    the real collisions."""
     dev = domain.device
     prm = RecordParams.make(domain, surface, source, use_russian_roulette,
                             russian_roulette_weight, rcfg.vol_tally,
@@ -932,10 +1013,10 @@ def _record_batch(domain, surface, source, seed, rcfg, photons_per_lane,
     st = RecordState.initial(quota0, prm[P_BETA_MAX])
     tally = RecordTally.zeros(prm, dev)
     k = rcfg.steps_per_call
-    n_started, n_calls, lane_steps = relaunch_loop(
+    n_started, n_calls, lane_steps, n_real = relaunch_loop(
         st, tally.counts,
         lambda step0: launch(st, tab, prm, seed, step0, k, tally),
-        k, rcfg.max_steps)
+        k, rcfg.max_steps, n_per_launch=4)
     nx, ny, nz = domain.grid.shape
     nxy = nx * ny
     acc = tally.acc
@@ -943,18 +1024,19 @@ def _record_batch(domain, surface, source, seed, rcfg, photons_per_lane,
     flux_down = acc[nxy:2 * nxy].reshape(nx, ny)
     absorbed = acc[2 * nxy:].reshape((nx, ny, nz) if rcfg.vol_tally
                                      else (nx, ny))
-    n_cut = int(tally.counts[3])
+    n_cut = int(tally.counts[4])
     n_bad = int(st.alive.sum()) + n_cut
     out = (flux_up, flux_down, absorbed, n_started, n_bad, n_calls)
     if not prm.n_dirs:
-        return out, lane_steps
+        return out, lane_steps, n_real
     img = tally.img[:prm.n_img].reshape(prm.n_sec, prm.n_dirs, nxy)
     if prm.le_cap:
         excess = tally.exc.reshape(prm.n_sec, prm.n_dirs).T
         image = le.redistribute_excess(img.sum(dim=0), img, excess)
     else:
         image = img[0]
-    return out + (image.T.reshape(nx, ny, prm.n_dirs), n_cut), lane_steps
+    return (out + (image.T.reshape(nx, ny, prm.n_dirs), n_cut), lane_steps,
+            n_real)
 
 
 def run_batch_record(domain: OpticalDomain, surface: Surface,
@@ -1001,7 +1083,7 @@ def run_batch_record_tallies(domain, surface, source, seed: int, config,
         rcfg = dataclasses.replace(rcfg, rows=rows)
     if n_photons is None:
         n_photons = config.photons_per_batch
-    out, lane_steps = _record_batch(
+    out, lane_steps, n_real = _record_batch(
         domain, surface, source, seed, rcfg, ppl, n_photons,
         config.use_russian_roulette, config.russian_roulette_weight,
         launch, intensity_config, intensity_dirs)
@@ -1013,4 +1095,5 @@ def run_batch_record_tallies(domain, surface, source, seed: int, config,
         intensity=out[6] if len(out) > 6 else None,
         n_photons=n_started, n_bad=n_bad,
         n_cut=out[7] if len(out) > 6 else 0,
-        n_steps=n_calls * rcfg.steps_per_call, n_lane_steps=lane_steps)
+        n_steps=n_calls * rcfg.steps_per_call, n_lane_steps=lane_steps,
+        n_real=n_real)

@@ -786,7 +786,7 @@ def run_batch_sep(domain: OpticalDomain, surface: Surface,
     st = SepState.initial(quota0, prm[P_CEIL_IN])
     tally = SepTally.zeros(prm, dev)
     k = scfg.steps_per_call
-    n_started, n_calls, lane_steps = rk.relaunch_loop(
+    n_started, n_calls, lane_steps, _ = rk.relaunch_loop(
         st, tally.counts,
         lambda step0: launch(st, tab, prm, seed, step0, k, tally),
         k, scfg.max_steps)

@@ -73,7 +73,8 @@ import numpy as np
 import torch
 
 from mcbrat3d_tpu_torch.core import rng
-from mcbrat3d_tpu_torch.domain.domain import OpticalDomain
+from mcbrat3d_tpu_torch.domain.domain import (OpticalDomain,
+                                              multi_component_records)
 from mcbrat3d_tpu_torch.physics.surface import Surface
 from mcbrat3d_tpu_torch.sources import illumination
 from mcbrat3d_tpu_torch.transport import record_kernel as rk
@@ -286,35 +287,19 @@ class TileFields:
         majs = torch.cat([maj, maj.new_zeros(1)]).contiguous()
         rec = domain.cell_records
         _, need_ssa, need_f2, ncomp = tile_fields(domain)
-        offs = domain.tables.offsets.to(device=rec.device,
-                                        dtype=torch.float32)
         parts = [beta.reshape(-1)]
         if ncomp == 1:
             if need_ssa:
                 parts.append(rec[:, 3])
-            if need_f2:
-                parts.append(rec[:, 5] if domain.all_hg
-                             else rec[:, 4] + offs[0])
+            if need_f2:  # the row of component 0 (its offset is 0)
+                parts.append(rec[:, 5] if domain.all_hg else rec[:, 4])
         else:
             # scattering-coefficient formulation (pallas_tile.py:303-324):
-            # effective ssa and cumulative scattering fractions
-            c = ncomp
-            cumf = rec[:, 2:2 + c]
-            scat = [(cumf[:, i] - (cumf[:, i - 1] if i else 0.0))
-                    * rec[:, 2 + c + i] for i in range(c)]
-            ssa_eff = scat[0]
-            for s in scat[1:]:
-                ssa_eff = ssa_eff + s
-            denom = torch.clamp(ssa_eff, min=1e-30)
-            parts.append(ssa_eff)
-            cum = scat[0]
-            for i in range(c - 1):
-                if i:
-                    cum = cum + scat[i]
-                parts.append(torch.where(ssa_eff > 0, cum / denom, 1.0))
-            for i in range(c):
-                parts.append(rec[:, 2 + 3 * c + i] if domain.all_hg
-                             else rec[:, 2 + 2 * c + i] + offs[i])
+            # effective ssa, cumulative scattering fractions and f2 per
+            # component, the record kernel's multi-component record
+            rec8 = multi_component_records(domain)
+            parts += [rec8[:, 2], *rec8[:, 3:2 + ncomp].T,
+                      *rec8[:, 5:5 + ncomp].T]
         fields = torch.stack(parts).contiguous()
         zero = torch.zeros(1, dtype=torch.float32, device=beta.device)
         a0, dd = (zero, zero) if domain.all_hg else rk.inverse_table(domain)
@@ -968,4 +953,5 @@ def run_batch_tile_tallies(domain, surface, source, seed: int, config,
         flux_up=run.flux_up, flux_down=run.flux_down,
         flux_absorbed=run.flux_absorbed, volume_absorption=None,
         n_photons=run.n_started, n_bad=run.n_bad, n_steps=run.lane_steps,
-        n_lane_steps=run.lane_steps, n_passes=run.n_passes)
+        n_lane_steps=run.lane_steps, n_passes=run.n_passes,
+        n_real=run.n_real)

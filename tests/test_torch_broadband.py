@@ -80,9 +80,9 @@ def test_flagship_inputs_and_cross_reading(inputs):
     """Each generator's files, read by either package, give the same
     arrays: the port writes what the JAX readers read, and the reverse."""
     d = inputs
-    commons = [rd(str(d / f)) for rd in (common.read_common,
-                                         jcommon.read_common)
-               for f in ("port_common.nc", "common.nc")]
+    commons = [rd(str(d / f)) for rd in (
+        lambda path: common.read_common(path, device="cpu"),
+        jcommon.read_common) for f in ("port_common.nc", "common.nc")]
     tables = [rd(str(d / f)) for rd in (ssp.read_ssp_table,
                                         jssp.read_ssp_table)
               for f in ("port_ssp.nc", "ssp.nc")]
@@ -123,8 +123,8 @@ def test_plan_and_bin_domains_match_jax(inputs):
     package's, and each plan-built bin equals the port's own generic
     compact build of the same bin."""
     d = inputs
-    tc, jc = common.read_common(str(d / "common.nc")), jcommon.read_common(
-        str(d / "common.nc"))
+    tc = common.read_common(str(d / "common.nc"), device="cpu")
+    jc = jcommon.read_common(str(d / "common.nc"))
     ts, js = [ssp.read_ssp_table(str(d / "ssp.nc"))], [jssp.read_ssp_table(
         str(d / "ssp.nc"))]
     tp = sep_plan.make_separable_bin_plan(tc, ts, False, 8)
@@ -167,8 +167,8 @@ def test_setup_fluxes_and_schedule_match_jax(inputs):
     """lw_setup_fluxes (through the plan and by the full sweep) to 1e-12
     relative, kahan_cumsum and the seeded multinomial schedule exactly."""
     d = inputs
-    tc, jc = common.read_common(str(d / "common.nc")), jcommon.read_common(
-        str(d / "common.nc"))
+    tc = common.read_common(str(d / "common.nc"), device="cpu")
+    jc = jcommon.read_common(str(d / "common.nc"))
     ts, js = [ssp.read_ssp_table(str(d / "ssp.nc"))], [jssp.read_ssp_table(
         str(d / "ssp.nc"))]
     dl = weights.lambda_widths(ts[0].lambdas_um)

@@ -112,7 +112,7 @@ def both_domains(ext, macro_factor, analytic=True, n_cdf_steps=201,
                             JPFT([JPF.henyey_greenstein(0.85, 64)],
                                  key=[1.0]))],
                 n_cdf_steps=n_cdf_steps, macro_factor=macro_factor)
-    td = build_domain(Grid.regular(nx, ny, nz, dx, dx, dz),
+    td = build_domain(Grid.regular(nx, ny, nz, dx, dx, dz, device="cpu"),
                       [OpticalComponent(
                           "cloud", *args, PhaseFunctionTable(
                               [PhaseFunction.henyey_greenstein(0.85, 64)],
@@ -361,13 +361,11 @@ def test_dispatch_picks_the_kernel_jax_picks(monkeypatch, shape, profile):
 @pytest.mark.parametrize("source", ["random_azimuth", "flux"])
 @pytest.mark.parametrize("shape,profile", DISPATCH_CASES)
 def test_dispatch_of_the_other_sources(monkeypatch, shape, profile, source):
-    """The port's record kernel takes the directional beam only, so where
-    the JAX package sends a random-azimuth or flux source to its record
-    kernel (inside its cell count, with the profile) the port takes the
-    column kernel until the record kernel is widened; everywhere else the
-    two choose alike."""
+    """A random-azimuth or flux source on a column-template domain goes
+    where the JAX package sends it: its record kernel inside its cell count
+    with the profile, the column kernel everywhere else."""
     jax_pick, port_pick = _picks(monkeypatch, shape, profile, source)
-    assert port_pick == "column"
+    assert port_pick == jax_pick
     k1_in_jax = np.prod(shape) <= rk.MAX_CELLS and profile
     assert jax_pick == ("record" if k1_in_jax else "column")
 
@@ -396,7 +394,7 @@ def test_unported_parts_are_named(col_domain):
             sfc, src, 0, SMALL, 1)
     # radiance on a column-template domain outside the record kernel
     big = both_domains(column_field(64, 32, 32), 8, n_cdf_steps=101)[1]
-    dirs = le.make_intensity_directions([1.0], [0.0])
+    dirs = le.make_intensity_directions([1.0], [0.0], device="cpu")
     with pytest.raises(NotImplementedError,
                        match="column-kernel slab-scan radiance"):
         run_batch(big, sfc, src, 0, KernelConfig(n_lanes=1024,
@@ -437,7 +435,8 @@ def test_mkdomain_broken_cloud_matches_the_jax_file(tmp_path, capsys):
                             b.phase_function_table.phase_functions):
             np.testing.assert_array_equal(pa_.coefficients, pb_.coefficients)
     # the default scene is a column template in the port as in JAX
-    grid, comps, _ = broken_cloud_scene(nx=32, ny=24, nz=16, seed=2)
+    grid, comps, _ = broken_cloud_scene(nx=32, ny=24, nz=16, seed=2,
+                                        device="cpu")
     assert build_domain(grid, comps, n_cdf_steps=101).col_template
 
 

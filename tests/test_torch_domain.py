@@ -91,7 +91,8 @@ def random_hg_components(port: bool):
                          Grid) if port else (JPF, JPFT, JComp, JGrid))
     table = PFT([PF.henyey_greenstein(0.85, 32),
                  PF.henyey_greenstein(-0.3, 32)], key=[1.0, 2.0])
-    grid = G.regular(nx, ny, nz, 0.1, 0.2, 0.05)
+    grid = G.regular(nx, ny, nz, 0.1, 0.2, 0.05,
+                     **({"device": "cpu"} if port else {}))
     return grid, [Comp("rand", ext, ssa, pfi, table)]
 
 
@@ -106,14 +107,15 @@ def peaked_components(port: bool):
                          Grid) if port else (JPF, JPFT, JComp, JGrid))
     table = PFT([PF.henyey_greenstein(0.9, 256),
                  PF.henyey_greenstein(0.5, 32)], key=[1.0, 2.0])
-    grid = G.regular(nx, ny, nz, 0.1, 0.2, 0.05)
+    grid = G.regular(nx, ny, nz, 0.1, 0.2, 0.05,
+                     **({"device": "cpu"} if port else {}))
     return grid, [Comp("peaked", ext, np.full_like(ext, 0.99), pfi, table)]
 
 
 @pytest.mark.parametrize("macro_factor", [0, 8, 16])
 def test_build_domain_step_cloud_matches_jax(macro_factor):
     jg, jc, _ = jscene(ssa=0.99)
-    tg, tc, _ = step_cloud_scene(ssa=0.99)
+    tg, tc, _ = step_cloud_scene(ssa=0.99, device="cpu")
     kw = dict(n_cdf_steps=501, macro_factor=macro_factor)
     assert_same_domain(build_domain(tg, tc, **kw), jbuild(jg, jc, **kw))
 
@@ -130,14 +132,14 @@ def test_build_domain_random_hg_matches_jax():
 def test_domain_from_numpy_of_jax_domain():
     jg, jc = random_hg_components(port=False)
     jdom = jbuild(jg, jc, n_cdf_steps=301, macro_factor=4)
-    assert_same_domain(domain_from_numpy(jax_arrays(jdom)), jdom)
+    assert_same_domain(domain_from_numpy(jax_arrays(jdom), device="cpu"), jdom)
 
 
 def test_unported_domain_options_raise():
     """device_fields='compact' arrived with the separable kernel (K4): the
     step cloud (one rank-1 component) builds compactly, as in the JAX
     package; an unknown device_fields value raises."""
-    tg, tc, _ = step_cloud_scene()
+    tg, tc, _ = step_cloud_scene(device="cpu")
     jg, jc, _ = jscene()
     td = build_domain(tg, tc, device_fields="compact")
     jd = jbuild(jg, jc, device_fields="compact")
@@ -163,7 +165,7 @@ def test_forward_tables_match_jax(hybrid_width_deg):
     tdom, jdom = build_domain(tg, tc, **kw), jbuild(jg, jc, **kw)
     assert tdom.tables.forward.shape == (2, 901)
     assert_same_domain(tdom, jdom)
-    assert_same_domain(domain_from_numpy(jax_arrays(jdom)), jdom)
+    assert_same_domain(domain_from_numpy(jax_arrays(jdom), device="cpu"), jdom)
     hybridized = not np.array_equal(tdom.tables.forward.numpy(),
                                     tdom.tables.forward_orig.numpy())
     assert hybridized == (hybrid_width_deg > 0)
@@ -180,14 +182,14 @@ def test_netcdf_round_trip_across_packages(tmp_path, writer):
     """One package writes the step-cloud domain file, the other reads it."""
     path = str(tmp_path / "step.dom")
     if writer == "port":
-        g, comps, _ = step_cloud_scene(ssa=0.99)
+        g, comps, _ = step_cloud_scene(ssa=0.99, device="cpu")
         tio.write_domain(path, g, comps, surface_albedo=0.1)
         rg, rcomps, _, attrs = jio.read_domain(path)
         edges = [np.asarray(e) for e in (rg.x_edges, rg.y_edges, rg.z_edges)]
     else:
         g, comps, _ = jscene(ssa=0.99)
         jio.write_domain(path, g, comps, surface_albedo=0.1)
-        rg, rcomps, _, attrs = tio.read_domain(path)
+        rg, rcomps, _, attrs = tio.read_domain(path, device="cpu")
         edges = [e.numpy() for e in (rg.x_edges, rg.y_edges, rg.z_edges)]
     for got, want in zip(edges, g.edges_np()):
         np.testing.assert_array_equal(got, np.asarray(want, np.float32))

@@ -78,7 +78,7 @@ def folded_seed(key) -> int:
 
 
 def domains(all_hg: bool):
-    jdom, tdom = jmake(**DOMAIN_KW), make_step_cloud(**DOMAIN_KW)
+    jdom, tdom = jmake(**DOMAIN_KW), make_step_cloud(**DOMAIN_KW, device="cpu")
     if not all_hg:  # a file-read domain: tabulated phase, no hg_g
         jdom = dataclasses.replace(jdom, all_hg=False)
         tdom = dataclasses.replace(tdom, all_hg=False)
@@ -112,7 +112,7 @@ def pair(request):
         KernelConfig(n_lanes=N_LANES, photons_per_lane=1, max_steps=6000,
                      need_volume_absorption=False),
         intensity_config=le.IntensityConfig(n_dirs=2, **knobs),
-        intensity_dirs=le.make_intensity_directions(MUS, PHIS))
+        intensity_dirs=le.make_intensity_directions(MUS, PHIS, device="cpu"))
     return request.param, jt, tt
 
 
@@ -147,7 +147,8 @@ def cloud():
     marches that cross x and y faces in both directions."""
     return make_slab(tau=2.0, ssa=0.99, nx=4, ny=4, nz=4, n_cdf_steps=201,
                      phase=PhaseFunction.henyey_greenstein(0.85, 64),
-                     compute_intensity_tables=True, hybrid_width_deg=7.0)
+                     compute_intensity_tables=True, hybrid_width_deg=7.0,
+                     device="cpu")
 
 
 def test_cap_clips_and_keeps_totals(cloud):
@@ -162,7 +163,8 @@ def test_cap_clips_and_keeps_totals(cloud):
                          need_volume_absorption=False),
             intensity_config=le.IntensityConfig(
                 n_dirs=2, **dict(knobs, limit_contributions=limit)),
-            intensity_dirs=le.make_intensity_directions(MUS, PHIS)))
+            intensity_dirs=le.make_intensity_directions(MUS, PHIS,
+                                                        device="cpu")))
     capped, free = (t.intensity.double() for t in runs)
     assert float((capped - free).abs().max()) > 1e-3 * float(free.max())
     torch.testing.assert_close(capped.sum(dim=(0, 1)), free.sum(dim=(0, 1)),
@@ -200,7 +202,7 @@ def test_flux_tallies_unchanged_by_radiance(cloud):
     rad = rk.run_batch_record(cloud, sfc, SRC, seed, rcfg, 1,
                               intensity_config=icfg,
                               intensity_dirs=le.make_intensity_directions(
-                                  MUS, PHIS))
+                                  MUS, PHIS, device="cpu"))
     for a, b in zip(flux[:3], rad[:3]):
         assert torch.equal(a, b)
     assert flux[3:] == rad[3:6]
@@ -220,7 +222,7 @@ def test_chunked_directions_equal_manual_chunks(cloud, monkeypatch):
                        need_volume_absorption=False)
     sfc = Surface.lambertian(0.0)
     seed = rng.batch_seed(9, 0)
-    dirs = le.make_intensity_directions(MUS, PHIS)
+    dirs = le.make_intensity_directions(MUS, PHIS, device="cpu")
     t = run_batch(cloud, sfc, SRC, seed, cfg,
                   intensity_config=le.IntensityConfig(n_dirs=2),
                   intensity_dirs=dirs)
@@ -241,7 +243,7 @@ def test_march_bound_covers_diagonal_directions(cloud):
     """A direction at the mu floor crossing x and y faces both needs more
     iterations than dda_iteration_bound (one horizontal axis); the launch
     bound covers its own crossings."""
-    dirs = le.make_intensity_directions([0.15], [45.0])
+    dirs = le.make_intensity_directions([0.15], [45.0], device="cpu")
     need = 4 + 2 * int(np.ceil(1.0 * np.sqrt(1 - 0.15**2) / 0.15
                                * np.sqrt(0.5) / 0.25))
     assert le.MIN_MU == 0.15
@@ -259,7 +261,7 @@ def test_cut_marches_are_counted(cloud, monkeypatch):
                               rng.batch_seed(2, 0), rcfg, 1,
                               intensity_config=icfg,
                               intensity_dirs=le.make_intensity_directions(
-                                  [0.3], [0.0]))
+                                  [0.3], [0.0], device="cpu"))
     assert out[7] > 0 and out[4] >= out[7]
 
 
@@ -273,26 +275,27 @@ def test_no_march_stall_in_any_azimuth(cloud, quadrant):
                               rng.batch_seed(4, quadrant), rcfg, 1,
                               intensity_config=le.IntensityConfig(n_dirs=1),
                               intensity_dirs=le.make_intensity_directions(
-                                  [0.5], [phi]))
+                                  [0.5], [phi], device="cpu"))
     assert out[4] == 0
     assert float(out[6].sum()) > 0
 
 
 def test_ineligible_radiance_raises_naming_predicates(cloud):
     cfg = KernelConfig(n_lanes=N_LANES, photons_per_lane=1)
-    shallow = le.make_intensity_directions([0.1], [0.0])
+    shallow = le.make_intensity_directions([0.1], [0.0], device="cpu")
     with pytest.raises(NotImplementedError, match="MIN_MU"):
         run_batch(cloud, Surface.lambertian(0.0), SRC, 0, cfg,
                   intensity_config=le.IntensityConfig(n_dirs=1),
                   intensity_dirs=shallow)
-    up = le.make_intensity_directions([1.0], [0.0])
+    up = le.make_intensity_directions([1.0], [0.0], device="cpu")
     with pytest.raises(NotImplementedError, match="n_orders_orig_phase"):
         run_batch(cloud, Surface.lambertian(0.0), SRC, 0, cfg,
                   intensity_config=le.IntensityConfig(
                       n_dirs=1, n_orders_orig_phase=2),
                   intensity_dirs=up)
     no_tables = dataclasses.replace(make_step_cloud(ssa=0.99,
-                                                    n_cdf_steps=101),
+                                                    n_cdf_steps=101,
+                                                    device="cpu"),
                                     all_hg=False)
     with pytest.raises(NotImplementedError,
                        match="compute_intensity_tables"):
@@ -300,7 +303,7 @@ def test_ineligible_radiance_raises_naming_predicates(cloud):
                   intensity_config=le.IntensityConfig(n_dirs=1),
                   intensity_dirs=up)
     with pytest.raises(ValueError, match="nonzero mu"):
-        le.make_intensity_directions([0.0], [0.0])
+        le.make_intensity_directions([0.0], [0.0], device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +316,8 @@ def slab_radiance(dom, mu0, albedo, icfg, mus, phis, n_lanes, ppl, seed=0):
                   KernelConfig(n_lanes=n_lanes, photons_per_lane=ppl,
                                max_steps=2000),
                   intensity_config=icfg,
-                  intensity_dirs=le.make_intensity_directions(mus, phis))
+                  intensity_dirs=le.make_intensity_directions(
+                      mus, phis, device="cpu"))
     assert t.n_bad == 0
     return t.normalized(dom.grid).intensity.mean(dim=(0, 1)).numpy(), t
 
@@ -322,7 +326,7 @@ def slab_radiance(dom, mu0, albedo, icfg, mus, phis, n_lanes, ppl, seed=0):
 def thin_slab():
     tau = 0.05
     dom = make_slab(tau=tau, ssa=1.0, nx=2, ny=2, nz=4, n_cdf_steps=501,
-                    compute_intensity_tables=True)
+                    compute_intensity_tables=True, device="cpu")
     rad, t = slab_radiance(dom, 1.0, 0.0,
                            le.IntensityConfig(n_dirs=2,
                                               use_russian_roulette=False),
@@ -343,7 +347,7 @@ def test_thin_isotropic_slab_radiance(thin_slab, i, mu_v):
 def test_hg_forward_vs_backward_ratio():
     dom = make_slab(tau=0.1, ssa=1.0, nx=2, ny=2, nz=4, n_cdf_steps=501,
                     phase=PhaseFunction.henyey_greenstein(0.7, 64),
-                    compute_intensity_tables=True)
+                    compute_intensity_tables=True, device="cpu")
     rad, _ = slab_radiance(dom, 0.5, 0.0,
                            le.IntensityConfig(n_dirs=2,
                                               use_russian_roulette=False),
@@ -362,7 +366,7 @@ def test_lambertian_surface_radiance():
     albedo / pi per unit incident flux on the horizontal in every
     direction, up to float32 tally rounding."""
     dom = make_slab(tau=1e-6, ssa=1.0, nx=2, ny=2, nz=2, n_cdf_steps=101,
-                    compute_intensity_tables=True)
+                    compute_intensity_tables=True, device="cpu")
     rad, _ = slab_radiance(dom, 0.7, 0.4,
                            le.IntensityConfig(n_dirs=2,
                                               use_russian_roulette=False),
@@ -375,7 +379,7 @@ def test_roulette_unbiased_vs_full():
     estimator in expectation (independent seeds)."""
     dom = make_slab(tau=2.0, ssa=0.99, nx=2, ny=2, nz=4, n_cdf_steps=501,
                     phase=PhaseFunction.henyey_greenstein(0.6, 64),
-                    compute_intensity_tables=True)
+                    compute_intensity_tables=True, device="cpu")
 
     def mean_rad(rr, seeds):
         vals = [slab_radiance(dom, 0.6, 0.0,
@@ -394,7 +398,7 @@ def test_roulette_unbiased_vs_full():
 def test_capping_preserves_total():
     dom = make_slab(tau=1.0, ssa=1.0, nx=4, ny=4, nz=4, n_cdf_steps=501,
                     phase=PhaseFunction.henyey_greenstein(0.85, 64),
-                    compute_intensity_tables=True)
+                    compute_intensity_tables=True, device="cpu")
     base = le.IntensityConfig(n_dirs=1, use_russian_roulette=False)
     capped = dataclasses.replace(base, limit_contributions=True,
                                  max_contribution=0.005)

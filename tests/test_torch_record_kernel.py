@@ -69,7 +69,7 @@ def test_plain_step_matches_jax_interpret_kernel(macro_factor, analytic, nx):
     kw = dict(ssa=0.99, n_columns=nx, n_cdf_steps=201,
               macro_factor=macro_factor)
     jdom = jmake(**kw)
-    tdom = make_step_cloud(**kw)
+    tdom = make_step_cloud(**kw, device="cpu")
     if not analytic:  # the tabulated inverse-CDF phase (file-read domains)
         jdom = dataclasses.replace(jdom, all_hg=False)
         tdom = dataclasses.replace(tdom, all_hg=False)
@@ -91,7 +91,7 @@ def test_plain_step_matches_jax_interpret_kernel(macro_factor, analytic, nx):
 
 @pytest.fixture(scope="module")
 def step_cloud():
-    return make_step_cloud(ssa=0.99, n_cdf_steps=201)
+    return make_step_cloud(ssa=0.99, n_cdf_steps=201, device="cpu")
 
 
 def test_energy_conservation_no_rr(step_cloud):
@@ -150,7 +150,7 @@ def test_macro_majorant_at_periodic_seam():
     out = {}
     for mf in (0, 8):
         dom = make_step_cloud(ssa=0.99, n_columns=36, n_cdf_steps=201,
-                              macro_factor=mf)
+                              macro_factor=mf, device="cpu")
         out[mf] = rk.run_batch_record(dom, sfc, SRC, rng.batch_seed(11, mf),
                                       SMALL, 4)
     n0, n8 = out[0][3], out[8][3]
@@ -182,7 +182,7 @@ def test_dispatch_raises_outside_the_port():
     outside every ported kernel; the error names the tiled kernel's
     failing predicate."""
     dense = make_step_cloud(ssa=0.99, n_columns=32, n_layers=1200,
-                            n_cdf_steps=101)
+                            n_cdf_steps=101, device="cpu")
     cfg = KernelConfig(n_lanes=1024, photons_per_lane=1,
                        need_volume_absorption=False,
                        need_absorption_profile=True)
@@ -190,8 +190,9 @@ def test_dispatch_raises_outside_the_port():
                        match="K5.*need_absorption_profile"):
         run_batch(dense, Surface.lambertian(0.0), SRC, 0, cfg)
     with pytest.raises(NotImplementedError, match="use_ray_tracing"):
-        run_batch(make_step_cloud(n_cdf_steps=101), Surface.lambertian(0.0),
-                  SRC, 0, dataclasses.replace(cfg, use_ray_tracing=True))
+        run_batch(make_step_cloud(n_cdf_steps=101, device="cpu"),
+                  Surface.lambertian(0.0), SRC, 0,
+                  dataclasses.replace(cfg, use_ray_tracing=True))
 
 
 def test_wrapper_refuses_other_devices(step_cloud):

@@ -122,7 +122,7 @@ def test_separable_detection_matches_jax(nx, macro_factor, fields):
     kw = dict(macro_factor=macro_factor, n_cdf_steps=201, lambda_um=10.0,
               device_fields=fields)
     jg, jc, jt = jscene(nx=nx, ny=nx, nz=150)
-    tg, tc, tt = lw_flagship_scene(nx=nx, ny=nx, nz=150)
+    tg, tc, tt = lw_flagship_scene(nx=nx, ny=nx, nz=150, device="cpu")
     jd, td = jbuild(jg, jc, temps=jt, **kw), build_domain(tg, tc, temps=tt,
                                                           **kw)
     assert td.sep_template and (td.cell_records is None) == (
@@ -161,8 +161,8 @@ def test_non_separable_is_rejected():
     from mcbrat3d_tpu.domain.domain import OpticalComponent as JComp
     from mcbrat3d_tpu.physics.phase_function import PhaseFunction as JPF
     from mcbrat3d_tpu.physics.phase_function import PhaseFunctionTable as JPFT
-    tg, jg = Grid.regular(8, 8, 12, 0.1, 0.1, 0.1), JGrid.regular(
-        8, 8, 12, 0.1, 0.1, 0.1)
+    tg = Grid.regular(8, 8, 12, 0.1, 0.1, 0.1, device="cpu")
+    jg = JGrid.regular(8, 8, 12, 0.1, 0.1, 0.1)
     tc = [OpticalComponent("random", *args, PhaseFunctionTable(
         [PhaseFunction.henyey_greenstein(0.85, 32)], key=[1.0]))]
     jc = [JComp("random", *args, JPFT([JPF.henyey_greenstein(0.85, 32)],
@@ -189,7 +189,8 @@ def exact_scenes(nx, nz, cloud_base_level, cloud_top_level):
     so the JAX kernel's bf16 hi/lo gathers are exact."""
     kw = dict(nx=nx, ny=nx, nz=nz, cloud_base_level=cloud_base_level,
               cloud_top_level=cloud_top_level, cloud_beta_max=8.0)
-    (jg, jc, jt), (tg, tc, tt) = jscene(**kw), lw_flagship_scene(**kw)
+    (jg, jc, jt) = jscene(**kw)
+    (tg, tc, tt) = lw_flagship_scene(**kw, device="cpu")
     e = jc[0].extinction
     i, j = np.unravel_index(np.argmax(e.sum(axis=2)), e.shape[:2])
     prof = _bf16(e[i, j, :])
@@ -283,7 +284,7 @@ def test_lw_energy_identity_on_the_plain_step():
     without roulette (float32 sums)."""
     grid, comps, temps = lw_flagship_scene(
         nx=16, ny=16, nz=60, cloud_base_level=20, cloud_top_level=35,
-        cloud_beta_max=0.3, gas_beta0=0.006)
+        cloud_beta_max=0.3, gas_beta0=0.006, device="cpu")
     dom = build_domain(grid, comps, temps=temps, macro_factor=8,
                        n_cdf_steps=201, lambda_um=10.0,
                        device_fields="compact")
@@ -303,7 +304,7 @@ def test_lw_energy_identity_on_the_plain_step():
 
 
 def test_n_photons_clamp_and_determinism():
-    grid, comps, temps = lw_flagship_scene(nx=16, ny=16, nz=150)
+    grid, comps, temps = lw_flagship_scene(nx=16, ny=16, nz=150, device="cpu")
     dom = build_domain(grid, comps, temps=temps, macro_factor=8,
                        n_cdf_steps=201, lambda_um=10.0,
                        device_fields="compact")
@@ -320,7 +321,7 @@ def test_n_photons_clamp_and_determinism():
 def test_wrapper_refuses_other_devices():
     """CPU tensors take the plain step; a CUDA tensor goes to the kernel
     (checked on the card by chip_smoke.py); anything else raises."""
-    grid, comps, temps = lw_flagship_scene(nx=16, ny=16, nz=150)
+    grid, comps, temps = lw_flagship_scene(nx=16, ny=16, nz=150, device="cpu")
     dom = build_domain(grid, comps, temps=temps, macro_factor=8,
                        n_cdf_steps=201, lambda_um=10.0,
                        device_fields="compact")
@@ -362,7 +363,8 @@ def _components(case, port):
     args = (ext, np.full_like(ext, 0.9), np.zeros(ext.shape, np.int32))
     shape = ext.shape
     if port:
-        return Grid.regular(*shape, 0.1, 0.1, 0.1), [OpticalComponent(
+        grid = Grid.regular(*shape, 0.1, 0.1, 0.1, device="cpu")
+        return grid, [OpticalComponent(
             case, *args, PhaseFunctionTable(
                 [PhaseFunction.henyey_greenstein(0.85, 32)], key=[1.0]))]
     from mcbrat3d_tpu.core.grid import Grid as JGrid
@@ -394,7 +396,7 @@ def test_dispatch_picks_the_kernel_jax_picks(monkeypatch, case):
         kw = dict(temps=None, macro_factor=8, n_cdf_steps=101,
                   lambda_um=10.0, device_fields=case)
         jg, jc, jt = jscene(nx=16, ny=16, nz=150)
-        tg, tc, tt = lw_flagship_scene(nx=16, ny=16, nz=150)
+        tg, tc, tt = lw_flagship_scene(nx=16, ny=16, nz=150, device="cpu")
         jd = jbuild(jg, jc, **dict(kw, temps=jt))
         td = build_domain(tg, tc, **dict(kw, temps=tt))
     else:
@@ -426,7 +428,7 @@ def test_dispatch_picks_the_kernel_jax_picks(monkeypatch, case):
 def test_compact_domain_outside_the_kernel_raises():
     """A compact domain reaches the separable kernel or raises naming its
     failing predicates (integrator.py:539-554)."""
-    grid, comps, temps = lw_flagship_scene(nx=16, ny=16, nz=150)
+    grid, comps, temps = lw_flagship_scene(nx=16, ny=16, nz=150, device="cpu")
     dom = build_domain(grid, comps, temps=temps, macro_factor=8,
                        n_cdf_steps=101, lambda_um=10.0,
                        device_fields="compact")

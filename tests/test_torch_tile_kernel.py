@@ -127,10 +127,11 @@ def both_domains(shape, comps, dx=12.0, dz=4.0, z_edges=None, **build):
             (JGrid, JComponent, JPF, JPFT, jbuild),
             (Grid, OpticalComponent, PhaseFunction, PhaseFunctionTable,
              build_domain)):
-        grid = (grid_cls.regular(*shape, dx, dx, dz) if z_edges is None
+        on = {"device": "cpu"} if grid_cls is Grid else {}
+        grid = (grid_cls.regular(*shape, dx, dx, dz, **on) if z_edges is None
                 else grid_cls.from_edges(dx * np.arange(shape[0] + 1),
                                          dx * np.arange(shape[1] + 1),
-                                         z_edges))
+                                         z_edges, **on))
         cs = [comp_cls(f"c{i}", beta, ssa, np.zeros(beta.shape, np.int32),
                        pft([pf(coefficients=mix) if g is None
                             else pf.henyey_greenstein(g, 64)], key=[1.0]))
@@ -145,7 +146,7 @@ def both_domains(shape, comps, dx=12.0, dz=4.0, z_edges=None, **build):
 # ---------------------------------------------------------------------------
 
 def test_dense_cloud_scene_matches_jax():
-    grid, comps, temps = dense_cloud_scene(48, 40, 24)
+    grid, comps, temps = dense_cloud_scene(48, 40, 24, device="cpu")
     jgrid, jcomps, jtemps = jdense(48, 40, 24)
     assert temps is None and jtemps is None
     for a, b in zip(grid.edges_np(), jgrid.edges_np()):
@@ -160,9 +161,9 @@ def test_dense_cloud_scene_matches_jax():
 
 
 def test_spotlight_source():
-    """The spotlight carries the JAX package's float32 values; the record,
-    column and separable kernels reject it by name, the tiled kernel takes
-    it."""
+    """The spotlight carries the JAX package's float32 values; the column
+    and separable kernels reject it by name, the record and tiled kernels
+    take it, as in the JAX package."""
     src = illumination.spotlight(0.8, 20.0, 0.3, 0.6)
     jsrc = jill.spotlight(0.8, 20.0, 0.3, 0.6)
     for f in ("solar_mu", "solar_azimuth", "solar_x", "solar_y"):
@@ -173,8 +174,7 @@ def test_spotlight_source():
     sfc = Surface.lambertian(0.2)
     args = dict(lw_mode=False, compute_intensity=False,
                 record_scattering_orders=0, use_ray_tracing=False)
-    assert any("spotlight" in r
-               for r in rk.ineligibility_reasons(td, sfc, src, **args))
+    assert rk.ineligibility_reasons(td, sfc, src, **args) == []
     for fn in (ck.col_ineligibility_reasons, sk.sep_ineligibility_reasons):
         assert any("spotlight" in r for r in fn(
             td, sfc, src, need_volume_absorption=False, **args))
@@ -201,7 +201,8 @@ PLAN_SHAPES = [
 def test_plan_tiles_matches_jax(shape, dx, dz):
     """The planner picks the JAX package's plan for every field count (the
     cell cap of plan_for: n_f * rows <= 1024)."""
-    grid, jgrid = (cls.regular(*shape, dx, dx, dz) for cls in (Grid, JGrid))
+    grid = Grid.regular(*shape, dx, dx, dz, device="cpu")
+    jgrid = JGrid.regular(*shape, dx, dx, dz)
     for n_f in range(1, 7):
         rows = max(8, (1024 // n_f) // 8 * 8)
         cap = min(tk.TILE_CELLS_MAX, rows * 128)
@@ -509,8 +510,9 @@ def _picker(name):
     return pick
 
 
-def _picks(monkeypatch, shape_comps):
-    """(JAX package's kernel, port's kernel) for one domain
+def _picks(monkeypatch, shape_comps, source="directional",
+           need_volume_absorption=False):
+    """(JAX package's kernel, port's kernel) for one domain and source
     (use_pallas="on", the choice taken at trace time, no kernel run)."""
     jd, td = both_domains(*shape_comps, n_cdf_steps=101)
     for mod, fn, name in ((jpk, "run_batch_pallas_tallies", "record"),
@@ -522,16 +524,39 @@ def _picks(monkeypatch, shape_comps):
                           (sk, "run_batch_sep_tallies", "separable"),
                           (tk, "run_batch_tile_tallies", "tiled")):
         monkeypatch.setattr(mod, fn, _picker(name))
-    kw = dict(n_lanes=1024, photons_per_lane=1, need_volume_absorption=False)
+    kw = dict(n_lanes=1024, photons_per_lane=1,
+              need_volume_absorption=need_volume_absorption)
+    tsrc, jsrc = SOURCES[source]
     with pytest.raises(_Picked) as jax_pick:
-        jintegrator.run_batch(jd, JSurface.lambertian(0.2),
-                              jill.directional(0.5, 0.0),
+        jintegrator.run_batch(jd, JSurface.lambertian(0.2), jsrc(),
                               jrng.batch_key(0, 0),
                               jintegrator.KernelConfig(use_pallas="on", **kw))
     with pytest.raises(_Picked) as port_pick:
-        run_batch(td, Surface.lambertian(0.2),
-                  illumination.directional(0.5, 0.0), 0, KernelConfig(**kw))
+        run_batch(td, Surface.lambertian(0.2), tsrc(), 0, KernelConfig(**kw))
     return str(jax_pick.value), str(port_pick.value)
+
+
+SMALL_DOMAIN_CASES = {
+    "2comp-16x16x8": ((16, 16, 8), 2, "directional", False),
+    "2comp-16x16x32": ((16, 16, 32), 2, "directional", False),
+    "3comp-16x16x8": ((16, 16, 8), 3, "directional", False),
+    **{f"{src}-{'3d' if vol else 'columns'}": ((16, 16, 8), 1, src, vol)
+       for src in ("random_azimuth", "flux", "spotlight")
+       for vol in (False, True)},
+}
+
+
+@pytest.mark.parametrize("case", sorted(SMALL_DOMAIN_CASES))
+def test_small_domains_stay_on_the_record_kernel(monkeypatch, case):
+    """Small non-template domains with 2-3 components or a random-azimuth,
+    flux or spotlight source, with and without the 3D tally: the JAX
+    package runs its record kernel, and so must the port (K5 has no lower
+    cell bound, so before the record kernel took these they went to K5 or
+    raised)."""
+    (nx, ny, nz), ncomp, source, vol = SMALL_DOMAIN_CASES[case]
+    picks = _picks(monkeypatch, dense_fields(nx, ny, nz, ncomp=ncomp),
+                   source, need_volume_absorption=vol)
+    assert picks == ("record", "record")
 
 
 @pytest.mark.parametrize("shape", [(40, 40, 24), (32, 32, 18)],
@@ -574,7 +599,7 @@ def test_dense_deck_through_the_cli(tmp_path, capsys, monkeypatch):
     tiled kernel's plain pass with no other change, and the JSON line
     carries its passes; the means equal a direct run_batch of the same
     batches."""
-    grid, comps, _ = dense_cloud_scene(24, 24, 32)
+    grid, comps, _ = dense_cloud_scene(24, 24, 32, device="cpu")
     io_netcdf.write_domain(str(tmp_path / "DenseCloud.dom"), grid, comps,
                            surface_albedo=0.2)
     with open(os.path.join(ROOT, "run", "dense_cloud_mono.nml")) as f:
@@ -595,7 +620,7 @@ def test_dense_deck_through_the_cli(tmp_path, capsys, monkeypatch):
     from mcbrat3d_tpu_torch.driver.config import load_config
     from mcbrat3d_tpu_torch.driver.run import kernel_config_from
     cfg = load_config("deck.nml")
-    g2, c2, _, attrs = io_netcdf.read_domain("DenseCloud.dom")
+    g2, c2, _, attrs = io_netcdf.read_domain("DenseCloud.dom", device="cpu")
     dom = build_domain(g2, c2, n_cdf_steps=cfg.n_phase_intervals,
                        macro_factor=cfg.macro_factor)
     assert not dom.all_hg and attrs["surface_albedo"] == 0.2
