@@ -17,6 +17,12 @@ Phases, each asserting; any failure exits non-zero:
    (2 components) and with gas and Rayleigh (3), analytic and tabulated
    (10,001 steps), roulette on and off (albedo 0.3);
    domain-mean R/T/A within 2e-3 and per-pixel fluxes within 5 sigma;
+2g. the emission refill and the LW pre-credits of the record kernel
+   against its plain version, same seeds, on bench.py:173-218's scene at
+   2^18 photons: macro 8 and 0, analytic and 10,001-step rows, albedo
+   0.05 and 0, roulette on and off (eight cases); equal photons, real
+   collisions within 1e-4, R/T within 2e-3, per-pixel fluxes and per-cell
+   net absorption within 5 sigma;
 2b. radiance kernel against its plain version, same seeds, on the step
    cloud with the radiance deck's 6 directions, 16,384 photons per case
    (4,096 lanes x 4; the plain step runs 50-80 s per 65,536): exact
@@ -26,10 +32,14 @@ Phases, each asserting; any failure exits non-zero:
    tabulated 3-component step cloud with the random-azimuth source (one
    excess slot per component); per-direction
    domain-mean gap, per-pixel gap and z < 5, kernel reruns within 1e-5;
-   plus an image too large for shared memory (global-atomic tally);
+   plus an image too large for shared memory (global-atomic tally) and
+   LW radiance from the per-voxel emission source (the fresh hold, 4
+   directions);
 2c. analytic radiance anchors: a thin isotropic slab (I = tau / (4 pi mu))
    and a clear atmosphere over a Lambertian surface (I = albedo / pi per
-   unit incident flux on the horizontal);
+   unit incident flux on the horizontal); and the emission anchors: an
+   isothermal black box radiates Planck's B(T) upward (within 5%), and
+   the isothermal pre-credit balance;
 2d. column kernel against its plain version, same seeds, on the
    128 x 128 x 64 broken cloud at 2^17 photons (2^16 lanes x 2; the plain
    step takes ~0.7 s per launch, so 2^20 would take most of the time
@@ -108,6 +118,16 @@ Phases, each asserting; any failure exits non-zero:
    cuda: n_bad == 0, flux and netCDF files written, only the record kernel
    launched and no plain step, R/T/A within 4.5 combined sigma of values
    frozen from the JAX package's CLI on the CPU;
+3g. the non-separable broadband-LW deck through the command line: the
+   port's tools/lw_inputs.py writes common.nc and ssp_thermal.nc (32 x 32
+   x 24, 64 bins, 3D temperatures) into a temporary directory, then
+   run/broadband_lw.nml (8 x 1,048,576 photons, 3D tally) on cuda: every
+   bin built generically with the per-voxel emission source, n_bad == 0,
+   flux and netCDF files written, only the record kernel launched, every
+   launch with the emission refill, no plain step; the domain-mean fluxes
+   and the absorption profile within 4.5 combined sigma of values frozen
+   from the JAX package's CLI on the CPU; prints the setup, the later
+   bins' host builds and the rest (transport);
 4. one headline batch (macro_factor 16, 2^16 lanes x 1024 photons, flux
    tallies only): photons/s of the kernel, and of the plain version at the
    same lane count;
@@ -131,7 +151,12 @@ Phases, each asserting; any failure exits non-zero:
    analytic, macro_factor 8, 2^16 lanes x 256 photons, 3D tally, through
    run_batch): kernel photons/s, launches per batch, kernel ms per launch
    from CUDA events, the card's busy share, and plain ms per launch over 4
-   launches at the same lanes.
+   launches at the same lanes;
+4g. the LW emission headline (bench.py:173-218: 32 x 32 x 24 random
+   cloud + gas, per-voxel emission, analytic, macro_factor 8, albedo 0.05,
+   lw_mode, 2^16 lanes x 256 photons, through run_batch): kernel
+   photons/s, launches per batch, kernel ms per launch from CUDA events,
+   the card's busy share, and plain ms per launch over 4 launches.
 
 Prints the card line, then one JSON line describing each kernel (with its
 time, the least time the card could take for the same work and what bounds
@@ -444,9 +469,9 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
     """mkdomain (unless ``domain`` is None) + run a deck through the CLI on
     cuda in the current directory; returns the JSON line, the seconds and
     the launches of the run (record kernel, its radiance launches, column
-    kernel, separable kernel, tiled kernel), and asserts that no plain step
-    ran. Every count is set to 0 just before the run and read just after
-    it."""
+    kernel, separable kernel, tiled kernel, record-kernel launches with the
+    emission refill), and asserts that no plain step ran. Every count is
+    set to 0 just before the run and read just after it."""
     Path("deck.nml").write_text(deck_text)
     if domain is not None:
         assert cli.main(["mkdomain", *domain]) == 0
@@ -469,7 +494,7 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
     for (m, name), plain in zip(patched, originals):
         setattr(m, name, counting(plain))
     buf = io.StringIO()
-    rk.LAUNCHES = rk.RADIANCE_LAUNCHES = 0
+    rk.LAUNCHES = rk.RADIANCE_LAUNCHES = rk.LW_LAUNCHES = 0
     if ck is not None:
         ck.COL_LAUNCHES = 0
     if sk is not None:
@@ -487,9 +512,9 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
     launches = (rk.LAUNCHES, rk.RADIANCE_LAUNCHES,
                 ck.COL_LAUNCHES if ck is not None else 0,
                 sk.SEP_LAUNCHES if sk is not None else 0,
-                tk.TILE_LAUNCHES if tk is not None else 0)
+                tk.TILE_LAUNCHES if tk is not None else 0, rk.LW_LAUNCHES)
     assert rc == 0
-    assert launches[0] + sum(launches[2:]) > 0, "the deck launched no kernel"
+    assert launches[0] + sum(launches[2:5]) > 0, "the deck launched no kernel"
     assert not plain_steps, "the deck ran a plain PyTorch step"
     return json.loads(buf.getvalue().strip().splitlines()[-1]), seconds, \
         launches
@@ -501,7 +526,7 @@ def phase_main_path(rk, cli):
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            out, seconds, (launches, _, _, _, _) = _run_cli_deck(
+            out, seconds, (launches, *_) = _run_cli_deck(
                 cli, rk, (ROOT / "run" / "step_cloud_mono.nml").read_text())
             for f in ("StepCloud_flux.out", "StepCloud_results.nc"):
                 assert Path(f).stat().st_size > 0, f
@@ -541,7 +566,7 @@ def _image_gap(a, b, n_a, n_b):
 
 def phase_radiance_compare(rk, le, make_step_cloud, make_step_cloud_multi,
                            make_slab, PhaseFunction, Surface, illumination,
-                           KernelConfig, rng, dirs):
+                           KernelConfig, rng, dirs, m):
     """Radiance kernel vs plain on the card; returns the largest per-pixel
     difference of the per-photon images."""
     import dataclasses
@@ -666,6 +691,40 @@ def phase_radiance_compare(rk, le, make_step_cloud, make_step_cloud_multi,
     assert gap < RAD_REL_TOL_KERNEL_VS_PLAIN, gap
     assert err < RAD_PIXEL_TOL_KERNEL_VS_PLAIN, err
     assert z_max < 5.0, z_max
+
+    # LW radiance from the per-voxel emission source (the headline's
+    # scene): every birth contributes its emission local estimate in its
+    # birth step and moves from the next (the fresh hold)
+    dom, source = lw_emission_scene(m)
+    dirs4 = le.make_intensity_directions([1.0, 0.8, 0.5, 0.3],
+                                         [0.0, 45.0, 120.0, 250.0],
+                                         device="cuda")
+    icfg = le.IntensityConfig(n_dirs=4, use_russian_roulette=True,
+                              use_hybrid_phase=False)
+    cfg = KernelConfig(n_lanes=4096, photons_per_lane=4, max_steps=100_000,
+                       lw_mode=True)
+    before = rk.LW_LAUNCHES
+    tk, tp = (rk.run_batch_record_tallies(
+        dom, Surface.lambertian(0.05), source, rng.batch_seed(22, 0), cfg,
+        launch=launch, intensity_config=icfg, intensity_dirs=dirs4)
+        for launch in (rk.record_launch, rk.record_launch_plain))
+    assert rk.LW_LAUNCHES > before, "kernel was not launched"
+    assert tk.n_photons == tp.n_photons == 4096 * 4
+    assert tk.n_bad == tp.n_bad == 0
+    mean_k, mean_p = (t.normalized(dom.grid).intensity.double()
+                      .mean(dim=(0, 1)) for t in (tk, tp))
+    gap = float(((mean_k - mean_p).abs() / mean_p.abs()).max())
+    z_max, err = _image_gap(tk.intensity, tp.intensity, tk.n_photons,
+                            tp.n_photons)
+    err *= tk.intensity[..., 0].numel()
+    max_err = max(max_err, err)
+    print(f"radiance compare [LW emission, fresh hold, 4 dirs]: mean "
+          f"radiance kernel {[round(float(v), 6) for v in mean_k]} gap "
+          f"{gap:.2e}, pixel gap {err:.2e}, pixel z_max {z_max:.2f}",
+          flush=True)
+    assert gap < RAD_REL_TOL_KERNEL_VS_PLAIN, gap
+    assert err < RAD_PIXEL_TOL_KERNEL_VS_PLAIN, err
+    assert z_max < 5.0, z_max
     return max_err
 
 
@@ -739,7 +798,7 @@ def phase_radiance_deck(rk, cli):
         tmp = Path(tmp)
         os.chdir(tmp)
         try:
-            out, seconds, (_, launches, _, _, _) = _run_cli_deck(
+            out, seconds, (_, launches, *_) = _run_cli_deck(
                 cli, rk, _with_netcdf(deck, "StepCloud_radiance.nc"))
             assert (tmp / "StepCloud_radiance.out").stat().st_size > 0
             with netcdf_file(str(tmp / "StepCloud_radiance.nc"), "r",
@@ -781,7 +840,7 @@ def phase_radiance_deck(rk, cli):
         tmp = Path(tmp)
         os.chdir(tmp)
         try:
-            out, seconds, (_, launches648, _, _, _) = _run_cli_deck(
+            out, seconds, (_, launches648, *_) = _run_cli_deck(
                 cli, rk, _with_netcdf(deck, "StepCloud_radiance648.nc"))
             assert (tmp / "StepCloud_radiance648.out").stat().st_size > 0
             with netcdf_file(str(tmp / "StepCloud_radiance648.nc"), "r",
@@ -1004,7 +1063,7 @@ def phase_landsat_deck(ck, rk, cli):
         tmp = Path(tmp)
         os.chdir(tmp)
         try:
-            out, seconds, (rec_launches, _, launches, _, _) = _run_cli_deck(
+            out, seconds, (rec_launches, _, launches, *_) = _run_cli_deck(
                 cli, rk, deck, ck=ck,
                 domain=("broken_cloud", "BrokenCloud.dom"))
             # the flux file's first data line: the domain means, each
@@ -1704,8 +1763,339 @@ def phase_multi_headline(rk, make_step_cloud_multi, Surface, illumination,
     return res
 
 
-PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "3", "3b", "3c", "3d", "3e",
-          "3f", "4", "4b", "4c", "4d", "4e", "4f")
+# Operations of an emission birth in csrc/record_kernel.cu's refill, on
+# top of the birth step's own (OPS_PER_LANE_STEP counts the step's tau,
+# collision, angle, azimuth, roulette and component uniforms, none of the
+# refill's). A counter uniform is 24 integer operations once the step's
+# ctr * 256 * K is hoisted: the two fmix32 (16), the site add, the xors and
+# the second key's add (5), the shift, convert and scale (3). Every birth:
+# seven uniforms (x, y, split, bin, acceptance, mu, azimuth: 168); the split,
+# the bin (multiply, convert, clamp) and the acceptance with its alias
+# select (8); the azimuth, the sine of the polar angle (a square root's
+# expansion) and cosf/sinf (~40 each as instruction expansions) (53).
+OPS_PER_EMISSION_BIRTH = 229
+# An atmospheric birth adds the z uniform (24), the cell decomposition
+# (two integer divisions of ~20 instructions each and their remainders:
+# 46), the position in the voxel (three converts, adds, multiplies and adds)
+# with the z clamp (14), mu with its floor (6) and the pre-credit's address
+# and atomic (3); a surface birth adds its position (4) and mu (a maximum
+# and a square root, 6).
+OPS_PER_ATMOSPHERIC_BIRTH = 93
+OPS_PER_SURFACE_BIRTH = 10
+# run/broadband_lw.nml cut to 8 batches of 131,072 photons, from the JAX
+# package's CLI on the CPU (its XLA wave kernel with the per-voxel emission
+# source, threefry streams, independent of the port's kernel), on the files
+# that mcbrat3d_tpu_torch/tools/lw_inputs.py writes:
+# 64 batches (one per bin); domain-mean up, down and net absorbed flux
+# [W m^-2] with their standard errors over batches, the total emitted flux,
+# and the net absorption profile [W m^-3 per unit km] with its standard
+# errors per level.
+JAX_LW_GENERIC = (80.25655936395336, 106.82387924909106, -65.20011669518334)
+JAX_LW_GENERIC_SE = (1.06476693, 0.792354479, 1.49502190)
+JAX_LW_GENERIC_TOTAL_FLUX = 1779.0873694047132
+JAX_LW_GENERIC_PROFILE = (
+    -0.012841932, -0.0113515287, -0.0057186631, -0.0046268058,
+    -0.0018193546, -0.0013025778, 0.0036257545, 0.0024083331, 0.001248404,
+    0.017882476, 0.0105800755, -0.0035338005, -0.0296375278, -0.1639696351,
+    -0.0116248507, -0.0096243315, -0.0088716703, -0.0071496344,
+    -0.0058607442, -0.0046419063, -0.0042952532, -0.0036376084,
+    -0.0033602159, -0.0026774821)
+JAX_LW_GENERIC_PROFILE_SE = (
+    0.0017857813, 0.0014269312, 0.0014874039, 0.0011509424, 0.0013470681,
+    0.0013494869, 0.0009747237, 0.0010229717, 0.0009476272, 0.0021449879,
+    0.0020501336, 0.0022630923, 0.0023767999, 0.0030498103, 0.0005975178,
+    0.0004941512, 0.0005519183, 0.000482439, 0.0004605089, 0.0004457313,
+    0.0003639319, 0.0003128483, 0.0003045646, 0.0003134025)
+
+
+def _emission_birth_ops(n_photons, atms_fraction):
+    """Refill operations of ``n_photons`` emission births, a share
+    ``atms_fraction`` of them atmospheric (the source's own split: the
+    count that a run draws differs from it by a binomial spread, ~1e-3 of
+    it at the headline's 2^24 photons)."""
+    n_atm = n_photons * atms_fraction
+    return (n_photons * OPS_PER_EMISSION_BIRTH
+            + n_atm * OPS_PER_ATMOSPHERIC_BIRTH
+            + (n_photons - n_atm) * OPS_PER_SURFACE_BIRTH)
+
+
+def lw_emission_scene(m, macro_factor=8, n_cdf_steps=None):
+    """bench.py:173-218's lw_emission_2comp scene built with the port: a
+    32 x 32 x 24 random cloud (half the cells filled, beta up to 30 km^-1,
+    ssa 0.6, HG 0.85, analytic) over an isotropic gas of beta 1.0 km^-1,
+    3D temperatures of 250-290 K, and its per-voxel emission source (surface
+    290 K, emissivity 0.95, 10 um). ``n_cdf_steps`` tabulates the cloud's
+    HG row instead (the deck's 10,001 steps). ``m`` holds the port's
+    modules."""
+    import dataclasses
+
+    import numpy as np
+
+    nx, ny, nz = 32, 32, 24
+    rs = np.random.RandomState(0)
+    grid = m.Grid.regular(nx, ny, nz, 0.1, 0.1, 0.05, device="cuda")
+    tbl = m.PhaseFunctionTable(
+        [m.PhaseFunction.henyey_greenstein(0.85, 64)], key=[1.0])
+    gas_tbl = m.PhaseFunctionTable([m.PhaseFunction.isotropic()], key=[1.0])
+    cld = rs.rand(nx, ny, nz) * 30.0 * (rs.rand(nx, ny, nz) > 0.5)
+    gas = np.full((1, 1, nz), 1.0)
+    comps = [m.OpticalComponent("cloud", cld, np.full_like(cld, 0.6),
+                                np.zeros(cld.shape, np.int32), tbl),
+             m.OpticalComponent("gas", gas, np.zeros_like(gas),
+                                np.zeros(gas.shape, np.int32), gas_tbl)]
+    temps = 250.0 + 40.0 * rs.rand(nx, ny, nz)
+    kw = {} if n_cdf_steps is None else dict(n_cdf_steps=n_cdf_steps)
+    dom = m.build_domain(grid, comps, temps=temps, macro_factor=macro_factor,
+                         **kw)
+    if n_cdf_steps is not None:  # a file-read domain: tabulated rows
+        dom = dataclasses.replace(dom, all_hg=False)
+    w = m.weights.emission_weighting(
+        grid, temps, m.weights.absorption_coefficient(comps, grid), 290.0,
+        0.95, 10.0)
+    return dom, m.illumination.emission(w.voxel_cdf, w.frac_atms_power,
+                                        grid.shape, device="cuda")
+
+
+def _net_cell_z(a, b):
+    """Largest per-cell z of two net absorption tallies (pre-credits of
+    -1 included): the difference over the square root of the cell's
+    weight, at least 1."""
+    a, b = a.double().cpu(), b.double().cpu()
+    sigma = ((a.abs() + b.abs()) / 2).clamp(min=1.0).sqrt()
+    return float(((a - b).abs() / sigma).max())
+
+
+def phase_lw_compare(rk, m, KernelConfig, rng):
+    """K1's emission refill and pre-credits against the plain step on the
+    card, same seeds, on the headline's scene at 2^18 photons: macro 8 and
+    0, analytic HG and the deck's 10,001-step rows, albedo 0.05 and 0,
+    roulette on and off (a half fraction of the 16 combinations, every pair
+    of settings covered). Equal photons, real collisions within 1e-4, flux
+    up/down and the net absorption (pre-credits included) per photon within
+    2e-3, per-cell net absorption within 5 sigma; returns the
+    largest per-pixel difference of the normalized fluxes."""
+    cases = [(8, None, 0.05, True), (8, None, 0.0, False),
+             (8, 10001, 0.05, False), (8, 10001, 0.0, True),
+             (0, None, 0.05, False), (0, None, 0.0, True),
+             (0, 10001, 0.05, True), (0, 10001, 0.0, False)]
+    max_err = 0.0
+    for i, (mf, steps, albedo, rr) in enumerate(cases):
+        dom, source = lw_emission_scene(m, mf, steps)
+        surface = m.Surface.lambertian(albedo)
+        cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=4,
+                           max_steps=800_000, lw_mode=True,
+                           use_russian_roulette=rr)
+        seed = rng.batch_seed(30, i)
+        before = rk.LW_LAUNCHES
+        tk, sk = _timed(lambda: rk.run_batch_record_tallies(
+            dom, surface, source, seed, cfg))
+        assert rk.LW_LAUNCHES > before, "kernel was not launched"
+        tp, sp = _timed(lambda: rk.run_batch_record_tallies(
+            dom, surface, source, seed, cfg, launch=rk.record_launch_plain))
+        assert tk.n_photons == tp.n_photons == 1 << 18, (tk.n_photons,
+                                                         tp.n_photons)
+        assert tk.n_bad == 0 and tp.n_bad == 0, (tk.n_bad, tp.n_bad)
+        assert tk.volume_absorption is not None
+        rta_k, rta_p = _rta(tk), _rta(tp)
+        gap = max(abs(a - b) for a, b in zip(rta_k, rta_p))
+        z_flux, err = _pixel_z([(tk.flux_up, tp.flux_up),
+                                (tk.flux_down, tp.flux_down)], tk.n_photons)
+        z_vol = _net_cell_z(tk.volume_absorption, tp.volume_absorption)
+        max_err = max(max_err, err)
+        print(f"lw compare macro={mf} cdf_steps={steps} albedo={albedo} "
+              f"roulette={rr}: kernel up/down/net per photon={rta_k} plain="
+              f"{rta_p} gap={gap:.3e} pixel z_max={z_flux:.2f} net cell "
+              f"z_max={z_vol:.2f} real collisions {tk.n_real}/{tp.n_real} "
+              f"kernel {sk:.3f} s plain {sp:.3f} s", flush=True)
+        assert rta_k[2] < 0, "no pre-credit landed"
+        assert gap < RTA_TOL_KERNEL_VS_PLAIN, gap
+        assert z_flux < 5.0 and z_vol < 5.0, (z_flux, z_vol)
+        assert abs(tk.n_real - tp.n_real) <= (REAL_TOL_KERNEL_VS_PLAIN
+                                              * tp.n_real), (tk.n_real,
+                                                             tp.n_real)
+    return max_err
+
+
+def phase_lw_anchors(le, m, KernelConfig, run_batch, rng):
+    """Emission anchors through run_batch on the card: the isothermal black
+    box (an optically thick isothermal atmosphere over a black surface at
+    its temperature radiates B_lambda(T) upward, within 5%:
+    tests/test_pallas.py:1460-1500, the fresh hold) and the isothermal
+    pre-credit balance (tests/test_spectral.py:126-148)."""
+    import numpy as np
+
+    def isothermal(nx, ny, nz, dx, dz, ext):
+        grid = m.Grid.regular(nx, ny, nz, dx, dx, dz, device="cuda")
+        temps = np.full((nx, ny, nz), 288.0)
+        e = np.full((nx, ny, nz), ext)
+        comp = m.OpticalComponent(
+            "abs", e, np.zeros_like(e), np.zeros(e.shape, np.int32),
+            m.PhaseFunctionTable([m.PhaseFunction.isotropic()], key=[1.0]))
+        dom = m.build_domain(grid, [comp], temps=temps, n_cdf_steps=101,
+                             compute_intensity_tables=True)
+        w = m.weights.emission_weighting(
+            grid, temps, m.weights.absorption_coefficient([comp], grid),
+            288.0, 1.0, 10.0)
+        return dom, w, m.illumination.emission(
+            w.voxel_cdf, w.frac_atms_power, grid.shape, device="cuda")
+
+    dom, w, source = isothermal(4, 4, 8, 0.25, 0.25, 6.0)
+    t = run_batch(dom, m.Surface.lambertian(0.0), source,
+                  rng.batch_seed(0, 2),
+                  KernelConfig(n_lanes=1 << 13, photons_per_lane=8,
+                               max_steps=4000, lw_mode=True),
+                  intensity_config=le.IntensityConfig(
+                      n_dirs=2, use_russian_roulette=False,
+                      use_hybrid_phase=False),
+                  intensity_dirs=le.make_intensity_directions(
+                      [1.0, 0.6], [0.0, 90.0], device="cuda"))
+    assert t.n_bad == 0 and t.n_photons == 8 << 13
+    rad = [float(v) * w.flux for v in
+           t.normalized(dom.grid).intensity.double().mean(dim=(0, 1))]
+    b = m.planck.planck_radiance(10.0, 288.0)
+    print(f"anchor isothermal black box: I={rad} Planck B={b:.6g}",
+          flush=True)
+    for got in rad:
+        assert abs(got / b - 1.0) < 0.05, (got, b)
+
+    dom, w, source = isothermal(2, 2, 4, 1.0, 0.5, 3.0)
+    t = run_batch(dom, m.Surface.lambertian(0.0), source,
+                  rng.batch_seed(1, 2),
+                  KernelConfig(n_lanes=1 << 14, photons_per_lane=16,
+                               max_steps=4000, lw_mode=True))
+    n = t.n_photons
+    net = float(t.volume_absorption.double().sum()) / n
+    births = n - float(t.flux_up.double().sum()
+                       + t.flux_down.double().sum()) - net * n
+    f = source.atms_fraction
+    sigma = (n * f * (1.0 - f)) ** 0.5
+    print(f"anchor isothermal balance: net {net:.5f} per photon, "
+          f"{births:.0f} atmospheric births against {n * f:.0f} expected",
+          flush=True)
+    assert t.n_bad == 0 and -0.2 < net < 0.005, net
+    assert abs(births - n * f) < 5.0 * sigma + 1.0, (births, n * f)
+
+
+def phase_lw_generic_deck(rk, ck, sk, tk, cli, write_lw_broadband_inputs):
+    """run/broadband_lw.nml through the CLI on cuda on the inputs of
+    mcbrat3d_tpu_torch/tools/lw_inputs.py: every bin built generically with
+    the per-voxel source, only the record kernel launched (each launch
+    with the emission refill), no plain step; means and profile against the
+    JAX package's frozen values."""
+    deck = (ROOT / "run" / "broadband_lw.nml").read_text()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            write_lw_broadband_inputs(".")
+            gen_s = time.perf_counter() - t0
+            out, seconds, launches = _run_cli_deck(
+                cli, rk, deck, ck=ck, domain=None, sk=sk, tk=tk)
+            for f in ("LW_flux.out", "LW_results.nc"):
+                assert (tmp / f).stat().st_size > 0, f
+            means, se, flux = _flux_file_means(tmp / "LW_flux.out")
+            from scipy.io import netcdf_file
+            with netcdf_file("LW_results.nc", "r", mmap=False) as nc:
+                prof = [float(v) for v in nc.variables["absorptionProfile"][:]]
+                prof_se = [float(v) for v in
+                           nc.variables["absorptionProfile_StdErr"][:]]
+        finally:
+            os.chdir(cwd)
+    n = out["total_photons"]
+    transport_s = (out["elapsed_seconds"] - out["setup_seconds"]
+                   - out["build_seconds"])
+    print(f"LW generic deck: inputs written in {gen_s:.2f} s; {n} photons "
+          f"in {out['n_batches']} batches, n_bad={out['n_bad']}, "
+          f"up/down/net={means} +- {se}, total flux {flux!r}; CLI "
+          f"{seconds:.2f} s (run {out['elapsed_seconds']} s: setup "
+          f"{out['setup_seconds']} s before the first transport, later bins' "
+          f"host builds {out['build_seconds']} s, transport and the rest "
+          f"{transport_s:.3f} s), launches record/radiance/column/separable/"
+          f"tiled/emission {launches}; JAX package {JAX_LW_GENERIC} +- "
+          f"{JAX_LW_GENERIC_SE}, total flux {JAX_LW_GENERIC_TOTAL_FLUX!r}",
+          flush=True)
+    assert n == 8 * 1_048_576 and out["n_bad"] == 0, (n, out["n_bad"])
+    assert launches[0] > 0 and launches[5] == launches[0], launches
+    assert sum(launches[1:5]) == 0, launches
+    assert abs(flux / JAX_LW_GENERIC_TOTAL_FLUX - 1.0) < 1e-8, flux
+    worst = 0.0
+    for got, got_se, want, want_se, name in (
+            list(zip(means, se, JAX_LW_GENERIC, JAX_LW_GENERIC_SE,
+                     ("up", "down", "net")))
+            + list(zip(prof, prof_se, JAX_LW_GENERIC_PROFILE,
+                       JAX_LW_GENERIC_PROFILE_SE,
+                       (f"profile level {k}" for k in range(24))))):
+        sigma = (got_se ** 2 + want_se ** 2) ** 0.5
+        worst = max(worst, abs(got - want) / sigma)
+        assert abs(got - want) < 4.5 * sigma, (name, got, want, 4.5 * sigma)
+    print(f"LW generic deck: largest gap to the JAX package {worst:.2f} "
+          "combined sigma", flush=True)
+    return dict(launches=launches[0], lw_launches=launches[5],
+                seconds=seconds, out=out, transport_s=transport_s)
+
+
+def phase_lw_headline(rk, m, KernelConfig, run_batch, rng):
+    """bench.py:173-218's lw_emission_2comp through run_batch (macro 8,
+    albedo 0.05, lw_mode, 2^16 lanes x 256 photons): kernel photons/s,
+    launches per batch, kernel ms per launch (CUDA events), the card's busy
+    share; plain ms per launch over 4 launches at the same lanes."""
+    dom, source = lw_emission_scene(m)
+    surface = m.Surface.lambertian(0.05)
+    cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=256,
+                       max_steps=800_000, lw_mode=True)
+    run_batch(dom, surface, source, rng.batch_seed(0, 98), cfg)  # warm-up
+    orig = rk._launch_cuda
+    rk._launch_cuda, events = _event_timed(orig)
+    try:
+        t, sec = _timed(lambda: run_batch(dom, surface, source,
+                                          rng.batch_seed(0, 0), cfg))
+    finally:
+        rk._launch_cuda = orig
+    _sync()
+    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    n_launch = len(events)
+    assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
+    assert t.n_photons == 1 << 24 and t.volume_absorption is not None
+    nx, ny, nz = dom.grid.shape
+    n_cells = nx * ny * nz
+    res = dict(photons_per_s=t.n_photons / sec, seconds=sec,
+               launches=n_launch, kernel_ms_per_launch=kernel_ms / n_launch,
+               wall_ms_per_launch=1e3 * sec / n_launch,
+               busy=kernel_ms / (1e3 * sec), lane_steps=t.n_lane_steps,
+               real_collisions=t.n_real,
+               # 8-float records and the alias pair, read once
+               table_bytes=4 * (8 + 2) * n_cells,
+               tally_bytes=4 * (2 * nx * ny + n_cells))
+    bound_ms, bound_by = _bound(
+        t.n_lane_steps, n_launch, OPS_PER_LANE_STEP["record_kernel"],
+        1 << 16, 40, res["table_bytes"], res["tally_bytes"],
+        extra_ops=(t.n_real * OPS_PER_COMPONENT_CHOICE
+                   + _emission_birth_ops(t.n_photons, source.atms_fraction)))
+    res["bound"] = (bound_ms, bound_by)
+    print(f"LW emission headline (run_batch): {t.n_photons} photons in "
+          f"{sec:.3f} s = {res['photons_per_s']:.6g} photons/s, {n_launch} "
+          f"launches, kernel {res['kernel_ms_per_launch']:.4f} ms/launch "
+          f"(bound {bound_ms:.4f} ms by {bound_by}), wall "
+          f"{res['wall_ms_per_launch']:.4f} ms/launch, busy share "
+          f"{res['busy']:.3f}, {t.n_lane_steps / t.n_photons:.2f} lane-steps"
+          f"/photon, {t.n_real / t.n_photons:.2f} real collisions/photon, "
+          f"up/down/net per photon={_rta(t)}", flush=True)
+    plain, ev = _event_timed(rk.record_launch_plain)
+    rk.run_batch_record(dom, surface, source, rng.batch_seed(0, 1),
+                        rk.RecordConfig(rows=512, max_steps=4 * 128), 256,
+                        launch=plain, lw_mode=True)
+    _sync()
+    res["plain_ms_per_launch"] = sum(a.elapsed_time(b)
+                                     for a, b in ev) / len(ev)
+    print(f"LW emission headline: plain {res['plain_ms_per_launch']:.4f} "
+          f"ms/launch over {len(ev)} launches", flush=True)
+    return res
+
+
+PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "2g", "3", "3b", "3c", "3d",
+          "3e", "3f", "3g", "4", "4b", "4c", "4d", "4e", "4f", "4g")
 
 
 def main(argv=None) -> int:
@@ -1718,6 +2108,8 @@ def main(argv=None) -> int:
     if not only <= set(PHASES):
         ap.error(f"phases are {PHASES}")
 
+    import types
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1729,7 +2121,8 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from mcbrat3d_tpu_torch import _build
-    from mcbrat3d_tpu_torch.core import rng
+    from mcbrat3d_tpu_torch.core import planck, rng
+    from mcbrat3d_tpu_torch.core.grid import Grid
     from mcbrat3d_tpu_torch.domain import io_netcdf
     from mcbrat3d_tpu_torch.domain.domain import (OpticalComponent,
                                                   build_domain)
@@ -1744,6 +2137,8 @@ def main(argv=None) -> int:
     from mcbrat3d_tpu_torch.scenes.step_cloud import (
         make_step_cloud, make_step_cloud_multi, step_cloud_multi_scene)
     from mcbrat3d_tpu_torch.sources import illumination
+    from mcbrat3d_tpu_torch.spectral import weights
+    from mcbrat3d_tpu_torch.tools.lw_inputs import write_lw_broadband_inputs
     from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import local_estimate as le
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
@@ -1788,6 +2183,12 @@ def main(argv=None) -> int:
                 print(f"  ptxas {lib} [{name}]:", line.strip())
 
     args = (rk, make_step_cloud, Surface, illumination, KernelConfig, rng)
+    # what the emission phases build their scenes with
+    m = types.SimpleNamespace(
+        Grid=Grid, OpticalComponent=OpticalComponent,
+        PhaseFunction=PhaseFunction, PhaseFunctionTable=PhaseFunctionTable,
+        build_domain=build_domain, weights=weights,
+        illumination=illumination, Surface=Surface, planck=planck)
     dirs6 = _deck_directions(config, le, "step_cloud_radiance.nml")
     out = {}
     if "2" in only:
@@ -1797,10 +2198,12 @@ def main(argv=None) -> int:
     if "2b" in only:
         out["rad_max_err"] = phase_radiance_compare(
             rk, le, make_step_cloud, make_step_cloud_multi, make_slab,
-            PhaseFunction, Surface, illumination, KernelConfig, rng, dirs6)
+            PhaseFunction, Surface, illumination, KernelConfig, rng, dirs6,
+            m)
     if "2c" in only:
         phase_radiance_anchors(le, make_slab, Surface, illumination,
                                KernelConfig, run_batch, rng)
+        phase_lw_anchors(le, m, KernelConfig, run_batch, rng)
     col_args = (ck, broken_cloud_scene, build_domain, Surface, illumination,
                 KernelConfig, rng)
     if "2d" in only:
@@ -1814,6 +2217,8 @@ def main(argv=None) -> int:
     if "2f" in only:
         out["tile_max_err"] = phase_tile_compare(tk, dense_args, Surface,
                                                  illumination, rng)
+    if "2g" in only:
+        out["lw_max_err"] = phase_lw_compare(rk, m, KernelConfig, rng)
     if "3" in only:
         out["launches"] = phase_main_path(rk, cli)
     if "3b" in only:
@@ -1829,6 +2234,9 @@ def main(argv=None) -> int:
     if "3f" in only:
         out["multi_deck"] = phase_multi_deck(rk, ck, sk, tk, cli, io_netcdf,
                                              step_cloud_multi_scene)
+    if "3g" in only:
+        out["lw_generic_deck"] = phase_lw_generic_deck(
+            rk, ck, sk, tk, cli, write_lw_broadband_inputs)
     if "4" in only:
         out["head"] = phase_headline(*args)
     if "4b" in only:
@@ -1847,6 +2255,9 @@ def main(argv=None) -> int:
         out["multi_head"] = phase_multi_headline(
             rk, make_step_cloud_multi, Surface, illumination, KernelConfig,
             run_batch, rng)
+    if "4g" in only:
+        out["lw_head"] = phase_lw_headline(rk, m, KernelConfig, run_batch,
+                                           rng)
     if only != set(PHASES):
         print(f"chip_smoke: phases {sorted(only)} passed; no result lines "
               "for a partial run")
@@ -1857,6 +2268,7 @@ def main(argv=None) -> int:
     sep_head = out["sep_head"]["kernel"]
     tile_head = out["tile_head"]
     multi_head = out["multi_head"]
+    lw_head = out["lw_head"]
     bounds = {
         "record_kernel": _bound(
             head["kernel"]["lane_steps"], head["kernel"]["launches"],
@@ -1884,6 +2296,7 @@ def main(argv=None) -> int:
             4 * tile_head["n_f"] * tile_head["n_cells"],
             4 * 3 * tile_head["nxy"]),
         "record_kernel_multi3": multi_head["bound"],
+        "record_kernel_lw": lw_head["bound"],
     }
     kernels = [{
         "name": "record_kernel",
@@ -1942,6 +2355,18 @@ def main(argv=None) -> int:
         "max_abs_err": out["env_max_err"],
         "ms": multi_head["kernel_ms_per_launch"],
         "plain_ms": multi_head["plain_ms_per_launch"],
+    }, {
+        # the same kernel's emission refill and pre-credits (K1-c):
+        # launches on run/broadband_lw.nml, times on bench.py's
+        # lw_emission_2comp
+        "name": "record_kernel_lw",
+        "route": "cuda",
+        "source": "mcbrat3d_tpu_torch/csrc/record_kernel.cu",
+        "replaces": "mcbrat3d_tpu/transport/pallas_kernel.py:897",
+        "launches": out["lw_generic_deck"]["lw_launches"],
+        "max_abs_err": out["lw_max_err"],
+        "ms": lw_head["kernel_ms_per_launch"],
+        "plain_ms": lw_head["plain_ms_per_launch"],
     }]
     for k in kernels:
         # no single PyTorch call computes a transport step

@@ -22,9 +22,11 @@ N_SITES = 256
 
 # Draw sites of the record kernel's flux path (one stream per purpose;
 # pallas_kernel.py:891-1017, :1133).
+# the refill's x and y (emission: the offsets inside the voxel)
 SITE_X = 0
 SITE_Y = 1
-# random-azimuth source: the beam's azimuth; flux source: its mu
+# random-azimuth source: the beam's azimuth; flux source: its mu;
+# emission: the z offset inside the voxel
 SITE_SOURCE = 2
 SITE_TAU = 3
 SITE_COLLIDE = 4
@@ -33,8 +35,14 @@ SITE_AZIMUTH = 6
 SITE_ROULETTE = 7
 # the scattering component, drawn only on domains of 2-3 components
 SITE_COMPONENT = 8
-# flux source: the azimuth
+# flux and emission sources: the azimuth
 SITE_SOURCE_PHI = 9
+# emission source (pallas_kernel.py:905-908): atmosphere or surface, the
+# alias bin, its acceptance, and mu
+SITE_EM_SPLIT = 10
+SITE_EM_BIN = 11
+SITE_EM_ACCEPT = 12
+SITE_EM_MU = 13
 # Radiance direction d draws its Iwabuchi roulette uniforms at sites
 # 16 + 2d and 17 + 2d (d < 64, so every site stays below N_SITES).
 

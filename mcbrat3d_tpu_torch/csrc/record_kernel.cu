@@ -3,7 +3,9 @@
 //
 // Replaces: mcbrat3d_tpu/transport/pallas_kernel.py `_build_kernel`, flux
 // path (refill from the directional, random-azimuth, flux or spotlight
-// source, Woodcock jump against the optional two-level macro majorant,
+// source, or the BBEmission refill through a per-voxel Walker alias table
+// with the lw_mode pre-credits, :897-987 and :2189-2213; Woodcock jump
+// against the optional two-level macro majorant,
 // record fetch with the component choice of 2-3 component domains,
 // null-collision test, Russian roulette, HG or inverse-CDF scatter +
 // rotation, uniform Lambertian reflection, fused flux / absorption tally),
@@ -28,8 +30,23 @@
 // f2_0, f2_1, f2_2] (domain.multi_component_records), 32-byte rows read as
 // two float4 loads; one uniform against the cumulative scattering
 // fractions picks the component whose f2 (HG g or table row) scatters.
-// The source kind and the component count are launch arguments, uniform
-// across a launch, so their branches never diverge. Tallies accumulate in
+// The source kind, the component count and lw are launch arguments,
+// uniform across a launch, so their branches never diverge.
+//
+// Emission (src = SRC_EMISSION). A refilled lane draws the atmosphere or
+// the surface (one uniform against fracAtmsPower), a bin of the Walker
+// alias pair over every voxel and its acceptance: two per-thread __ldg
+// loads of em_prob[bin] and em_alias[bin] from global memory (196 KB at
+// 24,576 cells; the shared budget stays with the tallies), where the TPU
+// kernel gathered a transposed table and split it in bf16 hi/lo rows.
+// The cell is decomposed with integer divides (the JAX kernel's floored
+// float divides give the same cell on every cell of the envelope). With
+// lw, an atmospheric birth adds -1 to the volume tally at its cell: one
+// shared atomic, the lane's second tally in that step (the TPU kernel's
+// one-hot sublane contraction). With lw and radiance, a newly emitted
+// lane only contributes its emission local estimate (weight 1, isotropic
+// 1/(4 pi mu_d) or Lambertian 1/pi) in its birth step and moves from the
+// next step on; on the flux path it moves in its birth step. Tallies accumulate in
 // shared memory with shared atomics and are flushed once per block per
 // launch with global atomics. The TPU workarounds (one-hot MXU gathers and
 // tallies, bf16 hi/lo splits, [*, 128] lane blocks) are not carried over.
@@ -95,20 +112,27 @@ enum {
   P_X0, P_LX, P_Y0, P_LY, P_Z0, P_LZ, P_INV_DX, P_INV_DY, P_INV_DZ,
   P_ZMAX, P_ZEPS, P_BXW, P_BYW, P_BZW, P_NUDGE, P_TWO_PI, P_HALF_RR,
   P_ZTOP, P_ZBOT, P_DXC, P_DYC, P_DZC, P_MNUDGE, P_ZETA, P_MAXC,
-  P_SPOT_X, P_SPOT_Y, N_PARAMS
+  P_SPOT_X, P_SPOT_Y, P_ATMS, N_PARAMS
 };
 
 // Source kinds (record_kernel.py SOURCE_KINDS).
-enum { SRC_DIRECTIONAL, SRC_RANDOM_AZIMUTH, SRC_FLUX, SRC_SPOTLIGHT };
+enum {
+  SRC_DIRECTIONAL, SRC_RANDOM_AZIMUTH, SRC_FLUX, SRC_SPOTLIGHT, SRC_EMISSION
+};
 
 // Uniform draw sites (core/rng.py SITE_*).
 enum {
   S_X = 0, S_Y = 1, S_SOURCE = 2, S_TAU = 3, S_COLLIDE = 4, S_ANGLE = 5,
-  S_PHI = 6, S_ROULETTE = 7, S_COMPONENT = 8, S_SOURCE_PHI = 9
+  S_PHI = 6, S_ROULETTE = 7, S_COMPONENT = 8, S_SOURCE_PHI = 9,
+  S_EM_SPLIT = 10, S_EM_BIN = 11, S_EM_ACCEPT = 12, S_EM_MU = 13
 };
 
 // Local-estimate phase source (record_kernel.py PHASE_*).
 enum { PHASE_HG, PHASE_TABLE_ROW0, PHASE_TABLE };
+
+// Kind of a local-estimate event (record_kernel.py EV_*): a scatter, a
+// surface reflection or surface emission, an atmospheric emission.
+enum { EV_SCATTER, EV_LAMBERT, EV_ISOTROPIC };
 
 // Radiance switches of one launch.
 struct LeArgs {
@@ -124,18 +148,19 @@ struct LeArgs {
 };
 
 // Local estimate of one event toward every direction (pallas_kernel.py
-// :1515-2084, cell march). refl: a surface reflection at (sx, sy, sz) with
-// phase value 1/pi; else a scatter with incoming direction (uxi, uyi, uzi)
-// and phase field f2 (HG g, or the table row) of the chosen component.
-// Adds w_ev * npf * exp(-tau) (or its roulette form) into img at the exit
-// column; with the cap, into the section of the event's slot (0 the
-// surface, 1 + c component c).
+// :1515-2084, cell march) from (sx, sy, sz). kind EV_LAMBERT: a surface
+// reflection or emission, phase value 1/pi; EV_ISOTROPIC: an atmospheric
+// emission, 1/(4 pi mu_d); EV_SCATTER: a scatter with incoming direction
+// (uxi, uyi, uzi) and phase field f2 (HG g, or the table row) of the
+// chosen component. Adds w_ev * npf * exp(-tau) (or its roulette form)
+// into img at the exit column; with the cap, into the section of the
+// event's slot (0 the surface or an emission, 1 + c component c).
 __device__ __forceinline__ void local_estimate(
     const float* __restrict__ prm, const float* __restrict__ rec, int stride,
     const float* s_dirs, const float* __restrict__ fwd_v0,
     const float* __restrict__ fwd_dd, float* img, float* s_exc, int* s_bad,
     const LeArgs& le, int nx, int ny, int nz, uint32_t lane, uint32_t seed,
-    uint32_t ctr, bool refl, int slot, float sx, float sy, float sz,
+    uint32_t ctr, int kind, int slot, float sx, float sy, float sz,
     float w_ev, float uxi, float uyi, float uzi, float f2) {
   const float x0 = prm[P_X0], lx = prm[P_LX], y0 = prm[P_Y0];
   const float ly = prm[P_LY], z0 = prm[P_Z0], z_max = prm[P_ZMAX];
@@ -148,8 +173,10 @@ __device__ __forceinline__ void local_estimate(
     const float ddx = s_dirs[d], ddy = s_dirs[kMaxDirs + d];
     const float ddz = s_dirs[2 * kMaxDirs + d];  // > 0 by eligibility
     float npf;
-    if (refl) {
+    if (kind == EV_LAMBERT) {
       npf = kInvPi;
+    } else if (kind == EV_ISOTROPIC) {
+      npf = 1.f / (kFourPi * ddz);
     } else {
       const float cosb = (uxi * ddx + uyi * ddy) + uzi * ddz;
       float pv;
@@ -271,11 +298,12 @@ record_steps(const float* __restrict__ prm,
              const float* __restrict__ dirs,
              const float* __restrict__ fwd_v0,
              const float* __restrict__ fwd_dd, float* __restrict__ g_img,
-             float* __restrict__ g_exc, LeArgs le,
+             float* __restrict__ g_exc, const float* __restrict__ em_prob,
+             const float* __restrict__ em_alias, LeArgs le,
              int n_lanes, int nx, int ny, int nz, int stride, int off_ssa,
              int off_f2, int inv_n_steps, int use_rr, int n_acc,
              uint32_t seed, uint32_t step0, int k_steps, int src,
-             int ncomp) {
+             int ncomp, int lw) {
   extern __shared__ float s_acc[];
   __shared__ int s_counts[kCounts];
   __shared__ float s_dirs[LE ? 3 * kMaxDirs : 1];
@@ -310,7 +338,10 @@ record_steps(const float* __restrict__ prm,
     const float half_rr = prm[P_HALF_RR], z_top = prm[P_ZTOP];
     const float z_bot = prm[P_ZBOT];
     const float spot_x = prm[P_SPOT_X], spot_y = prm[P_SPOT_Y];
+    const float atms = prm[P_ATMS], dxc = prm[P_DXC], dyc = prm[P_DYC];
+    const float dzc = prm[P_DZC];
     const int nxy = nx * ny;
+    const int n_cells = nxy * nz;
 
     float x = xs[lane], y = ys[lane], z = zs[lane];
     float ux = uxs[lane], uy = uys[lane], uz = uzs[lane];
@@ -323,27 +354,67 @@ record_steps(const float* __restrict__ prm,
     for (int k = 0; k < k_steps; ++k) {
       const uint32_t ctr = step0 + static_cast<uint32_t>(k);
       // ---- refill a dead lane from the source (pallas_kernel.py
-      // :988-1027) ----
+      // :897-1027) ----
+      bool born = false, born_atm = false;
       if (!alive && quota > 0) {
-        if (src == SRC_SPOTLIGHT) {  // one entry point
+        born = true;
+        float em_mu = 0.f;  // emission: mu of the birth
+        if (src == SRC_EMISSION) {
+          // atmosphere or surface, then a Walker alias draw of the voxel
+          const float u0 = uniform(ul, seed, ctr, S_X);
+          const float u1 = uniform(ul, seed, ctr, S_Y);
+          born_atm = uniform(ul, seed, ctr, S_EM_SPLIT) < atms;
+          int jbin = static_cast<int>(uniform(ul, seed, ctr, S_EM_BIN) *
+                                      static_cast<float>(n_cells));
+          jbin = jbin < n_cells - 1 ? jbin : n_cells - 1;
+          const int v =
+              uniform(ul, seed, ctr, S_EM_ACCEPT) < __ldg(em_prob + jbin)
+                  ? jbin
+                  : static_cast<int>(__ldg(em_alias + jbin) + 0.5f);
+          const float u_mu = uniform(ul, seed, ctr, S_EM_MU);
+          if (born_atm) {  // uniform in the voxel, isotropic
+            const int col = v / nz;
+            const int ix = col / ny;
+            x = x0 + (static_cast<float>(ix) + u0) * dxc;
+            y = y0 + (static_cast<float>(col - ix * ny) + u1) * dyc;
+            z = fminf(fmaxf(z0 + (static_cast<float>(v - col * nz) +
+                                  uniform(ul, seed, ctr, S_SOURCE)) *
+                                     dzc,
+                            z_bot),
+                      z_top);
+            em_mu = 1.f - 2.f * u_mu;
+            if (fabsf(em_mu) < 1e-4f) em_mu = signf(em_mu + kTiny) * 1e-4f;
+            if constexpr (VOL) {  // LW pre-credit at the birth cell
+              if (lw) atomicAdd(&s_acc[2 * nxy + v], -1.f);
+            }
+          } else {  // uniform on the surface, Lambertian upward
+            x = x0 + u0 * lx;
+            y = y0 + u1 * ly;
+            z = z_bot;
+            em_mu = sqrtf(fmaxf(u_mu, 1e-12f));
+          }
+        } else if (src == SRC_SPOTLIGHT) {  // one entry point
           x = x0 + spot_x * lx;
           y = y0 + spot_y * ly;
+          z = z_top;
         } else {
           x = x0 + uniform(ul, seed, ctr, S_X) * lx;
           y = y0 + uniform(ul, seed, ctr, S_Y) * ly;
+          z = z_top;
         }
-        z = z_top;
         if (src == SRC_DIRECTIONAL || src == SRC_SPOTLIGHT) {
           ux = sux;
           uy = suy;
           uz = -smu;
         } else {
-          float s_mu, s_phi;
+          float s_mu = em_mu, s_phi;
           if (src == SRC_RANDOM_AZIMUTH) {
             s_mu = -smu;
             s_phi = two_pi * uniform(ul, seed, ctr, S_SOURCE);
-          } else {  // flux: mu = -sqrt(u), the azimuth at its own site
-            s_mu = -sqrtf(fmaxf(uniform(ul, seed, ctr, S_SOURCE), 1e-12f));
+          } else {  // flux (mu = -sqrt(u)) and emission: the azimuth
+            if (src == SRC_FLUX) {
+              s_mu = -sqrtf(fmaxf(uniform(ul, seed, ctr, S_SOURCE), 1e-12f));
+            }
             s_phi = two_pi * uniform(ul, seed, ctr, S_SOURCE_PHI);
           }
           const float s_sin = sqrtf(fmaxf(0.f, 1.f - s_mu * s_mu));
@@ -359,6 +430,18 @@ record_steps(const float* __restrict__ prm,
       }
       if (!alive) continue;
       steps += 1;
+      if constexpr (LE) {
+        // LW radiance: a newly emitted lane contributes its emission local
+        // estimate (weight 1) and moves from the next step on
+        // (pallas_kernel.py:986, :1086-1091, :1529-1534, :1682-1688)
+        if (lw && born) {
+          local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img, s_exc,
+                         &s_counts[4], le, nx, ny, nz, ul, seed, ctr,
+                         born_atm ? EV_ISOTROPIC : EV_LAMBERT, 0, x, y, z,
+                         1.f, 0.f, 0.f, 0.f, 0.f);
+          continue;
+        }
+      }
 
       // ---- Woodcock jump ----
       const float tau = -log1pf(-uniform(ul, seed, ctr, S_TAU));
@@ -409,8 +492,8 @@ record_steps(const float* __restrict__ prm,
             if constexpr (LE) {
               local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img,
                              s_exc, &s_counts[4], le, nx, ny, nz, ul, seed,
-                             ctr, true, 0, xe, ye, z_bot, w_refl, 0.f, 0.f,
-                             0.f, 0.f);
+                             ctr, EV_LAMBERT, 0, xe, ye, z_bot, w_refl, 0.f,
+                             0.f, 0.f, 0.f);
             }
             const float mu_new =
                 sqrtf(fmaxf(uniform(ul, seed, ctr, S_ANGLE), 1e-12f));
@@ -481,8 +564,8 @@ record_steps(const float* __restrict__ prm,
       w = w * ssa;
       if constexpr (LE) {  // post-absorption, pre-roulette weight, incoming dir
         local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img, s_exc,
-                       &s_counts[4], le, nx, ny, nz, ul, seed, ctr, false,
-                       slot, x, y, z, w, ux, uy, uz, f2);
+                       &s_counts[4], le, nx, ny, nz, ul, seed, ctr,
+                       EV_SCATTER, slot, x, y, z, w, ux, uy, uz, f2);
       }
       if (use_rr && w < half_rr) {
         w = uniform(ul, seed, ctr, S_ROULETTE) < w / rr_w ? rr_w : 0.f;
@@ -551,11 +634,12 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
                    float* ux, float* uy, float* uz, float* w, float* bl,
                    int* quota, int* alive, float* acc, int* counts,
                    const float* dirs, const float* fwd_v0,
-                   const float* fwd_dd, float* img, float* exc, LeArgs le,
+                   const float* fwd_dd, float* img, float* exc,
+                   const float* em_prob, const float* em_alias, LeArgs le,
                    int n_lanes, int nx, int ny, int nz, int stride,
                    int off_ssa, int off_f2, int inv_n_steps, int use_rr,
                    int n_acc, uint32_t seed, uint32_t step0, int k_steps,
-                   int src, int ncomp, cudaStream_t stream) {
+                   int src, int ncomp, int lw, cudaStream_t stream) {
   auto kernel = record_steps<MACRO, VOL, ANALYTIC, LE>;
   size_t smem = static_cast<size_t>(n_acc) * sizeof(float);
   if (LE) {
@@ -575,9 +659,9 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
   const int blocks = (n_lanes + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, smem, stream>>>(
       prm, rec, inv_a0, inv_dd, x, y, z, ux, uy, uz, w, bl, quota, alive,
-      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, le, n_lanes, nx, ny, nz,
-      stride, off_ssa, off_f2, inv_n_steps, use_rr, n_acc, seed, step0,
-      k_steps, src, ncomp);
+      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, em_prob, em_alias, le,
+      n_lanes, nx, ny, nz, stride, off_ssa, off_f2, inv_n_steps, use_rr,
+      n_acc, seed, step0, k_steps, src, ncomp, lw);
   return cudaGetLastError();
 }
 
@@ -586,8 +670,10 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
 extern "C" int record_kernel_num_params() { return N_PARAMS; }
 
 // Advance every lane by k_steps transport steps, refilling from source kind
-// src (SRC_*) on a domain of ncomp components (records of `stride` floats;
-// 8, 16-byte aligned, when ncomp > 1). Adds the tally into acc,
+// src (SRC_*; emission draws from the alias pair em_prob/em_alias over the
+// nx*ny*nz cells, and with lw, which needs vol, pre-credits its
+// atmospheric births) on a domain of ncomp components (records of `stride`
+// floats; 8, 16-byte aligned, when ncomp > 1). Adds the tally into acc,
 // the photons started into counts[0], the lanes with work left (alive or
 // quota > 0) into counts[1], the lane-steps run with a live photon into
 // counts[2], the real collisions into counts[3] and, with radiance
@@ -599,17 +685,19 @@ extern "C" int record_kernel_launch(
     const float* inv_dd, float* x, float* y, float* z, float* ux,
     float* uy, float* uz, float* w, float* bl, int* quota, int* alive,
     float* acc, int* counts, const float* dirs, const float* fwd_v0,
-    const float* fwd_dd, float* img, float* exc, int n_lanes, int nx,
-    int ny, int nz, int stride, int off_ssa, int off_f2, int inv_n_steps,
-    int use_rr, int n_acc, uint32_t seed, uint32_t step0, int k_steps,
-    int macro, int vol, int analytic, int src, int ncomp, int n_dirs,
-    int le_phase, int fwd_n_s, int le_rr, int le_cap, int k_dda, int n_img,
-    int n_exc, void* stream) {
+    const float* fwd_dd, float* img, float* exc, const float* em_prob,
+    const float* em_alias, int n_lanes, int nx, int ny, int nz, int stride,
+    int off_ssa, int off_f2, int inv_n_steps, int use_rr, int n_acc,
+    uint32_t seed, uint32_t step0, int k_steps, int macro, int vol,
+    int analytic, int src, int ncomp, int lw, int n_dirs, int le_phase,
+    int fwd_n_s, int le_rr, int le_cap, int k_dda, int n_img, int n_exc,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_dirs < 0 || n_dirs > kMaxDirs) return cudaErrorInvalidValue;
-  if (src < SRC_DIRECTIONAL || src > SRC_SPOTLIGHT) {
+  if (src < SRC_DIRECTIONAL || src > SRC_EMISSION) {
     return cudaErrorInvalidValue;
   }
+  if (lw && (src != SRC_EMISSION || !vol)) return cudaErrorInvalidValue;
   if (ncomp < 1 || ncomp > 3 || (ncomp > 1 && stride != 8)) {
     return cudaErrorInvalidValue;
   }
@@ -618,9 +706,9 @@ extern "C" int record_kernel_launch(
 #define MCB_CALL(M, V, A, L)                                                 \
   static_cast<int>(launch<M, V, A, L>(                                       \
       prm, rec, inv_a0, inv_dd, x, y, z, ux, uy, uz, w, bl, quota, alive,    \
-      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, le, n_lanes, nx, ny, nz,  \
-      stride, off_ssa, off_f2, inv_n_steps, use_rr, n_acc, seed, step0,      \
-      k_steps, src, ncomp, s))
+      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, em_prob, em_alias, le,    \
+      n_lanes, nx, ny, nz, stride, off_ssa, off_f2, inv_n_steps, use_rr,     \
+      n_acc, seed, step0, k_steps, src, ncomp, lw, s))
 #define MCB_LAUNCH(M, V, A) \
   return n_dirs > 0 ? MCB_CALL(M, V, A, true) : MCB_CALL(M, V, A, false)
   if (macro) {

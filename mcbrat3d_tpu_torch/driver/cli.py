@@ -28,6 +28,7 @@ def _launches() -> dict:
     from mcbrat3d_tpu_torch.transport import tile_kernel as tk
     return {"record_kernel": rk.LAUNCHES,
             "record_kernel_radiance": rk.RADIANCE_LAUNCHES,
+            "record_kernel_lw": rk.LW_LAUNCHES,
             "col_kernel": ck.COL_LAUNCHES, "sep_kernel": sk.SEP_LAUNCHES,
             "tile_kernel": tk.TILE_LAUNCHES}
 
@@ -55,6 +56,7 @@ def _cmd_run(args) -> int:
         **radiance,
         "elapsed_seconds": round(results.elapsed_seconds, 3),
         "setup_seconds": round(results.setup_seconds, 3),
+        "build_seconds": round(results.build_seconds, 3),
         "launches": _launches(),
         "tile_passes": results.n_passes,
         "device": str(device),

@@ -44,6 +44,8 @@ class Results:
     n_bad: int = 0  # photons cut by the step cap, summed over batches
     n_passes: int = 0  # tiled-kernel passes, summed over batches
     setup_seconds: float = 0.0  # before the first transport (broadband)
+    # host seconds building the later bins' domains and sources (broadband)
+    build_seconds: float = 0.0
 
     def __getitem__(self, name):
         return self.mean[name]

@@ -1,16 +1,18 @@
 """Photon sources (PyTorch port): the directional solar beam, the beam
 with a random azimuth, the isotropic (cosine-weighted) flux, the spotlight
-(a slanted beam entering one point of the top) and thermal emission backed
-by a separable domain's tables.
+(a slanted beam entering one point of the top) and thermal emission, either
+per voxel (a Walker alias over every voxel) or backed by a separable
+domain's tables.
 
 Counterpart of ``mcbrat3d_tpu.sources.illumination`` (reference:
 src/monteCarloIllumination.f95:62-216, 431-522). The transport kernel
 samples the source on the fly when a photon starts, so a Source is a few
-parameters. The record and tiled kernels take every kind but emission; the
-column kernel directional, random azimuth and flux; the separable kernel
-those and separable emission. The per-voxel emission source
-(``emission``, a Walker alias over every voxel) arrives with the record
-kernel's emission refill (ROADMAP Queue 1 item 3).
+parameters (and, for per-voxel emission, its alias tables on the device).
+The record kernel takes every kind but separable emission; the tiled
+kernel every kind but emission; the column kernel directional, random
+azimuth and flux; the separable kernel those and both emission sources.
+The XLA wave kernel's sampler (``sample``, ``_sample_emission``) is not
+ported yet (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from mcbrat3d_tpu_torch.core.device import resolve
 
 DIRECTIONAL = "directional"
 RANDOM_AZIMUTH = "random_azimuth"
@@ -43,6 +48,11 @@ class Source:
     # spotlight: the entry point as fractions of the domain's x and y size
     solar_x: float = 0.5
     solar_y: float = 0.5
+    # per-voxel emission: the Walker alias pair in kernel cell order
+    # (ix*ny + iy)*nz + iz, float32 tensors on the device (the alias
+    # targets are exact below 2^24)
+    em_prob: torch.Tensor = None
+    em_alias: torch.Tensor = None
 
 
 def directional(solar_mu: float, solar_azimuth_deg: float) -> Source:
@@ -83,6 +93,35 @@ def spotlight(solar_mu: float, solar_azimuth_deg: float,
                       np.deg2rad(solar_azimuth_deg))),
                   solar_x=float(np.float32(solar_x)),
                   solar_y=float(np.float32(solar_y)))
+
+
+def emission(voxel_cdf, atms_fraction: float, grid_shape,
+             device="cuda") -> Source:
+    """Thermal emission source sampled per voxel (port of
+    ``illumination.emission``; reference:
+    src/monteCarloIllumination.f95:431-522).
+
+    ``voxel_cdf``: [nz*ny*nx] cumulative power fractions (last entry 1),
+    C-ordered as [nz, ny, nx] (``weights.emission_weighting``).
+    ``atms_fraction``: probability that a photon is emitted by the
+    atmosphere rather than the surface (fracAtmsPower). The record kernel
+    draws the emitting voxel from a Walker alias table over every voxel in
+    its cell order, built here on the host in float64 as the JAX package
+    builds it and placed on ``device`` as float32."""
+    nx, ny, nz = grid_shape
+    cdf = np.asarray(voxel_cdf, np.float64)
+    p = np.maximum(np.diff(cdf, prepend=0.0), 0.0)
+    s = p.sum()
+    p = p / s if s > 0 else np.full_like(p, 1.0 / p.size)
+    # [nz, ny, nx] C-order -> kernel order (ix*ny + iy)*nz + iz
+    pk = p.reshape(nz, ny, nx).transpose(2, 1, 0).reshape(-1)
+    prob, alias = _walker_alias(pk)
+    device = resolve(device)
+    return Source(
+        kind=EMISSION, atms_fraction=float(np.float32(atms_fraction)),
+        grid_shape=(int(nx), int(ny), int(nz)),
+        em_prob=torch.as_tensor(prob.astype(np.float32), device=device),
+        em_alias=torch.as_tensor(alias.astype(np.float32), device=device))
 
 
 def emission_separable(domain, surface_temp: float,

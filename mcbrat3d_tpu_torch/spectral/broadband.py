@@ -1,23 +1,30 @@
 """Broadband longwave simulation driver (PyTorch port).
 
 Counterpart of ``mcbrat3d_tpu.spectral.broadband.run_broadband`` for the
-longwave path whose bins are separable (reference:
-Drivers/monteCarloDriver.f95:289-505 setup, :889-1129 worker loop):
+longwave path (reference: Drivers/monteCarloDriver.f95:289-505 setup,
+:889-1129 worker loop): the per-bin emitted flux -> spectral flux CDF over
+bins -> a seeded multinomial photon schedule -> per bin a domain, the
+thermal emission source and transport in chunks of ``numPhotonsPerBatch``,
+moments accumulated on the device. Per bin, as the JAX package decides:
 
-  LW: the lambda-independent factorization of the physical fields
-      (``domain.sep_plan``), the per-bin emitted flux through it ->
-      spectral flux CDF over bins -> a seeded multinomial photon schedule
-      -> per bin an O(nz) compact domain rebuild, the separable emission
-      source and transport through the separable kernel (K4) in chunks of
-      ``numPhotonsPerBatch``, moments accumulated on the device.
+  * past the record kernel's ``MAX_CELLS``, when the lambda-independent
+    factorization of the physical fields (``domain.sep_plan``) exists and
+    its first bin runs on the separable kernel (K4): O(nz) compact
+    rebuilds from the plan and the separable emission source;
+  * otherwise the generic build (``components_from_ssp``,
+    ``build_domain(temps=...)``, ``absorption_coefficient``,
+    ``emission_weighting`` and the per-voxel emission source), which the
+    record kernel (K1) runs within its envelope; once a bin is seen to run
+    on K4 the later bins switch to compact builds. A vacuum bin of a plan
+    falls back to the generic build for that bin only.
 
 Batch b of the run (counted over all bins) runs with the kernel seed
 ``rng.batch_seed(iseed, b)``, the counterpart of the JAX package's
 ``rng.batch_key(iseed, b)``. Not ported yet, each raising
 NotImplementedError: the shortwave path (``solar_weighting``,
-``spectral/solar.py``), bins without a separable plan (they need the record
-kernel's emission envelope or the XLA wave kernel), an instrument response
-file, the device mesh and checkpoints.
+``spectral/solar.py``), an instrument response file, the device mesh and
+checkpoints. A bin that no ported kernel takes raises in ``run_batch``,
+naming every failing predicate (the XLA wave kernel is not ported yet).
 """
 
 from __future__ import annotations
@@ -28,23 +35,25 @@ from mcbrat3d_tpu_torch.core import rng
 from mcbrat3d_tpu_torch.core.accumulate import (DeviceMomentAccumulator,
                                                 kahan_cumsum)
 from mcbrat3d_tpu_torch.domain.common import read_common
+from mcbrat3d_tpu_torch.domain.domain import build_domain
 from mcbrat3d_tpu_torch.domain.sep_plan import (build_domain_from_plan,
                                                 make_separable_bin_plan)
-from mcbrat3d_tpu_torch.domain.ssp import read_ssp_table
+from mcbrat3d_tpu_torch.domain.ssp import components_from_ssp, read_ssp_table
 from mcbrat3d_tpu_torch.driver.config import SimulationConfig
 from mcbrat3d_tpu_torch.driver.run import Results, kernel_config_from
 from mcbrat3d_tpu_torch.physics.surface import Surface
 from mcbrat3d_tpu_torch.sources import illumination
-from mcbrat3d_tpu_torch.spectral.weights import (frequency_distribution,
+from mcbrat3d_tpu_torch.spectral.weights import (absorption_coefficient,
+                                                 emission_weighting,
+                                                 frequency_distribution,
                                                  lambda_widths,
                                                  lw_setup_fluxes)
-from mcbrat3d_tpu_torch.transport.integrator import run_batch
+from mcbrat3d_tpu_torch.transport import record_kernel as rk
+from mcbrat3d_tpu_torch.transport import sep_kernel as sk
+from mcbrat3d_tpu_torch.transport.integrator import (run_batch,
+                                                      select_kernel)
 from mcbrat3d_tpu_torch.transport.local_estimate import (
     IntensityConfig, make_intensity_directions)
-
-_NON_PLAN = ("the generic per-bin build with a per-voxel emission source, "
-             "which runs on the record kernel's emission envelope (K1) or "
-             "the XLA wave kernel, neither ported yet")
 
 
 def _bin_surface(cfg: SimulationConfig, albedo: float) -> Surface:
@@ -53,15 +62,15 @@ def _bin_surface(cfg: SimulationConfig, albedo: float) -> Surface:
 
 
 def _plan_is_separable(plan, grid, ssp_tables, freq, cfg, kcfg, icfg):
-    """The plan probe (broadband.py:218-253 of the JAX package): does the
-    first bin with photons, built from the plan, run on the separable
-    kernel? The port takes the plan path at any cell count: its record
-    kernel has no emission source."""
-    from mcbrat3d_tpu_torch.transport import sep_kernel as sk
-
+    """The plan probe (broadband.py:218-253 of the JAX package), run only
+    past the record kernel's ``MAX_CELLS``: does the first bin with
+    photons, built from the plan, run on the separable kernel? Then every
+    bin is built compact from the plan, skipping the full-domain build and
+    the per-voxel emission weighting."""
+    nx, ny, nz = grid.shape
     li0 = next((int(li) for li in range(freq.size) if freq[li] > 0), None)
-    if li0 is None:
-        return True
+    if plan is None or nx * ny * nz <= rk.MAX_CELLS or li0 is None:
+        return False
     d0 = build_domain_from_plan(
         grid, plan, li0, float(ssp_tables[0].lambdas_um[li0]),
         n_cdf_steps=cfg.n_phase_intervals,
@@ -77,20 +86,21 @@ def _plan_is_separable(plan, grid, ssp_tables, freq, cfg, kcfg, icfg):
     except ValueError:  # no emission tables (non-uniform temps)
         return False
     return not sk.sep_ineligibility_reasons(
-        d0, _bin_surface(cfg, alb0), src0, lw_mode=kcfg.lw_mode,
-        compute_intensity=icfg is not None,
+        d0, _bin_surface(cfg, alb0), src0,
+        need_volume_absorption=kcfg.need_volume_absorption,
+        lw_mode=kcfg.lw_mode, compute_intensity=icfg is not None,
         record_scattering_orders=kcfg.record_scattering_orders,
-        use_ray_tracing=kcfg.use_ray_tracing,
-        need_volume_absorption=kcfg.need_volume_absorption)
+        use_ray_tracing=kcfg.use_ray_tracing)
 
 
 def run_broadband(cfg: SimulationConfig, device, common=None,
                   ssp_tables=None) -> Results:
     """Broadband longwave run on ``device``; ``common`` and ``ssp_tables``
     default to the namelist's files. Returns the finalized ``Results``
-    (means scaled by the total emitted flux), with ``grid``, ``n_bad`` and
+    (means scaled by the total emitted flux), with ``grid``, ``n_bad``,
     the seconds spent before the first bin's transport
-    (``setup_seconds``)."""
+    (``setup_seconds``) and those spent building the later bins' domains
+    and sources on the host (``build_seconds``)."""
     t_start = time.time()
     if not cfg.is_longwave:
         raise NotImplementedError(
@@ -114,15 +124,11 @@ def run_broadband(cfg: SimulationConfig, device, common=None,
                          f"{lambdas.size} wavelengths")
     d_lambda = lambda_widths(lambdas)
 
-    # lambda-independent factorization of the physical fields: per-bin
+    # lambda-independent factorization of the physical fields (None on
+    # structures the separable kernel cannot carry): with it, per-bin
     # rebuilds are O(nz) and the setup Planck sweep factorizes too
     plan = make_separable_bin_plan(common, ssp_tables, cfg.calc_rayleigh,
                                    cfg.macro_factor)
-    if plan is None:
-        raise NotImplementedError(
-            "this broadband deck has no separable per-bin plan (rank-1 "
-            "massConc, one Reff cell, horizontally uniform gas and temps, "
-            "no Rayleigh); its bins need " + _NON_PLAN)
 
     # setup pass: per-lambda total emitted flux (atmosphere + surface)
     # (reference: Drivers/monteCarloDriver.f95:304-450)
@@ -150,35 +156,69 @@ def run_broadband(cfg: SimulationConfig, device, common=None,
             n_orders_orig_phase=cfg.num_orders_orig_phase,
             limit_contributions=cfg.limit_intensity_contributions,
             max_contribution=cfg.max_intensity_contribution)
-    if not _plan_is_separable(plan, grid, ssp_tables, freq, cfg, kcfg, icfg):
-        raise NotImplementedError(
-            "the separable kernel does not take this deck's plan-built bins "
-            "(see sep_kernel.sep_ineligibility_reasons); they need "
-            + _NON_PLAN)
+    # bins start generic; compact once the separable kernel is known to
+    # run them (the plan probe past MAX_CELLS, or a bin that dispatched)
+    compact = _plan_is_separable(plan, grid, ssp_tables, freq, cfg, kcfg,
+                                 icfg)
 
     hybrid_width = (cfg.hybrid_phase_fun_width
                     if cfg.use_hybrid_phase_funs else 0.0)
     acc = DeviceMomentAccumulator()
     global_batch = n_bad = 0
     setup_seconds = None
+    build_seconds = 0.0
     for li in range(n_lambda):
         if freq[li] <= 0:
             continue
+        t_bin = time.time()
         lam_um = float(ssp_tables[0].lambdas_um[li])
         albedo = float(ssp_tables[0].surface_albedo[li])
-        domain = build_domain_from_plan(
-            grid, plan, li, lam_um, n_cdf_steps=cfg.n_phase_intervals,
-            compute_intensity_tables=cfg.compute_intensity,
-            hybrid_width_deg=hybrid_width)
+        domain = None
+        bin_compact = compact
+        if compact and plan is not None:
+            domain = build_domain_from_plan(
+                grid, plan, li, lam_um, n_cdf_steps=cfg.n_phase_intervals,
+                compute_intensity_tables=cfg.compute_intensity,
+                hybrid_width_deg=hybrid_width)
+            # a vacuum slab: the generic build for this bin only
+            bin_compact = domain is not None
         if domain is None:
-            raise NotImplementedError(
-                f"bin {li} ({lam_um:.4g} um) is a vacuum slab; it needs "
-                + _NON_PLAN)
+            comps, albedo, lam_um = components_from_ssp(
+                common, ssp_tables, li, setup=False,
+                calc_rayleigh=cfg.calc_rayleigh)
+            build = dict(n_cdf_steps=cfg.n_phase_intervals,
+                         compute_intensity_tables=cfg.compute_intensity,
+                         hybrid_width_deg=hybrid_width, temps=common.temps,
+                         macro_factor=cfg.macro_factor, lambda_um=lam_um)
+            if bin_compact:
+                try:
+                    domain = build_domain(grid, comps,
+                                          device_fields="compact", **build)
+                except ValueError:  # this bin broke the separable structure
+                    bin_compact = False
+                    if plan is None:
+                        compact = False
+            if domain is None:
+                domain = build_domain(grid, comps, **build)
         surface = _bin_surface(cfg, albedo)
-        source = illumination.emission_separable(domain, cfg.surface_temp,
-                                                 1.0 - albedo)
+        if bin_compact:
+            source = illumination.emission_separable(domain, cfg.surface_temp,
+                                                     1.0 - albedo)
+        else:
+            w = emission_weighting(grid, common.temps,
+                                   absorption_coefficient(comps, grid),
+                                   cfg.surface_temp, 1.0 - albedo, lam_um)
+            source = illumination.emission(w.voxel_cdf, w.frac_atms_power,
+                                           grid.shape, device=device)
+        if not compact:
+            # this bin runs on the separable kernel: so will the later ones
+            # (broadband.py:66-94 of the JAX package)
+            compact = select_kernel(domain, surface, source, kcfg, icfg,
+                                    idirs)[0] == "sep"
         if setup_seconds is None:
             setup_seconds = time.time() - t_start
+        else:
+            build_seconds += time.time() - t_bin
         remaining = int(freq[li])
         while remaining > 0:
             n = min(remaining, chunk_size)
@@ -199,4 +239,5 @@ def run_broadband(cfg: SimulationConfig, device, common=None,
                    n_batches=moments.n_batches, solar_flux=total_flux,
                    elapsed_seconds=time.time() - t_start, config=cfg,
                    grid=grid, n_bad=n_bad,
-                   setup_seconds=(setup_seconds or 0.0))
+                   setup_seconds=(setup_seconds or 0.0),
+                   build_seconds=build_seconds)

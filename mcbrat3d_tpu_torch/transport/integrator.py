@@ -5,7 +5,8 @@ Counterpart of ``mcbrat3d_tpu.transport.integrator``: ``KernelConfig``,
 rotation the plain steps use. ``run_batch`` dispatches in the JAX
 package's order (``integrator._run_batch_impl``): the record kernel
 (``transport.record_kernel``: 1-3 components, the directional,
-random-azimuth, flux and spotlight sources), with in-kernel radiance when
+random-azimuth, flux and spotlight sources and per-voxel thermal emission
+with the lw_mode pre-credits), with in-kernel radiance when
 radiance directions are given (grids above ``MAX_KERNEL_DIRS`` run as
 direction-chunked passes over the same photons), then for flux runs the
 column-template kernel (``transport.col_kernel``), the separable-template
@@ -16,7 +17,9 @@ record-eligible domain of more than ``TILE_MIN_CELLS`` cells skips the
 record kernel when the tiled kernel takes it, so a small domain of any
 size below that stays on the record kernel whatever its source or
 component count, as in the JAX package. A compact domain or a separable
-emission source must reach the separable kernel.
+emission source must reach the separable kernel. ``select_kernel`` holds
+that order; ``spectral.broadband`` asks it whether a bin runs on the
+separable kernel.
 """
 
 from __future__ import annotations
@@ -141,6 +144,71 @@ def rotate_direction(ux, uy, uz, cos_theta, phi):
     return ox * inv_norm, oy * inv_norm, oz * inv_norm
 
 
+def select_kernel(domain: OpticalDomain, surface: Surface,
+                  source: illumination.Source, config: KernelConfig,
+                  intensity_config: Optional[le.IntensityConfig] = None,
+                  intensity_dirs: Optional[torch.Tensor] = None):
+    """The kernel ``run_batch`` runs this batch on, in the JAX package's
+    order (``integrator._run_batch_impl``): ``"record"``, ``"col"``,
+    ``"sep"`` or ``"tile"``, or None when no ported kernel takes it.
+    Returns ``(kernel, reasons)``; ``reasons`` maps each kernel tried
+    before (or instead of) the chosen one to its failing predicates. With
+    ``intensity_config`` only the record kernel's local estimate is ported;
+    a grid above ``MAX_KERNEL_DIRS`` is judged by its first chunk, which
+    ``run_batch`` runs like every other."""
+    from mcbrat3d_tpu_torch.transport import col_kernel as ck
+    from mcbrat3d_tpu_torch.transport import record_kernel as rk
+    from mcbrat3d_tpu_torch.transport import sep_kernel as sk
+    from mcbrat3d_tpu_torch.transport import tile_kernel as tk
+
+    if intensity_config is not None:
+        if intensity_config.n_dirs > le.MAX_KERNEL_DIRS:
+            intensity_config = dataclasses.replace(
+                intensity_config, n_dirs=le.MAX_KERNEL_DIRS)
+            intensity_dirs = intensity_dirs[:, :le.MAX_KERNEL_DIRS]
+        reasons = rk.intensity_ineligibility_reasons(
+            domain, surface, source, config.lw_mode,
+            config.record_scattering_orders, config.use_ray_tracing,
+            intensity_config, intensity_dirs)
+        return (None if reasons else "record"), {"record": reasons}
+
+    reasons = {"record": rk.ineligibility_reasons(
+        domain, surface, source, lw_mode=config.lw_mode,
+        compute_intensity=False,
+        record_scattering_orders=config.record_scattering_orders,
+        use_ray_tracing=config.use_ray_tracing)}
+    kernel_args = dict(
+        lw_mode=config.lw_mode, compute_intensity=False,
+        record_scattering_orders=config.record_scattering_orders,
+        use_ray_tracing=config.use_ray_tracing,
+        need_volume_absorption=config.need_volume_absorption)
+    tile_reasons = tk.tile_ineligibility_reasons(
+        domain, surface, source,
+        need_absorption_profile=config.need_absorption_profile,
+        **kernel_args)
+    nx, ny, nz = domain.grid.shape
+    if (not reasons["record"] and nx * ny * nz > tk.TILE_MIN_CELLS
+            and not tile_reasons):
+        # past 16,384 cells the JAX package skips the record kernel for a
+        # domain its tiled kernel takes, and tries the column and separable
+        # kernels first (integrator.py:455-471)
+        reasons["record"].append(
+            f"{nx * ny * nz} cells > {tk.TILE_MIN_CELLS} and the tiled "
+            "dense-domain kernel (K5) takes this domain")
+    if not reasons["record"]:
+        return "record", reasons
+    reasons["col"] = ck.col_ineligibility_reasons(domain, surface, source,
+                                                  **kernel_args)
+    if not reasons["col"]:
+        return "col", reasons
+    reasons["sep"] = sk.sep_ineligibility_reasons(domain, surface, source,
+                                                  **kernel_args)
+    if not reasons["sep"]:
+        return "sep", reasons
+    reasons["tile"] = tile_reasons
+    return ("tile" if not tile_reasons else None), reasons
+
+
 def run_batch(domain: OpticalDomain,
               surface: Surface,
               source: illumination.Source,
@@ -155,71 +223,37 @@ def run_batch(domain: OpticalDomain,
     results are deterministic in (seed, config) on the CPU. ``n_photons``
     overrides ``config.photons_per_batch`` (it must not exceed it). With
     ``intensity_config`` and ``intensity_dirs`` ([3, n_dirs]) the tallies
-    carry the top-of-domain radiance image [nx, ny, n_dirs]."""
+    carry the top-of-domain radiance image [nx, ny, n_dirs]. The kernel is
+    ``select_kernel``'s."""
     from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
     from mcbrat3d_tpu_torch.transport import sep_kernel as sk
     from mcbrat3d_tpu_torch.transport import tile_kernel as tk
 
-    if intensity_config is not None:
-        if intensity_config.n_dirs > le.MAX_KERNEL_DIRS:
-            return _run_batch_dir_chunked(domain, surface, source, seed,
-                                          config, intensity_config,
-                                          intensity_dirs, n_photons)
-        reasons = rk.intensity_ineligibility_reasons(
-            domain, surface, source, config.lw_mode,
-            config.record_scattering_orders, config.use_ray_tracing,
-            intensity_config, intensity_dirs)
-        if reasons:
-            if domain.col_template:
-                reasons.append("column-kernel slab-scan radiance is not "
-                               "ported yet")
-            raise NotImplementedError(
-                "radiance configuration outside the ported record kernel "
-                "(and the XLA local estimator is not ported yet); failing "
-                "predicates: " + "; ".join(reasons))
+    if (intensity_config is not None
+            and intensity_config.n_dirs > le.MAX_KERNEL_DIRS):
+        return _run_batch_dir_chunked(domain, surface, source, seed, config,
+                                      intensity_config, intensity_dirs,
+                                      n_photons)
+    kernel, reasons = select_kernel(domain, surface, source, config,
+                                    intensity_config, intensity_dirs)
+    if kernel == "record":
         return rk.run_batch_record_tallies(
             domain, surface, source, seed, config, n_photons=n_photons,
             intensity_config=intensity_config, intensity_dirs=intensity_dirs)
-
-    reasons = rk.ineligibility_reasons(
-        domain, surface, source, lw_mode=config.lw_mode,
-        compute_intensity=False,
-        record_scattering_orders=config.record_scattering_orders,
-        use_ray_tracing=config.use_ray_tracing)
-    kernel_args = dict(
-        lw_mode=config.lw_mode, compute_intensity=False,
-        record_scattering_orders=config.record_scattering_orders,
-        use_ray_tracing=config.use_ray_tracing,
-        need_volume_absorption=config.need_volume_absorption)
-    tile_reasons = tk.tile_ineligibility_reasons(
-        domain, surface, source,
-        need_absorption_profile=config.need_absorption_profile,
-        **kernel_args)
-    nx, ny, nz = domain.grid.shape
-    if not reasons and nx * ny * nz > tk.TILE_MIN_CELLS and not tile_reasons:
-        # past 16,384 cells the JAX package skips the record kernel for a
-        # domain its tiled kernel takes, and tries the column and separable
-        # kernels first (integrator.py:455-471)
-        reasons.append(
-            f"{nx * ny * nz} cells > {tk.TILE_MIN_CELLS} and the tiled "
-            "dense-domain kernel (K5) takes this domain")
-    if not reasons:
-        return rk.run_batch_record_tallies(domain, surface, source, seed,
-                                           config, n_photons=n_photons)
-    col_reasons = ck.col_ineligibility_reasons(domain, surface, source,
-                                               **kernel_args)
-    if not col_reasons:
-        return ck.run_batch_col_tallies(domain, surface, source, seed,
-                                        config, n_photons=n_photons)
-    sep_reasons = sk.sep_ineligibility_reasons(domain, surface, source,
-                                               **kernel_args)
-    if not sep_reasons:
-        return sk.run_batch_sep_tallies(domain, surface, source, seed,
-                                        config, n_photons=n_photons)
-    if not tile_reasons:
-        return tk.run_batch_tile_tallies(domain, surface, source, seed,
-                                         config, n_photons=n_photons)
+    run = {"col": ck.run_batch_col_tallies, "sep": sk.run_batch_sep_tallies,
+           "tile": tk.run_batch_tile_tallies}.get(kernel)
+    if run is not None:
+        return run(domain, surface, source, seed, config, n_photons=n_photons)
+    if intensity_config is not None:
+        record_reasons = list(reasons["record"])
+        if domain.col_template:
+            record_reasons.append("column-kernel slab-scan radiance is not "
+                                  "ported yet")
+        raise NotImplementedError(
+            "radiance configuration outside the ported record kernel "
+            "(and the XLA local estimator is not ported yet); failing "
+            "predicates: " + "; ".join(record_reasons))
     if domain.cell_records is None or source.em_sep:
         # compact domains and separable emission sources carry no per-cell
         # fields: only the separable kernel runs them
@@ -230,15 +264,17 @@ def run_batch(domain: OpticalDomain,
         raise ValueError(
             f"{what}, which only the separable kernel supports, but the run "
             "did not dispatch there; failing predicates: "
-            + "; ".join(sep_reasons))
+            + "; ".join(reasons["sep"]))
     raise NotImplementedError(
         "configuration outside the ported record, column, separable and "
         "tiled kernels (and the XLA wave-kernel fallback is not ported "
-        "yet); failing record-kernel predicates: " + "; ".join(reasons)
-        + "; failing column-kernel predicates: " + "; ".join(col_reasons)
-        + "; failing separable-kernel predicates: " + "; ".join(sep_reasons)
+        "yet); failing record-kernel predicates: "
+        + "; ".join(reasons["record"])
+        + "; failing column-kernel predicates: " + "; ".join(reasons["col"])
+        + "; failing separable-kernel predicates: "
+        + "; ".join(reasons["sep"])
         + "; failing tiled-kernel (K5) predicates: "
-        + "; ".join(tile_reasons))
+        + "; ".join(reasons["tile"]))
 
 
 def _run_batch_dir_chunked(domain, surface, source, seed, config, icfg,

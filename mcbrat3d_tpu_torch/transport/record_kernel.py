@@ -5,7 +5,9 @@ PyTorch counterpart of ``mcbrat3d_tpu.transport.pallas_kernel`` for the
 record megakernel (``_build_kernel``, ``_make_launch``, ``run_batch_pallas``,
 ``run_batch_pallas_tallies``). Every lane carries one photon through
 ``steps_per_call`` transport steps per launch: refill from the source
-(directional, random-azimuth, flux or spotlight), Woodcock jump against
+(directional, random-azimuth, flux, spotlight, or thermal emission drawn
+per voxel from a Walker alias table, with the ``lw_mode`` pre-credit of
+-1 at the birth cell of every atmospheric emission), Woodcock jump against
 the (optional two-level macro-cell) majorant, record fetch (one component,
 or 2-3 components chosen by one uniform against the cell's cumulative
 scattering fractions), null-collision test, absorption weight, Russian
@@ -18,7 +20,9 @@ periodic x/y wrap, the phase value (of the chosen component) from analytic
 HG or a forward table resampled uniform in sin(theta/2), the exact or the
 Iwabuchi roulette estimator and optional contribution capping with one
 excess slot per component, tallied at the column where the ray leaves the
-top (``pallas_kernel.py:1515-2115``).
+top (``pallas_kernel.py:1515-2115``); with ``lw_mode``, a newly emitted photon
+first contributes its emission local estimate (weight 1) and moves from the
+next step on (the "fresh hold").
 
 Two implementations of one launch:
 
@@ -61,9 +65,10 @@ MAX_CELLS = 288 * 128
 MAX_INV_ENTRIES = 1024 * 128
 MAX_COMPONENTS = 3
 # Sources the kernel refills from, by their code (csrc/record_kernel.cu
-# SRC_*).
+# SRC_*); emission needs the per-voxel alias tables (illumination.emission).
 SOURCE_KINDS = (illumination.DIRECTIONAL, illumination.RANDOM_AZIMUTH,
-                illumination.FLUX, illumination.SPOTLIGHT)
+                illumination.FLUX, illumination.SPOTLIGHT,
+                illumination.EMISSION)
 
 # Radiance launch geometry (pallas_kernel.py:3278-3291): local estimation
 # runs per event and per direction, so lane occupancy decides its cost; the
@@ -75,21 +80,27 @@ RADIANCE_ROWS = 32
 FWD_N_S = 2048
 
 # Kernel launches made by ``_launch_cuda`` in this process, all of them,
-# and those that ran the local estimate.
+# those that ran the local estimate and those that ran the emission refill
+# (the thermal source of LW runs).
 LAUNCHES = 0
 RADIANCE_LAUNCHES = 0
+LW_LAUNCHES = 0
 
 # Slots of the float32 parameter vector (csrc/record_kernel.cu P_*).
 (P_BETA_MAX, P_INV_BETA_MAX, P_ALBEDO, P_SMU, P_SUX, P_SUY, P_RR_W,
  P_X0, P_LX, P_Y0, P_LY, P_Z0, P_LZ, P_INV_DX, P_INV_DY, P_INV_DZ,
  P_ZMAX, P_ZEPS, P_BXW, P_BYW, P_BZW, P_NUDGE, P_TWO_PI, P_HALF_RR,
  P_ZTOP, P_ZBOT, P_DXC, P_DYC, P_DZC, P_MNUDGE, P_ZETA, P_MAXC,
- P_SPOT_X, P_SPOT_Y, N_PARAMS) = range(35)
+ P_SPOT_X, P_SPOT_Y, P_ATMS, N_PARAMS) = range(36)
 
 # Local-estimate phase source (csrc/record_kernel.cu PHASE_*): analytic HG,
 # forward table row 0 (all-HG domains), forward table row = the record's
 # phase index.
 PHASE_HG, PHASE_TABLE_ROW0, PHASE_TABLE = range(3)
+# Kind of a local-estimate event (csrc/record_kernel.cu EV_*): a scatter
+# (phase value / (4 pi mu_d)), a surface reflection or surface emission
+# (Lambertian 1/pi), an atmospheric emission (isotropic 1/(4 pi mu_d)).
+EV_SCATTER, EV_LAMBERT, EV_ISOTROPIC = range(3)
 
 _TINY = 1e-30
 _F32 = np.float32
@@ -130,8 +141,10 @@ def ineligibility_reasons(domain: OpticalDomain, surface: Surface,
     """Names of every failing record-kernel predicate (empty = eligible).
 
     Port of ``pallas_kernel.ineligibility_reasons`` without what is still
-    to port: the BBEmission refill and the lw_mode pre-credits (K1-c) and
-    the uniform RPV and per-pixel Lambertian surfaces (K1-d)."""
+    to port: the uniform RPV and per-pixel Lambertian surfaces (K1-d). An
+    emission source is in-kernel when it carries its alias tables
+    (``illumination.emission``), not when it is backed by a separable
+    domain's tables (``emission_separable``)."""
     nx, ny, nz = domain.grid.shape
     n_cells = nx * ny * nz
     vol_base = -(-2 * nx * ny // 128) * 128
@@ -148,13 +161,12 @@ def ineligibility_reasons(domain: OpticalDomain, surface: Surface,
         ("surface is not uniform Lambertian (K1-d: uniform RPV and "
          "per-pixel Lambertian are not ported yet)",
          surface.is_uniform_lambertian),
-        (f"source kind {source.kind!r} not in-kernel (K1-c: the "
-         "BBEmission refill is not ported yet)"
-         if source.kind == illumination.EMISSION
-         else f"source kind {source.kind!r} not in-kernel",
-         source.kind in SOURCE_KINDS),
-        ("lw_mode (K1-c: the emission pre-credits are not ported yet)",
-         not lw_mode),
+        (f"source kind {source.kind!r} not in-kernel",
+         source.kind in SOURCE_KINDS[:4]
+         or (source.kind == illumination.EMISSION
+             and source.em_prob is not None)),
+        ("lw_mode without an emission source",
+         (not lw_mode) or source.kind == illumination.EMISSION),
         ("compute_intensity outside intensity_ineligibility_reasons",
          not compute_intensity),
         ("record_scattering_orders > 0", record_scattering_orders == 0),
@@ -300,9 +312,11 @@ class RecordTables:
     """Device tables the step reads: records [n_cells, stride] f32 (the
     domain's ``cell_records`` for one component, its
     ``multi_component_records`` for 2-3), the flat inverse-CDF angles with
-    their forward differences and, for radiance, the direction cosines
-    [3, n_dirs] and the resampled forward phase table (``forward_table``);
-    one-element placeholders otherwise."""
+    their forward differences, for radiance the direction cosines
+    [3, n_dirs] and the resampled forward phase table (``forward_table``),
+    and for a per-voxel emission source its Walker alias pair [n_cells]
+    (acceptance, alias target; f32, kernel cell order); one-element
+    placeholders otherwise."""
 
     records: torch.Tensor
     inv_a0: torch.Tensor
@@ -310,10 +324,12 @@ class RecordTables:
     dirs: torch.Tensor
     fwd_v0: torch.Tensor
     fwd_dd: torch.Tensor
+    em_prob: torch.Tensor = None
+    em_alias: torch.Tensor = None
 
     @staticmethod
     def from_domain(domain: OpticalDomain, intensity_config=None,
-                    intensity_dirs=None) -> "RecordTables":
+                    intensity_dirs=None, source=None) -> "RecordTables":
         rec = (domain.cell_records.contiguous()
                if domain.n_components == 1
                else multi_component_records(domain))
@@ -326,8 +342,13 @@ class RecordTables:
             if _phase_source(domain, intensity_config) != PHASE_HG:
                 v0, fdd = forward_table(domain,
                                         intensity_config.use_hybrid_phase)
+        em_prob = em_alias = zero
+        if source is not None and source.kind == illumination.EMISSION:
+            em_prob = source.em_prob.to(rec.device).contiguous()
+            em_alias = source.em_alias.to(rec.device).contiguous()
         return RecordTables(records=rec, inv_a0=a0, inv_dd=dd, dirs=dirs,
-                            fwd_v0=v0, fwd_dd=fdd)
+                            fwd_v0=v0, fwd_dd=fdd, em_prob=em_prob,
+                            em_alias=em_alias)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,8 +357,11 @@ class RecordParams:
     (P_* slots, computed in float32 as the JAX launch computes them),
     ``device_values`` its copy on the kernel's device. ``source_kind``
     indexes ``SOURCE_KINDS``; ``ncomp`` > 1 reads the 8-column
-    multi-component record. ``n_dirs`` > 0 turns on the local estimate with
-    the ``le_*`` switches."""
+    multi-component record. ``lw`` (lw_mode with an emission source)
+    pre-credits -1 to the volume tally at each atmospheric birth and, with
+    radiance, holds a newly emitted photon for its emission local
+    estimate. ``n_dirs`` > 0 turns on the local estimate with the ``le_*``
+    switches."""
 
     values: np.ndarray
     device_values: torch.Tensor
@@ -354,6 +378,7 @@ class RecordParams:
     vol_tally: bool
     source_kind: int = 0
     ncomp: int = 1
+    lw: bool = False
     n_dirs: int = 0
     le_phase: int = PHASE_HG
     le_rr: bool = False      # Iwabuchi roulette estimator
@@ -389,7 +414,8 @@ class RecordParams:
     def make(domain: OpticalDomain, surface: Surface,
              source: illumination.Source, use_russian_roulette: bool,
              russian_roulette_weight: float, vol_tally: bool,
-             intensity_config=None, intensity_dirs=None) -> "RecordParams":
+             intensity_config=None, intensity_dirs=None,
+             lw_mode: bool = False) -> "RecordParams":
         f = _F32
         nx, ny, nz = domain.grid.shape
         xe, ye, ze = domain.grid.edges_f32()
@@ -425,6 +451,13 @@ class RecordParams:
         if source.kind == illumination.SPOTLIGHT:
             vals[[P_SPOT_X, P_SPOT_Y]] = (f(source.solar_x),
                                           f(source.solar_y))
+        # emission: fracAtmsPower (JAX params 16)
+        emission = source.kind == illumination.EMISSION
+        if emission:
+            vals[P_ATMS] = f(source.atms_fraction)
+        lw = bool(lw_mode) and emission
+        if lw and not vol_tally:
+            raise ValueError("lw_mode pre-credits need the 3D volume tally")
         icfg = intensity_config
         le_kw = {}
         if icfg is not None:
@@ -449,7 +482,7 @@ class RecordParams:
             inv_n_steps=int(domain.tables.inverse.shape[1]),
             use_rr=bool(use_russian_roulette), vol_tally=bool(vol_tally),
             source_kind=SOURCE_KINDS.index(source.kind), ncomp=ncomp,
-            **le_kw)
+            lw=lw, **le_kw)
 
 
 # ---------------------------------------------------------------------------
@@ -472,6 +505,56 @@ def face_distance(pos, p0, d, bw, length):
                      0.0, length) + p0) - pos
     return torch.where(d.abs() > 1e-12, t / torch.where(d == 0, 1.0, d),
                        3e38)
+
+
+def cell_indices(v: torch.Tensor, ny: int, nz: int) -> tuple:
+    """(ix, iy, iz) of the cells ``v`` = (ix*ny + iy)*nz + iz, by integer
+    division as the kernel does (the JAX kernel's floored float32 divides,
+    pallas_kernel.py:951-956, give the same cells within the envelope)."""
+    col = torch.div(v, nz, rounding_mode="floor")
+    ix = torch.div(col, ny, rounding_mode="floor")
+    return ix, col - ix * ny, v - col * nz
+
+
+def emission_refill(u, ctr: int, tab: RecordTables, p: RecordParams):
+    """The BBEmission refill of every lane (pallas_kernel.py:897-987):
+    returns the birth point (x, y, z), mu, the atmosphere/surface split
+    and the birth cell (ix*ny + iy)*nz + iz.
+
+    One uniform against fracAtmsPower splits atmosphere from surface; the
+    emitting voxel is a Walker alias draw (a uniform bin, accepted with its
+    probability, else its alias); the photon starts uniform in that voxel
+    (z kept z_eps inside the domain) with an isotropic mu whose magnitude
+    is at least 1e-4, or uniform on the surface with a Lambertian
+    mu = sqrt(u) upward (reference: src/monteCarloIllumination.f95:487-509).
+    The JAX kernel decomposes the cell with floored float32 divides; the
+    port divides integers (``cell_indices``)."""
+    nx, ny, nz = p.nx, p.ny, p.nz
+    x0, y0, z0 = p[P_X0], p[P_Y0], p[P_Z0]
+    u0 = u(ctr, rng.SITE_X)
+    u1 = u(ctr, rng.SITE_Y)
+    from_atm = u(ctr, rng.SITE_EM_SPLIT) < p[P_ATMS]
+    n_cells = nx * ny * nz
+    jbin = torch.clamp((u(ctr, rng.SITE_EM_BIN) * float(n_cells)).to(
+        torch.int32), max=n_cells - 1)
+    p_j = tab.em_prob[jbin.long()]
+    a_j = tab.em_alias[jbin.long()]
+    v = torch.where(u(ctr, rng.SITE_EM_ACCEPT) < p_j, jbin,
+                    (a_j + 0.5).to(torch.int32))
+    ix, iy, iz = cell_indices(v, ny, nz)
+    xa = x0 + (ix.to(torch.float32) + u0) * p[P_DXC]
+    ya = y0 + (iy.to(torch.float32) + u1) * p[P_DYC]
+    za = torch.clamp(z0 + (iz.to(torch.float32) + u(ctr, rng.SITE_SOURCE))
+                     * p[P_DZC], p[P_ZBOT], p[P_ZTOP])
+    u_mu = u(ctr, rng.SITE_EM_MU)
+    mu_a = 1.0 - 2.0 * u_mu
+    mu_a = torch.where(mu_a.abs() < 1e-4, torch.sign(mu_a + _TINY) * 1e-4,
+                       mu_a)
+    mu_sfc = torch.sqrt(torch.clamp(u_mu, min=1e-12))
+    return (torch.where(from_atm, xa, x0 + u0 * p[P_LX]),
+            torch.where(from_atm, ya, y0 + u1 * p[P_LY]),
+            torch.where(from_atm, za, p[P_ZBOT]),
+            torch.where(from_atm, mu_a, mu_sfc), from_atm, v)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -517,19 +600,25 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     x, y, z, ux, uy, uz, w, bl = (st.x, st.y, st.z, st.ux, st.uy, st.uz,
                                   st.w, st.bl)
 
-    # ---- refill dead lanes from the source (pallas_kernel.py:988-1027) ----
+    # ---- refill dead lanes from the source (pallas_kernel.py:897-1027) ----
     alive = st.alive > 0
     need = ~alive & (st.quota > 0)
     kind = SOURCE_KINDS[p.source_kind]
-    if kind == illumination.SPOTLIGHT:  # one entry point
-        x = torch.where(need, float(_F32(x0) + _F32(p[P_SPOT_X]) * _F32(lx)),
-                        x)
-        y = torch.where(need, float(_F32(y0) + _F32(p[P_SPOT_Y]) * _F32(ly)),
-                        y)
+    if kind == illumination.EMISSION:
+        ex, ey, ez, s_mu, from_atm, birth = emission_refill(u, ctr, tab, p)
+        x = torch.where(need, ex, x)
+        y = torch.where(need, ey, y)
+        z = torch.where(need, ez, z)
     else:
-        x = torch.where(need, x0 + u(ctr, rng.SITE_X) * lx, x)
-        y = torch.where(need, y0 + u(ctr, rng.SITE_Y) * ly, y)
-    z = torch.where(need, p[P_ZTOP], z)
+        if kind == illumination.SPOTLIGHT:  # one entry point
+            x = torch.where(
+                need, float(_F32(x0) + _F32(p[P_SPOT_X]) * _F32(lx)), x)
+            y = torch.where(
+                need, float(_F32(y0) + _F32(p[P_SPOT_Y]) * _F32(ly)), y)
+        else:
+            x = torch.where(need, x0 + u(ctr, rng.SITE_X) * lx, x)
+            y = torch.where(need, y0 + u(ctr, rng.SITE_Y) * ly, y)
+        z = torch.where(need, p[P_ZTOP], z)
     if kind in (illumination.DIRECTIONAL, illumination.SPOTLIGHT):
         s_mu = torch.full_like(x, -p[P_SMU])
         sux = torch.full_like(x, p[P_SUX])
@@ -538,9 +627,11 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
         if kind == illumination.RANDOM_AZIMUTH:
             s_mu = torch.full_like(x, -p[P_SMU])
             s_phi = p[P_TWO_PI] * u(ctr, rng.SITE_SOURCE)
-        else:  # flux: mu = -sqrt(u), the azimuth at its own site
+        elif kind == illumination.FLUX:  # mu = -sqrt(u)
             s_mu = -torch.sqrt(torch.clamp(u(ctr, rng.SITE_SOURCE),
                                            min=1e-12))
+            s_phi = p[P_TWO_PI] * u(ctr, rng.SITE_SOURCE_PHI)
+        else:  # emission: mu from the refill; the azimuth as flux's
             s_phi = p[P_TWO_PI] * u(ctr, rng.SITE_SOURCE_PHI)
         s_sin = torch.sqrt(torch.clamp(1.0 - s_mu * s_mu, min=0.0))
         sux = s_sin * torch.cos(s_phi)
@@ -553,6 +644,9 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     quota = st.quota - need.to(torch.int32)
     started = need.sum()
     tally.counts[2] += alive.sum().to(torch.int32)
+    # LW radiance: a newly emitted photon contributes its emission local
+    # estimate this step and moves from the next one (pallas_kernel.py:986)
+    held = need if p.lw and p.n_dirs > 0 else None
 
     # ---- Woodcock jump ----
     tau = -torch.log1p(-u(ctr, rng.SITE_TAU))
@@ -577,6 +671,11 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     exit_bot = alive & ~exit_top & (zn <= z0)
     moved = alive & ~exit_top & ~exit_bot
     collide = moved & ~clipped
+    if held is not None:  # held lanes neither move nor tally this step
+        exit_top = exit_top & ~held
+        exit_bot = exit_bot & ~held
+        moved = moved & ~held
+        collide = collide & ~held
 
     # boundary crossing point (exit tallies + reflection)
     z_b = torch.where(exit_top, z_max, z0)
@@ -675,19 +774,32 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     alive = alive & ~exit_top & ~died_weight & ~died_surface
 
     # ---- local estimate: scatters at the collision point, reflections
-    # just above the surface (disjoint per lane) ----
+    # just above the surface, emissions at the birth point (disjoint per
+    # lane; pallas_kernel.py:1523-1534, :1682-1688) ----
     if p.n_dirs > 0:
-        ev = torch.nonzero(real | reflected).squeeze(1)
+        ev_kind = torch.where(reflected, EV_LAMBERT, EV_SCATTER)
+        sx = torch.where(reflected, xe, xc)
+        sy = torch.where(reflected, ye, yc)
+        sz = torch.where(reflected, p[P_ZBOT], zc)
+        w_ev = torch.where(reflected, w_refl, w_int)
+        event = real | reflected
+        if held is not None:
+            event = event | held
+            ev_kind = torch.where(
+                held, torch.where(from_atm, EV_ISOTROPIC, EV_LAMBERT),
+                ev_kind)
+            sx = torch.where(held, x, sx)
+            sy = torch.where(held, y, sy)
+            sz = torch.where(held, z, sz)
+            w_ev = torch.where(held, 1.0, w_ev)
+        ev = torch.nonzero(event).squeeze(1)
         if ev.numel():
-            refl = reflected[ev]
+            # capped-excess slot: 0 for reflections and emissions
             local_estimate_plain(
-                tab, prm, u, ctr, ev, refl,
-                torch.where(refl, 0, slot_sc[ev]),
-                torch.where(refl, xe[ev], xc[ev]),
-                torch.where(refl, ye[ev], yc[ev]),
-                torch.where(refl, p[P_ZBOT], zc[ev]),
-                torch.where(refl, w_refl[ev], w_int[ev]),
-                ux_in[ev], uy_in[ev], uz_in[ev], f2[ev], tally)
+                tab, prm, u, ctr, ev, ev_kind[ev],
+                torch.where(real[ev], slot_sc[ev], 0), sx[ev], sy[ev],
+                sz[ev], w_ev[ev], ux_in[ev], uy_in[ev], uz_in[ev], f2[ev],
+                tally)
 
     # ---- fused tally: one entry per lane (exit or absorption) ----
     t_val = torch.where(exit_top, w, torch.where(exit_bot, w_down, absorbed))
@@ -695,6 +807,12 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     t_idx = torch.where(exits, torch.where(exit_top, col_e, nxy + col_e),
                         2 * nxy + (cell if p.vol_tally else col_c))
     acc.index_add_(0, t_idx.long(), t_val)
+    if p.lw:
+        # LW pre-credit: -1 at the birth cell of every atmospheric emission,
+        # the lane's second tally this step (pallas_kernel.py:2189-2213)
+        atm_emit = need & from_atm
+        acc.index_add_(0, (2 * nxy + birth[atm_emit]).long(),
+                       torch.full_like(x[atm_emit], -1.0))
 
     st.x, st.y, st.z, st.ux, st.uy, st.uz, st.w, st.bl = (
         x, y, z, ux, uy, uz, w, bl)
@@ -704,15 +822,16 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
 
 
 def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
-                         ev: torch.Tensor, refl: torch.Tensor,
+                         ev: torch.Tensor, ev_kind: torch.Tensor,
                          slot: torch.Tensor,
                          sx, sy, sz, w_ev, ux_in, uy_in, uz_in, f2,
                          tally: RecordTally) -> None:
     """Local estimate of the event lanes ``ev`` (int64 lane indices; the
     other arguments are per event) toward every direction, tallied into
     ``tally.img`` / ``tally.exc``; marches cut by the iteration bound are
-    counted into ``tally.counts[4]``. ``slot`` is the capped-excess slot
-    of each event (0 a reflection, 1 + c a scatter by component c).
+    counted into ``tally.counts[4]``. ``ev_kind`` (EV_*) picks the phase
+    term; ``slot`` is the capped-excess slot of each event (0 a reflection
+    or an emission, 1 + c a scatter by component c).
 
     Same float32 arithmetic as pallas_kernel.py:1515-2084 with the cell
     march: all (event, direction) pairs march together, each until it
@@ -729,7 +848,7 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
 
     d_idx = torch.arange(n_dirs, device=ev.device).repeat(n_ev)
     ddx, ddy, ddz = (tab.dirs[i][d_idx] for i in range(3))
-    refl_p = pairs(refl)
+    kind_p = pairs(ev_kind)
     cosb = (pairs(ux_in) * ddx + pairs(uy_in) * ddy) + pairs(uz_in) * ddz
     if p.le_phase == PHASE_HG:
         g = pairs(f2)
@@ -745,8 +864,11 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
         if p.le_phase == PHASE_TABLE:
             flat = flat + pairs(f2).to(torch.int64) * FWD_N_S
         pv = tab.fwd_v0[flat] + frac * tab.fwd_dd[flat]
-    npf = torch.where(refl_p, float(_F32(1.0 / np.pi)),
-                      pv / (float(_F32(4.0 * np.pi)) * ddz))
+    four_pi_mu = float(_F32(4.0 * np.pi)) * ddz
+    npf = torch.where(kind_p == EV_LAMBERT, float(_F32(1.0 / np.pi)),
+                      pv / four_pi_mu)
+    npf = torch.where(kind_p == EV_ISOTROPIC,
+                      torch.ones_like(ddz) / four_pi_mu, npf)
     sdx = torch.where(ddx.abs() > 1e-12, ddx, 1e-12)
     sdy = torch.where(ddy.abs() > 1e-12, ddy, 1e-12)
     ndx, ndy = torch.sign(ddx) * 1e-4, torch.sign(ddy) * 1e-4
@@ -855,7 +977,7 @@ def _library():
         lib.record_kernel_num_params.argtypes = []
         lib.record_kernel_launch.restype = _I
         lib.record_kernel_launch.argtypes = (
-            [_P] * 21 + [_I] * 10 + [_U, _U] + [_I] * 6 + [_I] * 8 + [_P])
+            [_P] * 23 + [_I] * 10 + [_U, _U] + [_I] * 7 + [_I] * 8 + [_P])
         if lib.record_kernel_num_params() != N_PARAMS:
             raise RuntimeError("csrc/record_kernel.cu and record_kernel.py "
                                "disagree on the parameter layout")
@@ -876,7 +998,7 @@ def _check(t: torch.Tensor, name: str, dtype, n: int, device) -> None:
 def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
                  seed: int, step0: int, k_steps: int,
                  tally: RecordTally) -> None:
-    global LAUNCHES, RADIANCE_LAUNCHES
+    global LAUNCHES, RADIANCE_LAUNCHES, LW_LAUNCHES
     dev = st.x.device
     n = st.x.shape[0]
     for name in RecordState.FLOAT_FIELDS:
@@ -895,6 +1017,10 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
     _check(tally.img, "img", torch.float32, max(1, prm.n_img), dev)
     _check(tally.exc, "exc", torch.float32, max(1, prm.n_exc), dev)
     _check(tally.counts, "counts", torch.int32, 5, dev)
+    emission = SOURCE_KINDS[prm.source_kind] == illumination.EMISSION
+    if emission:
+        _check(tab.em_prob, "em_prob", torch.float32, n_cells, dev)
+        _check(tab.em_alias, "em_alias", torch.float32, n_cells, dev)
     if prm.n_dirs:
         if prm.n_dirs > le.MAX_KERNEL_DIRS:
             raise ValueError(f"{prm.n_dirs} radiance directions > "
@@ -910,19 +1036,22 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
     ptrs = [prm.device_values, tab.records, tab.inv_a0, tab.inv_dd,
             *(getattr(st, k) for k in RecordState.FLOAT_FIELDS),
             st.quota, st.alive, tally.acc, tally.counts, tab.dirs,
-            tab.fwd_v0, tab.fwd_dd, tally.img, tally.exc]
+            tab.fwd_v0, tab.fwd_dd, tally.img, tally.exc, tab.em_prob,
+            tab.em_alias]
     err = lib.record_kernel_launch(
         *(t.data_ptr() for t in ptrs), n, prm.nx, prm.ny, prm.nz,
         prm.stride, prm.off_ssa, prm.off_f2, prm.inv_n_steps,
         int(prm.use_rr), prm.n_acc, seed & 0xFFFF_FFFF,
         step0 & 0xFFFF_FFFF, k_steps, int(prm.macro_factor > 0),
         int(prm.vol_tally), int(prm.analytic_hg), prm.source_kind,
-        prm.ncomp, prm.n_dirs, prm.le_phase,
+        prm.ncomp, int(prm.lw), prm.n_dirs, prm.le_phase,
         FWD_N_S, int(prm.le_rr), int(prm.le_cap), prm.k_dda, prm.n_img,
         prm.n_exc, stream)
     LAUNCHES += 1
     if prm.n_dirs:
         RADIANCE_LAUNCHES += 1
+    if emission:
+        LW_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f"record_kernel launch failed: CUDA error {err}")
 
@@ -1001,14 +1130,15 @@ def initial_quota(n_lanes: int, photons_per_lane: int, n_photons,
 
 def _record_batch(domain, surface, source, seed, rcfg, photons_per_lane,
                   n_photons, use_russian_roulette, russian_roulette_weight,
-                  launch, intensity_config, intensity_dirs):
+                  launch, intensity_config, intensity_dirs, lw_mode):
     """``run_batch_record``'s tuple, the lane-steps with a live photon and
     the real collisions."""
     dev = domain.device
     prm = RecordParams.make(domain, surface, source, use_russian_roulette,
                             russian_roulette_weight, rcfg.vol_tally,
-                            intensity_config, intensity_dirs)
-    tab = RecordTables.from_domain(domain, intensity_config, intensity_dirs)
+                            intensity_config, intensity_dirs, lw_mode)
+    tab = RecordTables.from_domain(domain, intensity_config, intensity_dirs,
+                                   source)
     quota0 = initial_quota(rcfg.n_lanes, photons_per_lane, n_photons, dev)
     st = RecordState.initial(quota0, prm[P_BETA_MAX])
     tally = RecordTally.zeros(prm, dev)
@@ -1045,7 +1175,7 @@ def run_batch_record(domain: OpticalDomain, surface: Surface,
                      n_photons=None, use_russian_roulette: bool = True,
                      russian_roulette_weight: float = 1.0,
                      launch=record_launch, intensity_config=None,
-                     intensity_dirs=None):
+                     intensity_dirs=None, lw_mode: bool = False):
     """Run one photon batch; returns (flux_up [nx,ny], flux_down [nx,ny],
     absorbed ([nx,ny,nz] with ``rcfg.vol_tally``, else [nx,ny]),
     n_started, n_bad, n_calls), plus the raw radiance image
@@ -1058,11 +1188,12 @@ def run_batch_record(domain: OpticalDomain, surface: Surface,
     uint32 kernel seed; ``launch`` is ``record_launch`` (or, to compare the
     two on one device, ``record_launch_plain``). With capping the excess is
     redistributed over the image after the batch
-    (pallas_kernel.py:3014-3033)."""
+    (pallas_kernel.py:3014-3033). ``lw_mode`` with an emission source
+    pre-credits the births (needs ``rcfg.vol_tally``)."""
     return _record_batch(domain, surface, source, seed, rcfg,
                          photons_per_lane, n_photons, use_russian_roulette,
                          russian_roulette_weight, launch, intensity_config,
-                         intensity_dirs)[0]
+                         intensity_dirs, lw_mode)[0]
 
 
 def run_batch_record_tallies(domain, surface, source, seed: int, config,
@@ -1073,8 +1204,10 @@ def run_batch_record_tallies(domain, surface, source, seed: int, config,
     returns a ``transport.integrator.Tallies``. A radiance run uses at most
     ``radiance_rows`` rows of 128 lanes and folds the rest of the batch
     into per-lane quota (pallas_kernel.py:3278-3291)."""
-    # absorption per column unless the 3D field or its profile is wanted
-    vol = config.need_volume_absorption or config.need_absorption_profile
+    # absorption per column unless the 3D field or its profile is wanted,
+    # or lw_mode pre-credits the births (pallas_kernel.py:3272-3277)
+    vol = (config.need_volume_absorption or config.need_absorption_profile
+           or config.lw_mode)
     rcfg, ppl = config_for(config.n_lanes, config.photons_per_lane,
                            config.max_steps, vol_tally=vol)
     if intensity_config is not None:
@@ -1086,7 +1219,7 @@ def run_batch_record_tallies(domain, surface, source, seed: int, config,
     out, lane_steps, n_real = _record_batch(
         domain, surface, source, seed, rcfg, ppl, n_photons,
         config.use_russian_roulette, config.russian_roulette_weight,
-        launch, intensity_config, intensity_dirs)
+        launch, intensity_config, intensity_dirs, config.lw_mode)
     fu, fd, ab, n_started, n_bad, n_calls = out[:6]
     return Tallies(
         flux_up=fu, flux_down=fd,

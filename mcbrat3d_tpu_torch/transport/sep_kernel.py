@@ -117,12 +117,15 @@ def sep_ineligibility_reasons(domain: OpticalDomain, surface: Surface,
                               need_volume_absorption: bool) -> list:
     """Names of every failing separable-kernel predicate (empty =
     eligible): port of ``pallas_sep.sep_ineligibility_reasons``, with the
-    same names. The port's emission sources are all separable-backed."""
+    same names. An emission source, per voxel or separable-backed, is
+    sampled from the domain's own separable emission tables
+    (pallas_sep.py:1107-1131), so the domain must carry them."""
     nx, ny, nz = domain.grid.shape
     f = domain.macro_factor if domain.macro_factor > 0 else max(nx, ny)
     nbx, nby = -(-nx // f), -(-ny // f)
     em_ok = (source.kind != illumination.EMISSION
-             or (source.em_sep and domain.sep_em_zpa is not None))
+             or ((source.em_prob is not None or source.em_sep)
+                 and domain.sep_em_zpa is not None))
     checks = (
         ("domain is not separable (beta != a[col]*p[z] + q[z]; "
          "see OpticalDomain.sep_template)", domain.sep_template),

@@ -20,14 +20,18 @@ from scipy.io import netcdf_file
 from mcbrat3d_tpu.core import rng as jrng
 from mcbrat3d_tpu.core.accumulate import kahan_cumsum as jkahan
 from mcbrat3d_tpu.domain import common as jcommon
+from mcbrat3d_tpu.domain.domain import build_domain as jbuild_domain
 from mcbrat3d_tpu.domain import sep_plan as jplan
 from mcbrat3d_tpu.domain import ssp as jssp
 from mcbrat3d_tpu.driver.config import load_config as jload
+from mcbrat3d_tpu.physics.surface import Surface as JSurface
 from mcbrat3d_tpu.scenes import collection as jcollection
+from mcbrat3d_tpu.sources import illumination as jill
 from mcbrat3d_tpu.spectral import broadband as jbb
 from mcbrat3d_tpu.spectral import weights as jweights
 from mcbrat3d_tpu.transport import pallas_kernel as jpk
 from mcbrat3d_tpu.transport import pallas_sep as jsep
+from mcbrat3d_tpu.transport import pallas_tile as jpt
 from mcbrat3d_tpu_torch.core import accumulate
 from mcbrat3d_tpu_torch.domain import common, sep_plan, ssp
 from mcbrat3d_tpu_torch.domain.domain import build_domain
@@ -279,6 +283,7 @@ def test_lw_deck_through_the_cli(inputs, capsys, monkeypatch):
     assert out["total_photons"] == 2048 and out["n_bad"] == 0
     assert out["launches"] == {"record_kernel": 0,
                                "record_kernel_radiance": 0,
+                               "record_kernel_lw": 0,
                                "col_kernel": 0, "sep_kernel": 0,
                                "tile_kernel": 0}
     assert sorted(out["outputs"]) == ["LW325_flux.out", "LW325_results.nc"]
@@ -294,11 +299,92 @@ def test_lw_deck_through_the_cli(inputs, capsys, monkeypatch):
 
 
 def test_unported_broadband_paths_raise(inputs, monkeypatch):
+    """Shortwave is not ported. With Rayleigh the deck has no separable
+    plan, so its bins take the generic build: 38,400 cells of three
+    components, which no ported kernel takes (K1 past MAX_CELLS, K4 not
+    separable, K5 not emission) and which the JAX package's megakernels
+    refuse too (only its XLA wave kernel runs them): run_batch raises,
+    naming each kernel's failing predicates."""
     monkeypatch.chdir(inputs)
     cfg = load_config("deck.nml")
     with pytest.raises(NotImplementedError, match="shortwave"):
         broadband.run_broadband(dataclasses.replace(cfg, lw_flag=-1.0),
                                 "cpu")
-    with pytest.raises(NotImplementedError, match="separable per-bin plan"):
+    with pytest.raises(NotImplementedError,
+                       match="n_cells=38400 > 36864") as err:
         broadband.run_broadband(dataclasses.replace(cfg, calc_rayleigh=True),
                                 "cpu")
+    assert "domain is not separable" in str(err.value)
+    assert "emission source" in str(err.value)
+    # the JAX package's dispatch of the same first bin
+    common = jcommon.read_common("common.nc")
+    tables = [jssp.read_ssp_table("ssp.nc")]
+    comps, albedo, lam = jssp.components_from_ssp(common, tables, 0,
+                                                  calc_rayleigh=True)
+    dom = jbuild_domain(common.grid, comps, temps=common.temps,
+                        lambda_um=lam, n_cdf_steps=201, macro_factor=8)
+    w = jweights.emission_weighting(
+        common.grid, common.temps,
+        jweights.absorption_coefficient(comps, common.grid), 288.0,
+        1.0 - albedo, lam)
+    src = jill.emission(w.voxel_cdf, w.frac_atms_power, common.grid.shape)
+    sfc = JSurface.lambertian(albedo, temperature=288.0,
+                              emissivity=1.0 - albedo)
+    args = dict(lw_mode=True, compute_intensity=False,
+                record_scattering_orders=0, use_ray_tracing=False)
+    assert jpk.ineligibility_reasons(dom, sfc, src, **args)
+    assert jsep.sep_ineligibility_reasons(
+        dom, sfc, src, need_volume_absorption=False, **args)
+    assert "emission source" in jpt.tile_ineligibility_reasons(
+        dom, sfc, src, need_volume_absorption=False, **args)
+
+
+def test_rayleigh_deck_within_k1_runs_as_jax_dispatches(tmp_path,
+                                                        monkeypatch):
+    """The positive case: with Rayleigh and 8 x 8 x 150 cells (within the
+    record kernel's envelope) every bin takes the generic build and the
+    per-voxel source and runs on the record kernel (its plain step here),
+    as the JAX package's dispatch takes its record kernel for the same
+    bin."""
+    kw = dict(nx=8, ny=8, nz=150, n_lambda=2)
+    collection.write_lw_flagship_inputs(str(tmp_path / "common.nc"),
+                                        str(tmp_path / "ssp.nc"), **kw)
+    with open(os.path.join(ROOT, "run", "I3RC_bench_LW_325.nml")) as f:
+        deck = f.read()
+    for a, b in (("numLambda = 64", "numLambda = 2"),
+                 ("numPhotonsPerBatch = 4194304", "numPhotonsPerBatch = 512"),
+                 ("numBatches = 16", "numBatches = 2"),
+                 ("nPhaseIntervals = 9001", "nPhaseIntervals = 201"),
+                 ("common325.nc", "common.nc"),
+                 ("ssp_thermal.nc", "ssp.nc")):
+        deck = deck.replace(a, b)
+    (tmp_path / "deck.nml").write_text(deck)
+    monkeypatch.chdir(tmp_path)
+    cfg = dataclasses.replace(load_config("deck.nml"), calc_rayleigh=True)
+    plain, run_plain = [], rk.record_launch_plain
+    monkeypatch.setattr(rk, "record_launch_plain",
+                        lambda *a, **k: plain.append(1) or run_plain(*a, **k))
+    sep_plain = []
+    monkeypatch.setattr(sk, "sep_launch_plain",
+                        lambda *a, **k: sep_plain.append(1))
+    res = broadband.run_broadband(cfg, "cpu")
+    assert plain and not sep_plain
+    assert res.total_photons == 1024 and res.n_bad == 0
+    assert np.isfinite(float(res.mean["mean_flux_up"]))
+    common = jcommon.read_common("common.nc")
+    tables = [jssp.read_ssp_table("ssp.nc")]
+    comps, albedo, lam = jssp.components_from_ssp(common, tables, 0,
+                                                  calc_rayleigh=True)
+    assert len(comps) == 3
+    dom = jbuild_domain(common.grid, comps, temps=common.temps,
+                        lambda_um=lam, n_cdf_steps=201, macro_factor=8)
+    w = jweights.emission_weighting(
+        common.grid, common.temps,
+        jweights.absorption_coefficient(comps, common.grid), 288.0,
+        1.0 - albedo, lam)
+    src = jill.emission(w.voxel_cdf, w.frac_atms_power, common.grid.shape)
+    assert jpk.ineligibility_reasons(
+        dom, JSurface.lambertian(albedo, temperature=288.0,
+                                 emissivity=1.0 - albedo), src,
+        lw_mode=True, compute_intensity=False, record_scattering_orders=0,
+        use_ray_tracing=False) == []

@@ -363,24 +363,35 @@ def test_real_collisions_are_counted(ncomp):
 
 
 def test_envelope_names_what_is_still_to_port():
-    """Every source but emission and 1-3 components are in; the emission
-    refill and lw_mode (K1-c), RPV and per-pixel surfaces (K1-d) and more
-    than three components each keep a named predicate."""
+    """Every source and 1-3 components are in (emission with its alias
+    tables, in lw_mode or not); RPV and per-pixel surfaces (K1-d), an
+    emission source without alias tables (separable-backed), lw_mode
+    without an emission source and more than three components each keep
+    a named predicate."""
     dom = make_step_cloud_multi(n_components=3, n_cdf_steps=101,
                                 device="cpu")
     lam = Surface.lambertian(0.1)
+    nx, ny, nz = dom.grid.shape
+    cdf = np.linspace(0.0, 1.0, nx * ny * nz + 1)[1:]
+    emission = illumination.emission(cdf, 0.8, (nx, ny, nz), device="cpu")
     for make in (lambda: illumination.directional(0.5, 10.0),
                  lambda: illumination.random_azimuth(0.5),
                  illumination.flux,
                  lambda: illumination.spotlight(0.5, 0.0, 0.5, 0.5)):
         assert rk.ineligibility_reasons(dom, lam, make(), False, False, 0,
                                         False) == []
+    for lw in (False, True):
+        assert rk.ineligibility_reasons(dom, lam, emission, lw, False, 0,
+                                        False) == []
     reasons = rk.ineligibility_reasons(
         dom, Surface(params=np.full((2, 2, 1), 0.2, np.float32)),
         illumination.Source(kind=illumination.EMISSION), True, False, 0,
         False)
-    text = "; ".join(reasons)
-    assert text.count("K1-c") == 2 and text.count("K1-d") == 1, text
+    assert len(reasons) == 2 and "K1-d" in reasons[0], reasons
+    assert reasons[1] == "source kind 'emission' not in-kernel"
+    assert rk.ineligibility_reasons(dom, lam, illumination.flux(), True,
+                                    False, 0, False) == [
+        "lw_mode without an emission source"]
     four = dataclasses.replace(dom, cum_ext=torch.zeros(32, 1, 32, 4))
     assert any("n_components=4 > 3" in r for r in rk.ineligibility_reasons(
         four, lam, illumination.flux(), False, False, 0, False))

@@ -67,7 +67,8 @@ from mcbrat3d_tpu_torch.transport import col_kernel as ck
 from mcbrat3d_tpu_torch.transport import record_kernel as rk
 from mcbrat3d_tpu_torch.transport import sep_kernel as sk
 from mcbrat3d_tpu_torch.transport import tile_kernel as tk
-from mcbrat3d_tpu_torch.transport.integrator import KernelConfig, run_batch
+from mcbrat3d_tpu_torch.transport.integrator import (KernelConfig, run_batch,
+                                                      select_kernel)
 
 torch.set_num_threads(1)
 
@@ -423,6 +424,63 @@ def test_dispatch_picks_the_kernel_jax_picks(monkeypatch, case):
     with pytest.raises(_Picked) as port_pick:
         run_batch(td, Surface.lambertian(0.05), tsrc, 0, KernelConfig(**kw))
     assert str(port_pick.value) == expect
+
+
+_PORT_KERNELS = ((rk, "run_batch_record_tallies", "record"),
+                 (ck, "run_batch_col_tallies", "col"),
+                 (sk, "run_batch_sep_tallies", "sep"),
+                 (tk, "run_batch_tile_tallies", "tile"))
+
+
+@pytest.mark.parametrize("case", ["record", "compact", "full", "template",
+                                  "dense", "refused"])
+def test_select_kernel_names_the_kernel_run_batch_runs(monkeypatch, case):
+    """``select_kernel`` names the kernel ``run_batch`` launches (or None
+    where it raises), and every kernel tried before it has failing
+    predicates: a small step cloud on the record kernel, the four cases of
+    the dispatch test above, and a compact domain with a directional source,
+    which no ported kernel takes."""
+    for mod, fn, name in _PORT_KERNELS:
+        monkeypatch.setattr(mod, fn, _picker(name))
+    lw = case == "compact"
+    if case in ("compact", "full", "refused"):
+        grid, comps, temps = lw_flagship_scene(nx=16, ny=16, nz=150,
+                                               device="cpu")
+        dom = build_domain(grid, comps, temps=temps, macro_factor=8,
+                           n_cdf_steps=101, lambda_um=10.0,
+                           device_fields="full" if case == "full"
+                           else "compact")
+    elif case == "record":
+        dom = build_domain(
+            Grid.regular(8, 8, 8, 0.1, 0.1, 0.1, device="cpu"),
+            [OpticalComponent(
+                "c", np.full((8, 8, 8), 2.0), np.full((8, 8, 8), 0.9),
+                np.zeros((8, 8, 8), np.int32),
+                PhaseFunctionTable([PhaseFunction.henyey_greenstein(0.85, 32)],
+                                   key=[1.0]))], n_cdf_steps=101)
+    else:
+        dom = build_domain(*_components(case, True), n_cdf_steps=101,
+                           macro_factor=8)
+    src = (illumination.emission_separable(dom, 288.0, 0.95) if lw
+           else illumination.directional(0.5, 0.0))
+    # the refused case asks for the 3D tally, which the compact domain lacks
+    cfg = KernelConfig(n_lanes=1024, photons_per_lane=1,
+                       need_volume_absorption=case == "refused",
+                       need_absorption_profile=case != "dense", lw_mode=lw)
+    kernel, reasons = select_kernel(dom, Surface.lambertian(0.05), src, cfg)
+    assert kernel == {"record": "record", "compact": "sep", "full": "sep",
+                      "template": "col", "dense": "tile",
+                      "refused": None}[case]
+    if kernel is None:
+        with pytest.raises(ValueError, match="compact"):
+            run_batch(dom, Surface.lambertian(0.05), src, 0, cfg)
+        assert list(reasons) == ["record", "col", "sep", "tile"]
+    else:
+        with pytest.raises(_Picked) as pick:
+            run_batch(dom, Surface.lambertian(0.05), src, 0, cfg)
+        assert str(pick.value) == kernel
+        assert reasons.pop(kernel) == []
+    assert all(reasons.values()), reasons
 
 
 def test_compact_domain_outside_the_kernel_raises():
