@@ -35,6 +35,19 @@ Phases, each asserting; any failure exits non-zero:
    plus an image too large for shared memory (global-atomic tally) and
    LW radiance from the per-voxel emission source (the fresh hold, 4
    directions);
+2h. the column kernel's gas template and local estimate against its
+   plain version on the card, same seeds, on the 128 x 128 x 64 broken
+   cloud: the gas template (a uniform pure absorber under the cloud) as a
+   flux run at 2^16 photons, analytic HG and the tabulated row with the 3D
+   tally; the local estimate at 2^14 photons (4,096 lanes x 4; the plain
+   walk takes ~50-70 s per case): the hybrid row with roulette and
+   bench.py's 16 directions, the gas template with analytic HG and no
+   roulette, and the original row with tabulated scattering, 8 directions
+   (every octant of azimuth, both fast axes; the gas case has one at the
+   floor mu 0.4); equal photons, lane-steps,
+   events and walk iterations,
+   fluxes, profile and per-direction image totals within 1e-5 relative,
+   every pixel with signal within 2e-3;
 2c. analytic radiance anchors: a thin isotropic slab (I = tau / (4 pi mu))
    and a clear atmosphere over a Lambertian surface (I = albedo / pi per
    unit incident flux on the horizontal); and the emission anchors: an
@@ -128,6 +141,24 @@ Phases, each asserting; any failure exits non-zero:
    and the absorption profile within 4.5 combined sigma of values frozen
    from the JAX package's CLI on the CPU; prints the setup, the later
    bins' host builds and the rest (transport);
+3h. the Landsat-scale radiance deck through the command line: mkdomain
+   broken_cloud, then run/landsat_radiance.nml (8 x 262,144 photons, 16
+   directions) on cuda; n_bad == 0, the column kernel's local estimate
+   launched, no record kernel and no plain step, the netCDF image
+   (16, 128, 128), R/T/A, the profile's column integral and every
+   direction's domain-mean radiance within 4.5 combined sigma of values
+   frozen from the JAX package; prints the wall clock split into setup
+   and output, and transport;
+3i. the gas template at full width: broken_cloud_scene() plus a uniform
+   pure absorber through run_batch on cuda, a flux run (8 x 2^20 photons,
+   albedo 0.2, profile) and a radiance run with bench.py's 16 directions
+   (4 x 2^19 photons), the column kernel only and no plain step, n_bad ==
+   0, R/T/A and the radiances within 4.5 combined sigma of values frozen
+   from the JAX package; the same cut to 32 x 32 x 64 with the 8 distinct
+   directions (8 x 2^19 photons) within 4.5 combined sigma of both JAX
+   estimators, XLA and the column kernel; then the gas flux path's ms per
+   launch from CUDA events (2^16 lanes x 16 photons) and the plain step's
+   over 2 launches;
 4. one headline batch (macro_factor 16, 2^16 lanes x 1024 photons, flux
    tallies only): photons/s of the kernel, and of the plain version at the
    same lane count;
@@ -156,7 +187,13 @@ Phases, each asserting; any failure exits non-zero:
    cloud + gas, per-voxel emission, analytic, macro_factor 8, albedo 0.05,
    lw_mode, 2^16 lanes x 256 photons, through run_batch): kernel
    photons/s, launches per batch, kernel ms per launch from CUDA events,
-   the card's busy share, and plain ms per launch over 4 launches.
+   the card's busy share, and plain ms per launch over 4 launches;
+4h. the Landsat radiance headline (bench.py:547-573: the broken cloud with
+   analytic HG and the hybrid forward row, macro_factor 8, 16 directions,
+   2^13 lanes x 256 photons, through run_batch): column-kernel local
+   estimate ms per launch from CUDA events, launches per batch, the card's
+   busy share, photons/s, live lane-steps, events and walk iterations per
+   photon, and plain ms of one launch.
 
 Prints the card line, then one JSON line describing each kernel (with its
 time, the least time the card could take for the same work and what bounds
@@ -238,6 +275,75 @@ JAX_LANDSAT_RTA = (0.4628094509243965, 0.3781909700483084,
                    0.15901039727032185)
 JAX_LANDSAT_RTA_SE = (2.66297028e-04, 2.85904954e-04, 8.17650074e-05)
 JAX_LANDSAT_PROFILE_TOTAL = 0.15901039629769975
+# Column kernel's gas template and local estimate vs plain, same seeds:
+# totals (domain sums of the fluxes, the profile and each direction's
+# image) and, where a pixel has signal (over 1e-3 of its largest), every
+# pixel; both sum the same contributions in another float32 order.
+COL_LE_TOTAL_TOL_KERNEL_VS_PLAIN = 1e-5
+COL_LE_PIXEL_TOL_KERNEL_VS_PLAIN = 2e-3
+# bench.py:555-559's 16 radiance directions (run/landsat_radiance.nml's)
+MUS16 = [1.0, 0.9, 0.8, 0.7, 0.6, 0.5, 0.45, 0.4] * 2
+PHIS16 = [(i * 45.0 + 15.0) % 360.0 for i in range(16)]
+# run/landsat_radiance.nml from the JAX package on the CPU (XLA wave kernel
+# and XLA local estimator, threefry streams, independent of the port's
+# kernels), on the file of `mkdomain broken_cloud`: 16 unchanged runs of
+# `python -m mcbrat3d_tpu.driver.cli run` on one-batch copies of the deck
+# with 8,192 photons and iseed 10-25 (tools/landsat_radiance_reference.py
+# cut and stats; the deck's 8 x 262,144 photons cut 16-fold: the XLA
+# estimator takes ~25 ms per photon on the CPU); domain-mean R, T, A, the
+# profile's column integral and the 16 domain-mean radiances in the deck's
+# order, each with its standard error over the runs.
+JAX_LANDSAT_RAD = (
+    0.4605214091, 0.3802499699, 0.1591047347, 0.1591043799, 0.055943774,
+    0.1125144121, 0.1130556903, 0.109721014, 0.1159825993, 0.1324581701,
+    0.1840113965, 0.3020353076, 0.05580172048, 0.1122461304, 0.1129843562,
+    0.1098698405, 0.1162082952, 0.1327885071, 0.1841313921, 0.3018033263)
+JAX_LANDSAT_RAD_SE = (
+    0.00134695, 0.00128863, 0.000239671, 0.000239669, 0.00066132,
+    0.00135728, 0.00136758, 0.00112675, 0.00181054, 0.00218613, 0.00213573,
+    0.00235968, 0.000631669, 0.00135415, 0.00136648, 0.00107169, 0.00188044,
+    0.00223148, 0.00215236, 0.00241712)
+# The gas template at full width (tools/landsat_radiance_reference.py gas:
+# broken_cloud_scene() plus q(z) = 2.5e-4 m^-1 exp(-z_c / 2000 m), macro
+# 8, 201 CDF steps, analytic HG, beam mu0 0.5, albedo 0.2, seed 7) from the
+# JAX package's XLA path on the CPU: 28 batches of 8,192 photons each for
+# the flux run (R, T, A) and the 16-direction radiance run (R, T, A and
+# the 16 domain-mean radiances), means and standard errors over batches.
+JAX_GAS_FLUX = (0.2803435081, 0.2406617297, 0.5272333196)
+JAX_GAS_FLUX_SE = (0.000819216, 0.000863049, 0.00081304)
+JAX_GAS_RAD = (
+    0.2803435081, 0.2406617297, 0.5272333196, 0.04506082824, 0.07596918261,
+    0.07368789331, 0.06869232464, 0.06878217422, 0.07896200343, 0.1098154046,
+    0.182901901, 0.04502950849, 0.07594063278, 0.07376221833, 0.06872264439,
+    0.06876140964, 0.07908786573, 0.109801653, 0.182662599)
+JAX_GAS_RAD_SE = (
+    0.000819216, 0.000863049, 0.00081304, 0.000374273, 0.00059573,
+    0.000697497, 0.000641818, 0.00073098, 0.000958975, 0.00102928,
+    0.00113775, 0.000375392, 0.000551829, 0.000736583, 0.000632121,
+    0.000779674, 0.000966359, 0.0010323, 0.00112455)
+# The gas template cut to 32 x 32 x 64 columns (the same column height,
+# so the same slant paths, which wrap the domain three times at mu 0.4),
+# radiance with the eight distinct directions of the 16 (mu 1 ... 0.4),
+# from the JAX package on the CPU by tools/landsat_radiance_reference.py
+# witness: its XLA estimator and its column kernel (K3) in Pallas interpret
+# mode, 96 batches of 4,096 photons each (seed 8), R, T, A and the 8
+# domain-mean radiances, means and standard errors over batches.
+JAX_GAS_MID_XLA = (
+    0.279873423, 0.2383065644, 0.5291274165, 0.0453381738, 0.07567766499,
+    0.07364039941, 0.0678886529, 0.07044089635, 0.07857129426, 0.109258638,
+    0.1753786522)
+JAX_GAS_MID_XLA_SE = (
+    0.000607544, 0.000662925, 0.000653009, 0.000340243, 0.000535521,
+    0.000478996, 0.0004818, 0.000535375, 0.00068279, 0.000852341,
+    0.00114502)
+JAX_GAS_MID_K3 = (
+    0.2801370372, 0.2370023131, 0.529919376, 0.04512440076, 0.07570305856,
+    0.07322699269, 0.06787839142, 0.06883812183, 0.07775307605,
+    0.1093382683, 0.1771497695)
+JAX_GAS_MID_K3_SE = (
+    0.000692267, 0.000659739, 0.000686007, 0.000273506, 0.000457286,
+    0.000486854, 0.000581079, 0.000507022, 0.000595615, 0.000935467,
+    0.00115807)
 # Separable kernel vs plain, same seeds: as for the column kernel, every
 # photon takes the same path (equal lane-steps) and the tallies differ only
 # by float32 atomic order; the same per-column and profile limits apply.
@@ -314,6 +420,31 @@ OPS_PER_LANE_STEP = {"record_kernel": 300, "col_kernel": 320,
 # two float4 loads replace the one-component record's scalar loads and
 # are charged as table bytes.
 OPS_PER_COMPONENT_CHOICE = 32
+# Operations the gas template adds to a live lane-step of the column
+# kernel (csrc/col_kernel.cu): the gas maximum added to the ceiling, the
+# load of qz[iz] and its add to the extinction; the effective ssa's divide
+# runs on real collisions only and is not charged.
+OPS_PER_GAS_STEP = 4
+# Operations of the column kernel's local estimate (csrc/col_kernel.cu
+# local_estimate), counted from the source. One walk iteration is 39: the
+# loop test and its branch (2), the two fminf of the next stop (2), the
+# column index (1), the two __ldg with their addresses (4), the two CT
+# evaluations, each an FMA for z, an FMA for A - B z and a fmaxf (6),
+# their difference and its add to tau (2), the iteration count (1), the
+# stop test and the axis test with their branches (4), the step of one
+# axis with its periodic wrap, an add, a compare and two selects (5), and
+# that axis's next face, four operations and an IEEE divide of ~8 (12).
+# The wrap needs no modulo inside the loop: the two integer modulos run
+# once per direction, before it. One direction's fixed cost is 390: the
+# phase value with its square root or HG divide, ~40; the two roulette
+# uniforms, log1pf and logf, ~105; the walk's setup, ~110 (the two
+# divides of t_top and t_stop, the first column's floors, the first two
+# faces with their divides, and the two integer modulos of the first
+# column at ~20 each); the closed-form gas term, exp and the
+# contribution, ~60; the exit pixel's two wraps, ~75. Integer operations
+# at the float32 rate, as above.
+OPS_PER_WALK_ITERATION = 39
+OPS_PER_LE_DIRECTION = 390
 
 
 def _sync():
@@ -470,7 +601,8 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
     cuda in the current directory; returns the JSON line, the seconds and
     the launches of the run (record kernel, its radiance launches, column
     kernel, separable kernel, tiled kernel, record-kernel launches with the
-    emission refill), and asserts that no plain step ran. Every count is
+    emission refill, column-kernel launches with the local estimate), and
+    asserts that no plain step ran. Every count is
     set to 0 just before the run and read just after it."""
     Path("deck.nml").write_text(deck_text)
     if domain is not None:
@@ -496,7 +628,7 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
     buf = io.StringIO()
     rk.LAUNCHES = rk.RADIANCE_LAUNCHES = rk.LW_LAUNCHES = 0
     if ck is not None:
-        ck.COL_LAUNCHES = 0
+        ck.COL_LAUNCHES = ck.COL_LE_LAUNCHES = 0
     if sk is not None:
         sk.SEP_LAUNCHES = 0
     if tk is not None:
@@ -512,7 +644,8 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
     launches = (rk.LAUNCHES, rk.RADIANCE_LAUNCHES,
                 ck.COL_LAUNCHES if ck is not None else 0,
                 sk.SEP_LAUNCHES if sk is not None else 0,
-                tk.TILE_LAUNCHES if tk is not None else 0, rk.LW_LAUNCHES)
+                tk.TILE_LAUNCHES if tk is not None else 0, rk.LW_LAUNCHES,
+                ck.COL_LE_LAUNCHES if ck is not None else 0)
     assert rc == 0
     assert launches[0] + sum(launches[2:5]) > 0, "the deck launched no kernel"
     assert not plain_steps, "the deck ran a plain PyTorch step"
@@ -1138,6 +1271,425 @@ def phase_col_headline(ck, broken_cloud_scene, build_domain, Surface,
               f"{sec:.3f} s = {t.n_photons / sec:.6g} photons/s, "
               f"{n_launch} launches, {1e3 * sec / n_launch:.4f} ms/launch, "
               f"{t.n_lane_steps} lane-steps, R/T/A={_rta(t)}", flush=True)
+    return res
+
+
+def _gas_broken_cloud(m, macro_factor=8, n_cdf_steps=201, tables=False,
+                      n=128):
+    """broken_cloud_scene() (n x n x 64, n = 128 its full width) plus one
+    horizontally uniform pure absorber, q(z) = 2.5e-4 m^-1 exp(-z_c /
+    2000 m) at the cell centres (a vertical optical depth of ~0.24): the
+    gas template, on the card; with ``tables`` the radiance tables
+    (hybrid, 10 degrees)."""
+    import numpy as np
+
+    grid, comps, _ = m.broken_cloud_scene(nx=n, ny=n, device="cuda")
+    nz = grid.nz
+    q = (2.5e-4 * np.exp(-(np.arange(nz) + 0.5) * 20.0 / 2000.0)).reshape(
+        1, 1, nz)
+    gas = m.OpticalComponent(
+        "gas absorber", q, np.zeros_like(q), np.zeros(q.shape, np.int32),
+        m.PhaseFunctionTable([m.PhaseFunction.isotropic()], key=[1.0]))
+    dom = m.build_domain(grid, [comps[0], gas], macro_factor=macro_factor,
+                         n_cdf_steps=n_cdf_steps,
+                         compute_intensity_tables=tables,
+                         hybrid_width_deg=10.0 if tables else 0.0)
+    assert dom.col_template and dom.col_qz is not None
+    return dom
+
+
+def _radiance_cloud(m, tables=True):
+    """bench.py:530-535's domain: the broken cloud with analytic HG, macro
+    8, 201 CDF steps and (``tables``) the hybrid radiance tables."""
+    grid, comps, _ = m.broken_cloud_scene(device="cuda")
+    return m.build_domain(grid, comps, macro_factor=8, n_cdf_steps=201,
+                          compute_intensity_tables=tables,
+                          hybrid_width_deg=10.0 if tables else 0.0)
+
+
+def _total_and_pixel_gaps(pairs):
+    """Largest relative gap of the totals and, over pixels with signal
+    (above 1e-3 of the pair's largest), the largest relative gap."""
+    total = pixel = 0.0
+    for a, b in pairs:
+        a, b = a.double().cpu(), b.double().cpu()
+        total = max(total, abs(float(a.sum()) / float(b.sum()) - 1.0))
+        sig = b.abs() > 1e-3 * float(b.abs().max())
+        if bool(sig.any()):
+            pixel = max(pixel, float(((a - b).abs() / b.abs())[sig].max()))
+    return total, pixel
+
+
+def phase_col_le_compare(ck, le, m, KernelConfig, rng):
+    """The column kernel's gas template and local estimate vs the plain
+    step on the card; returns the largest per-pixel differences of the
+    normalized fluxes (gas cases) and images (radiance cases)."""
+    import dataclasses
+
+    surface = m.Surface.lambertian(0.2)
+    sources = {"directional": m.illumination.directional(0.5, 30.0),
+               "random_azimuth": m.illumination.random_azimuth(0.6),
+               "flux": m.illumination.flux()}
+    phis8 = [20.0, 70.0, 110.0, 160.0, 200.0, 250.0, 290.0, 340.0]
+    dirs8 = ([1.0, 0.8, 0.6, 0.45, 0.8, 0.6, 0.45, 0.7], phis8)
+    # the same with one direction at the floor mu 0.4 (the longest walks)
+    dirs8_floor = ([1.0, 0.8, 0.6, 0.4, 0.8, 0.6, 0.45, 0.7], phis8)
+    # (name, gas, radiance tables, tabulated scattering, 3D tally, source,
+    # directions (None: flux only), roulette of the estimate, hybrid row)
+    cases = [
+        ("gas flux, HG", True, False, False, False, "directional", None,
+         None, None),
+        ("gas flux, table, 3D tally", True, False, True, True, "flux", None,
+         None, None),
+        ("hybrid row, roulette", False, True, False, False, "directional",
+         (MUS16, PHIS16), True, True),
+        ("gas, analytic HG, exact, 3D tally", True, False, False, True,
+         "flux", dirs8_floor, False, True),
+        ("original row, table, roulette", False, True, True, False,
+         "random_azimuth", dirs8, True, False),
+    ]
+    domains = {}
+    flux_err = img_err = 0.0
+    for i, (name, gas, tables, table_row, vol, src, dirs_mp, rr,
+            hybrid) in enumerate(cases):
+        key = (gas, tables)
+        if key not in domains:
+            domains[key] = (_gas_broken_cloud(m, tables=tables) if gas
+                            else _radiance_cloud(m, tables=tables))
+        dom = domains[key]
+        if table_row:  # as read from a file: the tabulated row
+            dom = dataclasses.replace(dom, all_hg=False,
+                                      col_analytic_hg=False)
+        seed = rng.batch_seed(31, i)
+        if dirs_mp is None:
+            cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=1,
+                               max_steps=400_000, need_volume_absorption=vol)
+            icfg = dirs = None
+        else:  # the plain walk takes ~4 s per 1,024 photons on the card
+            cfg = KernelConfig(n_lanes=1 << 12, photons_per_lane=4,
+                               max_steps=400_000, need_volume_absorption=vol)
+            icfg = le.IntensityConfig(n_dirs=len(dirs_mp[0]),
+                                      use_russian_roulette=rr,
+                                      use_hybrid_phase=hybrid,
+                                      pallas_min_mu=0.4)
+            dirs = le.make_intensity_directions(*dirs_mp, device="cuda")
+
+        def run(launch=ck.col_launch):
+            return ck.run_batch_col_tallies(
+                dom, surface, sources[src], seed, cfg, launch=launch,
+                intensity_config=icfg, intensity_dirs=dirs)
+
+        before = (ck.COL_LAUNCHES, ck.COL_LE_LAUNCHES)
+        tk, sk = _timed(run)
+        assert ck.COL_LAUNCHES > before[0], "kernel was not launched"
+        assert (ck.COL_LE_LAUNCHES > before[1]) == (icfg is not None)
+        tp, sp = _timed(lambda: run(ck.col_launch_plain))
+        n = tk.n_photons
+        assert n == tp.n_photons == cfg.photons_per_batch, (n, tp.n_photons)
+        assert tk.n_bad == tp.n_bad == 0, (tk.n_bad, tp.n_bad)
+        assert tk.n_lane_steps == tp.n_lane_steps, (tk.n_lane_steps,
+                                                    tp.n_lane_steps)
+        assert tk.n_le_events == tp.n_le_events, (tk.n_le_events,
+                                                  tp.n_le_events)
+        assert tk.n_walk == tp.n_walk, (tk.n_walk, tp.n_walk)
+        pairs = [(tk.flux_up, tp.flux_up), (tk.flux_down, tp.flux_down),
+                 (tk.flux_absorbed, tp.flux_absorbed),
+                 (tk.absorption_profile, tp.absorption_profile)]
+        if vol:
+            pairs.append((tk.volume_absorption, tp.volume_absorption))
+        total, pixel = _total_and_pixel_gaps(pairs)
+        per_col = n / tk.flux_up.numel()
+        err = max(float((a.double() - b.double()).abs().max()) / per_col
+                  for a, b in pairs[:3])
+        flux_err = max(flux_err, err) if gas else flux_err
+        line = (f"col LE compare [{name}]: photons {n}, lane-steps "
+                f"{tk.n_lane_steps}/{tp.n_lane_steps}, events "
+                f"{tk.n_le_events}/{tp.n_le_events}, walk iterations "
+                f"{tk.n_walk}/{tp.n_walk}, flux total gap {total:.2e}, "
+                f"pixel gap {pixel:.2e}, column gap {err:.2e}")
+        if icfg is not None:
+            assert tk.n_cut == tp.n_cut == 0 and tk.n_le_events > 0
+            assert tk.intensity.shape == (128, 128, icfg.n_dirs)
+            img_pairs = [(tk.intensity[:, :, d], tp.intensity[:, :, d])
+                         for d in range(icfg.n_dirs)]
+            i_total, i_pixel = _total_and_pixel_gaps(img_pairs)
+            i_err = float((tk.intensity.double() - tp.intensity.double())
+                          .abs().max()) / per_col
+            img_err = max(img_err, i_err)
+            total, pixel = max(total, i_total), max(pixel, i_pixel)
+            means = (tk.intensity.sum(dim=(0, 1)) / n).tolist()
+            line += (f"; image total gap {i_total:.2e}, pixel gap "
+                     f"{i_pixel:.2e}, largest normalized pixel difference "
+                     f"{i_err:.2e}, domain-mean radiance "
+                     f"{[round(v, 6) for v in means]}")
+        print(line + f"; kernel {sk:.3f} s plain {sp:.3f} s", flush=True)
+        assert total < COL_LE_TOTAL_TOL_KERNEL_VS_PLAIN, total
+        assert pixel < COL_LE_PIXEL_TOL_KERNEL_VS_PLAIN, pixel
+    print(f"col LE compare: largest normalized flux difference "
+          f"{flux_err:.3e} (gas), image {img_err:.3e}", flush=True)
+    return flux_err, img_err
+
+
+def _within_sigma(got, got_se, want, want_se, names):
+    """Largest |got - want| in combined sigma; asserts each below 4.5."""
+    worst = 0.0
+    for g, gs, w, ws, name in zip(got, got_se, want, want_se, names):
+        z = abs(g - w) / (gs ** 2 + ws ** 2) ** 0.5
+        assert z < 4.5, (name, g, w, z)
+        worst = max(worst, z)
+    return worst
+
+
+def phase_landsat_radiance_deck(ck, rk, cli):
+    """run/landsat_radiance.nml through the CLI on cuda against the JAX
+    package's frozen values."""
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    deck = (ROOT / "run" / "landsat_radiance.nml").read_text()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            out, seconds, launches = _run_cli_deck(
+                cli, rk, deck, ck=ck,
+                domain=("broken_cloud", "BrokenCloud.dom"))
+            means, se, _ = _flux_file_means(tmp / "landsat_radiance_flux.out")
+            assert (tmp / "landsat_radiance.out").stat().st_size > 0
+            with netcdf_file(str(tmp / "landsat_radiance.nc"), "r",
+                             mmap=False) as nc:
+                shape = nc.variables["intensity"].shape
+                prof = np.array(nc.variables["absorptionProfile"][:])
+                dz = np.diff(np.array(nc.variables["z-Edges"][:],
+                                      np.float64))
+        finally:
+            os.chdir(cwd)
+    n = out["total_photons"]
+    rta = (out["mean_flux_up"], out["mean_flux_down"],
+           out["mean_flux_absorbed"])
+    rad, rad_se = out["mean_intensity"], out["mean_intensity_stderr"]
+    prof_total = float((prof * dz * 1000.0).sum())
+    transport = out["elapsed_seconds"]
+    got = rta + (prof_total,) + tuple(rad)
+    got_se = se + (se[2],) + tuple(rad_se)
+    worst = _within_sigma(
+        got, got_se, JAX_LANDSAT_RAD, JAX_LANDSAT_RAD_SE,
+        ["R", "T", "A", "profile"] + [f"radiance {d}" for d in range(16)])
+    print(f"landsat radiance deck: {n} photons in {out['n_batches']} "
+          f"batches, n_bad={out['n_bad']}, R/T/A={rta} +- {se}, profile "
+          f"integral {prof_total:.8f}, domain-mean radiance "
+          f"{[round(v, 6) for v in rad]} +- "
+          f"{[float(f'{v:.3g}') for v in rad_se]}; {seconds:.2f} s of CLI "
+          f"(setup and output {seconds - transport:.2f} s, transport "
+          f"{transport:.2f} s), launches record/column/column radiance "
+          f"({launches[0]}, {launches[2]}, {launches[6]}), image {shape}; "
+          f"largest gap to the JAX package {worst:.2f} combined sigma",
+          flush=True)
+    assert n == 8 * 262_144 and out["n_batches"] == 8
+    assert out["n_bad"] == 0
+    assert launches[6] > 0 and launches[6] == launches[2], launches
+    assert launches[0] == launches[3] == launches[4] == 0, launches
+    assert shape == (16, 128, 128), shape
+    assert abs(prof_total / rta[2] - 1.0) < 1e-4, (prof_total, rta[2])
+    return dict(launches=launches[6], seconds=seconds, transport=transport)
+
+
+def phase_gas(ck, rk, m, le, KernelConfig, run_batch, rng):
+    """The gas template at full width through run_batch: flux and
+    16-direction radiance against the JAX package's frozen values, the
+    column kernel only; the same cut to 32 x 32 x 64 with the eight
+    distinct directions against both JAX estimators; then the gas flux
+    path's ms per launch (CUDA events, 2^16 lanes x 16 photons) and the
+    plain step's."""
+    import dataclasses
+
+    import numpy as np
+
+    dom = _gas_broken_cloud(m)
+    mid = _gas_broken_cloud(m, n=32)
+    surface = m.Surface.lambertian(0.2)
+    source = m.illumination.directional(0.5, 0.0)
+    icfg = le.IntensityConfig(n_dirs=16, use_russian_roulette=True,
+                              use_hybrid_phase=True, pallas_min_mu=0.4)
+    dirs = le.make_intensity_directions(MUS16, PHIS16, device="cuda")
+    icfg8 = dataclasses.replace(icfg, n_dirs=8)
+    dirs8 = le.make_intensity_directions(MUS16[:8], PHIS16[:8],
+                                         device="cuda")
+    plain_runs = []
+    plain = ck.col_launch_plain
+
+    def counting(*args, **kwargs):
+        plain_runs.append(1)
+        return plain(*args, **kwargs)
+
+    ck.col_launch_plain = counting
+    rk.LAUNCHES = ck.COL_LAUNCHES = ck.COL_LE_LAUNCHES = 0
+    res = {}
+    t0 = time.perf_counter()
+    try:
+        rad_cfg = KernelConfig(n_lanes=1 << 13, photons_per_lane=64,
+                               max_steps=400_000,
+                               need_volume_absorption=False)
+        for name, d, cfg, ic, di, n_batches in (
+                ("flux", dom, KernelConfig(n_lanes=1 << 16,
+                                           photons_per_lane=16,
+                                           max_steps=400_000,
+                                           need_volume_absorption=False,
+                                           need_absorption_profile=True),
+                 None, None, 8),
+                ("radiance", dom, rad_cfg, icfg, dirs, 4),
+                ("mid", mid, rad_cfg, icfg8, dirs8, 8)):
+            rows = []
+            for b in range(n_batches):
+                t = run_batch(d, surface, source, rng.batch_seed(7, b),
+                              cfg, intensity_config=ic, intensity_dirs=di)
+                assert t.n_bad == 0 and t.n_photons == cfg.photons_per_batch
+                row = list(_rta(t))
+                if ic is not None:
+                    assert t.intensity.shape == d.grid.shape[:2] + (
+                        ic.n_dirs,)
+                    row += (t.intensity.double().sum(dim=(0, 1))
+                            / t.n_photons).tolist()
+                rows.append(row)
+            a = np.asarray(rows)
+            res[name] = (a.mean(axis=0), a.std(axis=0, ddof=1)
+                         / np.sqrt(len(rows)))
+    finally:
+        ck.col_launch_plain = plain
+    seconds = time.perf_counter() - t0
+    launches = (rk.LAUNCHES, ck.COL_LAUNCHES, ck.COL_LE_LAUNCHES)
+    assert not plain_runs, "the gas runs ran a plain step"
+    assert launches[0] == 0 and launches[1] > launches[2] > 0, launches
+    worst = _within_sigma(res["flux"][0], res["flux"][1], JAX_GAS_FLUX,
+                          JAX_GAS_FLUX_SE, "RTA")
+    worst = max(worst, _within_sigma(
+        res["radiance"][0], res["radiance"][1], JAX_GAS_RAD, JAX_GAS_RAD_SE,
+        ["R", "T", "A"] + [f"radiance {d}" for d in range(16)]))
+    names8 = ["R", "T", "A"] + [f"radiance mu {mu}" for mu in MUS16[:8]]
+    mid_z = [_within_sigma(res["mid"][0], res["mid"][1], want, want_se,
+                           names8)
+             for want, want_se in ((JAX_GAS_MID_XLA, JAX_GAS_MID_XLA_SE),
+                                   (JAX_GAS_MID_K3, JAX_GAS_MID_K3_SE))]
+    print(f"gas template: flux R/T/A={res['flux'][0].tolist()} +- "
+          f"{res['flux'][1].tolist()} (8 x 2^20 photons), radiance run "
+          f"R/T/A and radiances {res['radiance'][0].round(6).tolist()} +- "
+          f"{res['radiance'][1].round(7).tolist()} (4 x 2^19 photons), "
+          f"{seconds:.2f} s, launches record/column/column radiance "
+          f"{launches}; largest gap to the JAX package {worst:.2f} "
+          f"combined sigma", flush=True)
+    print(f"gas template at 32 x 32 x 64: R/T/A and radiances "
+          f"{res['mid'][0].round(6).tolist()} +- "
+          f"{res['mid'][1].round(7).tolist()} (8 x 2^19 photons); largest "
+          f"gap to JAX's XLA estimator {mid_z[0]:.2f}, to its column "
+          f"kernel {mid_z[1]:.2f} combined sigma", flush=True)
+    # the gas flux path's time per launch (the Landsat headline's geometry)
+    cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=16,
+                       max_steps=400_000, need_volume_absorption=False)
+    orig = ck._launch_cuda
+    ck._launch_cuda, events = _event_timed(orig)
+    try:
+        t, sec = _timed(lambda: ck.run_batch_col_tallies(
+            dom, surface, source, rng.batch_seed(0, 0), cfg))
+    finally:
+        ck._launch_cuda = orig
+    _sync()
+    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    n_launch = len(events)
+    assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
+    plain_t, ev = _event_timed(ck.col_launch_plain)
+    ck.run_batch_col(dom, surface, source, rng.batch_seed(0, 1),
+                     rk.RecordConfig(rows=512, max_steps=2 * 128,
+                                     vol_tally=False), 16, launch=plain_t)
+    _sync()
+    nxy, nz = dom.grid.nx * dom.grid.ny, dom.grid.nz
+    out = dict(launches=launches[1], seconds=seconds,
+               kernel_ms_per_launch=kernel_ms / n_launch,
+               plain_ms_per_launch=sum(a.elapsed_time(b)
+                                       for a, b in ev) / len(ev))
+    out["bound"] = _bound(
+        t.n_lane_steps, n_launch,
+        OPS_PER_LANE_STEP["col_kernel"] + OPS_PER_GAS_STEP, 1 << 16, 44,
+        4 * (2 * nxy + 2 * dom.macro_table.shape[0] + 2 * nz),
+        4 * (3 * nxy + nz))
+    print(f"gas flux path: {t.n_photons} photons in {sec:.3f} s = "
+          f"{t.n_photons / sec:.6g} photons/s, {n_launch} launches, kernel "
+          f"{out['kernel_ms_per_launch']:.4f} ms/launch (bound "
+          f"{out['bound'][0]:.4f} ms by {out['bound'][1]}), busy share "
+          f"{kernel_ms / (1e3 * sec):.3f}, plain "
+          f"{out['plain_ms_per_launch']:.4f} ms/launch over {len(ev)} "
+          f"launches", flush=True)
+    return out
+
+
+def phase_col_le_headline(ck, rk, le, m, KernelConfig, run_batch, rng):
+    """bench.py:547-573's landsat_radiance_16dir through run_batch: the
+    column kernel's local-estimate ms per launch (CUDA events), launches
+    per batch, the card's busy share, photons/s; plain ms of one launch
+    at the same lanes."""
+    dom = _radiance_cloud(m)
+    surface = m.Surface.lambertian(0.2)
+    source = m.illumination.directional(0.5, 0.0)
+    icfg = le.IntensityConfig(n_dirs=16, use_russian_roulette=True,
+                              use_hybrid_phase=True, pallas_min_mu=0.4)
+    dirs = le.make_intensity_directions(MUS16, PHIS16, device="cuda")
+    cfg = KernelConfig(n_lanes=1 << 13, photons_per_lane=256,
+                       max_steps=400_000, need_volume_absorption=False)
+    run_batch(dom, surface, source, rng.batch_seed(5, 99), cfg,
+              n_photons=1 << 14, intensity_config=icfg,
+              intensity_dirs=dirs)  # warm-up
+    orig = ck._launch_cuda
+    ck._launch_cuda, events = _event_timed(orig)
+    try:
+        t, sec = _timed(lambda: run_batch(
+            dom, surface, source, rng.batch_seed(5, 0), cfg,
+            intensity_config=icfg, intensity_dirs=dirs))
+    finally:
+        ck._launch_cuda = orig
+    _sync()
+    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    n_launch = len(events)
+    assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
+    assert t.n_photons == cfg.photons_per_batch
+    assert t.intensity.shape == (128, 128, 16)
+    nxy, nz = dom.grid.nx * dom.grid.ny, dom.grid.nz
+    res = dict(photons_per_s=t.n_photons / sec, seconds=sec,
+               launches=n_launch, kernel_ms_per_launch=kernel_ms / n_launch,
+               wall_ms_per_launch=1e3 * sec / n_launch,
+               busy=kernel_ms / (1e3 * sec), lane_steps=t.n_lane_steps,
+               events=t.n_le_events, walk=t.n_walk)
+    # per launch: 4,096 lanes' state read and written once; the column
+    # fields, A and B, the block table, the forward row and the directions
+    # read once; the tallies and the image written once
+    res["bound"] = _bound(
+        t.n_lane_steps, n_launch, OPS_PER_LANE_STEP["col_kernel"], 1 << 12,
+        44, 4 * (4 * nxy + 2 * dom.macro_table.shape[0]
+                 + 2 * rk.FWD_N_S + 4 * 16),
+        4 * (3 * nxy + nz + 16 * nxy),
+        extra_ops=(t.n_walk * OPS_PER_WALK_ITERATION
+                   + t.n_le_events * 16 * OPS_PER_LE_DIRECTION))
+    print(f"landsat radiance headline (run_batch, 16 directions): "
+          f"{t.n_photons} photons in {sec:.3f} s = "
+          f"{res['photons_per_s']:.6g} photons/s, {n_launch} launches, "
+          f"kernel {res['kernel_ms_per_launch']:.4f} ms/launch (bound "
+          f"{res['bound'][0]:.4f} ms by {res['bound'][1]}), wall "
+          f"{res['wall_ms_per_launch']:.4f} ms/launch, busy share "
+          f"{res['busy']:.3f}, {t.n_lane_steps / t.n_photons:.2f} live "
+          f"lane-steps, {t.n_le_events / t.n_photons:.2f} events and "
+          f"{t.n_walk / t.n_photons:.1f} walk iterations per photon, "
+          f"R/T/A={_rta(t)}", flush=True)
+    plain, ev = _event_timed(ck.col_launch_plain)
+    ck.run_batch_col(dom, surface, source, rng.batch_seed(5, 1),
+                     rk.RecordConfig(rows=32, max_steps=128,
+                                     vol_tally=False), 512,
+                     launch=plain, intensity_config=icfg,
+                     intensity_dirs=dirs)
+    _sync()
+    res["plain_ms_per_launch"] = sum(a.elapsed_time(b)
+                                     for a, b in ev) / len(ev)
+    print(f"landsat radiance headline: plain "
+          f"{res['plain_ms_per_launch']:.4f} ms/launch over {len(ev)} "
+          "launches", flush=True)
     return res
 
 
@@ -2094,8 +2646,9 @@ def phase_lw_headline(rk, m, KernelConfig, run_batch, rng):
     return res
 
 
-PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "2g", "3", "3b", "3c", "3d",
-          "3e", "3f", "3g", "4", "4b", "4c", "4d", "4e", "4f", "4g")
+PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "2g", "2h", "3", "3b", "3c",
+          "3d", "3e", "3f", "3g", "3h", "3i", "4", "4b", "4c", "4d", "4e",
+          "4f", "4g", "4h")
 
 
 def main(argv=None) -> int:
@@ -2159,14 +2712,14 @@ def main(argv=None) -> int:
     print(f"kernels built in {time.perf_counter() - t0:.2f} s (one nvcc "
           "each, started together)", flush=True)
     # record_steps<MACRO, VOL, ANALYTIC, LE>,
-    # col_steps<MACRO, ANALYTIC, VOL, RR, SRC>,
+    # col_steps<MACRO, ANALYTIC, VOL, RR, LE>,
     # sep_steps<SRC, ANALYTIC, RR, LW> and tile_steps<NCOMP, ANALYTIC, RR>
     # in their mangled names
     patterns = {
         "record_kernel": (r"record_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
                           "macro={} vol={} analytic={} LE={}"),
-        "col_kernel": (r"col_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E",
-                       "macro={} analytic={} vol={} rr={} src={}"),
+        "col_kernel": (r"col_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                       "macro={} analytic={} vol={} rr={} LE={}"),
         "sep_kernel": (r"sep_stepsILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
                        "src={} analytic={} rr={} lw={}"),
         "tile_kernel": (r"tile_stepsILi(\d)ELb(\d)ELb(\d)E",
@@ -2188,7 +2741,8 @@ def main(argv=None) -> int:
         Grid=Grid, OpticalComponent=OpticalComponent,
         PhaseFunction=PhaseFunction, PhaseFunctionTable=PhaseFunctionTable,
         build_domain=build_domain, weights=weights,
-        illumination=illumination, Surface=Surface, planck=planck)
+        illumination=illumination, Surface=Surface, planck=planck,
+        broken_cloud_scene=broken_cloud_scene)
     dirs6 = _deck_directions(config, le, "step_cloud_radiance.nml")
     out = {}
     if "2" in only:
@@ -2219,6 +2773,9 @@ def main(argv=None) -> int:
                                                  illumination, rng)
     if "2g" in only:
         out["lw_max_err"] = phase_lw_compare(rk, m, KernelConfig, rng)
+    if "2h" in only:
+        out["gas_max_err"], out["col_le_max_err"] = phase_col_le_compare(
+            ck, le, m, KernelConfig, rng)
     if "3" in only:
         out["launches"] = phase_main_path(rk, cli)
     if "3b" in only:
@@ -2237,6 +2794,10 @@ def main(argv=None) -> int:
     if "3g" in only:
         out["lw_generic_deck"] = phase_lw_generic_deck(
             rk, ck, sk, tk, cli, write_lw_broadband_inputs)
+    if "3h" in only:
+        out["col_le_deck"] = phase_landsat_radiance_deck(ck, rk, cli)
+    if "3i" in only:
+        out["gas"] = phase_gas(ck, rk, m, le, KernelConfig, run_batch, rng)
     if "4" in only:
         out["head"] = phase_headline(*args)
     if "4b" in only:
@@ -2258,6 +2819,9 @@ def main(argv=None) -> int:
     if "4g" in only:
         out["lw_head"] = phase_lw_headline(rk, m, KernelConfig, run_batch,
                                            rng)
+    if "4h" in only:
+        out["col_le_head"] = phase_col_le_headline(
+            ck, rk, le, m, KernelConfig, run_batch, rng)
     if only != set(PHASES):
         print(f"chip_smoke: phases {sorted(only)} passed; no result lines "
               "for a partial run")
@@ -2297,6 +2861,8 @@ def main(argv=None) -> int:
             4 * 3 * tile_head["nxy"]),
         "record_kernel_multi3": multi_head["bound"],
         "record_kernel_lw": lw_head["bound"],
+        "col_kernel_radiance": out["col_le_head"]["bound"],
+        "col_kernel_gas": out["gas"]["bound"],
     }
     kernels = [{
         "name": "record_kernel",
@@ -2367,6 +2933,29 @@ def main(argv=None) -> int:
         "max_abs_err": out["lw_max_err"],
         "ms": lw_head["kernel_ms_per_launch"],
         "plain_ms": lw_head["plain_ms_per_launch"],
+    }, {
+        # the column kernel's local estimate (K3-d): launches on
+        # run/landsat_radiance.nml, times on bench.py's
+        # landsat_radiance_16dir
+        "name": "col_kernel_radiance",
+        "route": "cuda",
+        "source": "mcbrat3d_tpu_torch/csrc/col_kernel.cu",
+        "replaces": "mcbrat3d_tpu/transport/pallas_col.py:745",
+        "launches": out["col_le_deck"]["launches"],
+        "max_abs_err": out["col_le_max_err"],
+        "ms": out["col_le_head"]["kernel_ms_per_launch"],
+        "plain_ms": out["col_le_head"]["plain_ms_per_launch"],
+    }, {
+        # the column kernel's gas template (K3-a): launches and times on
+        # the full-width gas template (phase 3i)
+        "name": "col_kernel_gas",
+        "route": "cuda",
+        "source": "mcbrat3d_tpu_torch/csrc/col_kernel.cu",
+        "replaces": "mcbrat3d_tpu/transport/pallas_col.py:507",
+        "launches": out["gas"]["launches"],
+        "max_abs_err": out["gas_max_err"],
+        "ms": out["gas"]["kernel_ms_per_launch"],
+        "plain_ms": out["gas"]["plain_ms_per_launch"],
     }]
     for k in kernels:
         # no single PyTorch call computes a transport step

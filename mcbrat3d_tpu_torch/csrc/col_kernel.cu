@@ -1,19 +1,40 @@
-// Column-template kernel for NVIDIA Hopper (sm_90a): flux path.
+// Column-template kernel for NVIDIA Hopper (sm_90a): flux path, gas template
+// and local estimate.
 //
-// Replaces: mcbrat3d_tpu/transport/pallas_col.py `_build_kernel_col`, flux
-// path (one component with uniform ssa, analytic HG or one tabulated
-// inverse-CDF row, directional / random-azimuth / flux sources, uniform
-// Lambertian surface), as launched by `run_batch_pallas_col`. The domain is
-// a column template, beta = col_scale[col] * (iz < col_height[col]), so two
+// Replaces: mcbrat3d_tpu/transport/pallas_col.py `_build_kernel_col` (one
+// component with uniform ssa, or the gas template; analytic HG or one
+// tabulated inverse-CDF row; directional / random-azimuth / flux sources;
+// uniform Lambertian surface; the in-kernel local estimate), as launched by
+// `run_batch_pallas_col`. The domain is a column template,
+// beta = col_scale[col] * (iz < col_height[col]) [+ qz[iz]], so two
 // per-column values carry a field of millions of cells. Per step a lane
 // refills from the source, jumps against its carried xy-block majorant
 // below the block's cloud-top plane and advances geometrically above it
-// (clipped at the block faces, clamped to the domain edge, and, descending,
-// at the plane; a photon on an outward face takes one global-ceiling step),
-// gathers its column, tests the null collision, absorbs by the uniform
-// ssa, plays roulette, scatters or reflects, and tallies flux up/down and
-// absorption per column, the absorption z profile and, optionally, the 3D
-// absorption field.
+// (with the gas template it samples against the gas maximum qg there and
+// against bls + qg below; clipped at the block faces, clamped to the domain
+// edge, and, descending, at the plane; a photon on an outward face takes
+// one global-ceiling step), gathers its column (+ the gas at its level),
+// tests the null collision, absorbs by the ssa (with gas the effective
+// beta_cloud * ssa / beta), plays roulette, scatters or reflects, and
+// tallies flux up/down and absorption per column, the absorption z profile
+// and, optionally, the 3D absorption field.
+//
+// Local estimate (LE, pallas_col.py:745-970). At every real collision and
+// every surface reflection a thread loops over the directions (cosines and
+// fast-axis flag, held in shared memory): the phase value (the forward row
+// in s = sin(theta/2) or analytic HG over 4 pi mu; 1/pi for a reflection),
+// the Iwabuchi roulette draws at sites 32 + 2d and 33 + 2d, then a column
+// walk from the event: per crossed column (wrapped periodically) it adds
+// CT(z_in) - CT(z_out), CT(z) = max(0, A - B z), from two __ldg, until the
+// ray leaves the top or passes the global maximum cloud top (above which
+// every CT is 0); the gas term is closed form. The contribution goes to the
+// column where the ray leaves the top, by a global atomicAdd into the image
+// [n_dirs][nx * ny] (1 MB at 16 directions: too large for shared memory).
+// The TPU kernel sums the same segments by fast-axis slab (a slab scan with
+// one-hot gathers); the walk crosses them in order of distance, so the two
+// differ in rounding order only. A walk is bounded by k_walk iterations
+// (the faces of the most slanted direction from the bottom to the top);
+// one that would exceed it is cut and counted, never left to run.
 //
 // Design. One thread per photon lane; lane = blockIdx.x * blockDim.x +
 // threadIdx.x, the TPU kernel's row * 128 + lane, so the counter-based
@@ -28,14 +49,17 @@
 // column absorption (3 * nx * ny floats, 192 KB on the Landsat deck) go to
 // global atomics over 16,384 addresses, which rarely collide; the z profile
 // (nz <= 128 floats) accumulates in shared memory and is flushed once per
-// block per launch; the optional 3D field goes to global atomics.
+// block per launch; the optional 3D field goes to global atomics. A radiance
+// launch has 4,096 lanes (the JAX package's lane geometry, so its lanes
+// carry JAX's photons) and runs 32-thread blocks to spread them over the
+// SMs.
 //
 // What bounds it on this card: like the record kernel, the latency of the
 // dependent per-step math (divisions, log1p, sqrt, sincos, the table or HG
 // sampling) with at most 65,536 lanes in flight, and the global atomics of
-// the tallies; its bytes (state, two column fields, small tables) and its
-// operations are both far below the card's rates. It does no matrix work,
-// so wgmma and TMA do not apply.
+// the tallies; with radiance, the dependent loads of the column walk on
+// 4,096 lanes. Its bytes and its operations are both far below the card's
+// rates. It does no matrix work, so wgmma and TMA do not apply.
 //
 // Arithmetic follows the JAX kernel operation by operation in float32, and
 // the library is built with -fmad=false so no multiply-add is contracted
@@ -52,18 +76,33 @@ using mcb::clampi;
 using mcb::face_dist;
 using mcb::kBig;
 using mcb::kTiny;
+using mcb::signf;
 using mcb::uniform;
 using mcb::wrap;
 
 constexpr int kThreads = 256;
+// Threads per block of a radiance launch (4,096 lanes over 128 SMs).
+constexpr int kLeThreads = 32;
 // Shared memory a block may take for its tables (two blocks per SM).
 constexpr size_t kMaxTableSmem = 96 * 1024;
+// Directions per launch (local_estimate.MAX_KERNEL_DIRS).
+constexpr int kMaxDirs = 64;
+// Launch counters (col_kernel.N_COUNTS): started, lanes with work left,
+// lane-steps with a live photon, local-estimate events, walks cut.
+constexpr int kCounts = 5;
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kInvPi = 0.318309886183790671538f;
+constexpr float kFourPi = 12.5663706143591729539f;
+// Index-space nudge of the walk's first column and the exit pixel
+// (pallas_col.py:771).
+constexpr float kNde = 1e-4f;
 
 // params[] slots (mcbrat3d_tpu_torch/transport/col_kernel.py C_*).
 enum {
   C_BETA_MAX, C_ALBEDO, C_SMU, C_SUX, C_SUY, C_RR_W, C_HALF_RR, C_X0, C_LX,
   C_Y0, C_LY, C_Z0, C_LZ, C_SSA, C_G, C_INV_DX, C_INV_DY, C_INV_DZ, C_DZ,
-  C_ZMAX, C_ZTOP, C_ZBOT, C_BXW, C_BYW, C_NUDGE, C_TWO_PI, N_PARAMS
+  C_ZMAX, C_ZTOP, C_ZBOT, C_BXW, C_BYW, C_NUDGE, C_TWO_PI, C_QG, C_DXC,
+  C_DYC, C_ZCL, C_ZETA, N_PARAMS
 };
 
 // Source kinds (col_kernel.SOURCE_KINDS).
@@ -72,7 +111,7 @@ enum { SRC_DIRECTIONAL, SRC_RANDOM_AZIMUTH, SRC_FLUX };
 // K3 draw sites (col_kernel.SITE_*).
 enum : uint32_t {
   S_X = 0, S_Y = 1, S_SRC = 2, S_TAU = 3, S_COLLIDE = 4, S_ANGLE = 5,
-  S_PHI = 6, S_ROULETTE = 7, S_SRC_PHI = 9
+  S_PHI = 6, S_ROULETTE = 7, S_SRC_PHI = 9, S_LE = 32
 };
 
 __device__ __forceinline__ float table(const float* s, const float* g, int i,
@@ -80,7 +119,158 @@ __device__ __forceinline__ float table(const float* s, const float* g, int i,
   return in_smem ? s[i] : __ldg(g + i);
 }
 
-template <bool MACRO, bool ANALYTIC, bool VOL, bool RR, int SRC>
+// Geometry and radiance inputs of the local estimate.
+struct LeArgs {
+  const float* col_a;   // [nx * ny] CT intercept A = scale * (z0 + h dz)
+  const float* col_b;   // [nx * ny] CT slope B = scale
+  const float* fwd_v0;  // forward row, uniform in s = sin(theta/2)
+  const float* fwd_dd;  // its forward differences
+  const float* qz;      // [nz] gas extinction
+  const float* qcb;     // [nz] gas optical depth from level k's bottom up
+  float* img;           // [n_dirs][nx * ny]
+  int n_dirs, rr, fwd, n_s, k_walk, has_gas;
+};
+
+__device__ __forceinline__ int imod(int j, int n) {
+  const int m = j % n;
+  return m < 0 ? m + n : m;
+}
+
+// The local estimate of one event (pallas_col.py:760-958): a reflection
+// (refl, Lambertian 1/pi) or a real collision with incoming direction
+// (ux, uy, uz), at (sx, sy, sz) with weight w_ev, toward every direction
+// of s_dirs. Adds the walk iterations to walk and the cut walks to cut.
+__device__ void local_estimate(const LeArgs& le, const float* s_dirs,
+                               const float* prm, uint32_t ul, uint32_t seed,
+                               uint32_t ctr, bool refl, float sx, float sy,
+                               float sz, float w_ev, float ux, float uy,
+                               float uz, int nx, int ny, int nz,
+                               unsigned long long& walk, int& cut) {
+  const float x0 = prm[C_X0], y0 = prm[C_Y0], z0 = prm[C_Z0];
+  const float z_max = prm[C_ZMAX], inv_dx = prm[C_INV_DX];
+  const float inv_dy = prm[C_INV_DY], inv_dz = prm[C_INV_DZ];
+  const float dz = prm[C_DZ], dxc = prm[C_DXC], dyc = prm[C_DYC];
+  const float zcl = prm[C_ZCL], zeta = prm[C_ZETA], g = prm[C_G];
+  const int nxy = nx * ny;
+  for (int d = 0; d < le.n_dirs; ++d) {
+    const float ddx = s_dirs[d], ddy = s_dirs[kMaxDirs + d];
+    const float ddz = s_dirs[2 * kMaxDirs + d];
+    const bool fast_x = s_dirs[3 * kMaxDirs + d] != 0.f;
+    // ---- phase value ----
+    float npf;
+    if (refl) {
+      npf = kInvPi;
+    } else {
+      const float cosb = (ux * ddx + uy * ddy) + uz * ddz;
+      float pv;
+      if (le.fwd) {
+        const float s_v = sqrtf(fmaxf((1.f - cosb) * 0.5f, 0.f));
+        const float tpos = s_v * static_cast<float>(le.n_s - 1);
+        int k = static_cast<int>(tpos);
+        k = k < 0 ? 0 : (k > le.n_s - 2 ? le.n_s - 2 : k);
+        const float frac = tpos - static_cast<float>(k);
+        pv = __ldg(le.fwd_v0 + k) + frac * __ldg(le.fwd_dd + k);
+      } else {
+        const float q = fmaxf((1.f + g * g) - (2.f * g) * cosb, 1e-12f);
+        pv = (1.f - g * g) / (q * sqrtf(q));
+      }
+      npf = pv / (kFourPi * ddz);
+    }
+    // ---- Iwabuchi roulette thresholds ----
+    float u_i1 = 0.f, tau_free = 0.f, npf_pi = 0.f, tau_max = 0.f;
+    bool small = false;
+    if (le.rr) {
+      const uint32_t site = S_LE + 2u * static_cast<uint32_t>(d);
+      u_i1 = uniform(ul, seed, ctr, site);
+      tau_free = -log1pf(-uniform(ul, seed, ctr, site + 1u));
+      npf_pi = kPi * npf;
+      small = npf_pi <= zeta;
+      tau_max = -logf(zeta / fmaxf(npf_pi, kTiny));
+    }
+    // ---- column walk to the top (or past the highest cloud top) ----
+    const float t_top = (z_max - sz) / ddz;
+    const float t_stop = fminf(fmaxf((zcl - sz) / ddz, 0.f), t_top);
+    // the first column (pallas_col.py:837-876): on the fast axis the cell
+    // the ray enters at a face, on the slow axis the cell after a nudge of
+    // 1e-4 cells along the direction (a zero component counts as positive)
+    const float fx = (sx - x0) * inv_dx, fy = (sy - y0) * inv_dy;
+    const int up_x = ddx >= 0.f ? 1 : 0, up_y = ddy >= 0.f ? 1 : 0;
+    const float jxf = fast_x ? (up_x ? floorf(fx) : ceilf(fx) - 1.f)
+                             : floorf(fx + (up_x ? kNde : -kNde));
+    const float jyf = fast_x ? floorf(fy + (up_y ? kNde : -kNde))
+                             : (up_y ? floorf(fy) : ceilf(fy) - 1.f);
+    int jx = static_cast<int>(jxf), jy = static_cast<int>(jyf);
+    const bool live_x = fabsf(ddx) > 1e-12f, live_y = fabsf(ddy) > 1e-12f;
+    float tx = live_x ? ((static_cast<float>(jx + up_x) * dxc + x0) - sx) / ddx
+                      : kBig;
+    float ty = live_y ? ((static_cast<float>(jy + up_y) * dyc + y0) - sy) / ddy
+                      : kBig;
+    float t = 0.f, tau_cl = 0.f;
+    bool done = false;
+    int it = 0;
+    // the column, wrapped periodically as the unwrapped jx, jy step
+    int cx = imod(jx, nx), cy = imod(jy, ny);
+    while (it < le.k_walk) {
+      const float tn = fminf(fminf(tx, ty), t_stop);
+      const int c = cx * ny + cy;
+      const float a = __ldg(le.col_a + c), b = __ldg(le.col_b + c);
+      tau_cl = tau_cl + (fmaxf(a - b * (sz + ddz * t), 0.f) -
+                         fmaxf(a - b * (sz + ddz * tn), 0.f));
+      ++it;
+      if (tn >= t_stop) {
+        done = true;
+        break;
+      }
+      if (tx <= ty) {
+        jx += 2 * up_x - 1;
+        cx = up_x ? (cx + 1 == nx ? 0 : cx + 1) : (cx == 0 ? nx - 1 : cx - 1);
+        tx = ((static_cast<float>(jx + up_x) * dxc + x0) - sx) / ddx;
+      } else {
+        jy += 2 * up_y - 1;
+        cy = up_y ? (cy + 1 == ny ? 0 : cy + 1) : (cy == 0 ? ny - 1 : cy - 1);
+        ty = ((static_cast<float>(jy + up_y) * dyc + y0) - sy) / ddy;
+      }
+      t = tn;
+    }
+    walk += static_cast<unsigned long long>(it);
+    if (!done) {
+      ++cut;
+      continue;
+    }
+    float tau_f = tau_cl / ddz;
+    if (le.has_gas) {  // closed form from the cumulative profile
+      const int kz = clampi(static_cast<int>((sz - z0) * inv_dz), nz - 1);
+      const float z_bot = z0 + static_cast<float>(kz) * dz;
+      tau_f = tau_f + (__ldg(le.qcb + kz) - __ldg(le.qz + kz) * (sz - z_bot)) /
+                          ddz;
+    }
+    // ---- contribution and the TOA exit pixel ----
+    float contrib;
+    if (le.rr) {
+      const float w_rrc = (w_ev * zeta) * kInvPi;
+      const float c_a =
+          (tau_f < tau_free && u_i1 * zeta <= npf_pi) ? w_rrc : 0.f;
+      const float c_b = tau_f < tau_max ? (w_ev * npf) * expf(-tau_f)
+                        : (tau_f - tau_max < tau_free ? w_rrc : 0.f);
+      contrib = small ? c_a : c_b;
+    } else {
+      contrib = (w_ev * npf) * expf(-tau_f);
+    }
+    if (contrib != 0.f) {
+      const float exf_x = wrap(((sx + ddx * t_top) - x0) * inv_dx +
+                                   signf(ddx) * kNde,
+                               static_cast<float>(nx));
+      const float exf_y = wrap(((sy + ddy * t_top) - y0) * inv_dy +
+                                   signf(ddy) * kNde,
+                               static_cast<float>(ny));
+      const int ex_col = clampi(static_cast<int>(exf_x), nx - 1) * ny +
+                         clampi(static_cast<int>(exf_y), ny - 1);
+      atomicAdd(&le.img[d * nxy + ex_col], contrib);
+    }
+  }
+}
+
+template <bool MACRO, bool ANALYTIC, bool VOL, bool RR, bool LE>
 __global__ void __launch_bounds__(kThreads)
 col_steps(const float* __restrict__ prm,
           const float* __restrict__ col_scale,
@@ -94,11 +284,14 @@ col_steps(const float* __restrict__ prm,
           float* __restrict__ ws, float* __restrict__ blss,
           float* __restrict__ blhs, int* __restrict__ quotas,
           int* __restrict__ alives, float* __restrict__ acc,
-          int* __restrict__ counts, int n_lanes, int nx, int ny, int nz,
-          int mf, int nby, int n_blk, int inv_n, int blk_smem, int inv_smem,
-          uint32_t seed, uint32_t step0, int k_steps) {
+          int* __restrict__ counts, const float* __restrict__ dirs,
+          unsigned long long* __restrict__ g_walk, LeArgs le, int n_lanes,
+          int nx, int ny, int nz, int mf, int nby, int n_blk, int inv_n,
+          int blk_smem, int inv_smem, uint32_t seed, uint32_t step0,
+          int k_steps, int src) {
   extern __shared__ float smem[];
-  __shared__ int s_counts[3];
+  __shared__ int s_counts[kCounts];
+  __shared__ float s_dirs[LE ? 4 * kMaxDirs : 1];
   float* s_prof = smem;                                  // [nz]
   float* s_blk = s_prof + nz;                            // [2 * n_blk]
   float* s_a0 = s_blk + (blk_smem ? 2 * n_blk : 0);      // [inv_n]
@@ -115,7 +308,12 @@ col_steps(const float* __restrict__ prm,
       s_dd[i] = g_inv_dd[i];
     }
   }
-  for (int i = threadIdx.x; i < 3; i += blockDim.x) s_counts[i] = 0;
+  if constexpr (LE) {
+    for (int i = threadIdx.x; i < 4 * le.n_dirs; i += blockDim.x) {
+      s_dirs[(i / le.n_dirs) * kMaxDirs + i % le.n_dirs] = dirs[i];
+    }
+  }
+  for (int i = threadIdx.x; i < kCounts; i += blockDim.x) s_counts[i] = 0;
   __syncthreads();
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -125,7 +323,7 @@ col_steps(const float* __restrict__ prm,
     const float rr_w = prm[C_RR_W], half_rr = prm[C_HALF_RR];
     const float x0 = prm[C_X0], lx = prm[C_LX], y0 = prm[C_Y0];
     const float ly = prm[C_LY], z0 = prm[C_Z0];
-    const float ssa = prm[C_SSA], g = prm[C_G];
+    const float ssa = prm[C_SSA], g = prm[C_G], qg = prm[C_QG];
     const float inv_dx = prm[C_INV_DX], inv_dy = prm[C_INV_DY];
     const float inv_dz = prm[C_INV_DZ], dz = prm[C_DZ];
     const float z_max = prm[C_ZMAX], z_top = prm[C_ZTOP];
@@ -133,6 +331,7 @@ col_steps(const float* __restrict__ prm,
     const float nudge = prm[C_NUDGE], two_pi = prm[C_TWO_PI];
     const float nzf = static_cast<float>(nz);
     const int nxy = nx * ny;
+    const bool has_gas = le.has_gas != 0;
     float* acc_vol = acc + 3 * nxy + nz;  // 3D field, [col][level]
 
     float x = xs[lane], y = ys[lane], z = zs[lane];
@@ -140,7 +339,8 @@ col_steps(const float* __restrict__ prm,
     float w = ws[lane], bls = blss[lane], blh = blhs[lane];
     int quota = quotas[lane];
     bool alive = alives[lane] > 0;
-    int started = 0, steps = 0;
+    int started = 0, steps = 0, events = 0, cut = 0;
+    unsigned long long walk = 0;
     const uint32_t ul = static_cast<uint32_t>(lane);
 
     for (int k = 0; k < k_steps; ++k) {
@@ -150,13 +350,13 @@ col_steps(const float* __restrict__ prm,
         x = x0 + uniform(ul, seed, ctr, S_X) * lx;
         y = y0 + uniform(ul, seed, ctr, S_Y) * ly;
         z = z_top;
-        if (SRC == SRC_DIRECTIONAL) {
+        if (src == SRC_DIRECTIONAL) {
           ux = sux;
           uy = suy;
           uz = -smu;
         } else {
           float s_mu, s_phi;
-          if (SRC == SRC_RANDOM_AZIMUTH) {
+          if (src == SRC_RANDOM_AZIMUTH) {
             s_mu = -smu;
             s_phi = two_pi * uniform(ul, seed, ctr, S_SRC);
           } else {
@@ -182,7 +382,9 @@ col_steps(const float* __restrict__ prm,
       const float tau = -log1pf(-uniform(ul, seed, ctr, S_TAU));
       const float ztop_m = z0 + blh * dz;  // block cloud-top plane
       const bool above = z >= ztop_m;
-      float ceiling = above ? 0.f : bls;
+      // with gas everywhere the region above the plane samples against
+      // the gas maximum instead of advancing geometrically
+      float ceiling = has_gas ? (above ? qg : bls + qg) : (above ? 0.f : bls);
       float d_samp = ceiling > 0.f ? tau / ceiling : kBig;
       float d;
       bool clipped = false;
@@ -234,6 +436,12 @@ col_steps(const float* __restrict__ prm,
           if (w_refl <= kTiny) {
             alive = false;
           } else {
+            if constexpr (LE) {  // the reflection's local estimate
+              events += 1;
+              local_estimate(le, s_dirs, prm, ul, seed, ctr, true, xe, ye,
+                             z_bot, w_refl, ux, uy, uz, nx, ny, nz, walk,
+                             cut);
+            }
             const float mu_new = sqrtf(fmaxf(u_ang, 1e-12f));
             const float sin_new = sqrtf(fmaxf(0.f, 1.f - mu_new * mu_new));
             float sp, cp;
@@ -265,20 +473,29 @@ col_steps(const float* __restrict__ prm,
       }
       if (clipped) continue;
 
-      // ---- column gather; null-collision test against the ceiling the
-      // jump sampled with ----
-      const float beta = static_cast<float>(iz) < __ldg(col_height + col)
-                             ? __ldg(col_scale + col)
-                             : 0.f;
+      // ---- column gather (+ the gas at the level); null-collision test
+      // against the ceiling the jump sampled with ----
+      const float beta_c = static_cast<float>(iz) < __ldg(col_height + col)
+                               ? __ldg(col_scale + col)
+                               : 0.f;
+      const float beta = has_gas ? beta_c + __ldg(le.qz + iz) : beta_c;
       if (!(uniform(ul, seed, ctr, S_COLLIDE) * ceiling < beta)) continue;
 
       // ---- real collision: absorption weight, tallies, roulette ----
-      const float absorbed = w * (1.f - ssa);
-      w = w * ssa;
+      // (the gas absorbs only: the cell scatters beta_c * ssa of beta)
+      const float ssa_eff =
+          has_gas ? (beta > 0.f ? (beta_c * ssa) / beta : 0.f) : ssa;
+      const float absorbed = w * (1.f - ssa_eff);
+      w = w * ssa_eff;
       if (absorbed != 0.f) {
         atomicAdd(&acc[2 * nxy + col], absorbed);
         atomicAdd(&s_prof[iz], absorbed);
         if (VOL) atomicAdd(&acc_vol[col * nz + iz], absorbed);
+      }
+      if constexpr (LE) {  // post-absorption, pre-roulette weight
+        events += 1;
+        local_estimate(le, s_dirs, prm, ul, seed, ctr, false, xc, yc, zc, w,
+                       ux, uy, uz, nx, ny, nz, walk, cut);
       }
       if (RR && w < half_rr) {
         w = uniform(ul, seed, ctr, S_ROULETTE) < w / rr_w ? rr_w : 0.f;
@@ -317,6 +534,9 @@ col_steps(const float* __restrict__ prm,
     if (started) atomicAdd(&s_counts[0], started);
     if (alive || quota > 0) atomicAdd(&s_counts[1], 1);
     if (steps) atomicAdd(&s_counts[2], steps);
+    if (events) atomicAdd(&s_counts[3], events);
+    if (cut) atomicAdd(&s_counts[4], cut);
+    if (walk) atomicAdd(g_walk, walk);
   }
   __syncthreads();
   float* acc_prof = acc + 3 * nx * ny;
@@ -324,7 +544,7 @@ col_steps(const float* __restrict__ prm,
     const float v = s_prof[i];
     if (v != 0.f) atomicAdd(&acc_prof[i], v);
   }
-  for (int i = threadIdx.x; i < 3; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kCounts; i += blockDim.x) {
     if (s_counts[i]) atomicAdd(&counts[i], s_counts[i]);
   }
 }
@@ -335,14 +555,17 @@ struct Args {
   int *quota, *alive;
   float* acc;
   int* counts;
+  const float* dirs;
+  unsigned long long* walk;
+  LeArgs le;
   int n_lanes, nx, ny, nz, mf, nby, n_blk, inv_n;
   uint32_t seed, step0;
-  int k_steps;
+  int k_steps, src;
 };
 
-template <bool MACRO, bool ANALYTIC, bool VOL, bool RR, int SRC>
+template <bool MACRO, bool ANALYTIC, bool VOL, bool RR, bool LE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kernel = col_steps<MACRO, ANALYTIC, VOL, RR, SRC>;
+  auto kernel = col_steps<MACRO, ANALYTIC, VOL, RR, LE>;
   // the profile, then the block table and the inverse-CDF row where they
   // fit the budget (else the kernel reads them with __ldg)
   size_t smem = static_cast<size_t>(a.nz) * sizeof(float);
@@ -358,47 +581,40 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const int blocks = (a.n_lanes + kThreads - 1) / kThreads;
-  kernel<<<blocks, kThreads, smem, stream>>>(
+  const int threads = LE ? kLeThreads : kThreads;
+  const int blocks = (a.n_lanes + threads - 1) / threads;
+  kernel<<<blocks, threads, smem, stream>>>(
       a.prm, a.col_scale, a.col_height, a.blk, a.inv_a0, a.inv_dd, a.x, a.y,
       a.z, a.ux, a.uy, a.uz, a.w, a.bls, a.blh, a.quota, a.alive, a.acc,
-      a.counts, a.n_lanes, a.nx, a.ny, a.nz, a.mf, a.nby, a.n_blk, a.inv_n,
-      blk_smem, inv_smem, a.seed, a.step0, a.k_steps);
+      a.counts, a.dirs, a.walk, a.le, a.n_lanes, a.nx, a.ny, a.nz, a.mf,
+      a.nby, a.n_blk, a.inv_n, blk_smem, inv_smem, a.seed, a.step0,
+      a.k_steps, a.src);
   return cudaGetLastError();
 }
 
 template <bool MACRO, bool ANALYTIC, bool VOL, bool RR>
-cudaError_t launch_src(const Args& a, int src, cudaStream_t s) {
-  switch (src) {
-    case SRC_DIRECTIONAL:
-      return launch<MACRO, ANALYTIC, VOL, RR, SRC_DIRECTIONAL>(a, s);
-    case SRC_RANDOM_AZIMUTH:
-      return launch<MACRO, ANALYTIC, VOL, RR, SRC_RANDOM_AZIMUTH>(a, s);
-    case SRC_FLUX:
-      return launch<MACRO, ANALYTIC, VOL, RR, SRC_FLUX>(a, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch_le(const Args& a, cudaStream_t s) {
+  return a.le.n_dirs > 0 ? launch<MACRO, ANALYTIC, VOL, RR, true>(a, s)
+                         : launch<MACRO, ANALYTIC, VOL, RR, false>(a, s);
 }
 
 template <bool MACRO, bool ANALYTIC, bool VOL>
-cudaError_t launch_rr(const Args& a, int rr, int src, cudaStream_t s) {
-  return rr ? launch_src<MACRO, ANALYTIC, VOL, true>(a, src, s)
-            : launch_src<MACRO, ANALYTIC, VOL, false>(a, src, s);
+cudaError_t launch_rr(const Args& a, int rr, cudaStream_t s) {
+  return rr ? launch_le<MACRO, ANALYTIC, VOL, true>(a, s)
+            : launch_le<MACRO, ANALYTIC, VOL, false>(a, s);
 }
 
 template <bool MACRO, bool ANALYTIC>
-cudaError_t launch_vol(const Args& a, int vol, int rr, int src,
-                       cudaStream_t s) {
-  return vol ? launch_rr<MACRO, ANALYTIC, true>(a, rr, src, s)
-             : launch_rr<MACRO, ANALYTIC, false>(a, rr, src, s);
+cudaError_t launch_vol(const Args& a, int vol, int rr, cudaStream_t s) {
+  return vol ? launch_rr<MACRO, ANALYTIC, true>(a, rr, s)
+             : launch_rr<MACRO, ANALYTIC, false>(a, rr, s);
 }
 
 template <bool MACRO>
-cudaError_t launch_hg(const Args& a, int analytic, int vol, int rr, int src,
+cudaError_t launch_hg(const Args& a, int analytic, int vol, int rr,
                       cudaStream_t s) {
-  return analytic ? launch_vol<MACRO, true>(a, vol, rr, src, s)
-                  : launch_vol<MACRO, false>(a, vol, rr, src, s);
+  return analytic ? launch_vol<MACRO, true>(a, vol, rr, s)
+                  : launch_vol<MACRO, false>(a, vol, rr, s);
 }
 
 }  // namespace
@@ -407,33 +623,44 @@ extern "C" int col_kernel_num_params() { return N_PARAMS; }
 
 // Advance every lane by k_steps transport steps. Adds the tallies into acc
 // ([up nxy | down nxy | absorbed nxy | profile nz | 3D field nxy * nz with
-// vol]), the photons started into counts[0], the lanes with work left
-// (alive or quota > 0) into counts[1] and the lane-steps run with a live
-// photon into counts[2]. Returns cudaGetLastError().
+// vol]) and, with n_dirs > 0, the radiance image into img ([n_dirs][nxy]),
+// the photons started into counts[0], the lanes with work left (alive or
+// quota > 0) into counts[1], the lane-steps run with a live photon into
+// counts[2], the local-estimate events into counts[3], the walks cut by
+// k_walk into counts[4] and the walk iterations into walk[0]. Source kind
+// (SRC_*), gas, roulette of the estimate and the forward row are launch
+// arguments. Returns cudaGetLastError().
 extern "C" int col_kernel_launch(
     const float* prm, const float* col_scale, const float* col_height,
     const float* blk, const float* inv_a0, const float* inv_dd, float* x,
     float* y, float* z, float* ux, float* uy, float* uz, float* w,
     float* bls, float* blh, int* quota, int* alive, float* acc, int* counts,
-    int n_lanes, int nx, int ny, int nz, int macro_factor, int nby,
-    int n_blk, int inv_n, int n_acc, uint32_t seed, uint32_t step0,
-    int k_steps, int analytic, int vol, int use_rr, int source_kind,
-    void* stream) {
+    const float* qz, const float* qcb, const float* col_a,
+    const float* col_b, const float* dirs, const float* fwd_v0,
+    const float* fwd_dd, float* img, unsigned long long* walk, int n_lanes,
+    int nx, int ny, int nz, int macro_factor, int nby, int n_blk, int inv_n,
+    int n_acc, uint32_t seed, uint32_t step0, int k_steps, int analytic,
+    int vol, int use_rr, int source_kind, int has_gas, int n_dirs,
+    int le_rr, int le_fwd, int n_s, int k_walk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nxy = static_cast<long long>(nx) * ny;
   const long long want = 3 * nxy + nz + (vol ? nxy * nz : 0);
   if (n_acc != want || nz > 128 || (macro_factor > 0 && n_blk <= 0) ||
-      (!analytic && inv_n < 2)) {
+      (!analytic && inv_n < 2) || source_kind < SRC_DIRECTIONAL ||
+      source_kind > SRC_FLUX || n_dirs < 0 || n_dirs > kMaxDirs ||
+      (n_dirs > 0 && (k_walk <= 0 || (le_fwd && n_s < 2)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const LeArgs le{col_a, col_b, fwd_v0, fwd_dd, qz, qcb, img,
+                  n_dirs, le_rr, le_fwd, n_s, k_walk, has_gas};
   const Args a{prm,   col_scale, col_height, blk,   inv_a0, inv_dd, x,
                y,     z,         ux,         uy,    uz,     w,      bls,
-               blh,   quota,     alive,      acc,   counts, n_lanes, nx,
-               ny,    nz,        macro_factor, nby, n_blk,  inv_n,  seed,
-               step0, k_steps};
+               blh,   quota,     alive,      acc,   counts, dirs,   walk,
+               le,    n_lanes,   nx,         ny,    nz,     macro_factor,
+               nby,   n_blk,     inv_n,      seed,  step0,  k_steps,
+               source_kind};
   const cudaError_t e =
-      macro_factor > 0
-          ? launch_hg<true>(a, analytic, vol, use_rr, source_kind, s)
-          : launch_hg<false>(a, analytic, vol, use_rr, source_kind, s);
+      macro_factor > 0 ? launch_hg<true>(a, analytic, vol, use_rr, s)
+                       : launch_hg<false>(a, analytic, vol, use_rr, s);
   return static_cast<int>(e);
 }

@@ -9,14 +9,13 @@ bit-identical records for the same inputs.
 Covered here: ``device_fields="full"`` with the packed ``cell_records``
 layout, the two-level macro-cell majorant, the ``uniform_ssa`` /
 ``uniform_hg`` flags, the radiance (forward / hybrid) phase tables, the
-one-component column-template detection with its xy-block majorant table
-(the column kernel's inputs), and the separable-template detection with
-its bf16-bumped block ceilings and separable emission tables (the
+column-template detection, one component or a cloud over a horizontally
+uniform pure-absorber gas (the gas template), with its xy-block majorant
+table (the column kernel's inputs), and the separable-template detection
+with its bf16-bumped block ceilings and separable emission tables (the
 separable kernel's inputs), also as a ``device_fields="compact"`` domain
-that carries only those. The two-component (cloud + gas) column template
-and the column emission tables belong to parts of the column kernel that
-are not ported yet: such domains get ``col_template=False`` (the column
-kernel's eligibility names why).
+that carries only those. The column emission tables belong to a part of
+the column kernel that is not ported yet (its eligibility names it).
 """
 
 from __future__ import annotations
@@ -136,6 +135,15 @@ class OpticalDomain:
     col_scale: Optional[torch.Tensor] = None    # [nx*ny] f32
     col_height: Optional[torch.Tensor] = None   # [nx*ny] f32, cells from z=0
     macro_table: Optional[torch.Tensor] = None  # [nbx*nby, 2] f32
+    # The gas template (two components): the column fields describe the
+    # cloud component alone and a horizontally uniform pure absorber adds
+    # col_qz[iz]; col_cloud holds (cloud ssa, cloud HG g or 0, max col_qz),
+    # and the cloud scatters by analytic HG (col_analytic_hg) or by row
+    # col_inv_row of tables.inverse.
+    col_qz: Optional[torch.Tensor] = None       # [nz] f32
+    col_cloud: Optional[np.ndarray] = None      # [3] f32 (host)
+    col_analytic_hg: bool = True
+    col_inv_row: int = 0
     # Separable-template structure (two components at most; detected on
     # the float32 fields): beta(x, y, z) = sep_amp[ix*ny+iy] * sep_pz[iz]
     # + sep_qz[iz], a rank-1 scattering "cloud" over a horizontally
@@ -408,9 +416,8 @@ def build_domain(grid: Grid, components: Sequence[OpticalComponent],
         rec[:, 2 + 3 * ncomp] = g0[0]
 
     col = {}
-    if ncomp == 1 and grid.xy_regular and grid.z_regular:
-        col = detect_column_template(np.asarray(total, np.float32),
-                                     macro_factor)
+    if grid.xy_regular and grid.z_regular:
+        col = detect_column_template(components, ext, ssa, pfi, macro_factor)
     sep = detect_separable(grid, components, ext, ssa, pfi, macro_factor,
                            temps, bool(col), float(lambda_um))
 
@@ -434,14 +441,35 @@ def _round_up_bf16(v: np.ndarray) -> np.ndarray:
     return torch.where(b16 < t, bumped, b16).numpy()
 
 
-def detect_column_template(total: np.ndarray, macro_factor: int) -> dict:
-    """One-component column-template detection on the float32 total
-    extinction [nx, ny, nz] (port of the JAX ``build_domain``
-    :633-733 for one component): every column is one uniform block from
-    z = 0. Returns the ``col_*`` / ``macro_table`` fields, empty when the
-    field is not a column template."""
-    nx, ny, nz = total.shape
-    t2 = total.reshape(nx * ny, nz)
+def detect_column_template(components, ext: np.ndarray, ssa: np.ndarray,
+                           pfi: np.ndarray, macro_factor: int) -> dict:
+    """Column-template detection on the float64 component fields
+    [nx, ny, nz, ncomp] (port of the JAX ``build_domain`` :633-733), on the
+    float32 extinction the kernel sees: one component whose every column is
+    one uniform block from z = 0, or the gas template, a cloud component of
+    that shape over a horizontally uniform pure absorber. The gas template
+    also needs cloud tops that vary (a slab of one height over gas is the
+    separable kernel's) and one ssa and one phase entry over the cloud's
+    occupied cells. Returns the ``col_*`` / ``macro_table`` fields, empty
+    when the domain is not a column template."""
+    nx, ny, nz, ncomp = ext.shape
+    gas_q = None
+    if ncomp == 1:
+        cand, cloud_c = np.asarray(ext[..., 0], np.float32), 0
+    elif ncomp == 2:
+        uni = [bool(np.all(ext[:, :, :, c] == ext[:1, :1, :, c]))
+               for c in range(2)]
+        if uni[0] == uni[1]:
+            return {}
+        gas_c, cloud_c = (0, 1) if uni[0] else (1, 0)
+        occ_g = ext[..., gas_c] > 0
+        if occ_g.any() and float(np.abs(ssa[..., gas_c][occ_g]).max()) != 0:
+            return {}
+        gas_q = np.asarray(ext[0, 0, :, gas_c], np.float32)
+        cand = np.asarray(ext[..., cloud_c], np.float32)
+    else:
+        return {}
+    t2 = cand.reshape(nx * ny, nz)
     h = (t2 > 0.0).sum(axis=1).astype(np.int64)
     iz_row = np.arange(nz)[None, :]
     if not bool(np.all((t2 > 0.0) == (iz_row < h[:, None]))):
@@ -452,9 +480,29 @@ def detect_column_template(total: np.ndarray, macro_factor: int) -> dict:
         return {}
     out = dict(col_template=True, col_scale=scale,
                col_height=h.astype(np.float32))
+    if gas_q is not None:
+        occ_c = cand > 0
+        if not occ_c.any() or int(h.max()) == int(h[h > 0].min()):
+            return {}
+        ssa_c = ssa[..., cloud_c][occ_c]
+        pfi_c = pfi[..., cloud_c][occ_c]
+        if not (bool(np.all(ssa_c == ssa_c.flat[0]))
+                and bool(np.all(pfi_c == pfi_c.flat[0]))):
+            return {}
+        entry = int(pfi_c.flat[0])
+        g_c = components[cloud_c].phase_function_table.phase_functions[
+            entry].hg_g
+        offset = sum(components[c].phase_function_table.n_entries
+                     for c in range(cloud_c))
+        out.update(
+            col_qz=gas_q,
+            col_cloud=np.asarray(
+                [float(ssa_c.flat[0]), float(g_c) if g_c is not None
+                 else 0.0, float(gas_q.max())], np.float32),
+            col_analytic_hg=g_c is not None, col_inv_row=offset + entry)
     if macro_factor > 0:
-        # per xy block: the majorant scale (rounded up to bfloat16) and the
-        # highest cloud top; blocks span the full z range
+        # per xy block: the cloud's majorant scale (rounded up to bfloat16)
+        # and its highest cloud top; blocks span the full z range
         f = macro_factor
         nbx, nby = -(-nx // f), -(-ny // f)
         s2 = np.zeros((nbx * f, nby * f), np.float32)
@@ -652,7 +700,9 @@ def domain_from_numpy(arrays: dict, device="cuda") -> OpticalDomain:
     (``tables.*``), ``offsets``, ``all_hg``, ``uniform_ssa``,
     ``uniform_hg``, ``macro_factor`` and optionally ``temps``,
     ``lambda_um``, the column-template fields ``col_template``,
-    ``col_scale``, ``col_height`` and ``macro_table``, and the separable
+    ``col_scale``, ``col_height``, ``macro_table`` and, for the gas
+    template, ``col_qz``, ``col_cloud``, ``col_analytic_hg`` and
+    ``col_inv_row``, and the separable
     fields ``sep_*`` (``sep_em_zpa``, ``sep_em_pb`` and ``sep_em_atm`` only
     with emission tables). Float fields are stored as float32, so a JAX
     domain converted here computes on the same data.
@@ -695,6 +745,10 @@ def domain_from_numpy(arrays: dict, device="cuda") -> OpticalDomain:
         col_scale=opt_f32("col_scale"),
         col_height=opt_f32("col_height"),
         macro_table=opt_f32("macro_table"),
+        col_qz=opt_f32("col_qz"),
+        col_cloud=opt_host("col_cloud", np.float32),
+        col_analytic_hg=bool(arrays.get("col_analytic_hg", True)),
+        col_inv_row=int(arrays.get("col_inv_row", 0)),
         sep_template=bool(arrays.get("sep_template", False)),
         sep_amp=opt_f32("sep_amp"),
         sep_pz=opt_f32("sep_pz"),

@@ -29,7 +29,9 @@ def _launches() -> dict:
     return {"record_kernel": rk.LAUNCHES,
             "record_kernel_radiance": rk.RADIANCE_LAUNCHES,
             "record_kernel_lw": rk.LW_LAUNCHES,
-            "col_kernel": ck.COL_LAUNCHES, "sep_kernel": sk.SEP_LAUNCHES,
+            "col_kernel": ck.COL_LAUNCHES,
+            "col_kernel_radiance": ck.COL_LE_LAUNCHES,
+            "sep_kernel": sk.SEP_LAUNCHES,
             "tile_kernel": tk.TILE_LAUNCHES}
 
 

@@ -7,8 +7,9 @@ package's order (``integrator._run_batch_impl``): the record kernel
 (``transport.record_kernel``: 1-3 components, the directional,
 random-azimuth, flux and spotlight sources and per-voxel thermal emission
 with the lw_mode pre-credits), with in-kernel radiance when
-radiance directions are given (grids above ``MAX_KERNEL_DIRS`` run as
-direction-chunked passes over the same photons), then for flux runs the
+radiance directions are given, the column kernel's local estimate where the
+record kernel's refuses a radiance run (grids above ``MAX_KERNEL_DIRS`` run
+as direction-chunked passes over the same photons), then for flux runs the
 column-template kernel (``transport.col_kernel``), the separable-template
 kernel (``transport.sep_kernel``) and the tiled dense-domain kernel
 (``transport.tile_kernel``), or raises naming every failing predicate: the
@@ -77,6 +78,10 @@ class Tallies:
     n_lane_steps: int = 0  # lane-steps run with a live photon
     n_passes: int = 0  # sort + transport passes of the tiled kernel
     n_real: int = 0  # real collisions (record and tiled kernels)
+    # the column kernel's local estimate: events (real collisions and
+    # reflections) and column-walk iterations over all directions
+    n_le_events: int = 0
+    n_walk: int = 0
 
     def normalized(self, grid: Grid) -> "Tallies":
         """Per-column normalization (reference:
@@ -105,7 +110,8 @@ class Tallies:
             n_photons=self.n_photons, n_bad=self.n_bad,
             n_steps=self.n_steps, n_cut=self.n_cut,
             n_lane_steps=self.n_lane_steps, n_passes=self.n_passes,
-            n_real=self.n_real)
+            n_real=self.n_real, n_le_events=self.n_le_events,
+            n_walk=self.n_walk)
 
 
 def sample_hg_cos(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -153,9 +159,10 @@ def select_kernel(domain: OpticalDomain, surface: Surface,
     ``"sep"`` or ``"tile"``, or None when no ported kernel takes it.
     Returns ``(kernel, reasons)``; ``reasons`` maps each kernel tried
     before (or instead of) the chosen one to its failing predicates. With
-    ``intensity_config`` only the record kernel's local estimate is ported;
-    a grid above ``MAX_KERNEL_DIRS`` is judged by its first chunk, which
-    ``run_batch`` runs like every other."""
+    ``intensity_config`` the record kernel's local estimate comes first,
+    then the column kernel's (integrator.py:413-448); a grid above
+    ``MAX_KERNEL_DIRS`` is judged by its first chunk, which ``run_batch``
+    runs like every other."""
     from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
     from mcbrat3d_tpu_torch.transport import sep_kernel as sk
@@ -166,11 +173,18 @@ def select_kernel(domain: OpticalDomain, surface: Surface,
             intensity_config = dataclasses.replace(
                 intensity_config, n_dirs=le.MAX_KERNEL_DIRS)
             intensity_dirs = intensity_dirs[:, :le.MAX_KERNEL_DIRS]
-        reasons = rk.intensity_ineligibility_reasons(
+        reasons = {"record": rk.intensity_ineligibility_reasons(
             domain, surface, source, config.lw_mode,
             config.record_scattering_orders, config.use_ray_tracing,
-            intensity_config, intensity_dirs)
-        return (None if reasons else "record"), {"record": reasons}
+            intensity_config, intensity_dirs)}
+        if not reasons["record"]:
+            return "record", reasons
+        reasons["col"] = ck.col_intensity_ineligibility_reasons(
+            domain, surface, source, config.lw_mode,
+            config.record_scattering_orders, config.use_ray_tracing,
+            intensity_config, intensity_dirs,
+            config.need_volume_absorption)
+        return (None if reasons["col"] else "col"), reasons
 
     reasons = {"record": rk.ineligibility_reasons(
         domain, surface, source, lw_mode=config.lw_mode,
@@ -241,19 +255,22 @@ def run_batch(domain: OpticalDomain,
         return rk.run_batch_record_tallies(
             domain, surface, source, seed, config, n_photons=n_photons,
             intensity_config=intensity_config, intensity_dirs=intensity_dirs)
-    run = {"col": ck.run_batch_col_tallies, "sep": sk.run_batch_sep_tallies,
+    if kernel == "col":
+        return ck.run_batch_col_tallies(
+            domain, surface, source, seed, config, n_photons=n_photons,
+            intensity_config=intensity_config, intensity_dirs=intensity_dirs)
+    run = {"sep": sk.run_batch_sep_tallies,
            "tile": tk.run_batch_tile_tallies}.get(kernel)
     if run is not None:
         return run(domain, surface, source, seed, config, n_photons=n_photons)
     if intensity_config is not None:
-        record_reasons = list(reasons["record"])
-        if domain.col_template:
-            record_reasons.append("column-kernel slab-scan radiance is not "
-                                  "ported yet")
         raise NotImplementedError(
-            "radiance configuration outside the ported record kernel "
-            "(and the XLA local estimator is not ported yet); failing "
-            "predicates: " + "; ".join(record_reasons))
+            "radiance configuration outside the ported record and column "
+            "kernels (and the XLA local estimator is not ported yet); "
+            "failing record-kernel predicates: "
+            + "; ".join(reasons["record"])
+            + "; failing column-kernel predicates: "
+            + "; ".join(reasons["col"]))
     if domain.cell_records is None or source.em_sep:
         # compact domains and separable emission sources carry no per-cell
         # fields: only the separable kernel runs them

@@ -33,8 +33,8 @@ from mcbrat3d_tpu_torch.core.device import resolve
 # reference goes to 648, Drivers/monteCarloDriver.f95:61) run as chunked
 # transport passes over the same photons (integrator.run_batch).
 MAX_KERNEL_DIRS = 64
-# Radiance directions need mu >= MIN_MU (the JAX package's default
-# pallas_min_mu): dda_iteration_bound is sized from it.
+# Default floor of the radiance directions' mu (IntensityConfig.pallas_min_mu,
+# the JAX package's default): the in-kernel marches are sized from it.
 MIN_MU = 0.15
 
 
@@ -55,6 +55,11 @@ class IntensityConfig:
     # capping, :294-322 redistribution).
     limit_contributions: bool = False
     max_contribution: float = 77.0
+    # Every direction's mu must be >= pallas_min_mu for the in-kernel local
+    # estimate: the cell march's iteration bound is sized from this floor
+    # (dda_iteration_bound), so a shallower direction is refused by name
+    # unless the floor is lowered (longer marches).
+    pallas_min_mu: float = MIN_MU
 
 
 def make_intensity_directions(mus, phis_deg, device="cuda") -> torch.Tensor:
@@ -74,25 +79,25 @@ def make_intensity_directions(mus, phis_deg, device="cuda") -> torch.Tensor:
     return torch.tensor(dirs.astype(np.float32), device=resolve(device))
 
 
-def dirs_mu_floor_ok(dirs: torch.Tensor) -> bool:
-    """Every direction's mu is at or above the march-bound floor MIN_MU
-    (port of ``pallas_kernel.dirs_mu_floor_ok``)."""
-    return bool(torch.all(dirs[2] >= MIN_MU))
+def dirs_mu_floor_ok(icfg: IntensityConfig, dirs: torch.Tensor) -> bool:
+    """Every direction's mu is at or above the floor
+    ``icfg.pallas_min_mu`` (port of ``pallas_kernel.dirs_mu_floor_ok``)."""
+    return bool(torch.all(dirs[2] >= max(icfg.pallas_min_mu, 1e-6)))
 
 
-def dda_iteration_bound(grid) -> int:
+def dda_iteration_bound(grid, min_mu: float) -> int:
     """Bound on the cell-face crossings of one march from the domain
     bottom to the top along the shallowest admissible direction
-    (mu >= MIN_MU), plus margin (``pallas_kernel.dda_iteration_bound``)."""
+    (mu >= min_mu), plus margin (``pallas_kernel.dda_iteration_bound``)."""
     nx, ny, nz = grid.shape
     xe, ye, ze = grid.edges_np()
     lz, dxc, dyc = ze[-1] - ze[0], (xe[-1] - xe[0]) / nx, (ye[-1] - ye[0]) / ny
-    mu = MIN_MU
+    mu = max(min_mu, 1e-3)
     sin_max = float(np.sqrt(max(0.0, 1.0 - mu * mu)))
     return int(np.ceil(nz + lz / mu * sin_max / min(dxc, dyc))) + 8
 
 
-def march_bound(grid, dirs: torch.Tensor) -> int:
+def march_bound(grid, dirs: torch.Tensor, min_mu: float) -> int:
     """Iteration bound of a launch's marches: the larger of
     ``dda_iteration_bound`` and the crossings each concrete direction can
     make (``pallas_kernel.march_bound_for_dir``, cell march), so a
@@ -101,7 +106,7 @@ def march_bound(grid, dirs: torch.Tensor) -> int:
     nx, ny, nz = grid.shape
     xe, ye, ze = grid.edges_np()
     lz, dxc, dyc = ze[-1] - ze[0], (xe[-1] - xe[0]) / nx, (ye[-1] - ye[0]) / ny
-    bound = dda_iteration_bound(grid)
+    bound = dda_iteration_bound(grid, min_mu)
     for ux, uy, uz in dirs.double().cpu().T.tolist():
         uzf = max(uz, 1e-3)
         bound = max(bound, nz + int(np.ceil(lz * abs(ux) / uzf / dxc)) + 1

@@ -209,9 +209,10 @@ def intensity_ineligibility_reasons(domain: OpticalDomain, surface: Surface,
          icfg.n_dirs <= le.MAX_KERNEL_DIRS),
         ("intensity_dirs is None" if dirs is None else
          f"dirs shape {tuple(dirs.shape)} != (3, {icfg.n_dirs})", shape_ok),
-        (f"a direction's mu is below the floor MIN_MU={le.MIN_MU} (the "
-         "march bound would cut its marches short)",
-         shape_ok and le.dirs_mu_floor_ok(dirs)),
+        (f"a direction's mu is below the floor pallas_min_mu="
+         f"{icfg.pallas_min_mu} (default MIN_MU={le.MIN_MU}; the march "
+         "bound would cut its marches short)",
+         shape_ok and le.dirs_mu_floor_ok(icfg, dirs)),
         ("intensity with a non-Lambertian surface",
          surface.is_uniform_lambertian),
     )
@@ -467,7 +468,8 @@ class RecordParams:
                          le_phase=_phase_source(domain, icfg),
                          le_rr=bool(icfg.use_russian_roulette),
                          le_cap=bool(icfg.limit_contributions),
-                         k_dda=le.march_bound(domain.grid, intensity_dirs))
+                         k_dda=le.march_bound(domain.grid, intensity_dirs,
+                                              icfg.pallas_min_mu))
         ncomp = domain.n_components
         if ncomp == 1:  # the domain's cell_records
             layout = dict(stride=6, off_ssa=3, off_f2=5 if domain.all_hg

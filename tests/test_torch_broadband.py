@@ -284,7 +284,8 @@ def test_lw_deck_through_the_cli(inputs, capsys, monkeypatch):
     assert out["launches"] == {"record_kernel": 0,
                                "record_kernel_radiance": 0,
                                "record_kernel_lw": 0,
-                               "col_kernel": 0, "sep_kernel": 0,
+                               "col_kernel": 0,
+                               "col_kernel_radiance": 0, "sep_kernel": 0,
                                "tile_kernel": 0}
     assert sorted(out["outputs"]) == ["LW325_flux.out", "LW325_results.nc"]
     with netcdf_file(str(inputs / "LW325_results.nc"), "r",

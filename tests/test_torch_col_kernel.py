@@ -3,8 +3,8 @@
 The plain PyTorch step (what ``col_launch`` runs on the CPU) against the JAX
 column kernel in Pallas interpret mode, the column-template detection
 against the JAX ``build_domain``, the dispatch order against the JAX
-package's own choice, and the Landsat-scale deck through the port's command
-line. The CUDA kernel is held against the plain step on the card by
+package's own choice, and the Landsat-scale flux and radiance decks through
+the port's command line. The CUDA kernel is held against the plain step on the card by
 chip_smoke.py.
 
 Parity tolerances, per column. Both packages draw the same counter uniforms
@@ -372,7 +372,8 @@ def test_dispatch_of_the_other_sources(monkeypatch, shape, profile, source):
 
 def test_unported_parts_are_named(col_domain):
     """Each part of K3 left out of the port raises NotImplementedError
-    naming its predicate."""
+    naming its predicate; the gas template and the radiance are ported and
+    named no more."""
     sfc, src = Surface.lambertian(0.2), illumination.directional(0.5, 0.0)
     reasons = ck.col_ineligibility_reasons(
         col_domain, Surface(params=np.full((2, 2, 1), 0.2, np.float32)),
@@ -381,27 +382,28 @@ def test_unported_parts_are_named(col_domain):
         use_ray_tracing=False, need_volume_absorption=False)
     text = "; ".join(reasons)
     for part in ("per-pixel Lambertian", "column BBEmission",
-                 "LW pre-credits", "slab-scan radiance"):
+                 "LW pre-credits"):
         assert part in text, part
-    two = ck.col_ineligibility_reasons(
-        dataclasses.replace(col_domain, cum_ext=torch.zeros(16, 16, 8, 2)),
-        sfc, src, False, False, 0, False, False)
-    assert any("gas template" in r for r in two)
-    with pytest.raises(NotImplementedError, match="gas template"):
-        ck.run_batch_col(
-            dataclasses.replace(col_domain,
-                                cum_ext=torch.zeros(16, 16, 8, 2)),
-            sfc, src, 0, SMALL, 1)
-    # radiance on a column-template domain outside the record kernel
+    assert "gas template" not in text and "slab-scan" not in text
+    # two components without the gas template's fields
+    two = dataclasses.replace(col_domain, cum_ext=torch.zeros(16, 16, 8, 2))
+    assert any("without the gas template" in r
+               for r in ck.col_ineligibility_reasons(
+                   two, sfc, src, False, False, 0, False, False))
+    with pytest.raises(NotImplementedError, match="without the gas template"):
+        ck.run_batch_col(two, sfc, src, 0, SMALL, 1)
+    # radiance on a column-template domain outside the record kernel runs
+    # on the column kernel's local estimate
     big = both_domains(column_field(64, 32, 32), 8, n_cdf_steps=101)[1]
     dirs = le.make_intensity_directions([1.0], [0.0], device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="column-kernel slab-scan radiance"):
-        run_batch(big, sfc, src, 0, KernelConfig(n_lanes=1024,
-                                                 photons_per_lane=1),
+    t = run_batch(big, sfc, src, 0, KernelConfig(n_lanes=128,
+                                                 photons_per_lane=1,
+                                                 need_volume_absorption=False),
                   intensity_config=le.IntensityConfig(
-                      n_dirs=1, use_russian_roulette=False),
+                      n_dirs=1, use_russian_roulette=False,
+                      use_hybrid_phase=False),
                   intensity_dirs=dirs)
+    assert t.intensity.shape == (64, 32, 1) and t.n_le_events > 0
 
 
 # ---------------------------------------------------------------------------
@@ -523,3 +525,54 @@ def test_landsat_deck_through_the_cli(tmp_path, capsys):
         for name in a.variables:
             np.testing.assert_array_equal(a.variables[name][:],
                                           b.variables[name][:])
+
+
+def test_landsat_radiance_deck_through_the_cli(tmp_path, capsys):
+    """run/landsat_radiance.nml on a 64 x 64 x 16 cut of the broken cloud
+    (65,536 cells: past the record kernel's 36,864, so the column kernel
+    takes it, as it takes the deck) with 2 x 2,048 photons, on the CPU: the
+    column kernel's plain step runs the local estimate (16 directions) and
+    the radiance file carries the [16 directions][64 x 64] image."""
+    with open(os.path.join(ROOT, "run", "landsat_radiance.nml")) as f:
+        text = f.read()
+    text = text.replace("numPhotonsPerBatch = 262144",
+                        "numPhotonsPerBatch = 2048")
+    text = text.replace("numBatches = 8", "numBatches = 2")
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    dirs_seen = []
+    plain = ck.col_launch_plain
+
+    def counting(st, tab, prm, *args, **kwargs):
+        dirs_seen.append(prm.n_dirs)
+        return plain(st, tab, prm, *args, **kwargs)
+
+    ck.col_launch_plain = counting
+    try:
+        assert cli.main(["mkdomain", "broken_cloud", "BrokenCloud.dom",
+                         "nx=64", "ny=64", "nz=16"]) == 0
+        with open("deck.nml", "w") as f:
+            f.write(text)
+        capsys.readouterr()
+        assert cli.main(["run", "deck.nml", "--device", "cpu"]) == 0
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    finally:
+        ck.col_launch_plain = plain
+        os.chdir(cwd)
+    assert dirs_seen and set(dirs_seen) == {16}, dirs_seen
+    assert out["total_photons"] == 2 * 2048 and out["n_bad"] == 0
+    assert out["launches"]["col_kernel_radiance"] == 0  # no card here
+    assert sorted(out["outputs"]) == ["landsat_radiance.nc",
+                                      "landsat_radiance.out",
+                                      "landsat_radiance_flux.out"]
+    assert len(out["mean_intensity"]) == 16
+    assert all(0 < v < 1 for v in out["mean_intensity"])
+    with netcdf_file(str(tmp_path / "landsat_radiance.nc"), "r",
+                     mmap=False) as nc:
+        assert nc.variables["intensity"].shape == (16, 64, 64)
+        np.testing.assert_allclose(nc.variables["intensityMus"][:],
+                                   [1.0, 0.9, 0.8, 0.7, 0.6, 0.5, 0.45,
+                                    0.4] * 2, rtol=1e-6)
+    with open(tmp_path / "landsat_radiance.out") as f:
+        rows = [ln for ln in f if not ln.startswith(("!", "#"))]
+    assert len(rows) == 16 * 64 * 64

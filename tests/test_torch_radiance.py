@@ -216,8 +216,9 @@ def test_chunked_directions_equal_manual_chunks(cloud, monkeypatch):
     n_bad (here a march bound too short for the second chunk only)."""
     monkeypatch.setattr(le, "MAX_KERNEL_DIRS", 1)
     march_bound = le.march_bound
-    monkeypatch.setattr(le, "march_bound", lambda grid, dirs: (
-        1 if float(dirs[2, 0]) == MUS[1] else march_bound(grid, dirs)))
+    monkeypatch.setattr(le, "march_bound", lambda grid, dirs, min_mu: (
+        1 if float(dirs[2, 0]) == MUS[1]
+        else march_bound(grid, dirs, min_mu)))
     cfg = KernelConfig(n_lanes=N_LANES, photons_per_lane=1, max_steps=6000,
                        need_volume_absorption=False)
     sfc = Surface.lambertian(0.0)
@@ -246,15 +247,15 @@ def test_march_bound_covers_diagonal_directions(cloud):
     dirs = le.make_intensity_directions([0.15], [45.0], device="cpu")
     need = 4 + 2 * int(np.ceil(1.0 * np.sqrt(1 - 0.15**2) / 0.15
                                * np.sqrt(0.5) / 0.25))
-    assert le.MIN_MU == 0.15
-    assert le.dda_iteration_bound(cloud.grid) < need
-    assert le.march_bound(cloud.grid, dirs) >= need
+    assert le.MIN_MU == le.IntensityConfig(n_dirs=1).pallas_min_mu == 0.15
+    assert le.dda_iteration_bound(cloud.grid, le.MIN_MU) < need
+    assert le.march_bound(cloud.grid, dirs, le.MIN_MU) >= need
 
 
 def test_cut_marches_are_counted(cloud, monkeypatch):
     """A march bound too short for a direction cuts its marches: they add
     nothing and are counted into n_bad, never dropped silently."""
-    monkeypatch.setattr(le, "march_bound", lambda grid, dirs: 4)
+    monkeypatch.setattr(le, "march_bound", lambda grid, dirs, min_mu: 4)
     rcfg = rk.RecordConfig(rows=8, steps_per_call=32, max_steps=6000)
     icfg = le.IntensityConfig(n_dirs=1, use_russian_roulette=False)
     out = rk.run_batch_record(cloud, Surface.lambertian(0.0), SRC,
