@@ -1,10 +1,11 @@
-// Column-template kernel for NVIDIA Hopper (sm_90a): flux path, gas template
-// and local estimate.
+// Column-template kernel for NVIDIA Hopper (sm_90a): flux path, gas template,
+// column emission, per-pixel albedo and local estimate.
 //
 // Replaces: mcbrat3d_tpu/transport/pallas_col.py `_build_kernel_col` (one
 // component with uniform ssa, or the gas template; analytic HG or one
-// tabulated inverse-CDF row; directional / random-azimuth / flux sources;
-// uniform Lambertian surface; the in-kernel local estimate), as launched by
+// tabulated inverse-CDF row; directional / random-azimuth / flux sources
+// and the column BBEmission with its LW pre-credits; uniform or per-pixel
+// Lambertian surface; the in-kernel local estimate), as launched by
 // `run_batch_pallas_col`. The domain is a column template,
 // beta = col_scale[col] * (iz < col_height[col]) [+ qz[iz]], so two
 // per-column values carry a field of millions of cells. Per step a lane
@@ -18,6 +19,23 @@
 // beta_cloud * ssa / beta), plays roulette, scatters or reflects, and
 // tallies flux up/down and absorption per column, the absorption z profile
 // and, optionally, the 3D absorption field.
+//
+// Column BBEmission (pallas_col.py:407-466). A share atms_fraction of the
+// births start in the atmosphere: a Walker alias draw over the columns (a
+// uniform bin, its probability and, when the acceptance uniform reaches it,
+// the alias target and that target's height: three __ldg at most) and the
+// level count #{k : fcum[k] <= u * fcum[h - 1]} of the cumulative Planck
+// table truncated at the column's height, found by an upper-bound search
+// over fcum in shared memory (nondecreasing, at most 128 entries, so the
+// search gives the JAX kernel's count exactly); the photon starts uniform
+// in that cell with an isotropic mu of magnitude at least 1e-4. The rest
+// start on the surface with mu = sqrt(u). With lw each atmospheric birth
+// adds -1 to its column's absorption, to its level in a pre-credit profile
+// row of its own (JAX's accz row 1) and, with the 3D tally, to its cell.
+// Per-pixel Lambertian (pallas_col.py:714-727): an albedo per column, read
+// with __ldg at the column where the photon reaches the surface (a null
+// pointer means the scalar albedo). Source kind, lw and the albedo are
+// launch arguments, not template flags.
 //
 // Local estimate (LE, pallas_col.py:745-970). At every real collision and
 // every surface reflection a thread loops over the directions (cosines and
@@ -88,8 +106,9 @@ constexpr size_t kMaxTableSmem = 96 * 1024;
 // Directions per launch (local_estimate.MAX_KERNEL_DIRS).
 constexpr int kMaxDirs = 64;
 // Launch counters (col_kernel.N_COUNTS): started, lanes with work left,
-// lane-steps with a live photon, local-estimate events, walks cut.
-constexpr int kCounts = 5;
+// lane-steps with a live photon, local-estimate events, walks cut,
+// atmospheric emission births.
+constexpr int kCounts = 6;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInvPi = 0.318309886183790671538f;
 constexpr float kFourPi = 12.5663706143591729539f;
@@ -102,16 +121,28 @@ enum {
   C_BETA_MAX, C_ALBEDO, C_SMU, C_SUX, C_SUY, C_RR_W, C_HALF_RR, C_X0, C_LX,
   C_Y0, C_LY, C_Z0, C_LZ, C_SSA, C_G, C_INV_DX, C_INV_DY, C_INV_DZ, C_DZ,
   C_ZMAX, C_ZTOP, C_ZBOT, C_BXW, C_BYW, C_NUDGE, C_TWO_PI, C_QG, C_DXC,
-  C_DYC, C_ZCL, C_ZETA, N_PARAMS
+  C_DYC, C_ZCL, C_ZETA, C_ATMS, N_PARAMS
 };
 
 // Source kinds (col_kernel.SOURCE_KINDS).
-enum { SRC_DIRECTIONAL, SRC_RANDOM_AZIMUTH, SRC_FLUX };
+enum { SRC_DIRECTIONAL, SRC_RANDOM_AZIMUTH, SRC_FLUX, SRC_EMISSION };
 
 // K3 draw sites (col_kernel.SITE_*).
 enum : uint32_t {
   S_X = 0, S_Y = 1, S_SRC = 2, S_TAU = 3, S_COLLIDE = 4, S_ANGLE = 5,
-  S_PHI = 6, S_ROULETTE = 7, S_SRC_PHI = 9, S_LE = 32
+  S_PHI = 6, S_ROULETTE = 7, S_SRC_PHI = 9, S_EM_SPLIT = 10, S_EM_BIN = 11,
+  S_EM_ACCEPT = 12, S_EM_MU = 13, S_EM_ZOFF = 14, S_EM_PHI = 15,
+  S_EM_LEVEL = 16, S_LE = 32
+};
+
+// The column emission's tables and the per-pixel albedo.
+struct EmArgs {
+  const float* prob;    // [nx * ny] alias acceptance probability
+  const float* alias;   // [nx * ny] alias target column
+  const float* halias;  // [nx * ny] the alias target's height (cells)
+  const float* fcum;    // [nz] cumulative Planck table
+  const float* albedo;  // [nx * ny] albedo per column, or null
+  int lw;               // pre-credit the atmospheric births
 };
 
 __device__ __forceinline__ float table(const float* s, const float* g, int i,
@@ -285,18 +316,25 @@ col_steps(const float* __restrict__ prm,
           float* __restrict__ blhs, int* __restrict__ quotas,
           int* __restrict__ alives, float* __restrict__ acc,
           int* __restrict__ counts, const float* __restrict__ dirs,
-          unsigned long long* __restrict__ g_walk, LeArgs le, int n_lanes,
-          int nx, int ny, int nz, int mf, int nby, int n_blk, int inv_n,
-          int blk_smem, int inv_smem, uint32_t seed, uint32_t step0,
-          int k_steps, int src) {
+          unsigned long long* __restrict__ g_walk, LeArgs le, EmArgs em,
+          int n_lanes, int nx, int ny, int nz, int mf, int nby, int n_blk,
+          int inv_n, int blk_smem, int inv_smem, uint32_t seed,
+          uint32_t step0, int k_steps, int src) {
   extern __shared__ float smem[];
   __shared__ int s_counts[kCounts];
   __shared__ float s_dirs[LE ? 4 * kMaxDirs : 1];
-  float* s_prof = smem;                                  // [nz]
-  float* s_blk = s_prof + nz;                            // [2 * n_blk]
+  const bool emission = src == SRC_EMISSION;
+  const int n_prof = em.lw ? 2 * nz : nz;
+  float* s_prof = smem;                       // [nz] (+ [nz] pre-credits)
+  float* s_pre = s_prof + nz;                 // with lw
+  float* s_fcum = s_prof + n_prof;            // [nz] with emission
+  float* s_blk = s_fcum + (emission ? nz : 0);            // [2 * n_blk]
   float* s_a0 = s_blk + (blk_smem ? 2 * n_blk : 0);      // [inv_n]
   float* s_dd = s_a0 + (inv_smem ? inv_n : 0);           // [inv_n]
-  for (int i = threadIdx.x; i < nz; i += blockDim.x) s_prof[i] = 0.f;
+  for (int i = threadIdx.x; i < n_prof; i += blockDim.x) s_prof[i] = 0.f;
+  if (emission) {
+    for (int i = threadIdx.x; i < nz; i += blockDim.x) s_fcum[i] = em.fcum[i];
+  }
   if (MACRO && blk_smem) {
     for (int i = threadIdx.x; i < 2 * n_blk; i += blockDim.x) {
       s_blk[i] = g_blk[i];
@@ -329,6 +367,7 @@ col_steps(const float* __restrict__ prm,
     const float z_max = prm[C_ZMAX], z_top = prm[C_ZTOP];
     const float z_bot = prm[C_ZBOT], bx_w = prm[C_BXW], by_w = prm[C_BYW];
     const float nudge = prm[C_NUDGE], two_pi = prm[C_TWO_PI];
+    const float dxc = prm[C_DXC], dyc = prm[C_DYC], atms = prm[C_ATMS];
     const float nzf = static_cast<float>(nz);
     const int nxy = nx * ny;
     const bool has_gas = le.has_gas != 0;
@@ -339,7 +378,7 @@ col_steps(const float* __restrict__ prm,
     float w = ws[lane], bls = blss[lane], blh = blhs[lane];
     int quota = quotas[lane];
     bool alive = alives[lane] > 0;
-    int started = 0, steps = 0, events = 0, cut = 0;
+    int started = 0, steps = 0, events = 0, cut = 0, atm_births = 0;
     unsigned long long walk = 0;
     const uint32_t ul = static_cast<uint32_t>(lane);
 
@@ -347,26 +386,87 @@ col_steps(const float* __restrict__ prm,
       const uint32_t ctr = step0 + static_cast<uint32_t>(k);
       // ---- refill a dead lane from the source ----
       if (!alive && quota > 0) {
-        x = x0 + uniform(ul, seed, ctr, S_X) * lx;
-        y = y0 + uniform(ul, seed, ctr, S_Y) * ly;
-        z = z_top;
-        if (src == SRC_DIRECTIONAL) {
-          ux = sux;
-          uy = suy;
-          uz = -smu;
-        } else {
-          float s_mu, s_phi;
-          if (src == SRC_RANDOM_AZIMUTH) {
-            s_mu = -smu;
-            s_phi = two_pi * uniform(ul, seed, ctr, S_SRC);
+        const float u0 = uniform(ul, seed, ctr, S_X);
+        const float u1 = uniform(ul, seed, ctr, S_Y);
+        if (emission) {
+          const float u_mu = uniform(ul, seed, ctr, S_EM_MU);
+          float s_mu;
+          if (uniform(ul, seed, ctr, S_EM_SPLIT) < atms) {
+            // the column: a Walker alias draw over the nx * ny columns
+            int jbin = static_cast<int>(uniform(ul, seed, ctr, S_EM_BIN) *
+                                        static_cast<float>(nxy));
+            jbin = jbin > nxy - 1 ? nxy - 1 : jbin;
+            int col_b = jbin;
+            float h_b;
+            if (uniform(ul, seed, ctr, S_EM_ACCEPT) >= __ldg(em.prob + jbin)) {
+              col_b = static_cast<int>(__ldg(em.alias + jbin) + 0.5f);
+              h_b = __ldg(em.halias + jbin);
+            } else {
+              h_b = __ldg(col_height + jbin);
+            }
+            // the level: the count of fcum entries <= u * fcum[h - 1]
+            const float target = uniform(ul, seed, ctr, S_EM_LEVEL) *
+                                 s_fcum[clampi(static_cast<int>(h_b) - 1,
+                                               nz - 1)];
+            int lo = 0, hi = nz;
+            while (lo < hi) {
+              const int mid = (lo + hi) >> 1;
+              if (s_fcum[mid] <= target) {
+                lo = mid + 1;
+              } else {
+                hi = mid;
+              }
+            }
+            x = x0 + (static_cast<float>(col_b / ny) + u0) * dxc;
+            y = y0 + (static_cast<float>(col_b % ny) + u1) * dyc;
+            z = fminf(fmaxf(z0 + (static_cast<float>(lo) +
+                                  uniform(ul, seed, ctr, S_EM_ZOFF)) * dz,
+                            z_bot),
+                      z_top);
+            s_mu = 1.f - 2.f * u_mu;
+            if (fabsf(s_mu) < 1e-4f) s_mu = signf(s_mu + kTiny) * 1e-4f;
+            atm_births += 1;
+            if (em.lw) {  // -1 at the birth's column, level and cell (a
+                          // count of nz is the top level, where z is
+                          // clamped)
+              const int lvl = lo < nz ? lo : nz - 1;
+              atomicAdd(&acc[2 * nxy + col_b], -1.f);
+              atomicAdd(&s_pre[lvl], -1.f);
+              if (VOL) atomicAdd(&acc_vol[col_b * nz + lvl], -1.f);
+            }
           } else {
-            s_mu = -sqrtf(fmaxf(uniform(ul, seed, ctr, S_SRC), 1e-12f));
-            s_phi = two_pi * uniform(ul, seed, ctr, S_SRC_PHI);
+            x = x0 + u0 * lx;
+            y = y0 + u1 * ly;
+            z = z_bot;
+            s_mu = sqrtf(fmaxf(u_mu, 1e-12f));
           }
+          const float s_phi = two_pi * uniform(ul, seed, ctr, S_EM_PHI);
           const float s_sin = sqrtf(fmaxf(0.f, 1.f - s_mu * s_mu));
           ux = s_sin * cosf(s_phi);
           uy = s_sin * sinf(s_phi);
           uz = s_mu;
+        } else {
+          x = x0 + u0 * lx;
+          y = y0 + u1 * ly;
+          z = z_top;
+          if (src == SRC_DIRECTIONAL) {
+            ux = sux;
+            uy = suy;
+            uz = -smu;
+          } else {
+            float s_mu, s_phi;
+            if (src == SRC_RANDOM_AZIMUTH) {
+              s_mu = -smu;
+              s_phi = two_pi * uniform(ul, seed, ctr, S_SRC);
+            } else {
+              s_mu = -sqrtf(fmaxf(uniform(ul, seed, ctr, S_SRC), 1e-12f));
+              s_phi = two_pi * uniform(ul, seed, ctr, S_SRC_PHI);
+            }
+            const float s_sin = sqrtf(fmaxf(0.f, 1.f - s_mu * s_mu));
+            ux = s_sin * cosf(s_phi);
+            uy = s_sin * sinf(s_phi);
+            uz = s_mu;
+          }
         }
         w = 1.f;
         alive = true;
@@ -427,7 +527,8 @@ col_steps(const float* __restrict__ prm,
         if (exit_top) {
           alive = false;
         } else {
-          const float w_refl = w * albedo;
+          const float w_refl =
+              w * (em.albedo != nullptr ? __ldg(em.albedo + col_e) : albedo);
           x = xe;
           y = ye;
           z = z_bot;
@@ -536,13 +637,16 @@ col_steps(const float* __restrict__ prm,
     if (steps) atomicAdd(&s_counts[2], steps);
     if (events) atomicAdd(&s_counts[3], events);
     if (cut) atomicAdd(&s_counts[4], cut);
+    if (atm_births) atomicAdd(&s_counts[5], atm_births);
     if (walk) atomicAdd(g_walk, walk);
   }
   __syncthreads();
+  // the profile, then with lw its pre-credit row after the 3D field
   float* acc_prof = acc + 3 * nx * ny;
-  for (int i = threadIdx.x; i < nz; i += blockDim.x) {
+  float* acc_pre = acc_prof + nz + (VOL ? nx * ny * nz : 0);
+  for (int i = threadIdx.x; i < n_prof; i += blockDim.x) {
     const float v = s_prof[i];
-    if (v != 0.f) atomicAdd(&acc_prof[i], v);
+    if (v != 0.f) atomicAdd(i < nz ? &acc_prof[i] : &acc_pre[i - nz], v);
   }
   for (int i = threadIdx.x; i < kCounts; i += blockDim.x) {
     if (s_counts[i]) atomicAdd(&counts[i], s_counts[i]);
@@ -558,6 +662,7 @@ struct Args {
   const float* dirs;
   unsigned long long* walk;
   LeArgs le;
+  EmArgs em;
   int n_lanes, nx, ny, nz, mf, nby, n_blk, inv_n;
   uint32_t seed, step0;
   int k_steps, src;
@@ -566,9 +671,11 @@ struct Args {
 template <bool MACRO, bool ANALYTIC, bool VOL, bool RR, bool LE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   auto kernel = col_steps<MACRO, ANALYTIC, VOL, RR, LE>;
-  // the profile, then the block table and the inverse-CDF row where they
-  // fit the budget (else the kernel reads them with __ldg)
-  size_t smem = static_cast<size_t>(a.nz) * sizeof(float);
+  // the profile (and with lw its pre-credit row), with emission the
+  // cumulative Planck table, then the block table and the inverse-CDF row
+  // where they fit the budget (else the kernel reads them with __ldg)
+  size_t smem = static_cast<size_t>(a.nz) * sizeof(float) *
+                ((a.em.lw ? 2 : 1) + (a.src == SRC_EMISSION ? 1 : 0));
   const size_t blk_bytes = 2 * static_cast<size_t>(a.n_blk) * sizeof(float);
   const size_t inv_bytes = 2 * static_cast<size_t>(a.inv_n) * sizeof(float);
   const int blk_smem = MACRO && smem + blk_bytes <= kMaxTableSmem;
@@ -586,7 +693,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   kernel<<<blocks, threads, smem, stream>>>(
       a.prm, a.col_scale, a.col_height, a.blk, a.inv_a0, a.inv_dd, a.x, a.y,
       a.z, a.ux, a.uy, a.uz, a.w, a.bls, a.blh, a.quota, a.alive, a.acc,
-      a.counts, a.dirs, a.walk, a.le, a.n_lanes, a.nx, a.ny, a.nz, a.mf,
+      a.counts, a.dirs, a.walk, a.le, a.em, a.n_lanes, a.nx, a.ny, a.nz, a.mf,
       a.nby, a.n_blk, a.inv_n, blk_smem, inv_smem, a.seed, a.step0,
       a.k_steps, a.src);
   return cudaGetLastError();
@@ -623,13 +730,17 @@ extern "C" int col_kernel_num_params() { return N_PARAMS; }
 
 // Advance every lane by k_steps transport steps. Adds the tallies into acc
 // ([up nxy | down nxy | absorbed nxy | profile nz | 3D field nxy * nz with
-// vol]) and, with n_dirs > 0, the radiance image into img ([n_dirs][nxy]),
+// vol | the profile's pre-credits nz with lw]) and, with n_dirs > 0, the
+// radiance image into img ([n_dirs][nxy]),
 // the photons started into counts[0], the lanes with work left (alive or
 // quota > 0) into counts[1], the lane-steps run with a live photon into
 // counts[2], the local-estimate events into counts[3], the walks cut by
-// k_walk into counts[4] and the walk iterations into walk[0]. Source kind
-// (SRC_*), gas, roulette of the estimate and the forward row are launch
-// arguments. Returns cudaGetLastError().
+// k_walk into counts[4], the atmospheric emission births into counts[5]
+// and the walk iterations into walk[0]. Source kind
+// (SRC_*), gas, roulette of the estimate, the forward row, the emission's
+// pre-credits (lw, emission only) and the per-pixel albedo (has_px: one
+// albedo per column in albedo[]) are launch arguments. Returns
+// cudaGetLastError().
 extern "C" int col_kernel_launch(
     const float* prm, const float* col_scale, const float* col_height,
     const float* blk, const float* inv_a0, const float* inv_dd, float* x,
@@ -637,28 +748,33 @@ extern "C" int col_kernel_launch(
     float* bls, float* blh, int* quota, int* alive, float* acc, int* counts,
     const float* qz, const float* qcb, const float* col_a,
     const float* col_b, const float* dirs, const float* fwd_v0,
-    const float* fwd_dd, float* img, unsigned long long* walk, int n_lanes,
-    int nx, int ny, int nz, int macro_factor, int nby, int n_blk, int inv_n,
-    int n_acc, uint32_t seed, uint32_t step0, int k_steps, int analytic,
-    int vol, int use_rr, int source_kind, int has_gas, int n_dirs,
-    int le_rr, int le_fwd, int n_s, int k_walk, void* stream) {
+    const float* fwd_dd, float* img, unsigned long long* walk,
+    const float* em_prob, const float* em_alias, const float* em_halias,
+    const float* em_fcum, const float* albedo, int n_lanes, int nx, int ny,
+    int nz, int macro_factor, int nby, int n_blk, int inv_n, int n_acc,
+    uint32_t seed, uint32_t step0, int k_steps, int analytic, int vol,
+    int use_rr, int source_kind, int has_gas, int n_dirs, int le_rr,
+    int le_fwd, int n_s, int k_walk, int lw, int has_px, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nxy = static_cast<long long>(nx) * ny;
-  const long long want = 3 * nxy + nz + (vol ? nxy * nz : 0);
+  const long long want = 3 * nxy + nz + (vol ? nxy * nz : 0) + (lw ? nz : 0);
   if (n_acc != want || nz > 128 || (macro_factor > 0 && n_blk <= 0) ||
       (!analytic && inv_n < 2) || source_kind < SRC_DIRECTIONAL ||
-      source_kind > SRC_FLUX || n_dirs < 0 || n_dirs > kMaxDirs ||
+      source_kind > SRC_EMISSION || (lw && source_kind != SRC_EMISSION) ||
+      n_dirs < 0 || n_dirs > kMaxDirs ||
       (n_dirs > 0 && (k_walk <= 0 || (le_fwd && n_s < 2)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const LeArgs le{col_a, col_b, fwd_v0, fwd_dd, qz, qcb, img,
                   n_dirs, le_rr, le_fwd, n_s, k_walk, has_gas};
+  const EmArgs em{em_prob, em_alias, em_halias, em_fcum,
+                  has_px ? albedo : nullptr, lw};
   const Args a{prm,   col_scale, col_height, blk,   inv_a0, inv_dd, x,
                y,     z,         ux,         uy,    uz,     w,      bls,
                blh,   quota,     alive,      acc,   counts, dirs,   walk,
-               le,    n_lanes,   nx,         ny,    nz,     macro_factor,
-               nby,   n_blk,     inv_n,      seed,  step0,  k_steps,
-               source_kind};
+               le,    em,        n_lanes,    nx,    ny,     nz,
+               macro_factor,     nby,        n_blk, inv_n,  seed,   step0,
+               k_steps,          source_kind};
   const cudaError_t e =
       macro_factor > 0 ? launch_hg<true>(a, analytic, vol, use_rr, s)
                        : launch_hg<false>(a, analytic, vol, use_rr, s);

@@ -103,8 +103,9 @@ constexpr float kFourPi = 12.56637061435917295384f;
 // Shared memory a block may take for its tallies (the H100 offers 227 KB).
 constexpr size_t kMaxSmem = 200 * 1024;
 // counts[]: photons started, lanes with work left, lane-steps run with a
-// live photon, real collisions, radiance marches cut by the iteration bound.
-constexpr int kCounts = 5;
+// live photon, real collisions, radiance marches cut by the iteration bound,
+// local-estimate events (the march iterations go to a 64-bit counter).
+constexpr int kCounts = 6;
 
 // params[] slots (mcbrat3d_tpu_torch/transport/record_kernel.py P_*).
 enum {
@@ -154,14 +155,16 @@ struct LeArgs {
 // (uxi, uyi, uzi) and phase field f2 (HG g, or the table row) of the
 // chosen component. Adds w_ev * npf * exp(-tau) (or its roulette form)
 // into img at the exit column; with the cap, into the section of the
-// event's slot (0 the surface or an emission, 1 + c component c).
+// event's slot (0 the surface or an emission, 1 + c component c). Counts
+// the event into events and each direction's march iterations into march.
 __device__ __forceinline__ void local_estimate(
     const float* __restrict__ prm, const float* __restrict__ rec, int stride,
     const float* s_dirs, const float* __restrict__ fwd_v0,
     const float* __restrict__ fwd_dd, float* img, float* s_exc, int* s_bad,
     const LeArgs& le, int nx, int ny, int nz, uint32_t lane, uint32_t seed,
     uint32_t ctr, int kind, int slot, float sx, float sy, float sz,
-    float w_ev, float uxi, float uyi, float uzi, float f2) {
+    float w_ev, float uxi, float uyi, float uzi, float f2, int& events,
+    unsigned long long& march) {
   const float x0 = prm[P_X0], lx = prm[P_LX], y0 = prm[P_Y0];
   const float ly = prm[P_LY], z0 = prm[P_Z0], z_max = prm[P_ZMAX];
   const float inv_dx = prm[P_INV_DX], inv_dy = prm[P_INV_DY];
@@ -169,6 +172,7 @@ __device__ __forceinline__ void local_estimate(
   const float dzc = prm[P_DZC], mnudge = prm[P_MNUDGE];
   const float zeta = prm[P_ZETA], cap = prm[P_MAXC];
   const int nxy = nx * ny;
+  events += 1;
   for (int d = 0; d < le.n_dirs; ++d) {
     const float ddx = s_dirs[d], ddy = s_dirs[kMaxDirs + d];
     const float ddz = s_dirs[2 * kMaxDirs + d];  // > 0 by eligibility
@@ -217,7 +221,8 @@ __device__ __forceinline__ void local_estimate(
     float px = sx, py = sy, pz = sz, tau = 0.f;
     int ex_col = 0;
     bool act = true;
-    for (int it = 0; act && it < le.k_dda; ++it) {
+    int it = 0;
+    for (; act && it < le.k_dda; ++it) {
       const float pxw = x0 + wrap(px - x0, lx);
       const float pyw = y0 + wrap(py - y0, ly);
       const int ixm = clampi(static_cast<int>((pxw - x0) * inv_dx + ndx),
@@ -253,6 +258,7 @@ __device__ __forceinline__ void local_estimate(
       py = pyw + ddy * ds;
       pz = pz2;
     }
+    march += static_cast<unsigned long long>(it);
     if (act) {  // cut by the iteration bound: contributes nothing, counted
       atomicAdd(s_bad, 1);
       continue;
@@ -299,7 +305,8 @@ record_steps(const float* __restrict__ prm,
              const float* __restrict__ fwd_v0,
              const float* __restrict__ fwd_dd, float* __restrict__ g_img,
              float* __restrict__ g_exc, const float* __restrict__ em_prob,
-             const float* __restrict__ em_alias, LeArgs le,
+             const float* __restrict__ em_alias,
+             unsigned long long* __restrict__ g_march, LeArgs le,
              int n_lanes, int nx, int ny, int nz, int stride, int off_ssa,
              int off_f2, int inv_n_steps, int use_rr, int n_acc,
              uint32_t seed, uint32_t step0, int k_steps, int src,
@@ -348,7 +355,8 @@ record_steps(const float* __restrict__ prm,
     float w = ws[lane], bl = bls[lane];
     int quota = quotas[lane];
     bool alive = alives[lane] > 0;
-    int started = 0, steps = 0, reals = 0;
+    int started = 0, steps = 0, reals = 0, events = 0;
+    unsigned long long march = 0;
     const uint32_t ul = static_cast<uint32_t>(lane);
 
     for (int k = 0; k < k_steps; ++k) {
@@ -438,7 +446,7 @@ record_steps(const float* __restrict__ prm,
           local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img, s_exc,
                          &s_counts[4], le, nx, ny, nz, ul, seed, ctr,
                          born_atm ? EV_ISOTROPIC : EV_LAMBERT, 0, x, y, z,
-                         1.f, 0.f, 0.f, 0.f, 0.f);
+                         1.f, 0.f, 0.f, 0.f, 0.f, events, march);
           continue;
         }
       }
@@ -493,7 +501,7 @@ record_steps(const float* __restrict__ prm,
               local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img,
                              s_exc, &s_counts[4], le, nx, ny, nz, ul, seed,
                              ctr, EV_LAMBERT, 0, xe, ye, z_bot, w_refl, 0.f,
-                             0.f, 0.f, 0.f);
+                             0.f, 0.f, 0.f, events, march);
             }
             const float mu_new =
                 sqrtf(fmaxf(uniform(ul, seed, ctr, S_ANGLE), 1e-12f));
@@ -565,7 +573,8 @@ record_steps(const float* __restrict__ prm,
       if constexpr (LE) {  // post-absorption, pre-roulette weight, incoming dir
         local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img, s_exc,
                        &s_counts[4], le, nx, ny, nz, ul, seed, ctr,
-                       EV_SCATTER, slot, x, y, z, w, ux, uy, uz, f2);
+                       EV_SCATTER, slot, x, y, z, w, ux, uy, uz, f2, events,
+                       march);
       }
       if (use_rr && w < half_rr) {
         w = uniform(ul, seed, ctr, S_ROULETTE) < w / rr_w ? rr_w : 0.f;
@@ -605,6 +614,8 @@ record_steps(const float* __restrict__ prm,
     if (alive || quota > 0) atomicAdd(&s_counts[1], 1);
     if (steps) atomicAdd(&s_counts[2], steps);
     if (reals) atomicAdd(&s_counts[3], reals);
+    if (events) atomicAdd(&s_counts[5], events);
+    if (march) atomicAdd(g_march, march);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
@@ -635,8 +646,8 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
                    int* quota, int* alive, float* acc, int* counts,
                    const float* dirs, const float* fwd_v0,
                    const float* fwd_dd, float* img, float* exc,
-                   const float* em_prob, const float* em_alias, LeArgs le,
-                   int n_lanes, int nx, int ny, int nz, int stride,
+                   const float* em_prob, const float* em_alias,
+                   unsigned long long* march, LeArgs le, int n_lanes, int nx, int ny, int nz, int stride,
                    int off_ssa, int off_f2, int inv_n_steps, int use_rr,
                    int n_acc, uint32_t seed, uint32_t step0, int k_steps,
                    int src, int ncomp, int lw, cudaStream_t stream) {
@@ -659,8 +670,8 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
   const int blocks = (n_lanes + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, smem, stream>>>(
       prm, rec, inv_a0, inv_dd, x, y, z, ux, uy, uz, w, bl, quota, alive,
-      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, em_prob, em_alias, le,
-      n_lanes, nx, ny, nz, stride, off_ssa, off_f2, inv_n_steps, use_rr,
+      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, em_prob, em_alias, march,
+      le, n_lanes, nx, ny, nz, stride, off_ssa, off_f2, inv_n_steps, use_rr,
       n_acc, seed, step0, k_steps, src, ncomp, lw);
   return cudaGetLastError();
 }
@@ -677,8 +688,9 @@ extern "C" int record_kernel_num_params() { return N_PARAMS; }
 // the photons started into counts[0], the lanes with work left (alive or
 // quota > 0) into counts[1], the lane-steps run with a live photon into
 // counts[2], the real collisions into counts[3] and, with radiance
-// (n_dirs > 0), the image into img, the capped excess into exc and the
-// marches cut by the iteration bound into counts[4]. Returns
+// (n_dirs > 0), the image into img, the capped excess into exc, the
+// marches cut by the iteration bound into counts[4], the local-estimate
+// events into counts[5] and the march iterations into march[0]. Returns
 // cudaGetLastError().
 extern "C" int record_kernel_launch(
     const float* prm, const float* rec, const float* inv_a0,
@@ -686,7 +698,7 @@ extern "C" int record_kernel_launch(
     float* uy, float* uz, float* w, float* bl, int* quota, int* alive,
     float* acc, int* counts, const float* dirs, const float* fwd_v0,
     const float* fwd_dd, float* img, float* exc, const float* em_prob,
-    const float* em_alias, int n_lanes, int nx, int ny, int nz, int stride,
+    const float* em_alias, unsigned long long* march, int n_lanes, int nx, int ny, int nz, int stride,
     int off_ssa, int off_f2, int inv_n_steps, int use_rr, int n_acc,
     uint32_t seed, uint32_t step0, int k_steps, int macro, int vol,
     int analytic, int src, int ncomp, int lw, int n_dirs, int le_phase,
@@ -706,8 +718,8 @@ extern "C" int record_kernel_launch(
 #define MCB_CALL(M, V, A, L)                                                 \
   static_cast<int>(launch<M, V, A, L>(                                       \
       prm, rec, inv_a0, inv_dd, x, y, z, ux, uy, uz, w, bl, quota, alive,    \
-      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, em_prob, em_alias, le,    \
-      n_lanes, nx, ny, nz, stride, off_ssa, off_f2, inv_n_steps, use_rr,     \
+      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, em_prob, em_alias, march, \
+      le, n_lanes, nx, ny, nz, stride, off_ssa, off_f2, inv_n_steps, use_rr, \
       n_acc, seed, step0, k_steps, src, ncomp, lw, s))
 #define MCB_LAUNCH(M, V, A) \
   return n_dirs > 0 ? MCB_CALL(M, V, A, true) : MCB_CALL(M, V, A, false)

@@ -144,6 +144,17 @@ class OpticalDomain:
     col_cloud: Optional[np.ndarray] = None      # [3] f32 (host)
     col_analytic_hg: bool = True
     col_inv_row: int = 0
+    # Column emission tables (one component with uniform ssa, z-uniform
+    # temps and lambda_um > 0): the emission density (1 - ssa) *
+    # col_scale[col] * (iz < h[col]) * B(T(z)) factors into a Walker alias
+    # over the columns, w[col] = col_scale[col] * Fcum[h[col] - 1]
+    # (col_em_prob, col_em_alias, and col_em_halias = h[alias[col]]), and a
+    # level drawn by inverting the cumulative Planck table col_em_fcum
+    # truncated at the column's height, z = #{k : Fcum[k] <= u Fcum[h-1]}.
+    col_em_prob: Optional[torch.Tensor] = None    # [nx*ny] f32
+    col_em_alias: Optional[torch.Tensor] = None   # [nx*ny] f32 column ids
+    col_em_halias: Optional[torch.Tensor] = None  # [nx*ny] f32 cells
+    col_em_fcum: Optional[torch.Tensor] = None    # [nz] f32
     # Separable-template structure (two components at most; detected on
     # the float32 fields): beta(x, y, z) = sep_amp[ix*ny+iy] * sep_pz[iz]
     # + sep_qz[iz], a rank-1 scattering "cloud" over a horizontally
@@ -287,7 +298,8 @@ def build_domain(grid: Grid, components: Sequence[OpticalComponent],
     forward phase tables are tabulated on ``n_forward_angles`` angles and,
     for ``hybrid_width_deg > 0``, hybridized (reference:
     src/opticalProperties.f95:1872-2050). With ``temps`` (z-uniform) and
-    ``lambda_um > 0`` a separable domain also carries its emission tables.
+    ``lambda_um > 0`` a separable domain, and a one-component column template
+    with uniform ssa, also carries its emission tables.
 
     ``device_fields="compact"`` builds only the separable-template fields
     and the phase tables (the per-cell fields are None): the only kernel
@@ -418,6 +430,10 @@ def build_domain(grid: Grid, components: Sequence[OpticalComponent],
     col = {}
     if grid.xy_regular and grid.z_regular:
         col = detect_column_template(components, ext, ssa, pfi, macro_factor)
+    if col and uniform_ssa and temps is not None and float(lambda_um) > 0:
+        col.update(column_emission_tables(col["col_scale"],
+                                          col["col_height"], temps,
+                                          float(lambda_um)))
     sep = detect_separable(grid, components, ext, ssa, pfi, macro_factor,
                            temps, bool(col), float(lambda_um))
 
@@ -514,6 +530,36 @@ def detect_column_template(components, ext: np.ndarray, ssa: np.ndarray,
         out["macro_table"] = np.stack(
             [_round_up_bf16(bs).reshape(-1), bh.reshape(-1)], 1)
     return out
+
+
+def column_emission_tables(scale: np.ndarray, height: np.ndarray, temps,
+                           lambda_um: float) -> dict:
+    """The ``col_em_*`` tables of a column template with z-uniform
+    ``temps`` [nx, ny, nz] (port of the JAX ``build_domain`` :735-761;
+    empty when the temperatures vary across columns or nothing emits).
+    Reference sampling being replaced: the 3-level CDF scan of
+    src/monteCarloIllumination.f95:495-498."""
+    from mcbrat3d_tpu_torch.core.planck import planck_radiance
+    from mcbrat3d_tpu_torch.sources.illumination import _walker_alias
+
+    t = np.asarray(temps)
+    if not bool(np.all(t == t[0:1, 0:1, :])):
+        return {}
+    tz = t[0, 0, :].astype(np.float64)
+    b = np.where(tz > 0, planck_radiance(lambda_um, np.maximum(tz, 1.0)),
+                 0.0)
+    fcum = np.cumsum(b)
+    h = np.asarray(height).astype(np.int64)
+    wcol = np.asarray(scale, np.float64) * np.where(
+        h > 0, fcum[np.maximum(h - 1, 0)], 0.0)
+    ws = wcol.sum()
+    if not ws > 0:
+        return {}
+    prob, alias = _walker_alias(wcol / ws)
+    return dict(col_em_prob=prob.astype(np.float32),
+                col_em_alias=alias.astype(np.float32),
+                col_em_halias=h[alias].astype(np.float32),
+                col_em_fcum=fcum.astype(np.float32))
 
 
 def sep_blockmax(a: np.ndarray, nx: int, ny: int,
@@ -702,7 +748,9 @@ def domain_from_numpy(arrays: dict, device="cuda") -> OpticalDomain:
     ``lambda_um``, the column-template fields ``col_template``,
     ``col_scale``, ``col_height``, ``macro_table`` and, for the gas
     template, ``col_qz``, ``col_cloud``, ``col_analytic_hg`` and
-    ``col_inv_row``, and the separable
+    ``col_inv_row``, the column emission tables ``col_em_prob``,
+    ``col_em_alias``, ``col_em_halias`` and ``col_em_fcum``, and the
+    separable
     fields ``sep_*`` (``sep_em_zpa``, ``sep_em_pb`` and ``sep_em_atm`` only
     with emission tables). Float fields are stored as float32, so a JAX
     domain converted here computes on the same data.
@@ -749,6 +797,10 @@ def domain_from_numpy(arrays: dict, device="cuda") -> OpticalDomain:
         col_cloud=opt_host("col_cloud", np.float32),
         col_analytic_hg=bool(arrays.get("col_analytic_hg", True)),
         col_inv_row=int(arrays.get("col_inv_row", 0)),
+        col_em_prob=opt_f32("col_em_prob"),
+        col_em_alias=opt_f32("col_em_alias"),
+        col_em_halias=opt_f32("col_em_halias"),
+        col_em_fcum=opt_f32("col_em_fcum"),
         sep_template=bool(arrays.get("sep_template", False)),
         sep_amp=opt_f32("sep_amp"),
         sep_pz=opt_f32("sep_pz"),

@@ -1,9 +1,10 @@
-"""Surface reflection (PyTorch port): the uniform Lambertian surface.
+"""Surface reflection (PyTorch port): the Lambertian surface, uniform or
+with a per-pixel albedo grid.
 
 Counterpart of ``mcbrat3d_tpu.physics.surface`` (reference:
-src/surfaceProperties.f95:32-161). Only the uniform Lambertian surface is
-ported so far; RPV and per-pixel albedo grids follow with the record
-kernel's envelope (ROADMAP Queue 1 item 10).
+src/surfaceProperties.f95:32-161). The column kernel reflects off both;
+the record kernel off the uniform one (its per-pixel albedo and the RPV
+BRDF, K1-d, are still to port).
 """
 
 from __future__ import annotations
@@ -37,6 +38,19 @@ class Surface:
     def is_uniform_lambertian(self) -> bool:
         return (self.brdf_name == "Lambertian"
                 and self.params.shape[0] == 1 and self.params.shape[1] == 1)
+
+    @property
+    def is_uniform_rpv(self) -> bool:
+        """Uniform scalar-parameter RPV surface."""
+        return (self.brdf_name == "RPV"
+                and self.params.shape[0] == 1 and self.params.shape[1] == 1)
+
+    @property
+    def is_lambertian_grid(self) -> bool:
+        """Lambertian BRDF with a per-pixel albedo grid (any resolution;
+        reference per-pixel surface grid: src/surfaceProperties.f95:32-36).
+        """
+        return self.brdf_name == "Lambertian" and self.params.shape[2] == 1
 
     @property
     def albedo(self) -> float:

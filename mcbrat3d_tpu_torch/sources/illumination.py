@@ -10,7 +10,8 @@ samples the source on the fly when a photon starts, so a Source is a few
 parameters (and, for per-voxel emission, its alias tables on the device).
 The record kernel takes every kind but separable emission; the tiled
 kernel every kind but emission; the column kernel directional, random
-azimuth and flux; the separable kernel those and both emission sources.
+azimuth, flux and per-voxel emission (sampled from the domain's column
+tables); the separable kernel those and both emission sources.
 The XLA wave kernel's sampler (``sample``, ``_sample_emission``) is not
 ported yet (ROADMAP Queue 1 item 6).
 """

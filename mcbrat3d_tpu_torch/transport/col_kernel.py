@@ -13,12 +13,13 @@ Landsat-scale domains whose extinction is a column template,
 so two per-column values (at most 16,384 columns) carry a field of
 millions of cells. Every lane carries one photon through ``steps_per_call``
 steps per launch: refill from a directional, random-azimuth or flux
-source; a Woodcock jump against the carried xy-block majorant below the
+source or from the domain's thermal emission; a Woodcock jump against the carried xy-block majorant below the
 block's cloud-top plane and a geometric advance above it, clipped at the
 block faces (clamped to the domain edge) and, descending, at the plane; the
 column gather; the null-collision test; absorption by the uniform ssa;
 Russian roulette; analytic HG or single-row inverse-CDF scattering;
-Lambertian reflection; and the tallies of flux up/down and absorption per
+Lambertian reflection, off a uniform albedo or a per-pixel albedo grid
+read at the exit column; and the tallies of flux up/down and absorption per
 column, the absorption z profile and, optionally, the 3D absorption field.
 
 The gas template (two components, ``domain.col_qz``: a cloud of that shape
@@ -27,6 +28,22 @@ over a horizontally uniform pure absorber, pallas_col.py:507-513,
 block's plane the photon samples against ``qg`` instead of advancing
 geometrically) and ``col_qz[iz]`` to the collision's extinction, and
 absorbs by the cell's effective ssa ``beta_cloud * ssa / beta``.
+
+Column BBEmission (pallas_col.py:407-466, one component with uniform ssa,
+the domain's ``col_em_*`` tables): a share ``atms_fraction`` of the
+photons start in the atmosphere, in the column a Walker alias draw over the
+columns picks and at the level found by inverting the cumulative Planck
+table truncated at that column's height, with an isotropic mu of magnitude
+at least 1e-4; the rest start on the surface with mu = sqrt(u). With
+``lw_mode`` each atmospheric birth pre-credits -1 to its column's
+absorption, its level's profile (a row of its own, added at the end, as
+JAX's accz row 1) and, with the 3D tally, its cell (pallas_col.py:
+1018-1064), so the absorption tallies are net of emission.
+
+The per-pixel Lambertian albedo (pallas_col.py:714-727) is an albedo per
+column, the surface grid repeated over the columns its pixels tile
+(``rk.surface_px_ok``), read at the column where the photon reaches the
+surface; the reflection's local estimate carries the reflected weight.
 
 With radiance directions (pallas_col.py:745-970) every real collision and
 every surface reflection adds, per direction, the local estimate
@@ -49,19 +66,23 @@ Two implementations of one launch:
 * ``col_step_plain``, the same step on ``[n_lanes]`` tensors (the local
   estimate on ``[events * directions]`` tensors), operation for operation
   the JAX kernel's float32 arithmetic (``_build_kernel_col`` :375-1085)
-  without its TPU workarounds: the column fields are plain float32 arrays
-  (no bf16 hi/lo split), the gathers are indexed loads (no bilinear
-  one-hot products) and the tallies add exact float32 values (the JAX
-  kernel rounds exit weights to bf16, absorption and radiance to a bf16
-  hi/lo pair).
+  without its TPU workarounds: the column fields, the emission alias
+  probabilities and the per-column albedo are plain float32 arrays (no
+  bf16 hi/lo split), the gathers are indexed loads (no bilinear one-hot
+  products) and the tallies add exact float32 values (the JAX kernel
+  rounds exit weights to bf16, absorption and radiance to a bf16 hi/lo
+  pair). The JAX kernel compares the alias uniform with the probability's
+  bf16 hi/lo reconstruction, within ~2^-16 of it, so a birth whose uniform
+  falls between the two takes the other column there; the alias targets
+  and their heights are exact in both.
 
 ``col_launch`` sends CUDA tensors to the kernel and CPU tensors to the
 plain step; there is no fallback between them. Both draw the counter
 uniforms of ``core.rng`` at K3's sites, so for one seed they follow the
 JAX kernel's photon paths.
 
-Not ported (``col_ineligibility_reasons`` names each): column BBEmission
-and LW pre-credits, and the per-pixel Lambertian albedo.
+``col_ineligibility_reasons`` is JAX's ``pallas_col_eligible`` term for
+term and names each failing term.
 """
 
 from __future__ import annotations
@@ -91,34 +112,41 @@ MAX_VOL_CELLS = 128 * 128 * 128
 MAX_NZ = 128
 MAX_LE_SIDE = 128
 
-# Kernel launches made by ``_launch_cuda`` in this process, all of them and
-# those that ran the local estimate.
+# Kernel launches made by ``_launch_cuda`` in this process: all of them,
+# those that ran the local estimate, those that refilled from the column
+# emission and those that reflected off a per-pixel albedo.
 COL_LAUNCHES = 0
 COL_LE_LAUNCHES = 0
+COL_LW_LAUNCHES = 0
+COL_PX_LAUNCHES = 0
 
 # Draw sites of K3 (pallas_col.py:403-650): refill x/y, the source azimuth
 # (random azimuth) or mu then azimuth (flux), tau, collision, angle,
-# rotation azimuth, roulette; radiance direction d draws its Iwabuchi
+# rotation azimuth, roulette; the emission refill's atmosphere/surface
+# split, alias bin, alias acceptance, mu, offset in the level, azimuth and
+# level (pallas_col.py:414-420); radiance direction d draws its Iwabuchi
 # roulette uniforms at SITE_LE + 2d and SITE_LE + 2d + 1
 # (pallas_col.py:810-811; below rng.N_SITES for d < 64).
 SITE_X, SITE_Y, SITE_SRC, SITE_TAU, SITE_COLLIDE = 0, 1, 2, 3, 4
 SITE_ANGLE, SITE_PHI, SITE_ROULETTE, SITE_SRC_PHI = 5, 6, 7, 9
+SITE_EM_SPLIT, SITE_EM_BIN, SITE_EM_ACCEPT, SITE_EM_MU = 10, 11, 12, 13
+SITE_EM_ZOFF, SITE_EM_PHI, SITE_EM_LEVEL = 14, 15, 16
 SITE_LE = 32
 
 # Source kinds of the kernel (csrc/col_kernel.cu SRC_*).
 SOURCE_KINDS = (illumination.DIRECTIONAL, illumination.RANDOM_AZIMUTH,
-                illumination.FLUX)
+                illumination.FLUX, illumination.EMISSION)
 
 # Slots of the float32 parameter vector (csrc/col_kernel.cu C_*).
 (C_BETA_MAX, C_ALBEDO, C_SMU, C_SUX, C_SUY, C_RR_W, C_HALF_RR, C_X0, C_LX,
  C_Y0, C_LY, C_Z0, C_LZ, C_SSA, C_G, C_INV_DX, C_INV_DY, C_INV_DZ, C_DZ,
  C_ZMAX, C_ZTOP, C_ZBOT, C_BXW, C_BYW, C_NUDGE, C_TWO_PI, C_QG, C_DXC,
- C_DYC, C_ZCL, C_ZETA, N_PARAMS) = range(32)
+ C_DYC, C_ZCL, C_ZETA, C_ATMS, N_PARAMS) = range(33)
 
 # Launch counters (csrc/col_kernel.cu): photons started, lanes with work
 # left, lane-steps with a live photon, local-estimate events, walks cut by
-# the iteration bound.
-N_COUNTS = 5
+# the iteration bound, atmospheric emission births.
+N_COUNTS = 6
 
 _TINY = rk._TINY
 _BIG = 3e38
@@ -139,8 +167,7 @@ def col_ineligibility_reasons(domain: OpticalDomain, surface: Surface,
                               use_ray_tracing: bool,
                               need_volume_absorption: bool) -> list:
     """Names of every failing column-kernel predicate (empty = eligible):
-    port of ``pallas_col.pallas_col_eligible``, with the parts of K3 that
-    are not ported named as such."""
+    port of ``pallas_col.pallas_col_eligible``, term for term."""
     nx, ny, nz = domain.grid.shape
     inv = domain.tables.inverse
     ncomp = domain.n_components
@@ -152,6 +179,15 @@ def col_ineligibility_reasons(domain: OpticalDomain, surface: Surface,
         phase_ok = ((domain.all_hg and domain.uniform_hg)
                     or (inv.shape[0] == 1
                         and inv.numel() <= rk.MAX_INV_ENTRIES))
+    emission = source.kind == illumination.EMISSION
+    # an emission source needs its alias tables and the domain's column
+    # emission tables; a per-pixel albedo takes a non-emission source (the
+    # surface emission's pre-credit assumes the uniform albedo)
+    em_ok = not emission or (source.em_prob is not None
+                             and domain.col_em_prob is not None)
+    sfc_ok = surface.is_uniform_lambertian or (
+        not emission and rk.surface_px_ok(surface, domain.grid, lw_mode,
+                                          max_cols=MAX_COLS))
     checks = (
         ("domain is not a column template (beta = col_scale[col] * "
          "(iz < col_height[col]) [+ col_qz[iz]])", domain.col_template),
@@ -162,14 +198,15 @@ def col_ineligibility_reasons(domain: OpticalDomain, surface: Surface,
         ("single-scattering albedo is not uniform", domain.uniform_ssa or gas),
         ("irregular grid spacing",
          domain.grid.xy_regular and domain.grid.z_regular),
-        ("surface is not uniform Lambertian (the per-pixel Lambertian "
-         "albedo, has_px, is not ported yet)", surface.is_uniform_lambertian),
-        ("emission source (column BBEmission, col_em_*) is not ported yet",
-         source.kind != illumination.EMISSION),
+        ("surface is neither uniform Lambertian nor, for a non-emission "
+         "source, a per-pixel Lambertian grid whose pixels tile whole "
+         "columns (surface_px_ok, not with lw_mode)", sfc_ok),
         (f"source kind {source.kind!r} is not taken by the column kernel",
-         source.kind in SOURCE_KINDS + (illumination.EMISSION,)),
-        ("lw_mode (column BBEmission and LW pre-credits) is not ported yet",
-         not lw_mode),
+         source.kind in SOURCE_KINDS),
+        ("emission source without its per-voxel alias (em_prob) or domain "
+         "without the column emission tables (col_em_*: one component, "
+         "uniform ssa, z-uniform temps, lambda_um > 0)", em_ok),
+        ("lw_mode without an emission source", not lw_mode or emission),
         ("compute_intensity (radiance runs are judged by "
          "col_intensity_ineligibility_reasons)", not compute_intensity),
         ("record_scattering_orders > 0", record_scattering_orders == 0),
@@ -352,6 +389,22 @@ def _col_ab(domain: OpticalDomain):
     return cache["_col_ab"]
 
 
+def column_albedo(surface: Surface, nx: int, ny: int,
+                  device) -> torch.Tensor:
+    """The per-pixel albedo grid as one albedo per column, [nx*ny] float32
+    in column order ix*ny + iy: each pixel repeated over the nx/nxs x ny/nys
+    columns it tiles (pallas_col.py:1291-1307 without the bf16 hi/lo
+    split); cached on the surface per grid shape and device."""
+    key = ("_col_albedo", nx, ny, str(device))
+    cache = surface.__dict__
+    if key not in cache:
+        p = np.asarray(surface.params[:, :, 0], np.float32)
+        nxs, nys = p.shape
+        col = np.repeat(np.repeat(p, nx // nxs, axis=0), ny // nys, axis=1)
+        cache[key] = torch.tensor(col.reshape(-1), device=device)
+    return cache[key]
+
+
 @dataclasses.dataclass(frozen=True)
 class ColTables:
     """Device tables the step reads: the column fields, the xy-block table
@@ -360,10 +413,13 @@ class ColTables:
     with ``qcb[k]``, the gas optical depth from the bottom of level k to
     the top, and for radiance the CT coefficients ``col_a``/``col_b``, the
     direction cosines [3, n_dirs] in march order and the forward phase
-    table (``rk.forward_table``, row 0 read); one-element placeholders
-    where unused. ``dirs`` [4, n_dirs] holds the direction cosines in march
-    order and, in row 3, 1 where x is the direction's fast axis
-    (``_dir_keys``), which decides how the walk's first column is found."""
+    table (``rk.forward_table``, row 0 read), for the emission refill the
+    column alias (probability, target, the target's height) and the
+    cumulative Planck table, and for a per-pixel surface the albedo per
+    column (``column_albedo``); one-element placeholders where unused.
+    ``dirs`` [4, n_dirs] holds the direction cosines in march order and,
+    in row 3, 1 where x is the direction's fast axis (``_dir_keys``), which
+    decides how the walk's first column is found."""
 
     col_scale: torch.Tensor
     col_height: torch.Tensor
@@ -377,12 +433,20 @@ class ColTables:
     dirs: torch.Tensor
     fwd_v0: torch.Tensor
     fwd_dd: torch.Tensor
+    em_prob: torch.Tensor
+    em_alias: torch.Tensor
+    em_halias: torch.Tensor
+    em_fcum: torch.Tensor
+    albedo: torch.Tensor
 
     @staticmethod
-    def from_domain(domain: OpticalDomain, icfg=None,
-                    dirs=None) -> "ColTables":
+    def from_domain(domain: OpticalDomain, icfg=None, dirs=None,
+                    emission: bool = False,
+                    surface: Surface = None) -> "ColTables":
         """The tables of ``domain``; with ``icfg`` the radiance tables for
-        ``dirs`` [3, n_dirs], given in march order."""
+        ``dirs`` [3, n_dirs], given in march order; with ``emission`` the
+        column emission tables; with a per-pixel ``surface`` its albedo per
+        column."""
         zero = torch.zeros(1, dtype=torch.float32, device=domain.device)
         gas = _has_gas(domain)
         if domain.col_analytic_hg if gas else domain.all_hg:
@@ -410,11 +474,21 @@ class ColTables:
                                   domain.device).contiguous()
             if _radiance_table(domain, icfg).shape[1] > 1:
                 v0, fdd = rk.forward_table(domain, icfg.use_hybrid_phase)
+        em = (domain.col_em_prob, domain.col_em_alias, domain.col_em_halias,
+              domain.col_em_fcum) if emission else (zero,) * 4
+        nx, ny, _ = domain.grid.shape
+        alb = (column_albedo(surface, nx, ny, domain.device)
+               if surface is not None and not surface.is_uniform_lambertian
+               else zero)
         return ColTables(col_scale=domain.col_scale.contiguous(),
                          col_height=domain.col_height.contiguous(),
                          blocks=blocks, inv_a0=a0, inv_dd=dd, qz=qz,
                          qcb=qcb, col_a=col_a, col_b=col_b, dirs=dvec,
-                         fwd_v0=v0, fwd_dd=fdd)
+                         fwd_v0=v0, fwd_dd=fdd,
+                         em_prob=em[0].contiguous(),
+                         em_alias=em[1].contiguous(),
+                         em_halias=em[2].contiguous(),
+                         em_fcum=em[3].contiguous(), albedo=alb)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -437,6 +511,10 @@ class ColParams:
     need_vol: bool
     source_kind: int   # index into SOURCE_KINDS
     has_gas: bool = False
+    # the emission refill's pre-credits (lw_mode with an emission source)
+    # and the per-pixel albedo
+    lw: bool = False
+    has_px: bool = False
     # local estimate: directions, Iwabuchi roulette, the forward row (else
     # analytic HG) and the walk's iteration bound
     n_dirs: int = 0
@@ -450,9 +528,23 @@ class ColParams:
     @property
     def n_acc(self) -> int:
         """Tally entries: [up nxy | down nxy | absorbed nxy | profile nz |
-        3D field nxy*nz, row-major (column, level), with need_vol]."""
+        3D field nxy*nz, row-major (column, level), with need_vol | the
+        profile's pre-credits nz, with lw]."""
         nxy = self.nx * self.ny
-        return 3 * nxy + self.nz + (nxy * self.nz if self.need_vol else 0)
+        return (3 * nxy + self.nz + (nxy * self.nz if self.need_vol else 0)
+                + (self.nz if self.lw else 0))
+
+    @property
+    def off_vol(self) -> int:
+        """Offset of the 3D field (and, without it, of the pre-credit
+        row) in the tallies."""
+        return 3 * self.nx * self.ny + self.nz
+
+    @property
+    def off_pre(self) -> int:
+        """Offset of the profile's pre-credit row in the tallies."""
+        nxy = self.nx * self.ny
+        return self.off_vol + (nxy * self.nz if self.need_vol else 0)
 
     @property
     def n_img(self) -> int:
@@ -463,7 +555,8 @@ class ColParams:
     def make(domain: OpticalDomain, surface: Surface,
              source: illumination.Source, use_russian_roulette: bool,
              russian_roulette_weight: float, need_vol: bool,
-             intensity_config=None, intensity_dirs=None) -> "ColParams":
+             intensity_config=None, intensity_dirs=None,
+             lw_mode: bool = False) -> "ColParams":
         f = _F32
         nx, ny, nz = domain.grid.shape
         xe, ye, ze = domain.grid.edges_f32()
@@ -503,11 +596,14 @@ class ColParams:
                                           ze[0] + z_eps)
         vals[[C_BXW, C_BYW, C_NUDGE, C_TWO_PI]] = (
             bxw, byw, f(1e-5) * min(bxw, byw), f(2.0 * np.pi))
+        vals[[C_DXC, C_DYC]] = lx / f(nx), ly / f(ny)
+        emission = source.kind == illumination.EMISSION
+        # the atmosphere/surface split of the emission refill (param 16)
+        vals[C_ATMS] = f(source.atms_fraction) if emission else f(0.0)
         icfg = intensity_config
         le_kw = {}
         if icfg is not None:
-            vals[[C_DXC, C_DYC, C_ZETA]] = (lx / f(nx), ly / f(ny),
-                                            f(icfg.zeta_min))
+            vals[C_ZETA] = f(icfg.zeta_min)
             vals[C_ZCL] = ze[0] + f(_zcl_cells(domain)) * dz
             le_kw = dict(
                 n_dirs=int(icfg.n_dirs),
@@ -524,7 +620,8 @@ class ColParams:
             inv_n_steps=int(domain.tables.inverse.shape[1]),
             use_rr=bool(use_russian_roulette), need_vol=bool(need_vol),
             source_kind=SOURCE_KINDS.index(source.kind), has_gas=gas,
-            **le_kw)
+            lw=bool(lw_mode) and emission,
+            has_px=not surface.is_uniform_lambertian, **le_kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -576,16 +673,26 @@ def col_step_plain(st: ColState, tab: ColTables, prm: ColParams,
     # ---- refill dead lanes from the source ----
     alive = st.alive > 0
     need = ~alive & (st.quota > 0)
-    x = torch.where(need, x0 + u(ctr, SITE_X) * lx, x)
-    y = torch.where(need, y0 + u(ctr, SITE_Y) * ly, y)
-    z = torch.where(need, p[C_ZTOP], z)
     kind = SOURCE_KINDS[p.source_kind]
+    if kind == illumination.EMISSION:
+        xb, yb, zb, s_mu, from_atm, col_b, lvl_b = col_emission_refill(
+            u, ctr, tab, p)
+        x = torch.where(need, xb, x)
+        y = torch.where(need, yb, y)
+        z = torch.where(need, zb, z)
+        tally.counts[5] += (need & from_atm).sum().to(torch.int32)
+    else:
+        x = torch.where(need, x0 + u(ctr, SITE_X) * lx, x)
+        y = torch.where(need, y0 + u(ctr, SITE_Y) * ly, y)
+        z = torch.where(need, p[C_ZTOP], z)
     if kind == illumination.DIRECTIONAL:
         s_mu = torch.full_like(x, -p[C_SMU])
         sux = torch.full_like(x, p[C_SUX])
         suy = torch.full_like(x, p[C_SUY])
     else:
-        if kind == illumination.RANDOM_AZIMUTH:
+        if kind == illumination.EMISSION:
+            s_phi = two_pi * u(ctr, SITE_EM_PHI)
+        elif kind == illumination.RANDOM_AZIMUTH:
             s_mu = torch.full_like(x, -p[C_SMU])
             s_phi = two_pi * u(ctr, SITE_SRC)
         else:  # flux: mu = -sqrt(u), azimuth at its own site
@@ -717,9 +824,11 @@ def col_step_plain(st: ColState, tab: ColTables, prm: ColParams,
     uy = torch.where(scatter, oy, uy)
     uz = torch.where(scatter, oz, uz)
 
-    # ---- Lambertian surface reflection ----
+    # ---- Lambertian surface reflection: the uniform albedo or the
+    # albedo of the column the photon reaches the surface in ----
     w_down = w
-    w_refl = w_down * p[C_ALBEDO]
+    w_refl = w_down * (tab.albedo[col_e.long()] if p.has_px
+                       else p[C_ALBEDO])
     died_surface = exit_bot & (w_refl <= _TINY)
     reflected = exit_bot & ~died_surface
     mu_new = torch.sqrt(torch.clamp(u_ang, min=1e-12))
@@ -759,13 +868,72 @@ def col_step_plain(st: ColState, tab: ColTables, prm: ColParams,
     acc.index_add_(0, t_idx.long(), t_val)
     acc.index_add_(0, (3 * nxy + iz).long(), absorbed)
     if p.need_vol:
-        acc.index_add_(0, 3 * nxy + nz + col_l * nz + iz.long(), absorbed)
+        acc.index_add_(0, p.off_vol + col_l * nz + iz.long(), absorbed)
+    if p.lw:
+        # -1 at each atmospheric birth's column, level (the pre-credit row)
+        # and cell; a level count of nz (u * fcum[h - 1] rounded up to the
+        # table's last entry) is the top level, where the birth's z is
+        # clamped
+        neg = torch.where(need & from_atm, -1.0, 0.0)
+        lvl = torch.clamp(lvl_b, max=nz - 1).long()
+        acc.index_add_(0, (2 * nxy + col_b).long(), neg)
+        acc.index_add_(0, p.off_pre + lvl, neg)
+        if p.need_vol:
+            acc.index_add_(0, p.off_vol + col_b.long() * nz + lvl, neg)
 
     st.x, st.y, st.z, st.ux, st.uy, st.uz, st.w = x, y, z, ux, uy, uz, w
     st.bls, st.blh = bls, blh
     st.quota = quota
     st.alive = alive.to(torch.int32)
     return started
+
+
+def col_emission_refill(u, ctr: int, tab: ColTables, p: ColParams):
+    """The column BBEmission refill of every lane (pallas_col.py:407-466):
+    returns the birth point (x, y, z), mu, the atmosphere/surface split,
+    the birth column and the birth level count.
+
+    A uniform against ``atms_fraction`` splits atmosphere from surface. An
+    atmospheric photon's column is a Walker alias draw (a uniform bin,
+    redirected to its alias when the acceptance uniform reaches the bin's
+    probability), its level the count #{k : fcum[k] <= u * fcum[h - 1]}
+    of the cumulative Planck table truncated at the column's height h (the
+    alias target's height is a table of its own, so one lookup serves
+    both); it starts uniform in that cell, z kept z_eps inside the domain,
+    with an isotropic mu of magnitude at least 1e-4. A surface photon
+    starts uniform on the surface with mu = sqrt(u). The JAX kernel splits
+    the column with a float32 reciprocal of ny, which equals the integer
+    division for nx * ny <= 16,384."""
+    nx, ny, nz = p.nx, p.ny, p.nz
+    nxy = nx * ny
+    x0, y0, z0 = p[C_X0], p[C_Y0], p[C_Z0]
+    u0 = u(ctr, SITE_X)
+    u1 = u(ctr, SITE_Y)
+    from_atm = u(ctr, SITE_EM_SPLIT) < p[C_ATMS]
+    jbin = torch.clamp((u(ctr, SITE_EM_BIN) * float(nxy)).to(torch.int32),
+                       max=nxy - 1)
+    jl = jbin.long()
+    redirect = u(ctr, SITE_EM_ACCEPT) >= tab.em_prob[jl]
+    col_b = torch.where(redirect, (tab.em_alias[jl] + 0.5).to(torch.int32),
+                        jbin)
+    h_b = torch.where(redirect, tab.em_halias[jl], tab.col_height[jl])
+    hz = torch.clamp(h_b.to(torch.int32) - 1, 0, nz - 1)
+    target = u(ctr, SITE_EM_LEVEL) * tab.em_fcum[hz.long()]
+    # fcum is nondecreasing: the count of entries <= target
+    z_b = torch.searchsorted(tab.em_fcum, target, right=True).to(torch.int32)
+    xa = x0 + ((col_b // ny).to(torch.float32) + u0) * p[C_DXC]
+    ya = y0 + ((col_b % ny).to(torch.float32) + u1) * p[C_DYC]
+    za = torch.clamp(z0 + (z_b.to(torch.float32) + u(ctr, SITE_EM_ZOFF))
+                     * p[C_DZ], p[C_ZBOT], p[C_ZTOP])
+    u_mu = u(ctr, SITE_EM_MU)
+    mu_a = 1.0 - 2.0 * u_mu
+    mu_a = torch.where(mu_a.abs() < 1e-4, torch.sign(mu_a + _TINY) * 1e-4,
+                       mu_a)
+    mu_sfc = torch.sqrt(torch.clamp(u_mu, min=1e-12))
+    return (torch.where(from_atm, xa, x0 + u0 * p[C_LX]),
+            torch.where(from_atm, ya, y0 + u1 * p[C_LY]),
+            torch.where(from_atm, za, p[C_ZBOT]),
+            torch.where(from_atm, mu_a, mu_sfc), from_atm, col_b, z_b)
 
 
 def col_local_estimate_plain(tab: ColTables, prm: ColParams, u, ctr: int,
@@ -942,7 +1110,7 @@ def _library():
         lib.col_kernel_num_params.argtypes = []
         lib.col_kernel_launch.restype = _I
         lib.col_kernel_launch.argtypes = (
-            [_P] * 28 + [_I] * 9 + [_U, _U] + [_I] * 11 + [_P])
+            [_P] * 33 + [_I] * 9 + [_U, _U] + [_I] * 13 + [_P])
         if lib.col_kernel_num_params() != N_PARAMS:
             raise RuntimeError("csrc/col_kernel.cu and col_kernel.py "
                                "disagree on the parameter layout")
@@ -952,7 +1120,7 @@ def _library():
 
 def _launch_cuda(st: ColState, tab: ColTables, prm: ColParams, seed: int,
                  step0: int, k_steps: int, tally: ColTally) -> None:
-    global COL_LAUNCHES, COL_LE_LAUNCHES
+    global COL_LAUNCHES, COL_LE_LAUNCHES, COL_LW_LAUNCHES, COL_PX_LAUNCHES
     dev = st.x.device
     n = st.x.shape[0]
     check = rk._check
@@ -996,6 +1164,16 @@ def _launch_cuda(st: ColState, tab: ColTables, prm: ColParams, seed: int,
                                  f"at least {rk.FWD_N_S}")
             check(tab.fwd_v0, "fwd_v0", torch.float32, n_f, dev)
             check(tab.fwd_dd, "fwd_dd", torch.float32, n_f, dev)
+    emission = SOURCE_KINDS[prm.source_kind] == illumination.EMISSION
+    n_em = nxy if emission else 1
+    for name in ("em_prob", "em_alias", "em_halias"):
+        check(getattr(tab, name), name, torch.float32, n_em, dev)
+    check(tab.em_fcum, "em_fcum", torch.float32, prm.nz if emission else 1,
+          dev)
+    check(tab.albedo, "albedo", torch.float32, nxy if prm.has_px else 1,
+          dev)
+    if prm.lw and not emission:
+        raise ValueError("lw pre-credits need the emission source")
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [prm.device_values, tab.col_scale, tab.col_height, tab.blocks,
@@ -1003,17 +1181,23 @@ def _launch_cuda(st: ColState, tab: ColTables, prm: ColParams, seed: int,
             *(getattr(st, k) for k in ColState.FLOAT_FIELDS),
             st.quota, st.alive, tally.acc, tally.counts, tab.qz, tab.qcb,
             tab.col_a, tab.col_b, tab.dirs, tab.fwd_v0, tab.fwd_dd,
-            tally.img, tally.walk]
+            tally.img, tally.walk, tab.em_prob, tab.em_alias, tab.em_halias,
+            tab.em_fcum, tab.albedo]
     err = lib.col_kernel_launch(
         *(t.data_ptr() for t in ptrs), n, prm.nx, prm.ny, prm.nz,
         prm.macro_factor, prm.nby, n_blk, prm.inv_n_steps, prm.n_acc,
         seed & 0xFFFF_FFFF, step0 & 0xFFFF_FFFF, k_steps,
         int(prm.analytic_hg), int(prm.need_vol), int(prm.use_rr),
         prm.source_kind, int(prm.has_gas), prm.n_dirs, int(prm.le_rr),
-        int(prm.le_fwd), rk.FWD_N_S, prm.k_walk, stream)
+        int(prm.le_fwd), rk.FWD_N_S, prm.k_walk, int(prm.lw),
+        int(prm.has_px), stream)
     COL_LAUNCHES += 1
     if prm.n_dirs:
         COL_LE_LAUNCHES += 1
+    if emission:
+        COL_LW_LAUNCHES += 1
+    if prm.has_px:
+        COL_PX_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f"col_kernel launch failed: CUDA error {err}")
 
@@ -1040,14 +1224,16 @@ def run_batch_col(domain: OpticalDomain, surface: Surface,
                   n_photons=None, use_russian_roulette: bool = True,
                   russian_roulette_weight: float = 1.0,
                   launch=col_launch, intensity_config=None,
-                  intensity_dirs=None) -> Tallies:
+                  intensity_dirs=None, lw_mode: bool = False) -> Tallies:
     """One photon batch through the column kernel (port of
     ``run_batch_pallas_col``): the unnormalized tallies, with the
     absorption per column in ``flux_absorbed``, its z marginal in
     ``absorption_profile`` and, with ``ccfg.vol_tally``, the 3D field in
     ``volume_absorption``; with ``intensity_config`` and
     ``intensity_dirs`` [3, n_dirs] (the caller's order) also the radiance
-    image [nx, ny, n_dirs] in ``intensity``.
+    image [nx, ny, n_dirs] in ``intensity``. With ``lw_mode`` and an
+    emission source the absorption tallies are net of the births'
+    pre-credits.
 
     ``ccfg`` gives the launch geometry (rows of 128 lanes, steps per
     launch, the step cap) and whether the 3D field is tallied; ``seed`` is
@@ -1058,13 +1244,13 @@ def run_batch_col(domain: OpticalDomain, surface: Surface,
     icfg = intensity_config
     if icfg is None:
         reasons = col_ineligibility_reasons(
-            domain, surface, source, lw_mode=False, compute_intensity=False,
-            record_scattering_orders=0, use_ray_tracing=False,
-            need_volume_absorption=ccfg.vol_tally)
+            domain, surface, source, lw_mode=lw_mode,
+            compute_intensity=False, record_scattering_orders=0,
+            use_ray_tracing=False, need_volume_absorption=ccfg.vol_tally)
     else:
         reasons = col_intensity_ineligibility_reasons(
-            domain, surface, source, False, 0, False, icfg, intensity_dirs,
-            ccfg.vol_tally)
+            domain, surface, source, lw_mode, 0, False, icfg,
+            intensity_dirs, ccfg.vol_tally)
     if reasons:
         raise NotImplementedError(
             "configuration outside the ported column kernel; failing "
@@ -1075,8 +1261,11 @@ def run_batch_col(domain: OpticalDomain, surface: Surface,
         order = col_dir_order(domain, intensity_dirs)
         dirs = intensity_dirs[:, list(order)]
     prm = ColParams.make(domain, surface, source, use_russian_roulette,
-                         russian_roulette_weight, ccfg.vol_tally, icfg, dirs)
-    tab = ColTables.from_domain(domain, icfg, dirs)
+                         russian_roulette_weight, ccfg.vol_tally, icfg, dirs,
+                         lw_mode=lw_mode)
+    tab = ColTables.from_domain(
+        domain, icfg, dirs, emission=source.kind == illumination.EMISSION,
+        surface=surface)
     quota0 = rk.initial_quota(ccfg.n_lanes, photons_per_lane, n_photons, dev)
     st = ColState.initial(quota0, prm[C_BETA_MAX], prm.nz)
     tally = ColTally.zeros(prm, dev)
@@ -1088,6 +1277,9 @@ def run_batch_col(domain: OpticalDomain, surface: Surface,
     nx, ny, nz = domain.grid.shape
     nxy = nx * ny
     acc = tally.acc
+    profile = acc[3 * nxy:3 * nxy + nz]
+    if prm.lw:  # the births' pre-credits, kept in a row of their own
+        profile = profile + acc[prm.off_pre:prm.off_pre + nz]
     intensity = None
     n_cut = int(tally.counts[4])
     if icfg is not None:
@@ -1100,13 +1292,14 @@ def run_batch_col(domain: OpticalDomain, surface: Surface,
         flux_up=acc[:nxy].reshape(nx, ny),
         flux_down=acc[nxy:2 * nxy].reshape(nx, ny),
         flux_absorbed=acc[2 * nxy:3 * nxy].reshape(nx, ny),
-        volume_absorption=(acc[3 * nxy + nz:].reshape(nx, ny, nz)
+        volume_absorption=(acc[prm.off_vol:prm.off_pre].reshape(nx, ny, nz)
                            if ccfg.vol_tally else None),
-        absorption_profile=acc[3 * nxy:3 * nxy + nz],
+        absorption_profile=profile,
         intensity=intensity,
         n_photons=n_started, n_bad=int(st.alive.sum()) + n_cut,
         n_steps=n_calls * k, n_lane_steps=lane_steps, n_cut=n_cut,
-        n_le_events=n_events, n_walk=int(tally.walk))
+        n_le_events=n_events, n_walk=int(tally.walk),
+        n_atm_births=int(tally.counts[5]))
 
 
 def run_batch_col_tallies(domain, surface, source, seed: int, config,
@@ -1116,8 +1309,9 @@ def run_batch_col_tallies(domain, surface, source, seed: int, config,
     """``run_batch``-compatible entry (port of
     ``run_batch_pallas_col_tallies``): the record kernel's launch geometry
     (``rk.config_for``: at most 512 rows of 128 lanes, the rest of the
-    batch folded into per-lane quota) and the 3D field when
-    ``config.need_volume_absorption``. A radiance run takes at most 32
+    batch folded into per-lane quota), the 3D field when
+    ``config.need_volume_absorption`` and the emission pre-credits with
+    ``config.lw_mode``. A radiance run takes at most 32
     rows (4,096 lanes) and folds the rest into per-lane quota
     (pallas_col.py:1514-1525), so its lanes carry JAX's photons."""
     ccfg, ppl = rk.config_for(config.n_lanes, config.photons_per_lane,
@@ -1134,4 +1328,4 @@ def run_batch_col_tallies(domain, surface, source, seed: int, config,
         use_russian_roulette=config.use_russian_roulette,
         russian_roulette_weight=config.russian_roulette_weight,
         launch=launch, intensity_config=intensity_config,
-        intensity_dirs=intensity_dirs)
+        intensity_dirs=intensity_dirs, lw_mode=config.lw_mode)

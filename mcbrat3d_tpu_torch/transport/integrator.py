@@ -78,10 +78,12 @@ class Tallies:
     n_lane_steps: int = 0  # lane-steps run with a live photon
     n_passes: int = 0  # sort + transport passes of the tiled kernel
     n_real: int = 0  # real collisions (record and tiled kernels)
-    # the column kernel's local estimate: events (real collisions and
-    # reflections) and column-walk iterations over all directions
+    # the local estimate of the record and column kernels: events (real
+    # collisions, reflections and, with LW radiance, births) and march or
+    # column-walk iterations over all directions
     n_le_events: int = 0
     n_walk: int = 0
+    n_atm_births: int = 0  # atmospheric emission births (column kernel)
 
     def normalized(self, grid: Grid) -> "Tallies":
         """Per-column normalization (reference:
@@ -111,7 +113,7 @@ class Tallies:
             n_steps=self.n_steps, n_cut=self.n_cut,
             n_lane_steps=self.n_lane_steps, n_passes=self.n_passes,
             n_real=self.n_real, n_le_events=self.n_le_events,
-            n_walk=self.n_walk)
+            n_walk=self.n_walk, n_atm_births=self.n_atm_births)
 
 
 def sample_hg_cos(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -162,7 +164,24 @@ def select_kernel(domain: OpticalDomain, surface: Surface,
     ``intensity_config`` the record kernel's local estimate comes first,
     then the column kernel's (integrator.py:413-448); a grid above
     ``MAX_KERNEL_DIRS`` is judged by its first chunk, which ``run_batch``
-    runs like every other."""
+    runs like every other.
+
+    Raises NotImplementedError where it picks the record kernel for a
+    surface the port's record kernel does not reflect off yet (K1-d: a
+    uniform RPV surface or a per-pixel Lambertian grid within its 4,096
+    columns), rather than hand the batch to a later kernel."""
+    from mcbrat3d_tpu_torch.transport import record_kernel as rk
+
+    kernel, reasons = _pick_kernel(domain, surface, source, config,
+                                   intensity_config, intensity_dirs)
+    if kernel == "record":
+        rk.check_surface_ported(surface)
+    return kernel, reasons
+
+
+def _pick_kernel(domain, surface, source, config, intensity_config,
+                 intensity_dirs):
+    """``select_kernel``'s choice, before its K1-d check."""
     from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
     from mcbrat3d_tpu_torch.transport import sep_kernel as sk

@@ -64,6 +64,15 @@ LANES_PER_ROW = 128
 MAX_CELLS = 288 * 128
 MAX_INV_ENTRIES = 1024 * 128
 MAX_COMPONENTS = 3
+# Launch counters (csrc/record_kernel.cu kCounts): photons started, lanes
+# with work left, lane-steps with a live photon, real collisions, marches
+# cut by the iteration bound, local-estimate events.
+N_COUNTS = 6
+# Per-pixel Lambertian budget of the JAX record kernel
+# (pallas_kernel.SURF_PX_MAX_ROWS): its albedo grid is packed per domain
+# column in at most 32 rows of 128, so K1 takes such a surface up to 4,096
+# columns.
+SURF_PX_MAX_ROWS = 32
 # Sources the kernel refills from, by their code (csrc/record_kernel.cu
 # SRC_*); emission needs the per-voxel alias tables (illumination.emission).
 SOURCE_KINDS = (illumination.DIRECTIONAL, illumination.RANDOM_AZIMUTH,
@@ -133,6 +142,39 @@ def config_for(n_lanes: int, photons_per_lane: int, max_steps: int,
                         vol_tally=vol_tally), ppl
 
 
+def surface_px_ok(surface: Surface, grid, lw_mode: bool,
+                  max_cols: int = LANES_PER_ROW * SURF_PX_MAX_ROWS) -> bool:
+    """Whether a kernel takes ``surface`` as a per-pixel Lambertian albedo
+    grid (port of ``pallas_kernel.surface_px_ok``).
+
+    Exactness contract: each surface pixel tiles a whole number of domain
+    columns (nx % nxs == 0, ny % nys == 0), so an albedo per column
+    reproduces the reference's fractional surface-grid lookup
+    (src/surfaceProperties.f95:119-147) exactly. False in ``lw_mode`` (the
+    surface emission's pre-credit assumes the uniform albedo) and for a
+    uniform surface (the scalar albedo covers it). ``max_cols`` is the
+    kernel's column budget: the record kernel's 4,096 by default, the
+    column kernel passes its own ``MAX_COLS``."""
+    if lw_mode or not surface.is_lambertian_grid:
+        return False
+    if surface.is_uniform_lambertian:
+        return False
+    nxs, nys, _ = surface.params.shape
+    nx, ny, _ = grid.shape
+    return nx % nxs == 0 and ny % nys == 0 and nx * ny <= max_cols
+
+
+def check_surface_ported(surface: Surface) -> None:
+    """Raise NotImplementedError for a surface the predicates give to the
+    record kernel but its port does not reflect off yet: the uniform RPV
+    surface and the per-pixel Lambertian grid (K1-d)."""
+    if not surface.is_uniform_lambertian:
+        raise NotImplementedError(
+            "the record kernel's uniform RPV and per-pixel Lambertian "
+            "surfaces (K1-d) are not ported yet; the JAX package runs this "
+            "batch on its record kernel")
+
+
 def ineligibility_reasons(domain: OpticalDomain, surface: Surface,
                           source: illumination.Source,
                           lw_mode: bool, compute_intensity: bool,
@@ -140,9 +182,11 @@ def ineligibility_reasons(domain: OpticalDomain, surface: Surface,
                           use_ray_tracing: bool) -> list:
     """Names of every failing record-kernel predicate (empty = eligible).
 
-    Port of ``pallas_kernel.ineligibility_reasons`` without what is still
-    to port: the uniform RPV and per-pixel Lambertian surfaces (K1-d). An
-    emission source is in-kernel when it carries its alias tables
+    Port of ``pallas_kernel.ineligibility_reasons``, so the port picks
+    the record kernel where the JAX package does; of the surfaces it
+    admits, the uniform RPV and the per-pixel Lambertian grid (K1-d) are
+    refused when the batch is run (``check_surface_ported``). An emission
+    source is in-kernel when it carries its alias tables
     (``illumination.emission``), not when it is backed by a separable
     domain's tables (``emission_separable``)."""
     nx, ny, nz = domain.grid.shape
@@ -158,9 +202,12 @@ def ineligibility_reasons(domain: OpticalDomain, surface: Surface,
          domain.n_components <= MAX_COMPONENTS),
         ("irregular grid spacing",
          domain.grid.xy_regular and domain.grid.z_regular),
-        ("surface is not uniform Lambertian (K1-d: uniform RPV and "
-         "per-pixel Lambertian are not ported yet)",
-         surface.is_uniform_lambertian),
+        ("non-uniform or unsupported-BRDF surface (in-kernel: uniform "
+         "Lambertian, uniform RPV, or a per-pixel Lambertian grid that "
+         f"divides the domain columns, <= {LANES_PER_ROW * SURF_PX_MAX_ROWS} "
+         "columns, not lw_mode)",
+         surface.is_uniform_lambertian or surface.is_uniform_rpv
+         or surface_px_ok(surface, domain.grid, lw_mode)),
         (f"source kind {source.kind!r} not in-kernel",
          source.kind in SOURCE_KINDS[:4]
          or (source.kind == illumination.EMISSION
@@ -214,7 +261,8 @@ def intensity_ineligibility_reasons(domain: OpticalDomain, surface: Surface,
          "bound would cut its marches short)",
          shape_ok and le.dirs_mu_floor_ok(icfg, dirs)),
         ("intensity with a non-Lambertian surface",
-         surface.is_uniform_lambertian),
+         surface.is_uniform_lambertian
+         or surface_px_ok(surface, domain.grid, lw_mode)),
     )
     reasons.extend(name for name, ok in checks if not ok)
     return reasons
@@ -563,15 +611,17 @@ def emission_refill(u, ctr: int, tab: RecordTables, p: RecordParams):
 class RecordTally:
     """What a launch adds into: ``acc`` the flux tally [prm.n_acc] f32,
     ``img`` the radiance tally [max(1, prm.n_img)] f32, ``exc`` the capped
-    excess [max(1, prm.n_exc)] f32 and ``counts`` int32 [photons started,
+    excess [max(1, prm.n_exc)] f32, ``counts`` int32 [photons started,
     lanes with work left, lane-steps run with a live photon, real
-    collisions, radiance marches cut by the iteration bound]
-    (``relaunch_loop`` layout, the first four per launch)."""
+    collisions, radiance marches cut by the iteration bound, local-estimate
+    events] (``relaunch_loop`` layout, the first four per launch) and
+    ``march`` int64 [1] the local estimate's march iterations."""
 
     acc: torch.Tensor
     img: torch.Tensor
     exc: torch.Tensor
     counts: torch.Tensor
+    march: torch.Tensor
 
     @staticmethod
     def zeros(prm: RecordParams, device) -> "RecordTally":
@@ -579,7 +629,8 @@ class RecordTally:
             return torch.zeros(max(1, n), dtype=dtype, device=device)
 
         return RecordTally(acc=z(prm.n_acc), img=z(prm.n_img),
-                           exc=z(prm.n_exc), counts=z(5, torch.int32))
+                           exc=z(prm.n_exc), counts=z(N_COUNTS, torch.int32),
+                           march=z(1, torch.int64))
 
 
 def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
@@ -831,7 +882,8 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
     """Local estimate of the event lanes ``ev`` (int64 lane indices; the
     other arguments are per event) toward every direction, tallied into
     ``tally.img`` / ``tally.exc``; marches cut by the iteration bound are
-    counted into ``tally.counts[4]``. ``ev_kind`` (EV_*) picks the phase
+    counted into ``tally.counts[4]``, the events into ``tally.counts[5]``
+    and the march iterations into ``tally.march``. ``ev_kind`` (EV_*) picks the phase
     term; ``slot`` is the capped-excess slot of each event (0 a reflection
     or an emission, 1 + c a scatter by component c).
 
@@ -844,6 +896,7 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
     z_max, inv_dx, inv_dy = p[P_ZMAX], p[P_INV_DX], p[P_INV_DY]
     inv_dz, dxc, dyc, dzc = p[P_INV_DZ], p[P_DXC], p[P_DYC], p[P_DZC]
     n_ev = ev.shape[0]
+    tally.counts[5] += n_ev
 
     def pairs(v):  # per event -> per (event, direction), event-major
         return v.repeat_interleave(n_dirs)
@@ -889,9 +942,11 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
     tau = torch.zeros_like(px)
     ex_col = torch.zeros(px.shape, dtype=torch.int64, device=px.device)
     act = torch.ones(px.shape, dtype=torch.bool, device=px.device)
+    n_march = 0
     for _ in range(p.k_dda):
         if not bool(act.any()):
             break
+        n_march += int(act.sum())
         pxw = x0 + torch.remainder(px - x0, lx)
         pyw = y0 + torch.remainder(py - y0, ly)
         # index-space nudge along the march: a face landing names the
@@ -922,6 +977,7 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
             act = act & (tau < tau_stop)
         px, py, pz = pxw + ddx * ds, pyw + ddy * ds, pz2
     tally.counts[4] += act.sum().to(torch.int32)
+    tally.march.add_(n_march)
     hit = ~act
     w_p = pairs(w_ev)
     if p.le_rr:
@@ -979,7 +1035,7 @@ def _library():
         lib.record_kernel_num_params.argtypes = []
         lib.record_kernel_launch.restype = _I
         lib.record_kernel_launch.argtypes = (
-            [_P] * 23 + [_I] * 10 + [_U, _U] + [_I] * 7 + [_I] * 8 + [_P])
+            [_P] * 24 + [_I] * 10 + [_U, _U] + [_I] * 7 + [_I] * 8 + [_P])
         if lib.record_kernel_num_params() != N_PARAMS:
             raise RuntimeError("csrc/record_kernel.cu and record_kernel.py "
                                "disagree on the parameter layout")
@@ -1018,7 +1074,8 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
     _check(tally.acc, "acc", torch.float32, prm.n_acc, dev)
     _check(tally.img, "img", torch.float32, max(1, prm.n_img), dev)
     _check(tally.exc, "exc", torch.float32, max(1, prm.n_exc), dev)
-    _check(tally.counts, "counts", torch.int32, 5, dev)
+    _check(tally.counts, "counts", torch.int32, N_COUNTS, dev)
+    _check(tally.march, "march", torch.int64, 1, dev)
     emission = SOURCE_KINDS[prm.source_kind] == illumination.EMISSION
     if emission:
         _check(tab.em_prob, "em_prob", torch.float32, n_cells, dev)
@@ -1039,7 +1096,7 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
             *(getattr(st, k) for k in RecordState.FLOAT_FIELDS),
             st.quota, st.alive, tally.acc, tally.counts, tab.dirs,
             tab.fwd_v0, tab.fwd_dd, tally.img, tally.exc, tab.em_prob,
-            tab.em_alias]
+            tab.em_alias, tally.march]
     err = lib.record_kernel_launch(
         *(t.data_ptr() for t in ptrs), n, prm.nx, prm.ny, prm.nz,
         prm.stride, prm.off_ssa, prm.off_f2, prm.inv_n_steps,
@@ -1133,8 +1190,10 @@ def initial_quota(n_lanes: int, photons_per_lane: int, n_photons,
 def _record_batch(domain, surface, source, seed, rcfg, photons_per_lane,
                   n_photons, use_russian_roulette, russian_roulette_weight,
                   launch, intensity_config, intensity_dirs, lw_mode):
-    """``run_batch_record``'s tuple, the lane-steps with a live photon and
-    the real collisions."""
+    """``run_batch_record``'s tuple, the lane-steps with a live photon, the
+    real collisions and the local estimate's (events, march
+    iterations)."""
+    check_surface_ported(surface)
     dev = domain.device
     prm = RecordParams.make(domain, surface, source, use_russian_roulette,
                             russian_roulette_weight, rcfg.vol_tally,
@@ -1159,8 +1218,9 @@ def _record_batch(domain, surface, source, seed, rcfg, photons_per_lane,
     n_cut = int(tally.counts[4])
     n_bad = int(st.alive.sum()) + n_cut
     out = (flux_up, flux_down, absorbed, n_started, n_bad, n_calls)
+    le_counts = (int(tally.counts[5]), int(tally.march))
     if not prm.n_dirs:
-        return out, lane_steps, n_real
+        return out, lane_steps, n_real, le_counts
     img = tally.img[:prm.n_img].reshape(prm.n_sec, prm.n_dirs, nxy)
     if prm.le_cap:
         excess = tally.exc.reshape(prm.n_sec, prm.n_dirs).T
@@ -1168,7 +1228,7 @@ def _record_batch(domain, surface, source, seed, rcfg, photons_per_lane,
     else:
         image = img[0]
     return (out + (image.T.reshape(nx, ny, prm.n_dirs), n_cut), lane_steps,
-            n_real)
+            n_real, le_counts)
 
 
 def run_batch_record(domain: OpticalDomain, surface: Surface,
@@ -1218,7 +1278,7 @@ def run_batch_record_tallies(domain, surface, source, seed: int, config,
         rcfg = dataclasses.replace(rcfg, rows=rows)
     if n_photons is None:
         n_photons = config.photons_per_batch
-    out, lane_steps, n_real = _record_batch(
+    out, lane_steps, n_real, (n_events, n_march) = _record_batch(
         domain, surface, source, seed, rcfg, ppl, n_photons,
         config.use_russian_roulette, config.russian_roulette_weight,
         launch, intensity_config, intensity_dirs, config.lw_mode)
@@ -1231,4 +1291,4 @@ def run_batch_record_tallies(domain, surface, source, seed: int, config,
         n_photons=n_started, n_bad=n_bad,
         n_cut=out[7] if len(out) > 6 else 0,
         n_steps=n_calls * rcfg.steps_per_call, n_lane_steps=lane_steps,
-        n_real=n_real)
+        n_real=n_real, n_le_events=n_events, n_walk=n_march)

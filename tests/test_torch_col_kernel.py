@@ -371,20 +371,26 @@ def test_dispatch_of_the_other_sources(monkeypatch, shape, profile, source):
 
 
 def test_unported_parts_are_named(col_domain):
-    """Each part of K3 left out of the port raises NotImplementedError
-    naming its predicate; the gas template and the radiance are ported and
-    named no more."""
+    """What K3 refuses raises NotImplementedError naming its predicate, all
+    of them JAX's own: every part of K3 is ported (the gas template, the
+    radiance, the column emission and the per-pixel albedo are named no
+    more), so a per-pixel surface is refused only with an emission source,
+    an emission source only without its tables."""
     sfc, src = Surface.lambertian(0.2), illumination.directional(0.5, 0.0)
+    px = Surface(params=np.full((2, 2, 1), 0.2, np.float32))
     reasons = ck.col_ineligibility_reasons(
-        col_domain, Surface(params=np.full((2, 2, 1), 0.2, np.float32)),
-        illumination.Source(kind=illumination.EMISSION), lw_mode=True,
-        compute_intensity=True, record_scattering_orders=0,
+        col_domain, px, illumination.Source(kind=illumination.EMISSION),
+        lw_mode=True, compute_intensity=True, record_scattering_orders=0,
         use_ray_tracing=False, need_volume_absorption=False)
     text = "; ".join(reasons)
-    for part in ("per-pixel Lambertian", "column BBEmission",
-                 "LW pre-credits"):
+    assert len(reasons) == 3, reasons
+    for part in ("per-pixel Lambertian grid", "without its per-voxel alias",
+                 "compute_intensity"):
         assert part in text, part
+    assert "not ported" not in text and "lw_mode without" not in text
     assert "gas template" not in text and "slab-scan" not in text
+    assert ck.col_ineligibility_reasons(col_domain, px, src, False, False, 0,
+                                        False, False) == []
     # two components without the gas template's fields
     two = dataclasses.replace(col_domain, cum_ext=torch.zeros(16, 16, 8, 2))
     assert any("without the gas template" in r

@@ -533,8 +533,9 @@ def test_emission_dispatch_matches_jax(case):
     """The port's predicates name what JAX's name: an emission source with
     its alias tables is in-kernel for K1 (lw_mode or not); lw_mode without
     an emission source is refused; a separable-backed emission source is
-    not K1's; a uniform RPV surface, which JAX's K1 takes, is refused by
-    name as K1-d (not ported); a per-voxel source on a separable domain
+    not K1's; a uniform RPV surface passes K1's predicate as in JAX, and
+    running it is refused by name as K1-d (not ported); a per-voxel source
+    on a separable domain
     past MAX_CELLS goes to K4 in both packages; K5 refuses emission."""
     if case in ("emission_on_k1", "emission_with_rpv", "k5_refuses_emission"):
         (jd, jsrc), (td, tsrc) = lw_setup(2)
@@ -556,11 +557,12 @@ def test_emission_dispatch_matches_jax(case):
                                           **KERNEL_ARGS)
             jr = jpk.ineligibility_reasons(jd, jsfc, jsrc, lw_mode=lw,
                                            **KERNEL_ARGS)
-            assert jr == []
-            if case == "emission_on_k1":
-                assert tr == []
-            else:
-                assert len(tr) == 1 and "K1-d" in tr[0], tr
+            assert tr == jr == []
+        if case == "emission_with_rpv":
+            with pytest.raises(NotImplementedError, match="K1-d"):
+                run_batch(td, tsfc, tsrc, 0,
+                          KernelConfig(n_lanes=1024, photons_per_lane=1,
+                                       lw_mode=True))
     elif case == "lw_mode_without_emission":
         jd, td = jmake(ssa=0.99), make_step_cloud(ssa=0.99, device="cpu")
         tr = rk.ineligibility_reasons(

@@ -364,10 +364,11 @@ def test_real_collisions_are_counted(ncomp):
 
 def test_envelope_names_what_is_still_to_port():
     """Every source and 1-3 components are in (emission with its alias
-    tables, in lw_mode or not); RPV and per-pixel surfaces (K1-d), an
-    emission source without alias tables (separable-backed), lw_mode
-    without an emission source and more than three components each keep
-    a named predicate."""
+    tables, in lw_mode or not); uniform RPV and per-pixel surfaces pass
+    JAX's surface predicate (a per-pixel one not in lw_mode) and the
+    batch is refused by name as K1-d; an emission source without alias
+    tables (separable-backed), lw_mode without an emission source and
+    more than three components each keep a named predicate."""
     dom = make_step_cloud_multi(n_components=3, n_cdf_steps=101,
                                 device="cpu")
     lam = Surface.lambertian(0.1)
@@ -387,8 +388,17 @@ def test_envelope_names_what_is_still_to_port():
         dom, Surface(params=np.full((2, 2, 1), 0.2, np.float32)),
         illumination.Source(kind=illumination.EMISSION), True, False, 0,
         False)
-    assert len(reasons) == 2 and "K1-d" in reasons[0], reasons
+    assert len(reasons) == 2, reasons
+    assert reasons[0].startswith("non-uniform or unsupported-BRDF surface")
     assert reasons[1] == "source kind 'emission' not in-kernel"
+    rpv = Surface(params=np.asarray([0.1, 0.8, -0.2], np.float32)
+                  .reshape(1, 1, 3), brdf_name="RPV")
+    for sfc in (rpv, Surface(params=np.full((2, 1, 1), 0.2, np.float32))):
+        assert rk.ineligibility_reasons(dom, sfc, illumination.flux(), False,
+                                        False, 0, False) == []
+        with pytest.raises(NotImplementedError, match="K1-d"):
+            rk.run_batch_record(dom, sfc, illumination.flux(), 0,
+                                rk.RecordConfig(rows=8), 1)
     assert rk.ineligibility_reasons(dom, lam, illumination.flux(), True,
                                     False, 0, False) == [
         "lw_mode without an emission source"]
