@@ -6,7 +6,7 @@
 Phases, each asserting; any failure exits non-zero:
 
 1. print the card (nvidia-smi name and power limit) and build the CUDA
-   record, column, separable and tiled kernels from
+   record, column, separable and tiled kernels and the probe kernels from
    mcbrat3d_tpu_torch/csrc (one nvcc each, started together), reporting
    the build times and ptxas registers/spills;
 2. flux kernel against its plain PyTorch version on the card, same seeds:
@@ -58,6 +58,16 @@ Phases, each asserting; any failure exits non-zero:
    per-column fluxes and net absorption within 1e-5 of the photons per
    column, the profile within 5e-4 of its largest level, image totals
    within 1e-5 and pixels with signal within 2e-3;
+2j. the record kernel's surfaces (K1-d) against its plain version on the
+   card, same seeds: the uniform RPV surface (rho0 0.25, k 0.8, theta
+   -0.15) on the step cloud, on the 3-component step cloud and in lw_mode
+   with bench.py:173-218's emission source, the per-pixel checker (8 x 1,
+   albedos 0.05 / 0.65) on the step cloud as a flux run and with the
+   radiance deck's 6 directions (K2), and the 4,096-column cap
+   (broken_cloud_scene(nx=64, ny=64, nz=7) over a 64 x 64 albedo grid),
+   2^18 photons (the radiance case 16,384); each launch on its surface
+   branch; K1's tolerances (R/T/A 2e-3, pixels and cells z < 5, real
+   collisions 1e-4, radiance 5e-3 and 0.02);
 2c. analytic radiance anchors: a thin isotropic slab (I = tau / (4 pi mu))
    and a clear atmosphere over a Lambertian surface (I = albedo / pi per
    unit incident flux on the horizontal); and the emission anchors: an
@@ -188,6 +198,22 @@ Phases, each asserting; any failure exits non-zero:
    values frozen from the JAX package's XLA path; the cut's flux run
    against its column kernel in interpret mode; then the per-pixel flux
    path's ms per launch (CUDA events) and the plain step's;
+3l. path C through run_simulation: the step cloud of
+   run/step_cloud_mono.nml over the uniform RPV surface, 16 x 2^20
+   photons, iseed 10, flux and column absorption: the record kernel alone
+   with the RPV branch on every launch, no plain step, n_bad == 0, R/T/A
+   and the 32 columns of the up flux within 4.5 combined sigma of values
+   frozen from the JAX package's XLA path
+   (tools/record_surface_reference.py); then the RPV flux path's ms per
+   launch (CUDA events) and the plain step's;
+3m. path D through run_simulation: the step cloud over the 8 x 1 albedo
+   mosaic, a flux run (16 x 2^20 photons) and a radiance run with the
+   radiance deck's 6 directions (8 x 262,144): the record kernel alone
+   with the per-pixel branch on every launch (and the local estimate on
+   every radiance launch), no plain step, n_bad == 0, R/T/A and the up
+   flux's columns or the 6 radiances within 4.5 combined sigma of values
+   frozen from the JAX package's XLA path; then the per-pixel flux path's
+   ms per launch and the plain step's;
 4. one headline batch (macro_factor 16, 2^16 lanes x 1024 photons, flux
    tallies only): photons/s of the kernel, and of the plain version at the
    same lane count;
@@ -230,7 +256,12 @@ Phases, each asserting; any failure exits non-zero:
    (CUDA events), launches, live lane-steps per photon, the atmospheric
    births (counted by the kernel), the card's busy share and the bound (the
    refill's operations per birth counted from csrc/col_kernel.cu), and
-   plain ms per launch over 2 launches.
+   plain ms per launch over 2 launches;
+5. the gather and tally probes P1-P5: ``python -m
+   mcbrat3d_tpu_torch.tools.probes all`` (every variant at its TPU probe's
+   shape through its kernel), then each variant's kernel against its plain
+   twin (equal bit for bit), its ns per iteration, bytes and the PyTorch
+   call's time, all device time (CUDA graph replays).
 
 Prints the card line, then one JSON line describing each kernel (with its
 time, the least time the card could take for the same work and what bounds
@@ -241,6 +272,7 @@ runs) and prints no result lines.
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -2072,28 +2104,45 @@ def phase_col_em_px_compare(ck, le, m, KernelConfig, rng):
 
 
 def _simulate(ck, rk, run_simulation, SimulationConfig, dom, sfc, src,
-              **cfg_kw):
-    """One run_simulation on the card, no plain step allowed; returns the
-    results, the seconds and the launches (record, column, column with the
-    emission refill, with the per-pixel albedo, with the local estimate),
-    every count set to 0 just before the run and read just after."""
-    cfg = SimulationConfig(max_steps=400_000, n_lanes=1 << 16, **cfg_kw)
+              sk=None, tk=None, **cfg_kw):
+    """One run_simulation on the card (2^16 lanes and 400,000 steps unless
+    ``cfg_kw`` says otherwise), no plain record or column step allowed;
+    returns the results, the seconds and the launches (record, column,
+    column with the emission refill, with the per-pixel albedo, with the
+    local estimate, record with the RPV surface, with the per-pixel
+    albedo, with the local estimate, and with ``sk``, ``tk`` the separable
+    and tiled kernels), every count set to 0 just before the run and read
+    just after."""
+    cfg = SimulationConfig(**{"max_steps": 400_000, "n_lanes": 1 << 16,
+                              **cfg_kw})
     plain_runs = []
-    plain = ck.col_launch_plain
+    patched = [(ck, "col_launch_plain"), (rk, "record_launch_plain")]
+    originals = [getattr(m, name) for m, name in patched]
 
-    def counting(*args, **kwargs):
-        plain_runs.append(1)
-        return plain(*args, **kwargs)
+    def counting(plain):
+        def run_plain(*args, **kwargs):
+            plain_runs.append(1)
+            return plain(*args, **kwargs)
+        return run_plain
 
-    ck.col_launch_plain = counting
+    for (m, name), plain in zip(patched, originals):
+        setattr(m, name, counting(plain))
     rk.LAUNCHES = ck.COL_LAUNCHES = ck.COL_LE_LAUNCHES = 0
     ck.COL_LW_LAUNCHES = ck.COL_PX_LAUNCHES = 0
+    rk.RPV_LAUNCHES = rk.PX_LAUNCHES = rk.RADIANCE_LAUNCHES = 0
+    for m, name in ((sk, "SEP_LAUNCHES"), (tk, "TILE_LAUNCHES")):
+        if m is not None:
+            setattr(m, name, 0)
     try:
         res, sec = _timed(lambda: run_simulation(dom, sfc, src, cfg))
     finally:
-        ck.col_launch_plain = plain
+        for (m, name), plain in zip(patched, originals):
+            setattr(m, name, plain)
     launches = (rk.LAUNCHES, ck.COL_LAUNCHES, ck.COL_LW_LAUNCHES,
-                ck.COL_PX_LAUNCHES, ck.COL_LE_LAUNCHES)
+                ck.COL_PX_LAUNCHES, ck.COL_LE_LAUNCHES, rk.RPV_LAUNCHES,
+                rk.PX_LAUNCHES, rk.RADIANCE_LAUNCHES,
+                sk.SEP_LAUNCHES if sk is not None else 0,
+                tk.TILE_LAUNCHES if tk is not None else 0)
     assert not plain_runs, "a plain step ran"
     assert res.n_bad == 0, res.n_bad
     assert res.total_photons == (cfg.num_photons_per_batch
@@ -3287,9 +3336,445 @@ def phase_lw_headline(rk, m, KernelConfig, run_batch, rng):
     return res
 
 
-PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "2g", "2h", "2i", "3", "3b",
-          "3c", "3d", "3e", "3f", "3g", "3h", "3i", "3j", "3k", "4", "4b",
-          "4c", "4d", "4e", "4f", "4g", "4h", "4i")
+# ---------------------------------------------------------------------------
+# K1-d: the uniform RPV surface and the per-pixel albedo (phases 2j, 3l, 3m)
+# ---------------------------------------------------------------------------
+
+# JAX's TestRPVSurface surface: rho0, k, theta
+STEP_RPV = (0.25, 0.8, -0.15)
+# run/step_cloud_radiance.nml's directions (thetaFill 0 60 30, phiFill 0 90
+# 90), as the namelist readers expand them
+STEP_DIRS6 = ([math.cos(math.radians(t)) for t in (0, 0, 30, 30, 60, 60)],
+              [0.0, 90.0] * 3)
+# The step cloud of run/step_cloud_mono.nml (make_step_cloud(ssa=0.99),
+# beam mu0 0.5, azimuth 0, flux and column absorption) from the JAX
+# package's XLA path on the CPU (tools/record_surface_reference.py, threefry
+# streams, independent of the port's kernels), 64 batches of 262,144
+# photons: R, T, A and the 32 columns of the normalized up flux, means and
+# standard errors over batches. Over Surface.rpv(0.25, k=0.8, theta=-0.15)
+# (path C, seed 13):
+JAX_STEP_RPV = (0.5548040904, 0.396801698, 0.2285246335, 0.4788860083,
+    0.4328253698, 0.4072273532, 0.3926951666, 0.385397308, 0.3817031202,
+    0.3835380282, 0.3853358794, 0.3913214114, 0.399990839, 0.4083376722,
+    0.4200860471, 0.4349788623, 0.4534259061, 0.4704761668, 0.4929157309,
+    0.577363627, 0.6767813396, 0.7303882409, 0.7588680238, 0.7655394338,
+    0.7651065197, 0.7532883612, 0.7411236707, 0.72614739, 0.7075767433,
+    0.689791345, 0.6720519206, 0.654208472, 0.6347203581, 0.612429332,
+    0.5692053298)
+JAX_STEP_RPV_SE = (0.000101005, 0.000128088, 4.32599e-05, 0.000822806,
+    0.000780117, 0.000803749, 0.0007319, 0.000799107, 0.000697661, 0.000740046,
+    0.000792878, 0.00071502, 0.000674544, 0.00084854, 0.000819963, 0.000804723,
+    0.000732102, 0.000960059, 0.000787375, 0.000938412, 0.00108701, 0.00100356,
+    0.00103487, 0.00106446, 0.001142, 0.00102762, 0.000870869, 0.00106424,
+    0.00111393, 0.0008516, 0.00100699, 0.00118493, 0.000984937, 0.000841025,
+    0.00111147)
+# over the 8 x 1 mosaic of albedos 0.05 / 0.65 (path D's flux run, seed 14):
+JAX_STEP_PX = (0.5353621235, 0.3775510555, 0.2207555596, 0.4528737636,
+    0.405301007, 0.3796834261, 0.3653869159, 0.3576658238, 0.3553606141,
+    0.3543574032, 0.3577709771, 0.3653542674, 0.371983896, 0.3835303481,
+    0.3991159298, 0.4116419158, 0.4309867341, 0.4537813049, 0.4753358946,
+    0.5594248958, 0.6608677907, 0.7182696387, 0.7454574741, 0.7544366969,
+    0.7533448068, 0.7411906328, 0.7289489713, 0.7113987356, 0.6953990934,
+    0.6784997294, 0.6592855044, 0.6411125334, 0.6198636182, 0.5940501839,
+    0.5499073975)
+JAX_STEP_PX_SE = (8.81374e-05, 0.000131588, 3.64302e-05, 0.00077107,
+    0.000866303, 0.000785496, 0.000722617, 0.000674013, 0.000792504,
+    0.00073201, 0.000685901, 0.000496235, 0.000661395, 0.000716672,
+    0.000785554, 0.000933109, 0.000842237, 0.000760165, 0.000830242,
+    0.000985124, 0.00095312, 0.000969739, 0.00127832, 0.00106868, 0.00102268,
+    0.00113601, 0.00109352, 0.00105975, 0.000833798, 0.00101053, 0.000972318,
+    0.00104799, 0.000825164, 0.000850859, 0.000875573)
+# path D's radiance run (the step cloud with its intensity tables and the
+# deck's 7-degree hybrid row, Iwabuchi roulette, zetaMin 0.3; seed 15), 32
+# batches of 65,536 photons: R, T, A and the 6 domain-mean radiances in
+# the deck's direction order
+JAX_STEP_PX_RAD = (0.5356444567, 0.3770696139, 0.2206059392, 0.1287399053,
+    0.1286307992, 0.1643738611, 0.1355143601, 0.2947661414, 0.1582749038)
+JAX_STEP_PX_RAD_SE = (0.000234413, 0.000352518, 0.000134839, 0.000179103,
+    0.000189415, 0.000317488, 0.000269668, 0.000608822, 0.000402313)
+
+
+def step_checker(np, nxs=8, lo=0.05, hi=0.65):
+    """Path D's mosaic, JAX's TestPerPixelSurface._checker(8): nxs x 1
+    albedos alternating 0.05 and 0.65 from 0.05 (4 columns a pixel on the
+    step cloud), float32."""
+    return np.where(np.arange(nxs) % 2 == 0, lo, hi).astype(
+        np.float32).reshape(nxs, 1, 1)
+
+
+def phase_record_surface_compare(rk, le, m, make_step_cloud,
+                                 make_step_cloud_multi, KernelConfig, rng):
+    """K1-d against the plain step on the card, same seeds and counter
+    uniforms: the uniform RPV surface on the step cloud (path C's scene),
+    on the 3-component step cloud and in lw_mode with bench.py:173-218's
+    emission source; the per-pixel checker on the step cloud as a flux run
+    and with the radiance deck's 6 directions (K2); and the 4,096-column
+    cap, broken_cloud_scene(nx=64, ny=64, nz=7) over a 64 x 64 albedo
+    grid. Every launch of a case takes its surface branch. K1's tolerances:
+    equal photons, R/T/A within 2e-3, per-pixel fluxes (and per-cell net
+    absorption) within z < 5, real collisions within 1e-4, which bounds the
+    photons a last-bit difference parts (expf, logf and sqrtf of the RPV
+    weight are the card's own in both, so none is expected); radiance means
+    within 5e-3 and normalized pixels within 0.02 (phase 2b's). Returns the
+    largest normalized per-pixel gap of the RPV and of the per-pixel
+    cases."""
+    import numpy as np
+
+    rpv = m.Surface.rpv(*STEP_RPV)
+    checker = m.Surface(params=step_checker(np))
+    rs = np.random.RandomState(5)
+    mosaic = m.Surface(params=(0.05 + 0.75 * rs.rand(64, 64, 1)).astype(
+        np.float32))
+    flux4 = dict(n_lanes=1 << 16, photons_per_lane=4, max_steps=800_000)
+    # (name, scene, surface, branch, config)
+    cases = [
+        ("RPV, step cloud", "step", rpv, "rpv",
+         dict(flux4, need_volume_absorption=False)),
+        ("RPV, 3-component step cloud, macro 8", "multi3", rpv, "rpv",
+         dict(flux4, need_volume_absorption=True)),
+        ("RPV, lw_mode, per-voxel emission", "lw",
+         m.Surface.rpv(0.05, STEP_RPV[1], STEP_RPV[2], temperature=290.0,
+                       emissivity=0.95), "rpv", dict(flux4, lw_mode=True)),
+        ("per-pixel checker, step cloud", "step", checker, "px",
+         dict(flux4, need_volume_absorption=True)),
+        ("per-pixel checker, 6 directions", "step_rad", checker, "px",
+         dict(n_lanes=4096, photons_per_lane=4, max_steps=100_000,
+              need_volume_absorption=False)),
+        ("per-pixel 64 x 64, broken cloud 64 x 64 x 7", "cap", mosaic, "px",
+         dict(flux4, need_volume_absorption=False)),
+    ]
+    dirs6 = None
+    errs = {"rpv": 0.0, "px": 0.0}
+    for i, (name, scene, sfc, branch, ckw) in enumerate(cases):
+        src = m.illumination.directional(0.5, 0.0)
+        icfg = None
+        if scene == "step":
+            dom = make_step_cloud(ssa=0.99, device="cuda")
+        elif scene == "multi3":
+            dom = make_step_cloud_multi(n_components=3, ssa=0.99,
+                                        macro_factor=8, device="cuda")
+        elif scene == "lw":
+            dom, src = lw_emission_scene(m, 8)
+        elif scene == "step_rad":
+            dom = make_step_cloud(ssa=0.99, compute_intensity_tables=True,
+                                  hybrid_width_deg=7.0, device="cuda")
+            dirs6 = le.make_intensity_directions(*STEP_DIRS6, device="cuda")
+            icfg = le.IntensityConfig(n_dirs=6, use_russian_roulette=True,
+                                      zeta_min=0.3, use_hybrid_phase=True)
+        else:
+            grid, comps, _ = m.broken_cloud_scene(nx=64, ny=64, nz=7,
+                                                  device="cuda")
+            dom = m.build_domain(grid, comps, macro_factor=8,
+                                 n_cdf_steps=201)
+            assert dom.grid.nx * dom.grid.ny == 4096
+        assert not rk.ineligibility_reasons(
+            dom, sfc, src, ckw.get("lw_mode", False), False, 0, False)
+        cfg = KernelConfig(**ckw)
+        seed = rng.batch_seed(34, i)
+
+        def run(launch=rk.record_launch):
+            return rk.run_batch_record_tallies(
+                dom, sfc, src, seed, cfg, launch=launch,
+                intensity_config=icfg,
+                intensity_dirs=dirs6 if icfg is not None else None)
+
+        before = (rk.LAUNCHES, rk.RPV_LAUNCHES, rk.PX_LAUNCHES)
+        tk, sk = _timed(run)
+        launched = (rk.LAUNCHES - before[0], rk.RPV_LAUNCHES - before[1],
+                    rk.PX_LAUNCHES - before[2])
+        assert launched[0] > 0 and launched[0] == (
+            launched[1] if branch == "rpv" else launched[2]), launched
+        assert launched[2 if branch == "rpv" else 1] == 0, launched
+        tp, sp = _timed(lambda: run(rk.record_launch_plain))
+        n = tk.n_photons
+        assert n == tp.n_photons == cfg.photons_per_batch, (n, tp.n_photons)
+        assert tk.n_bad == 0 and tp.n_bad == 0, (tk.n_bad, tp.n_bad)
+        rta_k, rta_p = _rta(tk), _rta(tp)
+        gap = max(abs(a - b) for a, b in zip(rta_k, rta_p))
+        z_max, err = _pixel_z([(tk.flux_up, tp.flux_up),
+                               (tk.flux_down, tp.flux_down)], n)
+        errs[branch] = max(errs[branch], err)
+        line = (f"surface compare [{name}]: kernel R/T/A={rta_k} plain="
+                f"{rta_p} gap={gap:.3e} pixel z_max={z_max:.2f} real "
+                f"collisions {tk.n_real}/{tp.n_real}")
+        if tk.volume_absorption is not None:
+            z_vol = _net_cell_z(tk.volume_absorption, tp.volume_absorption)
+            line += f" cell z_max={z_vol:.2f}"
+            assert z_vol < 5.0, z_vol
+        if icfg is not None:
+            mean_k, mean_p = (t.normalized(dom.grid).intensity.double()
+                              .mean(dim=(0, 1)) for t in (tk, tp))
+            rgap = float(((mean_k - mean_p).abs() / mean_p.abs()).max())
+            rz, rerr = _image_gap(tk.intensity, tp.intensity, n, n)
+            rerr *= tk.intensity[..., 0].numel()
+            errs[branch] = max(errs[branch], rerr)
+            line += (f", radiance means {[round(float(v), 6) for v in mean_k]}"
+                     f" gap {rgap:.2e} pixel gap {rerr:.2e} z_max {rz:.2f}, "
+                     f"events {tk.n_le_events}/{tp.n_le_events}")
+            assert rgap < RAD_REL_TOL_KERNEL_VS_PLAIN, rgap
+            assert rerr < RAD_PIXEL_TOL_KERNEL_VS_PLAIN, rerr
+            assert rz < 5.0, rz
+        print(line + f"; {launched[0]} launches, kernel {sk:.3f} s plain "
+              f"{sp:.3f} s", flush=True)
+        assert gap < RTA_TOL_KERNEL_VS_PLAIN, gap
+        assert z_max < 5.0, z_max
+        assert abs(tk.n_real - tp.n_real) <= (REAL_TOL_KERNEL_VS_PLAIN
+                                              * tp.n_real), (tk.n_real,
+                                                             tp.n_real)
+    print(f"surface compare: largest normalized pixel gap {errs['rpv']:.3e} "
+          f"(RPV), {errs['px']:.3e} (per-pixel)", flush=True)
+    return errs["rpv"], errs["px"]
+
+
+def _step_row(res, radiance=False):
+    """(means, standard errors) of R, T, A, then the 32 columns of the up
+    flux or the domain-mean radiances."""
+    import numpy as np
+
+    keys = ["mean_flux_up", "mean_flux_down", "mean_flux_absorbed"]
+    got = [float(res.mean[k]) for k in keys]
+    se = [float(res.stderr[k]) for k in keys]
+    extra = "mean_intensity" if radiance else "flux_up"
+    got += np.asarray(res.mean[extra], np.float64).reshape(-1).tolist()
+    se += np.asarray(res.stderr[extra], np.float64).reshape(-1).tolist()
+    return got, se
+
+
+def _record_flux_path_timing(rk, dom, sfc, src, KernelConfig, rng, seed):
+    """One batch of 2^16 lanes x 16 photons (flux, column absorption)
+    through the record kernel with CUDA events around each launch, and the
+    plain step over 2 launches: ms per launch, launches, lane-steps, busy
+    share, and the bound (the state read and written once, the records
+    and the albedo per column read once, the tallies written once; 300
+    operations a live lane-step, the RPV weight's ~150 per reflection not
+    charged, as no launch counts its reflections)."""
+    cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=16,
+                       max_steps=400_000, need_volume_absorption=False)
+    rk.run_batch_record_tallies(dom, sfc, src, rng.batch_seed(seed, 99),
+                                cfg, n_photons=1 << 18)  # warm-up
+    orig = rk._launch_cuda
+    rk._launch_cuda, events = _event_timed(orig)
+    try:
+        t, wall = _timed(lambda: rk.run_batch_record_tallies(
+            dom, sfc, src, rng.batch_seed(seed, 0), cfg))
+    finally:
+        rk._launch_cuda = orig
+    _sync()
+    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    n_launch = len(events)
+    assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
+    plain, ev = _event_timed(rk.record_launch_plain)
+    rk.run_batch_record(dom, sfc, src, rng.batch_seed(seed, 1),
+                        rk.RecordConfig(rows=512, max_steps=2 * 128,
+                                        vol_tally=False), 16, launch=plain)
+    _sync()
+    nxy = dom.grid.nx * dom.grid.ny
+    res = dict(launches=n_launch, kernel_ms_per_launch=kernel_ms / n_launch,
+               plain_ms_per_launch=sum(a.elapsed_time(b) for a, b in ev)
+               / len(ev), busy=kernel_ms / (1e3 * wall),
+               lane_steps=t.n_lane_steps, photons=t.n_photons)
+    res["bound"] = _bound(
+        t.n_lane_steps, n_launch, OPS_PER_LANE_STEP["record_kernel"],
+        1 << 16, 40, 4 * (dom.cell_records.numel() + nxy), 4 * 3 * nxy)
+    return res
+
+
+def phase_rpv_step_cloud(rk, ck, sk, tk, m, make_step_cloud, run_simulation,
+                         SimulationConfig, KernelConfig, rng):
+    """Path C through run_simulation: the step cloud of
+    run/step_cloud_mono.nml over Surface.rpv(0.25, k=0.8, theta=-0.15),
+    16 x 2^20 photons, iseed 10, flux and column absorption: the record
+    kernel alone with the RPV branch on every launch, no plain step, n_bad
+    0, R, T, A and the 32 columns of the up flux within 4.5 combined sigma
+    of the JAX package's XLA path (tools/record_surface_reference.py rpv);
+    then the RPV flux path's ms per launch (CUDA events) and the plain
+    step's."""
+    dom = make_step_cloud(ssa=0.99, device="cuda")
+    sfc = m.Surface.rpv(*STEP_RPV)
+    src = m.illumination.directional(0.5, 0.0)
+    res, sec, launches = _simulate(
+        ck, rk, run_simulation, SimulationConfig, dom, sfc, src, sk, tk,
+        n_lanes=1 << 17, max_steps=100_000, num_photons_per_batch=1 << 20,
+        num_batches=16, iseed=10)
+    assert launches[0] == launches[5] > 0, launches
+    assert sum(launches[1:5]) + sum(launches[6:]) == 0, launches
+    got, se = _step_row(res)
+    names = ["R", "T", "A"] + [f"up {k}" for k in range(32)]
+    worst = _within_sigma(got, se, JAX_STEP_RPV, JAX_STEP_RPV_SE, names)
+    print(f"path C (step cloud over RPV, run_simulation): "
+          f"{res.total_photons} photons in {sec:.2f} s, R/T/A {got[:3]} +- "
+          f"{se[:3]}, launches (record, RPV) {launches[0]}, "
+          f"{launches[5]}; largest gap to JAX's XLA path "
+          f"{worst:.2f} combined sigma", flush=True)
+    out = _record_flux_path_timing(rk, dom, sfc, src, KernelConfig, rng, 35)
+    out.update(rpv_launches=launches[5], seconds=sec, worst=worst)
+    print(f"RPV flux path: {out['photons']} photons, {out['launches']} "
+          f"launches, kernel {out['kernel_ms_per_launch']:.4f} ms/launch "
+          f"(bound {out['bound'][0]:.4f} ms by {out['bound'][1]}), busy "
+          f"share {out['busy']:.3f}, "
+          f"{out['lane_steps'] / out['photons']:.2f} live lane-steps per "
+          f"photon, plain {out['plain_ms_per_launch']:.4f} ms/launch",
+          flush=True)
+    return out
+
+
+def phase_px_step_cloud(rk, ck, sk, tk, m, make_step_cloud, run_simulation,
+                        SimulationConfig, KernelConfig, rng):
+    """Path D through run_simulation: the step cloud over the 8 x 1
+    albedo mosaic (0.05 / 0.65), a flux run (16 x 2^20 photons, iseed 10)
+    and a radiance run with run/step_cloud_radiance.nml's 6 directions (8 x
+    262,144 photons; the step cloud with its intensity tables and the 7
+    degree hybrid row, Iwabuchi roulette, zetaMin 0.3): the record kernel
+    alone with the per-pixel branch on every launch (and K2's local
+    estimate on every launch of the radiance run), no plain step, n_bad 0,
+    R, T, A and the up flux's 32 columns, or the 6 domain-mean radiances,
+    within 4.5 combined sigma of the JAX package's XLA path
+    (tools/record_surface_reference.py px, px_radiance); then the
+    per-pixel flux path's ms per launch and the plain step's."""
+    import numpy as np
+
+    sfc = m.Surface(params=step_checker(np))
+    src = m.illumination.directional(0.5, 0.0)
+    dom = make_step_cloud(ssa=0.99, device="cuda")
+    res, sec, launches = _simulate(
+        ck, rk, run_simulation, SimulationConfig, dom, sfc, src, sk, tk,
+        n_lanes=1 << 17, max_steps=100_000, num_photons_per_batch=1 << 20,
+        num_batches=16, iseed=10)
+    assert launches[0] == launches[6] > 0, launches
+    assert sum(launches[1:6]) + sum(launches[7:]) == 0, launches
+    got, se = _step_row(res)
+    names = ["R", "T", "A"] + [f"up {k}" for k in range(32)]
+    worst = _within_sigma(got, se, JAX_STEP_PX, JAX_STEP_PX_SE, names)
+    up = np.asarray(got[3:])
+    bright = np.repeat(np.arange(8) % 2 == 1, 4)
+    print(f"path D flux (step cloud over the mosaic, run_simulation): "
+          f"{res.total_photons} photons in {sec:.2f} s, R/T/A {got[:3]} +- "
+          f"{se[:3]}, up flux over bright/dark pixels "
+          f"{up[bright].mean():.4f}/{up[~bright].mean():.4f}, launches "
+          f"(record, per-pixel) {launches[0]}, {launches[6]}; largest gap to "
+          f"JAX's XLA path {worst:.2f} combined "
+          f"sigma", flush=True)
+    assert up[bright].mean() > up[~bright].mean()
+    dom_r = make_step_cloud(ssa=0.99, compute_intensity_tables=True,
+                            hybrid_width_deg=7.0, device="cuda")
+    res_r, sec_r, launches_r = _simulate(
+        ck, rk, run_simulation, SimulationConfig, dom_r, sfc, src, sk, tk,
+        n_lanes=1 << 17, max_steps=100_000, num_photons_per_batch=262144,
+        num_batches=8, iseed=10,
+        intensity_mus=list(STEP_DIRS6[0]), intensity_phis=list(STEP_DIRS6[1]),
+        use_hybrid_phase_funs=True, hybrid_phase_fun_width=7.0,
+        use_russian_roulette_intensity=True, zeta_min=0.3)
+    assert launches_r[0] == launches_r[6] == launches_r[7] > 0, launches_r
+    assert sum(launches_r[1:6]) + sum(launches_r[8:]) == 0, launches_r
+    got_r, se_r = _step_row(res_r, radiance=True)
+    worst_r = _within_sigma(got_r, se_r, JAX_STEP_PX_RAD,
+                            JAX_STEP_PX_RAD_SE,
+                            ["R", "T", "A"] + [f"radiance {d}"
+                                               for d in range(6)])
+    print(f"path D radiance (run_simulation, 6 directions): "
+          f"{res_r.total_photons} photons in {sec_r:.2f} s, R/T/A and "
+          f"radiances {[round(v, 6) for v in got_r]}, launches (record, "
+          f"per-pixel, radiance) {launches_r[0]}, {launches_r[6]}, "
+          f"{launches_r[7]}; largest gap to JAX's XLA path {worst_r:.2f} "
+          f"combined sigma", flush=True)
+    out = _record_flux_path_timing(rk, dom, sfc, src, KernelConfig, rng, 36)
+    out.update(px_launches=launches[6] + launches_r[6], seconds=sec + sec_r,
+               worst=max(worst, worst_r))
+    print(f"per-pixel flux path: {out['photons']} photons, "
+          f"{out['launches']} launches, kernel "
+          f"{out['kernel_ms_per_launch']:.4f} ms/launch (bound "
+          f"{out['bound'][0]:.4f} ms by {out['bound'][1]}), busy share "
+          f"{out['busy']:.3f}, {out['lane_steps'] / out['photons']:.2f} live "
+          f"lane-steps per photon, plain {out['plain_ms_per_launch']:.4f} "
+          f"ms/launch", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The gather and tally probes P1-P5 (phase 5)
+# ---------------------------------------------------------------------------
+
+# Operations of one iteration of a lane, counted from
+# csrc/probe_kernels.cu: a gather (the loop test and branch 2, the address
+# 1, the load 1, the add to the sum 1, the perturbation's multiply,
+# convert, add and and 4) and a tally body (the value's convert and
+# multiply 2, its widening 1, the bin's address and shared atomic 2, the
+# bin's read and narrowing 2, the add to the sum 1, the perturbation 4,
+# the loop 2, the lane's share of zeroing 1,024 bins 1 and of the two
+# barriers 1). Integer operations at the float32 rate.
+OPS_PER_GATHER_ITERATION = 9
+OPS_PER_TALLY_ITERATION = 16
+# The variants the kernels line reports: P5's record gather (the one
+# PyTorch call rec[idx] computes its whole function) and P4's value tally.
+PROBE_LINE = {"probe_gather": "p5_records", "probe_tally": "p4_tally_full"}
+
+
+def phase_probes(probes):
+    """The probes' main path, ``python -m mcbrat3d_tpu_torch.tools.probes
+    all`` (every P1-P5 variant at its TPU probe's shape through its
+    kernel), with the launch counts set to 0 just before and read just
+    after; then each variant's kernel against its plain twin on the same
+    inputs (equal bit for bit: float32 reads, and tallies summed exactly
+    in float64), the ns per iteration, the bytes a launch moves and the
+    library call's ns; and, for the kernels line, the two representative
+    variants' ms per launch, plain ms, bound and library ms (for the tally
+    the loop of one index_add_ per iteration). Every time is device time:
+    the calls are captured in one CUDA graph whose replay is timed
+    (``probes.device_ms``), so the host's launch rate does not enter."""
+    import torch
+
+    buf = io.StringIO()
+    probes.GATHER_LAUNCHES = probes.TALLY_LAUNCHES = 0
+    with contextlib.redirect_stdout(buf):
+        assert probes.main(["all"]) == 0
+    launches = {"probe_gather": probes.GATHER_LAUNCHES,
+                "probe_tally": probes.TALLY_LAUNCHES}
+    print(buf.getvalue(), end="", flush=True)
+    assert all(launches.values()), launches
+    errs = {"probe_gather": 0.0, "probe_tally": 0.0}
+    line = {}
+    for name, v in probes.VARIANTS.items():
+        entry = "probe_gather" if v.kernel == "gather" else "probe_tally"
+        r = probes.measure(v)
+        tab_np, idx_np = probes.probe_inputs(v)
+        tab = torch.tensor(tab_np, device="cuda").reshape(-1)
+        idx0 = torch.tensor(idx_np, device="cuda").reshape(-1)
+        plain = probes.run_variant(v, tab, idx0, plain=True)
+        err = float((r["out"] - plain).abs().max())
+        assert torch.equal(r["out"], plain), (name, err)
+        errs[entry] = max(errs[entry], err)
+        ops = (OPS_PER_GATHER_ITERATION if v.kernel == "gather"
+               else OPS_PER_TALLY_ITERATION) * r["lanes"] * r["inner"]
+        t_bytes = r["bytes"] / H100_BYTES_PER_S
+        t_ops = ops / H100_F32_OPS_PER_S
+        bound = (1e3 * max(t_bytes, t_ops),
+                 "bytes" if t_bytes > t_ops else "operations")
+        lib = r["library_ns"]
+        print(f"probe {name} ({v.source}): {r['lanes']} lanes x "
+              f"{r['inner']} iterations, {r['ns_per_iter']:.3f} ns per "
+              f"iteration (marginal over {probes.MARGINAL_FACTOR} x the "
+              f"iterations where more than one), {r['ms']:.5f} ms a launch "
+              f"(bound {bound[0]:.6f} "
+              f"ms by {bound[1]}), {r['bytes']} bytes, library "
+              + ("none" if lib is None else f"{lib:.3f} ns per iteration")
+              + f", kernel = plain ({err:.1e})", flush=True)
+        if PROBE_LINE[entry] == name:
+            plain_ms = probes.device_ms(
+                lambda: probes.run_variant(v, tab, idx0, plain=True),
+                max(1, v.reps // 8))
+            call = probes.library_call(v, tab, idx0)
+            lib_ms = probes.device_ms(
+                lambda: [call() for _ in range(r["inner"])], v.reps)
+            line[entry] = dict(ms=r["ms"], plain_ms=plain_ms, bound=bound,
+                               library_ms=lib_ms)
+    for entry, d in line.items():
+        d.update(launches=launches[entry], max_err=errs[entry])
+    return line
+
+
+PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "2g", "2h", "2i", "2j", "3",
+          "3b", "3c", "3d", "3e", "3f", "3g", "3h", "3i", "3j", "3k", "3l",
+          "3m", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "4i", "5")
 
 
 def main(argv=None) -> int:
@@ -3333,6 +3818,7 @@ def main(argv=None) -> int:
         make_step_cloud, make_step_cloud_multi, step_cloud_multi_scene)
     from mcbrat3d_tpu_torch.sources import illumination
     from mcbrat3d_tpu_torch.spectral import weights
+    from mcbrat3d_tpu_torch.tools import probes
     from mcbrat3d_tpu_torch.tools.lw_inputs import write_lw_broadband_inputs
     from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import local_estimate as le
@@ -3350,13 +3836,13 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)}; card {card}", flush=True)
     t0 = time.perf_counter()
     _build.build_all(["record_kernel", "col_kernel", "sep_kernel",
-                     "tile_kernel"])
+                      "tile_kernel", "probe_kernels"])
     print(f"kernels built in {time.perf_counter() - t0:.2f} s (one nvcc "
           "each, started together)", flush=True)
     # record_steps<MACRO, VOL, ANALYTIC, LE>,
     # col_steps<MACRO, ANALYTIC, VOL, RR, LE>,
-    # sep_steps<SRC, ANALYTIC, RR, LW> and tile_steps<NCOMP, ANALYTIC, RR>
-    # in their mangled names
+    # sep_steps<SRC, ANALYTIC, RR, LW>, tile_steps<NCOMP, ANALYTIC, RR>
+    # in their mangled names, and the probes' three kernels
     patterns = {
         "record_kernel": (r"record_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
                           "macro={} vol={} analytic={} LE={}"),
@@ -3365,7 +3851,8 @@ def main(argv=None) -> int:
         "sep_kernel": (r"sep_stepsILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
                        "src={} analytic={} rr={} lw={}"),
         "tile_kernel": (r"tile_stepsILi(\d)ELb(\d)ELb(\d)E",
-                        "ncomp={} analytic={} rr={}")}
+                        "ncomp={} analytic={} rr={}"),
+        "probe_kernels": (r"(gather_chain|tally_lane|tally_block)", "{}")}
     for lib, (pattern, fmt) in patterns.items():
         info = _build.BUILD_INFO[lib]
         print(f"{lib}: nvcc {info['seconds']:.2f} s", flush=True)
@@ -3421,6 +3908,11 @@ def main(argv=None) -> int:
     if "2i" in only:
         out["em_max_err"], out["px_max_err"] = phase_col_em_px_compare(
             ck, le, m, KernelConfig, rng)
+    if "2j" in only:
+        out["rpv_max_err"], out["k1_px_max_err"] = \
+            phase_record_surface_compare(rk, le, m, make_step_cloud,
+                                         make_step_cloud_multi, KernelConfig,
+                                         rng)
     if "3" in only:
         out["launches"] = phase_main_path(rk, cli)
     if "3b" in only:
@@ -3450,6 +3942,14 @@ def main(argv=None) -> int:
         out["px_landsat"] = phase_px_landsat(
             ck, rk, le, m, run_simulation, config.SimulationConfig,
             KernelConfig, rng)
+    if "3l" in only:
+        out["rpv_step"] = phase_rpv_step_cloud(
+            rk, ck, sk, tk, m, make_step_cloud, run_simulation,
+            config.SimulationConfig, KernelConfig, rng)
+    if "3m" in only:
+        out["px_step"] = phase_px_step_cloud(
+            rk, ck, sk, tk, m, make_step_cloud, run_simulation,
+            config.SimulationConfig, KernelConfig, rng)
     if "4" in only:
         out["head"] = phase_headline(*args)
     if "4b" in only:
@@ -3477,6 +3977,8 @@ def main(argv=None) -> int:
     if "4i" in only:
         out["lw_landsat_head"] = phase_lw_landsat_headline(
             ck, rk, m, KernelConfig, run_batch, rng)
+    if "5" in only:
+        out["probes"] = phase_probes(probes)
     if only != set(PHASES):
         print(f"chip_smoke: phases {sorted(only)} passed; no result lines "
               "for a partial run")
@@ -3522,6 +4024,10 @@ def main(argv=None) -> int:
         "col_kernel_gas": out["gas"]["bound"],
         "col_kernel_lw": out["lw_landsat_head"]["bound"],
         "col_kernel_px": out["px_landsat"]["bound"],
+        "record_kernel_rpv": out["rpv_step"]["bound"],
+        "record_kernel_px": out["px_step"]["bound"],
+        "probe_gather": out["probes"]["probe_gather"]["bound"],
+        "probe_tally": out["probes"]["probe_tally"]["bound"],
     }
     kernels = [{
         "name": "record_kernel",
@@ -3637,11 +4143,47 @@ def main(argv=None) -> int:
         "max_abs_err": out["px_max_err"],
         "ms": out["px_landsat"]["kernel_ms_per_launch"],
         "plain_ms": out["px_landsat"]["plain_ms_per_launch"],
+    }, {
+        # the record kernel's uniform RPV surface (K1-d): launches and
+        # times on path C (phase 3l)
+        "name": "record_kernel_rpv",
+        "route": "cuda",
+        "source": "mcbrat3d_tpu_torch/csrc/record_kernel.cu",
+        "replaces": "mcbrat3d_tpu/transport/pallas_kernel.py:1436",
+        "launches": out["rpv_step"]["rpv_launches"],
+        "max_abs_err": out["rpv_max_err"],
+        "ms": out["rpv_step"]["kernel_ms_per_launch"],
+        "plain_ms": out["rpv_step"]["plain_ms_per_launch"],
+    }, {
+        # the record kernel's per-pixel albedo (K1-d): launches on path D's
+        # flux and radiance runs, times on its flux path (phase 3m)
+        "name": "record_kernel_px",
+        "route": "cuda",
+        "source": "mcbrat3d_tpu_torch/csrc/record_kernel.cu",
+        "replaces": "mcbrat3d_tpu/transport/pallas_kernel.py:1436",
+        "launches": out["px_step"]["px_launches"],
+        "max_abs_err": out["k1_px_max_err"],
+        "ms": out["px_step"]["kernel_ms_per_launch"],
+        "plain_ms": out["px_step"]["plain_ms_per_launch"],
     }]
+    for name, replaces in (
+            ("probe_gather", "tools/probe_gather.py:39, "
+             "tools/probe_gather2.py:114, tools/probe_gather3.py:191, "
+             "native/pallas_gather_experiment.py:34"),
+            ("probe_tally", "tools/probe_tally.py:178")):
+        # the probes (phase 5): launches of the CLI's run of every variant,
+        # times of the variant PROBE_LINE names
+        p = out["probes"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mcbrat3d_tpu_torch/csrc/probe_kernels.cu",
+            "replaces": replaces, "launches": p["launches"],
+            "max_abs_err": p["max_err"], "ms": p["ms"],
+            "plain_ms": p["plain_ms"], "library_ms": p["library_ms"]})
     for k in kernels:
-        # no single PyTorch call computes a transport step
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
-        k["library_ms"] = None
+        # no single PyTorch call computes a transport step
+        k.setdefault("library_ms", None)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

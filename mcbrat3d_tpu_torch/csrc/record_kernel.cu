@@ -8,8 +8,9 @@
 // against the optional two-level macro majorant,
 // record fetch with the component choice of 2-3 component domains,
 // null-collision test, Russian roulette, HG or inverse-CDF scatter +
-// rotation, uniform Lambertian reflection, fused flux / absorption tally),
-// as launched by `_make_launch`; and its local
+// rotation, reflection off a uniform Lambertian or RPV surface or a
+// per-pixel Lambertian albedo grid, :1436-1498, fused flux / absorption
+// tally), as launched by `_make_launch`; and its local
 // estimation section (`_build_kernel` :1515-2115, configured by
 // `run_batch_pallas_tallies` :3278-3325): at every real scatter and every
 // surface reflection, for each radiance direction, the phase value (HG or
@@ -30,8 +31,19 @@
 // f2_0, f2_1, f2_2] (domain.multi_component_records), 32-byte rows read as
 // two float4 loads; one uniform against the cumulative scattering
 // fractions picks the component whose f2 (HG g or table row) scatters.
-// The source kind, the component count and lw are launch arguments,
-// uniform across a launch, so their branches never diverge.
+// The source kind, the component count, lw and the surface kind are launch
+// arguments, uniform across a launch, so their branches never diverge.
+//
+// Surfaces (surf, SURF_*). A uniform Lambertian surface multiplies the
+// weight by the albedo. A per-pixel Lambertian grid that tiles whole
+// columns is an albedo per domain column (at most 4,096 floats), read per
+// thread with __ldg at the column where the photon reaches the surface:
+// where the TPU kernel packed it in [rows, 128] lanes and picked a row
+// with a chain of selects. A uniform Rahman-Pinty-Verstraete surface
+// multiplies the weight by the BRDF at the incoming direction and the
+// sampled outgoing one, in the TPU kernel's trig-free form (cos(dphi)
+// from the direction components, tan(acos(mu)) = sqrt(1 - mu^2) / mu):
+// five sqrtf, five IEEE divides, a logf and an expf more per reflection.
 //
 // Emission (src = SRC_EMISSION). A refilled lane draws the atmosphere or
 // the surface (one uniform against fracAtmsPower), a bin of the Walker
@@ -113,8 +125,11 @@ enum {
   P_X0, P_LX, P_Y0, P_LY, P_Z0, P_LZ, P_INV_DX, P_INV_DY, P_INV_DZ,
   P_ZMAX, P_ZEPS, P_BXW, P_BYW, P_BZW, P_NUDGE, P_TWO_PI, P_HALF_RR,
   P_ZTOP, P_ZBOT, P_DXC, P_DYC, P_DZC, P_MNUDGE, P_ZETA, P_MAXC,
-  P_SPOT_X, P_SPOT_Y, P_ATMS, N_PARAMS
+  P_SPOT_X, P_SPOT_Y, P_ATMS, P_RPV_K, P_RPV_TH, N_PARAMS
 };
+
+// Surface kinds (record_kernel.py SURF_*).
+enum { SURF_LAMBERT, SURF_RPV, SURF_PX };
 
 // Source kinds (record_kernel.py SOURCE_KINDS).
 enum {
@@ -289,6 +304,31 @@ __device__ __forceinline__ void local_estimate(
   }
 }
 
+// The uniform RPV BRDF for a photon reaching the surface along (ux, uy,
+// uz) and leaving with cosine mu_new (sine sin_new) at the azimuth whose
+// cosine and sine are cp, sp (pallas_kernel.py:1440-1477, operation for
+// operation; record_kernel.rpv_weight is the plain twin).
+__device__ __forceinline__ float rpv_weight(float rho0, float k, float th,
+                                            float ux, float uy, float uz,
+                                            float mu_new, float sin_new,
+                                            float cp, float sp) {
+  const float mu_i = fabsf(uz);
+  const float si = sqrtf(fmaxf(0.f, 1.f - uz * uz));
+  const float mu_r = fminf(fmaxf(mu_new, 1e-6f), 1.f);
+  const float cos_dphi = si < 1e-6f ? 1.f : (cp * ux + sp * uy) / si;
+  const float cos_g = mu_i * mu_r + (si * sin_new) * cos_dphi;
+  const float minn_x = fmaxf((mu_i * mu_r) * (mu_i + mu_r), 1e-12f);
+  const float minnaert = expf((k - 1.f) * logf(minn_x));
+  const float hg_d = fmaxf((1.f + th * th) + (2.f * th) * cos_g, 1e-12f);
+  const float hg_l = (1.f - th * th) / (hg_d * sqrtf(hg_d));
+  const float mu_ic = fminf(fmaxf(mu_i, 1e-6f), 1.f);
+  const float t_i = sqrtf(fmaxf(0.f, 1.f - mu_ic * mu_ic)) / mu_ic;
+  const float t_r = sqrtf(fmaxf(0.f, 1.f - mu_r * mu_r)) / mu_r;
+  const float cap_g = sqrtf(
+      fmaxf((t_i * t_i + t_r * t_r) - ((2.f * t_i) * t_r) * cos_dphi, 0.f));
+  return ((rho0 * minnaert) * hg_l) * (1.f + (1.f - rho0) / (1.f + cap_g));
+}
+
 template <bool MACRO, bool VOL, bool ANALYTIC, bool LE>
 __global__ void __launch_bounds__(kThreads)
 record_steps(const float* __restrict__ prm,
@@ -306,11 +346,12 @@ record_steps(const float* __restrict__ prm,
              const float* __restrict__ fwd_dd, float* __restrict__ g_img,
              float* __restrict__ g_exc, const float* __restrict__ em_prob,
              const float* __restrict__ em_alias,
+             const float* __restrict__ alb,
              unsigned long long* __restrict__ g_march, LeArgs le,
              int n_lanes, int nx, int ny, int nz, int stride, int off_ssa,
              int off_f2, int inv_n_steps, int use_rr, int n_acc,
              uint32_t seed, uint32_t step0, int k_steps, int src,
-             int ncomp, int lw) {
+             int ncomp, int lw, int surf) {
   extern __shared__ float s_acc[];
   __shared__ int s_counts[kCounts];
   __shared__ float s_dirs[LE ? 3 * kMaxDirs : 1];
@@ -347,6 +388,7 @@ record_steps(const float* __restrict__ prm,
     const float spot_x = prm[P_SPOT_X], spot_y = prm[P_SPOT_Y];
     const float atms = prm[P_ATMS], dxc = prm[P_DXC], dyc = prm[P_DYC];
     const float dzc = prm[P_DZC];
+    const float rpv_k = prm[P_RPV_K], rpv_th = prm[P_RPV_TH];
     const int nxy = nx * ny;
     const int n_cells = nxy * nz;
 
@@ -489,7 +531,23 @@ record_steps(const float* __restrict__ prm,
         if (exit_top) {
           alive = false;
         } else {
-          const float w_refl = w * albedo;
+          // the outgoing direction, cosine-sampled; ux, uy, uz still hold
+          // the incoming one
+          const float mu_new =
+              sqrtf(fmaxf(uniform(ul, seed, ctr, S_ANGLE), 1e-12f));
+          const float sin_new = sqrtf(fmaxf(0.f, 1.f - mu_new * mu_new));
+          float sp, cp;
+          sincosf(phi_rot, &sp, &cp);
+          float refl;
+          if (surf == SURF_RPV) {
+            refl = rpv_weight(albedo, rpv_k, rpv_th, ux, uy, uz, mu_new,
+                              sin_new, cp, sp);
+          } else if (surf == SURF_PX) {  // the landing column's albedo
+            refl = __ldg(alb + col_e);
+          } else {
+            refl = albedo;
+          }
+          const float w_refl = w * refl;
           x = xe;
           y = ye;
           z = z_bot;
@@ -503,11 +561,6 @@ record_steps(const float* __restrict__ prm,
                              ctr, EV_LAMBERT, 0, xe, ye, z_bot, w_refl, 0.f,
                              0.f, 0.f, 0.f, events, march);
             }
-            const float mu_new =
-                sqrtf(fmaxf(uniform(ul, seed, ctr, S_ANGLE), 1e-12f));
-            const float sin_new = sqrtf(fmaxf(0.f, 1.f - mu_new * mu_new));
-            float sp, cp;
-            sincosf(phi_rot, &sp, &cp);
             ux = sin_new * cp;
             uy = sin_new * sp;
             uz = mu_new;
@@ -647,10 +700,12 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
                    const float* dirs, const float* fwd_v0,
                    const float* fwd_dd, float* img, float* exc,
                    const float* em_prob, const float* em_alias,
-                   unsigned long long* march, LeArgs le, int n_lanes, int nx, int ny, int nz, int stride,
+                   const float* alb, unsigned long long* march, LeArgs le,
+                   int n_lanes, int nx, int ny, int nz, int stride,
                    int off_ssa, int off_f2, int inv_n_steps, int use_rr,
                    int n_acc, uint32_t seed, uint32_t step0, int k_steps,
-                   int src, int ncomp, int lw, cudaStream_t stream) {
+                   int src, int ncomp, int lw, int surf,
+                   cudaStream_t stream) {
   auto kernel = record_steps<MACRO, VOL, ANALYTIC, LE>;
   size_t smem = static_cast<size_t>(n_acc) * sizeof(float);
   if (LE) {
@@ -670,9 +725,9 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
   const int blocks = (n_lanes + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, smem, stream>>>(
       prm, rec, inv_a0, inv_dd, x, y, z, ux, uy, uz, w, bl, quota, alive,
-      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, em_prob, em_alias, march,
-      le, n_lanes, nx, ny, nz, stride, off_ssa, off_f2, inv_n_steps, use_rr,
-      n_acc, seed, step0, k_steps, src, ncomp, lw);
+      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, em_prob, em_alias, alb,
+      march, le, n_lanes, nx, ny, nz, stride, off_ssa, off_f2, inv_n_steps,
+      use_rr, n_acc, seed, step0, k_steps, src, ncomp, lw, surf);
   return cudaGetLastError();
 }
 
@@ -684,7 +739,9 @@ extern "C" int record_kernel_num_params() { return N_PARAMS; }
 // src (SRC_*; emission draws from the alias pair em_prob/em_alias over the
 // nx*ny*nz cells, and with lw, which needs vol, pre-credits its
 // atmospheric births) on a domain of ncomp components (records of `stride`
-// floats; 8, 16-byte aligned, when ncomp > 1). Adds the tally into acc,
+// floats; 8, 16-byte aligned, when ncomp > 1), reflecting off the surface
+// kind surf (SURF_*; SURF_PX reads alb, an albedo per column). Adds the
+// tally into acc,
 // the photons started into counts[0], the lanes with work left (alive or
 // quota > 0) into counts[1], the lane-steps run with a live photon into
 // counts[2], the real collisions into counts[3] and, with radiance
@@ -698,10 +755,11 @@ extern "C" int record_kernel_launch(
     float* uy, float* uz, float* w, float* bl, int* quota, int* alive,
     float* acc, int* counts, const float* dirs, const float* fwd_v0,
     const float* fwd_dd, float* img, float* exc, const float* em_prob,
-    const float* em_alias, unsigned long long* march, int n_lanes, int nx, int ny, int nz, int stride,
-    int off_ssa, int off_f2, int inv_n_steps, int use_rr, int n_acc,
-    uint32_t seed, uint32_t step0, int k_steps, int macro, int vol,
-    int analytic, int src, int ncomp, int lw, int n_dirs, int le_phase,
+    const float* em_alias, const float* alb, unsigned long long* march,
+    int n_lanes, int nx, int ny, int nz, int stride, int off_ssa,
+    int off_f2, int inv_n_steps, int use_rr, int n_acc, uint32_t seed,
+    uint32_t step0, int k_steps, int macro, int vol, int analytic, int src,
+    int ncomp, int lw, int surf, int n_dirs, int le_phase,
     int fwd_n_s, int le_rr, int le_cap, int k_dda, int n_img, int n_exc,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -713,14 +771,15 @@ extern "C" int record_kernel_launch(
   if (ncomp < 1 || ncomp > 3 || (ncomp > 1 && stride != 8)) {
     return cudaErrorInvalidValue;
   }
+  if (surf < SURF_LAMBERT || surf > SURF_PX) return cudaErrorInvalidValue;
   const LeArgs le{n_dirs, le_phase, fwd_n_s, le_rr, le_cap,
                   k_dda,  n_img,    n_exc,   0};
 #define MCB_CALL(M, V, A, L)                                                 \
   static_cast<int>(launch<M, V, A, L>(                                       \
       prm, rec, inv_a0, inv_dd, x, y, z, ux, uy, uz, w, bl, quota, alive,    \
-      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, em_prob, em_alias, march, \
-      le, n_lanes, nx, ny, nz, stride, off_ssa, off_f2, inv_n_steps, use_rr, \
-      n_acc, seed, step0, k_steps, src, ncomp, lw, s))
+      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, em_prob, em_alias, alb,  \
+      march, le, n_lanes, nx, ny, nz, stride, off_ssa, off_f2, inv_n_steps,  \
+      use_rr, n_acc, seed, step0, k_steps, src, ncomp, lw, surf, s))
 #define MCB_LAUNCH(M, V, A) \
   return n_dirs > 0 ? MCB_CALL(M, V, A, true) : MCB_CALL(M, V, A, false)
   if (macro) {

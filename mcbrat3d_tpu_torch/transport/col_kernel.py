@@ -95,7 +95,7 @@ import torch
 
 from mcbrat3d_tpu_torch.core import rng
 from mcbrat3d_tpu_torch.domain.domain import OpticalDomain
-from mcbrat3d_tpu_torch.physics.surface import Surface
+from mcbrat3d_tpu_torch.physics.surface import Surface, column_albedo
 from mcbrat3d_tpu_torch.sources import illumination
 from mcbrat3d_tpu_torch.transport import local_estimate as le
 from mcbrat3d_tpu_torch.transport import record_kernel as rk
@@ -387,22 +387,6 @@ def _col_ab(domain: OpticalDomain):
         cache["_col_ab"] = (torch.tensor(a, device=domain.device),
                             domain.col_scale.contiguous())
     return cache["_col_ab"]
-
-
-def column_albedo(surface: Surface, nx: int, ny: int,
-                  device) -> torch.Tensor:
-    """The per-pixel albedo grid as one albedo per column, [nx*ny] float32
-    in column order ix*ny + iy: each pixel repeated over the nx/nxs x ny/nys
-    columns it tiles (pallas_col.py:1291-1307 without the bf16 hi/lo
-    split); cached on the surface per grid shape and device."""
-    key = ("_col_albedo", nx, ny, str(device))
-    cache = surface.__dict__
-    if key not in cache:
-        p = np.asarray(surface.params[:, :, 0], np.float32)
-        nxs, nys = p.shape
-        col = np.repeat(np.repeat(p, nx // nxs, axis=0), ny // nys, axis=1)
-        cache[key] = torch.tensor(col.reshape(-1), device=device)
-    return cache[key]
 
 
 @dataclasses.dataclass(frozen=True)

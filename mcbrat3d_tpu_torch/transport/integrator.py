@@ -6,7 +6,8 @@ rotation the plain steps use. ``run_batch`` dispatches in the JAX
 package's order (``integrator._run_batch_impl``): the record kernel
 (``transport.record_kernel``: 1-3 components, the directional,
 random-azimuth, flux and spotlight sources and per-voxel thermal emission
-with the lw_mode pre-credits), with in-kernel radiance when
+with the lw_mode pre-credits; a uniform Lambertian or RPV surface or a
+per-pixel Lambertian grid), with in-kernel radiance when
 radiance directions are given, the column kernel's local estimate where the
 record kernel's refuses a radiance run (grids above ``MAX_KERNEL_DIRS`` run
 as direction-chunked passes over the same photons), then for flux runs the
@@ -164,24 +165,7 @@ def select_kernel(domain: OpticalDomain, surface: Surface,
     ``intensity_config`` the record kernel's local estimate comes first,
     then the column kernel's (integrator.py:413-448); a grid above
     ``MAX_KERNEL_DIRS`` is judged by its first chunk, which ``run_batch``
-    runs like every other.
-
-    Raises NotImplementedError where it picks the record kernel for a
-    surface the port's record kernel does not reflect off yet (K1-d: a
-    uniform RPV surface or a per-pixel Lambertian grid within its 4,096
-    columns), rather than hand the batch to a later kernel."""
-    from mcbrat3d_tpu_torch.transport import record_kernel as rk
-
-    kernel, reasons = _pick_kernel(domain, surface, source, config,
-                                   intensity_config, intensity_dirs)
-    if kernel == "record":
-        rk.check_surface_ported(surface)
-    return kernel, reasons
-
-
-def _pick_kernel(domain, surface, source, config, intensity_config,
-                 intensity_dirs):
-    """``select_kernel``'s choice, before its K1-d check."""
+    runs like every other."""
     from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
     from mcbrat3d_tpu_torch.transport import sep_kernel as sk

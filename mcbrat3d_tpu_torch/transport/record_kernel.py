@@ -11,9 +11,12 @@ per voxel from a Walker alias table, with the ``lw_mode`` pre-credit of
 the (optional two-level macro-cell) majorant, record fetch (one component,
 or 2-3 components chosen by one uniform against the cell's cumulative
 scattering fractions), null-collision test, absorption weight, Russian
-roulette, HG or inverse-CDF scatter + rotation, Lambertian reflection and
-the fused tally of flux up/down per column and absorption per column
-(``vol_tally=False``, the JAX ``flux_abs_2d``) or per cell. With radiance
+roulette, HG or inverse-CDF scatter + rotation, reflection off the surface
+(a uniform Lambertian albedo, the albedo of the landing column of a
+per-pixel Lambertian grid, or the weight of a uniform Rahman-Pinty-
+Verstraete BRDF for the sampled outgoing direction) and the fused tally of
+flux up/down per column and absorption per column (``vol_tally=False``,
+the JAX ``flux_abs_2d``) or per cell. With radiance
 directions, every real scatter and every surface reflection also runs a
 local estimate per direction: one cell DDA march to the domain top with the
 periodic x/y wrap, the phase value (of the chosen component) from analytic
@@ -51,7 +54,7 @@ import torch
 from mcbrat3d_tpu_torch.core import rng
 from mcbrat3d_tpu_torch.domain.domain import (OpticalDomain,
                                               multi_component_records)
-from mcbrat3d_tpu_torch.physics.surface import Surface
+from mcbrat3d_tpu_torch.physics.surface import Surface, column_albedo
 from mcbrat3d_tpu_torch.sources import illumination
 from mcbrat3d_tpu_torch.transport import local_estimate as le
 from mcbrat3d_tpu_torch.transport.integrator import (Tallies,
@@ -89,18 +92,27 @@ RADIANCE_ROWS = 32
 FWD_N_S = 2048
 
 # Kernel launches made by ``_launch_cuda`` in this process, all of them,
-# those that ran the local estimate and those that ran the emission refill
-# (the thermal source of LW runs).
+# those that ran the local estimate, those that ran the emission refill
+# (the thermal source of LW runs) and those that reflected off a uniform
+# RPV surface or a per-pixel Lambertian grid.
 LAUNCHES = 0
 RADIANCE_LAUNCHES = 0
 LW_LAUNCHES = 0
+RPV_LAUNCHES = 0
+PX_LAUNCHES = 0
 
 # Slots of the float32 parameter vector (csrc/record_kernel.cu P_*).
 (P_BETA_MAX, P_INV_BETA_MAX, P_ALBEDO, P_SMU, P_SUX, P_SUY, P_RR_W,
  P_X0, P_LX, P_Y0, P_LY, P_Z0, P_LZ, P_INV_DX, P_INV_DY, P_INV_DZ,
  P_ZMAX, P_ZEPS, P_BXW, P_BYW, P_BZW, P_NUDGE, P_TWO_PI, P_HALF_RR,
  P_ZTOP, P_ZBOT, P_DXC, P_DYC, P_DZC, P_MNUDGE, P_ZETA, P_MAXC,
- P_SPOT_X, P_SPOT_Y, P_ATMS, N_PARAMS) = range(36)
+ P_SPOT_X, P_SPOT_Y, P_ATMS, P_RPV_K, P_RPV_TH, N_PARAMS) = range(38)
+
+# Surface the kernel reflects off (csrc/record_kernel.cu SURF_*), a launch
+# argument: the uniform Lambertian albedo (P_ALBEDO), a uniform RPV BRDF
+# (rho0 in P_ALBEDO, k and theta in P_RPV_K, P_RPV_TH), a per-pixel
+# Lambertian grid (an albedo per column, RecordTables.albedo).
+SURF_LAMBERT, SURF_RPV, SURF_PX = range(3)
 
 # Local-estimate phase source (csrc/record_kernel.cu PHASE_*): analytic HG,
 # forward table row 0 (all-HG domains), forward table row = the record's
@@ -164,15 +176,21 @@ def surface_px_ok(surface: Surface, grid, lw_mode: bool,
     return nx % nxs == 0 and ny % nys == 0 and nx * ny <= max_cols
 
 
-def check_surface_ported(surface: Surface) -> None:
-    """Raise NotImplementedError for a surface the predicates give to the
-    record kernel but its port does not reflect off yet: the uniform RPV
-    surface and the per-pixel Lambertian grid (K1-d)."""
-    if not surface.is_uniform_lambertian:
-        raise NotImplementedError(
-            "the record kernel's uniform RPV and per-pixel Lambertian "
-            "surfaces (K1-d) are not ported yet; the JAX package runs this "
-            "batch on its record kernel")
+def surface_kind(surface: Surface, grid, lw_mode: bool) -> int:
+    """SURF_* of ``surface``, the choice of pallas_kernel.py:2771-2773:
+    a uniform RPV surface, a per-pixel Lambertian grid that
+    ``surface_px_ok`` takes, else the uniform Lambertian albedo; raises
+    ValueError for any other surface (the record predicate refuses it)."""
+    if surface.is_uniform_rpv:
+        return SURF_RPV
+    if surface_px_ok(surface, grid, lw_mode):
+        return SURF_PX
+    if surface.is_uniform_lambertian:
+        return SURF_LAMBERT
+    raise ValueError(
+        f"the record kernel does not reflect off a {surface.brdf_name} "
+        f"surface of {surface.params.shape[0]} x {surface.params.shape[1]} "
+        f"pixels on a {tuple(grid.shape)} grid (lw_mode={lw_mode})")
 
 
 def ineligibility_reasons(domain: OpticalDomain, surface: Surface,
@@ -183,10 +201,9 @@ def ineligibility_reasons(domain: OpticalDomain, surface: Surface,
     """Names of every failing record-kernel predicate (empty = eligible).
 
     Port of ``pallas_kernel.ineligibility_reasons``, so the port picks
-    the record kernel where the JAX package does; of the surfaces it
-    admits, the uniform RPV and the per-pixel Lambertian grid (K1-d) are
-    refused when the batch is run (``check_surface_ported``). An emission
-    source is in-kernel when it carries its alias tables
+    the record kernel where the JAX package does: a uniform Lambertian or
+    RPV surface, or a per-pixel Lambertian grid (``surface_px_ok``). An
+    emission source is in-kernel when it carries its alias tables
     (``illumination.emission``), not when it is backed by a separable
     domain's tables (``emission_separable``)."""
     nx, ny, nz = domain.grid.shape
@@ -363,9 +380,10 @@ class RecordTables:
     ``multi_component_records`` for 2-3), the flat inverse-CDF angles with
     their forward differences, for radiance the direction cosines
     [3, n_dirs] and the resampled forward phase table (``forward_table``),
-    and for a per-voxel emission source its Walker alias pair [n_cells]
-    (acceptance, alias target; f32, kernel cell order); one-element
-    placeholders otherwise."""
+    for a per-voxel emission source its Walker alias pair [n_cells]
+    (acceptance, alias target; f32, kernel cell order), and for a per-pixel
+    Lambertian surface its albedo per column [nx*ny] (``column_albedo``);
+    one-element placeholders otherwise."""
 
     records: torch.Tensor
     inv_a0: torch.Tensor
@@ -375,10 +393,12 @@ class RecordTables:
     fwd_dd: torch.Tensor
     em_prob: torch.Tensor = None
     em_alias: torch.Tensor = None
+    albedo: torch.Tensor = None
 
     @staticmethod
     def from_domain(domain: OpticalDomain, intensity_config=None,
-                    intensity_dirs=None, source=None) -> "RecordTables":
+                    intensity_dirs=None, source=None,
+                    surface: Surface = None) -> "RecordTables":
         rec = (domain.cell_records.contiguous()
                if domain.n_components == 1
                else multi_component_records(domain))
@@ -395,9 +415,14 @@ class RecordTables:
         if source is not None and source.kind == illumination.EMISSION:
             em_prob = source.em_prob.to(rec.device).contiguous()
             em_alias = source.em_alias.to(rec.device).contiguous()
+        albedo = zero
+        if (surface is not None and surface.is_lambertian_grid
+                and not surface.is_uniform_lambertian):
+            nx, ny, _ = domain.grid.shape
+            albedo = column_albedo(surface, nx, ny, rec.device)
         return RecordTables(records=rec, inv_a0=a0, inv_dd=dd, dirs=dirs,
                             fwd_v0=v0, fwd_dd=fdd, em_prob=em_prob,
-                            em_alias=em_alias)
+                            em_alias=em_alias, albedo=albedo)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -409,8 +434,8 @@ class RecordParams:
     multi-component record. ``lw`` (lw_mode with an emission source)
     pre-credits -1 to the volume tally at each atmospheric birth and, with
     radiance, holds a newly emitted photon for its emission local
-    estimate. ``n_dirs`` > 0 turns on the local estimate with the ``le_*``
-    switches."""
+    estimate. ``surface`` (SURF_*) picks the reflection. ``n_dirs`` > 0
+    turns on the local estimate with the ``le_*`` switches."""
 
     values: np.ndarray
     device_values: torch.Tensor
@@ -428,6 +453,7 @@ class RecordParams:
     source_kind: int = 0
     ncomp: int = 1
     lw: bool = False
+    surface: int = SURF_LAMBERT
     n_dirs: int = 0
     le_phase: int = PHASE_HG
     le_rr: bool = False      # Iwabuchi roulette estimator
@@ -507,6 +533,17 @@ class RecordParams:
         lw = bool(lw_mode) and emission
         if lw and not vol_tally:
             raise ValueError("lw_mode pre-credits need the 3D volume tally")
+        # the surface (pallas_kernel.py:2851-2872): rho0 rides P_ALBEDO,
+        # the RPV k and theta are JAX's params 20 and 21
+        kind = surface_kind(surface, domain.grid, lw)
+        if kind == SURF_RPV:
+            if intensity_config is not None:
+                # the local estimate's surface term is Lambertian's 1/pi
+                # (pallas_kernel.py:343-352)
+                raise ValueError("the record kernel's local estimate takes "
+                                 "no intensity with a non-Lambertian "
+                                 "surface")
+            vals[[P_RPV_K, P_RPV_TH]] = surface.params.reshape(-1)[1:3]
         icfg = intensity_config
         le_kw = {}
         if icfg is not None:
@@ -532,7 +569,7 @@ class RecordParams:
             inv_n_steps=int(domain.tables.inverse.shape[1]),
             use_rr=bool(use_russian_roulette), vol_tally=bool(vol_tally),
             source_kind=SOURCE_KINDS.index(source.kind), ncomp=ncomp,
-            lw=lw, **le_kw)
+            lw=lw, surface=kind, **le_kw)
 
 
 # ---------------------------------------------------------------------------
@@ -605,6 +642,41 @@ def emission_refill(u, ctr: int, tab: RecordTables, p: RecordParams):
             torch.where(from_atm, ya, y0 + u1 * p[P_LY]),
             torch.where(from_atm, za, p[P_ZBOT]),
             torch.where(from_atm, mu_a, mu_sfc), from_atm, v)
+
+
+def rpv_weight(rho0: float, k: float, theta: float, ux, uy, uz, mu_new,
+               sin_new, cos_phi, sin_phi):
+    """The uniform RPV BRDF's reflectance for a photon reaching the surface
+    along (ux, uy, uz) and leaving with the sampled cosine ``mu_new`` (sine
+    ``sin_new``) at azimuth phi (its cosine and sine), in the JAX kernel's
+    trig-free float32 form (pallas_kernel.py:1440-1477): cos(phi - phi_in)
+    from the direction components, tan(acos(mu)) as sqrt(1 - mu^2) / mu.
+    It equals ``physics.surface.rpv_reflectance`` of (rho0, k, theta) at
+    mu_in = |uz|, mu_out = mu_new to float rounding."""
+    f = _F32
+    rho0, k, th = f(rho0), f(k), f(theta)
+    mu_i = uz.abs()
+    si = torch.sqrt(torch.clamp(1.0 - uz * uz, min=0.0))
+    mu_r = torch.clamp(mu_new, 1e-6, 1.0)
+    cos_dphi = torch.where(si < 1e-6, 1.0,
+                           (cos_phi * ux + sin_phi * uy)
+                           / torch.where(si < 1e-6, 1.0, si))
+    cos_g = mu_i * mu_r + (si * sin_new) * cos_dphi
+    minn_x = torch.clamp((mu_i * mu_r) * (mu_i + mu_r), min=1e-12)
+    minnaert = torch.exp(float(k - f(1.0)) * torch.log(minn_x))
+    hg_d = torch.clamp(float(f(1.0) + th * th) + float(f(2.0) * th) * cos_g,
+                       min=1e-12)
+    # a scalar over a tensor is a reciprocal and a product in PyTorch:
+    # divide tensors, as the kernel does
+    hg_l = torch.full_like(hg_d, float(f(1.0) - th * th)) / (
+        hg_d * torch.sqrt(hg_d))
+    mu_ic = torch.clamp(mu_i, 1e-6, 1.0)
+    t_i = torch.sqrt(torch.clamp(1.0 - mu_ic * mu_ic, min=0.0)) / mu_ic
+    t_r = torch.sqrt(torch.clamp(1.0 - mu_r * mu_r, min=0.0)) / mu_r
+    cap_g = torch.sqrt(torch.clamp(
+        (t_i * t_i + t_r * t_r) - ((2.0 * t_i) * t_r) * cos_dphi, min=0.0))
+    hot = 1.0 + torch.full_like(cap_g, float(f(1.0) - rho0)) / (1.0 + cap_g)
+    return ((float(rho0) * minnaert) * hg_l) * hot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -808,18 +880,27 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     uy = torch.where(scatter, oy, uy)
     uz = torch.where(scatter, oz, uz)
 
-    # ---- Lambertian reflection ----
+    # ---- surface reflection (pallas_kernel.py:1436-1498): ux, uy, uz
+    # still hold the incoming direction of the lanes that reach it ----
     w_down = w
     mu_new = torch.sqrt(torch.clamp(u_ang, min=1e-12))
     sin_new = torch.sqrt(torch.clamp(1.0 - mu_new * mu_new, min=0.0))
-    w_refl = w_down * p[P_ALBEDO]
+    cos_phi, sin_phi = torch.cos(phi_rot), torch.sin(phi_rot)
+    if p.surface == SURF_RPV:
+        w_refl = w_down * rpv_weight(p[P_ALBEDO], p[P_RPV_K], p[P_RPV_TH],
+                                     ux, uy, uz, mu_new, sin_new, cos_phi,
+                                     sin_phi)
+    elif p.surface == SURF_PX:  # the albedo of the landing column
+        w_refl = w_down * tab.albedo[col_e.long()]
+    else:
+        w_refl = w_down * p[P_ALBEDO]
     died_surface = exit_bot & (w_refl <= _TINY)
     reflected = exit_bot & ~died_surface
     x = torch.where(exit_bot, xe, torch.where(moved, xc, x))
     y = torch.where(exit_bot, ye, torch.where(moved, yc, y))
     z = torch.where(exit_bot, p[P_ZBOT], torch.where(moved, zc, z))
-    ux = torch.where(reflected, sin_new * torch.cos(phi_rot), ux)
-    uy = torch.where(reflected, sin_new * torch.sin(phi_rot), uy)
+    ux = torch.where(reflected, sin_new * cos_phi, ux)
+    uy = torch.where(reflected, sin_new * sin_phi, uy)
     uz = torch.where(reflected, mu_new, uz)
     w = torch.where(reflected, w_refl, w)
     if macro:
@@ -1035,7 +1116,7 @@ def _library():
         lib.record_kernel_num_params.argtypes = []
         lib.record_kernel_launch.restype = _I
         lib.record_kernel_launch.argtypes = (
-            [_P] * 24 + [_I] * 10 + [_U, _U] + [_I] * 7 + [_I] * 8 + [_P])
+            [_P] * 25 + [_I] * 10 + [_U, _U] + [_I] * 8 + [_I] * 8 + [_P])
         if lib.record_kernel_num_params() != N_PARAMS:
             raise RuntimeError("csrc/record_kernel.cu and record_kernel.py "
                                "disagree on the parameter layout")
@@ -1056,7 +1137,7 @@ def _check(t: torch.Tensor, name: str, dtype, n: int, device) -> None:
 def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
                  seed: int, step0: int, k_steps: int,
                  tally: RecordTally) -> None:
-    global LAUNCHES, RADIANCE_LAUNCHES, LW_LAUNCHES
+    global LAUNCHES, RADIANCE_LAUNCHES, LW_LAUNCHES, RPV_LAUNCHES, PX_LAUNCHES
     dev = st.x.device
     n = st.x.shape[0]
     for name in RecordState.FLOAT_FIELDS:
@@ -1080,6 +1161,8 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
     if emission:
         _check(tab.em_prob, "em_prob", torch.float32, n_cells, dev)
         _check(tab.em_alias, "em_alias", torch.float32, n_cells, dev)
+    if prm.surface == SURF_PX:
+        _check(tab.albedo, "albedo", torch.float32, prm.nx * prm.ny, dev)
     if prm.n_dirs:
         if prm.n_dirs > le.MAX_KERNEL_DIRS:
             raise ValueError(f"{prm.n_dirs} radiance directions > "
@@ -1096,14 +1179,14 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
             *(getattr(st, k) for k in RecordState.FLOAT_FIELDS),
             st.quota, st.alive, tally.acc, tally.counts, tab.dirs,
             tab.fwd_v0, tab.fwd_dd, tally.img, tally.exc, tab.em_prob,
-            tab.em_alias, tally.march]
+            tab.em_alias, tab.albedo, tally.march]
     err = lib.record_kernel_launch(
         *(t.data_ptr() for t in ptrs), n, prm.nx, prm.ny, prm.nz,
         prm.stride, prm.off_ssa, prm.off_f2, prm.inv_n_steps,
         int(prm.use_rr), prm.n_acc, seed & 0xFFFF_FFFF,
         step0 & 0xFFFF_FFFF, k_steps, int(prm.macro_factor > 0),
         int(prm.vol_tally), int(prm.analytic_hg), prm.source_kind,
-        prm.ncomp, int(prm.lw), prm.n_dirs, prm.le_phase,
+        prm.ncomp, int(prm.lw), prm.surface, prm.n_dirs, prm.le_phase,
         FWD_N_S, int(prm.le_rr), int(prm.le_cap), prm.k_dda, prm.n_img,
         prm.n_exc, stream)
     LAUNCHES += 1
@@ -1111,6 +1194,8 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
         RADIANCE_LAUNCHES += 1
     if emission:
         LW_LAUNCHES += 1
+    RPV_LAUNCHES += int(prm.surface == SURF_RPV)
+    PX_LAUNCHES += int(prm.surface == SURF_PX)
     if err != 0:
         raise RuntimeError(f"record_kernel launch failed: CUDA error {err}")
 
@@ -1193,13 +1278,12 @@ def _record_batch(domain, surface, source, seed, rcfg, photons_per_lane,
     """``run_batch_record``'s tuple, the lane-steps with a live photon, the
     real collisions and the local estimate's (events, march
     iterations)."""
-    check_surface_ported(surface)
     dev = domain.device
     prm = RecordParams.make(domain, surface, source, use_russian_roulette,
                             russian_roulette_weight, rcfg.vol_tally,
                             intensity_config, intensity_dirs, lw_mode)
     tab = RecordTables.from_domain(domain, intensity_config, intensity_dirs,
-                                   source)
+                                   source, surface)
     quota0 = initial_quota(rcfg.n_lanes, photons_per_lane, n_photons, dev)
     st = RecordState.initial(quota0, prm[P_BETA_MAX])
     tally = RecordTally.zeros(prm, dev)

@@ -20,10 +20,8 @@ radiance included (the reflection's local estimate carries the reflected
 weight).
 
 Dispatch: JAX's record kernel takes a per-pixel grid up to 4,096 columns
-(K1-d, not ported yet); there the port picks the record kernel too, and
-raises NotImplementedError naming K1-d instead of running it, never
-handing the batch to the column kernel. Past the record kernel both take
-the column kernel.
+(K1-d); there the port runs its record kernel too, never handing the batch
+to the column kernel. Past the record kernel both take the column kernel.
 """
 
 import jax
@@ -247,7 +245,8 @@ def test_radiance_over_a_varied_grid_matches_jax_interpret_kernel(
 
 
 # ---------------------------------------------------------------------------
-# Dispatch: the record kernel's per-pixel surfaces stay JAX's K1 (K1-d)
+# Dispatch: the record kernel's per-pixel surfaces run on K1 (K1-d), as in
+# JAX
 # ---------------------------------------------------------------------------
 
 class _Picked(Exception):
@@ -288,11 +287,10 @@ def test_dispatch_follows_jax_and_refuses_k1d(monkeypatch, case, shape,
                                               grid, source, radiance, want):
     """Where the JAX package takes its record kernel for a per-pixel
     surface (the grid within 4,096 columns, 36,864 cells, flux or
-    radiance, not lw_mode) the port raises NotImplementedError naming
-    K1-d and runs no kernel; past the record kernel both take the column
-    kernel. An emission source between K5's 16,384-cell threshold and K1's
-    envelope stays on the record kernel (K1-c) in both (lw_mode, 3D
-    tally)."""
+    radiance, not lw_mode) the port runs the batch on its record kernel
+    too (K1-d); past the record kernel both take the column kernel. An
+    emission source between K5's 16,384-cell threshold and K1's envelope
+    stays on the record kernel (K1-c) in both (lw_mode, 3D tally)."""
     nx, ny, nz = shape
     temps = None
     lw = source == "emission"
@@ -343,11 +341,6 @@ def test_dispatch_follows_jax_and_refuses_k1d(monkeypatch, case, shape,
                               jintegrator.KernelConfig(use_pallas="on", **kw),
                               **jkw)
     assert str(jax_pick.value) == want
-    port = KernelConfig(**kw)
-    if want == "record" and grid is not None:
-        with pytest.raises(NotImplementedError, match="K1-d"):
-            run_batch(td, tsfc, tsrc, 0, port, **tkw)
-    else:
-        with pytest.raises(_Picked) as port_pick:
-            run_batch(td, tsfc, tsrc, 0, port, **tkw)
-        assert str(port_pick.value) == want
+    with pytest.raises(_Picked) as port_pick:
+        run_batch(td, tsfc, tsrc, 0, KernelConfig(**kw), **tkw)
+    assert str(port_pick.value) == want

@@ -534,9 +534,11 @@ def test_emission_dispatch_matches_jax(case):
     its alias tables is in-kernel for K1 (lw_mode or not); lw_mode without
     an emission source is refused; a separable-backed emission source is
     not K1's; a uniform RPV surface passes K1's predicate as in JAX, and
-    running it is refused by name as K1-d (not ported); a per-voxel source
-    on a separable domain
-    past MAX_CELLS goes to K4 in both packages; K5 refuses emission."""
+    its lw_mode batch runs on K1 with the RPV weight at each reflection,
+    path for path with JAX's K1 (fluxes within 2^-9, net absorption within
+    1e-4 of its largest magnitude per cell); a per-voxel source on a
+    separable domain past MAX_CELLS goes to K4 in both packages; K5
+    refuses emission."""
     if case in ("emission_on_k1", "emission_with_rpv", "k5_refuses_emission"):
         (jd, jsrc), (td, tsrc) = lw_setup(2)
         jsfc, tsfc = JSurface.lambertian(0.05), Surface.lambertian(0.05)
@@ -559,10 +561,26 @@ def test_emission_dispatch_matches_jax(case):
                                            **KERNEL_ARGS)
             assert tr == jr == []
         if case == "emission_with_rpv":
-            with pytest.raises(NotImplementedError, match="K1-d"):
-                run_batch(td, tsfc, tsrc, 0,
-                          KernelConfig(n_lanes=1024, photons_per_lane=1,
-                                       lw_mode=True))
+            kw = dict(n_lanes=1024, photons_per_lane=1, max_steps=6000,
+                      lw_mode=True)
+            assert select_kernel(td, tsfc, tsrc,
+                                 KernelConfig(**kw))[0] == "record"
+            key = jrng.batch_key(3, 2)
+            jt = jrun_batch(jd, jsfc, jsrc, key,
+                            JKernelConfig(use_pallas="on", **kw))
+            tt = run_batch(td, tsfc, tsrc, folded_seed(key),
+                           KernelConfig(**kw))
+            assert tt.n_photons == int(jt.n_photons) == 1024
+            assert tt.n_bad == int(jt.n_bad) == 0
+            for a, b in ((tt.flux_up, jt.flux_up),
+                         (tt.flux_down, jt.flux_down)):
+                a, b = a.numpy().astype(np.float64), np.asarray(b, np.float64)
+                assert a.sum() == pytest.approx(b.sum(), rel=FLUX_REL)
+                assert np.abs(a - b).max() <= FLUX_REL * np.abs(b).max()
+            tv = tt.volume_absorption.numpy().astype(np.float64)
+            jv = np.asarray(jt.volume_absorption, np.float64)
+            np.testing.assert_allclose(tv, jv, rtol=0,
+                                       atol=VOL_REL * np.abs(jv).max())
     elif case == "lw_mode_without_emission":
         jd, td = jmake(ssa=0.99), make_step_cloud(ssa=0.99, device="cpu")
         tr = rk.ineligibility_reasons(

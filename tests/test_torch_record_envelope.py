@@ -8,9 +8,10 @@ of the plain PyTorch step, which ``record_launch`` runs on the CPU; the
 8-column multi-component record against the JAX package's packed table;
 in-kernel radiance on 3 components with capped contributions; the
 two-level majorant across the periodic seam on 3 components; the
-three-component deck through the port's command line; and the builders'
-default device. The CUDA kernel is held against the plain step on the card
-by chip_smoke.py (phases 2, 2b and 3f).
+three-component deck through the port's command line; the uniform RPV
+and per-pixel surfaces on 3 components; and the builders' default device.
+The CUDA kernel is held against the plain step on the card by
+chip_smoke.py (phases 2, 2b, 2j and 3f).
 
 Both packages draw the same counter uniforms from the same folded seed
 (the component at site 8, the random-azimuth azimuth and the flux mu at
@@ -365,10 +366,12 @@ def test_real_collisions_are_counted(ncomp):
 def test_envelope_names_what_is_still_to_port():
     """Every source and 1-3 components are in (emission with its alias
     tables, in lw_mode or not); uniform RPV and per-pixel surfaces pass
-    JAX's surface predicate (a per-pixel one not in lw_mode) and the
-    batch is refused by name as K1-d; an emission source without alias
-    tables (separable-backed), lw_mode without an emission source and
-    more than three components each keep a named predicate."""
+    JAX's surface predicate (a per-pixel one not in lw_mode) and their
+    batch runs on the record kernel, R/T/A within RTA_GAP of JAX's kernel
+    on the same folded seed (1,024 photons, 3 components, flux source); an
+    emission source without alias tables (separable-backed), lw_mode
+    without an emission source and more than three components each keep a
+    named predicate."""
     dom = make_step_cloud_multi(n_components=3, n_cdf_steps=101,
                                 device="cpu")
     lam = Surface.lambertian(0.1)
@@ -393,12 +396,28 @@ def test_envelope_names_what_is_still_to_port():
     assert reasons[1] == "source kind 'emission' not in-kernel"
     rpv = Surface(params=np.asarray([0.1, 0.8, -0.2], np.float32)
                   .reshape(1, 1, 3), brdf_name="RPV")
-    for sfc in (rpv, Surface(params=np.full((2, 1, 1), 0.2, np.float32))):
+    grid2 = np.asarray([0.2, 0.6], np.float32).reshape(2, 1, 1)
+    jdom = jmake_multi(n_components=3, n_cdf_steps=101)
+    for i, (sfc, jsfc) in enumerate(
+            ((rpv, JSurface.rpv(0.1, 0.8, -0.2)),
+             (Surface(params=grid2), JSurface(params=grid2)))):
         assert rk.ineligibility_reasons(dom, sfc, illumination.flux(), False,
                                         False, 0, False) == []
-        with pytest.raises(NotImplementedError, match="K1-d"):
-            rk.run_batch_record(dom, sfc, illumination.flux(), 0,
-                                rk.RecordConfig(rows=8), 1)
+        assert jpk.ineligibility_reasons(jdom, jsfc, jill.flux(), False,
+                                         False, 0, False) == []
+        key = jrng.batch_key(8, i)
+        fu, fd, vol, n, n_bad, _ = jpk.run_batch_pallas(
+            jdom, jsfc, jill.flux(), key,
+            dataclasses.replace(JAX_SMALL, rows=8), photons_per_lane=1)
+        before = rk.LAUNCHES
+        tu, tdn, tv, tn, t_bad, _ = rk.run_batch_record(
+            dom, sfc, illumination.flux(), folded_seed(key),
+            dataclasses.replace(SMALL, rows=8), 1)
+        assert rk.LAUNCHES == before  # the plain step: CPU tensors
+        assert tn == int(n) == 8 * 128 and t_bad == int(n_bad) == 0
+        gap = np.abs(rta(tu.numpy(), tdn.numpy(), tv.numpy(), tn)
+                     - rta(fu, fd, vol, tn))
+        assert gap.max() < RTA_GAP, gap
     assert rk.ineligibility_reasons(dom, lam, illumination.flux(), True,
                                     False, 0, False) == [
         "lw_mode without an emission source"]
