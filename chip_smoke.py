@@ -6,7 +6,8 @@
 Phases, each asserting; any failure exits non-zero:
 
 1. print the card (nvidia-smi name and power limit) and build the CUDA
-   record, column, separable and tiled kernels and the probe kernels from
+   record, column, separable and tiled kernels (the record and column
+   libraries with their walk kernels) and the probe kernels from
    mcbrat3d_tpu_torch/csrc (one nvcc each, started together), reporting
    the build times and ptxas registers/spills;
 2. flux kernel against its plain PyTorch version on the card, same seeds:
@@ -68,6 +69,16 @@ Phases, each asserting; any failure exits non-zero:
    2^18 photons (the radiance case 16,384); each launch on its surface
    branch; K1's tolerances (R/T/A 2e-3, pixels and cells z < 5, real
    collisions 1e-4, radiance 5e-3 and 0.02);
+2k. each walk kernel alone against its plain twin on one captured event
+   buffer: two launches of 4,096 lanes x 128 steps (with their walks, as
+   on the main path), then the second launch's queue fed to the walk
+   kernel and to its twin: the column walk on bench.py:547-573's 16
+   directions and on 2h's gas case (analytic HG, exact, 8 directions), the
+   record walk on the radiance deck's 6 directions and on 64; equal walk
+   (march) iterations, no cut, each direction's image total within 1e-5
+   and each pixel within 1e-4 of its direction's largest; prints the
+   queue's fill against its capacity, the walk's ms (median of 5), its
+   bound and the twin's ms;
 2c. analytic radiance anchors: a thin isotropic slab (I = tau / (4 pi mu))
    and a clear atmosphere over a Lambertian surface (I = albedo / pi per
    unit incident flux on the horizontal); and the emission anchors: an
@@ -219,9 +230,10 @@ Phases, each asserting; any failure exits non-zero:
    same lane count;
 4b. a radiance headline: one step-cloud batch of the radiance deck at 6
    and at 64 directions (32 rows of 128 lanes), kernel and plain
-   photons/s and ms per launch, the local-estimate events and march
-   iterations per photon (counted by the kernel), and the kernel once more
-   at 512 rows;
+   photons/s and ms per launch (the kernel's also from CUDA events, the
+   transport with its walk and the walk alone), the local-estimate events
+   and march iterations per photon (counted by the kernels), and the
+   kernel once more at 512 rows;
 4c. the Landsat headline (bench.py:497-545: the broken cloud with analytic
    HG, macro_factor 8, 2^16 lanes x 16 photons, no 3D tally): kernel
    photons/s and ms per launch, plain ms per launch at the same lanes;
@@ -248,7 +260,8 @@ Phases, each asserting; any failure exits non-zero:
 4h. the Landsat radiance headline (bench.py:547-573: the broken cloud with
    analytic HG and the hybrid forward row, macro_factor 8, 16 directions,
    2^13 lanes x 256 photons, through run_batch): column-kernel local
-   estimate ms per launch from CUDA events, launches per batch, the card's
+   estimate ms per launch from CUDA events (the transport with its walk,
+   and the walk alone), launches per batch, the card's
    busy share, photons/s, live lane-steps, events and walk iterations per
    photon, and plain ms of one launch;
 4i. path A's configuration, one batch through run_batch (2^16 lanes x 16
@@ -496,35 +509,37 @@ OPS_PER_COMPONENT_CHOICE = 32
 # runs on real collisions only and is not charged.
 OPS_PER_GAS_STEP = 4
 # Operations of the column kernel's local estimate (csrc/col_kernel.cu
-# local_estimate), counted from the source. One walk iteration is 39: the
-# loop test and its branch (2), the two fminf of the next stop (2), the
-# column index (1), the two __ldg with their addresses (4), the two CT
-# evaluations, each an FMA for z, an FMA for A - B z and a fmaxf (6),
-# their difference and its add to tau (2), the iteration count (1), the
-# stop test and the axis test with their branches (4), the step of one
-# axis with its periodic wrap, an add, a compare and two selects (5), and
-# that axis's next face, four operations and an IEEE divide of ~8 (12).
-# The wrap needs no modulo inside the loop: the two integer modulos run
-# once per direction, before it. One direction's fixed cost is 390: the
-# phase value with its square root or HG divide, ~40; the two roulette
-# uniforms, log1pf and logf, ~105; the walk's setup, ~110 (the two
-# divides of t_top and t_stop, the first column's floors, the first two
-# faces with their divides, and the two integer modulos of the first
-# column at ~20 each); the closed-form gas term, exp and the
-# contribution, ~60; the exit pixel's two wraps, ~75. Integer operations
-# at the float32 rate, as above.
+# le_pair, run by col_walk), counted from the source when it read A and B
+# with two __ldg; the interleaved table's one 8-byte load is still charged
+# as those two, so the bound compares across the walk's redesign. One walk
+# iteration is 39: the loop test and its branch (2), the two fminf of the
+# next stop (2), the column index (1), the two __ldg with their addresses
+# (4), the two CT evaluations, each an FMA for z, an FMA for A - B z and a
+# fmaxf (6), their difference and its add to tau (2), the iteration count
+# (1), the stop test and the axis test with their branches (4), the step
+# of one axis with its periodic wrap, an add, a compare and two selects
+# (5), and that axis's next face, four operations and an IEEE divide of ~8
+# (12). The wrap needs no modulo inside the loop: the two integer modulos
+# run once per direction, before it. One direction's fixed cost is 390:
+# the phase value with its square root or HG divide, ~40; the two roulette
+# uniforms, log1pf and logf, ~105; the walk's setup, ~110 (the two divides
+# of t_top and t_stop, the first column's floors, the first two faces with
+# their divides, and the two integer modulos of the first column at ~20
+# each); the closed-form gas term, exp and the contribution, ~60; the exit
+# pixel's two wraps, ~75. Integer operations at the float32 rate, as
+# above.
 OPS_PER_WALK_ITERATION = 39
 OPS_PER_LE_DIRECTION = 390
 # Operations of the record kernel's local estimate (csrc/record_kernel.cu
-# local_estimate), counted from the source; the kernel counts the events
-# and the march iterations. One march iteration is 134: the loop test and
-# its branch (2); the periodic wrap of x and y, each a subtract, fmodf (~20
-# as its expansion), its sign fix-up and an add (50); the cell indices,
-# each a subtract, multiply, add of the nudge, convert and clamp, z's
-# without the nudge (17); the record's address and load (6); the three
-# faces, a select, convert, multiply and add each (12); the three
-# distances, x's and y's a test, subtract and IEEE divide of ~8, z's a
-# subtract and divide (31); the step, two fminf, a fmaxf and the nudge's
+# le_pair, run by record_walk), counted from the source; the kernels count
+# the events and the march iterations. One march iteration is 134: the
+# loop test and its branch (2); the periodic wrap of x and y, each a
+# subtract, fmodf (~20 as its expansion), its sign fix-up and an add (50);
+# the cell indices, each a subtract, multiply, add of the nudge, convert
+# and clamp, z's without the nudge (17); the record's address and load
+# (6); the three faces, a select, convert, multiply and add each (12); the
+# three distances, x's and y's a test, subtract and IEEE divide of ~8, z's
+# a subtract and divide (31); the step, two fminf, a fmaxf and the nudge's
 # add (4); tau's multiply-add (2); the next z (2); the top and roulette
 # tests with their branches (4); the next x and y (4). One direction's
 # fixed cost is 260: the phase value, a table or HG lookup with its square
@@ -691,9 +706,10 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
     cuda in the current directory; returns the JSON line, the seconds and
     the launches of the run (record kernel, its radiance launches, column
     kernel, separable kernel, tiled kernel, record-kernel launches with the
-    emission refill, column-kernel launches with the local estimate), and
-    asserts that no plain step ran. Every count is
-    set to 0 just before the run and read just after it."""
+    emission refill, column-kernel launches with the local estimate, the
+    record kernel's and the column kernel's walk kernels), and asserts
+    that no plain step ran. Every count is set to 0 just before the run
+    and read just after it."""
     Path("deck.nml").write_text(deck_text)
     if domain is not None:
         assert cli.main(["mkdomain", *domain]) == 0
@@ -717,8 +733,9 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
         setattr(m, name, counting(plain))
     buf = io.StringIO()
     rk.LAUNCHES = rk.RADIANCE_LAUNCHES = rk.LW_LAUNCHES = 0
+    rk.WALK_LAUNCHES = 0
     if ck is not None:
-        ck.COL_LAUNCHES = ck.COL_LE_LAUNCHES = 0
+        ck.COL_LAUNCHES = ck.COL_LE_LAUNCHES = ck.COL_WALK_LAUNCHES = 0
     if sk is not None:
         sk.SEP_LAUNCHES = 0
     if tk is not None:
@@ -735,7 +752,9 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
                 ck.COL_LAUNCHES if ck is not None else 0,
                 sk.SEP_LAUNCHES if sk is not None else 0,
                 tk.TILE_LAUNCHES if tk is not None else 0, rk.LW_LAUNCHES,
-                ck.COL_LE_LAUNCHES if ck is not None else 0)
+                ck.COL_LE_LAUNCHES if ck is not None else 0,
+                rk.WALK_LAUNCHES,
+                ck.COL_WALK_LAUNCHES if ck is not None else 0)
     assert rc == 0
     assert launches[0] + sum(launches[2:5]) > 0, "the deck launched no kernel"
     assert not plain_steps, "the deck ran a plain PyTorch step"
@@ -1021,7 +1040,7 @@ def phase_radiance_deck(rk, cli):
         tmp = Path(tmp)
         os.chdir(tmp)
         try:
-            out, seconds, (_, launches, *_) = _run_cli_deck(
+            out, seconds, (_, launches, *_, walks, _) = _run_cli_deck(
                 cli, rk, _with_netcdf(deck, "StepCloud_radiance.nc"))
             assert (tmp / "StepCloud_radiance.out").stat().st_size > 0
             with netcdf_file(str(tmp / "StepCloud_radiance.nc"), "r",
@@ -1038,13 +1057,15 @@ def phase_radiance_deck(rk, cli):
     print(f"radiance deck: {n} photons in {out['n_batches']} batches, "
           f"n_bad={out['n_bad']}, R/T/A={rta}, {seconds:.2f} s "
           f"({n / seconds:.4g} photons/s incl. setup and output), "
-          f"{launches} radiance kernel launches, netCDF intensity {shape}",
-          flush=True)
+          f"{launches} radiance kernel launches, {walks} walk launches, "
+          f"netCDF intensity {shape}", flush=True)
     print(f"radiance deck: domain-mean radiance {rad} +- {rad_se}; JAX "
           f"package {JAX_RADIANCE} +- {JAX_RADIANCE_SE}", flush=True)
     assert n == 8 * 262_144 and out["n_batches"] == 8
     assert out["n_bad"] == 0
     assert launches > 0, "the deck did not launch the radiance kernel"
+    assert walks == launches, ("every radiance launch runs its walk kernel",
+                               walks, launches)
     assert shape == (6, 1, 32), shape
     for got, want, name in zip(rta, GOLDEN_RTA, "RTA"):
         sigma = (max(want * (1 - want), 1e-8) / n) ** 0.5 + 8e-5
@@ -1079,7 +1100,7 @@ def phase_radiance_deck(rk, cli):
     assert out["n_bad"] == 0
     means = image.mean(axis=(0, 1))
     assert np.isfinite(image).all() and (means > 0).all(), means.min()
-    return launches
+    return launches, walks
 
 
 def phase_radiance_headline(rk, le, config, make_step_cloud, Surface,
@@ -1117,10 +1138,24 @@ def phase_radiance_headline(rk, le, config, make_step_cloud, Surface,
 
             if name != "plain":  # warm-up batch
                 run(rng.batch_seed(0, 98))
-            t, sec = _timed(lambda: run(rng.batch_seed(0, 1)))
+            # CUDA events around each launch (transport and walk) and
+            # around each walk
+            orig = (rk._launch_cuda, rk._walk_cuda)
+            rk._launch_cuda, ev_launch = _event_timed(orig[0])
+            rk._walk_cuda, ev_walk = _event_timed(orig[1])
+            try:
+                t, sec = _timed(lambda: run(rng.batch_seed(0, 1)))
+            finally:
+                rk._launch_cuda, rk._walk_cuda = orig
+            _sync()
             assert t.n_bad == 0 and t.n_photons == n_lanes * ppl
             n_launch = t.n_steps // 128
+            assert len(ev_walk) == len(ev_launch) == (
+                0 if name == "plain" else n_launch)
+            ev_ms = [sum(a.elapsed_time(b) for a, b in ev) / max(len(ev), 1)
+                     for ev in (ev_launch, ev_walk)]
             res[(n_dirs, name)] = dict(
+                event_ms_per_launch=ev_ms[0], walk_ms_per_launch=ev_ms[1],
                 photons_per_s=t.n_photons / sec,
                 ms_per_launch=1e3 * sec / n_launch, photons=t.n_photons,
                 seconds=sec, launches=n_launch, rows=min(rows, 512),
@@ -1135,7 +1170,9 @@ def phase_radiance_headline(rk, le, config, make_step_cloud, Surface,
             print(f"radiance headline {n_dirs} dirs {name}: {t.n_photons} "
                   f"photons in {sec:.3f} s = {t.n_photons / sec:.6g} "
                   f"photons/s, {n_launch} launches, "
-                  f"{1e3 * sec / n_launch:.4f} ms/launch, "
+                  f"{1e3 * sec / n_launch:.4f} ms/launch (CUDA events: "
+                  f"transport and walk {ev_ms[0]:.4f}, walk {ev_ms[1]:.4f} "
+                  "ms/launch), "
                   f"{t.n_le_events / t.n_photons:.2f} events and "
                   f"{t.n_walk / t.n_photons:.1f} march iterations per "
                   f"photon, R/T/A={_rta(t)}", flush=True)
@@ -1584,17 +1621,20 @@ def phase_landsat_radiance_deck(ck, rk, cli):
           f"{[round(v, 6) for v in rad]} +- "
           f"{[float(f'{v:.3g}') for v in rad_se]}; {seconds:.2f} s of CLI "
           f"(setup and output {seconds - transport:.2f} s, transport "
-          f"{transport:.2f} s), launches record/column/column radiance "
-          f"({launches[0]}, {launches[2]}, {launches[6]}), image {shape}; "
+          f"{transport:.2f} s), launches record/column/column radiance/"
+          f"column walk ({launches[0]}, {launches[2]}, {launches[6]}, "
+          f"{launches[8]}), image {shape}; "
           f"largest gap to the JAX package {worst:.2f} combined sigma",
           flush=True)
     assert n == 8 * 262_144 and out["n_batches"] == 8
     assert out["n_bad"] == 0
     assert launches[6] > 0 and launches[6] == launches[2], launches
+    assert launches[8] == launches[6], launches  # a walk after each launch
     assert launches[0] == launches[3] == launches[4] == 0, launches
     assert shape == (16, 128, 128), shape
     assert abs(prof_total / rta[2] - 1.0) < 1e-4, (prof_total, rta[2])
-    return dict(launches=launches[6], seconds=seconds, transport=transport)
+    return dict(launches=launches[6], walk_launches=launches[8],
+                seconds=seconds, transport=transport)
 
 
 def phase_gas(ck, rk, m, le, KernelConfig, run_batch, rng):
@@ -1740,23 +1780,27 @@ def phase_col_le_headline(ck, rk, le, m, KernelConfig, run_batch, rng):
     run_batch(dom, surface, source, rng.batch_seed(5, 99), cfg,
               n_photons=1 << 14, intensity_config=icfg,
               intensity_dirs=dirs)  # warm-up
-    orig = ck._launch_cuda
-    ck._launch_cuda, events = _event_timed(orig)
+    orig = (ck._launch_cuda, ck._walk_cuda)
+    ck._launch_cuda, events = _event_timed(orig[0])
+    ck._walk_cuda, walk_events = _event_timed(orig[1])
     try:
         t, sec = _timed(lambda: run_batch(
             dom, surface, source, rng.batch_seed(5, 0), cfg,
             intensity_config=icfg, intensity_dirs=dirs))
     finally:
-        ck._launch_cuda = orig
+        ck._launch_cuda, ck._walk_cuda = orig
     _sync()
     kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    walk_ms = sum(a.elapsed_time(b) for a, b in walk_events)
     n_launch = len(events)
+    assert len(walk_events) == n_launch
     assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
     assert t.n_photons == cfg.photons_per_batch
     assert t.intensity.shape == (128, 128, 16)
     nxy, nz = dom.grid.nx * dom.grid.ny, dom.grid.nz
     res = dict(photons_per_s=t.n_photons / sec, seconds=sec,
                launches=n_launch, kernel_ms_per_launch=kernel_ms / n_launch,
+               walk_ms_per_launch=walk_ms / n_launch,
                wall_ms_per_launch=1e3 * sec / n_launch,
                busy=kernel_ms / (1e3 * sec), lane_steps=t.n_lane_steps,
                events=t.n_le_events, walk=t.n_walk)
@@ -1774,7 +1818,8 @@ def phase_col_le_headline(ck, rk, le, m, KernelConfig, run_batch, rng):
           f"{t.n_photons} photons in {sec:.3f} s = "
           f"{res['photons_per_s']:.6g} photons/s, {n_launch} launches, "
           f"kernel {res['kernel_ms_per_launch']:.4f} ms/launch (bound "
-          f"{res['bound'][0]:.4f} ms by {res['bound'][1]}), wall "
+          f"{res['bound'][0]:.4f} ms by {res['bound'][1]}; the walk "
+          f"{res['walk_ms_per_launch']:.4f} ms of it), wall "
           f"{res['wall_ms_per_launch']:.4f} ms/launch, busy share "
           f"{res['busy']:.3f}, {t.n_lane_steps / t.n_photons:.2f} live "
           f"lane-steps, {t.n_le_events / t.n_photons:.2f} events and "
@@ -1792,6 +1837,172 @@ def phase_col_le_headline(ck, rk, le, m, KernelConfig, run_batch, rng):
     print(f"landsat radiance headline: plain "
           f"{res['plain_ms_per_launch']:.4f} ms/launch over {len(ev)} "
           "launches", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The walk kernels (K3-d and K2 redesigned: the transport queues its events,
+# col_walk and record_walk compute every (event, direction) pair): phase 2k
+# ---------------------------------------------------------------------------
+
+# Walk kernel vs its plain twin on one captured event buffer: the same
+# pairs, so equal walk (march) iterations and cuts, and each direction's
+# image total within float32 atomic order.
+WALK_TOTAL_TOL_KERNEL_VS_PLAIN = 1e-5
+# ... and each pixel within this share of its direction's largest pixel
+# (of its cap section, for K2): float32 atomic order moves a pixel by at
+# most 2.9e-6 of that (H100), and a contribution tallied at a wrong exit
+# pixel moves its pixel and a neighbour by a whole share of the image.
+WALK_PIXEL_TOL_KERNEL_VS_PLAIN = 1e-4
+# Launches of a captured case: the second launch's queue is captured (the
+# first starts every lane at once).
+WALK_CAPTURE_LAUNCHES = 2
+# Walk launches timed, the median kept.
+WALK_TIMING_REPS = 5
+
+
+def _capture_queue(kern, prm, tab, tally, state, seed, k=128):
+    """WALK_CAPTURE_LAUNCHES transport launches (each with its walk, the
+    main path's _launch_cuda) of ``state``; returns the last launch's
+    queue and its events (f, i) on the card."""
+    for n in range(WALK_CAPTURE_LAUNCHES):
+        kern._launch_cuda(state, tab, prm, seed, n * k, k, tally)
+    _sync()
+    f, i = tally.queue.queued()
+    return tally.queue, f.clone(), i.clone()
+
+
+def _walk_case(name, kern, twin, zeros, prm, tab, seed, queue, f, i,
+               walk_field, ops, table_bytes):
+    """The walk kernel (``kern._walk_cuda``) and its plain twin on one
+    captured buffer: asserts equal iterations and cuts, per-direction
+    totals within WALK_TOTAL_TOL_KERNEL_VS_PLAIN and every pixel within
+    WALK_PIXEL_TOL_KERNEL_VS_PLAIN of its direction's largest; times the
+    kernel (median of WALK_TIMING_REPS) and the twin once (CUDA events).
+    Returns the largest absolute pixel difference, the kernel's ms, the
+    twin's ms and the bound: the buffer's records (4 bytes a row) and
+    ``table_bytes`` read once, the image written once, and
+    ``ops`` = (operations per iteration, per event and direction) over the
+    counted iterations and pairs."""
+    import torch
+
+    n_ev = f.shape[1]
+    kt, pt = zeros(prm, "cuda"), zeros(prm, "cuda")
+    kern._walk_cuda(tab, prm, seed, queue, kt)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    twin(tab, prm, seed, f, i, pt)
+    e1.record()
+    _sync()
+    plain_ms = e0.elapsed_time(e1)
+    it_k, it_p = int(getattr(kt, walk_field)), int(getattr(pt, walk_field))
+    cut_k, cut_p = int(kt.counts[4]), int(pt.counts[4])
+    img_k = kt.img[:prm.n_img].reshape(-1, prm.n_dirs, prm.nx * prm.ny)
+    img_p = pt.img[:prm.n_img].reshape(-1, prm.n_dirs, prm.nx * prm.ny)
+    tot_k, tot_p = (a.double().sum(dim=(0, 2)) for a in (img_k, img_p))
+    gap = float(((tot_k - tot_p).abs() / tot_p.abs().clamp(min=1e-30)).max())
+    diff = (img_k.double() - img_p.double()).abs()
+    err = float(diff.max())
+    # each (section, direction)'s pixels against its largest
+    peak = img_p.double().abs().amax(dim=2, keepdim=True)
+    pix = float((diff / peak.clamp(min=1e-30)).max())
+    times = []
+    for _ in range(WALK_TIMING_REPS):
+        a0, a1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t = zeros(prm, "cuda")
+        a0.record()
+        kern._walk_cuda(tab, prm, seed, queue, t)
+        a1.record()
+        times.append((a0, a1))
+    _sync()
+    ms = sorted(a.elapsed_time(c) for a, c in times)[len(times) // 2]
+    rows = queue.f.shape[0] + queue.i.shape[0]
+    bound = _bound(0, 1, 0, 0, 0, 4 * rows * n_ev + table_bytes,
+                   4 * prm.n_img,
+                   extra_ops=it_k * ops[0] + n_ev * prm.n_dirs * ops[1])
+    print(f"walk compare [{name}]: queue fill {n_ev} of {queue.capacity} "
+          f"({n_ev / queue.capacity:.3f}; the batch's largest "
+          f"{queue.check()}), {n_ev * prm.n_dirs} pairs, iterations "
+          f"{it_k}/{it_p}, cuts {cut_k}/{cut_p}, direction totals gap "
+          f"{gap:.2e}, largest pixel difference {err:.3e} ({pix:.2e} of "
+          f"its direction's largest pixel); kernel {ms:.4f} ms (median of "
+          f"{WALK_TIMING_REPS}); bound {bound[0]:.4f} ms by {bound[1]}; "
+          f"plain twin {plain_ms:.2f} ms", flush=True)
+    assert n_ev > 0 and tot_p.abs().min() > 0
+    assert it_k == it_p, (it_k, it_p)
+    assert cut_k == cut_p == 0, (cut_k, cut_p)
+    assert gap < WALK_TOTAL_TOL_KERNEL_VS_PLAIN, gap
+    assert pix < WALK_PIXEL_TOL_KERNEL_VS_PLAIN, pix
+    return dict(max_err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                events=n_ev)
+
+
+def phase_walk_compare(ck, rk, le, m, KernelConfig, rng, config):
+    """Each walk kernel alone against its plain twin on one launch's
+    captured event buffer (4,096 lanes, 128 steps): K3-d on bench.py:
+    547-573's 16 directions and on 2h's gas case, K2 on the radiance deck's
+    6 directions and on 64."""
+    import dataclasses
+
+    res = {}
+    surface = m.Surface.lambertian(0.2)
+    mus8 = [1.0, 0.8, 0.6, 0.4, 0.8, 0.6, 0.45, 0.7]
+    phis8 = [20.0, 70.0, 110.0, 160.0, 200.0, 250.0, 290.0, 340.0]
+    for name, dom, src, icfg, dirs in (
+            ("K3-d, bench.py:547-573, 16 dirs", _radiance_cloud(m),
+             m.illumination.directional(0.5, 0.0),
+             le.IntensityConfig(n_dirs=16, use_russian_roulette=True,
+                                use_hybrid_phase=True, pallas_min_mu=0.4),
+             le.make_intensity_directions(MUS16, PHIS16, device="cuda")),
+            ("K3-d, gas, analytic HG, exact, 8 dirs",
+             _gas_broken_cloud(m, tables=False), m.illumination.flux(),
+             le.IntensityConfig(n_dirs=8, use_russian_roulette=False,
+                                use_hybrid_phase=True, pallas_min_mu=0.4),
+             le.make_intensity_directions(mus8, phis8, device="cuda"))):
+        dirs = dirs[:, list(ck.col_dir_order(dom, dirs))]
+        prm = ck.ColParams.make(dom, surface, src, True, 1.0, False, icfg,
+                                dirs)
+        tab = ck.ColTables.from_domain(dom, icfg, dirs, surface=surface)
+        quota = rk.initial_quota(4096, 512, None, "cuda")
+        st = ck.ColState.initial(quota, prm[ck.C_BETA_MAX], prm.nz)
+        tally = ck.ColTally.zeros(prm, "cuda", queue_capacity=4096 * 128)
+        seed = rng.batch_seed(41, len(res))
+        queue, f, i = _capture_queue(ck, prm, tab, tally, st, seed)
+        # the (A, B) table, the forward row, the directions, the gas
+        # profiles
+        table_bytes = 4 * (2 * prm.nx * prm.ny + tab.fwd_v0.numel()
+                           + tab.fwd_dd.numel() + 4 * prm.n_dirs
+                           + 2 * tab.qz.numel())
+        res[name] = _walk_case(
+            name, ck, ck.col_local_estimate_plain, ck.ColTally.zeros, prm,
+            tab, seed, queue, f, i, "walk", (OPS_PER_WALK_ITERATION, OPS_PER_LE_DIRECTION), table_bytes)
+    # phase 4b's step cloud: the radiance deck's file-read domain
+    dom = dataclasses.replace(
+        m.make_step_cloud(ssa=0.99, n_legendre=512, macro_factor=8,
+                          n_cdf_steps=10001, compute_intensity_tables=True,
+                          hybrid_width_deg=7.0, device="cuda"),
+        all_hg=False)
+    for n_dirs, deck in ((6, "step_cloud_radiance.nml"),
+                         (64, "step_cloud_radiance_648.nml")):
+        name = f"K2, radiance deck, {n_dirs} dirs"
+        icfg = le.IntensityConfig(n_dirs=n_dirs)
+        dirs = _deck_directions(config, le, deck, n_dirs)
+        src = m.illumination.directional(0.5, 0.0)
+        sfc = m.Surface.lambertian(0.0)
+        prm = rk.RecordParams.make(dom, sfc, src, True, 1.0, False, icfg,
+                                   dirs)
+        tab = rk.RecordTables.from_domain(dom, icfg, dirs, src, sfc)
+        quota = rk.initial_quota(4096, 64, None, "cuda")
+        st = rk.RecordState.initial(quota, prm[rk.P_BETA_MAX])
+        tally = rk.RecordTally.zeros(prm, "cuda", queue_capacity=4096 * 128)
+        seed = rng.batch_seed(42, n_dirs)
+        queue, f, i = _capture_queue(rk, prm, tab, tally, st, seed)
+        # beta, the forward table, the directions
+        table_bytes = 4 * (tab.beta.numel() + tab.fwd_v0.numel()
+                           + tab.fwd_dd.numel() + 3 * prm.n_dirs)
+        res[name] = _walk_case(
+            name, rk, rk.local_estimate_plain, rk.RecordTally.zeros, prm,
+            tab, seed, queue, f, i, "march", (OPS_PER_MARCH_STEP, OPS_PER_K2_DIRECTION), table_bytes)
     return res
 
 
@@ -3772,7 +3983,8 @@ def phase_probes(probes):
     return line
 
 
-PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "2g", "2h", "2i", "2j", "3",
+PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "2g", "2h", "2i", "2j", "2k",
+          "3",
           "3b", "3c", "3d", "3e", "3f", "3g", "3h", "3i", "3j", "3k", "3l",
           "3m", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "4i", "5")
 
@@ -3839,28 +4051,33 @@ def main(argv=None) -> int:
                       "tile_kernel", "probe_kernels"])
     print(f"kernels built in {time.perf_counter() - t0:.2f} s (one nvcc "
           "each, started together)", flush=True)
-    # record_steps<MACRO, VOL, ANALYTIC, LE>,
-    # col_steps<MACRO, ANALYTIC, VOL, RR, LE>,
+    # record_steps<MACRO, VOL, ANALYTIC, LE>, record_walk,
+    # col_steps<MACRO, ANALYTIC, VOL, RR, LE>, col_walk,
     # sep_steps<SRC, ANALYTIC, RR, LW>, tile_steps<NCOMP, ANALYTIC, RR>
     # in their mangled names, and the probes' three kernels
     patterns = {
-        "record_kernel": (r"record_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
-                          "macro={} vol={} analytic={} LE={}"),
-        "col_kernel": (r"col_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
-                       "macro={} analytic={} vol={} rr={} LE={}"),
-        "sep_kernel": (r"sep_stepsILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
-                       "src={} analytic={} rr={} lw={}"),
-        "tile_kernel": (r"tile_stepsILi(\d)ELb(\d)ELb(\d)E",
-                        "ncomp={} analytic={} rr={}"),
-        "probe_kernels": (r"(gather_chain|tally_lane|tally_block)", "{}")}
-    for lib, (pattern, fmt) in patterns.items():
+        "record_kernel": (
+            (r"record_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+             "macro={} vol={} analytic={} LE={}"),
+            (r"(record_walk)", "{}")),
+        "col_kernel": (
+            (r"col_stepsILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+             "macro={} analytic={} vol={} rr={} LE={}"),
+            (r"(col_walk)", "{}")),
+        "sep_kernel": ((r"sep_stepsILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                        "src={} analytic={} rr={} lw={}"),),
+        "tile_kernel": ((r"tile_stepsILi(\d)ELb(\d)ELb(\d)E",
+                         "ncomp={} analytic={} rr={}"),),
+        "probe_kernels": ((r"(gather_chain|tally_lane|tally_block)", "{}"),)}
+    for lib, kinds in patterns.items():
         info = _build.BUILD_INFO[lib]
         print(f"{lib}: nvcc {info['seconds']:.2f} s", flush=True)
         name = ""
         for line in info["log"].splitlines():
-            flags = re.search(pattern, line)
-            if flags:
-                name = fmt.format(*flags.groups())
+            for pattern, fmt in kinds:
+                flags = re.search(pattern, line)
+                if flags:
+                    name = fmt.format(*flags.groups())
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib} [{name}]:", line.strip())
 
@@ -3871,7 +4088,8 @@ def main(argv=None) -> int:
         PhaseFunction=PhaseFunction, PhaseFunctionTable=PhaseFunctionTable,
         build_domain=build_domain, weights=weights,
         illumination=illumination, Surface=Surface, planck=planck,
-        broken_cloud_scene=broken_cloud_scene)
+        broken_cloud_scene=broken_cloud_scene,
+        make_step_cloud=make_step_cloud)
     dirs6 = _deck_directions(config, le, "step_cloud_radiance.nml")
     out = {}
     if "2" in only:
@@ -3913,10 +4131,14 @@ def main(argv=None) -> int:
             phase_record_surface_compare(rk, le, m, make_step_cloud,
                                          make_step_cloud_multi, KernelConfig,
                                          rng)
+    if "2k" in only:
+        out["walk"] = phase_walk_compare(ck, rk, le, m, KernelConfig, rng,
+                                         config)
     if "3" in only:
         out["launches"] = phase_main_path(rk, cli)
     if "3b" in only:
-        out["rad_launches"] = phase_radiance_deck(rk, cli)
+        out["rad_launches"], out["rec_walk_launches"] = \
+            phase_radiance_deck(rk, cli)
     if "3c" in only:
         out["col_launches"] = phase_landsat_deck(ck, rk, cli)
     if "3d" in only:
@@ -3990,6 +4212,15 @@ def main(argv=None) -> int:
     tile_head = out["tile_head"]
     multi_head = out["multi_head"]
     lw_head = out["lw_head"]
+    # the walk kernels on their captured launches (phase 2k): K3-d's on
+    # bench.py:547-573's, K2's on the radiance deck's 6 directions
+    walk = out["walk"]
+    col_walk = walk["K3-d, bench.py:547-573, 16 dirs"]
+    rec_walk = walk["K2, radiance deck, 6 dirs"]
+    col_walk_err = max(v["max_err"] for k, v in walk.items()
+                       if k.startswith("K3-d"))
+    rec_walk_err = max(v["max_err"] for k, v in walk.items()
+                       if k.startswith("K2"))
     bounds = {
         "record_kernel": _bound(
             head["kernel"]["lane_steps"], head["kernel"]["launches"],
@@ -4026,6 +4257,8 @@ def main(argv=None) -> int:
         "col_kernel_px": out["px_landsat"]["bound"],
         "record_kernel_rpv": out["rpv_step"]["bound"],
         "record_kernel_px": out["px_step"]["bound"],
+        "col_walk": col_walk["bound"],
+        "record_walk": rec_walk["bound"],
         "probe_gather": out["probes"]["probe_gather"]["bound"],
         "probe_tally": out["probes"]["probe_tally"]["bound"],
     }
@@ -4165,6 +4398,32 @@ def main(argv=None) -> int:
         "max_abs_err": out["k1_px_max_err"],
         "ms": out["px_step"]["kernel_ms_per_launch"],
         "plain_ms": out["px_step"]["plain_ms_per_launch"],
+    }, {
+        # the column kernel's walk kernel (K3-d's estimates, one thread per
+        # (event, direction) pair, launched after each radiance launch):
+        # launches on run/landsat_radiance.nml, the time, the bound and the
+        # plain twin on one launch's captured events of bench.py:547-573
+        # (phase 2k)
+        "name": "col_walk",
+        "route": "cuda",
+        "source": "mcbrat3d_tpu_torch/csrc/col_kernel.cu",
+        "replaces": "mcbrat3d_tpu/transport/pallas_col.py:745",
+        "launches": out["col_le_deck"]["walk_launches"],
+        "max_abs_err": col_walk_err,
+        "ms": col_walk["ms"],
+        "plain_ms": col_walk["plain_ms"],
+    }, {
+        # the record kernel's walk kernel (K2's estimates): launches on
+        # run/step_cloud_radiance.nml, the rest on one launch's captured
+        # events of the radiance deck's configuration (phase 2k)
+        "name": "record_walk",
+        "route": "cuda",
+        "source": "mcbrat3d_tpu_torch/csrc/record_kernel.cu",
+        "replaces": "mcbrat3d_tpu/transport/pallas_kernel.py:1515",
+        "launches": out["rec_walk_launches"],
+        "max_abs_err": rec_walk_err,
+        "ms": rec_walk["ms"],
+        "plain_ms": rec_walk["plain_ms"],
     }]
     for name, replaces in (
             ("probe_gather", "tools/probe_gather.py:39, "

@@ -70,20 +70,30 @@ def batch_seed(iseed: int, batch: int) -> int:
     return fmix32(s ^ ((int(batch) * _C3 + 1) & _M32))
 
 
+def uniform_at(lanes: torch.Tensor, counter, site, seed: int) -> torch.Tensor:
+    """float32 uniforms in [0, 1) for the int64 lane indices ``lanes`` at
+    step ``counter`` and draw site ``site``, each an int or an int64 tensor
+    of the lanes' shape (a queued local-estimate event carries its own step,
+    and the radiance roulette draws one site per direction)."""
+    seed = int(seed) & _M32
+    if not isinstance(counter, torch.Tensor):
+        counter = int(counter)
+    if not isinstance(site, torch.Tensor):
+        site = int(site)
+    # int64 products wrap modulo 2^64, which keeps their low 32 bits
+    c = ((counter * N_SITES + site) * _GOLDEN) & _M32
+    x = fmix32(lanes ^ c)
+    x = fmix32(x ^ (seed ^ ((c * _C3) & _M32)))
+    return (x >> 8).to(torch.float32) * _INV_2_24
+
+
 def make_uniform(lane: torch.Tensor, seed: int):
     """Returns ``u(counter, site, lanes=lane)`` -> float32 uniforms in
     [0, 1) for the int64 lane indices ``lane`` (or ``lanes``); ``counter``
-    is the transport step, ``site`` an int or an int64 tensor of sites (the
-    radiance roulette draws one site per direction)."""
-    seed = int(seed) & _M32
+    is the transport step, ``site`` an int or an int64 tensor of sites
+    (``uniform_at``)."""
 
     def u(counter: int, site, lanes: torch.Tensor = lane) -> torch.Tensor:
-        if isinstance(site, torch.Tensor):
-            c = ((int(counter) * N_SITES + site) * _GOLDEN) & _M32
-        else:
-            c = ((int(counter) * N_SITES + int(site)) * _GOLDEN) & _M32
-        x = fmix32(lanes ^ c)
-        x = fmix32(x ^ (seed ^ ((c * _C3) & _M32)))
-        return (x >> 8).to(torch.float32) * _INV_2_24
+        return uniform_at(lanes, int(counter), site, seed)
 
     return u

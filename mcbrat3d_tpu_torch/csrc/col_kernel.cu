@@ -5,8 +5,8 @@
 // component with uniform ssa, or the gas template; analytic HG or one
 // tabulated inverse-CDF row; directional / random-azimuth / flux sources
 // and the column BBEmission with its LW pre-credits; uniform or per-pixel
-// Lambertian surface; the in-kernel local estimate), as launched by
-// `run_batch_pallas_col`. The domain is a column template,
+// Lambertian surface; the in-kernel local estimate, here a queue of events
+// and a walk kernel, col_walk), as launched by `run_batch_pallas_col`. The domain is a column template,
 // beta = col_scale[col] * (iz < col_height[col]) [+ qz[iz]], so two
 // per-column values carry a field of millions of cells. Per step a lane
 // refills from the source, jumps against its carried xy-block majorant
@@ -37,22 +37,30 @@
 // pointer means the scalar albedo). Source kind, lw and the albedo are
 // launch arguments, not template flags.
 //
-// Local estimate (LE, pallas_col.py:745-970). At every real collision and
-// every surface reflection a thread loops over the directions (cosines and
-// fast-axis flag, held in shared memory): the phase value (the forward row
-// in s = sin(theta/2) or analytic HG over 4 pi mu; 1/pi for a reflection),
-// the Iwabuchi roulette draws at sites 32 + 2d and 33 + 2d, then a column
-// walk from the event: per crossed column (wrapped periodically) it adds
-// CT(z_in) - CT(z_out), CT(z) = max(0, A - B z), from two __ldg, until the
-// ray leaves the top or passes the global maximum cloud top (above which
-// every CT is 0); the gas term is closed form. The contribution goes to the
-// column where the ray leaves the top, by a global atomicAdd into the image
+// Local estimate (LE, pallas_col.py:745-970), in two kernels. The
+// transport kernel's LE instantiation queues every real collision and every
+// surface reflection (a step makes one of these at most): one record of the
+// event point, its weight, the incoming direction, whether it reflects, and
+// the lane and step counter that key its draws, written into
+// struct-of-arrays buffers at a slot taken with one atomicAdd per warp.
+// col_walk then computes every (event, direction) pair of the launch, one
+// thread each, over the whole card: the phase value (the forward row in
+// s = sin(theta/2) or analytic HG over 4 pi mu; 1/pi for a reflection), the
+// Iwabuchi roulette draws at sites 32 + 2d and 33 + 2d of the event's lane
+// and step, then a column walk from the event: per crossed column (wrapped
+// periodically) it adds CT(z_in) - CT(z_out), CT(z) = max(0, A - B z), from
+// one 8-byte load of the interleaved (A, B) table, until the ray leaves the
+// top or passes the global maximum cloud top (above which every CT is 0);
+// the gas term is closed form. The contribution goes to the column where
+// the ray leaves the top, by a global atomicAdd into the image
 // [n_dirs][nx * ny] (1 MB at 16 directions: too large for shared memory).
 // The TPU kernel sums the same segments by fast-axis slab (a slab scan with
 // one-hot gathers); the walk crosses them in order of distance, so the two
 // differ in rounding order only. A walk is bounded by k_walk iterations
-// (the faces of the most slanted direction from the bottom to the top);
-// one that would exceed it is cut and counted, never left to run.
+// (the faces of the most slanted direction from the bottom to the top); one
+// that would exceed it is cut and counted, never left to run. The estimate
+// is a pure tally and its draws are keyed by the event's own (lane, step),
+// so a later kernel on other threads computes the same numbers.
 //
 // Design. One thread per photon lane; lane = blockIdx.x * blockDim.x +
 // threadIdx.x, the TPU kernel's row * 128 + lane, so the counter-based
@@ -70,14 +78,22 @@
 // block per launch; the optional 3D field goes to global atomics. A radiance
 // launch has 4,096 lanes (the JAX package's lane geometry, so its lanes
 // carry JAX's photons) and runs 32-thread blocks to spread them over the
-// SMs.
+// SMs; its walk kernel is persistent, as many 256-thread blocks as fit the
+// card, striding over the pairs direction-major (pair p is direction
+// p / E of event p % E), so a warp takes 32 events of one direction: the
+// direction is a shared-memory broadcast, the slopes are equal and the
+// event reads coalesce. The directions go to shared memory; the (A, B)
+// table and the forward row are read with __ldg (staging either in shared
+// memory measured slower on this card: it takes the L1 the table's reads
+// hit).
 //
 // What bounds it on this card: like the record kernel, the latency of the
 // dependent per-step math (divisions, log1p, sqrt, sincos, the table or HG
 // sampling) with at most 65,536 lanes in flight, and the global atomics of
-// the tallies; with radiance, the dependent loads of the column walk on
-// 4,096 lanes. Its bytes and its operations are both far below the card's
-// rates. It does no matrix work, so wgmma and TMA do not apply.
+// the tallies; the walk, the dependent (A, B) load and IEEE divide of each
+// iteration, now on every thread slot of the card. Bytes and operations are
+// both far below the card's rates. It does no matrix work, so tensor cores,
+// wgmma and TMA have nothing to do here.
 //
 // Arithmetic follows the JAX kernel operation by operation in float32, and
 // the library is built with -fmad=false so no multiply-add is contracted
@@ -101,6 +117,8 @@ using mcb::wrap;
 constexpr int kThreads = 256;
 // Threads per block of a radiance launch (4,096 lanes over 128 SMs).
 constexpr int kLeThreads = 32;
+// Threads per block of the walk kernel.
+constexpr int kWalkThreads = 256;
 // Shared memory a block may take for its tables (two blocks per SM).
 constexpr size_t kMaxTableSmem = 96 * 1024;
 // Directions per launch (local_estimate.MAX_KERNEL_DIRS).
@@ -152,8 +170,8 @@ __device__ __forceinline__ float table(const float* s, const float* g, int i,
 
 // Geometry and radiance inputs of the local estimate.
 struct LeArgs {
-  const float* col_a;   // [nx * ny] CT intercept A = scale * (z0 + h dz)
-  const float* col_b;   // [nx * ny] CT slope B = scale
+  const float2* col_ab; // [nx * ny] CT intercept A = scale * (z0 + h dz)
+                        // and slope B = scale
   const float* fwd_v0;  // forward row, uniform in s = sin(theta/2)
   const float* fwd_dd;  // its forward differences
   const float* qz;      // [nz] gas extinction
@@ -167,137 +185,169 @@ __device__ __forceinline__ int imod(int j, int n) {
   return m < 0 ? m + n : m;
 }
 
-// The local estimate of one event (pallas_col.py:760-958): a reflection
-// (refl, Lambertian 1/pi) or a real collision with incoming direction
-// (ux, uy, uz), at (sx, sy, sz) with weight w_ev, toward every direction
-// of s_dirs. Adds the walk iterations to walk and the cut walks to cut.
-__device__ void local_estimate(const LeArgs& le, const float* s_dirs,
-                               const float* prm, uint32_t ul, uint32_t seed,
-                               uint32_t ctr, bool refl, float sx, float sy,
-                               float sz, float w_ev, float ux, float uy,
-                               float uz, int nx, int ny, int nz,
-                               unsigned long long& walk, int& cut) {
+// The local-estimate event queue: struct of arrays of cap records each.
+// Floats: the event point, its weight and the incoming direction; ints: the
+// lane and step counter that key the event's draws, and whether it is a
+// reflection (col_kernel.QUEUE_FLOATS, QUEUE_INTS).
+enum { QF_X, QF_Y, QF_Z, QF_W, QF_UX, QF_UY, QF_UZ, N_QF };
+enum { QI_LANE, QI_CTR, QI_REFL, N_QI };
+struct Queue {
+  float* f;  // [N_QF][cap]
+  int* i;    // [N_QI][cap]
+  int* ctl;  // [events queued by this launch, the most any launch queued]
+  int cap;
+};
+
+__device__ __forceinline__ void queue_event(const Queue& q, uint32_t lane,
+                                            uint32_t ctr, bool refl,
+                                            float sx, float sy, float sz,
+                                            float w, float ux, float uy,
+                                            float uz) {
+  const int s = mcb::queue_slot(q.ctl);
+  if (s >= q.cap) return;  // counted in the fill; the host raises
+  const size_t c = static_cast<size_t>(q.cap);
+  q.f[QF_X * c + s] = sx;
+  q.f[QF_Y * c + s] = sy;
+  q.f[QF_Z * c + s] = sz;
+  q.f[QF_W * c + s] = w;
+  q.f[QF_UX * c + s] = ux;
+  q.f[QF_UY * c + s] = uy;
+  q.f[QF_UZ * c + s] = uz;
+  q.i[QI_LANE * c + s] = static_cast<int>(lane);
+  q.i[QI_CTR * c + s] = static_cast<int>(ctr);
+  q.i[QI_REFL * c + s] = refl ? 1 : 0;
+}
+
+// The local estimate of one event toward direction d of s_dirs
+// (pallas_col.py:760-958): a reflection (refl, Lambertian 1/pi) or a real
+// collision with incoming direction (ux, uy, uz), at (sx, sy, sz) with
+// weight w_ev, drawing at the event's lane ul and step ctr. Adds the walk
+// iterations to walk and a cut walk to cut. The forward row and the
+// (A, B) table are read with __ldg.
+__device__ __forceinline__ void le_pair(
+    const LeArgs& le, const float* s_dirs,
+    const float* prm, int d, uint32_t ul, uint32_t seed, uint32_t ctr,
+    bool refl, float sx, float sy, float sz, float w_ev, float ux, float uy,
+    float uz, int nx, int ny, int nz, unsigned long long& walk, int& cut) {
   const float x0 = prm[C_X0], y0 = prm[C_Y0], z0 = prm[C_Z0];
   const float z_max = prm[C_ZMAX], inv_dx = prm[C_INV_DX];
   const float inv_dy = prm[C_INV_DY], inv_dz = prm[C_INV_DZ];
   const float dz = prm[C_DZ], dxc = prm[C_DXC], dyc = prm[C_DYC];
   const float zcl = prm[C_ZCL], zeta = prm[C_ZETA], g = prm[C_G];
   const int nxy = nx * ny;
-  for (int d = 0; d < le.n_dirs; ++d) {
-    const float ddx = s_dirs[d], ddy = s_dirs[kMaxDirs + d];
-    const float ddz = s_dirs[2 * kMaxDirs + d];
-    const bool fast_x = s_dirs[3 * kMaxDirs + d] != 0.f;
-    // ---- phase value ----
-    float npf;
-    if (refl) {
-      npf = kInvPi;
+  const float ddx = s_dirs[d], ddy = s_dirs[kMaxDirs + d];
+  const float ddz = s_dirs[2 * kMaxDirs + d];
+  const bool fast_x = s_dirs[3 * kMaxDirs + d] != 0.f;
+  // ---- phase value ----
+  float npf;
+  if (refl) {
+    npf = kInvPi;
+  } else {
+    const float cosb = (ux * ddx + uy * ddy) + uz * ddz;
+    float pv;
+    if (le.fwd) {
+      const float s_v = sqrtf(fmaxf((1.f - cosb) * 0.5f, 0.f));
+      const float tpos = s_v * static_cast<float>(le.n_s - 1);
+      int k = static_cast<int>(tpos);
+      k = k < 0 ? 0 : (k > le.n_s - 2 ? le.n_s - 2 : k);
+      const float frac = tpos - static_cast<float>(k);
+      pv = __ldg(le.fwd_v0 + k) + frac * __ldg(le.fwd_dd + k);
     } else {
-      const float cosb = (ux * ddx + uy * ddy) + uz * ddz;
-      float pv;
-      if (le.fwd) {
-        const float s_v = sqrtf(fmaxf((1.f - cosb) * 0.5f, 0.f));
-        const float tpos = s_v * static_cast<float>(le.n_s - 1);
-        int k = static_cast<int>(tpos);
-        k = k < 0 ? 0 : (k > le.n_s - 2 ? le.n_s - 2 : k);
-        const float frac = tpos - static_cast<float>(k);
-        pv = __ldg(le.fwd_v0 + k) + frac * __ldg(le.fwd_dd + k);
-      } else {
-        const float q = fmaxf((1.f + g * g) - (2.f * g) * cosb, 1e-12f);
-        pv = (1.f - g * g) / (q * sqrtf(q));
-      }
-      npf = pv / (kFourPi * ddz);
+      const float q = fmaxf((1.f + g * g) - (2.f * g) * cosb, 1e-12f);
+      pv = (1.f - g * g) / (q * sqrtf(q));
     }
-    // ---- Iwabuchi roulette thresholds ----
-    float u_i1 = 0.f, tau_free = 0.f, npf_pi = 0.f, tau_max = 0.f;
-    bool small = false;
-    if (le.rr) {
-      const uint32_t site = S_LE + 2u * static_cast<uint32_t>(d);
-      u_i1 = uniform(ul, seed, ctr, site);
-      tau_free = -log1pf(-uniform(ul, seed, ctr, site + 1u));
-      npf_pi = kPi * npf;
-      small = npf_pi <= zeta;
-      tau_max = -logf(zeta / fmaxf(npf_pi, kTiny));
+    npf = pv / (kFourPi * ddz);
+  }
+  // ---- Iwabuchi roulette thresholds ----
+  float u_i1 = 0.f, tau_free = 0.f, npf_pi = 0.f, tau_max = 0.f;
+  bool small = false;
+  if (le.rr) {
+    const uint32_t site = S_LE + 2u * static_cast<uint32_t>(d);
+    u_i1 = uniform(ul, seed, ctr, site);
+    tau_free = -log1pf(-uniform(ul, seed, ctr, site + 1u));
+    npf_pi = kPi * npf;
+    small = npf_pi <= zeta;
+    tau_max = -logf(zeta / fmaxf(npf_pi, kTiny));
+  }
+  // ---- column walk to the top (or past the highest cloud top) ----
+  const float t_top = (z_max - sz) / ddz;
+  const float t_stop = fminf(fmaxf((zcl - sz) / ddz, 0.f), t_top);
+  // the first column (pallas_col.py:837-876): on the fast axis the cell
+  // the ray enters at a face, on the slow axis the cell after a nudge of
+  // 1e-4 cells along the direction (a zero component counts as positive)
+  const float fx = (sx - x0) * inv_dx, fy = (sy - y0) * inv_dy;
+  const int up_x = ddx >= 0.f ? 1 : 0, up_y = ddy >= 0.f ? 1 : 0;
+  const float jxf = fast_x ? (up_x ? floorf(fx) : ceilf(fx) - 1.f)
+                           : floorf(fx + (up_x ? kNde : -kNde));
+  const float jyf = fast_x ? floorf(fy + (up_y ? kNde : -kNde))
+                           : (up_y ? floorf(fy) : ceilf(fy) - 1.f);
+  int jx = static_cast<int>(jxf), jy = static_cast<int>(jyf);
+  const bool live_x = fabsf(ddx) > 1e-12f, live_y = fabsf(ddy) > 1e-12f;
+  float tx = live_x ? ((static_cast<float>(jx + up_x) * dxc + x0) - sx) / ddx
+                    : kBig;
+  float ty = live_y ? ((static_cast<float>(jy + up_y) * dyc + y0) - sy) / ddy
+                    : kBig;
+  float t = 0.f, tau_cl = 0.f;
+  bool done = false;
+  int it = 0;
+  // the column, wrapped periodically as the unwrapped jx, jy step
+  int cx = imod(jx, nx), cy = imod(jy, ny);
+  while (it < le.k_walk) {
+    const float tn = fminf(fminf(tx, ty), t_stop);
+    const int c = cx * ny + cy;
+    const float2 a_b = __ldg(le.col_ab + c);
+    tau_cl = tau_cl + (fmaxf(a_b.x - a_b.y * (sz + ddz * t), 0.f) -
+                       fmaxf(a_b.x - a_b.y * (sz + ddz * tn), 0.f));
+    ++it;
+    if (tn >= t_stop) {
+      done = true;
+      break;
     }
-    // ---- column walk to the top (or past the highest cloud top) ----
-    const float t_top = (z_max - sz) / ddz;
-    const float t_stop = fminf(fmaxf((zcl - sz) / ddz, 0.f), t_top);
-    // the first column (pallas_col.py:837-876): on the fast axis the cell
-    // the ray enters at a face, on the slow axis the cell after a nudge of
-    // 1e-4 cells along the direction (a zero component counts as positive)
-    const float fx = (sx - x0) * inv_dx, fy = (sy - y0) * inv_dy;
-    const int up_x = ddx >= 0.f ? 1 : 0, up_y = ddy >= 0.f ? 1 : 0;
-    const float jxf = fast_x ? (up_x ? floorf(fx) : ceilf(fx) - 1.f)
-                             : floorf(fx + (up_x ? kNde : -kNde));
-    const float jyf = fast_x ? floorf(fy + (up_y ? kNde : -kNde))
-                             : (up_y ? floorf(fy) : ceilf(fy) - 1.f);
-    int jx = static_cast<int>(jxf), jy = static_cast<int>(jyf);
-    const bool live_x = fabsf(ddx) > 1e-12f, live_y = fabsf(ddy) > 1e-12f;
-    float tx = live_x ? ((static_cast<float>(jx + up_x) * dxc + x0) - sx) / ddx
-                      : kBig;
-    float ty = live_y ? ((static_cast<float>(jy + up_y) * dyc + y0) - sy) / ddy
-                      : kBig;
-    float t = 0.f, tau_cl = 0.f;
-    bool done = false;
-    int it = 0;
-    // the column, wrapped periodically as the unwrapped jx, jy step
-    int cx = imod(jx, nx), cy = imod(jy, ny);
-    while (it < le.k_walk) {
-      const float tn = fminf(fminf(tx, ty), t_stop);
-      const int c = cx * ny + cy;
-      const float a = __ldg(le.col_a + c), b = __ldg(le.col_b + c);
-      tau_cl = tau_cl + (fmaxf(a - b * (sz + ddz * t), 0.f) -
-                         fmaxf(a - b * (sz + ddz * tn), 0.f));
-      ++it;
-      if (tn >= t_stop) {
-        done = true;
-        break;
-      }
-      if (tx <= ty) {
-        jx += 2 * up_x - 1;
-        cx = up_x ? (cx + 1 == nx ? 0 : cx + 1) : (cx == 0 ? nx - 1 : cx - 1);
-        tx = ((static_cast<float>(jx + up_x) * dxc + x0) - sx) / ddx;
-      } else {
-        jy += 2 * up_y - 1;
-        cy = up_y ? (cy + 1 == ny ? 0 : cy + 1) : (cy == 0 ? ny - 1 : cy - 1);
-        ty = ((static_cast<float>(jy + up_y) * dyc + y0) - sy) / ddy;
-      }
-      t = tn;
-    }
-    walk += static_cast<unsigned long long>(it);
-    if (!done) {
-      ++cut;
-      continue;
-    }
-    float tau_f = tau_cl / ddz;
-    if (le.has_gas) {  // closed form from the cumulative profile
-      const int kz = clampi(static_cast<int>((sz - z0) * inv_dz), nz - 1);
-      const float z_bot = z0 + static_cast<float>(kz) * dz;
-      tau_f = tau_f + (__ldg(le.qcb + kz) - __ldg(le.qz + kz) * (sz - z_bot)) /
-                          ddz;
-    }
-    // ---- contribution and the TOA exit pixel ----
-    float contrib;
-    if (le.rr) {
-      const float w_rrc = (w_ev * zeta) * kInvPi;
-      const float c_a =
-          (tau_f < tau_free && u_i1 * zeta <= npf_pi) ? w_rrc : 0.f;
-      const float c_b = tau_f < tau_max ? (w_ev * npf) * expf(-tau_f)
-                        : (tau_f - tau_max < tau_free ? w_rrc : 0.f);
-      contrib = small ? c_a : c_b;
+    if (tx <= ty) {
+      jx += 2 * up_x - 1;
+      cx = up_x ? (cx + 1 == nx ? 0 : cx + 1) : (cx == 0 ? nx - 1 : cx - 1);
+      tx = ((static_cast<float>(jx + up_x) * dxc + x0) - sx) / ddx;
     } else {
-      contrib = (w_ev * npf) * expf(-tau_f);
+      jy += 2 * up_y - 1;
+      cy = up_y ? (cy + 1 == ny ? 0 : cy + 1) : (cy == 0 ? ny - 1 : cy - 1);
+      ty = ((static_cast<float>(jy + up_y) * dyc + y0) - sy) / ddy;
     }
-    if (contrib != 0.f) {
-      const float exf_x = wrap(((sx + ddx * t_top) - x0) * inv_dx +
-                                   signf(ddx) * kNde,
-                               static_cast<float>(nx));
-      const float exf_y = wrap(((sy + ddy * t_top) - y0) * inv_dy +
-                                   signf(ddy) * kNde,
-                               static_cast<float>(ny));
-      const int ex_col = clampi(static_cast<int>(exf_x), nx - 1) * ny +
-                         clampi(static_cast<int>(exf_y), ny - 1);
-      atomicAdd(&le.img[d * nxy + ex_col], contrib);
-    }
+    t = tn;
+  }
+  walk += static_cast<unsigned long long>(it);
+  if (!done) {
+    ++cut;
+    return;
+  }
+  float tau_f = tau_cl / ddz;
+  if (le.has_gas) {  // closed form from the cumulative profile
+    const int kz = clampi(static_cast<int>((sz - z0) * inv_dz), nz - 1);
+    const float z_bot = z0 + static_cast<float>(kz) * dz;
+    tau_f = tau_f + (__ldg(le.qcb + kz) - __ldg(le.qz + kz) * (sz - z_bot)) /
+                        ddz;
+  }
+  // ---- contribution and the TOA exit pixel ----
+  float contrib;
+  if (le.rr) {
+    const float w_rrc = (w_ev * zeta) * kInvPi;
+    const float c_a =
+        (tau_f < tau_free && u_i1 * zeta <= npf_pi) ? w_rrc : 0.f;
+    const float c_b = tau_f < tau_max ? (w_ev * npf) * expf(-tau_f)
+                      : (tau_f - tau_max < tau_free ? w_rrc : 0.f);
+    contrib = small ? c_a : c_b;
+  } else {
+    contrib = (w_ev * npf) * expf(-tau_f);
+  }
+  if (contrib != 0.f) {
+    const float exf_x = wrap(((sx + ddx * t_top) - x0) * inv_dx +
+                                 signf(ddx) * kNde,
+                             static_cast<float>(nx));
+    const float exf_y = wrap(((sy + ddy * t_top) - y0) * inv_dy +
+                                 signf(ddy) * kNde,
+                             static_cast<float>(ny));
+    const int ex_col = clampi(static_cast<int>(exf_x), nx - 1) * ny +
+                       clampi(static_cast<int>(exf_y), ny - 1);
+    atomicAdd(&le.img[d * nxy + ex_col], contrib);
   }
 }
 
@@ -315,14 +365,12 @@ col_steps(const float* __restrict__ prm,
           float* __restrict__ ws, float* __restrict__ blss,
           float* __restrict__ blhs, int* __restrict__ quotas,
           int* __restrict__ alives, float* __restrict__ acc,
-          int* __restrict__ counts, const float* __restrict__ dirs,
-          unsigned long long* __restrict__ g_walk, LeArgs le, EmArgs em,
+          int* __restrict__ counts, Queue q, LeArgs le, EmArgs em,
           int n_lanes, int nx, int ny, int nz, int mf, int nby, int n_blk,
           int inv_n, int blk_smem, int inv_smem, uint32_t seed,
           uint32_t step0, int k_steps, int src) {
   extern __shared__ float smem[];
   __shared__ int s_counts[kCounts];
-  __shared__ float s_dirs[LE ? 4 * kMaxDirs : 1];
   const bool emission = src == SRC_EMISSION;
   const int n_prof = em.lw ? 2 * nz : nz;
   float* s_prof = smem;                       // [nz] (+ [nz] pre-credits)
@@ -344,11 +392,6 @@ col_steps(const float* __restrict__ prm,
     for (int i = threadIdx.x; i < inv_n; i += blockDim.x) {
       s_a0[i] = g_inv_a0[i];
       s_dd[i] = g_inv_dd[i];
-    }
-  }
-  if constexpr (LE) {
-    for (int i = threadIdx.x; i < 4 * le.n_dirs; i += blockDim.x) {
-      s_dirs[(i / le.n_dirs) * kMaxDirs + i % le.n_dirs] = dirs[i];
     }
   }
   for (int i = threadIdx.x; i < kCounts; i += blockDim.x) s_counts[i] = 0;
@@ -378,8 +421,7 @@ col_steps(const float* __restrict__ prm,
     float w = ws[lane], bls = blss[lane], blh = blhs[lane];
     int quota = quotas[lane];
     bool alive = alives[lane] > 0;
-    int started = 0, steps = 0, events = 0, cut = 0, atm_births = 0;
-    unsigned long long walk = 0;
+    int started = 0, steps = 0, events = 0, atm_births = 0;
     const uint32_t ul = static_cast<uint32_t>(lane);
 
     for (int k = 0; k < k_steps; ++k) {
@@ -537,11 +579,10 @@ col_steps(const float* __restrict__ prm,
           if (w_refl <= kTiny) {
             alive = false;
           } else {
-            if constexpr (LE) {  // the reflection's local estimate
+            if constexpr (LE) {  // queue the reflection's local estimate
               events += 1;
-              local_estimate(le, s_dirs, prm, ul, seed, ctr, true, xe, ye,
-                             z_bot, w_refl, ux, uy, uz, nx, ny, nz, walk,
-                             cut);
+              queue_event(q, ul, ctr, true, xe, ye, z_bot, w_refl, ux, uy,
+                          uz);
             }
             const float mu_new = sqrtf(fmaxf(u_ang, 1e-12f));
             const float sin_new = sqrtf(fmaxf(0.f, 1.f - mu_new * mu_new));
@@ -595,8 +636,7 @@ col_steps(const float* __restrict__ prm,
       }
       if constexpr (LE) {  // post-absorption, pre-roulette weight
         events += 1;
-        local_estimate(le, s_dirs, prm, ul, seed, ctr, false, xc, yc, zc, w,
-                       ux, uy, uz, nx, ny, nz, walk, cut);
+        queue_event(q, ul, ctr, false, xc, yc, zc, w, ux, uy, uz);
       }
       if (RR && w < half_rr) {
         w = uniform(ul, seed, ctr, S_ROULETTE) < w / rr_w ? rr_w : 0.f;
@@ -636,9 +676,7 @@ col_steps(const float* __restrict__ prm,
     if (alive || quota > 0) atomicAdd(&s_counts[1], 1);
     if (steps) atomicAdd(&s_counts[2], steps);
     if (events) atomicAdd(&s_counts[3], events);
-    if (cut) atomicAdd(&s_counts[4], cut);
     if (atm_births) atomicAdd(&s_counts[5], atm_births);
-    if (walk) atomicAdd(g_walk, walk);
   }
   __syncthreads();
   // the profile, then with lw its pre-credit row after the 3D field
@@ -653,14 +691,67 @@ col_steps(const float* __restrict__ prm,
   }
 }
 
+// The local estimate of every (event, direction) pair of the queue, one
+// thread each, striding direction-major over the pairs (pair p: direction
+// p / E of event p % E, E the events queued). A block with no pair returns
+// before it stages the directions. Adds the walk iterations into walk[0]
+// and the cut walks into counts[4], one atomic per block each, and records
+// the largest fill in ctl[1].
+__global__ void __launch_bounds__(kWalkThreads)
+col_walk(const float* __restrict__ prm, Queue q,
+         const float* __restrict__ dirs, LeArgs le, int* __restrict__ counts,
+         unsigned long long* __restrict__ g_walk, int nx, int ny, int nz,
+         uint32_t seed) {
+  __shared__ float s_dirs[4 * kMaxDirs];
+  __shared__ unsigned long long s_walk;
+  __shared__ int s_cut;
+  const int fill = q.ctl[0];
+  const unsigned n_ev = static_cast<unsigned>(fill < q.cap ? fill : q.cap);
+  const unsigned n_pairs = n_ev * static_cast<unsigned>(le.n_dirs);
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicMax(&q.ctl[1], fill);
+  const unsigned first = blockIdx.x * blockDim.x;
+  if (first >= n_pairs) return;
+  for (int i = threadIdx.x; i < 4 * le.n_dirs; i += blockDim.x) {
+    s_dirs[(i / le.n_dirs) * kMaxDirs + i % le.n_dirs] = dirs[i];
+  }
+  if (threadIdx.x == 0) {
+    s_walk = 0;
+    s_cut = 0;
+  }
+  __syncthreads();
+  unsigned long long walk = 0;
+  int cut = 0;
+  const size_t c = static_cast<size_t>(q.cap);
+  for (unsigned p = first + threadIdx.x; p < n_pairs;
+       p += gridDim.x * blockDim.x) {
+    const unsigned d = p / n_ev, e = p - d * n_ev;
+    le_pair(le, s_dirs, prm, static_cast<int>(d),
+            static_cast<uint32_t>(q.i[QI_LANE * c + e]), seed,
+            static_cast<uint32_t>(q.i[QI_CTR * c + e]),
+            q.i[QI_REFL * c + e] != 0, q.f[QF_X * c + e], q.f[QF_Y * c + e],
+            q.f[QF_Z * c + e], q.f[QF_W * c + e], q.f[QF_UX * c + e],
+            q.f[QF_UY * c + e], q.f[QF_UZ * c + e], nx, ny, nz, walk, cut);
+  }
+  walk = mcb::warp_sum(walk);
+  cut = mcb::warp_sum(cut);
+  if ((threadIdx.x & 31u) == 0) {
+    if (walk) atomicAdd(&s_walk, walk);
+    if (cut) atomicAdd(&s_cut, cut);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (s_walk) atomicAdd(g_walk, s_walk);
+    if (s_cut) atomicAdd(&counts[4], s_cut);
+  }
+}
+
 struct Args {
   const float *prm, *col_scale, *col_height, *blk, *inv_a0, *inv_dd;
   float *x, *y, *z, *ux, *uy, *uz, *w, *bls, *blh;
   int *quota, *alive;
   float* acc;
   int* counts;
-  const float* dirs;
-  unsigned long long* walk;
+  Queue q;
   LeArgs le;
   EmArgs em;
   int n_lanes, nx, ny, nz, mf, nby, n_blk, inv_n;
@@ -693,7 +784,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   kernel<<<blocks, threads, smem, stream>>>(
       a.prm, a.col_scale, a.col_height, a.blk, a.inv_a0, a.inv_dd, a.x, a.y,
       a.z, a.ux, a.uy, a.uz, a.w, a.bls, a.blh, a.quota, a.alive, a.acc,
-      a.counts, a.dirs, a.walk, a.le, a.em, a.n_lanes, a.nx, a.ny, a.nz, a.mf,
+      a.counts, a.q, a.le, a.em, a.n_lanes, a.nx, a.ny, a.nz, a.mf,
       a.nby, a.n_blk, a.inv_n, blk_smem, inv_smem, a.seed, a.step0,
       a.k_steps, a.src);
   return cudaGetLastError();
@@ -730,53 +821,87 @@ extern "C" int col_kernel_num_params() { return N_PARAMS; }
 
 // Advance every lane by k_steps transport steps. Adds the tallies into acc
 // ([up nxy | down nxy | absorbed nxy | profile nz | 3D field nxy * nz with
-// vol | the profile's pre-credits nz with lw]) and, with n_dirs > 0, the
-// radiance image into img ([n_dirs][nxy]),
-// the photons started into counts[0], the lanes with work left (alive or
-// quota > 0) into counts[1], the lane-steps run with a live photon into
-// counts[2], the local-estimate events into counts[3], the walks cut by
-// k_walk into counts[4], the atmospheric emission births into counts[5]
-// and the walk iterations into walk[0]. Source kind
-// (SRC_*), gas, roulette of the estimate, the forward row, the emission's
-// pre-credits (lw, emission only) and the per-pixel albedo (has_px: one
-// albedo per column in albedo[]) are launch arguments. Returns
-// cudaGetLastError().
+// vol | the profile's pre-credits nz with lw]), the photons started into
+// counts[0], the lanes with work left (alive or quota > 0) into counts[1],
+// the lane-steps run with a live photon into counts[2], the local-estimate
+// events into counts[3] and the atmospheric emission births into counts[5].
+// With n_dirs > 0 every event is queued into the struct-of-arrays queue
+// (qf [N_QF][cap], qi [N_QI][cap]) after its fill qctl[0] is set to 0;
+// col_walk_launch then computes the estimates. Source kind (SRC_*), gas,
+// the emission's pre-credits (lw, emission only) and the per-pixel albedo
+// (has_px: one albedo per column in albedo[]) are launch arguments.
+// Returns cudaGetLastError().
 extern "C" int col_kernel_launch(
     const float* prm, const float* col_scale, const float* col_height,
     const float* blk, const float* inv_a0, const float* inv_dd, float* x,
     float* y, float* z, float* ux, float* uy, float* uz, float* w,
     float* bls, float* blh, int* quota, int* alive, float* acc, int* counts,
-    const float* qz, const float* qcb, const float* col_a,
-    const float* col_b, const float* dirs, const float* fwd_v0,
-    const float* fwd_dd, float* img, unsigned long long* walk,
-    const float* em_prob, const float* em_alias, const float* em_halias,
-    const float* em_fcum, const float* albedo, int n_lanes, int nx, int ny,
-    int nz, int macro_factor, int nby, int n_blk, int inv_n, int n_acc,
+    const float* qz, float* qf, int* qi, int* qctl, const float* em_prob,
+    const float* em_alias, const float* em_halias, const float* em_fcum,
+    const float* albedo, int n_lanes, int nx, int ny, int nz,
+    int macro_factor, int nby, int n_blk, int inv_n, int n_acc,
     uint32_t seed, uint32_t step0, int k_steps, int analytic, int vol,
-    int use_rr, int source_kind, int has_gas, int n_dirs, int le_rr,
-    int le_fwd, int n_s, int k_walk, int lw, int has_px, void* stream) {
+    int use_rr, int source_kind, int has_gas, int n_dirs, int cap, int lw,
+    int has_px, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nxy = static_cast<long long>(nx) * ny;
   const long long want = 3 * nxy + nz + (vol ? nxy * nz : 0) + (lw ? nz : 0);
   if (n_acc != want || nz > 128 || (macro_factor > 0 && n_blk <= 0) ||
       (!analytic && inv_n < 2) || source_kind < SRC_DIRECTIONAL ||
       source_kind > SRC_EMISSION || (lw && source_kind != SRC_EMISSION) ||
-      n_dirs < 0 || n_dirs > kMaxDirs ||
-      (n_dirs > 0 && (k_walk <= 0 || (le_fwd && n_s < 2)))) {
+      n_dirs < 0 || n_dirs > kMaxDirs || (n_dirs > 0 && cap <= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const LeArgs le{col_a, col_b, fwd_v0, fwd_dd, qz, qcb, img,
-                  n_dirs, le_rr, le_fwd, n_s, k_walk, has_gas};
+  if (n_dirs > 0) {
+    const cudaError_t e = cudaMemsetAsync(qctl, 0, sizeof(int), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  LeArgs le{};
+  le.qz = qz;
+  le.n_dirs = n_dirs;
+  le.has_gas = has_gas;
   const EmArgs em{em_prob, em_alias, em_halias, em_fcum,
                   has_px ? albedo : nullptr, lw};
   const Args a{prm,   col_scale, col_height, blk,   inv_a0, inv_dd, x,
                y,     z,         ux,         uy,    uz,     w,      bls,
-               blh,   quota,     alive,      acc,   counts, dirs,   walk,
-               le,    em,        n_lanes,    nx,    ny,     nz,
-               macro_factor,     nby,        n_blk, inv_n,  seed,   step0,
-               k_steps,          source_kind};
+               blh,   quota,     alive,      acc,   counts,
+               Queue{qf, qi, qctl, cap},     le,    em,     n_lanes,
+               nx,    ny,        nz,         macro_factor,  nby,    n_blk,
+               inv_n, seed,      step0,      k_steps,       source_kind};
   const cudaError_t e =
       macro_factor > 0 ? launch_hg<true>(a, analytic, vol, use_rr, s)
                        : launch_hg<false>(a, analytic, vol, use_rr, s);
   return static_cast<int>(e);
+}
+
+// The local estimates of the events col_kernel_launch queued (qf, qi, qctl
+// of capacity cap): every (event, direction) pair toward the n_dirs
+// directions of dirs ([4][n_dirs]: cosines in march order, then 1 where x
+// is the fast axis), adding the image into img ([n_dirs][nxy]), the walks
+// cut by k_walk into counts[4] and the walk iterations into walk[0],
+// reading the (A, B) table col_ab ([nxy] float2). Roulette of the estimate
+// (le_rr), the forward row (le_fwd, n_s points) and the gas term are launch
+// arguments. Returns cudaGetLastError().
+extern "C" int col_walk_launch(
+    const float* prm, float* qf, int* qi, int* qctl, int cap,
+    const float* dirs, const float* col_ab, const float* fwd_v0,
+    const float* fwd_dd, const float* qz, const float* qcb, float* img,
+    int* counts, unsigned long long* walk, int nx, int ny, int nz,
+    uint32_t seed, int n_dirs, int le_rr, int le_fwd, int n_s, int k_walk,
+    int has_gas, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_dirs < 1 || n_dirs > kMaxDirs || cap <= 0 || k_walk <= 0 ||
+      (le_fwd && n_s < 2) || nz > 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const LeArgs le{reinterpret_cast<const float2*>(col_ab), fwd_v0, fwd_dd,
+                  qz, qcb, img, n_dirs, le_rr, le_fwd, n_s, k_walk, has_gas};
+  const Queue q{qf, qi, qctl, cap};
+  int blocks = 0;
+  const cudaError_t e =
+      mcb::persistent_blocks(col_walk, kWalkThreads, 0, &blocks);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  col_walk<<<blocks, kWalkThreads, 0, s>>>(prm, q, dirs, le, counts, walk,
+                                           nx, ny, nz, seed);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -98,4 +98,44 @@ __device__ __forceinline__ void rotate(float& ux, float& uy, float& uz,
   uz = oz * inv_norm;
 }
 
+// A slot of the local-estimate event queue for every thread that calls it:
+// one atomicAdd on the fill counter per warp (its converged threads take
+// consecutive slots). The fill counts every call, so a queue that is too
+// small shows as a fill past its capacity.
+__device__ __forceinline__ int queue_slot(int* fill) {
+  const unsigned active = __activemask();
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  const int leader = __ffs(active) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(fill, __popc(active));
+  base = __shfl_sync(active, base, leader);
+  return base + __popc(active & ((1u << lane) - 1u));
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(~0u, v, off);
+  return v;
+}
+
+// Blocks of a persistent launch: as many as fit on every SM at once for
+// `threads` threads and `smem` bytes of dynamic shared memory.
+template <typename Kernel>
+inline cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem,
+                                     int* blocks) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  }
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = per_sm * n_sm;
+  return cudaSuccess;
+}
+
 }  // namespace mcb

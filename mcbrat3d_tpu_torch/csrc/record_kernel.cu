@@ -1,5 +1,5 @@
-// Record kernel for NVIDIA Hopper (sm_90a): flux path and in-kernel
-// radiance by local estimation.
+// Record kernel for NVIDIA Hopper (sm_90a): flux path and radiance by local
+// estimation (the transport queues its events, record_walk estimates them).
 //
 // Replaces: mcbrat3d_tpu/transport/pallas_kernel.py `_build_kernel`, flux
 // path (refill from the directional, random-azimuth, flux or spotlight
@@ -69,22 +69,39 @@
 // shared-atomic contention on hot tally entries. It does no matrix work
 // and streams no large tiles, so wgmma and TMA do not apply.
 //
-// Radiance (template flag LE). A thread that scatters or reflects loops
-// over the directions and marches each one cell by cell to the top in a
-// loop that ends when the ray leaves the top (the TPU kernel's column
-// formulations and static per-direction bounds were Mosaic cost-model
-// choices; a per-thread early exit does their job). The march is still
-// bounded (k_dda, local_estimate.march_bound), and a march that reaches
-// the bound is counted (counts[4], folded into n_bad) so a stall is never
-// silent. Its cost is divergence: lanes without an event idle while
-// others march, and marches differ in length. The image tally
-// [section][direction][column]
-// lives in shared memory when it fits (flushed once per launch like the
-// flux tally); past the shared-memory budget the launcher sends it to
-// global atomics. The direction cap of 64 per launch comes from the
-// uniforms: they are keyed by step * 256 + site, and direction d draws
-// its roulette numbers at sites 16 + 2d and 17 + 2d, so 64 directions keep
-// every site below 144 and clear of the next step's draws.
+// Radiance (template flag LE), in two kernels. The transport kernel's LE
+// instantiation queues every event instead of estimating it: a scatter, a
+// surface reflection or, with lw, a birth held for its emission estimate (a
+// step makes one of these at most). A record holds what the estimate reads:
+// the event point and weight, the incoming direction and the phase field f2
+// (HG g or the table row) of a scatter, its kind (EV_*), its capped-excess
+// slot, and the lane and step counter that key its draws; it goes into
+// struct-of-arrays buffers at a slot taken with one atomicAdd per warp.
+// record_walk then computes every (event, direction) pair of the launch, one
+// thread each, over the whole card: the phase value, the Iwabuchi roulette
+// draws at sites 16 + 2d and 17 + 2d of the event's lane and step, and a
+// cell march to the top in a loop that ends when the ray leaves the top (the
+// TPU kernel's column formulations and static per-direction bounds were
+// Mosaic cost-model choices; a per-thread early exit does their job). The
+// march reads the extinction alone, from a contiguous beta[n_cells] (4 of
+// the record's 24-32 bytes), read with __ldg (the step cloud's 4 KB staged
+// in shared memory measured 1-3% faster a walk on this card: not worth a
+// second code path). The march is still bounded (k_dda,
+// local_estimate.march_bound), and a march that reaches the bound is counted
+// (counts[4], folded into n_bad) so a stall is never silent. The walk is
+// persistent, as many 256-thread blocks as fit the card, striding over the
+// pairs direction-major (pair p is direction p / E of event p % E), so a
+// warp takes 32 events of one direction: the direction is a shared-memory
+// broadcast and the event reads coalesce. The image tally
+// [section][direction][column] and the capped excess live in shared memory
+// when they fit kWalkSmem (flushed once per walk block); past it the image
+// goes to global atomics. The direction cap of 64 per launch comes from the
+// uniforms: they are keyed by step * 256 + site, and direction d draws its
+// roulette numbers at sites 16 + 2d and 17 + 2d, so 64 directions keep
+// every site below 144 and clear of the next step's draws. The estimate is
+// a pure tally keyed by the event's own (lane, step), so the later kernel
+// on other threads computes the numbers the transport's thread would have;
+// tensor cores, wgmma and TMA have no matrix work to do in either kernel.
 //
 // Arithmetic follows the JAX kernel operation by operation in float32.
 // The periodic wrap uses fmodf plus a divisor-sign correction, which is
@@ -108,12 +125,15 @@ using mcb::uniform;
 using mcb::wrap;
 
 constexpr int kThreads = 128;
+// Threads per block of the walk kernel.
+constexpr int kWalkThreads = 256;
+// Shared memory a walk block may take for its image and capped excess (48
+// KB: four 256-thread blocks an SM); a larger image goes to global atomics.
+constexpr size_t kWalkSmem = 48 * 1024;
 constexpr int kMaxDirs = 64;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInvPi = 0.31830988618379067154f;
 constexpr float kFourPi = 12.56637061435917295384f;
-// Shared memory a block may take for its tallies (the H100 offers 227 KB).
-constexpr size_t kMaxSmem = 200 * 1024;
 // counts[]: photons started, lanes with work left, lane-steps run with a
 // live photon, real collisions, radiance marches cut by the iteration bound,
 // local-estimate events (the march iterations go to a 64-bit counter).
@@ -163,23 +183,61 @@ struct LeArgs {
   int img_smem; // image tallied in shared memory (else global atomics)
 };
 
-// Local estimate of one event toward every direction (pallas_kernel.py
-// :1515-2084, cell march) from (sx, sy, sz). kind EV_LAMBERT: a surface
-// reflection or emission, phase value 1/pi; EV_ISOTROPIC: an atmospheric
-// emission, 1/(4 pi mu_d); EV_SCATTER: a scatter with incoming direction
-// (uxi, uyi, uzi) and phase field f2 (HG g, or the table row) of the
-// chosen component. Adds w_ev * npf * exp(-tau) (or its roulette form)
-// into img at the exit column; with the cap, into the section of the
-// event's slot (0 the surface or an emission, 1 + c component c). Counts
-// the event into events and each direction's march iterations into march.
-__device__ __forceinline__ void local_estimate(
-    const float* __restrict__ prm, const float* __restrict__ rec, int stride,
-    const float* s_dirs, const float* __restrict__ fwd_v0,
-    const float* __restrict__ fwd_dd, float* img, float* s_exc, int* s_bad,
-    const LeArgs& le, int nx, int ny, int nz, uint32_t lane, uint32_t seed,
-    uint32_t ctr, int kind, int slot, float sx, float sy, float sz,
-    float w_ev, float uxi, float uyi, float uzi, float f2, int& events,
-    unsigned long long& march) {
+// The local-estimate event queue: struct of arrays of cap records each.
+// Floats: the event point, its weight, the incoming direction and the
+// phase field f2; ints: the lane and step counter that key the event's
+// draws, its kind (EV_*) and its capped-excess slot
+// (record_kernel.QUEUE_FLOATS, QUEUE_INTS).
+enum { QF_X, QF_Y, QF_Z, QF_W, QF_UX, QF_UY, QF_UZ, QF_F2, N_QF };
+enum { QI_LANE, QI_CTR, QI_KIND, QI_SLOT, N_QI };
+struct Queue {
+  float* f;  // [N_QF][cap]
+  int* i;    // [N_QI][cap]
+  int* ctl;  // [events queued by this launch, the most any launch queued]
+  int cap;
+};
+
+__device__ __forceinline__ void queue_event(const Queue& q, uint32_t lane,
+                                            uint32_t ctr, int kind, int slot,
+                                            float sx, float sy, float sz,
+                                            float w, float ux, float uy,
+                                            float uz, float f2) {
+  const int s = mcb::queue_slot(q.ctl);
+  if (s >= q.cap) return;  // counted in the fill; the host raises
+  const size_t c = static_cast<size_t>(q.cap);
+  q.f[QF_X * c + s] = sx;
+  q.f[QF_Y * c + s] = sy;
+  q.f[QF_Z * c + s] = sz;
+  q.f[QF_W * c + s] = w;
+  q.f[QF_UX * c + s] = ux;
+  q.f[QF_UY * c + s] = uy;
+  q.f[QF_UZ * c + s] = uz;
+  q.f[QF_F2 * c + s] = f2;
+  q.i[QI_LANE * c + s] = static_cast<int>(lane);
+  q.i[QI_CTR * c + s] = static_cast<int>(ctr);
+  q.i[QI_KIND * c + s] = kind;
+  q.i[QI_SLOT * c + s] = slot;
+}
+
+// Local estimate of one event toward direction d of s_dirs
+// (pallas_kernel.py :1515-2084, cell march) from (sx, sy, sz), drawing at
+// the event's lane and step ctr. kind EV_LAMBERT: a surface reflection or
+// emission, phase value 1/pi; EV_ISOTROPIC: an atmospheric emission,
+// 1/(4 pi mu_d); EV_SCATTER: a scatter with incoming direction (uxi, uyi,
+// uzi) and phase field f2 (HG g, or the table row) of the chosen component.
+// Adds w_ev * npf * exp(-tau) (or its roulette form) into img at the exit
+// column; with the cap, into the section of the event's slot (0 the
+// surface or an emission, 1 + c component c) and the excess into s_exc.
+// Adds the march iterations to march and a cut march to cut. The
+// extinction beta is read with __ldg.
+__device__ __forceinline__ void le_pair(
+    const float* __restrict__ prm, const float* __restrict__ beta,
+    const float* s_dirs,
+    const float* __restrict__ fwd_v0, const float* __restrict__ fwd_dd,
+    float* img, float* s_exc, const LeArgs& le, int nx, int ny, int nz,
+    int d, uint32_t lane, uint32_t seed, uint32_t ctr, int kind, int slot,
+    float sx, float sy, float sz, float w_ev, float uxi, float uyi,
+    float uzi, float f2, unsigned long long& march, int& cut) {
   const float x0 = prm[P_X0], lx = prm[P_LX], y0 = prm[P_Y0];
   const float ly = prm[P_LY], z0 = prm[P_Z0], z_max = prm[P_ZMAX];
   const float inv_dx = prm[P_INV_DX], inv_dy = prm[P_INV_DY];
@@ -187,120 +245,116 @@ __device__ __forceinline__ void local_estimate(
   const float dzc = prm[P_DZC], mnudge = prm[P_MNUDGE];
   const float zeta = prm[P_ZETA], cap = prm[P_MAXC];
   const int nxy = nx * ny;
-  events += 1;
-  for (int d = 0; d < le.n_dirs; ++d) {
-    const float ddx = s_dirs[d], ddy = s_dirs[kMaxDirs + d];
-    const float ddz = s_dirs[2 * kMaxDirs + d];  // > 0 by eligibility
-    float npf;
-    if (kind == EV_LAMBERT) {
-      npf = kInvPi;
-    } else if (kind == EV_ISOTROPIC) {
-      npf = 1.f / (kFourPi * ddz);
+  const float ddx = s_dirs[d], ddy = s_dirs[kMaxDirs + d];
+  const float ddz = s_dirs[2 * kMaxDirs + d];  // > 0 by eligibility
+  float npf;
+  if (kind == EV_LAMBERT) {
+    npf = kInvPi;
+  } else if (kind == EV_ISOTROPIC) {
+    npf = 1.f / (kFourPi * ddz);
+  } else {
+    const float cosb = (uxi * ddx + uyi * ddy) + uzi * ddz;
+    float pv;
+    if (le.phase == PHASE_HG) {
+      const float g = f2;
+      const float q = fmaxf((1.f + g * g) - (2.f * g) * cosb, 1e-12f);
+      pv = (1.f - g * g) / (q * sqrtf(q));
     } else {
-      const float cosb = (uxi * ddx + uyi * ddy) + uzi * ddz;
-      float pv;
-      if (le.phase == PHASE_HG) {
-        const float g = f2;
-        const float q = fmaxf((1.f + g * g) - (2.f * g) * cosb, 1e-12f);
-        pv = (1.f - g * g) / (q * sqrtf(q));
-      } else {
-        // table uniform in s = sin(theta/2): the index needs a sqrt only
-        const float s_v = sqrtf(fmaxf((1.f - cosb) * 0.5f, 0.f));
-        const float tpos = s_v * static_cast<float>(le.n_s - 1);
-        int k = static_cast<int>(tpos);
-        k = k < 0 ? 0 : (k > le.n_s - 2 ? le.n_s - 2 : k);
-        const float frac = tpos - static_cast<float>(k);
-        const int flat =
-            (le.phase == PHASE_TABLE ? static_cast<int>(f2) * le.n_s : 0) + k;
-        pv = __ldg(fwd_v0 + flat) + frac * __ldg(fwd_dd + flat);
-      }
-      npf = pv / (kFourPi * ddz);
+      // table uniform in s = sin(theta/2): the index needs a sqrt only
+      const float s_v = sqrtf(fmaxf((1.f - cosb) * 0.5f, 0.f));
+      const float tpos = s_v * static_cast<float>(le.n_s - 1);
+      int k = static_cast<int>(tpos);
+      k = k < 0 ? 0 : (k > le.n_s - 2 ? le.n_s - 2 : k);
+      const float frac = tpos - static_cast<float>(k);
+      const int flat =
+          (le.phase == PHASE_TABLE ? static_cast<int>(f2) * le.n_s : 0) + k;
+      pv = __ldg(fwd_v0 + flat) + frac * __ldg(fwd_dd + flat);
     }
-    // Iwabuchi roulette: the stopping depth is known before the march
-    float u_i1 = 0.f, tau_free = 0.f, npf_pi = 0.f, tau_max = 0.f;
-    float tau_stop = kBig;
-    bool small = false;
-    if (le.rr) {
-      u_i1 = uniform(lane, seed, ctr, 16u + 2u * d);
-      tau_free = -log1pf(-uniform(lane, seed, ctr, 17u + 2u * d));
-      npf_pi = kPi * npf;
-      small = npf_pi <= zeta;
-      tau_max = -logf(zeta / fmaxf(npf_pi, kTiny));
-      tau_stop = small ? tau_free : tau_max + tau_free;
+    npf = pv / (kFourPi * ddz);
+  }
+  // Iwabuchi roulette: the stopping depth is known before the march
+  float u_i1 = 0.f, tau_free = 0.f, npf_pi = 0.f, tau_max = 0.f;
+  float tau_stop = kBig;
+  bool small = false;
+  if (le.rr) {
+    u_i1 = uniform(lane, seed, ctr, 16u + 2u * d);
+    tau_free = -log1pf(-uniform(lane, seed, ctr, 17u + 2u * d));
+    npf_pi = kPi * npf;
+    small = npf_pi <= zeta;
+    tau_max = -logf(zeta / fmaxf(npf_pi, kTiny));
+    tau_stop = small ? tau_free : tau_max + tau_free;
+  }
+  const float sdx = fabsf(ddx) > 1e-12f ? ddx : 1e-12f;
+  const float sdy = fabsf(ddy) > 1e-12f ? ddy : 1e-12f;
+  // index-space nudge along the march: a face landing names the cell
+  // being entered for either direction sign
+  const float ndx = signf(ddx) * 1e-4f, ndy = signf(ddy) * 1e-4f;
+  float px = sx, py = sy, pz = sz, tau = 0.f;
+  int ex_col = 0;
+  bool act = true;
+  int it = 0;
+  for (; act && it < le.k_dda; ++it) {
+    const float pxw = x0 + wrap(px - x0, lx);
+    const float pyw = y0 + wrap(py - y0, ly);
+    const int ixm = clampi(static_cast<int>((pxw - x0) * inv_dx + ndx),
+                           nx - 1);
+    const int iym = clampi(static_cast<int>((pyw - y0) * inv_dy + ndy),
+                           ny - 1);
+    const int izm = clampi(static_cast<int>((pz - z0) * inv_dz), nz - 1);
+    const int cell = (ixm * ny + iym) * nz + izm;
+    const float beta_m = __ldg(beta + cell);
+    const float fx =
+        static_cast<float>(ddx >= 0.f ? ixm + 1 : ixm) * dxc + x0;
+    const float fy =
+        static_cast<float>(ddy >= 0.f ? iym + 1 : iym) * dyc + y0;
+    const float fz = static_cast<float>(izm + 1) * dzc + z0;
+    const float tx = fabsf(ddx) > 1e-12f ? (fx - pxw) / sdx : kBig;
+    const float ty = fabsf(ddy) > 1e-12f ? (fy - pyw) / sdy : kBig;
+    const float tz = (fz - pz) / ddz;
+    const float ds = fmaxf(fminf(tx, fminf(ty, tz)), 0.f) + mnudge;
+    tau = tau + beta_m * ds;
+    const float pz2 = pz + ddz * ds;
+    if (pz2 >= z_max) {
+      const float tb = (z_max - pz) / ddz;
+      const float exx = x0 + wrap((pxw + ddx * tb) - x0, lx);
+      const float exy = y0 + wrap((pyw + ddy * tb) - y0, ly);
+      ex_col = clampi(static_cast<int>((exx - x0) * inv_dx), nx - 1) * ny +
+               clampi(static_cast<int>((exy - y0) * inv_dy), ny - 1);
+      act = false;
+    } else if (le.rr && !(tau < tau_stop)) {
+      act = false;
     }
-    const float sdx = fabsf(ddx) > 1e-12f ? ddx : 1e-12f;
-    const float sdy = fabsf(ddy) > 1e-12f ? ddy : 1e-12f;
-    // index-space nudge along the march: a face landing names the cell
-    // being entered for either direction sign
-    const float ndx = signf(ddx) * 1e-4f, ndy = signf(ddy) * 1e-4f;
-    float px = sx, py = sy, pz = sz, tau = 0.f;
-    int ex_col = 0;
-    bool act = true;
-    int it = 0;
-    for (; act && it < le.k_dda; ++it) {
-      const float pxw = x0 + wrap(px - x0, lx);
-      const float pyw = y0 + wrap(py - y0, ly);
-      const int ixm = clampi(static_cast<int>((pxw - x0) * inv_dx + ndx),
-                             nx - 1);
-      const int iym = clampi(static_cast<int>((pyw - y0) * inv_dy + ndy),
-                             ny - 1);
-      const int izm = clampi(static_cast<int>((pz - z0) * inv_dz), nz - 1);
-      const float beta_m =
-          __ldg(rec + static_cast<size_t>((ixm * ny + iym) * nz + izm) *
-                          stride);
-      const float fx =
-          static_cast<float>(ddx >= 0.f ? ixm + 1 : ixm) * dxc + x0;
-      const float fy =
-          static_cast<float>(ddy >= 0.f ? iym + 1 : iym) * dyc + y0;
-      const float fz = static_cast<float>(izm + 1) * dzc + z0;
-      const float tx = fabsf(ddx) > 1e-12f ? (fx - pxw) / sdx : kBig;
-      const float ty = fabsf(ddy) > 1e-12f ? (fy - pyw) / sdy : kBig;
-      const float tz = (fz - pz) / ddz;
-      const float ds = fmaxf(fminf(tx, fminf(ty, tz)), 0.f) + mnudge;
-      tau = tau + beta_m * ds;
-      const float pz2 = pz + ddz * ds;
-      if (pz2 >= z_max) {
-        const float tb = (z_max - pz) / ddz;
-        const float exx = x0 + wrap((pxw + ddx * tb) - x0, lx);
-        const float exy = y0 + wrap((pyw + ddy * tb) - y0, ly);
-        ex_col = clampi(static_cast<int>((exx - x0) * inv_dx), nx - 1) * ny +
-                 clampi(static_cast<int>((exy - y0) * inv_dy), ny - 1);
-        act = false;
-      } else if (le.rr && !(tau < tau_stop)) {
-        act = false;
-      }
-      px = pxw + ddx * ds;
-      py = pyw + ddy * ds;
-      pz = pz2;
-    }
-    march += static_cast<unsigned long long>(it);
-    if (act) {  // cut by the iteration bound: contributes nothing, counted
-      atomicAdd(s_bad, 1);
-      continue;
-    }
-    float contrib;
-    if (le.rr) {
-      const float w_rrc = (w_ev * zeta) * kInvPi;
-      if (small) {
-        contrib = (tau < tau_free && u_i1 * zeta <= npf_pi) ? w_rrc : 0.f;
-      } else if (tau < tau_max) {
-        contrib = (w_ev * npf) * expf(-tau);
-      } else {
-        contrib = (tau - tau_max < tau_free) ? w_rrc : 0.f;
-      }
-    } else {
+    px = pxw + ddx * ds;
+    py = pyw + ddy * ds;
+    pz = pz2;
+  }
+  march += static_cast<unsigned long long>(it);
+  if (act) {  // cut by the iteration bound: contributes nothing, counted
+    ++cut;
+    return;
+  }
+  float contrib;
+  if (le.rr) {
+    const float w_rrc = (w_ev * zeta) * kInvPi;
+    if (small) {
+      contrib = (tau < tau_free && u_i1 * zeta <= npf_pi) ? w_rrc : 0.f;
+    } else if (tau < tau_max) {
       contrib = (w_ev * npf) * expf(-tau);
+    } else {
+      contrib = (tau - tau_max < tau_free) ? w_rrc : 0.f;
     }
-    int sec = 0;
-    if (le.cap) {
-      const float over = fmaxf(contrib - cap, 0.f);
-      contrib = fminf(contrib, cap);
-      if (over > 0.f) atomicAdd(&s_exc[slot * le.n_dirs + d], over);
-      sec = slot;
-    }
-    if (contrib != 0.f) {
-      atomicAdd(&img[(sec * le.n_dirs + d) * nxy + ex_col], contrib);
-    }
+  } else {
+    contrib = (w_ev * npf) * expf(-tau);
+  }
+  int sec = 0;
+  if (le.cap) {
+    const float over = fmaxf(contrib - cap, 0.f);
+    contrib = fminf(contrib, cap);
+    if (over > 0.f) atomicAdd(&s_exc[slot * le.n_dirs + d], over);
+    sec = slot;
+  }
+  if (contrib != 0.f) {
+    atomicAdd(&img[(sec * le.n_dirs + d) * nxy + ex_col], contrib);
   }
 }
 
@@ -340,35 +394,16 @@ record_steps(const float* __restrict__ prm,
              float* __restrict__ uys, float* __restrict__ uzs,
              float* __restrict__ ws, float* __restrict__ bls,
              int* __restrict__ quotas, int* __restrict__ alives,
-             float* __restrict__ acc, int* __restrict__ counts,
-             const float* __restrict__ dirs,
-             const float* __restrict__ fwd_v0,
-             const float* __restrict__ fwd_dd, float* __restrict__ g_img,
-             float* __restrict__ g_exc, const float* __restrict__ em_prob,
+             float* __restrict__ acc, int* __restrict__ counts, Queue q,
+             const float* __restrict__ em_prob,
              const float* __restrict__ em_alias,
-             const float* __restrict__ alb,
-             unsigned long long* __restrict__ g_march, LeArgs le,
-             int n_lanes, int nx, int ny, int nz, int stride, int off_ssa,
+             const float* __restrict__ alb, int n_lanes, int nx, int ny, int nz, int stride, int off_ssa,
              int off_f2, int inv_n_steps, int use_rr, int n_acc,
              uint32_t seed, uint32_t step0, int k_steps, int src,
              int ncomp, int lw, int surf) {
   extern __shared__ float s_acc[];
   __shared__ int s_counts[kCounts];
-  __shared__ float s_dirs[LE ? 3 * kMaxDirs : 1];
-  // radiance tallies follow the flux tally in shared memory
-  float* s_exc = s_acc + n_acc;
-  float* img = g_img;
-  if (LE && le.img_smem) img = s_exc + le.n_exc;  // else global atomics
   for (int i = threadIdx.x; i < n_acc; i += blockDim.x) s_acc[i] = 0.f;
-  if constexpr (LE) {
-    for (int i = threadIdx.x; i < le.n_exc; i += blockDim.x) s_exc[i] = 0.f;
-    if (le.img_smem) {
-      for (int i = threadIdx.x; i < le.n_img; i += blockDim.x) img[i] = 0.f;
-    }
-    for (int i = threadIdx.x; i < 3 * le.n_dirs; i += blockDim.x) {
-      s_dirs[(i / le.n_dirs) * kMaxDirs + i % le.n_dirs] = dirs[i];
-    }
-  }
   for (int i = threadIdx.x; i < kCounts; i += blockDim.x) s_counts[i] = 0;
   __syncthreads();
 
@@ -398,7 +433,6 @@ record_steps(const float* __restrict__ prm,
     int quota = quotas[lane];
     bool alive = alives[lane] > 0;
     int started = 0, steps = 0, reals = 0, events = 0;
-    unsigned long long march = 0;
     const uint32_t ul = static_cast<uint32_t>(lane);
 
     for (int k = 0; k < k_steps; ++k) {
@@ -481,14 +515,13 @@ record_steps(const float* __restrict__ prm,
       if (!alive) continue;
       steps += 1;
       if constexpr (LE) {
-        // LW radiance: a newly emitted lane contributes its emission local
+        // LW radiance: a newly emitted lane queues its emission local
         // estimate (weight 1) and moves from the next step on
         // (pallas_kernel.py:986, :1086-1091, :1529-1534, :1682-1688)
         if (lw && born) {
-          local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img, s_exc,
-                         &s_counts[4], le, nx, ny, nz, ul, seed, ctr,
-                         born_atm ? EV_ISOTROPIC : EV_LAMBERT, 0, x, y, z,
-                         1.f, 0.f, 0.f, 0.f, 0.f, events, march);
+          events += 1;
+          queue_event(q, ul, ctr, born_atm ? EV_ISOTROPIC : EV_LAMBERT, 0, x,
+                      y, z, 1.f, 0.f, 0.f, 0.f, 0.f);
           continue;
         }
       }
@@ -556,10 +589,9 @@ record_steps(const float* __restrict__ prm,
             alive = false;
           } else {
             if constexpr (LE) {
-              local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img,
-                             s_exc, &s_counts[4], le, nx, ny, nz, ul, seed,
-                             ctr, EV_LAMBERT, 0, xe, ye, z_bot, w_refl, 0.f,
-                             0.f, 0.f, 0.f, events, march);
+              events += 1;
+              queue_event(q, ul, ctr, EV_LAMBERT, 0, xe, ye, z_bot, w_refl,
+                          0.f, 0.f, 0.f, 0.f);
             }
             ux = sin_new * cp;
             uy = sin_new * sp;
@@ -624,10 +656,8 @@ record_steps(const float* __restrict__ prm,
       atomicAdd(&s_acc[2 * nxy + (VOL ? cell : col_c)], w * (1.f - ssa));
       w = w * ssa;
       if constexpr (LE) {  // post-absorption, pre-roulette weight, incoming dir
-        local_estimate(prm, rec, stride, s_dirs, fwd_v0, fwd_dd, img, s_exc,
-                       &s_counts[4], le, nx, ny, nz, ul, seed, ctr,
-                       EV_SCATTER, slot, x, y, z, w, ux, uy, uz, f2, events,
-                       march);
+        events += 1;
+        queue_event(q, ul, ctr, EV_SCATTER, slot, x, y, z, w, ux, uy, uz, f2);
       }
       if (use_rr && w < half_rr) {
         w = uniform(ul, seed, ctr, S_ROULETTE) < w / rr_w ? rr_w : 0.f;
@@ -668,27 +698,90 @@ record_steps(const float* __restrict__ prm,
     if (steps) atomicAdd(&s_counts[2], steps);
     if (reals) atomicAdd(&s_counts[3], reals);
     if (events) atomicAdd(&s_counts[5], events);
-    if (march) atomicAdd(g_march, march);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
     const float v = s_acc[i];
     if (v != 0.f) atomicAdd(&acc[i], v);
   }
-  if constexpr (LE) {
-    for (int i = threadIdx.x; i < le.n_exc; i += blockDim.x) {
-      const float v = s_exc[i];
-      if (v != 0.f) atomicAdd(&g_exc[i], v);
-    }
-    if (le.img_smem) {
-      for (int i = threadIdx.x; i < le.n_img; i += blockDim.x) {
-        const float v = img[i];
-        if (v != 0.f) atomicAdd(&g_img[i], v);
-      }
-    }
-  }
   for (int i = threadIdx.x; i < kCounts; i += blockDim.x) {
     if (s_counts[i]) atomicAdd(&counts[i], s_counts[i]);
+  }
+}
+
+// The local estimate of every (event, direction) pair of the queue, one
+// thread each, striding direction-major over the pairs (pair p: direction
+// p / E of event p % E, E the events queued). A block with no pair returns
+// before it stages anything. Shared memory: the capped excess [n_exc], then
+// the image [n_img] (le.img_smem), each flushed once per block. Adds the
+// march iterations into march[0] and the cut marches into counts[4], one
+// atomic per block each, and records the largest fill in ctl[1].
+__global__ void __launch_bounds__(kWalkThreads)
+record_walk(const float* __restrict__ prm, const float* __restrict__ beta,
+            Queue q, const float* __restrict__ dirs,
+            const float* __restrict__ fwd_v0,
+            const float* __restrict__ fwd_dd, float* __restrict__ g_img,
+            float* __restrict__ g_exc, int* __restrict__ counts,
+            unsigned long long* __restrict__ g_march, LeArgs le, int nx,
+            int ny, int nz, uint32_t seed) {
+  extern __shared__ float s_walk_mem[];
+  __shared__ float s_dirs[3 * kMaxDirs];
+  __shared__ unsigned long long s_march;
+  __shared__ int s_cut;
+  const int fill = q.ctl[0];
+  const unsigned n_ev = static_cast<unsigned>(fill < q.cap ? fill : q.cap);
+  const unsigned n_pairs = n_ev * static_cast<unsigned>(le.n_dirs);
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicMax(&q.ctl[1], fill);
+  const unsigned first = blockIdx.x * blockDim.x;
+  if (first >= n_pairs) return;
+  float* s_exc = s_walk_mem;
+  float* img = le.img_smem ? s_exc + le.n_exc : g_img;
+  for (int i = threadIdx.x; i < le.n_exc; i += blockDim.x) s_exc[i] = 0.f;
+  if (le.img_smem) {
+    for (int i = threadIdx.x; i < le.n_img; i += blockDim.x) img[i] = 0.f;
+  }
+  for (int i = threadIdx.x; i < 3 * le.n_dirs; i += blockDim.x) {
+    s_dirs[(i / le.n_dirs) * kMaxDirs + i % le.n_dirs] = dirs[i];
+  }
+  if (threadIdx.x == 0) {
+    s_march = 0;
+    s_cut = 0;
+  }
+  __syncthreads();
+  unsigned long long march = 0;
+  int cut = 0;
+  const size_t c = static_cast<size_t>(q.cap);
+  for (unsigned p = first + threadIdx.x; p < n_pairs;
+       p += gridDim.x * blockDim.x) {
+    const unsigned d = p / n_ev, e = p - d * n_ev;
+    le_pair(prm, beta, s_dirs, fwd_v0, fwd_dd, img, s_exc, le, nx, ny, nz,
+            static_cast<int>(d), static_cast<uint32_t>(q.i[QI_LANE * c + e]),
+            seed, static_cast<uint32_t>(q.i[QI_CTR * c + e]),
+            q.i[QI_KIND * c + e], q.i[QI_SLOT * c + e], q.f[QF_X * c + e],
+            q.f[QF_Y * c + e], q.f[QF_Z * c + e], q.f[QF_W * c + e],
+            q.f[QF_UX * c + e], q.f[QF_UY * c + e], q.f[QF_UZ * c + e],
+            q.f[QF_F2 * c + e], march, cut);
+  }
+  march = mcb::warp_sum(march);
+  cut = mcb::warp_sum(cut);
+  if ((threadIdx.x & 31u) == 0) {
+    if (march) atomicAdd(&s_march, march);
+    if (cut) atomicAdd(&s_cut, cut);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < le.n_exc; i += blockDim.x) {
+    const float v = s_exc[i];
+    if (v != 0.f) atomicAdd(&g_exc[i], v);
+  }
+  if (le.img_smem) {
+    for (int i = threadIdx.x; i < le.n_img; i += blockDim.x) {
+      const float v = img[i];
+      if (v != 0.f) atomicAdd(&g_img[i], v);
+    }
+  }
+  if (threadIdx.x == 0) {
+    if (s_march) atomicAdd(g_march, s_march);
+    if (s_cut) atomicAdd(&counts[4], s_cut);
   }
 }
 
@@ -697,25 +790,16 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
                    const float* inv_dd, float* x, float* y, float* z,
                    float* ux, float* uy, float* uz, float* w, float* bl,
                    int* quota, int* alive, float* acc, int* counts,
-                   const float* dirs, const float* fwd_v0,
-                   const float* fwd_dd, float* img, float* exc,
-                   const float* em_prob, const float* em_alias,
-                   const float* alb, unsigned long long* march, LeArgs le,
-                   int n_lanes, int nx, int ny, int nz, int stride,
-                   int off_ssa, int off_f2, int inv_n_steps, int use_rr,
-                   int n_acc, uint32_t seed, uint32_t step0, int k_steps,
-                   int src, int ncomp, int lw, int surf,
-                   cudaStream_t stream) {
+                   const Queue& q, const float* em_prob,
+                   const float* em_alias, const float* alb, int n_lanes,
+                   int nx, int ny, int nz, int stride, int off_ssa,
+                   int off_f2, int inv_n_steps, int use_rr, int n_acc,
+                   uint32_t seed, uint32_t step0, int k_steps, int src,
+                   int ncomp, int lw, int surf, cudaStream_t stream) {
   auto kernel = record_steps<MACRO, VOL, ANALYTIC, LE>;
-  size_t smem = static_cast<size_t>(n_acc) * sizeof(float);
-  if (LE) {
-    smem += static_cast<size_t>(le.n_exc) * sizeof(float);
-    const size_t img_bytes = static_cast<size_t>(le.n_img) * sizeof(float);
-    le.img_smem = smem + img_bytes <= kMaxSmem;
-    if (le.img_smem) smem += img_bytes;
-  }
+  const size_t smem = static_cast<size_t>(n_acc) * sizeof(float);
   // past 48 KB of static + dynamic shared memory a launch needs the
-  // opt-in; the static part (counts, directions) is under 1 KB
+  // opt-in; the static part (counts) is under 1 KB
   if (smem > 47 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -725,9 +809,9 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
   const int blocks = (n_lanes + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, smem, stream>>>(
       prm, rec, inv_a0, inv_dd, x, y, z, ux, uy, uz, w, bl, quota, alive,
-      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, em_prob, em_alias, alb,
-      march, le, n_lanes, nx, ny, nz, stride, off_ssa, off_f2, inv_n_steps,
-      use_rr, n_acc, seed, step0, k_steps, src, ncomp, lw, surf);
+      acc, counts, q, em_prob, em_alias, alb, n_lanes, nx, ny, nz, stride,
+      off_ssa, off_f2, inv_n_steps, use_rr, n_acc, seed, step0, k_steps, src,
+      ncomp, lw, surf);
   return cudaGetLastError();
 }
 
@@ -741,29 +825,27 @@ extern "C" int record_kernel_num_params() { return N_PARAMS; }
 // atmospheric births) on a domain of ncomp components (records of `stride`
 // floats; 8, 16-byte aligned, when ncomp > 1), reflecting off the surface
 // kind surf (SURF_*; SURF_PX reads alb, an albedo per column). Adds the
-// tally into acc,
-// the photons started into counts[0], the lanes with work left (alive or
-// quota > 0) into counts[1], the lane-steps run with a live photon into
-// counts[2], the real collisions into counts[3] and, with radiance
-// (n_dirs > 0), the image into img, the capped excess into exc, the
-// marches cut by the iteration bound into counts[4], the local-estimate
-// events into counts[5] and the march iterations into march[0]. Returns
-// cudaGetLastError().
+// tally into acc, the photons started into counts[0], the lanes with work
+// left (alive or quota > 0) into counts[1], the lane-steps run with a live
+// photon into counts[2], the real collisions into counts[3] and, with
+// radiance (n_dirs > 0), the local-estimate events into counts[5]; every
+// event is queued into the struct-of-arrays queue (qf [N_QF][cap], qi
+// [N_QI][cap]) after its fill qctl[0] is set to 0, and record_walk_launch
+// then computes the estimates. Returns cudaGetLastError().
 extern "C" int record_kernel_launch(
     const float* prm, const float* rec, const float* inv_a0,
     const float* inv_dd, float* x, float* y, float* z, float* ux,
     float* uy, float* uz, float* w, float* bl, int* quota, int* alive,
-    float* acc, int* counts, const float* dirs, const float* fwd_v0,
-    const float* fwd_dd, float* img, float* exc, const float* em_prob,
-    const float* em_alias, const float* alb, unsigned long long* march,
+    float* acc, int* counts, float* qf, int* qi, int* qctl,
+    const float* em_prob, const float* em_alias, const float* alb,
     int n_lanes, int nx, int ny, int nz, int stride, int off_ssa,
     int off_f2, int inv_n_steps, int use_rr, int n_acc, uint32_t seed,
     uint32_t step0, int k_steps, int macro, int vol, int analytic, int src,
-    int ncomp, int lw, int surf, int n_dirs, int le_phase,
-    int fwd_n_s, int le_rr, int le_cap, int k_dda, int n_img, int n_exc,
-    void* stream) {
+    int ncomp, int lw, int surf, int n_dirs, int cap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_dirs < 0 || n_dirs > kMaxDirs) return cudaErrorInvalidValue;
+  if (n_dirs < 0 || n_dirs > kMaxDirs || (n_dirs > 0 && cap <= 0)) {
+    return cudaErrorInvalidValue;
+  }
   if (src < SRC_DIRECTIONAL || src > SRC_EMISSION) {
     return cudaErrorInvalidValue;
   }
@@ -772,14 +854,17 @@ extern "C" int record_kernel_launch(
     return cudaErrorInvalidValue;
   }
   if (surf < SURF_LAMBERT || surf > SURF_PX) return cudaErrorInvalidValue;
-  const LeArgs le{n_dirs, le_phase, fwd_n_s, le_rr, le_cap,
-                  k_dda,  n_img,    n_exc,   0};
+  if (n_dirs > 0) {
+    const cudaError_t e = cudaMemsetAsync(qctl, 0, sizeof(int), s);
+    if (e != cudaSuccess) return e;
+  }
+  const Queue q{qf, qi, qctl, cap};
 #define MCB_CALL(M, V, A, L)                                                 \
   static_cast<int>(launch<M, V, A, L>(                                       \
       prm, rec, inv_a0, inv_dd, x, y, z, ux, uy, uz, w, bl, quota, alive,    \
-      acc, counts, dirs, fwd_v0, fwd_dd, img, exc, em_prob, em_alias, alb,  \
-      march, le, n_lanes, nx, ny, nz, stride, off_ssa, off_f2, inv_n_steps,  \
-      use_rr, n_acc, seed, step0, k_steps, src, ncomp, lw, surf, s))
+      acc, counts, q, em_prob, em_alias, alb, n_lanes, nx, ny, nz, stride,   \
+      off_ssa, off_f2, inv_n_steps, use_rr, n_acc, seed, step0, k_steps,     \
+      src, ncomp, lw, surf, s))
 #define MCB_LAUNCH(M, V, A) \
   return n_dirs > 0 ? MCB_CALL(M, V, A, true) : MCB_CALL(M, V, A, false)
   if (macro) {
@@ -798,4 +883,49 @@ extern "C" int record_kernel_launch(
   MCB_LAUNCH(false, false, false);
 #undef MCB_LAUNCH
 #undef MCB_CALL
+}
+
+// The local estimates of the events record_kernel_launch queued (qf, qi,
+// qctl of capacity cap): every (event, direction) pair toward the n_dirs
+// directions of dirs ([3][n_dirs]), marching through beta ([nx*ny*nz], the
+// records' extinction), adding the image into img (n_img entries:
+// [n_sec][n_dirs][nxy]), the capped excess into exc (n_exc entries), the
+// marches cut by k_dda into counts[4] and the march iterations into
+// march[0]. The image goes to shared memory where it fits kWalkSmem bytes
+// beside the excess. The phase source (le_phase, the forward table of
+// fwd_n_s points a row), roulette (le_rr) and the cap (le_cap) are launch
+// arguments. Returns cudaGetLastError().
+extern "C" int record_walk_launch(
+    const float* prm, const float* beta, float* qf, int* qi, int* qctl,
+    int cap, const float* dirs, const float* fwd_v0, const float* fwd_dd,
+    float* img, float* exc, int* counts, unsigned long long* march, int nx,
+    int ny, int nz, uint32_t seed, int n_dirs, int le_phase, int fwd_n_s,
+    int le_rr, int le_cap, int k_dda, int n_img, int n_exc, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  size_t smem = static_cast<size_t>(n_exc) * sizeof(float);
+  if (n_dirs < 1 || n_dirs > kMaxDirs || cap <= 0 || k_dda <= 0 ||
+      smem > kWalkSmem) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t img_bytes = static_cast<size_t>(n_img) * sizeof(float);
+  const int img_smem = smem + img_bytes <= kWalkSmem;
+  if (img_smem) smem += img_bytes;
+  const LeArgs le{n_dirs, le_phase, fwd_n_s, le_rr, le_cap,
+                  k_dda,  n_img,    n_exc,   img_smem};
+  const Queue q{qf, qi, qctl, cap};
+  // past 48 KB of static + dynamic shared memory a launch needs the opt-in
+  if (smem > 47 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        record_walk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  int blocks = 0;
+  const cudaError_t e =
+      mcb::persistent_blocks(record_walk, kWalkThreads, smem, &blocks);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  record_walk<<<blocks, kWalkThreads, smem, s>>>(
+      prm, beta, q, dirs, fwd_v0, fwd_dd, img, exc, counts, march, le, nx, ny,
+      nz, seed);
+  return static_cast<int>(cudaGetLastError());
 }

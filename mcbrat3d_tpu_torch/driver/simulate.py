@@ -22,6 +22,13 @@ from mcbrat3d_tpu_torch.sources import illumination
 
 def simulate_from_config(cfg: SimulationConfig,
                          device) -> Tuple[Results, List[str]]:
+    if cfg.checkpoint_file:
+        # JAX saves and resumes here (mcbrat3d_tpu/driver/simulate.py
+        # :25-47); a deck that asks for it must not run without it
+        raise NotImplementedError(
+            f"checkpointFile = {cfg.checkpoint_file!r}: checkpoints (save "
+            "and resume) are not in the PyTorch port yet (ROADMAP Queue 1 "
+            "item 8)")
     if cfg.num_lambda > 1 or cfg.is_longwave:
         from mcbrat3d_tpu_torch.spectral.broadband import run_broadband
         results = run_broadband(cfg, device)

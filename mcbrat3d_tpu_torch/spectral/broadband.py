@@ -22,9 +22,11 @@ Batch b of the run (counted over all bins) runs with the kernel seed
 ``rng.batch_seed(iseed, b)``, the counterpart of the JAX package's
 ``rng.batch_key(iseed, b)``. Not ported yet, each raising
 NotImplementedError: the shortwave path (``solar_weighting``,
-``spectral/solar.py``), an instrument response file, the device mesh and
-checkpoints. A bin that no ported kernel takes raises in ``run_batch``,
-naming every failing predicate (the XLA wave kernel is not ported yet).
+``spectral/solar.py``), an instrument response file and the device mesh;
+a deck with checkpoints raises in ``driver.simulate.simulate_from_config``
+before it gets here. A bin that no ported kernel takes raises in
+``run_batch``, naming every failing predicate (the XLA wave kernel is not
+ported yet).
 """
 
 from __future__ import annotations

@@ -40,7 +40,7 @@ def solar_weighting(lambdas, source_function, solar_mu, srf=None):
     ``weights.solar_weighting``): not ported yet."""
     raise NotImplementedError(
         "solar_weighting (shortwave broadband, with spectral/solar.py) is "
-        "not in the PyTorch port yet (ROADMAP Queue 1 item 12)")
+        "not in the PyTorch port yet (ROADMAP Queue 1 item 4)")
 
 
 @dataclasses.dataclass

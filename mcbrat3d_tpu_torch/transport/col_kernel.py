@@ -57,16 +57,22 @@ form. The JAX kernel sums the same segments by fast-axis slab (its slab
 scan); the walk crosses them in order of distance, so the two differ in
 rounding order only. The contribution is tallied at the column where the
 ray leaves the top. Directions march in ``col_dir_order``'s order and
-direction d of a launch draws its roulette uniforms at sites 32 + 2d, as
-in the JAX kernel; the image comes back in the caller's order.
+direction d of a launch draws its roulette uniforms at sites 32 + 2d of the
+event's lane and step, as in the JAX kernel; the image comes back in the
+caller's order. The transport queues its events (``le.EventQueue``, rows
+``QUEUE_FLOATS`` and ``QUEUE_INTS``) and the walk computes every (event,
+direction) pair of them.
 
 Two implementations of one launch:
 
-* ``csrc/col_kernel.cu``, one CUDA thread per lane (``_launch_cuda``);
+* ``csrc/col_kernel.cu``, one CUDA thread per lane (``_launch_cuda``),
+  then its walk kernel, one thread per (event, direction) pair over the
+  whole card (``_walk_cuda``, from ``_launch_cuda`` on the same stream);
 * ``col_step_plain``, the same step on ``[n_lanes]`` tensors (the local
-  estimate on ``[events * directions]`` tensors), operation for operation
-  the JAX kernel's float32 arithmetic (``_build_kernel_col`` :375-1085)
-  without its TPU workarounds: the column fields, the emission alias
+  estimate, ``col_local_estimate_plain``, on the step's event buffer in the
+  queue's layout, as ``[events * directions]`` tensors), operation for
+  operation the JAX kernel's float32 arithmetic (``_build_kernel_col``
+  :375-1085) without its TPU workarounds: the column fields, the emission alias
   probabilities and the per-column albedo are plain float32 arrays (no
   bf16 hi/lo split), the gathers are indexed loads (no bilinear one-hot
   products) and the tallies add exact float32 values (the JAX kernel
@@ -113,12 +119,22 @@ MAX_NZ = 128
 MAX_LE_SIDE = 128
 
 # Kernel launches made by ``_launch_cuda`` in this process: all of them,
-# those that ran the local estimate, those that refilled from the column
-# emission and those that reflected off a per-pixel albedo.
+# those that queued local-estimate events, those that refilled from the
+# column emission and those that reflected off a per-pixel albedo; and the
+# walk kernel's launches made by ``_walk_cuda``.
 COL_LAUNCHES = 0
 COL_LE_LAUNCHES = 0
 COL_LW_LAUNCHES = 0
 COL_PX_LAUNCHES = 0
+COL_WALK_LAUNCHES = 0
+
+# Rows of the local-estimate event queue (csrc/col_kernel.cu QF_*, QI_*):
+# the event point, its weight and the incoming direction; the lane and step
+# counter that key its draws, and 1 for a reflection. A lane-step makes one
+# event at most (a real collision or a reflection), so a queue of
+# n_lanes * k_steps records holds any launch's events.
+QUEUE_FLOATS = ("x", "y", "z", "w", "ux", "uy", "uz")
+QUEUE_INTS = ("lane", "ctr", "refl")
 
 # Draw sites of K3 (pallas_col.py:403-650): refill x/y, the source azimuth
 # (random azimuth) or mu then azimuth (flux), tau, collision, angle,
@@ -371,21 +387,23 @@ class ColState:
                         alive=torch.zeros(n, dtype=torch.int32, device=dev))
 
 
-def _col_ab(domain: OpticalDomain):
-    """(A, B) [nx*ny] float32 of the local estimate's closed-form column
-    optical depth CT(z) = max(0, A - B z): A = scale * (z0 + h dz),
-    B = scale, computed in float32 as ``pallas_col._pack_col_ab`` does
-    (without its slab layout); cached on the domain."""
+def _col_ab(domain: OpticalDomain) -> torch.Tensor:
+    """[nx*ny, 2] float32, per column (A, B) of the local estimate's
+    closed-form column optical depth CT(z) = max(0, A - B z):
+    A = scale * (z0 + h dz), B = scale, computed in float32 as
+    ``pallas_col._pack_col_ab`` does (without its slab layout), interleaved
+    so the walk reads a column's pair in one 8-byte load; cached on the
+    domain."""
     cache = domain.__dict__
     if "_col_ab" not in cache:
         nz = domain.grid.shape[2]
         ze = domain.grid.edges_f32()[2]
         dz = (ze[-1] - ze[0]) / _F32(nz)
-        scale = domain.col_scale.cpu().numpy()
+        scale = domain.col_scale.cpu().numpy().astype(np.float32)
         h = domain.col_height.cpu().numpy()
         a = (scale * (ze[0] + h * dz)).astype(np.float32)
-        cache["_col_ab"] = (torch.tensor(a, device=domain.device),
-                            domain.col_scale.contiguous())
+        cache["_col_ab"] = torch.tensor(np.stack([a, scale], axis=1),
+                                        device=domain.device)
     return cache["_col_ab"]
 
 
@@ -395,9 +413,10 @@ class ColTables:
     [nbx*nby, 2] (majorant scale, cloud-top height) flattened, the cloud's
     inverse-CDF row with its forward differences, the gas profile ``qz``
     with ``qcb[k]``, the gas optical depth from the bottom of level k to
-    the top, and for radiance the CT coefficients ``col_a``/``col_b``, the
-    direction cosines [3, n_dirs] in march order and the forward phase
-    table (``rk.forward_table``, row 0 read), for the emission refill the
+    the top, and for radiance the CT coefficients ``col_ab`` [nx*ny, 2]
+    (``_col_ab``), the direction cosines [3, n_dirs] in march order and the
+    forward phase table (``rk.forward_table``, row 0 read), for the
+    emission refill the
     column alias (probability, target, the target's height) and the
     cumulative Planck table, and for a per-pixel surface the albedo per
     column (``column_albedo``); one-element placeholders where unused.
@@ -412,8 +431,7 @@ class ColTables:
     inv_dd: torch.Tensor
     qz: torch.Tensor
     qcb: torch.Tensor
-    col_a: torch.Tensor
-    col_b: torch.Tensor
+    col_ab: torch.Tensor
     dirs: torch.Tensor
     fwd_v0: torch.Tensor
     fwd_dd: torch.Tensor
@@ -449,9 +467,9 @@ class ColTables:
                       * ((ze[-1] - ze[0]) / _F32(nz))).astype(np.float32)
             qz = domain.col_qz.contiguous()
             qcb = torch.tensor(qcb_np, device=domain.device)
-        col_a = col_b = dvec = v0 = fdd = zero
+        col_ab = dvec = v0 = fdd = zero
         if icfg is not None:
-            col_a, col_b = _col_ab(domain)
+            col_ab = _col_ab(domain)
             fast_x = [float(axis == 0) for axis, _ in _dir_keys(domain, dirs)]
             dvec = torch.cat([dirs.to(dtype=torch.float32).cpu(),
                               torch.tensor([fast_x])]).to(
@@ -467,7 +485,7 @@ class ColTables:
         return ColTables(col_scale=domain.col_scale.contiguous(),
                          col_height=domain.col_height.contiguous(),
                          blocks=blocks, inv_a0=a0, inv_dd=dd, qz=qz,
-                         qcb=qcb, col_a=col_a, col_b=col_b, dirs=dvec,
+                         qcb=qcb, col_ab=col_ab, dirs=dvec,
                          fwd_v0=v0, fwd_dd=fdd,
                          em_prob=em[0].contiguous(),
                          em_alias=em[1].contiguous(),
@@ -613,22 +631,32 @@ class ColTally:
     """What a launch adds into: ``acc`` the tallies [prm.n_acc] f32,
     ``img`` the radiance image [prm.n_img] f32, ``counts`` int32 [photons
     started, lanes with work left, lane-steps run with a live photon,
-    local-estimate events, walks cut] (``rk.relaunch_loop`` layout) and
-    ``walk`` int64 [1] the column-walk iterations."""
+    local-estimate events, walks cut] (``rk.relaunch_loop`` layout),
+    ``walk`` int64 [1] the column-walk iterations and, for the kernel's
+    radiance launches, ``queue`` the event queue they reuse."""
 
     acc: torch.Tensor
     img: torch.Tensor
     counts: torch.Tensor
     walk: torch.Tensor
+    queue: le.EventQueue = None
 
     @staticmethod
-    def zeros(prm: ColParams, device) -> "ColTally":
+    def zeros(prm: ColParams, device, queue_capacity: int = 0) -> "ColTally":
+        """Zero tallies; on a CUDA device with radiance directions and a
+        ``queue_capacity`` (lanes times steps per launch), the event
+        queue."""
+        dev = torch.device(device)
+        queue = None
+        if prm.n_dirs and queue_capacity and dev.type == "cuda":
+            queue = le.EventQueue.empty(len(QUEUE_FLOATS), len(QUEUE_INTS),
+                                        queue_capacity, dev)
         return ColTally(
-            acc=torch.zeros(prm.n_acc, dtype=torch.float32, device=device),
+            acc=torch.zeros(prm.n_acc, dtype=torch.float32, device=dev),
             img=torch.zeros(max(1, prm.n_img), dtype=torch.float32,
-                            device=device),
-            counts=torch.zeros(N_COUNTS, dtype=torch.int32, device=device),
-            walk=torch.zeros(1, dtype=torch.int64, device=device))
+                            device=dev),
+            counts=torch.zeros(N_COUNTS, dtype=torch.int32, device=dev),
+            walk=torch.zeros(1, dtype=torch.int64, device=dev), queue=queue)
 
 
 # ---------------------------------------------------------------------------
@@ -829,18 +857,22 @@ def col_step_plain(st: ColState, tab: ColTables, prm: ColParams,
     blh = torch.where(exit_bot, float(nz), blh)
     alive = alive & ~exit_top & ~died_weight & ~died_surface
 
-    # ---- local estimate of every real collision and reflection ----
+    # ---- local estimate of every real collision and reflection: the
+    # step's events in the queue's layout (QUEUE_FLOATS, QUEUE_INTS),
+    # counted as they are queued ----
     if p.n_dirs:
         ev = torch.nonzero(real | reflected).reshape(-1)
+        tally.counts[3] += ev.numel()
         if ev.numel():
             refl = reflected[ev]
-            col_local_estimate_plain(
-                tab, p, u, ctr, lane[ev], refl,
-                torch.where(refl, xe[ev], xc[ev]),
-                torch.where(refl, ye[ev], yc[ev]),
-                torch.where(refl, p[C_ZBOT], zc[ev]),
-                torch.where(refl, w_refl[ev], w_int[ev]),
-                ux_in[ev], uy_in[ev], uz_in[ev], tally)
+            f = torch.stack([torch.where(refl, xe[ev], xc[ev]),
+                             torch.where(refl, ye[ev], yc[ev]),
+                             torch.where(refl, p[C_ZBOT], zc[ev]),
+                             torch.where(refl, w_refl[ev], w_int[ev]),
+                             ux_in[ev], uy_in[ev], uz_in[ev]])
+            i = torch.stack([lane[ev], torch.full_like(ev, ctr),
+                             refl.long()]).to(torch.int32)
+            col_local_estimate_plain(tab, p, seed, f, i, tally)
 
     # ---- tallies: exits at the crossing column, absorption at the
     # collision column, its level and (need_vol) its cell ----
@@ -920,18 +952,19 @@ def col_emission_refill(u, ctr: int, tab: ColTables, p: ColParams):
             torch.where(from_atm, mu_a, mu_sfc), from_atm, col_b, z_b)
 
 
-def col_local_estimate_plain(tab: ColTables, prm: ColParams, u, ctr: int,
-                             lanes: torch.Tensor, refl: torch.Tensor,
-                             sx, sy, sz, w_ev, ux_in, uy_in, uz_in,
+def col_local_estimate_plain(tab: ColTables, prm: ColParams, seed: int,
+                             f: torch.Tensor, i: torch.Tensor,
                              tally: ColTally) -> None:
-    """Local estimate of the event lanes ``lanes`` (int64; the other
-    arguments are per event: a reflection or a real collision, its point,
-    weight and incoming direction) toward every direction, tallied into
-    ``tally.img``; the events go to ``tally.counts[3]``, the walk
-    iterations to ``tally.walk`` and walks cut by the bound to
-    ``tally.counts[4]``.
+    """Local estimate of a buffer of events toward every direction, tallied
+    into ``tally.img``; the walk iterations go to ``tally.walk`` and walks
+    cut by the bound to ``tally.counts[4]``. ``f`` float32 [7, n] and ``i``
+    int32 [3, n] are the events in the queue's layout (``QUEUE_FLOATS``:
+    the point, weight and incoming direction; ``QUEUE_INTS``: the lane and
+    step that key the draws, 1 for a reflection), as the kernel's transport
+    queues them (``le.EventQueue.queued``) or as ``col_step_plain`` builds
+    them; the order of the events changes the image's rounding only.
 
-    Same float32 arithmetic as csrc/col_kernel.cu's ``local_estimate``: all
+    Same float32 arithmetic as csrc/col_kernel.cu's ``le_pair``: all
     (event, direction) pairs walk together, each until it passes its stop
     height."""
     p = prm
@@ -939,8 +972,11 @@ def col_local_estimate_plain(tab: ColTables, prm: ColParams, u, ctr: int,
     nxy = nx * ny
     x0, y0, z0, z_max = p[C_X0], p[C_Y0], p[C_Z0], p[C_ZMAX]
     inv_dx, inv_dy, dxc, dyc = p[C_INV_DX], p[C_INV_DY], p[C_DXC], p[C_DYC]
+    sx, sy, sz, w_ev, ux_in, uy_in, uz_in = f
+    lanes = i[0].long()
+    ctrs = i[1].long() & 0xFFFF_FFFF  # uint32 step counters
+    refl = i[2] != 0
     n_ev = lanes.shape[0]
-    tally.counts[3] += n_ev
 
     def pairs(v):  # per event -> per (event, direction), event-major
         return v.repeat_interleave(n_dirs)
@@ -967,9 +1003,10 @@ def col_local_estimate_plain(tab: ColTables, prm: ColParams, u, ctr: int,
     npf = torch.where(refl_p, float(_F32(1.0 / np.pi)),
                       pv / (float(_F32(4.0 * np.pi)) * ddz))
     if p.le_rr:  # Iwabuchi roulette draws at sites 32 + 2d, 33 + 2d
-        lane_p = pairs(lanes)
-        u_i1 = u(ctr, SITE_LE + 2 * d_idx, lane_p)
-        tau_free = -torch.log1p(-u(ctr, SITE_LE + 1 + 2 * d_idx, lane_p))
+        lane_p, ctr_p = pairs(lanes), pairs(ctrs)
+        u_i1 = rng.uniform_at(lane_p, ctr_p, SITE_LE + 2 * d_idx, seed)
+        tau_free = -torch.log1p(-rng.uniform_at(
+            lane_p, ctr_p, SITE_LE + 1 + 2 * d_idx, seed))
         zeta = p[C_ZETA]
         npf_pi = float(_F32(np.pi)) * npf
         small = npf_pi <= zeta
@@ -1018,7 +1055,7 @@ def col_local_estimate_plain(tab: ColTables, prm: ColParams, u, ctr: int,
             break
         tn = torch.minimum(torch.minimum(tx, ty), t_stop)
         c = torch.remainder(jx, nx) * ny + torch.remainder(jy, ny)
-        a, b = tab.col_a[c], tab.col_b[c]
+        a, b = tab.col_ab[c, 0], tab.col_ab[c, 1]
         seg = (torch.clamp(a - b * (sz + ddz * t), min=0.0)
                - torch.clamp(a - b * (sz + ddz * tn), min=0.0))
         tau_cl = torch.where(act, tau_cl + seg, tau_cl)
@@ -1094,7 +1131,10 @@ def _library():
         lib.col_kernel_num_params.argtypes = []
         lib.col_kernel_launch.restype = _I
         lib.col_kernel_launch.argtypes = (
-            [_P] * 33 + [_I] * 9 + [_U, _U] + [_I] * 13 + [_P])
+            [_P] * 28 + [_I] * 9 + [_U, _U] + [_I] * 10 + [_P])
+        lib.col_walk_launch.restype = _I
+        lib.col_walk_launch.argtypes = (
+            [_P] * 4 + [_I] + [_P] * 9 + [_I] * 3 + [_U] + [_I] * 6 + [_P])
         if lib.col_kernel_num_params() != N_PARAMS:
             raise RuntimeError("csrc/col_kernel.cu and col_kernel.py "
                                "disagree on the parameter layout")
@@ -1128,26 +1168,14 @@ def _launch_cuda(st: ColState, tab: ColTables, prm: ColParams, seed: int,
     check(tab.qcb, "qcb", torch.float32, n_q, dev)
     check(prm.device_values, "params", torch.float32, N_PARAMS, dev)
     check(tally.acc, "acc", torch.float32, prm.n_acc, dev)
-    check(tally.img, "img", torch.float32, max(1, prm.n_img), dev)
     check(tally.counts, "counts", torch.int32, N_COUNTS, dev)
-    check(tally.walk, "walk", torch.int64, 1, dev)
     if prm.nz > MAX_NZ:
         raise ValueError(f"nz={prm.nz} > {MAX_NZ}: the kernel's profile "
                          "tally lives in shared memory")
+    queue = tally.queue
     if prm.n_dirs:
-        if prm.n_dirs > le.MAX_KERNEL_DIRS:
-            raise ValueError(f"{prm.n_dirs} radiance directions > "
-                             f"{le.MAX_KERNEL_DIRS} per launch")
-        check(tab.dirs, "dirs", torch.float32, 4 * prm.n_dirs, dev)
-        check(tab.col_a, "col_a", torch.float32, nxy, dev)
-        check(tab.col_b, "col_b", torch.float32, nxy, dev)
-        if prm.le_fwd:
-            n_f = tab.fwd_v0.numel()
-            if n_f < rk.FWD_N_S:
-                raise ValueError(f"forward row has {n_f} entries, expected "
-                                 f"at least {rk.FWD_N_S}")
-            check(tab.fwd_v0, "fwd_v0", torch.float32, n_f, dev)
-            check(tab.fwd_dd, "fwd_dd", torch.float32, n_f, dev)
+        le.check_queue(queue, len(QUEUE_FLOATS), len(QUEUE_INTS),
+                       n * k_steps, dev)
     emission = SOURCE_KINDS[prm.source_kind] == illumination.EMISSION
     n_em = nxy if emission else 1
     for name in ("em_prob", "em_alias", "em_halias"):
@@ -1160,21 +1188,24 @@ def _launch_cuda(st: ColState, tab: ColTables, prm: ColParams, seed: int,
         raise ValueError("lw pre-credits need the emission source")
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # the queue's buffers (none on the flux path)
+    q_ptrs = ([queue.f.data_ptr(), queue.i.data_ptr(), queue.ctl.data_ptr()]
+              if prm.n_dirs else [0, 0, 0])
     ptrs = [prm.device_values, tab.col_scale, tab.col_height, tab.blocks,
             tab.inv_a0, tab.inv_dd,
             *(getattr(st, k) for k in ColState.FLOAT_FIELDS),
-            st.quota, st.alive, tally.acc, tally.counts, tab.qz, tab.qcb,
-            tab.col_a, tab.col_b, tab.dirs, tab.fwd_v0, tab.fwd_dd,
-            tally.img, tally.walk, tab.em_prob, tab.em_alias, tab.em_halias,
-            tab.em_fcum, tab.albedo]
+            st.quota, st.alive, tally.acc, tally.counts, tab.qz]
+    ptrs2 = [tab.em_prob, tab.em_alias, tab.em_halias, tab.em_fcum,
+             tab.albedo]
     err = lib.col_kernel_launch(
-        *(t.data_ptr() for t in ptrs), n, prm.nx, prm.ny, prm.nz,
+        *(t.data_ptr() for t in ptrs), *q_ptrs,
+        *(t.data_ptr() for t in ptrs2), n, prm.nx, prm.ny, prm.nz,
         prm.macro_factor, prm.nby, n_blk, prm.inv_n_steps, prm.n_acc,
         seed & 0xFFFF_FFFF, step0 & 0xFFFF_FFFF, k_steps,
         int(prm.analytic_hg), int(prm.need_vol), int(prm.use_rr),
-        prm.source_kind, int(prm.has_gas), prm.n_dirs, int(prm.le_rr),
-        int(prm.le_fwd), rk.FWD_N_S, prm.k_walk, int(prm.lw),
-        int(prm.has_px), stream)
+        prm.source_kind, int(prm.has_gas), prm.n_dirs,
+        queue.capacity if prm.n_dirs else 0, int(prm.lw), int(prm.has_px),
+        stream)
     COL_LAUNCHES += 1
     if prm.n_dirs:
         COL_LE_LAUNCHES += 1
@@ -1184,6 +1215,53 @@ def _launch_cuda(st: ColState, tab: ColTables, prm: ColParams, seed: int,
         COL_PX_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f"col_kernel launch failed: CUDA error {err}")
+    if prm.n_dirs:  # the launch's local estimates, on the same stream
+        _walk_cuda(tab, prm, seed, queue, tally)
+
+
+def _walk_cuda(tab: ColTables, prm: ColParams, seed: int,
+               queue: le.EventQueue, tally: ColTally) -> None:
+    """The walk kernel over the events ``queue`` holds from the last
+    transport launch: every (event, direction) pair's local estimate into
+    ``tally.img``, its walk iterations into ``tally.walk`` and its cut
+    walks into ``tally.counts[4]``."""
+    global COL_WALK_LAUNCHES
+    dev = queue.f.device
+    check = rk._check
+    nxy = prm.nx * prm.ny
+    if not 0 < prm.n_dirs <= le.MAX_KERNEL_DIRS:
+        raise ValueError(f"{prm.n_dirs} radiance directions: the walk takes "
+                         f"1 to {le.MAX_KERNEL_DIRS} per launch")
+    le.check_queue(queue, len(QUEUE_FLOATS), len(QUEUE_INTS), 1, dev)
+    check(prm.device_values, "params", torch.float32, N_PARAMS, dev)
+    check(tab.dirs, "dirs", torch.float32, 4 * prm.n_dirs, dev)
+    check(tab.col_ab, "col_ab", torch.float32, 2 * nxy, dev)
+    n_q = prm.nz if prm.has_gas else 1
+    check(tab.qz, "qz", torch.float32, n_q, dev)
+    check(tab.qcb, "qcb", torch.float32, n_q, dev)
+    if prm.le_fwd:
+        n_f = tab.fwd_v0.numel()
+        if n_f < rk.FWD_N_S:
+            raise ValueError(f"forward row has {n_f} entries, expected "
+                             f"at least {rk.FWD_N_S}")
+        check(tab.fwd_v0, "fwd_v0", torch.float32, n_f, dev)
+        check(tab.fwd_dd, "fwd_dd", torch.float32, n_f, dev)
+    check(tally.img, "img", torch.float32, prm.n_img, dev)
+    check(tally.counts, "counts", torch.int32, N_COUNTS, dev)
+    check(tally.walk, "walk", torch.int64, 1, dev)
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [prm.device_values, queue.f, queue.i, queue.ctl]
+    ptrs2 = [tab.dirs, tab.col_ab, tab.fwd_v0, tab.fwd_dd, tab.qz, tab.qcb,
+             tally.img, tally.counts, tally.walk]
+    err = lib.col_walk_launch(
+        *(t.data_ptr() for t in ptrs), queue.capacity,
+        *(t.data_ptr() for t in ptrs2), prm.nx, prm.ny, prm.nz,
+        seed & 0xFFFF_FFFF, prm.n_dirs, int(prm.le_rr), int(prm.le_fwd),
+        rk.FWD_N_S, prm.k_walk, int(prm.has_gas), stream)
+    COL_WALK_LAUNCHES += 1
+    if err != 0:
+        raise RuntimeError(f"col_walk launch failed: CUDA error {err}")
 
 
 def col_launch(st: ColState, tab: ColTables, prm: ColParams, seed: int,
@@ -1252,12 +1330,14 @@ def run_batch_col(domain: OpticalDomain, surface: Surface,
         surface=surface)
     quota0 = rk.initial_quota(ccfg.n_lanes, photons_per_lane, n_photons, dev)
     st = ColState.initial(quota0, prm[C_BETA_MAX], prm.nz)
-    tally = ColTally.zeros(prm, dev)
     k = ccfg.steps_per_call
+    tally = ColTally.zeros(prm, dev, queue_capacity=ccfg.n_lanes * k)
     n_started, n_calls, lane_steps, n_events = rk.relaunch_loop(
         st, tally.counts,
         lambda step0: launch(st, tab, prm, seed, step0, k, tally),
         k, ccfg.max_steps, n_per_launch=4)
+    if tally.queue is not None:
+        tally.queue.check()
     nx, ny, nz = domain.grid.shape
     nxy = nx * ny
     acc = tally.acc

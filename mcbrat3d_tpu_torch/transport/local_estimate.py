@@ -11,10 +11,12 @@ or surface-reflection event, each radiance direction d receives
 where Pn is P/(4 pi mu_d) for a scatter and 1/pi for a Lambertian
 reflection, and tau_d is the optical depth from the event to the top of the
 domain along d; the contribution is tallied at the column where the ray
-leaves the top. The estimator itself runs inside the record kernel
-(``transport.record_kernel``, ``csrc/record_kernel.cu``); this module holds
-what the host decides before a launch: the knobs, the direction cosines,
-the march bounds and the post-batch redistribution of capped excess.
+leaves the top. The estimator runs in the record and column kernels'
+walk kernels (``transport.record_kernel``, ``transport.col_kernel``): the
+transport kernel queues its events (``EventQueue``) and the walk kernel
+computes every (event, direction) pair. This module holds what the host
+decides before a launch: the knobs, the direction cosines, the march
+bounds, the event queue and the post-batch redistribution of capped excess.
 """
 
 from __future__ import annotations
@@ -112,6 +114,76 @@ def march_bound(grid, dirs: torch.Tensor, min_mu: float) -> int:
         bound = max(bound, nz + int(np.ceil(lz * abs(ux) / uzf / dxc)) + 1
                     + int(np.ceil(lz * abs(uy) / uzf / dyc)) + 1 + 6)
     return bound
+
+
+@dataclasses.dataclass(frozen=True)
+class EventQueue:
+    """The local-estimate events of a transport launch, struct of arrays
+    as the kernels write them (``csrc/*_kernel.cu`` ``Queue``): ``f``
+    float32 [n_f, capacity] and ``i`` int32 [n_i, capacity], one record a
+    column, and ``ctl`` int32 [2]: the events the last launch queued (each
+    queueing counts, so a fill past the capacity shows events not stored)
+    and the most any launch queued since the queue was made. Made once per
+    batch and reused by every launch of its relaunch loop."""
+
+    f: torch.Tensor
+    i: torch.Tensor
+    ctl: torch.Tensor
+
+    @staticmethod
+    def empty(n_f: int, n_i: int, capacity: int, device) -> "EventQueue":
+        return EventQueue(
+            f=torch.empty((n_f, capacity), dtype=torch.float32,
+                          device=device),
+            i=torch.empty((n_i, capacity), dtype=torch.int32, device=device),
+            ctl=torch.zeros(2, dtype=torch.int32, device=device))
+
+    @property
+    def capacity(self) -> int:
+        return self.f.shape[1]
+
+    def check(self) -> int:
+        """The most events a launch queued; raises if that is past the
+        capacity (a host read of the device counter)."""
+        peak = int(self.ctl[1])
+        if peak > self.capacity:
+            raise RuntimeError(
+                f"a launch queued {peak} local-estimate events into a queue "
+                f"of {self.capacity}; {peak - self.capacity} were not "
+                "estimated")
+        return peak
+
+    def queued(self) -> tuple:
+        """(f, i) of the events the last launch queued, [n_f, n] and
+        [n_i, n] views (a host read of the fill); raises past the
+        capacity."""
+        n = int(self.ctl[0])
+        if n > self.capacity:
+            raise RuntimeError(f"the last launch queued {n} events into a "
+                               f"queue of {self.capacity}")
+        return self.f[:, :n], self.i[:, :n]
+
+
+def check_queue(queue: EventQueue | None, n_f: int, n_i: int, need: int,
+                device) -> None:
+    """Raise unless ``queue`` is an event queue on ``device`` with ``n_f``
+    float and ``n_i`` int rows that holds ``need`` records (a launch's lanes
+    times its steps), as the column and record kernels write it."""
+    if queue is None:
+        raise ValueError("a radiance launch needs the tally's event queue "
+                         "(the tally's zeros(..., queue_capacity=...))")
+    if queue.capacity < need:
+        raise ValueError(f"event queue of {queue.capacity} records for a "
+                         f"launch that may queue {need}")
+    for name, t, dtype, shape in (
+            ("queue.f", queue.f, torch.float32, (n_f, queue.capacity)),
+            ("queue.i", queue.i, torch.int32, (n_i, queue.capacity)),
+            ("queue.ctl", queue.ctl, torch.int32, (2,))):
+        if (t.device != device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
+                             f"shape {shape} on {device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
 def redistribute_excess(intensity: torch.Tensor, by_component: torch.Tensor,

@@ -25,15 +25,20 @@ Iwabuchi roulette estimator and optional contribution capping with one
 excess slot per component, tallied at the column where the ray leaves the
 top (``pallas_kernel.py:1515-2115``); with ``lw_mode``, a newly emitted photon
 first contributes its emission local estimate (weight 1) and moves from the
-next step on (the "fresh hold").
+next step on (the "fresh hold"). The transport queues its events
+(``le.EventQueue``, rows ``QUEUE_FLOATS`` and ``QUEUE_INTS``) and the walk
+computes every (event, direction) pair of them.
 
 Two implementations of one launch:
 
-* ``csrc/record_kernel.cu``, one CUDA thread per lane (``_launch_cuda``);
+* ``csrc/record_kernel.cu``, one CUDA thread per lane (``_launch_cuda``),
+  then its walk kernel, one thread per (event, direction) pair over the
+  whole card (``_walk_cuda``, from ``_launch_cuda`` on the same stream);
 * ``record_step_plain``, the same step on ``[n_lanes]`` tensors with masked
   ``torch.where`` selects, bit-faithful to the JAX kernel's float32
-  arithmetic on the CPU; its local estimate marches every (event,
-  direction) pair at once.
+  arithmetic on the CPU; its local estimate (``local_estimate_plain``)
+  marches every (event, direction) pair of the step's event buffer, in the
+  queue's layout, at once.
 
 ``record_launch`` sends CUDA tensors to the kernel and CPU tensors to the
 plain step; there is no fallback between them. Both draw the same counter
@@ -92,14 +97,26 @@ RADIANCE_ROWS = 32
 FWD_N_S = 2048
 
 # Kernel launches made by ``_launch_cuda`` in this process, all of them,
-# those that ran the local estimate, those that ran the emission refill
-# (the thermal source of LW runs) and those that reflected off a uniform
-# RPV surface or a per-pixel Lambertian grid.
+# those that queued local-estimate events, those that ran the emission
+# refill (the thermal source of LW runs) and those that reflected off a
+# uniform RPV surface or a per-pixel Lambertian grid; and the walk kernel's
+# launches made by ``_walk_cuda``.
 LAUNCHES = 0
 RADIANCE_LAUNCHES = 0
 LW_LAUNCHES = 0
 RPV_LAUNCHES = 0
 PX_LAUNCHES = 0
+WALK_LAUNCHES = 0
+
+# Rows of the local-estimate event queue (csrc/record_kernel.cu QF_*,
+# QI_*): the event point, its weight, the incoming direction and the phase
+# field f2 (HG g or the table row) of a scatter; the lane and step counter
+# that key its draws, its kind (EV_*) and its capped-excess slot. A
+# lane-step makes one event at most (a scatter, a reflection or a held
+# birth), so a queue of n_lanes * k_steps records holds any launch's
+# events.
+QUEUE_FLOATS = ("x", "y", "z", "w", "ux", "uy", "uz", "f2")
+QUEUE_INTS = ("lane", "ctr", "kind", "slot")
 
 # Slots of the float32 parameter vector (csrc/record_kernel.cu P_*).
 (P_BETA_MAX, P_INV_BETA_MAX, P_ALBEDO, P_SMU, P_SUX, P_SUY, P_RR_W,
@@ -377,7 +394,9 @@ class RecordState:
 class RecordTables:
     """Device tables the step reads: records [n_cells, stride] f32 (the
     domain's ``cell_records`` for one component, its
-    ``multi_component_records`` for 2-3), the flat inverse-CDF angles with
+    ``multi_component_records`` for 2-3), their extinction column ``beta``
+    [n_cells] (contiguous, what the local estimate's march reads; with
+    radiance only), the flat inverse-CDF angles with
     their forward differences, for radiance the direction cosines
     [3, n_dirs] and the resampled forward phase table (``forward_table``),
     for a per-voxel emission source its Walker alias pair [n_cells]
@@ -394,6 +413,7 @@ class RecordTables:
     em_prob: torch.Tensor = None
     em_alias: torch.Tensor = None
     albedo: torch.Tensor = None
+    beta: torch.Tensor = None
 
     @staticmethod
     def from_domain(domain: OpticalDomain, intensity_config=None,
@@ -404,8 +424,14 @@ class RecordTables:
                else multi_component_records(domain))
         zero = torch.zeros(1, dtype=torch.float32, device=rec.device)
         a0, dd = (zero, zero) if domain.all_hg else inverse_table(domain)
-        dirs, v0, fdd = zero, zero, zero
+        dirs, v0, fdd, beta = zero, zero, zero, zero
         if intensity_config is not None:
+            # the march reads the extinction alone: one contiguous column,
+            # extracted once per domain
+            cache = domain.__dict__
+            if "_beta_cells" not in cache:
+                cache["_beta_cells"] = rec[:, 0].contiguous()
+            beta = cache["_beta_cells"]
             dirs = intensity_dirs.to(device=rec.device,
                                      dtype=torch.float32).contiguous()
             if _phase_source(domain, intensity_config) != PHASE_HG:
@@ -422,7 +448,7 @@ class RecordTables:
             albedo = column_albedo(surface, nx, ny, rec.device)
         return RecordTables(records=rec, inv_a0=a0, inv_dd=dd, dirs=dirs,
                             fwd_v0=v0, fwd_dd=fdd, em_prob=em_prob,
-                            em_alias=em_alias, albedo=albedo)
+                            em_alias=em_alias, albedo=albedo, beta=beta)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -686,23 +712,35 @@ class RecordTally:
     excess [max(1, prm.n_exc)] f32, ``counts`` int32 [photons started,
     lanes with work left, lane-steps run with a live photon, real
     collisions, radiance marches cut by the iteration bound, local-estimate
-    events] (``relaunch_loop`` layout, the first four per launch) and
-    ``march`` int64 [1] the local estimate's march iterations."""
+    events] (``relaunch_loop`` layout, the first four per launch),
+    ``march`` int64 [1] the local estimate's march iterations and, for the
+    kernel's radiance launches, ``queue`` the event queue they reuse."""
 
     acc: torch.Tensor
     img: torch.Tensor
     exc: torch.Tensor
     counts: torch.Tensor
     march: torch.Tensor
+    queue: le.EventQueue = None
 
     @staticmethod
-    def zeros(prm: RecordParams, device) -> "RecordTally":
-        def z(n, dtype=torch.float32):
-            return torch.zeros(max(1, n), dtype=dtype, device=device)
+    def zeros(prm: RecordParams, device,
+              queue_capacity: int = 0) -> "RecordTally":
+        """Zero tallies; on a CUDA device with radiance directions and a
+        ``queue_capacity`` (lanes times steps per launch), the event
+        queue."""
+        dev = torch.device(device)
 
+        def z(n, dtype=torch.float32):
+            return torch.zeros(max(1, n), dtype=dtype, device=dev)
+
+        queue = None
+        if prm.n_dirs and queue_capacity and dev.type == "cuda":
+            queue = le.EventQueue.empty(len(QUEUE_FLOATS), len(QUEUE_INTS),
+                                        queue_capacity, dev)
         return RecordTally(acc=z(prm.n_acc), img=z(prm.n_img),
                            exc=z(prm.n_exc), counts=z(N_COUNTS, torch.int32),
-                           march=z(1, torch.int64))
+                           march=z(1, torch.int64), queue=queue)
 
 
 def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
@@ -927,13 +965,16 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
             sz = torch.where(held, z, sz)
             w_ev = torch.where(held, 1.0, w_ev)
         ev = torch.nonzero(event).squeeze(1)
+        tally.counts[5] += ev.numel()  # counted as they are queued
         if ev.numel():
-            # capped-excess slot: 0 for reflections and emissions
-            local_estimate_plain(
-                tab, prm, u, ctr, ev, ev_kind[ev],
-                torch.where(real[ev], slot_sc[ev], 0), sx[ev], sy[ev],
-                sz[ev], w_ev[ev], ux_in[ev], uy_in[ev], uz_in[ev], f2[ev],
-                tally)
+            # the step's events in the queue's layout; capped-excess slot 0
+            # for reflections and emissions
+            f = torch.stack([sx[ev], sy[ev], sz[ev], w_ev[ev], ux_in[ev],
+                             uy_in[ev], uz_in[ev], f2[ev]])
+            i = torch.stack([ev, torch.full_like(ev, ctr), ev_kind[ev],
+                             torch.where(real[ev], slot_sc[ev], 0)]).to(
+                                 torch.int32)
+            local_estimate_plain(tab, prm, seed, f, i, tally)
 
     # ---- fused tally: one entry per lane (exit or absorption) ----
     t_val = torch.where(exit_top, w, torch.where(exit_bot, w_down, absorbed))
@@ -955,18 +996,20 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     return started
 
 
-def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
-                         ev: torch.Tensor, ev_kind: torch.Tensor,
-                         slot: torch.Tensor,
-                         sx, sy, sz, w_ev, ux_in, uy_in, uz_in, f2,
+def local_estimate_plain(tab: RecordTables, prm: RecordParams, seed: int,
+                         f: torch.Tensor, i: torch.Tensor,
                          tally: RecordTally) -> None:
-    """Local estimate of the event lanes ``ev`` (int64 lane indices; the
-    other arguments are per event) toward every direction, tallied into
-    ``tally.img`` / ``tally.exc``; marches cut by the iteration bound are
-    counted into ``tally.counts[4]``, the events into ``tally.counts[5]``
-    and the march iterations into ``tally.march``. ``ev_kind`` (EV_*) picks the phase
-    term; ``slot`` is the capped-excess slot of each event (0 a reflection
-    or an emission, 1 + c a scatter by component c).
+    """Local estimate of a buffer of events toward every direction, tallied
+    into ``tally.img`` / ``tally.exc``; marches cut by the iteration bound
+    are counted into ``tally.counts[4]`` and the march iterations into
+    ``tally.march``. ``f`` float32 [8, n] and ``i`` int32 [4, n] are the
+    events in the queue's layout (``QUEUE_FLOATS``: the point, weight,
+    incoming direction and phase field f2; ``QUEUE_INTS``: the lane and
+    step that key the draws, the kind EV_* that picks the phase term and
+    the capped-excess slot, 0 a reflection or an emission, 1 + c a scatter
+    by component c), as the kernel's transport queues them
+    (``le.EventQueue.queued``) or as ``record_step_plain`` builds them; the
+    order of the events changes the image's rounding only.
 
     Same float32 arithmetic as pallas_kernel.py:1515-2084 with the cell
     march: all (event, direction) pairs march together, each until it
@@ -976,8 +1019,11 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
     x0, lx, y0, ly, z0 = p[P_X0], p[P_LX], p[P_Y0], p[P_LY], p[P_Z0]
     z_max, inv_dx, inv_dy = p[P_ZMAX], p[P_INV_DX], p[P_INV_DY]
     inv_dz, dxc, dyc, dzc = p[P_INV_DZ], p[P_DXC], p[P_DYC], p[P_DZC]
+    sx, sy, sz, w_ev, ux_in, uy_in, uz_in, f2 = f
+    ev = i[0].long()
+    ctrs = i[1].long() & 0xFFFF_FFFF  # uint32 step counters
+    ev_kind, slot = i[2].long(), i[3].long()
     n_ev = ev.shape[0]
-    tally.counts[5] += n_ev
 
     def pairs(v):  # per event -> per (event, direction), event-major
         return v.repeat_interleave(n_dirs)
@@ -1010,9 +1056,10 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
     ndx, ndy = torch.sign(ddx) * 1e-4, torch.sign(ddy) * 1e-4
     if p.le_rr:
         # Iwabuchi roulette draws, sites 16 + 2d and 17 + 2d
-        lane_p = pairs(ev)
-        u_i1 = u(ctr, 16 + 2 * d_idx, lane_p)
-        tau_free = -torch.log1p(-u(ctr, 17 + 2 * d_idx, lane_p))
+        lane_p, ctr_p = pairs(ev), pairs(ctrs)
+        u_i1 = rng.uniform_at(lane_p, ctr_p, 16 + 2 * d_idx, seed)
+        tau_free = -torch.log1p(-rng.uniform_at(lane_p, ctr_p,
+                                                17 + 2 * d_idx, seed))
         zeta = p[P_ZETA]
         npf_pi = float(_F32(np.pi)) * npf
         small = npf_pi <= zeta
@@ -1020,14 +1067,20 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
         tau_stop = torch.where(small, tau_free, tau_max + tau_free)
 
     px, py, pz = pairs(sx), pairs(sy), pairs(sz)
+    # loop invariants: the face ahead on each axis, and which axes move
+    up_x, up_y = (ddx >= 0).to(torch.int32), (ddy >= 0).to(torch.int32)
+    live_x, live_y = ddx.abs() > 1e-12, ddy.abs() > 1e-12
     tau = torch.zeros_like(px)
-    ex_col = torch.zeros(px.shape, dtype=torch.int64, device=px.device)
+    # a pair's wrapped (x, y) and its z at the start of the iteration that
+    # takes it past the top: its exit column follows after the loop
+    top_x, top_y, top_z = (torch.zeros_like(px) for _ in range(3))
     act = torch.ones(px.shape, dtype=torch.bool, device=px.device)
     n_march = 0
     for _ in range(p.k_dda):
-        if not bool(act.any()):
+        n_act = int(act.sum())
+        if not n_act:
             break
-        n_march += int(act.sum())
+        n_march += n_act
         pxw = x0 + torch.remainder(px - x0, lx)
         pyw = y0 + torch.remainder(py - y0, ly)
         # index-space nudge along the march: a face landing names the
@@ -1035,28 +1088,33 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, u, ctr: int,
         ixm = ((pxw - x0) * inv_dx + ndx).to(torch.int32).clamp(0, nx - 1)
         iym = ((pyw - y0) * inv_dy + ndy).to(torch.int32).clamp(0, ny - 1)
         izm = ((pz - z0) * inv_dz).to(torch.int32).clamp(0, nz - 1)
-        beta_m = tab.records[((ixm * ny + iym) * nz + izm).long(), 0]
-        fx = torch.where(ddx >= 0, ixm + 1, ixm).to(torch.float32) * dxc + x0
-        fy = torch.where(ddy >= 0, iym + 1, iym).to(torch.float32) * dyc + y0
+        beta_m = tab.beta[((ixm * ny + iym) * nz + izm).long()]
+        fx = (ixm + up_x).to(torch.float32) * dxc + x0
+        fy = (iym + up_y).to(torch.float32) * dyc + y0
         fz = (izm + 1).to(torch.float32) * dzc + z0
-        tx = torch.where(ddx.abs() > 1e-12, (fx - pxw) / sdx, 3e38)
-        ty = torch.where(ddy.abs() > 1e-12, (fy - pyw) / sdy, 3e38)
+        tx = torch.where(live_x, (fx - pxw) / sdx, 3e38)
+        ty = torch.where(live_y, (fy - pyw) / sdy, 3e38)
         tz = (fz - pz) / ddz
         ds = torch.clamp(torch.minimum(tx, torch.minimum(ty, tz)),
                          min=0.0) + p[P_MNUDGE]
         tau = torch.where(act, tau + beta_m * ds, tau)
         pz2 = pz + ddz * ds
         top = pz2 >= z_max
-        tb = (z_max - pz) / ddz
-        exx = x0 + torch.remainder((pxw + ddx * tb) - x0, lx)
-        exy = y0 + torch.remainder((pyw + ddy * tb) - y0, ly)
-        exc = (((exx - x0) * inv_dx).to(torch.int32).clamp(0, nx - 1) * ny
-               + ((exy - y0) * inv_dy).to(torch.int32).clamp(0, ny - 1))
-        ex_col = torch.where(act & top, exc.long(), ex_col)
+        cross = act & top
+        top_x = torch.where(cross, pxw, top_x)
+        top_y = torch.where(cross, pyw, top_y)
+        top_z = torch.where(cross, pz, top_z)
         act = act & ~top
         if p.le_rr:
             act = act & (tau < tau_stop)
         px, py, pz = pxw + ddx * ds, pyw + ddy * ds, pz2
+    # the exit column where each pair leaves the top (the contribution of
+    # a pair that did not is 0)
+    tb = (z_max - top_z) / ddz
+    exx = x0 + torch.remainder((top_x + ddx * tb) - x0, lx)
+    exy = y0 + torch.remainder((top_y + ddy * tb) - y0, ly)
+    ex_col = (((exx - x0) * inv_dx).to(torch.int32).clamp(0, nx - 1) * ny
+              + ((exy - y0) * inv_dy).to(torch.int32).clamp(0, ny - 1)).long()
     tally.counts[4] += act.sum().to(torch.int32)
     tally.march.add_(n_march)
     hit = ~act
@@ -1116,7 +1174,10 @@ def _library():
         lib.record_kernel_num_params.argtypes = []
         lib.record_kernel_launch.restype = _I
         lib.record_kernel_launch.argtypes = (
-            [_P] * 25 + [_I] * 10 + [_U, _U] + [_I] * 8 + [_I] * 8 + [_P])
+            [_P] * 22 + [_I] * 10 + [_U, _U] + [_I] * 10 + [_P])
+        lib.record_walk_launch.restype = _I
+        lib.record_walk_launch.argtypes = (
+            [_P] * 5 + [_I] + [_P] * 7 + [_I] * 3 + [_U] + [_I] * 8 + [_P])
         if lib.record_kernel_num_params() != N_PARAMS:
             raise RuntimeError("csrc/record_kernel.cu and record_kernel.py "
                                "disagree on the parameter layout")
@@ -1153,42 +1214,34 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
     _check(tab.inv_dd, "inv_dd", torch.float32, tab.inv_a0.numel(), dev)
     _check(prm.device_values, "params", torch.float32, N_PARAMS, dev)
     _check(tally.acc, "acc", torch.float32, prm.n_acc, dev)
-    _check(tally.img, "img", torch.float32, max(1, prm.n_img), dev)
-    _check(tally.exc, "exc", torch.float32, max(1, prm.n_exc), dev)
     _check(tally.counts, "counts", torch.int32, N_COUNTS, dev)
-    _check(tally.march, "march", torch.int64, 1, dev)
     emission = SOURCE_KINDS[prm.source_kind] == illumination.EMISSION
     if emission:
         _check(tab.em_prob, "em_prob", torch.float32, n_cells, dev)
         _check(tab.em_alias, "em_alias", torch.float32, n_cells, dev)
     if prm.surface == SURF_PX:
         _check(tab.albedo, "albedo", torch.float32, prm.nx * prm.ny, dev)
+    queue = tally.queue
     if prm.n_dirs:
-        if prm.n_dirs > le.MAX_KERNEL_DIRS:
-            raise ValueError(f"{prm.n_dirs} radiance directions > "
-                             f"{le.MAX_KERNEL_DIRS} per launch")
-        _check(tab.dirs, "dirs", torch.float32, 3 * prm.n_dirs, dev)
-        if prm.le_phase != PHASE_HG:
-            _check(tab.fwd_v0, "fwd_v0", torch.float32, tab.fwd_v0.numel(),
-                   dev)
-            _check(tab.fwd_dd, "fwd_dd", torch.float32, tab.fwd_v0.numel(),
-                   dev)
+        le.check_queue(queue, len(QUEUE_FLOATS), len(QUEUE_INTS),
+                       n * k_steps, dev)
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # the queue's buffers (none on the flux path)
+    q_ptrs = ([queue.f.data_ptr(), queue.i.data_ptr(), queue.ctl.data_ptr()]
+              if prm.n_dirs else [0, 0, 0])
     ptrs = [prm.device_values, tab.records, tab.inv_a0, tab.inv_dd,
             *(getattr(st, k) for k in RecordState.FLOAT_FIELDS),
-            st.quota, st.alive, tally.acc, tally.counts, tab.dirs,
-            tab.fwd_v0, tab.fwd_dd, tally.img, tally.exc, tab.em_prob,
-            tab.em_alias, tab.albedo, tally.march]
+            st.quota, st.alive, tally.acc, tally.counts]
     err = lib.record_kernel_launch(
-        *(t.data_ptr() for t in ptrs), n, prm.nx, prm.ny, prm.nz,
-        prm.stride, prm.off_ssa, prm.off_f2, prm.inv_n_steps,
-        int(prm.use_rr), prm.n_acc, seed & 0xFFFF_FFFF,
+        *(t.data_ptr() for t in ptrs), *q_ptrs,
+        *(t.data_ptr() for t in (tab.em_prob, tab.em_alias, tab.albedo)),
+        n, prm.nx, prm.ny, prm.nz, prm.stride, prm.off_ssa, prm.off_f2,
+        prm.inv_n_steps, int(prm.use_rr), prm.n_acc, seed & 0xFFFF_FFFF,
         step0 & 0xFFFF_FFFF, k_steps, int(prm.macro_factor > 0),
         int(prm.vol_tally), int(prm.analytic_hg), prm.source_kind,
-        prm.ncomp, int(prm.lw), prm.surface, prm.n_dirs, prm.le_phase,
-        FWD_N_S, int(prm.le_rr), int(prm.le_cap), prm.k_dda, prm.n_img,
-        prm.n_exc, stream)
+        prm.ncomp, int(prm.lw), prm.surface, prm.n_dirs,
+        queue.capacity if prm.n_dirs else 0, stream)
     LAUNCHES += 1
     if prm.n_dirs:
         RADIANCE_LAUNCHES += 1
@@ -1198,6 +1251,47 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
     PX_LAUNCHES += int(prm.surface == SURF_PX)
     if err != 0:
         raise RuntimeError(f"record_kernel launch failed: CUDA error {err}")
+    if prm.n_dirs:  # the launch's local estimates, on the same stream
+        _walk_cuda(tab, prm, seed, queue, tally)
+
+
+def _walk_cuda(tab: RecordTables, prm: RecordParams, seed: int,
+               queue: le.EventQueue, tally: RecordTally) -> None:
+    """The walk kernel over the events ``queue`` holds from the last
+    transport launch: every (event, direction) pair's local estimate into
+    ``tally.img`` (and the capped excess into ``tally.exc``), its march
+    iterations into ``tally.march`` and its cut marches into
+    ``tally.counts[4]``."""
+    global WALK_LAUNCHES
+    dev = queue.f.device
+    if not 0 < prm.n_dirs <= le.MAX_KERNEL_DIRS:
+        raise ValueError(f"{prm.n_dirs} radiance directions: the walk takes "
+                         f"1 to {le.MAX_KERNEL_DIRS} per launch")
+    le.check_queue(queue, len(QUEUE_FLOATS), len(QUEUE_INTS), 1, dev)
+    _check(prm.device_values, "params", torch.float32, N_PARAMS, dev)
+    _check(tab.beta, "beta", torch.float32, prm.nx * prm.ny * prm.nz, dev)
+    _check(tab.dirs, "dirs", torch.float32, 3 * prm.n_dirs, dev)
+    if prm.le_phase != PHASE_HG:
+        _check(tab.fwd_v0, "fwd_v0", torch.float32, tab.fwd_v0.numel(), dev)
+        _check(tab.fwd_dd, "fwd_dd", torch.float32, tab.fwd_v0.numel(), dev)
+    _check(tally.img, "img", torch.float32, prm.n_img, dev)
+    _check(tally.exc, "exc", torch.float32, max(1, prm.n_exc), dev)
+    _check(tally.counts, "counts", torch.int32, N_COUNTS, dev)
+    _check(tally.march, "march", torch.int64, 1, dev)
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.record_walk_launch(
+        *(t.data_ptr() for t in (prm.device_values, tab.beta, queue.f,
+                                 queue.i, queue.ctl)),
+        queue.capacity,
+        *(t.data_ptr() for t in (tab.dirs, tab.fwd_v0, tab.fwd_dd, tally.img,
+                                 tally.exc, tally.counts, tally.march)),
+        prm.nx, prm.ny, prm.nz, seed & 0xFFFF_FFFF, prm.n_dirs,
+        prm.le_phase, FWD_N_S, int(prm.le_rr), int(prm.le_cap), prm.k_dda,
+        prm.n_img, prm.n_exc, stream)
+    WALK_LAUNCHES += 1
+    if err != 0:
+        raise RuntimeError(f"record_walk launch failed: CUDA error {err}")
 
 
 def record_launch(st: RecordState, tab: RecordTables, prm: RecordParams,
@@ -1286,12 +1380,14 @@ def _record_batch(domain, surface, source, seed, rcfg, photons_per_lane,
                                    source, surface)
     quota0 = initial_quota(rcfg.n_lanes, photons_per_lane, n_photons, dev)
     st = RecordState.initial(quota0, prm[P_BETA_MAX])
-    tally = RecordTally.zeros(prm, dev)
     k = rcfg.steps_per_call
+    tally = RecordTally.zeros(prm, dev, queue_capacity=rcfg.n_lanes * k)
     n_started, n_calls, lane_steps, n_real = relaunch_loop(
         st, tally.counts,
         lambda step0: launch(st, tab, prm, seed, step0, k, tally),
         k, rcfg.max_steps, n_per_launch=4)
+    if tally.queue is not None:
+        tally.queue.check()
     nx, ny, nz = domain.grid.shape
     nxy = nx * ny
     acc = tally.acc

@@ -419,12 +419,11 @@ def test_column_walk_across_the_seam_matches_the_integral(gas):
     for sx, sy in ((lx - 3.0, 250.0), (2.0, ly - 1.5), (lx - 0.5, 1.0)):
         tally = ck.ColTally.zeros(prm, "cpu")
         sz = float(prm[ck.C_ZBOT])
-        one = torch.ones(1)
-        ck.col_local_estimate_plain(
-            tab, prm, rng.make_uniform(torch.zeros(1, dtype=torch.int64), 0),
-            0, torch.zeros(1, dtype=torch.int64), torch.ones(1, dtype=bool),
-            one * sx, one * sy, one * sz, one, one * 0, one * 0, one,
-            tally)
+        # one reflection of weight 1 in the queue's layout: lane 0, step 0
+        f = torch.tensor([[sx], [sy], [sz], [1.0], [0.0], [0.0], [1.0]],
+                         dtype=torch.float32)
+        i = torch.tensor([[0], [0], [1]], dtype=torch.int32)
+        ck.col_local_estimate_plain(tab, prm, 0, f, i, tally)
         img = tally.img.reshape(8, nx * ny).double()
         assert int(tally.counts[4]) == 0
         for d in range(8):

@@ -5,6 +5,7 @@ the output files must carry the JAX driver's schema, the domain means must
 match the frozen step-cloud goldens, and the port must not import JAX.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -20,6 +21,8 @@ from mcbrat3d_tpu.driver import output as joutput
 from mcbrat3d_tpu.driver.config import load_config as jload
 from mcbrat3d_tpu.driver.run import Results as JResults
 from mcbrat3d_tpu_torch.driver import cli
+from mcbrat3d_tpu_torch.driver.config import load_config
+from mcbrat3d_tpu_torch.driver.simulate import simulate_from_config
 
 torch.set_num_threads(1)
 
@@ -201,6 +204,19 @@ def test_cli_matches_step_cloud_goldens(tmp_path, capsys):
     for g, want, name in zip(got, GOLDEN_RTA, "RTA"):
         sigma = np.sqrt(max(want * (1 - want), 1e-8) / n) + 8e-5
         assert g == pytest.approx(want, abs=4.5 * sigma), name
+
+
+@pytest.mark.parametrize("deck", ["step_cloud_mono.nml", "broadband_lw.nml"])
+def test_checkpoint_decks_raise(deck):
+    """A deck that sets checkpointFile is refused, monochromatic or
+    broadband, before it reads any input: the port has no save and
+    resume yet, and a deck must not run without the checkpoints it asks
+    for."""
+    cfg = dataclasses.replace(load_config(os.path.join(ROOT, "run", deck)),
+                              checkpoint_file="run.ckpt",
+                              checkpoint_every_batches=2)
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        simulate_from_config(cfg, "cpu")
 
 
 def test_port_imports_no_jax():
