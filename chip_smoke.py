@@ -16,7 +16,9 @@ Phases, each asserting; any failure exits non-zero:
    and a reflecting surface without roulette; then, at 2^18 photons, the
    random-azimuth, flux and spotlight sources and the step cloud with gas
    (2 components) and with gas and Rayleigh (3), analytic and tabulated
-   (10,001 steps), roulette on and off (albedo 0.3);
+   (10,001 steps), roulette on and off (albedo 0.3), and a 256 x 1 x 54
+   cut of bench.py:269-303's radar_scale with the 3D tally (absorbed
+   cells in global memory);
    domain-mean R/T/A within 2e-3 and per-pixel fluxes within 5 sigma;
 2g. the emission refill and the LW pre-credits of the record kernel
    against its plain version, same seeds, on bench.py:173-218's scene at
@@ -106,18 +108,20 @@ Phases, each asserting; any failure exits non-zero:
    memory (a zero table budget); 2^16 lanes x 2 photons; equal photons,
    n_bad and lane-steps, per-column fluxes and net absorption within 1e-5
    and the z profile within 5e-4 of its largest level;
-2f. tiled dense-domain kernel against its plain pass, same seeds and
-   injection, whole runs of 2^16 photons through a pool of 2^15 slots
-   (the JAX package's pool / 64 drain floor, then a tail of 4 passes of 64
-   steps in which photons follow their paths across tiles) on the bench's
-   128 x 128 x 64 dense scene: analytic HG, per-cell ssa, the 10,001-step
-   row in shared memory (past the 48 KB opt-in), from global memory (a
-   zero budget) and a 20,001-step row past the budget, 2 and 3 components
-   (gas, Rayleigh), an empty half (the skip chain), the random-azimuth,
-   flux and spotlight sources, roulette off; equal photons, passes, tail
-   passes, n_bad, lane-steps and real collisions, per-column fluxes and
-   absorption within 1e-5 (of the photons per column, or of a hotter
-   column's value) and R/T/A within 1e-6;
+2f. tiled dense-domain kernel against its plain twin, same seeds, whole
+   runs of 2^16 photons on the bench's 128 x 128 x 64 dense scene: analytic
+   HG, per-cell ssa, the 10,001-step row in shared memory (past the 48 KB
+   opt-in), from global memory (a zero budget) and a 20,001-step row past
+   the budget, 2 and 3 components (gas, Rayleigh), an empty half (the skip
+   chain), the random-azimuth, flux and spotlight sources, roulette off,
+   each on the refill schedule (2^15 slots, at most 8 launches of 128
+   steps under the relaunch loop: the kernel starts the photons), and the
+   four sources also on the sorted schedule (a pool of 2^15 slots, the JAX
+   package's pool / 64 drain floor, then a tail of 4 passes of 64 steps in
+   which photons follow their paths across tiles); equal photons, passes
+   or launches, tail passes, n_bad, lane-steps and real collisions,
+   per-column fluxes and absorption within 1e-5 (of the photons per
+   column, or of a hotter column's value) and R/T/A within 1e-6;
 3. the main path through the command line: mkdomain step_cloud (512
    Legendre moments), then run/step_cloud_mono.nml (16 x 1,048,576
    photons, 3D absorption tally)
@@ -151,7 +155,8 @@ Phases, each asserting; any failure exits non-zero:
    DenseCloud.dom in a temporary directory, then run/dense_cloud_mono.nml
    (16 x 2,097,152 photons) on cuda: n_bad <= 16 (photons reflected at
    the reference's floor mu = 1e-6, ~1 per deck), flux and netCDF files
-   written, the tiled kernel launched once per pass and no record,
+   written, the tiled kernel launched once per reported launch (pass) and
+   no record,
    column, separable or plain step; then the deck cut to 16 x 262,144
    photons (nLanes 32,768): R/T/A within 4.5 combined sigma of values
    frozen from the JAX package's CLI on the CPU;
@@ -242,11 +247,15 @@ Phases, each asserting; any failure exits non-zero:
    emission, LW, 2^16 lanes x 256 photons): kernel photons/s and ms per
    launch, plain ms per launch at the same lanes (2 photons each);
 4e. the dense headline (bench.py:306-342: 128 x 128 x 64, 2^18-slot pool,
-   2,097,152 photons, through run_batch): kernel photons/s, passes per
-   batch, kernel and wall ms per pass, live lane-steps per photon, the
-   card's busy share (kernel time from CUDA events over the batch's wall
-   time), the same batch with the JAX package's pool / 64 drain floor,
-   and kernel and plain ms per pass over the first 8 passes;
+   2,097,152 photons): the A/B of the tiled kernel's two schedules in
+   turns (refill, sorted, sorted, refill): the refill schedule through
+   run_batch (its default) and the sorted passes with the tail; for each,
+   photons/s, launches (passes) per batch, kernel and wall ms per launch,
+   live lane-steps per photon and the card's busy share (kernel time from
+   CUDA events over the batch's wall time); the refill schedule at 128 to
+   8,192 steps a launch; the sorted passes with the JAX
+   package's pool / 64 drain floor alone; and kernel and plain ms of the
+   refill schedule's first launch;
 4f. the 3-component headline (bench.py:150-170: gas + cloud + Rayleigh,
    analytic, macro_factor 8, 2^16 lanes x 256 photons, 3D tally, through
    run_batch): kernel photons/s, launches per batch, kernel ms per launch
@@ -256,7 +265,11 @@ Phases, each asserting; any failure exits non-zero:
    cloud + gas, per-voxel emission, analytic, macro_factor 8, albedo 0.05,
    lw_mode, 2^16 lanes x 256 photons, through run_batch): kernel
    photons/s, launches per batch, kernel ms per launch from CUDA events,
-   the card's busy share, and plain ms per launch over 4 launches;
+   the card's busy share, and plain ms per launch over 4 launches; then
+   bench.py:269-303's radar_scale (640 x 1 x 54, the 3D tally, 2^16
+   lanes x 64 photons) the same way, kernel only; and the occupancy of
+   both 3D-tally launches (blocks an SM), with the flux columns alone in
+   shared memory and with the whole tally there;
 4h. the Landsat radiance headline (bench.py:547-573: the broken cloud with
    analytic HG and the hybrid forward row, macro_factor 8, 16 directions,
    2^13 lanes x 256 photons, through run_batch): column-kernel local
@@ -448,11 +461,14 @@ JAX_LW48_TOTAL_FLUX = 2054.728052554276
 # passes and n_bad), and the tallies differ only by float32 atomic order.
 TILE_COLUMN_TOL_KERNEL_VS_PLAIN = 1e-5
 TILE_RTA_TOL_KERNEL_VS_PLAIN = 1e-6
-# 2f's runs: 2^16 photons through a pool of 2^15 slots, the JAX package's
-# drain floor (pool / 64), then a tail of 4 passes of 64 steps (the plain
-# pass takes ~1.5 ms per step at this pool, so a longer tail costs seconds)
+# 2f's runs: 2^16 photons through a pool of 2^15 slots; sorted: the JAX
+# package's drain floor (pool / 64), then a tail of 4 passes of 64 steps
+# (the plain pass takes ~1.5 ms per step at this pool, so a longer tail
+# costs seconds); refill: 8 launches of 128 steps at most (~7 ms a plain
+# step), so the rebalance runs between launches and most photons finish
 TILE_COMPARE_POOL, TILE_COMPARE_PHOTONS = 1 << 15, 1 << 16
 TILE_COMPARE_TAIL = dict(tail_steps=64, tail_passes=4)
+TILE_COMPARE_REFILL = dict(k_steps=128, max_passes=8)
 # run/dense_cloud_mono.nml cut to 16 batches of 262,144 photons (nLanes
 # 32,768), from the JAX package's CLI on the CPU (its XLA wave kernel with
 # threefry streams, independent of the port's kernel), on the file that
@@ -493,6 +509,16 @@ H100_F32_OPS_PER_S = 67e12
 # OPS_PER_WALK_ITERATION and OPS_PER_LE_DIRECTION for the column kernel).
 OPS_PER_LANE_STEP = {"record_kernel": 300, "col_kernel": 320,
                      "sep_kernel": 360, "tile_kernel": 340}
+# Operations of one birth in the tiled kernel's refill mode from the
+# directional source (csrc/tile_kernel.cu inject), counted from the source:
+# the dead and quota tests, the quota and count updates (4); the two
+# counter uniforms of the entry point at ~26 integer operations each (52);
+# the entry point, a multiply and an add per axis (4); the direction, z
+# and w moves (5); the entry column, a subtract, multiply, convert and a
+# two-sided clamp per axis (10); the entry tile, two integer divides of
+# ~20 each and five multiply-adds (45). Integer operations at the float32
+# rate, as above.
+OPS_PER_TILE_BIRTH = 120
 # Operations the 2-3 component record adds to the record kernel, counted
 # from csrc/record_kernel.cu's component choice, which runs on a real
 # collision only (the kernel counts those): the uniform at site 8, 26
@@ -609,8 +635,27 @@ def _sources(illumination):
             "spotlight": illumination.spotlight(0.8, 20.0, 0.3, 0.6)}
 
 
+def radar_scene(m, nx=640):
+    """bench.py:269-303's radar_scale scene built with the port: I3RC case
+    3's radar cloud (Domain-Files/i3rcRadarCloud.f95:28-30), nx x 1 x 54
+    cells of 0.055 x 35 x 0.045 km (640 columns at full width), beta up to
+    20 km^-1 in 60% of the cells, ssa 0.99, analytic HG 0.85, macro 8, 201
+    CDF steps. ``m`` holds the port's modules."""
+    import numpy as np
+
+    nz = 54
+    rs = np.random.RandomState(2)
+    grid = m.Grid.regular(nx, 1, nz, 0.055, 35.0, 0.045, device="cuda")
+    ext = rs.rand(nx, 1, nz) * 20.0 * (rs.rand(nx, 1, nz) > 0.4)
+    tbl = m.PhaseFunctionTable(
+        [m.PhaseFunction.henyey_greenstein(0.85, 64)], key=[1.0])
+    comp = m.OpticalComponent("radar cloud", ext, np.full_like(ext, 0.99),
+                              np.zeros(ext.shape, np.int32), tbl)
+    return m.build_domain(grid, [comp], macro_factor=8, n_cdf_steps=201)
+
+
 def phase_compare(rk, make_step_cloud, make_step_cloud_multi, Surface,
-                  illumination, KernelConfig, rng):
+                  illumination, KernelConfig, rng, m):
     """Kernel vs plain on the card; returns the largest per-pixel
     difference of the normalized fluxes, over the directional one-component
     cases and over the envelope's."""
@@ -618,7 +663,7 @@ def phase_compare(rk, make_step_cloud, make_step_cloud_multi, Surface,
 
     sources = _sources(illumination)
     # (macro_factor, 3D tally, components, analytic HG, surface albedo,
-    # roulette, source, photons per lane)
+    # roulette, source, photons per lane[, scene])
     cases = [(mf, vol, 1, True, 0.0, True, "directional", 16)
              for mf in (0, 8) for vol in (False, True)]
     # tabulated, as the deck runs; reflection without roulette
@@ -634,15 +679,21 @@ def phase_compare(rk, make_step_cloud, make_step_cloud_multi, Surface,
               (8, True, 3, False, 0.0, True, "flux", 4),
               (8, False, 3, False, 0.3, False, "spotlight", 4),
               # run/step_cloud_multi3_mono.nml's own configuration
-              (8, True, 3, False, 0.0, True, "directional", 4)]
+              (8, True, 3, False, 0.0, True, "directional", 4),
+              # a 256 x 1 x 54 cut of radar_scale, 3D tally: its 56 KB
+              # tally would cost blocks an SM, so its absorbed cells go
+              # to global memory
+              (8, True, 1, True, 0.1, True, "directional", 4, "radar")]
     max_err = [0.0, 0.0]
-    for i, (mf, vol, ncomp, analytic, albedo, rr, src,
-            ppl) in enumerate(cases):
+    for i, (mf, vol, ncomp, analytic, albedo, rr, src, ppl,
+            *scene) in enumerate(cases):
         surface = Surface.lambertian(albedo)
         source = sources[src]
         kw = dict(ssa=0.99, macro_factor=mf, n_cdf_steps=10001,
                   device="cuda")
-        if ncomp == 1:
+        if scene == ["radar"]:
+            dom = radar_scene(m, 256)
+        elif ncomp == 1:
             dom = make_step_cloud(**kw)
         else:  # gas + cloud (+ Rayleigh, its true phase when tabulated)
             dom = make_step_cloud_multi(n_components=ncomp,
@@ -677,7 +728,8 @@ def phase_compare(rk, make_step_cloud, make_step_cloud_multi, Surface,
              (tk.flux_absorbed, tp.flux_absorbed)], tk.n_photons)
         envelope = ncomp > 1 or src != "directional"
         max_err[envelope] = max(max_err[envelope], err)
-        print(f"compare macro={mf} vol={vol} components={ncomp} "
+        print(f"compare {''.join(scene) or 'step cloud'} macro={mf} "
+              f"vol={vol} components={ncomp} "
               f"analytic={analytic} albedo={albedo} roulette={rr} "
               f"source={src}: "
               f"kernel R/T/A={rta_k} plain={rta_p} gap={gap:.3e} "
@@ -2881,10 +2933,11 @@ def _dense_domain(dense_cloud_scene, build_domain, OpticalComponent,
 
 
 def phase_tile_compare(tk, dense_args, Surface, illumination, rng):
-    """Tiled kernel vs plain on the card, same seeds and injection, whole
-    runs of 2^16 photons through a pool of 2^15 (the JAX package's drain
-    floor, pool / 64, then a short tail); returns the largest per-column
-    difference of the normalized fluxes."""
+    """Tiled kernel vs plain on the card, same seeds, whole runs of 2^16
+    photons: every case on the refill schedule (2^15 slots), and the four
+    sources on the sorted schedule (a pool of 2^15, the JAX package's
+    drain floor, pool / 64, then a short tail) with the same injection;
+    returns the largest per-column difference of the normalized fluxes."""
     import dataclasses
     import functools
 
@@ -2893,7 +2946,9 @@ def phase_tile_compare(tk, dense_args, Surface, illumination, rng):
                "flux": illumination.flux(),
                "spotlight": illumination.spotlight(0.6, 30.0, 0.5, 0.5)}
     surface = Surface.lambertian(0.2)
-    tcfg = tk.TileConfig(**TILE_COMPARE_TAIL)
+    schedules = {
+        "refill": tk.TileConfig(refill=True, **TILE_COMPARE_REFILL),
+        "sorted": tk.TileConfig(**TILE_COMPARE_TAIL)}
     defaults = dict(n_cdf=201, tab=False, budget=tk.TABLE_SMEM, rr=True,
                     src="directional", scene={})
     cases = [
@@ -2913,10 +2968,16 @@ def phase_tile_compare(tk, dense_args, Surface, illumination, rng):
         dict(label="spotlight", src="spotlight"),
         dict(label="no roulette", rr=False),
     ]
+    # the refill schedule on every case, the sorted one on the four
+    # sources (the bench scene's directional beam and the three others)
+    runs = [(i, case, "refill") for i, case in enumerate(cases)]
+    runs += [(i, case, "sorted") for i, case in enumerate(cases)
+             if case["label"] == "bench scene, HG" or "src" in case]
     domains = {}
     max_err = 0.0
-    for i, case in enumerate(cases):
+    for i, case, schedule in runs:
         c = {**defaults, **case}
+        tcfg = schedules[schedule]
         key = (c["n_cdf"], tuple(sorted(c["scene"].items())))
         if key not in domains:
             domains[key] = _dense_domain(*dense_args, n_cdf_steps=c["n_cdf"],
@@ -2943,7 +3004,7 @@ def phase_tile_compare(tk, dense_args, Surface, illumination, rng):
         before = tk.TILE_LAUNCHES
         rk_, s_k = _timed(lambda: run(functools.partial(
             tk.tile_pass, table_smem=c["budget"])))
-        assert tk.TILE_LAUNCHES - before == rk_.n_passes, "kernel not run"
+        assert tk.TILE_LAUNCHES - before == rk_.n_passes > 0, "kernel not run"
         rp, s_p = _timed(lambda: run(tk.tile_pass_plain))
         n = rk_.n_started
         per_col = n / rk_.flux_up.numel()
@@ -2960,7 +3021,8 @@ def phase_tile_compare(tk, dense_args, Surface, illumination, rng):
             rp.flux_up, rp.flux_down, rp.flux_absorbed))
         gap = max(abs(a - b) for a, b in zip(rta_k, rta_p))
         max_err = max(max_err, err)
-        print(f"tile compare [{c['label']}] plan {tk.plan_for(dom)}, "
+        print(f"tile compare {schedule} [{c['label']}] plan "
+              f"{tk.plan_for(dom)}, "
               f"{c['src']}, roulette={c['rr']}, {table}: kernel "
               f"R/T/A={rta_k} plain={rta_p} gap={gap:.2e} column "
               f"gap={err:.2e}; photons {n}/{rp.n_started} passes "
@@ -2969,7 +3031,8 @@ def phase_tile_compare(tk, dense_args, Surface, illumination, rng):
               f"lane-steps {rk_.lane_steps}/{rp.lane_steps}; kernel "
               f"{s_k:.3f} s plain {s_p:.3f} s", flush=True)
         assert n == rp.n_started == TILE_COMPARE_PHOTONS, c["label"]
-        assert rk_.n_tail > 0, c["label"]  # the follow mode ran
+        if schedule == "sorted":
+            assert rk_.n_tail > 0, c["label"]  # the follow mode ran
         assert (rk_.n_passes, rk_.n_tail, rk_.n_bad, rk_.lane_steps,
                 rk_.n_real) == (rp.n_passes, rp.n_tail, rp.n_bad,
                                 rp.lane_steps, rp.n_real), c["label"]
@@ -3051,52 +3114,114 @@ def _event_timed(fn):
     return timed, events
 
 
+def _tile_batch(tk, run, seed, label):
+    """One dense batch through ``run(seed)`` with CUDA events around every
+    kernel launch: photons/s, launches, kernel and wall ms per launch,
+    lane-steps per photon and the card's busy share (kernel time over the
+    batch's wall time)."""
+    orig = tk._launch_cuda
+    tk._launch_cuda, events = _event_timed(orig)
+    try:
+        t, sec = _timed(lambda: run(seed))
+    finally:
+        tk._launch_cuda = orig
+    _sync()
+    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    assert len(events) == t.n_passes > 0, (len(events), t.n_passes)
+    res = dict(photons_per_s=t.n_photons / sec, seconds=sec,
+               passes=t.n_passes, kernel_ms_per_pass=kernel_ms / t.n_passes,
+               wall_ms_per_pass=1e3 * sec / t.n_passes,
+               lane_steps=t.n_lane_steps, n_photons=t.n_photons,
+               lane_steps_per_photon=t.n_lane_steps / t.n_photons,
+               busy=kernel_ms / (1e3 * sec), n_bad=t.n_bad, rta=_rta(t))
+    print(f"dense headline [{label}]: {t.n_photons} photons in {sec:.4f} s "
+          f"= {res['photons_per_s']:.6g} photons/s, {t.n_passes} launches, "
+          f"kernel {res['kernel_ms_per_pass']:.4f} ms/launch, wall "
+          f"{res['wall_ms_per_pass']:.4f} ms/launch, "
+          f"{res['lane_steps_per_photon']:.2f} lane-steps/photon, busy "
+          f"share {res['busy']:.3f}, n_bad {t.n_bad}, R/T/A={_rta(t)}",
+          flush=True)
+    return t, res
+
+
+# Steps a launch of the refill schedule tried in 4e (tile_kernel.REFILL_STEPS
+# is chosen from them)
+STEPS_SWEEP = (128, 256, 512, 1024, 2048, 4096, 8192)
+
+
 def phase_tile_headline(tk, dense_cloud_scene, build_domain, Surface,
                         illumination, KernelConfig, run_batch, rng):
-    """The dense headline of bench.py:306-342 through run_batch: kernel
-    photons/s, passes, kernel and wall ms per pass, lane-steps per photon
-    and the card's busy share (kernel time over the batch's wall time, CUDA
-    events); the JAX package's drain floor for comparison; kernel and plain
-    ms per pass over the first 8 passes at the same pool."""
+    """The dense headline of bench.py:306-342 (2^18 slots, 2^21 photons):
+    the A/B of the two schedules in turns, refill, sorted, sorted, refill
+    (the refill schedule through run_batch, its default; the sorted passes
+    to the JAX package's drain floor, pool / 64, then the tail, through
+    run_batch_tile_tallies): photons/s, launches (passes), kernel and wall
+    ms per launch, lane-steps per photon and the card's busy share (CUDA
+    events); the refill schedule at STEPS_SWEEP steps a launch; the sorted
+    passes with the drain floor alone; kernel and plain ms of the refill
+    schedule's first launch."""
+    import dataclasses
+
     grid, comps, _ = dense_cloud_scene(128, 128, 64, ssa=0.99, device="cuda")
     t0 = time.perf_counter()
     dom = build_domain(grid, comps, macro_factor=0, n_cdf_steps=201)
     build_s = time.perf_counter() - t0
     surface = Surface.lambertian(0.2)
     source = illumination.directional(0.5, 0.0)
-    cfg = KernelConfig(n_lanes=1 << 18, photons_per_lane=8,
+    n_slots, n_photons = 1 << 18, 1 << 21
+    cfg = KernelConfig(n_lanes=n_slots, photons_per_lane=8,
                        max_steps=1_000_000, need_volume_absorption=False)
-    run_batch(dom, surface, source, rng.batch_seed(0, 99), cfg)  # warm-up
-    orig = tk._launch_cuda
-    tk._launch_cuda, events = _event_timed(orig)
-    try:
-        t, sec = _timed(lambda: run_batch(dom, surface, source,
-                                          rng.batch_seed(0, 0), cfg))
-    finally:
-        tk._launch_cuda = orig
-    _sync()
-    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
-    assert len(events) == t.n_passes > 0 and t.n_bad == 0
-    assert t.n_photons == 1 << 21 and t.volume_absorption is None
-    res = dict(photons_per_s=t.n_photons / sec, seconds=sec,
-               passes=t.n_passes, kernel_ms_per_pass=kernel_ms / t.n_passes,
-               wall_ms_per_pass=1e3 * sec / t.n_passes,
-               lane_steps=t.n_lane_steps,
-               lane_steps_per_photon=t.n_lane_steps / t.n_photons,
-               busy=kernel_ms / (1e3 * sec),
-               n_pad=(1 << 18) + tk.TileParams.make(
-                   dom, surface, source, tk.plan_for(dom), tk.TileConfig(),
-                   True, 1.0).n_tiles * tk.TileConfig().cohort,
-               n_f=tk.tile_fields(dom)[0], n_cells=dom.grid.nx
-               * dom.grid.ny * dom.grid.nz, nxy=dom.grid.nx * dom.grid.ny)
-    print(f"dense headline (run_batch, drained to empty): {t.n_photons} "
-          f"photons in {sec:.3f} s = {res['photons_per_s']:.6g} photons/s, "
-          f"{t.n_passes} passes, kernel {res['kernel_ms_per_pass']:.4f} "
-          f"ms/pass, wall {res['wall_ms_per_pass']:.4f} ms/pass, "
-          f"{res['lane_steps_per_photon']:.2f} lane-steps/photon, busy "
-          f"share {res['busy']:.3f}, R/T/A={_rta(t)} (domain build "
-          f"{build_s:.2f} s)", flush=True)
-    # the JAX package's default drain floor: stop at pool / 64 alive
+    sorted_cfg = tk.sorted_config(cfg.max_steps)
+
+    def refill(seed):
+        before = tk.TILE_LAUNCHES
+        t = run_batch(dom, surface, source, seed, cfg)
+        assert tk.TILE_LAUNCHES - before == t.n_passes, "not the tiled kernel"
+        return t
+
+    def sorted_passes(seed):
+        return tk.run_batch_tile_tallies(dom, surface, source, seed, cfg,
+                                         tcfg=sorted_cfg)
+
+    schedules = {"refill": refill, "sorted": sorted_passes}
+    for run in schedules.values():  # warm-up batches
+        run(rng.batch_seed(0, 99))
+    turns = {"refill": [], "sorted": []}
+    for name in ("refill", "sorted", "sorted", "refill"):
+        t, r = _tile_batch(tk, schedules[name], rng.batch_seed(0, 0),
+                           f"{name} schedule")
+        assert t.n_photons == n_photons and t.volume_absorption is None
+        assert t.n_bad == 0, (name, t.n_bad)
+        turns[name].append(r)
+    res = {}
+    for name, rs in turns.items():
+        res[name] = {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]
+                     if k != "rta"}
+        res[name]["turns"] = rs
+    gain = res["refill"]["photons_per_s"] / res["sorted"]["photons_per_s"]
+    print(f"dense headline A/B (means of two turns): refill "
+          f"{res['refill']['photons_per_s']:.6g} photons/s, "
+          f"{res['refill']['passes']:.1f} launches, kernel "
+          f"{res['refill']['kernel_ms_per_pass']:.4f} ms/launch, busy "
+          f"{res['refill']['busy']:.3f}; sorted "
+          f"{res['sorted']['photons_per_s']:.6g} photons/s, "
+          f"{res['sorted']['passes']:.1f} passes, kernel "
+          f"{res['sorted']['kernel_ms_per_pass']:.4f} ms/pass, busy "
+          f"{res['sorted']['busy']:.3f}; refill / sorted photons/s "
+          f"{gain:.3f} (domain build {build_s:.2f} s)", flush=True)
+    # steps per launch of the refill schedule
+    res["k_sweep"] = {}
+    for k in STEPS_SWEEP + STEPS_SWEEP[::-1]:
+        tcfg = tk.refill_config(cfg.max_steps, k)
+        _, r = _tile_batch(tk, lambda seed: tk.run_batch_tile_tallies(
+            dom, surface, source, seed, cfg, tcfg=tcfg),
+            rng.batch_seed(0, 0), f"refill, {k} steps a launch")
+        res["k_sweep"].setdefault(k, []).append(r["photons_per_s"])
+    print("dense headline, refill photons/s by steps a launch: "
+          + ", ".join(f"{k}: {sum(v) / len(v):.6g}"
+                      for k, v in sorted(res["k_sweep"].items())),
+          flush=True)
+    # the JAX package's default: the sorted passes stop at pool / 64 alive
     t64, sec64 = _timed(lambda: tk.run_batch_tile_tallies(
         dom, surface, source, rng.batch_seed(0, 0), cfg,
         tcfg=tk.TileConfig()))
@@ -3105,18 +3230,21 @@ def phase_tile_headline(tk, dense_cloud_scene, build_domain, Surface,
     print(f"dense headline with the pool / 64 drain floor: "
           f"{t64.n_photons / sec64:.6g} photons/s, {t64.n_passes} passes, "
           f"n_bad {t64.n_bad}", flush=True)
-    # kernel and plain over the first 8 passes, same pool and photons
+    # kernel and plain on the refill schedule's first launch
+    tcfg1 = dataclasses.replace(tk.refill_config(cfg.max_steps),
+                                max_passes=1)
     for name, fn in (("kernel", tk.tile_pass), ("plain", tk.tile_pass_plain)):
         launch, ev = _event_timed(fn)
-        tk.run_batch_tile(dom, surface, source, rng.batch_seed(0, 1),
-                          tk.TileConfig(drain_div=0, max_passes=8), 1 << 18,
-                          1 << 21, launch=launch)
+        tk.run_batch_tile(dom, surface, source, rng.batch_seed(0, 1), tcfg1,
+                          n_slots, n_photons, launch=launch)
         _sync()
-        res[f"{name}_ms_first8"] = sum(a.elapsed_time(b)
-                                       for a, b in ev) / len(ev)
-    print(f"dense headline, first 8 passes: kernel "
-          f"{res['kernel_ms_first8']:.4f} ms/pass, plain "
-          f"{res['plain_ms_first8']:.4f} ms/pass", flush=True)
+        res[f"{name}_ms_first"] = ev[0][0].elapsed_time(ev[0][1])
+    print(f"dense headline, refill schedule's first launch "
+          f"({tcfg1.k_steps} steps): kernel {res['kernel_ms_first']:.4f} ms, "
+          f"plain {res['plain_ms_first']:.4f} ms", flush=True)
+    res.update(n_slots=n_slots, n_f=tk.tile_fields(dom)[0],
+               n_cells=dom.grid.nx * dom.grid.ny * dom.grid.nz,
+               nxy=dom.grid.nx * dom.grid.ny)
     return res
 
 
@@ -3544,6 +3672,67 @@ def phase_lw_headline(rk, m, KernelConfig, run_batch, rng):
                                      for a, b in ev) / len(ev)
     print(f"LW emission headline: plain {res['plain_ms_per_launch']:.4f} "
           f"ms/launch over {len(ev)} launches", flush=True)
+    return res
+
+
+def phase_radar_headline(rk, m, KernelConfig, run_batch, rng):
+    """bench.py:269-303's radar_scale through run_batch (640 x 1 x 54,
+    macro 8, albedo 0.1, the 3D tally, 2^16 lanes x 64 photons): kernel
+    photons/s, launches per batch, kernel ms per launch from CUDA events
+    and the card's busy share."""
+    dom = radar_scene(m)
+    surface = m.Surface.lambertian(0.1)
+    source = m.illumination.directional(0.5, 0.0)
+    cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=64,
+                       max_steps=800_000, need_volume_absorption=True)
+    run_batch(dom, surface, source, rng.batch_seed(0, 98), cfg)  # warm-up
+    orig = rk._launch_cuda
+    rk._launch_cuda, events = _event_timed(orig)
+    try:
+        t, sec = _timed(lambda: run_batch(dom, surface, source,
+                                          rng.batch_seed(0, 0), cfg))
+    finally:
+        rk._launch_cuda = orig
+    _sync()
+    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    n_launch = len(events)
+    assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
+    assert t.n_photons == 1 << 22 and t.volume_absorption is not None
+    res = dict(photons_per_s=t.n_photons / sec, seconds=sec,
+               launches=n_launch, kernel_ms_per_launch=kernel_ms / n_launch,
+               wall_ms_per_launch=1e3 * sec / n_launch,
+               busy=kernel_ms / (1e3 * sec))
+    print(f"radar_scale headline (run_batch, 3D tally): {t.n_photons} "
+          f"photons in {sec:.3f} s = {res['photons_per_s']:.6g} photons/s, "
+          f"{n_launch} launches, kernel {res['kernel_ms_per_launch']:.4f} "
+          f"ms/launch, wall {res['wall_ms_per_launch']:.4f} ms/launch, busy "
+          f"share {res['busy']:.3f}, R/T/A={_rta(t)}", flush=True)
+    return res
+
+
+def vol_tally_occupancy(rk, m):
+    """Blocks of 128 threads an SM (the occupancy query) of the record
+    kernel's 3D-tally launches on the step cloud, bench.py:173-218's LW
+    scene and radar_scale, with the shared tallies a launch takes (the
+    whole tally, or the flux columns alone where that costs blocks) and
+    with the whole tally."""
+    src = m.illumination.directional(0.5, 0.0)
+    res = {}
+    for name, (dom, source, lw) in (
+            ("step_cloud", (m.make_step_cloud(ssa=0.99, macro_factor=8,
+                                              device="cuda"), src, False)),
+            ("lw_emission_2comp", (*lw_emission_scene(m), True)),
+            ("radar_scale", (radar_scene(m), src, False))):
+        prm = rk.RecordParams.make(dom, m.Surface.lambertian(0.1), source,
+                                   True, 1.0, True, None, None, lw)
+        now, now_b = rk.occupancy(prm)
+        whole, whole_b = rk.occupancy(prm, 4 * prm.n_acc)
+        res[name] = dict(blocks=now, smem=now_b, blocks_whole=whole,
+                         smem_whole=whole_b)
+        print(f"occupancy {name} (3D tally of {prm.n_acc} floats): "
+              f"{now} blocks of 128 an SM with {now_b} B of shared "
+              f"tallies; {whole} with the whole tally ({whole_b} B)",
+              flush=True)
     return res
 
 
@@ -4095,7 +4284,7 @@ def main(argv=None) -> int:
     if "2" in only:
         out["max_err"], out["env_max_err"] = phase_compare(
             rk, make_step_cloud, make_step_cloud_multi, Surface,
-            illumination, KernelConfig, rng)
+            illumination, KernelConfig, rng, m)
     if "2b" in only:
         out["rad_max_err"] = phase_radiance_compare(
             rk, le, make_step_cloud, make_step_cloud_multi, make_slab,
@@ -4193,6 +4382,9 @@ def main(argv=None) -> int:
     if "4g" in only:
         out["lw_head"] = phase_lw_headline(rk, m, KernelConfig, run_batch,
                                            rng)
+        out["radar_head"] = phase_radar_headline(rk, m, KernelConfig,
+                                                 run_batch, rng)
+        out["occupancy"] = vol_tally_occupancy(rk, m)
     if "4h" in only:
         out["col_le_head"] = phase_col_le_headline(
             ck, rk, le, m, KernelConfig, run_batch, rng)
@@ -4210,6 +4402,7 @@ def main(argv=None) -> int:
     rad6, col_head = rad_head[(6, "kernel")], out["col_head"]
     sep_head = out["sep_head"]["kernel"]
     tile_head = out["tile_head"]
+    tile_run = tile_head["refill"]  # run_batch's schedule
     multi_head = out["multi_head"]
     lw_head = out["lw_head"]
     # the walk kernels on their captured launches (phase 2k): K3-d's on
@@ -4242,13 +4435,15 @@ def main(argv=None) -> int:
             sep_head["lane_steps"], sep_head["launches"],
             OPS_PER_LANE_STEP["sep_kernel"], 1 << 16, 40,
             sep_head["table_bytes"], sep_head["tally_bytes"]),
-        # per pass: the pool's state (7 floats and the tile id) read and
-        # written once, the fields read once, the tallies written once
+        # per launch: the slots' state (7 floats, the tile id and the
+        # quota) read and written once, the fields read once, the tallies
+        # written once; the births' operations besides the steps'
         "tile_kernel": _bound(
-            tile_head["lane_steps"], tile_head["passes"],
-            OPS_PER_LANE_STEP["tile_kernel"], tile_head["n_pad"], 32,
+            tile_run["lane_steps"], tile_run["passes"],
+            OPS_PER_LANE_STEP["tile_kernel"], tile_head["n_slots"], 36,
             4 * tile_head["n_f"] * tile_head["n_cells"],
-            4 * 3 * tile_head["nxy"]),
+            4 * 3 * tile_head["nxy"],
+            extra_ops=tile_run["n_photons"] * OPS_PER_TILE_BIRTH),
         "record_kernel_multi3": multi_head["bound"],
         "record_kernel_lw": lw_head["bound"],
         "col_kernel_radiance": out["col_le_head"]["bound"],
@@ -4305,8 +4500,8 @@ def main(argv=None) -> int:
         "replaces": "mcbrat3d_tpu/transport/pallas_tile.py:335",
         "launches": out["dense_deck"]["launches"],
         "max_abs_err": out["tile_max_err"],
-        "ms": tile_head["kernel_ms_per_pass"],
-        "plain_ms": tile_head["plain_ms_first8"],
+        "ms": tile_run["kernel_ms_per_pass"],
+        "plain_ms": tile_head["plain_ms_first"],
     }, {
         # the same kernel on 2-3 component records and the other sources
         # (K1-a, K1-b): launches on the 3-component deck, times on

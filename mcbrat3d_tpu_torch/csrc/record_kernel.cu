@@ -53,21 +53,33 @@
 // kernel gathered a transposed table and split it in bf16 hi/lo rows.
 // The cell is decomposed with integer divides (the JAX kernel's floored
 // float divides give the same cell on every cell of the envelope). With
-// lw, an atmospheric birth adds -1 to the volume tally at its cell: one
-// shared atomic, the lane's second tally in that step (the TPU kernel's
-// one-hot sublane contraction). With lw and radiance, a newly emitted
-// lane only contributes its emission local estimate (weight 1, isotropic
-// 1/(4 pi mu_d) or Lambertian 1/pi) in its birth step and moves from the
-// next step on; on the flux path it moves in its birth step. Tallies accumulate in
-// shared memory with shared atomics and are flushed once per block per
-// launch with global atomics. The TPU workarounds (one-hot MXU gathers and
-// tallies, bf16 hi/lo splits, [*, 128] lane blocks) are not carried over.
+// lw, an atmospheric birth adds -1 to the volume tally at its cell (the
+// lane's second tally in that step; the TPU kernel's one-hot sublane
+// contraction). With lw and radiance, a newly emitted lane only
+// contributes its emission local estimate (weight 1, isotropic 1/(4 pi
+// mu_d) or Lambertian 1/pi) in its birth step and moves from the next step
+// on; on the flux path it moves in its birth step.
+//
+// Tallies accumulate in shared memory with shared atomics and are flushed
+// once per block per launch with global atomics: the whole tally [up nxy |
+// down nxy | absorbed nxy, or nx ny nz with the 3D tally (VOL)], unless a
+// block's copy of a 3D tally would cost blocks an SM (the launcher asks
+// the occupancy query). Then (vol_global) only the 2 nx ny flux columns
+// stay in shared memory and the absorbed part (up to 147 KB inside the
+// 36,864-cell envelope) is added straight into the global tally with
+// float32 atomics, which the compiler emits as reductions into L2, where
+// it stays: a 104-147 KB copy holds one or two 128-thread blocks an SM and
+// has each block zero and flush every cell. A small 3D tally stays in
+// shared memory: on a few thousand cells the global atomics of 65,536
+// lanes contend (three times slower on the 1,024-cell step cloud). The TPU
+// workarounds (one-hot MXU gathers and tallies, bf16 hi/lo splits, [*,
+// 128] lane blocks) are not carried over.
 //
 // What bounds it on this card: the latency of the dependent per-step math
 // (divisions, log1p, sqrt, sincos) and of the record gathers, with at most
 // 65,536 lanes in flight (a quarter of the H100's thread slots), plus
-// shared-atomic contention on hot tally entries. It does no matrix work
-// and streams no large tiles, so wgmma and TMA do not apply.
+// atomic contention on hot tally entries. It does no matrix work and
+// streams no large tiles, so wgmma and TMA do not apply.
 //
 // Radiance (template flag LE), in two kernels. The transport kernel's LE
 // instantiation queues every event instead of estimating it: a scatter, a
@@ -130,6 +142,8 @@ constexpr int kWalkThreads = 256;
 // Shared memory a walk block may take for its image and capped excess (48
 // KB: four 256-thread blocks an SM); a larger image goes to global atomics.
 constexpr size_t kWalkSmem = 48 * 1024;
+// Most dynamic shared memory a block may take (the card's opt-in limit).
+constexpr size_t kMaxSmem = 227 * 1024;
 constexpr int kMaxDirs = 64;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInvPi = 0.31830988618379067154f;
@@ -397,13 +411,18 @@ record_steps(const float* __restrict__ prm,
              float* __restrict__ acc, int* __restrict__ counts, Queue q,
              const float* __restrict__ em_prob,
              const float* __restrict__ em_alias,
-             const float* __restrict__ alb, int n_lanes, int nx, int ny, int nz, int stride, int off_ssa,
-             int off_f2, int inv_n_steps, int use_rr, int n_acc,
-             uint32_t seed, uint32_t step0, int k_steps, int src,
-             int ncomp, int lw, int surf) {
+             const float* __restrict__ alb, int n_lanes, int nx, int ny,
+             int nz, int stride, int off_ssa, int off_f2, int inv_n_steps,
+             int use_rr, int n_acc, uint32_t seed, uint32_t step0,
+             int k_steps, int src, int ncomp, int lw, int surf,
+             int vol_global) {
+  // the shared tallies: the whole tally, or with vol_global the flux
+  // columns only (the absorbed cells go straight to acc; each add names
+  // its memory, so shared adds stay shared atomics)
   extern __shared__ float s_acc[];
   __shared__ int s_counts[kCounts];
-  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) s_acc[i] = 0.f;
+  const int n_smem = VOL && vol_global ? 2 * nx * ny : n_acc;
+  for (int i = threadIdx.x; i < n_smem; i += blockDim.x) s_acc[i] = 0.f;
   for (int i = threadIdx.x; i < kCounts; i += blockDim.x) s_counts[i] = 0;
   __syncthreads();
 
@@ -469,7 +488,11 @@ record_steps(const float* __restrict__ prm,
             em_mu = 1.f - 2.f * u_mu;
             if (fabsf(em_mu) < 1e-4f) em_mu = signf(em_mu + kTiny) * 1e-4f;
             if constexpr (VOL) {  // LW pre-credit at the birth cell
-              if (lw) atomicAdd(&s_acc[2 * nxy + v], -1.f);
+              if (lw && vol_global) {
+                atomicAdd(&acc[2 * nxy + v], -1.f);
+              } else if (lw) {
+                atomicAdd(&s_acc[2 * nxy + v], -1.f);
+              }
             }
           } else {  // uniform on the surface, Lambertian upward
             x = x0 + u0 * lx;
@@ -653,7 +676,11 @@ record_steps(const float* __restrict__ prm,
         ssa = __ldg(r + off_ssa);
         f2 = __ldg(r + off_f2);
       }
-      atomicAdd(&s_acc[2 * nxy + (VOL ? cell : col_c)], w * (1.f - ssa));
+      if (VOL && vol_global) {
+        atomicAdd(&acc[2 * nxy + cell], w * (1.f - ssa));
+      } else {
+        atomicAdd(&s_acc[2 * nxy + (VOL ? cell : col_c)], w * (1.f - ssa));
+      }
       w = w * ssa;
       if constexpr (LE) {  // post-absorption, pre-roulette weight, incoming dir
         events += 1;
@@ -700,7 +727,7 @@ record_steps(const float* __restrict__ prm,
     if (events) atomicAdd(&s_counts[5], events);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
+  for (int i = threadIdx.x; i < n_smem; i += blockDim.x) {
     const float v = s_acc[i];
     if (v != 0.f) atomicAdd(&acc[i], v);
   }
@@ -785,6 +812,50 @@ record_walk(const float* __restrict__ prm, const float* __restrict__ beta,
   }
 }
 
+// Blocks of a kernel resident on one SM with smem bytes of dynamic shared
+// memory (raising its opt-in past 48 KB first).
+template <typename Kernel>
+cudaError_t blocks_per_sm(Kernel kernel, size_t smem, int* blocks) {
+  if (smem > 47 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       kThreads, smem);
+}
+
+// The tally layout of a launch of record_steps<MACRO, VOL, ANALYTIC, LE>:
+// its dynamic shared memory and whether the 3D tally's absorbed cells go
+// to global memory (when a block's copy of them would cost blocks an SM).
+// The answer depends on the two sizes alone, so the queries run once for
+// the sizes of the last launch, not before every launch of a batch.
+template <bool MACRO, bool VOL, bool ANALYTIC, bool LE>
+cudaError_t tally_layout(int nxy, int n_acc, size_t* smem, int* vol_global) {
+  static int last_nxy = -1, last_n_acc = -1, last_global = 0;
+  auto kernel = record_steps<MACRO, VOL, ANALYTIC, LE>;
+  const size_t cols = 2 * static_cast<size_t>(nxy) * sizeof(float);
+  *smem = static_cast<size_t>(n_acc) * sizeof(float);
+  *vol_global = 0;
+  if (!VOL) return cudaSuccess;
+  if (nxy != last_nxy || n_acc != last_n_acc) {
+    int whole = 0, split = 0;
+    cudaError_t e = cudaSuccess;
+    if (*smem <= kMaxSmem) e = blocks_per_sm(kernel, *smem, &whole);
+    if (e == cudaSuccess) e = blocks_per_sm(kernel, cols, &split);
+    if (e != cudaSuccess) return e;
+    last_nxy = nxy;
+    last_n_acc = n_acc;
+    last_global = whole < split;
+  }
+  if (last_global) {
+    *smem = cols;
+    *vol_global = 1;
+  }
+  return cudaSuccess;
+}
+
 template <bool MACRO, bool VOL, bool ANALYTIC, bool LE>
 cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
                    const float* inv_dd, float* x, float* y, float* z,
@@ -797,7 +868,11 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
                    uint32_t seed, uint32_t step0, int k_steps, int src,
                    int ncomp, int lw, int surf, cudaStream_t stream) {
   auto kernel = record_steps<MACRO, VOL, ANALYTIC, LE>;
-  const size_t smem = static_cast<size_t>(n_acc) * sizeof(float);
+  size_t smem = 0;
+  int vol_global = 0;
+  const cudaError_t e0 = tally_layout<MACRO, VOL, ANALYTIC, LE>(
+      nx * ny, n_acc, &smem, &vol_global);
+  if (e0 != cudaSuccess) return e0;
   // past 48 KB of static + dynamic shared memory a launch needs the
   // opt-in; the static part (counts) is under 1 KB
   if (smem > 47 * 1024) {
@@ -811,13 +886,70 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
       prm, rec, inv_a0, inv_dd, x, y, z, ux, uy, uz, w, bl, quota, alive,
       acc, counts, q, em_prob, em_alias, alb, n_lanes, nx, ny, nz, stride,
       off_ssa, off_f2, inv_n_steps, use_rr, n_acc, seed, step0, k_steps, src,
-      ncomp, lw, surf);
+      ncomp, lw, surf, vol_global);
   return cudaGetLastError();
+}
+
+// Blocks of record_steps<MACRO, VOL, ANALYTIC, LE> resident on one SM
+// with smem bytes of dynamic shared memory (smem < 0: what a launch on
+// the tally of nxy columns and n_acc entries takes), or minus the CUDA
+// error; *smem_used the bytes.
+template <bool MACRO, bool VOL, bool ANALYTIC, bool LE>
+int occupancy(int smem, int nxy, int n_acc, int* smem_used) {
+  size_t bytes = static_cast<size_t>(smem);
+  int vol_global = 0;
+  cudaError_t e = cudaSuccess;
+  if (smem < 0) {
+    e = tally_layout<MACRO, VOL, ANALYTIC, LE>(nxy, n_acc, &bytes,
+                                               &vol_global);
+  }
+  int per_sm = 0;
+  if (e == cudaSuccess) {
+    e = blocks_per_sm(record_steps<MACRO, VOL, ANALYTIC, LE>, bytes, &per_sm);
+  }
+  *smem_used = static_cast<int>(bytes);
+  return e == cudaSuccess ? per_sm : -static_cast<int>(e);
 }
 
 }  // namespace
 
 extern "C" int record_kernel_num_params() { return N_PARAMS; }
+
+// Blocks of the transport kernel's (macro, vol, analytic, le) instantiation
+// that fit one SM with smem_bytes of dynamic shared memory (the occupancy
+// query; smem_bytes < 0: what a launch on a tally of nxy columns and n_acc
+// entries takes, written to *smem_used), or minus the CUDA error.
+extern "C" int record_kernel_occupancy(int macro, int vol, int analytic,
+                                       int le, int smem_bytes, int nxy,
+                                       int n_acc, int* smem_used) {
+  const int i = (macro ? 8 : 0) + (vol ? 4 : 0) + (analytic ? 2 : 0) +
+                (le ? 1 : 0);
+  switch (i) {
+#define MCB_OCC(I, M, V, A, L) \
+  case I:                     \
+    return occupancy<M, V, A, L>(smem_bytes, nxy, n_acc, smem_used);
+    MCB_OCC(0, false, false, false, false)
+    MCB_OCC(1, false, false, false, true)
+    MCB_OCC(2, false, false, true, false)
+    MCB_OCC(3, false, false, true, true)
+    MCB_OCC(4, false, true, false, false)
+    MCB_OCC(5, false, true, false, true)
+    MCB_OCC(6, false, true, true, false)
+    MCB_OCC(7, false, true, true, true)
+    MCB_OCC(8, true, false, false, false)
+    MCB_OCC(9, true, false, false, true)
+    MCB_OCC(10, true, false, true, false)
+    MCB_OCC(11, true, false, true, true)
+    MCB_OCC(12, true, true, false, false)
+    MCB_OCC(13, true, true, false, true)
+    MCB_OCC(14, true, true, true, false)
+    default:
+      return occupancy<true, true, true, true>(smem_bytes, nxy, n_acc,
+                                              smem_used);
+#undef MCB_OCC
+  }
+}
+
 
 // Advance every lane by k_steps transport steps, refilling from source kind
 // src (SRC_*; emission draws from the alias pair em_prob/em_alias over the

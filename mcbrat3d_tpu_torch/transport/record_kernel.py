@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1178,6 +1179,8 @@ def _library():
         lib.record_walk_launch.restype = _I
         lib.record_walk_launch.argtypes = (
             [_P] * 5 + [_I] + [_P] * 7 + [_I] * 3 + [_U] + [_I] * 8 + [_P])
+        lib.record_kernel_occupancy.restype = _I
+        lib.record_kernel_occupancy.argtypes = [_I] * 7 + [_P]
         if lib.record_kernel_num_params() != N_PARAMS:
             raise RuntimeError("csrc/record_kernel.cu and record_kernel.py "
                                "disagree on the parameter layout")
@@ -1292,6 +1295,22 @@ def _walk_cuda(tab: RecordTables, prm: RecordParams, seed: int,
     WALK_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f"record_walk launch failed: CUDA error {err}")
+
+
+def occupancy(prm: RecordParams, smem_bytes: Optional[int] = None) -> tuple:
+    """(blocks of 128 threads resident on one SM, dynamic shared-memory
+    bytes) of the transport kernel's instantiation for ``prm`` on the
+    current card: with ``smem_bytes`` as given, by default what a launch
+    takes (the whole tally in shared memory, or the flux columns alone
+    where a block's copy of the 3D tally would cost blocks an SM)."""
+    used = ctypes.c_int(0)
+    blocks = _library().record_kernel_occupancy(
+        int(prm.macro_factor > 0), int(prm.vol_tally), int(prm.analytic_hg),
+        int(prm.n_dirs > 0), -1 if smem_bytes is None else int(smem_bytes),
+        prm.nx * prm.ny, prm.n_acc, ctypes.byref(used))
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-blocks}")
+    return blocks, used.value
 
 
 def record_launch(st: RecordState, tab: RecordTables, prm: RecordParams,

@@ -11,7 +11,20 @@ replicated-domain model (src/opticalProperties.f95:77-115).
 
 The domain is cut into at most 127 tiles of at most 32,768 cells by the
 planner, and every tile carries its own Woodcock majorant (the largest
-extinction in it). Photons live in a pool of slots; each pass
+extinction in it). Photons live in a pool of slots. Two schedules drive
+the kernel:
+
+The refill schedule (``TileConfig(refill=True)``, what ``run_batch``
+runs): ``record_kernel.relaunch_loop``, the host loop of K1-K4, launches
+the kernel in its refill mode, ``k_steps`` steps a launch, with a per-slot
+photon quota (rebalanced evenly over the slots after each launch). A dead
+slot with quota left starts a fresh photon in the kernel (the injection's
+draws at the step's counter, keyed by the slot), and a live photon follows
+its path into every tile it crosses. One read-back a launch; no sort, no
+pack, no cohort padding. Photons still alive at the step cap
+(``TileConfig.max_passes`` launches) are counted in ``n_bad``.
+
+The sorted-pass schedule (the JAX package's; ``TileConfig()``): each pass
 
 * injects fresh photons from the source into the lowest-index dead slots
   (at most the pool size live at once, at most the quota in all), at the
@@ -30,16 +43,16 @@ extinction in it). Photons live in a pool of slots; each pass
 
 The sorted passes stop when the quota is spent and at most pool /
 ``drain_div`` photons are left alive, or at ``max_passes``. A tail may
-follow (``TileConfig.tail_steps``, the default of ``run_batch``): passes
-without sort or pack in which each straggler follows its path across tiles
-for many steps. Photons still alive at the end are counted in ``n_bad``
-(the tiled analog of the reference's step cap,
+follow (``TileConfig.tail_steps``, ``sorted_config``): passes without sort
+or pack in which each straggler follows its path across tiles for many
+steps. Photons still alive at the end are counted in ``n_bad`` (the tiled
+analog of the reference's step cap,
 Integrators/monteCarloRadiativeTransfer.f95:562-563).
 
-Two implementations of one pass:
+Two implementations of one launch, in either mode:
 
 * ``csrc/tile_kernel.cu``, one CUDA thread per pool slot (``_launch_cuda``);
-* ``tile_pass_plain``, the same pass on ``[n_pad]`` tensors with masked
+* ``tile_pass_plain``, the same launch on ``[n_pad]`` tensors with masked
   ``torch.where`` selects, operation for operation the JAX kernel's float32
   arithmetic without its TPU layout: the per-cell fields are read from
   dense arrays in global cell order (no per-tile slabs, no select chains)
@@ -48,12 +61,14 @@ Two implementations of one pass:
 
 ``tile_pass`` sends CUDA tensors to the kernel and CPU tensors to the plain
 pass; there is no fallback between them. Both draw the counter uniforms of
-``core.rng`` keyed by the packed slot at the JAX kernel's sites, so for one
-seed and one injection they follow the JAX kernel's photon paths
-(interpret mode, whose uniforms are the counter mixer). The injection
-draws its uniforms from the same counter stream at sites of its own (the
-JAX package draws them with threefry); a caller may pass other injection
-uniforms, as the tests do with the JAX package's.
+``core.rng`` keyed by the slot at the JAX kernel's sites, so for one seed
+and one injection they follow the JAX kernel's photon paths (interpret
+mode, whose uniforms are the counter mixer). The injection draws its
+uniforms from the same counter stream at sites of its own (the JAX package
+draws them with threefry): in the sorted schedule at the pass's counter on
+the host, where a caller may pass other injection uniforms, as the tests
+do with the JAX package's; in the refill mode at the step's counter in the
+launch.
 
 Not carried over from the TPU kernel: the ``[*, 128]`` slab layout and its
 BlockSpec DMA, the select chains, the one-hot MXU tally, the ``majrow``
@@ -92,27 +107,45 @@ TILE_MIN_CELLS = 128 * 128
 # Shared memory a kernel block may take for the inverse-CDF table (two
 # 256-thread blocks per SM); a larger table is read from global memory.
 TABLE_SMEM = 96 * 1024
-# Steps per tail pass of run_batch_tile_tallies: once at most pool / 64
-# photons are alive, the sorted passes cost a sort of the whole pool for
-# few steps each (near-horizontal photons above the cloud cross thousands
-# of tiles), so the tail lets them follow their paths across tiles.
+# Steps per tail pass of the sorted schedule (sorted_config): once at most
+# pool / 64 photons are alive, the sorted passes cost a sort of the whole
+# pool for few steps each (near-horizontal photons above the cloud cross
+# thousands of tiles), so the tail lets them follow their paths across
+# tiles.
 TAIL_STEPS = 1024
+# Steps per launch of the refill schedule (run_batch_tile_tallies'
+# default), chosen on the card over 128-8192 on the dense headline
+# (PERF.md): a batch ends with its longest photon's serial chain of steps,
+# so fewer, longer launches win (4096 is within 5% of 8192), and the step
+# cap is met to within one launch (20,480 steps for the default 20,000).
+REFILL_STEPS = 4096
 
-# Kernel launches made by ``_launch_cuda`` in this process (one per pass).
+# Kernel launches made by ``_launch_cuda`` in this process (one per pass
+# or refill launch).
 TILE_LAUNCHES = 0
 
 # Draw sites of the kernel (pallas_tile.py:474-478, 561), at counter
 # pass * k_steps + step, and of the injection (the port's own), at counter
-# pass: entry x, entry y, the source's azimuth (random azimuth) or mu
-# (flux), the flux source's azimuth.
+# pass (sorted schedule) or step (refill mode): entry x, entry y, the
+# source's azimuth (random azimuth) or mu (flux), the flux source's
+# azimuth. The two sets never meet, so a refilled photon moves in its birth
+# step.
 SITE_TAU, SITE_COLLIDE, SITE_ANGLE, SITE_PHI, SITE_ROULETTE = 3, 4, 5, 6, 7
 SITE_COMPONENT = 8
 INJECTION_SITES = (0, 1, 2, 9)
+# Source kinds of the refill mode, by index (csrc/tile_kernel.cu SRC_*).
+SOURCE_KINDS = (illumination.DIRECTIONAL, illumination.RANDOM_AZIMUTH,
+                illumination.FLUX, illumination.SPOTLIGHT)
 
 # Slots of the float32 parameter vector (csrc/tile_kernel.cu P_*).
 (P_X0, P_LX, P_Y0, P_LY, P_Z0, P_LZ, P_ALBEDO, P_SSA_U, P_G_U, P_RR_W,
  P_HALF_RR, P_INV_DX, P_INV_DY, P_INV_DZ, P_TXP, P_TYP, P_TZP, P_ZMAX,
- P_ZLO, P_ZHI, P_NUDGE, P_TWO_PI, N_PARAMS) = range(23)
+ P_ZLO, P_ZHI, P_NUDGE, P_TWO_PI, P_SMU, P_SUX, P_SUY, P_SPOT_X, P_SPOT_Y,
+ N_PARAMS) = range(28)
+# counts: photons started, slots with work left (alive or quota > 0),
+# lane-steps run with a live photon, real collisions (relaunch_loop's
+# first four); the pass mode adds only the last two.
+N_COUNTS = 4
 
 _TINY = rk._TINY
 _BIG = 3e38
@@ -123,12 +156,15 @@ _TOP_EPS = _F32(1e-6)
 @dataclasses.dataclass(frozen=True)
 class TileConfig:
     """Launch geometry of the tiled kernel (``pallas_tile.TileConfig``
-    without its interpret switch)."""
+    without its interpret switch) and the schedule: the JAX package's
+    sorted passes, or with ``refill`` the relaunch loop over the kernel's
+    refill mode (which reads only ``k_steps``, ``skip_iters``,
+    ``max_passes`` and ``force_tiles``)."""
 
     rows_b: int = 16        # cohort padding: B = rows_b * 128 slots
-    k_steps: int = 24       # transport steps per slot and pass
+    k_steps: int = 24       # transport steps per slot and pass (launch)
     skip_iters: int = 4     # empty-tile skip chain per crossing
-    max_passes: int = 8192  # cap on sort + transport passes
+    max_passes: int = 8192  # cap on sort + transport passes (launches)
     # drain floor: once the quota is spent, stop the sorted passes when at
     # most pool / drain_div photons are alive; 0: no floor
     drain_div: int = 64
@@ -140,6 +176,9 @@ class TileConfig:
     tail_passes: int = 0
     # a fixed (tx, ty, tz) plan, so that small domains still cross tiles
     force_tiles: Optional[tuple] = None
+    # the refill schedule: slots start photons in the kernel, photons
+    # cross tiles, relaunch_loop drives the launches
+    refill: bool = False
 
     @property
     def cohort(self) -> int:
@@ -349,6 +388,11 @@ class TileParams:
         """Tally entries: [up nxy | down nxy | absorbed nxy]."""
         return 3 * self.shape[0] * self.shape[1]
 
+    @property
+    def src(self) -> int:
+        """The source kind's index in ``SOURCE_KINDS``."""
+        return SOURCE_KINDS.index(self.source_kind)
+
     @staticmethod
     def make(domain: OpticalDomain, surface: Surface,
              source: illumination.Source, tiles: tuple, tcfg: TileConfig,
@@ -382,6 +426,10 @@ class TileParams:
                     else 1.0))
         sphi = f(source.solar_azimuth)
         sth = np.sqrt(np.maximum(f(0.0), f(1.0) - smu * smu))
+        sux, suy = sth * np.cos(sphi), sth * np.sin(sphi)
+        spot_x, spot_y = f(source.solar_x), f(source.solar_y)
+        vals[[P_SMU, P_SUX, P_SUY, P_SPOT_X, P_SPOT_Y]] = (smu, sux, suy,
+                                                          spot_x, spot_y)
         return TileParams(
             values=vals,
             device_values=torch.as_tensor(vals, device=domain.device),
@@ -389,18 +437,21 @@ class TileParams:
             need_ssa=need_ssa, need_f2=need_f2, ncomp=ncomp,
             analytic_hg=bool(domain.all_hg),
             inv_n_steps=int(domain.tables.inverse.shape[1]),
-            use_rr=bool(use_russian_roulette), skip_iters=tcfg.skip_iters, source_kind=source.kind, smu=smu,
-            sux=sth * np.cos(sphi), suy=sth * np.sin(sphi),
-            spot_x=f(source.solar_x), spot_y=f(source.solar_y))
+            use_rr=bool(use_russian_roulette), skip_iters=tcfg.skip_iters,
+            source_kind=source.kind, smu=smu, sux=sux, suy=suy,
+            spot_x=spot_x, spot_y=spot_y)
 
 
 @dataclasses.dataclass
 class TilePool:
-    """The photon pool: ``st`` float32 [7, n_pad] (x, y, z, ux, uy, uz, w)
-    and ``tile`` int32 [n_pad], each slot's tile or n_tiles (DEAD)."""
+    """The photon pool: ``st`` float32 [7, n_pad] (x, y, z, ux, uy, uz, w),
+    ``tile`` int32 [n_pad], each slot's tile or n_tiles (DEAD), and for the
+    refill mode ``quota`` int32 [n_pad], the photons each slot has yet to
+    start."""
 
     st: torch.Tensor
     tile: torch.Tensor
+    quota: Optional[torch.Tensor] = None
 
     @staticmethod
     def empty(n_pad: int, n_tiles: int, device) -> "TilePool":
@@ -412,9 +463,9 @@ class TilePool:
 
 @dataclasses.dataclass(frozen=True)
 class TileTally:
-    """What a pass adds into: ``acc`` the tallies [3 * nx * ny] f32 and
-    ``counts`` int64 [real collisions, lane-steps run with a live
-    photon]."""
+    """What a launch adds into: ``acc`` the tallies [3 * nx * ny] f32 and
+    ``counts`` int64 [N_COUNTS]: photons started, slots with work left,
+    lane-steps run with a live photon, real collisions."""
 
     acc: torch.Tensor
     counts: torch.Tensor
@@ -423,7 +474,7 @@ class TileTally:
     def zeros(prm: TileParams, device) -> "TileTally":
         return TileTally(
             acc=torch.zeros(prm.n_acc, dtype=torch.float32, device=device),
-            counts=torch.zeros(2, dtype=torch.int64, device=device))
+            counts=torch.zeros(N_COUNTS, dtype=torch.int64, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -455,14 +506,61 @@ def _decode(t: torch.Tensor, nty: int, ntz: int):
     return ta, tb, rem - tb * ntz
 
 
+def _fresh(prm: TileParams, us: torch.Tensor) -> tuple:
+    """Fresh photons of the source from the injection uniforms ``us`` [4,
+    n] (entry x, entry y, the source's azimuth or mu, the flux source's
+    azimuth): their state [7, n] (entry at the top, one point for the
+    spotlight, weight 1) and the tile under the entry point in the top
+    layer of tiles, int32 [n] (pallas_tile.py:877-921; csrc/tile_kernel.cu
+    inject)."""
+    p = prm
+    nx, ny, _ = p.shape
+    tx, ty, _ = p.tiles
+    _, nty, ntz = p.n_tiles_xyz
+    x0, lx, y0, ly = p[P_X0], p[P_LX], p[P_Y0], p[P_LY]
+    kind = p.source_kind
+    if kind == illumination.SPOTLIGHT:
+        fx = _F32(x0) + p.spot_x * _F32(lx)
+        fy = _F32(y0) + p.spot_y * _F32(ly)
+        x_new = torch.full_like(us[0], float(fx))
+        y_new = torch.full_like(us[0], float(fy))
+    else:
+        x_new = x0 + us[0] * lx
+        y_new = y0 + us[1] * ly
+    if kind in (illumination.DIRECTIONAL, illumination.SPOTLIGHT):
+        uz_new = torch.full_like(us[0], -float(p.smu))
+        ux_new = torch.full_like(us[0], float(p.sux))
+        uy_new = torch.full_like(us[0], float(p.suy))
+    else:
+        if kind == illumination.RANDOM_AZIMUTH:
+            mu = torch.full_like(us[0], float(p.smu))
+            phi = p[P_TWO_PI] * us[2]
+        else:  # flux: mu = sqrt(u), azimuth at the fourth draw
+            mu = torch.sqrt(torch.clamp(us[2], min=1e-12))
+            phi = p[P_TWO_PI] * us[3]
+        s_sin = torch.sqrt(torch.clamp(1.0 - mu * mu, min=0.0))
+        uz_new = -mu
+        ux_new = s_sin * torch.cos(phi)
+        uy_new = s_sin * torch.sin(phi)
+    fresh = torch.stack([x_new, y_new,
+                         torch.full_like(x_new, p[P_ZHI]), ux_new, uy_new,
+                         uz_new, torch.ones_like(x_new)])
+    ix = ((x_new - x0) * p[P_INV_DX]).to(torch.int32).clamp(0, nx - 1)
+    iy = ((y_new - y0) * p[P_INV_DY]).to(torch.int32).clamp(0, ny - 1)
+    top = ((ix // tx) * nty + iy // ty) * ntz + (ntz - 1)
+    return fresh, top.to(torch.int32)
+
+
 def tile_pass_plain(pool: TilePool, fld: TileFields, prm: TileParams,
                     seed: int, step0: int, k_steps: int, tally: TileTally,
-                    follow: bool = False) -> None:
-    """One pass over the packed pool, every slot taking up to ``k_steps``
-    steps (counters ``step0`` on) while its photon stays in its tile, or
-    with ``follow`` into whatever tile it crosses into; updates ``pool``
-    (its fields are rebound) and adds into ``tally``. Operation for
-    operation the JAX kernel's float32 arithmetic (pallas_tile.py
+                    follow: bool = False, refill: bool = False) -> None:
+    """One launch over the pool, every slot taking up to ``k_steps`` steps
+    (counters ``step0`` on) while its photon stays in its tile, or with
+    ``follow`` into whatever tile it crosses into; with ``refill`` (which
+    follows) a dead slot whose ``pool.quota`` is above 0 first starts a
+    fresh photon from the injection draws of the step's counter. Updates
+    ``pool`` (its fields are rebound) and adds into ``tally``. Operation
+    for operation the JAX kernel's float32 arithmetic (pallas_tile.py
     _build_tile_kernel)."""
     p = prm
     nx, ny, nz = p.shape
@@ -481,8 +579,24 @@ def tile_pass_plain(pool: TilePool, fld: TileFields, prm: TileParams,
                                       device=dev), seed)
     tile_l = pool.tile.long()
     one_m_ssa_u = float(_F32(1.0) - _F32(p[P_SSA_U]))
+    follow = follow or refill
+    quota = pool.quota if refill else None
+    started = torch.zeros((), dtype=torch.int64, device=dev)
     t0 = None
     for k in range(k_steps):
+        ctr = step0 + k
+        if refill:
+            # ---- a dead slot with quota left starts a photon ----
+            take = (tile_l >= n_tiles) & (quota > 0)
+            if bool(take.any()):
+                fresh, top = _fresh(p, torch.stack(
+                    [u(ctr, s) for s in INJECTION_SITES]))
+                x, y, z, ux, uy, uz, w = (
+                    torch.where(take, a, b) for a, b in zip(
+                        fresh.unbind(0), (x, y, z, ux, uy, uz, w)))
+                tile_l = torch.where(take, top.long(), tile_l)
+                quota = quota - take.to(torch.int32)
+                started = started + take.sum()
         if t0 is None or follow:
             # the tile the slot steps in: its indices, box and majorant
             t0 = tile_l
@@ -496,7 +610,6 @@ def tile_pass_plain(pool: TilePool, fld: TileFields, prm: TileParams,
         active = (tile_l < n_tiles) & (tile_l == t0)
         if not bool(active.any()):
             break
-        ctr = step0 + k
         phi_rot = p[P_TWO_PI] * u(ctr, SITE_PHI)
         u_ang = u(ctr, SITE_ANGLE)
 
@@ -651,10 +764,14 @@ def tile_pass_plain(pool: TilePool, fld: TileFields, prm: TileParams,
         acc.index_add_(0, nxy + col_e.long(),
                        torch.where(exit_bot, w_down, 0.0))
         acc.index_add_(0, 2 * nxy + col_c.long(), absorbed)
-        tally.counts.add_(torch.stack([real.sum(), active.sum()]))
+        tally.counts[2:].add_(torch.stack([active.sum(), real.sum()]))
 
     pool.st = torch.stack([x, y, z, ux, uy, uz, w])
     pool.tile = tile_l.to(torch.int32)
+    if refill:
+        pool.quota = quota
+        work = ((tile_l < n_tiles) | (quota > 0)).sum()
+        tally.counts[:2].add_(torch.stack([started, work]))
 
 
 # ---------------------------------------------------------------------------
@@ -674,7 +791,7 @@ def _library():
         lib.tile_kernel_num_params.argtypes = []
         lib.tile_kernel_launch.restype = _I
         lib.tile_kernel_launch.argtypes = (
-            [_P] * 9 + [_I] * 18 + [_U, _U] + [_I] * 4 + [_P])
+            [_P] * 10 + [_I] * 18 + [_U, _U] + [_I] * 6 + [_P])
         if lib.tile_kernel_num_params() != N_PARAMS:
             raise RuntimeError("csrc/tile_kernel.cu and tile_kernel.py "
                                "disagree on the parameter layout")
@@ -684,7 +801,7 @@ def _library():
 
 def _launch_cuda(pool: TilePool, fld: TileFields, prm: TileParams,
                  seed: int, step0: int, k_steps: int, tally: TileTally,
-                 follow: bool, table_smem: int) -> None:
+                 follow: bool, table_smem: int, refill: bool = False) -> None:
     global TILE_LAUNCHES
     dev = pool.st.device
     n_pad = pool.tile.shape[0]
@@ -702,19 +819,23 @@ def _launch_cuda(pool: TilePool, fld: TileFields, prm: TileParams,
     check(fld.inv_dd, "inv_dd", torch.float32, inv_n, dev)
     check(prm.device_values, "params", torch.float32, N_PARAMS, dev)
     check(tally.acc, "acc", torch.float32, prm.n_acc, dev)
-    check(tally.counts, "counts", torch.int64, 2, dev)
+    check(tally.counts, "counts", torch.int64, N_COUNTS, dev)
+    if refill:
+        check(pool.quota, "quota", torch.int32, n_pad, dev)
     if prm.n_tiles > MAX_TILES:
         raise ValueError(f"{prm.n_tiles} tiles > {MAX_TILES}")
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [prm.device_values, fld.fields, fld.majs, fld.inv_a0, fld.inv_dd,
-            pool.st, pool.tile, tally.acc, tally.counts]
+            pool.st, pool.tile, pool.quota if refill else None, tally.acc,
+            tally.counts]
     err = lib.tile_kernel_launch(
-        *(t.data_ptr() for t in ptrs), n_pad, nx, ny, nz, *prm.tiles,
-        *prm.n_tiles_xyz, prm.n_f, int(prm.need_ssa), int(prm.need_f2),
-        prm.ncomp, int(prm.analytic_hg), prm.inv_n_steps, inv_n,
-        int(prm.use_rr), seed & 0xFFFF_FFFF, step0 & 0xFFFF_FFFF, k_steps,
-        int(follow), prm.skip_iters, table_smem, stream)
+        *(t.data_ptr() if t is not None else None for t in ptrs), n_pad, nx,
+        ny, nz, *prm.tiles, *prm.n_tiles_xyz, prm.n_f, int(prm.need_ssa),
+        int(prm.need_f2), prm.ncomp, int(prm.analytic_hg), prm.inv_n_steps,
+        inv_n, int(prm.use_rr), seed & 0xFFFF_FFFF, step0 & 0xFFFF_FFFF,
+        k_steps, int(follow), prm.skip_iters, table_smem, int(refill),
+        prm.src, stream)
     TILE_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f"tile_kernel launch failed: CUDA error {err}")
@@ -722,23 +843,26 @@ def _launch_cuda(pool: TilePool, fld: TileFields, prm: TileParams,
 
 def tile_pass(pool: TilePool, fld: TileFields, prm: TileParams, seed: int,
               step0: int, k_steps: int, tally: TileTally,
-              follow: bool = False, table_smem: int = TABLE_SMEM) -> None:
-    """One pass over the packed pool (``tile_pass_plain``'s arguments): the
+              follow: bool = False, table_smem: int = TABLE_SMEM,
+              refill: bool = False) -> None:
+    """One launch over the pool (``tile_pass_plain``'s arguments): the
     CUDA kernel for a pool on a CUDA device, the plain PyTorch pass for a
     pool on the CPU. ``table_smem`` is the kernel block's shared-memory
     budget for the inverse-CDF table in bytes (a smaller one sends the
     table to global reads; the plain pass has no such choice)."""
     if pool.st.is_cuda:
         _launch_cuda(pool, fld, prm, seed, step0, k_steps, tally, follow,
-                     table_smem)
+                     table_smem, refill)
     elif pool.st.device.type == "cpu":
-        tile_pass_plain(pool, fld, prm, seed, step0, k_steps, tally, follow)
+        tile_pass_plain(pool, fld, prm, seed, step0, k_steps, tally, follow,
+                        refill)
     else:
         raise ValueError(f"no tiled kernel for device {pool.st.device}")
 
 
 # ---------------------------------------------------------------------------
-# The pass loop: injection, sort and pack, kernel pass
+# The schedules: the sorted passes (injection, sort and pack, kernel pass,
+# tail) and the refill launches under relaunch_loop
 # ---------------------------------------------------------------------------
 
 def injection_uniforms(seed: int, pass_i: int, n_pad: int,
@@ -755,50 +879,15 @@ def _inject(pool: TilePool, prm: TileParams, us: torch.Tensor,
     """Fresh photons into the lowest-index dead slots, at most ``quota``
     and at most ``n_pool_r`` live in all (pallas_tile.py:877-921); returns
     the photons started."""
-    p = prm
-    nx, ny, _ = p.shape
-    tx, ty, _ = p.tiles
-    _, nty, ntz = p.n_tiles_xyz
-    n_tiles = p.n_tiles
+    n_tiles = prm.n_tiles
     n_pad = pool.tile.shape[0]
-    x0, lx, y0, ly = p[P_X0], p[P_LX], p[P_Y0], p[P_LY]
     dead = pool.tile >= n_tiles
     rank = torch.cumsum(dead.to(torch.int64), 0)
     cap = torch.clamp(n_pool_r - (n_pad - dead.sum()), min=0)
     take = dead & (rank <= torch.minimum(quota, cap))
-    kind = p.source_kind
-    if kind == illumination.SPOTLIGHT:
-        fx = _F32(x0) + p.spot_x * _F32(lx)
-        fy = _F32(y0) + p.spot_y * _F32(ly)
-        x_new = torch.full_like(us[0], float(fx))
-        y_new = torch.full_like(us[0], float(fy))
-    else:
-        x_new = x0 + us[0] * lx
-        y_new = y0 + us[1] * ly
-    if kind in (illumination.DIRECTIONAL, illumination.SPOTLIGHT):
-        uz_new = torch.full_like(us[0], -float(p.smu))
-        ux_new = torch.full_like(us[0], float(p.sux))
-        uy_new = torch.full_like(us[0], float(p.suy))
-    else:
-        if kind == illumination.RANDOM_AZIMUTH:
-            mu = torch.full_like(us[0], float(p.smu))
-            phi = p[P_TWO_PI] * us[2]
-        else:  # flux: mu = sqrt(u), azimuth at the fourth draw
-            mu = torch.sqrt(torch.clamp(us[2], min=1e-12))
-            phi = p[P_TWO_PI] * us[3]
-        s_sin = torch.sqrt(torch.clamp(1.0 - mu * mu, min=0.0))
-        uz_new = -mu
-        ux_new = s_sin * torch.cos(phi)
-        uy_new = s_sin * torch.sin(phi)
-    fresh = torch.stack([x_new, y_new,
-                         torch.full_like(x_new, p[P_ZHI]), ux_new, uy_new,
-                         uz_new, torch.ones_like(x_new)])
+    fresh, top = _fresh(prm, us)
     pool.st = torch.where(take, fresh, pool.st)
-    # the tile under the entry point, in the top layer of tiles
-    ix = ((x_new - x0) * p[P_INV_DX]).to(torch.int32).clamp(0, nx - 1)
-    iy = ((y_new - y0) * p[P_INV_DY]).to(torch.int32).clamp(0, ny - 1)
-    top = ((ix // tx) * nty + iy // ty) * ntz + (ntz - 1)
-    pool.tile = torch.where(take, top.to(torch.int32), pool.tile)
+    pool.tile = torch.where(take, top, pool.tile)
     return take.sum()
 
 
@@ -836,7 +925,7 @@ class TileRun:
     flux_absorbed: torch.Tensor
     n_started: int
     n_bad: int
-    n_passes: int   # sorted passes and tail passes
+    n_passes: int   # sorted passes and tail passes, or refill launches
     n_tail: int     # tail passes
     lane_steps: int
     n_real: int
@@ -851,15 +940,19 @@ def run_batch_tile(domain: OpticalDomain, surface: Surface,
                    inject: Optional[Callable[[int, int], torch.Tensor]] = None
                    ) -> TileRun:
     """One photon batch through the tiled kernel (port of
-    ``run_batch_pallas_tile`` and ``_make_tile_launch.launch``).
+    ``run_batch_pallas_tile`` and ``_make_tile_launch.launch``), on the
+    schedule ``tcfg`` names.
 
-    ``n_pool`` is the pool's live-photon budget, rounded up to whole
-    cohorts; the padded pool adds one cohort per tile. ``seed`` is the
-    uint32 kernel seed; ``launch`` is ``tile_pass`` (or, to compare the two
-    on one device, ``tile_pass_plain``); ``inject(pass_i, n_pad)``, when
-    given, returns the [4, n_pad] injection uniforms of a pass in place of
-    ``injection_uniforms``. Each pass reads back the quota left and the
-    photons alive."""
+    Sorted passes: ``n_pool`` is the pool's live-photon budget, rounded up
+    to whole cohorts; the padded pool adds one cohort per tile;
+    ``inject(pass_i, n_pad)``, when given, returns the [4, n_pad] injection
+    uniforms of a pass in place of ``injection_uniforms``. Each pass reads
+    back the quota left and the photons alive. Refill (``tcfg.refill``):
+    ``n_pool`` slots, ``n_photons`` spread over them as quota, the launches
+    of ``tcfg.k_steps`` steps driven by ``record_kernel.relaunch_loop`` up
+    to ``tcfg.max_passes`` launches. ``seed`` is the uint32 kernel seed;
+    ``launch`` is ``tile_pass`` (or, to compare the two on one device,
+    ``tile_pass_plain``)."""
     reasons = tile_ineligibility_reasons(
         domain, surface, source, lw_mode=False, compute_intensity=False,
         record_scattering_orders=0, use_ray_tracing=False,
@@ -881,6 +974,12 @@ def run_batch_tile(domain: OpticalDomain, surface: Surface,
     n_tiles = prm.n_tiles
     if n_tiles > MAX_TILES:
         raise ValueError(f"plan {tiles} has {n_tiles} tiles > {MAX_TILES}")
+    if tcfg.refill:
+        if inject is not None:
+            raise ValueError("the refill mode injects in the kernel; "
+                             "inject= applies to the sorted passes")
+        return _refill_batch(fld, prm, seed, tcfg, int(n_pool),
+                             int(n_photons), launch)
     cohort = tcfg.cohort
     n_pool_r = -(-int(n_pool) // cohort) * cohort
     n_pad = n_pool_r + n_tiles * cohort
@@ -912,16 +1011,61 @@ def run_batch_tile(domain: OpticalDomain, surface: Surface,
                tcfg.tail_steps, tally, follow=True)
         n_alive = int((pool.tile < n_tiles).sum())
         n_tail += 1
+    _, _, lane_steps, n_real = tally.counts.tolist()
+    return _tile_run(prm, tally, int(started), n_alive, n_passes + n_tail,
+                     n_tail, lane_steps, n_real)
+
+
+def _tile_run(prm: TileParams, tally: TileTally, *counts) -> TileRun:
     nx, ny, _ = prm.shape
     nxy = nx * ny
     acc = tally.acc
-    n_real, lane_steps = tally.counts.tolist()
-    return TileRun(flux_up=acc[:nxy].reshape(nx, ny),
-                   flux_down=acc[nxy:2 * nxy].reshape(nx, ny),
-                   flux_absorbed=acc[2 * nxy:].reshape(nx, ny),
-                   n_started=int(started), n_bad=n_alive,
-                   n_passes=n_passes + n_tail, n_tail=n_tail,
-                   lane_steps=lane_steps, n_real=n_real)
+    return TileRun(acc[:nxy].reshape(nx, ny),
+                   acc[nxy:2 * nxy].reshape(nx, ny),
+                   acc[2 * nxy:].reshape(nx, ny), *counts)
+
+
+def _refill_batch(fld: TileFields, prm: TileParams, seed: int,
+                  tcfg: TileConfig, n_slots: int, n_photons: int,
+                  launch) -> TileRun:
+    """The refill schedule: ``n_photons`` spread as quota over ``n_slots``
+    slots (the first ``n_photons % n_slots`` take one more), launches of
+    ``tcfg.k_steps`` steps in the kernel's refill mode driven by
+    ``record_kernel.relaunch_loop`` (one read-back a launch, the unspent
+    quota rebalanced evenly) until no slot has work left or
+    ``tcfg.max_passes`` launches have run; the photons alive then are
+    ``n_bad``."""
+    dev = prm.device_values.device
+    pool = TilePool.empty(n_slots, prm.n_tiles, dev)
+    pool.quota = rk.initial_quota(n_slots, -(-n_photons // n_slots),
+                                  n_photons, dev)
+    tally = TileTally.zeros(prm, dev)
+    k = tcfg.k_steps
+    n_started, n_calls, lane_steps, n_real = rk.relaunch_loop(
+        pool, tally.counts,
+        lambda step0: launch(pool, fld, prm, seed, step0, k, tally,
+                             refill=True),
+        k, tcfg.max_passes * k, n_per_launch=N_COUNTS)
+    n_bad = int((pool.tile < prm.n_tiles).sum())
+    return _tile_run(prm, tally, n_started, n_bad, n_calls, 0, lane_steps,
+                     n_real)
+
+
+def refill_config(max_steps: int, k_steps: int = REFILL_STEPS) -> TileConfig:
+    """The refill schedule of ``run_batch``: launches of ``k_steps``
+    steps, at most ``max_steps`` steps in all (the reference's step
+    cap)."""
+    return TileConfig(refill=True, k_steps=k_steps,
+                      max_passes=max(1, -(-max_steps // k_steps)))
+
+
+def sorted_config(max_steps: int) -> TileConfig:
+    """The sorted passes to the JAX package's drain floor (pool / 64
+    alive), then a tail of ``TAIL_STEPS``-step passes in which the
+    stragglers follow their paths across tiles, up to ``max_steps`` tail
+    steps."""
+    return TileConfig(tail_steps=TAIL_STEPS,
+                      tail_passes=max(1, -(-max_steps // TAIL_STEPS)))
 
 
 def run_batch_tile_tallies(domain, surface, source, seed: int, config,
@@ -930,20 +1074,20 @@ def run_batch_tile_tallies(domain, surface, source, seed: int, config,
     """``run_batch``-compatible entry (port of
     ``run_batch_pallas_tile_tallies``): the pool is the batch's lane count
     (``config.n_lanes``); ``n_steps`` and ``n_lane_steps`` are the
-    lane-steps run with a live photon, ``n_passes`` the passes.
+    lane-steps run with a live photon, ``n_passes`` the passes or
+    launches.
 
-    The JAX package's entry stops at its drain floor with up to pool / 64
-    photons alive and drops their weight (a bias of the fluxes by up to
-    that share). The default here runs the same sorted passes to the same
-    floor, then a tail of passes of ``TAIL_STEPS`` steps in which the
-    stragglers follow their paths across tiles, up to ``config.max_steps``
-    tail steps, so that ``n_bad`` keeps the reference's meaning: photons
-    cut by the step cap."""
+    The default is the refill schedule (``refill_config``): the kernel
+    starts and follows the photons across tiles under ``relaunch_loop``,
+    up to ``config.max_steps`` steps, so that ``n_bad`` keeps the
+    reference's meaning: photons cut by the step cap. ``tcfg=TileConfig()``
+    runs the JAX package's sorted passes, which stop at its drain floor
+    with up to pool / 64 photons alive and drop their weight (a bias of
+    the fluxes by up to that share); ``sorted_config`` adds the tail."""
     if n_photons is None:
         n_photons = config.photons_per_batch
     if tcfg is None:
-        tcfg = TileConfig(tail_steps=TAIL_STEPS, tail_passes=max(
-            1, -(-config.max_steps // TAIL_STEPS)))
+        tcfg = refill_config(config.max_steps)
     run = run_batch_tile(
         domain, surface, source, seed, tcfg, config.n_lanes,
         n_photons, use_russian_roulette=config.use_russian_roulette,

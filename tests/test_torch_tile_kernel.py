@@ -357,21 +357,14 @@ def _per_photon(t, n):
                  for a in (t[0], t[1], t[2]))
 
 
-def test_whole_run_matches_jax_statistically():
-    """The port's own run (its injection stream, drained to empty) against
-    the JAX XLA wave kernel and the JAX tiled kernel on other seeds: R, T
-    and A within 4.5 combined sigma (the per-photon tallies are at most
-    ~1.25, so mean / n bounds their variance / n)."""
+@pytest.fixture(scope="module")
+def jax_whole_runs():
+    """The dense test scene (ssa 0.95) in both packages and its R, T, A
+    per photon from the JAX XLA wave kernel and the JAX tiled kernel
+    (interpret mode), each with its photon count: one compile for the
+    whole-run tests."""
     jd, td = both_domains(*dense_fields(ssa=0.95))
-    sfc, jsfc = Surface.lambertian(0.2), JSurface.lambertian(0.2)
-    src, jsrc = SOURCES["directional"]
-    port = tk.run_batch_tile(td, sfc, src(), 77,
-                             tk.TileConfig(**{**GEOMETRY, "drain_div": 0}),
-                             N_POOL, 8000)
-    assert port.n_started == 8000 and port.n_bad == 0
-    n_t = port.n_started
-    got = _per_photon((port.flux_up, port.flux_down, port.flux_absorbed),
-                      n_t)
+    jsfc, jsrc = JSurface.lambertian(0.2), SOURCES["directional"][1]
     xla = jintegrator.run_batch(
         jd, jsfc, jsrc(), jrng.batch_key(9, 0),
         jintegrator.KernelConfig(n_lanes=1 << 11, photons_per_lane=4,
@@ -381,13 +374,52 @@ def test_whole_run_matches_jax_statistically():
     out = jtile.run_batch_pallas_tile(
         jd, jsfc, jsrc(), jrng.batch_key(5, 1),
         jtile.TileConfig(interpret=True, **GEOMETRY), N_POOL, 8000)
-    for name, t, n in (("xla", (xla.flux_up, xla.flux_down,
-                                xla.flux_absorbed), int(xla.n_photons)),
-                       ("tile", out[:3], int(out[3]))):
-        want = _per_photon(t, n)
+    refs = [("xla", _per_photon((xla.flux_up, xla.flux_down,
+                                 xla.flux_absorbed), int(xla.n_photons)),
+             int(xla.n_photons)),
+            ("tile", _per_photon(out[:3], int(out[3])), int(out[3]))]
+    return td, refs
+
+
+def _assert_matches_jax(port, refs):
+    """R, T and A of a port run within 4.5 combined sigma of each JAX run
+    (the per-photon tallies are at most ~1.25, so mean / n bounds their
+    variance / n)."""
+    n_t = port.n_started
+    got = _per_photon((port.flux_up, port.flux_down, port.flux_absorbed),
+                      n_t)
+    for name, want, n in refs:
         for a, b, what in zip(got, want, "RTA"):
             sigma = np.sqrt(a / n_t + b / n)
             assert abs(a - b) < 4.5 * sigma, (name, what, a, b, sigma)
+
+
+def test_whole_run_matches_jax_statistically(jax_whole_runs):
+    """The port's own sorted run (its injection stream, drained to empty)
+    against the JAX XLA wave kernel and the JAX tiled kernel on other
+    seeds: R, T and A within 4.5 combined sigma."""
+    td, refs = jax_whole_runs
+    port = tk.run_batch_tile(td, Surface.lambertian(0.2),
+                             SOURCES["directional"][0](), 77,
+                             tk.TileConfig(**{**GEOMETRY, "drain_div": 0}),
+                             N_POOL, 8000)
+    assert port.n_started == 8000 and port.n_bad == 0
+    _assert_matches_jax(port, refs)
+
+
+def test_refill_whole_run_matches_jax_statistically(jax_whole_runs):
+    """The refill schedule (the plain twin of the kernel's refill mode
+    under relaunch_loop, REFILL_STEPS a launch, on the 2 x 2 x 2 tiles)
+    against the same JAX runs: every photon started and finished, R, T and
+    A within 4.5 combined sigma."""
+    td, refs = jax_whole_runs
+    port = tk.run_batch_tile(
+        td, Surface.lambertian(0.2), SOURCES["directional"][0](), 78,
+        tk.TileConfig(refill=True, k_steps=tk.REFILL_STEPS, skip_iters=3,
+                      force_tiles=(8, 8, 4), max_passes=160), N_POOL, 8000)
+    assert port.n_started == 8000 and port.n_bad == 0 and port.n_tail == 0
+    assert 0 < port.n_passes < 160
+    _assert_matches_jax(port, refs)
 
 
 @pytest.fixture(scope="module")
@@ -465,9 +497,9 @@ def test_energy_balance_without_roulette(dense, source):
 
 
 def test_run_batch_entry_and_determinism(dense):
-    """run_batch_tile_tallies (the JAX package's floor, then the tail)
-    finishes every photon (n_bad 0) and reports the lane-steps and passes;
-    one seed gives one result."""
+    """run_batch_tile_tallies (its default: the refill schedule)
+    finishes every photon (n_bad 0) and reports the lane-steps and
+    launches; one seed gives one result."""
     cfg = KernelConfig(n_lanes=1024, photons_per_lane=2,
                        need_volume_absorption=False, max_steps=20000)
     src = illumination.directional(0.5, 0.0)
