@@ -42,15 +42,16 @@ Phases, each asserting; any failure exits non-zero:
    plain version on the card, same seeds, on the 128 x 128 x 64 broken
    cloud: the gas template (a uniform pure absorber under the cloud) as a
    flux run at 2^16 photons, analytic HG and the tabulated row with the 3D
-   tally; the local estimate at 2^14 photons (4,096 lanes x 4; the plain
-   walk takes ~50-70 s per case): the hybrid row with roulette and
+   tally; the local estimate at 2^13 photons (4,096 lanes x 2; the plain
+   walk takes ~25-35 s per case): the hybrid row with roulette and
    bench.py's 16 directions, the gas template with analytic HG and no
    roulette, and the original row with tabulated scattering, 8 directions
    (every octant of azimuth, both fast axes; the gas case has one at the
    floor mu 0.4); equal photons, lane-steps,
    events and walk iterations,
    fluxes, profile and per-direction image totals within 1e-5 relative,
-   every pixel with signal within 2e-3;
+   every pixel with signal within 2e-3; the flux cases on the refill
+   schedule (two photons a slot), with equal launches;
 2i. the column kernel's emission refill and pre-credits (K3-b) and its
    per-pixel albedo (K3-c) against its plain version on the card, same
    seeds, at full width (128 x 128 x 64): path A's Landsat-scale 10 um case
@@ -60,7 +61,8 @@ Phases, each asserting; any failure exits non-zero:
    (4,096 photons); equal photons, lane-steps, events and walk iterations,
    per-column fluxes and net absorption within 1e-5 of the photons per
    column, the profile within 5e-4 of its largest level, image totals
-   within 1e-5 and pixels with signal within 2e-3;
+   within 1e-5 and pixels with signal within 2e-3; the flux cases on the
+   refill schedule (two photons a slot), with equal launches;
 2j. the record kernel's surfaces (K1-d) against its plain version on the
    card, same seeds: the uniform RPV surface (rho0 0.25, k 0.8, theta
    -0.15) on the step cloud, on the 3-component step cloud and in lw_mode
@@ -86,28 +88,32 @@ Phases, each asserting; any failure exits non-zero:
    unit incident flux on the horizontal); and the emission anchors: an
    isothermal black box radiates Planck's B(T) upward (within 5%), and
    the isothermal pre-credit balance;
-2d. column kernel against its plain version, same seeds, on the
-   128 x 128 x 64 broken cloud at 2^17 photons (2^16 lanes x 2; the plain
-   step takes ~0.7 s per launch, so 2^20 would take most of the time
-   limit; the two macro_factor 0 cases, whose null-collision tails take
-   the plain step 80-110 s at 2^17, run 2^16): macro_factor 8 with
-   analytic HG and the tabulated row, each
-   with and without the 3D tally, macro_factor 0 with HG and no 3D tally
+2d. column kernel against its plain version, same seeds, both on the
+   refill schedule (the first case on the card's resident slots, the
+   others on half the photons' count, two photons a slot), on the
+   128 x 128 x 64 broken cloud at 2^17 photons (the plain step takes
+   ~6 ms a step; the two macro_factor 0 cases, whose null-collision tails
+   are long, run 2^16): macro_factor 8 with analytic HG and the tabulated
+   row, each with and without the 3D tally, macro_factor 0 with HG and no
+   3D tally
    and with the table and the 3D tally, plus a table too large for shared
    memory, the random-azimuth and flux sources, and roulette off;
    domain-mean R/T/A within 2e-3, per-column fluxes within 1e-5 and the
    z profile within 5e-4 of its peak (float32 atomic order: same paths),
-   per-pixel fluxes within 5 sigma, kernel reruns within 1e-5;
+   per-pixel fluxes within 5 sigma, kernel reruns within 1e-5, equal
+   photons, launches, lane-steps and n_bad (2h and 2i hold the gas
+   template, the emission with lw and the per-pixel albedo the same way);
 2e. separable-template kernel against its plain version, same seeds, on
    the LW flagship scene at 16 x 16 x 150 (macro 8 and 0), its two-slice
    cut 132 x 132 x 60 (17,424 columns) and the deck's 325 x 325 x 150
-   with the 9,001-step row (~93 KB of tables in shared memory, past the
-   48 KB opt-in): separable emission with LW pre-credits (roulette on and
-   off), the directional, random-azimuth and flux sources, analytic HG and
-   the tabulated row, and the block ceilings and the row read from global
-   memory (a zero table budget); 2^16 lanes x 2 photons; equal photons,
-   n_bad and lane-steps, per-column fluxes and net absorption within 1e-5
-   and the z profile within 5e-4 of its largest level;
+   with the 9,001-step row (72 KB, which the occupancy rule reads from
+   global memory, as on the two-slice cut): separable emission with LW
+   pre-credits (roulette on and off), the directional, random-azimuth and
+   flux sources, analytic HG and the tabulated row in shared memory and
+   from global memory; 2^17 photons on the refill schedule, two a slot;
+   equal photons, launches, n_bad and lane-steps, per-column fluxes and
+   net absorption within 1e-5 and the z profile within 5e-4 of its
+   largest level;
 2f. tiled dense-domain kernel against its plain twin, same seeds, whole
    runs of 2^16 photons on the bench's 128 x 128 x 64 dense scene: analytic
    HG, per-cell ssa, the 10,001-step row in shared memory (past the 48 KB
@@ -192,9 +198,10 @@ Phases, each asserting; any failure exits non-zero:
    0, R/T/A and the radiances within 4.5 combined sigma of values frozen
    from the JAX package; the same cut to 32 x 32 x 64 with the 8 distinct
    directions (8 x 2^19 photons) within 4.5 combined sigma of both JAX
-   estimators, XLA and the column kernel; then the gas flux path's ms per
-   launch from CUDA events (2^16 lanes x 16 photons) and the plain step's
-   over 2 launches;
+   estimators, XLA and the column kernel; then the gas flux path's times
+   (2^20 photons: the A/B of the refill schedule and JAX's geometry, the
+   occupancy, CUDA-event ms a launch, busy share, kernel and plain ms of
+   the refill schedule's first launch);
 3j. path A through run_simulation: broken_cloud_scene(ssa=0.5) at full
    width with the lapse-rate temperatures T(z) = 288 K - 6.5 K/km, 10 um,
    the per-voxel emission source, albedo 0.05, lw_mode, profile and 3D
@@ -213,7 +220,7 @@ Phases, each asserting; any failure exits non-zero:
    R/T/A, the profile and the radiances within 4.5 combined sigma of
    values frozen from the JAX package's XLA path; the cut's flux run
    against its column kernel in interpret mode; then the per-pixel flux
-   path's ms per launch (CUDA events) and the plain step's;
+   path's times, as 3i's;
 3l. path C through run_simulation: the step cloud of
    run/step_cloud_mono.nml over the uniform RPV surface, 16 x 2^20
    photons, iseed 10, flux and column absorption: the record kernel alone
@@ -240,12 +247,19 @@ Phases, each asserting; any failure exits non-zero:
    and march iterations per photon (counted by the kernels), and the
    kernel once more at 512 rows;
 4c. the Landsat headline (bench.py:497-545: the broken cloud with analytic
-   HG, macro_factor 8, 2^16 lanes x 16 photons, no 3D tally): kernel
-   photons/s and ms per launch, plain ms per launch at the same lanes;
+   HG, macro_factor 8, 2^20 photons, no 3D tally): the A/B of the refill
+   schedule (run_batch's) and JAX's geometry in turns (refill, JAX, JAX,
+   refill), each with photons/s, launches a batch, kernel and wall ms a
+   launch from CUDA events, busy share and live lane-steps a launch; the
+   refill schedule at 128 to 8,192 steps a launch and at 0.25 to 2 x the
+   resident slots; the occupancy record (blocks an SM, registers,
+   spills); kernel and plain ms of the refill schedule's first launch on
+   the resident slots, the kernel held against its plain twin there
+   (equal photons, lane-steps and n_bad, the 2d or 2e tolerances; 3i, 3k
+   and 4i do the same on theirs);
 4d. the separable headline (bench.py:454-494: the 325 x 325 x 150
    flagship scene, compact, macro 8, 201 CDF steps, 10 um, separable
-   emission, LW, 2^16 lanes x 256 photons): kernel photons/s and ms per
-   launch, plain ms per launch at the same lanes (2 photons each);
+   emission, LW, 2^24 photons): as 4c;
 4e. the dense headline (bench.py:306-342: 128 x 128 x 64, 2^18-slot pool,
    2,097,152 photons): the A/B of the tiled kernel's two schedules in
    turns (refill, sorted, sorted, refill): the refill schedule through
@@ -277,12 +291,10 @@ Phases, each asserting; any failure exits non-zero:
    and the walk alone), launches per batch, the card's
    busy share, photons/s, live lane-steps, events and walk iterations per
    photon, and plain ms of one launch;
-4i. path A's configuration, one batch through run_batch (2^16 lanes x 16
-   photons): the column kernel's ms per launch with the emission refill
-   (CUDA events), launches, live lane-steps per photon, the atmospheric
-   births (counted by the kernel), the card's busy share and the bound (the
-   refill's operations per birth counted from csrc/col_kernel.cu), and
-   plain ms per launch over 2 launches;
+4i. path A's configuration, one batch through run_batch (2^20 photons):
+   the column kernel with the emission refill, its times as 3i's, the
+   atmospheric births (counted by the kernel) and the bound (the refill's
+   operations per birth counted from csrc/col_kernel.cu);
 5. the gather and tally probes P1-P5: ``python -m
    mcbrat3d_tpu_torch.tools.probes all`` (every variant at its TPU probe's
    shape through its kernel), then each variant's kernel against its plain
@@ -1277,9 +1289,13 @@ def _broken_cloud(broken_cloud_scene, build_domain, macro_factor,
 
 def phase_col_compare(ck, broken_cloud_scene, build_domain, Surface,
                       illumination, KernelConfig, rng):
-    """Column kernel vs plain on the card; returns the largest per-pixel
-    difference of the normalized fluxes."""
+    """Column kernel vs plain on the card, both on the refill schedule (the
+    first case on the card's resident slots, the others on half the
+    photons' count, so that every slot starts two photons in the kernel);
+    returns the largest per-pixel difference of the normalized fluxes."""
     import dataclasses
+
+    from mcbrat3d_tpu_torch.transport import record_kernel as rk
 
     sources = {"directional": illumination.directional(0.5, 0.0),
                "random_azimuth": illumination.random_azimuth(0.5),
@@ -1288,10 +1304,10 @@ def phase_col_compare(ck, broken_cloud_scene, build_domain, Surface,
     # (macro_factor, analytic HG, 3D tally, inverse-CDF steps, source,
     # roulette): every combination of the first three at macro 8; at macro
     # 0 two that still take each flag both ways (its long null-collision
-    # tails keep the plain step ~60 s per case). The 20,001-step table
-    # (160 KB) is past the shared-memory budget, so the kernel reads it
-    # through __ldg. The last three rows take the other two sources and
-    # roulette off, each a template flag of its own.
+    # tails keep the plain step ~60 s per case). The 10,001-step row
+    # (80 KB) and the 20,001-step one (160 KB) would cost blocks an SM, so
+    # the kernel reads them through __ldg. The last three rows take the
+    # other two sources and roulette off, each a template flag of its own.
     cases = [(0, True, False, 10001), (0, False, True, 10001)]
     cases += [(8, analytic, vol, 10001) for analytic in (True, False)
               for vol in (False, True)]
@@ -1314,10 +1330,13 @@ def phase_col_compare(ck, broken_cloud_scene, build_domain, Surface,
                            max_steps=400_000, need_volume_absorption=vol,
                            use_russian_roulette=rr)
         seed = rng.batch_seed(30, i)
+        sched = (None if i == 0 else rk.RefillSchedule(
+            cfg.max_steps, vol_tally=vol,
+            resident=cfg.photons_per_batch // 2))
 
         def run(launch=ck.col_launch):
             return ck.run_batch_col_tallies(dom, surface, sources[src], seed,
-                                            cfg, launch=launch)
+                                            cfg, launch=launch, ccfg=sched)
 
         before = ck.COL_LAUNCHES
         tk, sk = _timed(run)
@@ -1333,6 +1352,10 @@ def phase_col_compare(ck, broken_cloud_scene, build_domain, Surface,
         assert tk.n_photons == tp.n_photons == ppl << 16, (tk.n_photons,
                                                            tp.n_photons)
         assert tk.n_bad == 0 and tp.n_bad == 0, (tk.n_bad, tp.n_bad)
+        assert tk.n_steps == tp.n_steps > 0, (tk.n_steps, tp.n_steps)
+        assert tk.n_steps % rk.REFILL_STEPS == 0, tk.n_steps
+        assert tk.n_lane_steps == tp.n_lane_steps, (tk.n_lane_steps,
+                                                    tp.n_lane_steps)
         rta_k, rta_p = _rta(tk), _rta(tp)
         gap = max(abs(a - b) for a, b in zip(rta_k, rta_p))
         pairs = [(tk.flux_up, tp.flux_up), (tk.flux_down, tp.flux_down),
@@ -1357,7 +1380,8 @@ def phase_col_compare(ck, broken_cloud_scene, build_domain, Surface,
               f"R/T/A={rta_k} plain={rta_p} "
               f"gap={gap:.3e} pixel z_max={z_max:.2f} pixel gap={err:.2e} "
               f"profile gap={prof_gap:.2e} rerun rel={rerun:.1e} "
-              f"lane-steps {tk.n_lane_steps} / {tp.n_lane_steps}, "
+              f"lane-steps {tk.n_lane_steps} / {tp.n_lane_steps}, launches "
+              f"{tk.n_steps // rk.REFILL_STEPS} of {rk.REFILL_STEPS} steps, "
               f"kernel {sk:.3f} s plain {sp:.3f} s", flush=True)
         assert gap < RTA_TOL_KERNEL_VS_PLAIN, gap
         assert err < COL_PIXEL_TOL_KERNEL_VS_PLAIN, err
@@ -1421,38 +1445,201 @@ def phase_landsat_deck(ck, rk, cli):
     return launches
 
 
+def _evented_batch(mod, run, seed, label):
+    """One batch through ``run(seed)`` with CUDA events around every launch
+    of ``mod``'s kernel (``mod._launch_cuda``): photons/s, launches, kernel
+    and wall ms per launch, live lane-steps per launch and per photon, and
+    the card's busy share (kernel time over the batch's wall time)."""
+    orig = mod._launch_cuda
+    mod._launch_cuda, events = _event_timed(orig)
+    try:
+        t, sec = _timed(lambda: run(seed))
+    finally:
+        mod._launch_cuda = orig
+    _sync()
+    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    n = len(events)
+    assert n > 0, f"{label}: the kernel was not launched"
+    res = dict(photons_per_s=t.n_photons / sec, seconds=sec, launches=n,
+               kernel_ms_per_launch=kernel_ms / n,
+               wall_ms_per_launch=1e3 * sec / n,
+               lane_steps=t.n_lane_steps,
+               lane_steps_per_launch=t.n_lane_steps / n,
+               lane_steps_per_photon=t.n_lane_steps / t.n_photons,
+               busy=kernel_ms / (1e3 * sec), n_bad=t.n_bad,
+               n_photons=t.n_photons, rta=_rta(t))
+    print(f"{label}: {t.n_photons} photons in {sec:.4f} s = "
+          f"{res['photons_per_s']:.6g} photons/s, {n} launches, kernel "
+          f"{res['kernel_ms_per_launch']:.4f} ms/launch, wall "
+          f"{res['wall_ms_per_launch']:.4f} ms/launch, busy share "
+          f"{res['busy']:.3f}, {res['lane_steps_per_launch']:.6g} live "
+          f"lane-steps/launch, {res['lane_steps_per_photon']:.2f}/photon, "
+          f"n_bad {t.n_bad}, R/T/A={res['rta']}", flush=True)
+    return t, res
+
+
+def _occupancy_line(label, occ):
+    """Print a kernel's occupancy record and return the thread slots the
+    card holds resident for it."""
+    resident = occ["blocks_per_sm"] * occ["threads"] * occ["n_sm"]
+    print(f"{label} occupancy: {occ['blocks_per_sm']} blocks of "
+          f"{occ['threads']} threads an SM x {occ['n_sm']} SMs = {resident} "
+          f"resident threads, {occ['registers']} registers and "
+          f"{occ['local_bytes']} spilled bytes a thread, {occ['smem']} B "
+          f"dynamic shared memory a block", flush=True)
+    return resident
+
+
+# Slot counts of the refill schedule tried in 4c and 4d, as multiples of
+# the card's resident threads
+FLUX_SLOTS_SWEEP = (0.25, 0.5, 1.0, 2.0)
+
+
+def _flux_ab(mod, rk, run, resident, seed, label, max_steps, sweep=True):
+    """The A/B of K3's or K4's flux schedules on one batch through
+    ``run(seed, schedule)``, in turns refill, JAX, JAX, refill (the refill
+    schedule as run_batch runs it, JAX's geometry ``rk.jax_geometry``);
+    with ``sweep`` the refill schedule at STEPS_SWEEP steps a launch on
+    the ``resident`` slots and at FLUX_SLOTS_SWEEP x resident slots. Each
+    batch with CUDA events around every launch (``_evented_batch``):
+    returns {"refill": mean, "jax": mean, "turns": ..., "k_sweep": {k:
+    photons/s}, "slot_sweep": {slots: photons/s}}."""
+    turns = {"refill": [], "jax": []}
+    for name in ("refill", "jax", "jax", "refill"):
+        _, r = _evented_batch(mod, lambda sd: run(sd, name), seed,
+                              f"{label} [{name} schedule]")
+        assert r["n_bad"] == 0, (name, r["n_bad"])
+        turns[name].append(r)
+    res = {name: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]
+                  if k != "rta"} for name, rs in turns.items()}
+    res["turns"] = turns
+    gain = res["refill"]["photons_per_s"] / res["jax"]["photons_per_s"]
+    print(f"{label} A/B (means of two turns): refill "
+          f"{res['refill']['photons_per_s']:.6g} photons/s, "
+          f"{res['refill']['launches']:.1f} launches, kernel "
+          f"{res['refill']['kernel_ms_per_launch']:.4f} ms/launch, busy "
+          f"{res['refill']['busy']:.3f}; JAX's geometry "
+          f"{res['jax']['photons_per_s']:.6g} photons/s, "
+          f"{res['jax']['launches']:.1f} launches, kernel "
+          f"{res['jax']['kernel_ms_per_launch']:.4f} ms/launch, busy "
+          f"{res['jax']['busy']:.3f}; refill / JAX photons/s {gain:.3f}",
+          flush=True)
+    if not sweep:
+        return res
+    res["k_sweep"], res["slot_sweep"] = {}, {}
+    for k in STEPS_SWEEP:
+        sched = rk.RefillSchedule(max_steps, k_steps=k, resident=resident)
+        _, r = _evented_batch(mod, lambda sd: run(sd, sched), seed,
+                              f"{label} [refill, {k} steps a launch]")
+        res["k_sweep"][k] = r["photons_per_s"]
+    for f in FLUX_SLOTS_SWEEP:
+        slots = int(f * resident) // 128 * 128
+        sched = rk.RefillSchedule(max_steps, resident=slots)
+        _, r = _evented_batch(mod, lambda sd: run(sd, sched), seed,
+                              f"{label} [refill, {slots} slots]")
+        res["slot_sweep"][slots] = r["photons_per_s"]
+    print(f"{label}, refill photons/s by steps a launch: "
+          + ", ".join(f"{k}: {v:.6g}" for k, v in res["k_sweep"].items())
+          + "; by slots: "
+          + ", ".join(f"{k}: {v:.6g}" for k, v in res["slot_sweep"].items()),
+          flush=True)
+    return res
+
+
+def _first_launch(mod, plain, run_one, column_tol, profile_tol):
+    """Kernel and plain ms (CUDA events) of the refill schedule's first
+    launch: ``run_one(launch)`` runs one launch of the same batch through
+    ``launch`` (``mod``'s kernel, then ``plain``) and returns its tallies.
+    The two are held equal in photons, steps, lane-steps and n_bad, with
+    per-column fluxes (and a 3D field) within ``column_tol`` of the
+    photons a column and the z profile within ``profile_tol`` of its
+    largest level."""
+    out, tallies = {}, {}
+    for name, fn in (("kernel", mod._launch_cuda), ("plain", plain)):
+        timed, ev = _event_timed(fn)
+        if name == "kernel":
+            mod._launch_cuda = timed
+            try:
+                tallies[name] = run_one(None)
+            finally:
+                mod._launch_cuda = fn
+        else:
+            tallies[name] = run_one(timed)
+        _sync()
+        assert len(ev) == 1, (name, len(ev))
+        out[f"{name}_ms_first"] = ev[0][0].elapsed_time(ev[0][1])
+    tk, tp = tallies["kernel"], tallies["plain"]
+    counts = [(t.n_photons, t.n_steps, t.n_lane_steps, t.n_bad)
+              for t in (tk, tp)]
+    assert counts[0] == counts[1], counts
+    pairs = [(tk.flux_up, tp.flux_up), (tk.flux_down, tp.flux_down),
+             (tk.flux_absorbed, tp.flux_absorbed)]
+    if tk.volume_absorption is not None:
+        pairs.append((tk.volume_absorption, tp.volume_absorption))
+    _, err = _pixel_z(pairs, tk.n_photons)
+    prof_gap = float((tk.absorption_profile.double()
+                      - tp.absorption_profile.double()).abs().max()
+                     / tp.absorption_profile.double().abs().max())
+    # each profile's total against its column absorption's (float64 sums
+    # of the columns, whose float32 tallies stay small)
+    sums = [abs(float(t.absorption_profile.double().sum())
+                - float(t.flux_absorbed.double().sum()))
+            / float(t.flux_absorbed.double().abs().sum()) for t in (tk, tp)]
+    print(f"first launch kernel vs plain: photons, steps, lane-steps, "
+          f"n_bad {counts[0]}; column gap {err:.2e}, profile gap "
+          f"{prof_gap:.2e}; profile total against the columns' kernel "
+          f"{sums[0]:.2e} plain {sums[1]:.2e}", flush=True)
+    assert err < column_tol, err
+    assert prof_gap < profile_tol, prof_gap
+    return out
+
+
 def phase_col_headline(ck, broken_cloud_scene, build_domain, Surface,
                        illumination, KernelConfig, rng):
-    """The Landsat headline of bench.py:497-545: kernel photons/s and ms
-    per launch at 2^16 lanes x 16 photons, plain ms per launch at the same
-    lanes (2 photons each)."""
+    """The Landsat headline of bench.py:497-545 (2^20 photons, through
+    run_batch_col_tallies): the A/B of the refill schedule and JAX's
+    geometry, the launch-length and slot sweeps (``_flux_ab``), the
+    occupancy record of the flux instantiation, kernel and plain ms of the
+    refill schedule's first launch on the resident slots, held against
+    each other (``_first_launch``)."""
+    from mcbrat3d_tpu_torch.transport import record_kernel as rk
+
     dom = _broken_cloud(broken_cloud_scene, build_domain, 8, 201)
     surface = Surface.lambertian(0.2)
     source = illumination.directional(0.5, 0.0)
-    res = {}
-    for name, ppl, launch in (("kernel", 16, ck.col_launch),
-                              ("plain", 2, ck.col_launch_plain)):
-        cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=ppl,
-                           max_steps=400_000, need_volume_absorption=False)
-        if name == "kernel":  # warm-up batch
-            ck.run_batch_col_tallies(dom, surface, source,
-                                     rng.batch_seed(0, 99), cfg)
-        t, sec = _timed(lambda: ck.run_batch_col_tallies(
-            dom, surface, source, rng.batch_seed(0, 0), cfg, launch=launch))
-        assert t.volume_absorption is None and t.n_bad == 0
-        assert t.n_photons == (1 << 16) * ppl
-        n_launch = t.n_steps // 128
-        res[name] = dict(photons_per_s=t.n_photons / sec,
-                         ms_per_launch=1e3 * sec / n_launch,
-                         photons=t.n_photons, seconds=sec,
-                         launches=n_launch, rta=_rta(t),
-                         lane_steps=t.n_lane_steps,
-                         nxy=dom.grid.nx * dom.grid.ny, nz=dom.grid.nz,
-                         n_blk=dom.macro_table.shape[0])
-        print(f"landsat headline {name}: {t.n_photons} photons in "
-              f"{sec:.3f} s = {t.n_photons / sec:.6g} photons/s, "
-              f"{n_launch} launches, {1e3 * sec / n_launch:.4f} ms/launch, "
-              f"{t.n_lane_steps} lane-steps, R/T/A={_rta(t)}", flush=True)
+    cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=16,
+                       max_steps=400_000, need_volume_absorption=False)
+    prm = ck.ColParams.make(dom, surface, source, True, 1.0, False)
+    occ = ck.occupancy(prm)
+    resident = _occupancy_line("landsat headline (col_steps)", occ)
+    jax_cfg = rk.jax_geometry(cfg)
+
+    def run(seed, sched):
+        sched = {"refill": None, "jax": jax_cfg}.get(sched, sched)
+        return ck.run_batch_col_tallies(dom, surface, source, seed, cfg,
+                                        ccfg=sched)
+
+    for name in ("refill", "jax"):  # warm-up batches
+        run(rng.batch_seed(0, 99), name)
+    res = _flux_ab(ck, rk, run, resident, rng.batch_seed(0, 0),
+                   "landsat headline", cfg.max_steps)
+    t = run(rng.batch_seed(0, 0), "refill")
+    assert t.volume_absorption is None and t.n_bad == 0
+    assert t.n_photons == cfg.photons_per_batch
+    assert t.n_steps == res["refill"]["launches"] * rk.REFILL_STEPS
+    one = rk.RefillSchedule(rk.REFILL_STEPS, resident=resident)
+    res.update(_first_launch(ck, ck.col_launch_plain, lambda launch: (
+        ck.run_batch_col(dom, surface, source, rng.batch_seed(0, 0), one,
+                         n_photons=cfg.photons_per_batch,
+                         launch=launch or ck.col_launch)),
+        COL_PIXEL_TOL_KERNEL_VS_PLAIN, COL_PROFILE_TOL_KERNEL_VS_PLAIN))
+    res.update(resident=resident, occupancy=occ, rta=_rta(t),
+               nxy=dom.grid.nx * dom.grid.ny, nz=dom.grid.nz,
+               n_blk=dom.macro_table.shape[0])
+    print(f"landsat headline, refill schedule's first launch "
+          f"({rk.REFILL_STEPS} steps, {resident} slots): kernel "
+          f"{res['kernel_ms_first']:.4f} ms, plain "
+          f"{res['plain_ms_first']:.4f} ms", flush=True)
     return res
 
 
@@ -1504,9 +1691,12 @@ def _total_and_pixel_gaps(pairs):
 
 def phase_col_le_compare(ck, le, m, KernelConfig, rng):
     """The column kernel's gas template and local estimate vs the plain
-    step on the card; returns the largest per-pixel differences of the
-    normalized fluxes (gas cases) and images (radiance cases)."""
+    step on the card (flux runs on the refill schedule, two photons a
+    slot); returns the largest per-pixel differences of the normalized
+    fluxes (gas cases) and images (radiance cases)."""
     import dataclasses
+
+    from mcbrat3d_tpu_torch.transport import record_kernel as rk
 
     surface = m.Surface.lambertian(0.2)
     sources = {"directional": m.illumination.directional(0.5, 30.0),
@@ -1547,8 +1737,8 @@ def phase_col_le_compare(ck, le, m, KernelConfig, rng):
             cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=1,
                                max_steps=400_000, need_volume_absorption=vol)
             icfg = dirs = None
-        else:  # the plain walk takes ~4 s per 1,024 photons on the card
-            cfg = KernelConfig(n_lanes=1 << 12, photons_per_lane=4,
+        else:  # the plain walk takes ~3-4 s per 1,024 photons on the card
+            cfg = KernelConfig(n_lanes=1 << 12, photons_per_lane=2,
                                max_steps=400_000, need_volume_absorption=vol)
             icfg = le.IntensityConfig(n_dirs=len(dirs_mp[0]),
                                       use_russian_roulette=rr,
@@ -1556,10 +1746,16 @@ def phase_col_le_compare(ck, le, m, KernelConfig, rng):
                                       pallas_min_mu=0.4)
             dirs = le.make_intensity_directions(*dirs_mp, device="cuda")
 
+        # flux runs: the refill schedule on half the photons' count of
+        # slots (two photons a slot, started in the kernel)
+        sched = (rk.RefillSchedule(cfg.max_steps, vol_tally=vol,
+                                   resident=cfg.photons_per_batch // 2)
+                 if icfg is None else None)
+
         def run(launch=ck.col_launch):
             return ck.run_batch_col_tallies(
                 dom, surface, sources[src], seed, cfg, launch=launch,
-                intensity_config=icfg, intensity_dirs=dirs)
+                intensity_config=icfg, intensity_dirs=dirs, ccfg=sched)
 
         before = (ck.COL_LAUNCHES, ck.COL_LE_LAUNCHES)
         tk, sk = _timed(run)
@@ -1569,6 +1765,7 @@ def phase_col_le_compare(ck, le, m, KernelConfig, rng):
         n = tk.n_photons
         assert n == tp.n_photons == cfg.photons_per_batch, (n, tp.n_photons)
         assert tk.n_bad == tp.n_bad == 0, (tk.n_bad, tp.n_bad)
+        assert tk.n_steps == tp.n_steps > 0, (tk.n_steps, tp.n_steps)
         assert tk.n_lane_steps == tp.n_lane_steps, (tk.n_lane_steps,
                                                     tp.n_lane_steps)
         assert tk.n_le_events == tp.n_le_events, (tk.n_le_events,
@@ -1689,6 +1886,65 @@ def phase_landsat_radiance_deck(ck, rk, cli):
                 seconds=seconds, transport=transport)
 
 
+def _col_flux_timing(ck, label, dom, sfc, src, cfg, seed, ops_per_step,
+                     table_bytes, tally_bytes, extra_ops=None):
+    """A column-kernel flux path's times through run_batch_col_tallies (as
+    run_batch runs it): the A/B of the refill schedule and JAX's geometry
+    in turns (``_flux_ab``), the occupancy record of its instantiation,
+    kernel and plain ms of the refill schedule's first launch, held
+    against each other (``_first_launch``), and the bound of a refill
+    launch (per launch: the slots' state read and
+    written once, ``table_bytes`` read and ``tally_bytes`` written once;
+    ``extra_ops(tallies)``, the operations the kernel counts besides its
+    steps)."""
+    from mcbrat3d_tpu_torch.transport import record_kernel as rk
+
+    vol = cfg.need_volume_absorption
+    prm = ck.ColParams.make(dom, sfc, src, cfg.use_russian_roulette,
+                            cfg.russian_roulette_weight, vol,
+                            lw_mode=cfg.lw_mode)
+    occ = ck.occupancy(prm)
+    slots = _occupancy_line(f"{label} (col_steps)", occ)
+    jax_cfg = rk.jax_geometry(cfg)
+
+    def run(sd, sched):
+        sched = {"refill": None, "jax": jax_cfg}.get(sched, sched)
+        return ck.run_batch_col_tallies(dom, sfc, src, sd, cfg, ccfg=sched)
+
+    ab = _flux_ab(ck, rk, run, slots, seed, label, cfg.max_steps,
+                  sweep=False)
+    t = run(seed, "refill")
+    r = ab["refill"]
+    assert t.n_bad == 0 and t.n_photons == cfg.photons_per_batch
+    assert t.n_steps == r["launches"] * rk.REFILL_STEPS, t.n_steps
+    one = rk.RefillSchedule(rk.REFILL_STEPS, vol_tally=vol, resident=slots)
+    first = _first_launch(ck, ck.col_launch_plain, lambda launch: (
+        ck.run_batch_col(dom, sfc, src, seed, one,
+                         n_photons=cfg.photons_per_batch,
+                         launch=launch or ck.col_launch,
+                         lw_mode=cfg.lw_mode)),
+        COL_PIXEL_TOL_KERNEL_VS_PLAIN, COL_PROFILE_TOL_KERNEL_VS_PLAIN)
+    out = dict(ab=ab, occupancy=occ, slots=slots, tallies=t,
+               kernel_ms_per_launch=r["kernel_ms_per_launch"],
+               launches_per_batch=r["launches"], busy=r["busy"],
+               jax_kernel_ms_per_launch=ab["jax"]["kernel_ms_per_launch"],
+               plain_ms_per_launch=first["plain_ms_first"],
+               kernel_ms_first=first["kernel_ms_first"])
+    out["bound"] = _bound(r["lane_steps"], r["launches"], ops_per_step,
+                          slots, 44, table_bytes, tally_bytes,
+                          extra_ops=extra_ops(t) if extra_ops else 0)
+    print(f"{label}: refill kernel {out['kernel_ms_per_launch']:.4f} "
+          f"ms/launch of {rk.REFILL_STEPS} steps on {slots} slots (bound "
+          f"{out['bound'][0]:.4f} ms by {out['bound'][1]}), "
+          f"{r['launches']:.1f} launches a batch, busy share "
+          f"{r['busy']:.3f}, {r['lane_steps_per_photon']:.2f} live "
+          f"lane-steps per photon; JAX's geometry "
+          f"{out['jax_kernel_ms_per_launch']:.4f} ms/launch of 128 steps; "
+          f"first launch kernel {first['kernel_ms_first']:.4f} ms, plain "
+          f"{first['plain_ms_first']:.4f} ms", flush=True)
+    return out
+
+
 def phase_gas(ck, rk, m, le, KernelConfig, run_batch, rng):
     """The gas template at full width through run_batch: flux and
     16-direction radiance against the JAX package's frozen values, the
@@ -1777,42 +2033,17 @@ def phase_gas(ck, rk, m, le, KernelConfig, run_batch, rng):
           f"{res['mid'][1].round(7).tolist()} (8 x 2^19 photons); largest "
           f"gap to JAX's XLA estimator {mid_z[0]:.2f}, to its column "
           f"kernel {mid_z[1]:.2f} combined sigma", flush=True)
-    # the gas flux path's time per launch (the Landsat headline's geometry)
+    # the gas flux path's times (the Landsat headline's batch, 2^20)
     cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=16,
                        max_steps=400_000, need_volume_absorption=False)
-    orig = ck._launch_cuda
-    ck._launch_cuda, events = _event_timed(orig)
-    try:
-        t, sec = _timed(lambda: ck.run_batch_col_tallies(
-            dom, surface, source, rng.batch_seed(0, 0), cfg))
-    finally:
-        ck._launch_cuda = orig
-    _sync()
-    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
-    n_launch = len(events)
-    assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
-    plain_t, ev = _event_timed(ck.col_launch_plain)
-    ck.run_batch_col(dom, surface, source, rng.batch_seed(0, 1),
-                     rk.RecordConfig(rows=512, max_steps=2 * 128,
-                                     vol_tally=False), 16, launch=plain_t)
-    _sync()
     nxy, nz = dom.grid.nx * dom.grid.ny, dom.grid.nz
-    out = dict(launches=launches[1], seconds=seconds,
-               kernel_ms_per_launch=kernel_ms / n_launch,
-               plain_ms_per_launch=sum(a.elapsed_time(b)
-                                       for a, b in ev) / len(ev))
-    out["bound"] = _bound(
-        t.n_lane_steps, n_launch,
-        OPS_PER_LANE_STEP["col_kernel"] + OPS_PER_GAS_STEP, 1 << 16, 44,
+    out = _col_flux_timing(
+        ck, "gas flux path", dom, surface, source, cfg,
+        rng.batch_seed(0, 0),
+        OPS_PER_LANE_STEP["col_kernel"] + OPS_PER_GAS_STEP,
         4 * (2 * nxy + 2 * dom.macro_table.shape[0] + 2 * nz),
         4 * (3 * nxy + nz))
-    print(f"gas flux path: {t.n_photons} photons in {sec:.3f} s = "
-          f"{t.n_photons / sec:.6g} photons/s, {n_launch} launches, kernel "
-          f"{out['kernel_ms_per_launch']:.4f} ms/launch (bound "
-          f"{out['bound'][0]:.4f} ms by {out['bound'][1]}), busy share "
-          f"{kernel_ms / (1e3 * sec):.3f}, plain "
-          f"{out['plain_ms_per_launch']:.4f} ms/launch over {len(ev)} "
-          f"launches", flush=True)
+    out.update(launches=launches[1], seconds=seconds)
     return out
 
 
@@ -2274,8 +2505,11 @@ def phase_col_em_px_compare(ck, le, m, KernelConfig, rng):
     Equal photons, lane-steps, events and walk iterations; per-column fluxes
     and (net) absorption within 1e-5 of the photons per column, the profile
     within 5e-4 of its largest level, image totals within 1e-5 and pixels
-    with signal within 2e-3. Returns the largest normalized per-column gaps
-    of the emission and per-pixel cases."""
+    with signal within 2e-3. The flux runs take the refill schedule, two
+    photons a slot, with equal launches. Returns the largest normalized
+    per-column gaps of the emission and per-pixel cases."""
+    from mcbrat3d_tpu_torch.transport import record_kernel as rk
+
     cases = [("emission, macro 8, lw_mode", "lw", 8, True),
              ("emission, macro 0, lw_mode", "lw", 0, True),
              ("emission, macro 8, no lw_mode", "lw", 8, False),
@@ -2303,11 +2537,14 @@ def phase_col_em_px_compare(ck, le, m, KernelConfig, rng):
                                need_volume_absorption=True,
                                need_absorption_profile=True)
         seed = rng.batch_seed(32, i)
+        sched = (rk.RefillSchedule(cfg.max_steps, vol_tally=True,
+                                   resident=cfg.photons_per_batch // 2)
+                 if icfg is None else None)
 
         def run(launch=ck.col_launch):
             return ck.run_batch_col_tallies(
                 dom, sfc, src, seed, cfg, launch=launch,
-                intensity_config=icfg, intensity_dirs=dirs)
+                intensity_config=icfg, intensity_dirs=dirs, ccfg=sched)
 
         before = (ck.COL_LAUNCHES, ck.COL_LW_LAUNCHES, ck.COL_PX_LAUNCHES)
         tk, sk = _timed(run)
@@ -2318,6 +2555,7 @@ def phase_col_em_px_compare(ck, le, m, KernelConfig, rng):
         n = tk.n_photons
         assert n == tp.n_photons == cfg.photons_per_batch, (n, tp.n_photons)
         assert tk.n_bad == tp.n_bad == 0, (tk.n_bad, tp.n_bad)
+        assert tk.n_steps == tp.n_steps > 0, (tk.n_steps, tp.n_steps)
         assert tk.n_lane_steps == tp.n_lane_steps, (tk.n_lane_steps,
                                                     tp.n_lane_steps)
         assert (tk.n_le_events, tk.n_walk) == (tp.n_le_events, tp.n_walk)
@@ -2536,57 +2774,31 @@ def phase_px_landsat(ck, rk, le, m, run_simulation, SimulationConfig,
     print(f"path B at 64 x 32 x 32: R/T/A {got_c[:3]} +- {se_c[:3]}; "
           f"largest gap to JAX's K3 {worst_c:.2f} combined sigma",
           flush=True)
-    # the per-pixel flux path's time per launch
+    # the per-pixel flux path's times (2^20 photons a batch); per launch
+    # the column fields, the block table and the albedo per column read
+    # once, the tallies written once; the albedo's load and multiply on a
+    # reflection are the flux step's own
     cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=16,
                        max_steps=400_000, need_volume_absorption=False,
                        need_absorption_profile=True)
-    orig = ck._launch_cuda
-    ck._launch_cuda, events = _event_timed(orig)
-    try:
-        t, wall = _timed(lambda: ck.run_batch_col_tallies(
-            dom, sfc, src, rng.batch_seed(6, 0), cfg))
-    finally:
-        ck._launch_cuda = orig
-    _sync()
-    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
-    n_launch = len(events)
-    assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
-    plain_t, ev = _event_timed(ck.col_launch_plain)
-    ck.run_batch_col(dom, sfc, src, rng.batch_seed(6, 1),
-                     rk.RecordConfig(rows=512, max_steps=2 * 128,
-                                     vol_tally=False), 16, launch=plain_t)
-    _sync()
     nxy, nz = dom.grid.nx * dom.grid.ny, dom.grid.nz
-    out = dict(launches=launches[1], px_launches=launches[3]
+    out = _col_flux_timing(
+        ck, "per-pixel flux path", dom, sfc, src, cfg, rng.batch_seed(6, 0),
+        OPS_PER_LANE_STEP["col_kernel"],
+        4 * (3 * nxy + 2 * dom.macro_table.shape[0]), 4 * (3 * nxy + nz))
+    out.update(launches=launches[1], px_launches=launches[3]
                + launches_r[3], seconds=sec + sec_r,
-               worst=max(worst, worst_r, worst_c),
-               kernel_ms_per_launch=kernel_ms / n_launch,
-               plain_ms_per_launch=sum(a.elapsed_time(b)
-                                       for a, b in ev) / len(ev))
-    # per launch: the state read and written once, the column fields, the
-    # block table and the albedo per column read once, the tallies written
-    # once; the albedo's load and multiply on a reflection are the flux
-    # step's own
-    out["bound"] = _bound(
-        t.n_lane_steps, n_launch, OPS_PER_LANE_STEP["col_kernel"], 1 << 16,
-        44, 4 * (3 * nxy + 2 * dom.macro_table.shape[0]),
-        4 * (3 * nxy + nz))
-    print(f"per-pixel flux path: {t.n_photons} photons in {wall:.3f} s, "
-          f"{n_launch} launches, kernel {out['kernel_ms_per_launch']:.4f} "
-          f"ms/launch (bound {out['bound'][0]:.4f} ms by "
-          f"{out['bound'][1]}), busy share {kernel_ms / (1e3 * wall):.3f}, "
-          f"{t.n_lane_steps / t.n_photons:.2f} live lane-steps per photon, "
-          f"plain {out['plain_ms_per_launch']:.4f} ms/launch over {len(ev)} "
-          f"launches", flush=True)
+               worst=max(worst, worst_r, worst_c))
     return out
 
 
 def phase_lw_landsat_headline(ck, rk, m, KernelConfig, run_batch, rng):
     """Path A's configuration, one batch through run_batch (2^16 lanes x 16
-    photons, lw_mode, profile and 3D field): the column kernel's ms per
-    launch with the emission refill (CUDA events), launches, live
-    lane-steps per photon, the atmospheric births' share, the card's busy
-    share and the bound; plain ms per launch over 2 launches."""
+    photons, lw_mode, profile and 3D field): the column kernel with the
+    emission refill, the A/B of the refill schedule and JAX's geometry, its
+    occupancy, ms per launch (CUDA events), launches, live lane-steps per
+    photon, the atmospheric births' share, the card's busy share and the
+    bound; kernel and plain ms of the refill schedule's first launch."""
     dom, sfc, src = lw_landsat(m)
     cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=16,
                        max_steps=400_000, lw_mode=True,
@@ -2594,55 +2806,29 @@ def phase_lw_landsat_headline(ck, rk, m, KernelConfig, run_batch, rng):
                        need_absorption_profile=True)
     run_batch(dom, sfc, src, rng.batch_seed(8, 99), cfg,
               n_photons=1 << 18)  # warm-up
-    orig = ck._launch_cuda
-    ck._launch_cuda, events = _event_timed(orig)
-    try:
-        t, sec = _timed(lambda: run_batch(dom, sfc, src,
-                                          rng.batch_seed(8, 0), cfg))
-    finally:
-        ck._launch_cuda = orig
-    _sync()
-    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
-    n_launch = len(events)
-    assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
-    assert t.n_photons == cfg.photons_per_batch
+    before = ck.COL_LW_LAUNCHES
+    t, sec = _timed(lambda: run_batch(dom, sfc, src, rng.batch_seed(8, 0),
+                                      cfg))
+    assert ck.COL_LW_LAUNCHES > before, "not the column kernel's refill"
+    assert t.n_photons == cfg.photons_per_batch and t.n_bad == 0
     nxy, nz = dom.grid.nx * dom.grid.ny, dom.grid.nz
-    res = dict(photons_per_s=t.n_photons / sec, seconds=sec,
-               launches=n_launch, kernel_ms_per_launch=kernel_ms / n_launch,
-               wall_ms_per_launch=1e3 * sec / n_launch,
-               busy=kernel_ms / (1e3 * sec), lane_steps=t.n_lane_steps)
-    # per launch: the state read and written once; the column fields, the
-    # block table, the column alias (probability, target, its height) and
-    # the cumulative Planck table read once; the tallies (the profile and
-    # its pre-credit row, the 3D field) written once
-    res["bound"] = _bound(
-        t.n_lane_steps, n_launch, OPS_PER_LANE_STEP["col_kernel"], 1 << 16,
-        44, 4 * (5 * nxy + 2 * dom.macro_table.shape[0] + nz),
+    # per launch: the column fields, the block table, the column alias
+    # (probability, target, its height) and the cumulative Planck table
+    # read once; the tallies (the profile and its pre-credit row, the 3D
+    # field) written once
+    res = _col_flux_timing(
+        ck, "path A headline", dom, sfc, src, cfg, rng.batch_seed(8, 0),
+        OPS_PER_LANE_STEP["col_kernel"],
+        4 * (5 * nxy + 2 * dom.macro_table.shape[0] + nz),
         4 * (3 * nxy + 2 * nz + nxy * nz),
-        extra_ops=_col_birth_ops(t.n_photons, t.n_atm_births))
+        extra_ops=lambda tt: _col_birth_ops(tt.n_photons, tt.n_atm_births))
     print(f"path A headline (run_batch, lw_mode, emission refill): "
           f"{t.n_photons} photons in {sec:.3f} s = "
-          f"{res['photons_per_s']:.6g} photons/s, {n_launch} launches, "
-          f"kernel {res['kernel_ms_per_launch']:.4f} ms/launch (bound "
-          f"{res['bound'][0]:.4f} ms by {res['bound'][1]}), wall "
-          f"{res['wall_ms_per_launch']:.4f} ms/launch, busy share "
-          f"{res['busy']:.3f}, {t.n_lane_steps / t.n_photons:.2f} live "
-          f"lane-steps per photon, {t.n_photons} births of which "
-          f"{t.n_atm_births} atmospheric (counted; "
+          f"{t.n_photons / sec:.6g} photons/s, {t.n_photons} births of "
+          f"which {t.n_atm_births} atmospheric (counted; "
           f"{t.n_atm_births / t.n_photons:.4f} of them, the source's "
           f"configured share {src.atms_fraction:.4f}), up/down/net per "
-          f"photon={_rta(t)}",
-          flush=True)
-    plain, ev = _event_timed(ck.col_launch_plain)
-    ck.run_batch_col(dom, sfc, src, rng.batch_seed(8, 1),
-                     rk.RecordConfig(rows=512, max_steps=2 * 128,
-                                     vol_tally=True), 16, launch=plain,
-                     lw_mode=True)
-    _sync()
-    res["plain_ms_per_launch"] = sum(a.elapsed_time(b)
-                                     for a, b in ev) / len(ev)
-    print(f"path A headline: plain {res['plain_ms_per_launch']:.4f} "
-          f"ms/launch over {len(ev)} launches", flush=True)
+          f"photon={_rta(t)}", flush=True)
     return res
 
 
@@ -2659,36 +2845,42 @@ def _lw_scene(lw_flagship_scene, build_domain, nx, nz, macro_factor,
                         device_fields="compact")
 
 
-def _sep_smem(prm, emission, budget):
+def _sep_smem(sk, prm, emission):
     """A separable-kernel block's shared memory as csrc/sep_kernel.cu lays it
-    out: (bytes, block ceilings in shared memory, inverse-CDF row in shared
-    memory)."""
-    smem = 4 * (3 * prm.nz + (4 * prm.nz + 3 * prm.n_groups if emission
+    out by the occupancy rule: (bytes, block ceilings in shared memory,
+    inverse-CDF row in shared memory, blocks an SM)."""
+    base = 4 * (3 * prm.nz + (4 * prm.nz + 3 * prm.n_groups if emission
                               else 0))
-    blk = smem + 4 * prm.n_blk <= budget
-    smem += 4 * prm.n_blk if blk else 0
-    inv = not prm.analytic_hg and smem + 8 * prm.inv_n_steps <= budget
-    smem += 8 * prm.inv_n_steps if inv else 0
-    return smem, blk, inv
+    blk_b = 4 * prm.n_blk
+    inv_b = 0 if prm.analytic_hg else 8 * prm.inv_n_steps
+    occ = sk.occupancy(prm)
+    extra = occ["smem"] - base
+    # the rule stages the ceilings, then the row, while they cost no blocks
+    blk = extra >= blk_b
+    inv = inv_b > 0 and extra == blk_b + inv_b
+    assert extra == (blk_b if blk else 0) + (inv_b if inv else 0), (
+        occ["smem"], base, blk_b, inv_b)
+    return occ["smem"], blk, inv, occ["blocks_per_sm"]
 
 
 def phase_sep_compare(sk, lw_flagship_scene, build_domain, Surface,
                       illumination, KernelConfig, rng):
-    """Separable kernel vs plain on the card; returns the largest per-column
-    difference of the normalized fluxes."""
+    """Separable kernel vs plain on the card, both on the refill schedule
+    (the slots half the photons' count, so that every slot starts two
+    photons in the kernel); returns the largest per-column difference of
+    the normalized fluxes."""
     import dataclasses
-    import functools
+
+    from mcbrat3d_tpu_torch.transport import record_kernel as rk
 
     surface = Surface.lambertian(0.05)
     # the configurations of tests/test_torch_sep_kernel.py at 2^17 photons,
     # the two-slice cut (columns past 16,384) with emission, that cut with
-    # the block ceilings and the inverse-CDF row read from global memory (a
-    # zero table budget), and the deck's own shape: 325 x 325 x 150, macro
-    # 8, emission with LW pre-credits and the 9,001-step row of
-    # nPhaseIntervals, whose ~93 KB of tables take the shared-memory opt-in
+    # the deck's 9,001-step row (72 KB), which the occupancy rule reads
+    # from global memory, and the deck's own shape: 325 x 325 x 150, macro
+    # 8, emission with LW pre-credits and that row of nPhaseIntervals
     defaults = dict(mf=8, rr=True, analytic=True, slab=(55, 85),
-                    n_cdf=201, ppl=2, budget=sk.TABLE_SMEM,
-                    kw=dict(cloud_beta_max=8.0))
+                    n_cdf=201, ppl=2, kw=dict(cloud_beta_max=8.0))
     cases = [
         dict(label="emission", nx=16, nz=150, src="emission"),
         dict(label="emission, no roulette, table", nx=16, nz=150, mf=0,
@@ -2701,8 +2893,9 @@ def phase_sep_compare(sk, lw_flagship_scene, build_domain, Surface,
              slab=(55, 150)),
         dict(label="two slices, emission, table", nx=132, nz=60,
              src="emission", analytic=False, slab=(20, 35)),
-        dict(label="two slices, emission, table from global memory", nx=132,
-             nz=60, src="emission", analytic=False, slab=(20, 35), budget=0),
+        dict(label="two slices, emission, 9001-step table from global "
+             "memory", nx=132, nz=60, src="emission", analytic=False,
+             slab=(20, 35), n_cdf=9001),
         dict(label="the deck's shape, emission, 9001-step table", nx=325,
              nz=150, src="emission", analytic=False, n_cdf=9001, kw={}),
     ]
@@ -2727,16 +2920,17 @@ def phase_sep_compare(sk, lw_flagship_scene, build_domain, Surface,
         seed = rng.batch_seed(40, i)
         prm = sk.SepParams.make(dom, surface, source, c["rr"], 1.0,
                                 src == "emission")
-        smem, blk_s, inv_s = _sep_smem(prm, src == "emission", c["budget"])
-        if c["budget"] == 0:
-            assert not (blk_s or inv_s), label
-        if nx == 325:  # the deck's tables all in shared memory, opted in
-            assert blk_s and inv_s and smem > 48 * 1024, (label, smem)
-        kernel = functools.partial(sk.sep_launch, table_smem=c["budget"])
+        smem, blk_s, inv_s, per_sm = _sep_smem(sk, prm, src == "emission")
+        if c["n_cdf"] == 9001:  # the row would cost blocks an SM
+            assert blk_s and not inv_s, (label, smem)
+        elif not c["analytic"]:
+            assert blk_s and inv_s, (label, smem)
+        sched = rk.RefillSchedule(cfg.max_steps,
+                                  resident=cfg.photons_per_batch // 2)
 
-        def run(launch=kernel):
+        def run(launch=sk.sep_launch):
             return sk.run_batch_sep_tallies(dom, surface, source, seed, cfg,
-                                            launch=launch)
+                                            launch=launch, scfg=sched)
 
         before = sk.SEP_LAUNCHES
         tk, s_k = _timed(run)
@@ -2751,6 +2945,8 @@ def phase_sep_compare(sk, lw_flagship_scene, build_domain, Surface,
         assert tk.n_photons == tp.n_photons == (1 << 16) * c["ppl"], (
             tk.n_photons, tp.n_photons)
         assert tk.n_bad == 0 and tp.n_bad == 0, (tk.n_bad, tp.n_bad)
+        assert tk.n_steps == tp.n_steps > 0, (tk.n_steps, tp.n_steps)
+        assert tk.n_steps % rk.REFILL_STEPS == 0, tk.n_steps
         per_col = tk.n_photons / tk.flux_up.numel()
         err = max(float((a.double() - b.double()).abs().max()) / per_col
                   for a, b in ((tk.flux_up, tp.flux_up),
@@ -2769,7 +2965,8 @@ def phase_sep_compare(sk, lw_flagship_scene, build_domain, Surface,
               f"roulette={c['rr']} analytic={c['analytic']} cdf steps "
               f"{c['n_cdf']}: shared memory {smem} B (ceilings "
               f"{'shared' if blk_s else 'global'}, row "
-              f"{'shared' if inv_s else 'global'}); kernel R/T/A="
+              f"{'shared' if inv_s else 'global'}, {per_sm} blocks an "
+              f"SM); {tk.n_steps // rk.REFILL_STEPS} launches, kernel R/T/A="
               f"{_rta(tk)} plain={_rta(tp)} column gap={err:.2e} profile "
               f"gap={prof_gap:.2e} rerun abs={rerun:.1e} lane-steps "
               f"{tk.n_lane_steps} / {tp.n_lane_steps}, kernel {s_k:.3f} s "
@@ -2865,43 +3062,59 @@ def phase_lw_deck(sk, ck, rk, cli, write_lw_flagship_inputs):
 
 def phase_sep_headline(sk, lw_flagship_scene, build_domain, Surface,
                        illumination, KernelConfig, rng):
-    """The separable headline of bench.py:454-494: kernel photons/s and ms
-    per launch at 2^16 lanes x 256 photons, plain ms per launch at the same
-    lanes (2 photons each)."""
+    """The separable headline of bench.py:454-494 (2^24 photons, through
+    run_batch_sep_tallies): the A/B of the refill schedule and JAX's
+    geometry, the launch-length and slot sweeps (``_flux_ab``), the
+    occupancy record, and kernel and plain ms of the refill schedule's
+    first launch on the resident slots, held against each other
+    (``_first_launch``)."""
+    from mcbrat3d_tpu_torch.transport import record_kernel as rk
+
     t0 = time.perf_counter()
     dom = _lw_scene(lw_flagship_scene, build_domain, 325, 150, 8)
     build_s = time.perf_counter() - t0
     surface = Surface.lambertian(0.05)
     source = illumination.emission_separable(dom, 288.0, 0.95)
-    res = {}
-    for name, ppl, launch in (("kernel", 256, sk.sep_launch),
-                              ("plain", 2, sk.sep_launch_plain)):
-        cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=ppl,
-                           max_steps=1_600_000, lw_mode=True,
-                           need_volume_absorption=False)
-        if name == "kernel":  # warm-up batch
-            sk.run_batch_sep_tallies(dom, surface, source,
-                                     rng.batch_seed(0, 99), cfg)
-        t, sec = _timed(lambda: sk.run_batch_sep_tallies(
-            dom, surface, source, rng.batch_seed(0, 0), cfg, launch=launch))
-        assert t.volume_absorption is None and t.n_bad == 0
-        assert t.n_photons == (1 << 16) * ppl
-        n_launch = t.n_steps // 128
-        nxy = dom.grid.nx * dom.grid.ny
-        res[name] = dict(
-            photons_per_s=t.n_photons / sec,
-            ms_per_launch=1e3 * sec / n_launch, photons=t.n_photons,
-            seconds=sec, launches=n_launch, lane_steps=t.n_lane_steps,
-            # amp (padded to whole groups), block ceilings, p, q, z
-            # aliases, group tables; tallies: 3 per column + the profile
-            table_bytes=4 * (-(-nxy // 128) * (128 + 3)
-                             + dom.sep_block.numel() + 6 * dom.grid.nz),
-            tally_bytes=4 * (3 * nxy + dom.grid.nz))
-        print(f"separable headline {name}: {t.n_photons} photons in "
-              f"{sec:.3f} s = {t.n_photons / sec:.6g} photons/s, {n_launch} "
-              f"launches, {1e3 * sec / n_launch:.4f} ms/launch, "
-              f"{t.n_lane_steps} lane-steps, R/T/A={_rta(t)} (domain build "
-              f"{build_s:.2f} s)", flush=True)
+    cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=256,
+                       max_steps=1_600_000, lw_mode=True,
+                       need_volume_absorption=False)
+    prm = sk.SepParams.make(dom, surface, source, True, 1.0, True)
+    occ = sk.occupancy(prm)
+    resident = _occupancy_line("separable headline (sep_steps)", occ)
+    jax_cfg = rk.jax_geometry(cfg)
+
+    def run(seed, sched):
+        sched = {"refill": None, "jax": jax_cfg}.get(sched, sched)
+        return sk.run_batch_sep_tallies(dom, surface, source, seed, cfg,
+                                        scfg=sched)
+
+    for name in ("refill", "jax"):  # warm-up batches
+        run(rng.batch_seed(0, 99), name)
+    res = _flux_ab(sk, rk, run, resident, rng.batch_seed(0, 0),
+                   "separable headline", cfg.max_steps)
+    t = run(rng.batch_seed(0, 0), "refill")
+    assert t.volume_absorption is None and t.n_bad == 0
+    assert t.n_photons == cfg.photons_per_batch
+    assert t.n_steps == res["refill"]["launches"] * rk.REFILL_STEPS
+    one = rk.RefillSchedule(rk.REFILL_STEPS, resident=resident)
+    res.update(_first_launch(sk, sk.sep_launch_plain, lambda launch: (
+        sk.run_batch_sep(dom, surface, source, rng.batch_seed(0, 0), one,
+                         n_photons=cfg.photons_per_batch, lw_mode=True,
+                         launch=launch or sk.sep_launch)),
+        SEP_COLUMN_TOL_KERNEL_VS_PLAIN, SEP_PROFILE_TOL_KERNEL_VS_PLAIN))
+    nxy = dom.grid.nx * dom.grid.ny
+    res.update(
+        resident=resident, occupancy=occ, rta=_rta(t),
+        # amp (padded to whole groups), block ceilings, p, q, z aliases,
+        # group tables; tallies: 3 per column + the profile
+        table_bytes=4 * (-(-nxy // 128) * (128 + 3)
+                         + dom.sep_block.numel() + 6 * dom.grid.nz),
+        tally_bytes=4 * (3 * nxy + dom.grid.nz))
+    print(f"separable headline, refill schedule's first launch "
+          f"({rk.REFILL_STEPS} steps, {resident} slots): kernel "
+          f"{res['kernel_ms_first']:.4f} ms, plain "
+          f"{res['plain_ms_first']:.4f} ms (domain build {build_s:.2f} s)",
+          flush=True)
     return res
 
 
@@ -3115,37 +3328,19 @@ def _event_timed(fn):
 
 
 def _tile_batch(tk, run, seed, label):
-    """One dense batch through ``run(seed)`` with CUDA events around every
-    kernel launch: photons/s, launches, kernel and wall ms per launch,
-    lane-steps per photon and the card's busy share (kernel time over the
-    batch's wall time)."""
-    orig = tk._launch_cuda
-    tk._launch_cuda, events = _event_timed(orig)
-    try:
-        t, sec = _timed(lambda: run(seed))
-    finally:
-        tk._launch_cuda = orig
-    _sync()
-    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
-    assert len(events) == t.n_passes > 0, (len(events), t.n_passes)
-    res = dict(photons_per_s=t.n_photons / sec, seconds=sec,
-               passes=t.n_passes, kernel_ms_per_pass=kernel_ms / t.n_passes,
-               wall_ms_per_pass=1e3 * sec / t.n_passes,
-               lane_steps=t.n_lane_steps, n_photons=t.n_photons,
-               lane_steps_per_photon=t.n_lane_steps / t.n_photons,
-               busy=kernel_ms / (1e3 * sec), n_bad=t.n_bad, rta=_rta(t))
-    print(f"dense headline [{label}]: {t.n_photons} photons in {sec:.4f} s "
-          f"= {res['photons_per_s']:.6g} photons/s, {t.n_passes} launches, "
-          f"kernel {res['kernel_ms_per_pass']:.4f} ms/launch, wall "
-          f"{res['wall_ms_per_pass']:.4f} ms/launch, "
-          f"{res['lane_steps_per_photon']:.2f} lane-steps/photon, busy "
-          f"share {res['busy']:.3f}, n_bad {t.n_bad}, R/T/A={_rta(t)}",
-          flush=True)
+    """One dense batch through ``run(seed)`` (``_evented_batch``), with
+    its launches (the tiled kernel's passes) under the names 4e reports."""
+    t, res = _evented_batch(tk, run, seed, f"dense headline [{label}]")
+    assert res["launches"] == t.n_passes, (res["launches"], t.n_passes)
+    res.update(passes=t.n_passes,
+               kernel_ms_per_pass=res["kernel_ms_per_launch"],
+               wall_ms_per_pass=res["wall_ms_per_launch"])
     return t, res
 
 
-# Steps a launch of the refill schedule tried in 4e (tile_kernel.REFILL_STEPS
-# is chosen from them)
+# Steps a launch of the refill schedules tried in 4c, 4d and 4e
+# (record_kernel.REFILL_STEPS and tile_kernel.REFILL_STEPS are chosen from
+# them)
 STEPS_SWEEP = (128, 256, 512, 1024, 2048, 4096, 8192)
 
 
@@ -4280,119 +4475,164 @@ def main(argv=None) -> int:
         broken_cloud_scene=broken_cloud_scene,
         make_step_cloud=make_step_cloud)
     dirs6 = _deck_directions(config, le, "step_cloud_radiance.nml")
+    marks = []
+
+    def mark(phase):
+        """Print the wall time of the phase run since the last mark."""
+        now = time.perf_counter()
+        if marks and marks[-1][0] in only:
+            print(f"phase {marks[-1][0]}: {now - marks[-1][1]:.1f} s",
+                  flush=True)
+        marks.append((phase, now))
+
     out = {}
+    mark("2")
     if "2" in only:
         out["max_err"], out["env_max_err"] = phase_compare(
             rk, make_step_cloud, make_step_cloud_multi, Surface,
             illumination, KernelConfig, rng, m)
+    mark("2b")
     if "2b" in only:
         out["rad_max_err"] = phase_radiance_compare(
             rk, le, make_step_cloud, make_step_cloud_multi, make_slab,
             PhaseFunction, Surface, illumination, KernelConfig, rng, dirs6,
             m)
+    mark("2c")
     if "2c" in only:
         phase_radiance_anchors(le, make_slab, Surface, illumination,
                                KernelConfig, run_batch, rng)
         phase_lw_anchors(le, m, KernelConfig, run_batch, rng)
     col_args = (ck, broken_cloud_scene, build_domain, Surface, illumination,
                 KernelConfig, rng)
+    mark("2d")
     if "2d" in only:
         out["col_max_err"] = phase_col_compare(*col_args)
     sep_args = (sk, lw_flagship_scene, build_domain, Surface, illumination,
                 KernelConfig, rng)
+    mark("2e")
     if "2e" in only:
         out["sep_max_err"] = phase_sep_compare(*sep_args)
     dense_args = (dense_cloud_scene, build_domain, OpticalComponent,
                   PhaseFunction, PhaseFunctionTable)
+    mark("2f")
     if "2f" in only:
         out["tile_max_err"] = phase_tile_compare(tk, dense_args, Surface,
                                                  illumination, rng)
+    mark("2g")
     if "2g" in only:
         out["lw_max_err"] = phase_lw_compare(rk, m, KernelConfig, rng)
+    mark("2h")
     if "2h" in only:
         out["gas_max_err"], out["col_le_max_err"] = phase_col_le_compare(
             ck, le, m, KernelConfig, rng)
+    mark("2i")
     if "2i" in only:
         out["em_max_err"], out["px_max_err"] = phase_col_em_px_compare(
             ck, le, m, KernelConfig, rng)
+    mark("2j")
     if "2j" in only:
         out["rpv_max_err"], out["k1_px_max_err"] = \
             phase_record_surface_compare(rk, le, m, make_step_cloud,
                                          make_step_cloud_multi, KernelConfig,
                                          rng)
+    mark("2k")
     if "2k" in only:
         out["walk"] = phase_walk_compare(ck, rk, le, m, KernelConfig, rng,
                                          config)
+    mark("3")
     if "3" in only:
         out["launches"] = phase_main_path(rk, cli)
+    mark("3b")
     if "3b" in only:
         out["rad_launches"], out["rec_walk_launches"] = \
             phase_radiance_deck(rk, cli)
+    mark("3c")
     if "3c" in only:
         out["col_launches"] = phase_landsat_deck(ck, rk, cli)
+    mark("3d")
     if "3d" in only:
         out["lw_deck"] = phase_lw_deck(sk, ck, rk, cli,
                                        write_lw_flagship_inputs)
+    mark("3e")
     if "3e" in only:
         out["dense_deck"] = phase_dense_deck(tk, sk, ck, rk, cli, io_netcdf,
                                              dense_cloud_scene)
+    mark("3f")
     if "3f" in only:
         out["multi_deck"] = phase_multi_deck(rk, ck, sk, tk, cli, io_netcdf,
                                              step_cloud_multi_scene)
+    mark("3g")
     if "3g" in only:
         out["lw_generic_deck"] = phase_lw_generic_deck(
             rk, ck, sk, tk, cli, write_lw_broadband_inputs)
+    mark("3h")
     if "3h" in only:
         out["col_le_deck"] = phase_landsat_radiance_deck(ck, rk, cli)
+    mark("3i")
     if "3i" in only:
         out["gas"] = phase_gas(ck, rk, m, le, KernelConfig, run_batch, rng)
+    mark("3j")
     if "3j" in only:
         out["lw_landsat"] = phase_lw_landsat(ck, rk, m, run_simulation,
                                              config.SimulationConfig)
+    mark("3k")
     if "3k" in only:
         out["px_landsat"] = phase_px_landsat(
             ck, rk, le, m, run_simulation, config.SimulationConfig,
             KernelConfig, rng)
+    mark("3l")
     if "3l" in only:
         out["rpv_step"] = phase_rpv_step_cloud(
             rk, ck, sk, tk, m, make_step_cloud, run_simulation,
             config.SimulationConfig, KernelConfig, rng)
+    mark("3m")
     if "3m" in only:
         out["px_step"] = phase_px_step_cloud(
             rk, ck, sk, tk, m, make_step_cloud, run_simulation,
             config.SimulationConfig, KernelConfig, rng)
+    mark("4")
     if "4" in only:
         out["head"] = phase_headline(*args)
+    mark("4b")
     if "4b" in only:
         out["rad_head"] = phase_radiance_headline(
             rk, le, config, make_step_cloud, Surface, illumination,
             KernelConfig, rng)
+    mark("4c")
     if "4c" in only:
         out["col_head"] = phase_col_headline(*col_args)
+    mark("4d")
     if "4d" in only:
         out["sep_head"] = phase_sep_headline(*sep_args)
+    mark("4e")
     if "4e" in only:
         out["tile_head"] = phase_tile_headline(
             tk, dense_cloud_scene, build_domain, Surface, illumination,
             KernelConfig, run_batch, rng)
+    mark("4f")
     if "4f" in only:
         out["multi_head"] = phase_multi_headline(
             rk, make_step_cloud_multi, Surface, illumination, KernelConfig,
             run_batch, rng)
+    mark("4g")
     if "4g" in only:
         out["lw_head"] = phase_lw_headline(rk, m, KernelConfig, run_batch,
                                            rng)
         out["radar_head"] = phase_radar_headline(rk, m, KernelConfig,
                                                  run_batch, rng)
         out["occupancy"] = vol_tally_occupancy(rk, m)
+    mark("4h")
     if "4h" in only:
         out["col_le_head"] = phase_col_le_headline(
             ck, rk, le, m, KernelConfig, run_batch, rng)
+    mark("4i")
     if "4i" in only:
         out["lw_landsat_head"] = phase_lw_landsat_headline(
             ck, rk, m, KernelConfig, run_batch, rng)
+    mark("5")
     if "5" in only:
         out["probes"] = phase_probes(probes)
+    mark(None)
     if only != set(PHASES):
         print(f"chip_smoke: phases {sorted(only)} passed; no result lines "
               "for a partial run")
@@ -4400,7 +4640,7 @@ def main(argv=None) -> int:
 
     head, rad_head = out["head"], out["rad_head"]
     rad6, col_head = rad_head[(6, "kernel")], out["col_head"]
-    sep_head = out["sep_head"]["kernel"]
+    sep_head = out["sep_head"]
     tile_head = out["tile_head"]
     tile_run = tile_head["refill"]  # run_batch's schedule
     multi_head = out["multi_head"]
@@ -4425,15 +4665,16 @@ def main(argv=None) -> int:
             rad6["table_bytes"], rad6["tally_bytes"],
             extra_ops=(rad6["march"] * OPS_PER_MARCH_STEP
                        + rad6["events"] * 6 * OPS_PER_K2_DIRECTION)),
+        # K3 and K4: per launch of the refill schedule on the headline's
+        # resident slots
         "col_kernel": _bound(
-            col_head["kernel"]["lane_steps"], col_head["kernel"]["launches"],
-            OPS_PER_LANE_STEP["col_kernel"], 1 << 16, 44,
-            4 * (2 * col_head["kernel"]["nxy"]
-                 + 2 * col_head["kernel"]["n_blk"]),
-            4 * (3 * col_head["kernel"]["nxy"] + col_head["kernel"]["nz"])),
+            col_head["refill"]["lane_steps"], col_head["refill"]["launches"],
+            OPS_PER_LANE_STEP["col_kernel"], col_head["resident"], 44,
+            4 * (2 * col_head["nxy"] + 2 * col_head["n_blk"]),
+            4 * (3 * col_head["nxy"] + col_head["nz"])),
         "sep_kernel": _bound(
-            sep_head["lane_steps"], sep_head["launches"],
-            OPS_PER_LANE_STEP["sep_kernel"], 1 << 16, 40,
+            sep_head["refill"]["lane_steps"], sep_head["refill"]["launches"],
+            OPS_PER_LANE_STEP["sep_kernel"], sep_head["resident"], 40,
             sep_head["table_bytes"], sep_head["tally_bytes"]),
         # per launch: the slots' state (7 floats, the tile id and the
         # quota) read and written once, the fields read once, the tallies
@@ -4482,8 +4723,8 @@ def main(argv=None) -> int:
         "replaces": "mcbrat3d_tpu/transport/pallas_col.py:280",
         "launches": out["col_launches"],
         "max_abs_err": out["col_max_err"],
-        "ms": col_head["kernel"]["ms_per_launch"],
-        "plain_ms": col_head["plain"]["ms_per_launch"],
+        "ms": col_head["refill"]["kernel_ms_per_launch"],
+        "plain_ms": col_head["plain_ms_first"],
     }, {
         "name": "sep_kernel",
         "route": "cuda",
@@ -4491,8 +4732,8 @@ def main(argv=None) -> int:
         "replaces": "mcbrat3d_tpu/transport/pallas_sep.py:295",
         "launches": out["lw_deck"]["launches"],
         "max_abs_err": out["sep_max_err"],
-        "ms": sep_head["ms_per_launch"],
-        "plain_ms": out["sep_head"]["plain"]["ms_per_launch"],
+        "ms": sep_head["refill"]["kernel_ms_per_launch"],
+        "plain_ms": sep_head["plain_ms_first"],
     }, {
         "name": "tile_kernel",
         "route": "cuda",

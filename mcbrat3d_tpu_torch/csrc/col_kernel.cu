@@ -62,38 +62,55 @@
 // is a pure tally and its draws are keyed by the event's own (lane, step),
 // so a later kernel on other threads computes the same numbers.
 //
-// Design. One thread per photon lane; lane = blockIdx.x * blockDim.x +
-// threadIdx.x, the TPU kernel's row * 128 + lane, so the counter-based
-// uniforms (K3's draw sites) are the numbers the JAX kernel and the plain
-// PyTorch step draw. A thread loads its state into registers, runs k_steps
-// steps and writes the state back. The column fields (2 x 64 KB at 16,384
-// columns) are read with __ldg and stay in L1/L2; the f32 scale replaces
-// the TPU kernel's bf16 hi/lo reconstruction. The block table and the
-// inverse-CDF row go to shared memory when they fit the per-block budget
-// (kept so that two 256-thread blocks share an SM: 65,536 lanes then fit
-// the card in one wave), else they are read with __ldg. Flux up/down and
+// Design. One thread per photon slot; lane = blockIdx.x * blockDim.x +
+// threadIdx.x keys the counter-based uniforms (K3's draw sites) as the
+// TPU kernel's row * 128 + lane does, so the kernel and the plain PyTorch
+// step draw the same numbers, and on the JAX package's geometry the
+// numbers of the JAX kernel. A thread loads its state into registers,
+// runs k_steps steps, starting its quota of photons one after another, and
+// writes the state back; a slot with no photon and no quota left stops.
+// The flux path runs the refill schedule (record_kernel.RefillSchedule):
+// as many slots as the card holds resident threads for the instantiation
+// (col_kernel_occupancy: 4 blocks of 256 an SM at 64 registers, 135,168 on
+// an H100), no more than the batch's photons, launches of 4,096 steps
+// under the host's relaunch loop, where the JAX package ran 65,536 lanes
+// and 128-step launches (a quarter of the card's threads and a host
+// read-back every 128 steps). The column fields, interleaved as one
+// (height, scale) float2 a column (128 KB at 16,384 columns), are read
+// with one 8-byte __ldg and stay in L1/L2 (as two arrays the scale's load
+// waited for the height's compare: a second dependent load on every step
+// of a lone warp); the f32 scale replaces the TPU kernel's bf16 hi/lo
+// reconstruction. The block table and the
+// inverse-CDF row go to shared memory where that costs no blocks an SM
+// (mcb::table_layout; the Landsat deck's 10,001-step row, 80 KB, would
+// hold 2 blocks an SM and is read with __ldg: 6-14% faster on that deck's
+// configuration than the row in shared memory). Flux up/down and
 // column absorption (3 * nx * ny floats, 192 KB on the Landsat deck) go to
-// global atomics over 16,384 addresses, which rarely collide; the z profile
-// (nz <= 128 floats) accumulates in shared memory and is flushed once per
-// block per launch; the optional 3D field goes to global atomics. A radiance
-// launch has 4,096 lanes (the JAX package's lane geometry, so its lanes
-// carry JAX's photons) and runs 32-thread blocks to spread them over the
-// SMs; its walk kernel is persistent, as many 256-thread blocks as fit the
-// card, striding over the pairs direction-major (pair p is direction
-// p / E of event p % E), so a warp takes 32 events of one direction: the
-// direction is a shared-memory broadcast, the slopes are equal and the
-// event reads coalesce. The directions go to shared memory; the (A, B)
-// table and the forward row are read with __ldg (staging either in shared
-// memory measured slower on this card: it takes the L1 the table's reads
-// hit).
+// global atomics over 16,384 addresses, which rarely collide; the z
+// profile (nz <= 128 floats) accumulates in shared memory and is flushed
+// once per block per launch; the optional 3D field goes to global
+// atomics; the launch counters are int64 (2^18 slots x 8,192 steps reach
+// 2^31 lane-steps). A radiance launch has 4,096 lanes and 128 steps (the
+// JAX package's lane geometry, so its lanes carry JAX's photons; its event
+// queue holds lanes x steps records) and runs 32-thread blocks to spread
+// them over the SMs, its tables within kMaxTableSmem; its walk kernel is
+// persistent, as many 256-thread blocks as fit the card, striding over the
+// pairs direction-major (pair p is direction p / E of event p % E), so a
+// warp takes 32 events of one direction: the direction is a shared-memory
+// broadcast, the slopes are equal and the event reads coalesce. The
+// directions go to shared memory; the (A, B) table and the forward row are
+// read with __ldg (staging either in shared memory measured slower on this
+// card: it takes the L1 the table's reads hit).
 //
 // What bounds it on this card: like the record kernel, the latency of the
 // dependent per-step math (divisions, log1p, sqrt, sincos, the table or HG
-// sampling) with at most 65,536 lanes in flight, and the global atomics of
-// the tallies; the walk, the dependent (A, B) load and IEEE divide of each
-// iteration, now on every thread slot of the card. Bytes and operations are
-// both far below the card's rates. It does no matrix work, so tensor cores,
-// wgmma and TMA have nothing to do here.
+// sampling), with 32 warps an SM in flight (registers hold it there: 64 a
+// thread, with a few bytes spilled), and the global atomics of the
+// tallies; at the end of a batch the longest slots' serial chains of
+// steps; the walk, the dependent (A, B) load and IEEE divide of each
+// iteration, on every thread slot of the card. Bytes and operations are
+// both far below the card's rates. It does no matrix work, so tensor
+// cores, wgmma and TMA have nothing to do here.
 //
 // Arithmetic follows the JAX kernel operation by operation in float32, and
 // the library is built with -fmad=false so no multiply-add is contracted
@@ -119,7 +136,7 @@ constexpr int kThreads = 256;
 constexpr int kLeThreads = 32;
 // Threads per block of the walk kernel.
 constexpr int kWalkThreads = 256;
-// Shared memory a block may take for its tables (two blocks per SM).
+// Shared memory a radiance block may take for its tables.
 constexpr size_t kMaxTableSmem = 96 * 1024;
 // Directions per launch (local_estimate.MAX_KERNEL_DIRS).
 constexpr int kMaxDirs = 64;
@@ -354,8 +371,7 @@ __device__ __forceinline__ void le_pair(
 template <bool MACRO, bool ANALYTIC, bool VOL, bool RR, bool LE>
 __global__ void __launch_bounds__(kThreads)
 col_steps(const float* __restrict__ prm,
-          const float* __restrict__ col_scale,
-          const float* __restrict__ col_height,
+          const float2* __restrict__ col_hs,
           const float* __restrict__ g_blk,
           const float* __restrict__ g_inv_a0,
           const float* __restrict__ g_inv_dd,
@@ -365,7 +381,8 @@ col_steps(const float* __restrict__ prm,
           float* __restrict__ ws, float* __restrict__ blss,
           float* __restrict__ blhs, int* __restrict__ quotas,
           int* __restrict__ alives, float* __restrict__ acc,
-          int* __restrict__ counts, Queue q, LeArgs le, EmArgs em,
+          unsigned long long* __restrict__ counts, Queue q, LeArgs le,
+          EmArgs em,
           int n_lanes, int nx, int ny, int nz, int mf, int nby, int n_blk,
           int inv_n, int blk_smem, int inv_smem, uint32_t seed,
           uint32_t step0, int k_steps, int src) {
@@ -425,9 +442,11 @@ col_steps(const float* __restrict__ prm,
     const uint32_t ul = static_cast<uint32_t>(lane);
 
     for (int k = 0; k < k_steps; ++k) {
+      // a lane with no photon and no quota has no work left this launch
+      if (!alive && quota <= 0) break;
       const uint32_t ctr = step0 + static_cast<uint32_t>(k);
       // ---- refill a dead lane from the source ----
-      if (!alive && quota > 0) {
+      if (!alive) {
         const float u0 = uniform(ul, seed, ctr, S_X);
         const float u1 = uniform(ul, seed, ctr, S_Y);
         if (emission) {
@@ -444,7 +463,7 @@ col_steps(const float* __restrict__ prm,
               col_b = static_cast<int>(__ldg(em.alias + jbin) + 0.5f);
               h_b = __ldg(em.halias + jbin);
             } else {
-              h_b = __ldg(col_height + jbin);
+              h_b = __ldg(col_hs + jbin).x;
             }
             // the level: the count of fcum entries <= u * fcum[h - 1]
             const float target = uniform(ul, seed, ctr, S_EM_LEVEL) *
@@ -617,9 +636,10 @@ col_steps(const float* __restrict__ prm,
 
       // ---- column gather (+ the gas at the level); null-collision test
       // against the ceiling the jump sampled with ----
-      const float beta_c = static_cast<float>(iz) < __ldg(col_height + col)
-                               ? __ldg(col_scale + col)
-                               : 0.f;
+      // one 8-byte load of the column's (height, scale): the scale does
+      // not wait for the height's compare
+      const float2 hs = __ldg(col_hs + col);
+      const float beta_c = static_cast<float>(iz) < hs.x ? hs.y : 0.f;
       const float beta = has_gas ? beta_c + __ldg(le.qz + iz) : beta_c;
       if (!(uniform(ul, seed, ctr, S_COLLIDE) * ceiling < beta)) continue;
 
@@ -687,7 +707,9 @@ col_steps(const float* __restrict__ prm,
     if (v != 0.f) atomicAdd(i < nz ? &acc_prof[i] : &acc_pre[i - nz], v);
   }
   for (int i = threadIdx.x; i < kCounts; i += blockDim.x) {
-    if (s_counts[i]) atomicAdd(&counts[i], s_counts[i]);
+    if (s_counts[i]) {
+      atomicAdd(&counts[i], static_cast<unsigned long long>(s_counts[i]));
+    }
   }
 }
 
@@ -699,7 +721,8 @@ col_steps(const float* __restrict__ prm,
 // the largest fill in ctl[1].
 __global__ void __launch_bounds__(kWalkThreads)
 col_walk(const float* __restrict__ prm, Queue q,
-         const float* __restrict__ dirs, LeArgs le, int* __restrict__ counts,
+         const float* __restrict__ dirs, LeArgs le,
+         unsigned long long* __restrict__ counts,
          unsigned long long* __restrict__ g_walk, int nx, int ny, int nz,
          uint32_t seed) {
   __shared__ float s_dirs[4 * kMaxDirs];
@@ -741,48 +764,56 @@ col_walk(const float* __restrict__ prm, Queue q,
   __syncthreads();
   if (threadIdx.x == 0) {
     if (s_walk) atomicAdd(g_walk, s_walk);
-    if (s_cut) atomicAdd(&counts[4], s_cut);
+    if (s_cut) {
+      atomicAdd(&counts[4], static_cast<unsigned long long>(s_cut));
+    }
   }
 }
 
 struct Args {
-  const float *prm, *col_scale, *col_height, *blk, *inv_a0, *inv_dd;
+  const float* prm;
+  const float2* col_hs;
+  const float *blk, *inv_a0, *inv_dd;
   float *x, *y, *z, *ux, *uy, *uz, *w, *bls, *blh;
   int *quota, *alive;
   float* acc;
-  int* counts;
+  unsigned long long* counts;
   Queue q;
   LeArgs le;
   EmArgs em;
   int n_lanes, nx, ny, nz, mf, nby, n_blk, inv_n;
   uint32_t seed, step0;
   int k_steps, src;
+  int* occ = nullptr;  // set: fill this occupancy record, do not launch
 };
 
 template <bool MACRO, bool ANALYTIC, bool VOL, bool RR, bool LE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   auto kernel = col_steps<MACRO, ANALYTIC, VOL, RR, LE>;
+  const int threads = LE ? kLeThreads : kThreads;
   // the profile (and with lw its pre-credit row), with emission the
   // cumulative Planck table, then the block table and the inverse-CDF row
-  // where they fit the budget (else the kernel reads them with __ldg)
-  size_t smem = static_cast<size_t>(a.nz) * sizeof(float) *
-                ((a.em.lw ? 2 : 1) + (a.src == SRC_EMISSION ? 1 : 0));
-  const size_t blk_bytes = 2 * static_cast<size_t>(a.n_blk) * sizeof(float);
-  const size_t inv_bytes = 2 * static_cast<size_t>(a.inv_n) * sizeof(float);
-  const int blk_smem = MACRO && smem + blk_bytes <= kMaxTableSmem;
-  if (blk_smem) smem += blk_bytes;
-  const int inv_smem = !ANALYTIC && smem + inv_bytes <= kMaxTableSmem;
-  if (inv_smem) smem += inv_bytes;
-  if (smem > 47 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+  // where mcb::table_layout puts them (else the kernel reads them with
+  // __ldg); a radiance launch (a few blocks an SM) keeps them within
+  // kMaxTableSmem
+  const size_t base = static_cast<size_t>(a.nz) * sizeof(float) *
+                      ((a.em.lw ? 2 : 1) + (a.src == SRC_EMISSION ? 1 : 0));
+  const size_t bytes[2] = {
+      MACRO ? 2 * static_cast<size_t>(a.n_blk) * sizeof(float) : 0,
+      ANALYTIC ? 0 : 2 * static_cast<size_t>(a.inv_n) * sizeof(float)};
+  const long budget = LE ? static_cast<long>(kMaxTableSmem) : -1;
+  size_t smem = 0;
+  int in_smem[2] = {0, 0};
+  const cudaError_t e =
+      mcb::table_layout(kernel, threads, base, bytes, budget, &smem, in_smem);
+  if (e != cudaSuccess) return e;
+  const int blk_smem = in_smem[0], inv_smem = in_smem[1];
+  if (a.occ != nullptr) {
+    return mcb::occupancy_record(kernel, threads, smem, a.occ);
   }
-  const int threads = LE ? kLeThreads : kThreads;
   const int blocks = (a.n_lanes + threads - 1) / threads;
   kernel<<<blocks, threads, smem, stream>>>(
-      a.prm, a.col_scale, a.col_height, a.blk, a.inv_a0, a.inv_dd, a.x, a.y,
+      a.prm, a.col_hs, a.blk, a.inv_a0, a.inv_dd, a.x, a.y,
       a.z, a.ux, a.uy, a.uz, a.w, a.bls, a.blh, a.quota, a.alive, a.acc,
       a.counts, a.q, a.le, a.em, a.n_lanes, a.nx, a.ny, a.nz, a.mf,
       a.nby, a.n_blk, a.inv_n, blk_smem, inv_smem, a.seed, a.step0,
@@ -819,7 +850,8 @@ cudaError_t launch_hg(const Args& a, int analytic, int vol, int rr,
 
 extern "C" int col_kernel_num_params() { return N_PARAMS; }
 
-// Advance every lane by k_steps transport steps. Adds the tallies into acc
+// Advance every lane by k_steps transport steps, reading the column template
+// from col_hs ([nx * ny] (height, scale) float2). Adds the tallies into acc
 // ([up nxy | down nxy | absorbed nxy | profile nz | 3D field nxy * nz with
 // vol | the profile's pre-credits nz with lw]), the photons started into
 // counts[0], the lanes with work left (alive or quota > 0) into counts[1],
@@ -829,13 +861,17 @@ extern "C" int col_kernel_num_params() { return N_PARAMS; }
 // (qf [N_QF][cap], qi [N_QI][cap]) after its fill qctl[0] is set to 0;
 // col_walk_launch then computes the estimates. Source kind (SRC_*), gas,
 // the emission's pre-credits (lw, emission only) and the per-pixel albedo
-// (has_px: one albedo per column in albedo[]) are launch arguments.
+// (has_px: one albedo per column in albedo[]) are launch arguments. The
+// counters are int64 (a launch of 2^18 lanes x 8,192 steps reaches 2^31
+// lane-steps); a lane with no photon and no quota stops stepping. The
+// block table and the inverse-CDF row go to shared memory where that
+// costs no blocks an SM (a radiance launch: within kMaxTableSmem).
 // Returns cudaGetLastError().
 extern "C" int col_kernel_launch(
-    const float* prm, const float* col_scale, const float* col_height,
-    const float* blk, const float* inv_a0, const float* inv_dd, float* x,
-    float* y, float* z, float* ux, float* uy, float* uz, float* w,
-    float* bls, float* blh, int* quota, int* alive, float* acc, int* counts,
+    const float* prm, const float* col_hs, const float* blk,
+    const float* inv_a0, const float* inv_dd, float* x, float* y, float* z,
+    float* ux, float* uy, float* uz, float* w, float* bls, float* blh,
+    int* quota, int* alive, float* acc, unsigned long long* counts,
     const float* qz, float* qf, int* qi, int* qctl, const float* em_prob,
     const float* em_alias, const float* em_halias, const float* em_fcum,
     const float* albedo, int n_lanes, int nx, int ny, int nz,
@@ -862,15 +898,43 @@ extern "C" int col_kernel_launch(
   le.has_gas = has_gas;
   const EmArgs em{em_prob, em_alias, em_halias, em_fcum,
                   has_px ? albedo : nullptr, lw};
-  const Args a{prm,   col_scale, col_height, blk,   inv_a0, inv_dd, x,
-               y,     z,         ux,         uy,    uz,     w,      bls,
-               blh,   quota,     alive,      acc,   counts,
-               Queue{qf, qi, qctl, cap},     le,    em,     n_lanes,
-               nx,    ny,        nz,         macro_factor,  nby,    n_blk,
-               inv_n, seed,      step0,      k_steps,       source_kind};
+  const Args a{prm,   reinterpret_cast<const float2*>(col_hs), blk,
+               inv_a0, inv_dd,   x,     y,     z,     ux,    uy,    uz,
+               w,     bls,       blh,   quota, alive, acc,   counts,
+               Queue{qf, qi, qctl, cap},        le,    em,    n_lanes,
+               nx,    ny,        nz,    macro_factor, nby,  n_blk,
+               inv_n, seed,      step0, k_steps,      source_kind};
   const cudaError_t e =
       macro_factor > 0 ? launch_hg<true>(a, analytic, vol, use_rr, s)
                        : launch_hg<false>(a, analytic, vol, use_rr, s);
+  return static_cast<int>(e);
+}
+
+// The occupancy record (mcb::OCC_*) of the transport kernel's instantiation
+// and shared-memory layout that col_kernel_launch would take for these
+// arguments, on the current card. Returns 0 or the CUDA error.
+extern "C" int col_kernel_occupancy(int nz, int macro_factor, int n_blk,
+                                    int inv_n, int analytic, int vol,
+                                    int use_rr, int source_kind, int n_dirs,
+                                    int lw, int* out) {
+  if (nz < 1 || nz > 128 || (macro_factor > 0 && n_blk <= 0) ||
+      (!analytic && inv_n < 2) || source_kind < SRC_DIRECTIONAL ||
+      source_kind > SRC_EMISSION || n_dirs < 0 || n_dirs > kMaxDirs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LeArgs le{};
+  le.n_dirs = n_dirs;
+  Args a{};
+  a.le = le;
+  a.em.lw = lw;
+  a.nz = nz;
+  a.n_blk = n_blk;
+  a.inv_n = inv_n;
+  a.src = source_kind;
+  a.occ = out;
+  const cudaError_t e =
+      macro_factor > 0 ? launch_hg<true>(a, analytic, vol, use_rr, nullptr)
+                       : launch_hg<false>(a, analytic, vol, use_rr, nullptr);
   return static_cast<int>(e);
 }
 
@@ -886,7 +950,8 @@ extern "C" int col_walk_launch(
     const float* prm, float* qf, int* qi, int* qctl, int cap,
     const float* dirs, const float* col_ab, const float* fwd_v0,
     const float* fwd_dd, const float* qz, const float* qcb, float* img,
-    int* counts, unsigned long long* walk, int nx, int ny, int nz,
+    unsigned long long* counts, unsigned long long* walk, int nx, int ny,
+    int nz,
     uint32_t seed, int n_dirs, int le_rr, int le_fwd, int n_s, int k_walk,
     int has_gas, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

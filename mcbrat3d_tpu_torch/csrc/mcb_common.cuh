@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace mcb {
@@ -135,6 +136,114 @@ inline cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem,
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   *blocks = per_sm * n_sm;
+  return cudaSuccess;
+}
+
+// Most dynamic shared memory a block may take (the card's opt-in limit).
+constexpr size_t kMaxBlockSmem = 227 * 1024;
+
+// Blocks of `kernel` resident on one SM for `threads` threads and `smem`
+// bytes of dynamic shared memory (the kernel opted in past 48 KB first).
+template <typename Kernel>
+inline cudaError_t smem_blocks(Kernel kernel, int threads, size_t smem,
+                               int* blocks) {
+  if (smem > 47 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       threads, smem);
+}
+
+// Where a launch keeps its two read-only tables (the block majorants, then
+// the inverse-CDF row; bytes[i] == 0: the table is not read): after the
+// `base` bytes of dynamic shared memory the block always takes, in shared
+// memory or read from global memory with __ldg. With budget >= 0 each
+// table goes to shared memory if the block stays within the budget bytes;
+// with budget < 0 the longest run of them, in order, that costs no blocks
+// an SM against reading both from global memory (occupancy queries, done
+// once for the last kernel and sizes: every launch of a batch asks the
+// same). Sets the block's bytes and in_smem[i]; opts in past 48 KB.
+template <typename Kernel>
+inline cudaError_t table_layout(Kernel kernel, int threads, size_t base,
+                                const size_t bytes[2], long budget,
+                                size_t* smem, int in_smem[2]) {
+  static const void* last_kernel = nullptr;
+  static size_t last[4] = {0, 0, 0, 0};
+  static int last_n = 0;
+  const size_t key[4] = {base, bytes[0], bytes[1],
+                         static_cast<size_t>(threads)};
+  *smem = base;
+  if (budget >= 0) {
+    for (int k = 0; k < 2; ++k) {
+      in_smem[k] = bytes[k] > 0 &&
+                   *smem + bytes[k] <= static_cast<size_t>(budget);
+      if (in_smem[k]) *smem += bytes[k];
+    }
+  } else {
+    if (last_kernel != reinterpret_cast<const void*>(kernel) ||
+        memcmp(last, key, sizeof(key)) != 0) {
+      int floor_blocks = 0, n = 0;
+      cudaError_t e = smem_blocks(kernel, threads, base, &floor_blocks);
+      size_t s = base;
+      for (int k = 0; k < 2 && e == cudaSuccess; ++k) {
+        int b = 0;
+        if (s + bytes[k] > kMaxBlockSmem) break;
+        e = smem_blocks(kernel, threads, s + bytes[k], &b);
+        if (e != cudaSuccess || b < floor_blocks) break;
+        s += bytes[k];
+        n = k + 1;
+      }
+      if (e != cudaSuccess) return e;
+      last_kernel = reinterpret_cast<const void*>(kernel);
+      memcpy(last, key, sizeof(key));
+      last_n = n;
+    }
+    for (int k = 0; k < 2; ++k) {
+      in_smem[k] = k < last_n && bytes[k] > 0;
+      if (in_smem[k]) *smem += bytes[k];
+    }
+  }
+  if (*smem > 47 * 1024) {
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(*smem));
+  }
+  return cudaSuccess;
+}
+
+// Entries of an occupancy record (record_kernel.OCCUPANCY_KEYS).
+enum { OCC_BLOCKS, OCC_THREADS, OCC_SMEM, OCC_REGS, OCC_LOCAL, OCC_SMS,
+       N_OCC };
+
+// The occupancy record of `kernel` launched with `threads` threads and
+// `smem` bytes of dynamic shared memory (set past the 48 KB opt-in first)
+// on the current card: blocks resident on one SM (the occupancy query),
+// threads a block, the dynamic shared memory, registers a thread, local
+// (spilled) bytes a thread and SMs.
+template <typename Kernel>
+inline cudaError_t occupancy_record(Kernel kernel, int threads, size_t smem,
+                                    int* out) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  }
+  if (e != cudaSuccess) return e;
+  out[OCC_BLOCKS] = per_sm;
+  out[OCC_THREADS] = threads;
+  out[OCC_SMEM] = static_cast<int>(smem);
+  out[OCC_REGS] = fa.numRegs;
+  out[OCC_LOCAL] = static_cast<int>(fa.localSizeBytes);
+  out[OCC_SMS] = n_sm;
   return cudaSuccess;
 }
 

@@ -23,29 +23,42 @@
 // absorption per column, the net absorption z profile and, in LW mode, a
 // -1 pre-credit at each atmospheric birth column and level.
 //
-// Design. One thread per photon lane; lane = blockIdx.x * blockDim.x +
-// threadIdx.x, the TPU kernel's row * 128 + lane, so the counter-based
-// uniforms (K4's draw sites) are the numbers the JAX kernel (interpret
-// mode) and the plain PyTorch step draw. A thread loads its state into
-// registers, runs k_steps steps and writes the state back. The TPU
+// Design. One thread per photon slot; lane = blockIdx.x * blockDim.x +
+// threadIdx.x keys the counter-based uniforms (K4's draw sites) as the
+// TPU kernel's row * 128 + lane does, so the kernel and the plain PyTorch
+// step draw the same numbers, and on the JAX package's geometry the
+// numbers of the JAX kernel (interpret mode). A thread loads its state
+// into registers, runs k_steps steps, starting its quota of photons one
+// after another, and writes the state back; a slot with no photon, claim
+// or quota left stops. The flux path runs the refill schedule
+// (record_kernel.RefillSchedule): as many slots as the card holds resident
+// threads for the instantiation (sep_kernel_occupancy: 4 blocks of 256 an
+// SM at 64 registers, 135,168 on an H100), no more than the batch's
+// photons, launches of 4,096 steps under the host's relaunch loop, where
+// the JAX package ran 65,536 lanes and 128-step launches. The TPU
 // kernel's bf16 hi/lo splits of amp, p, q and the tallies and its one-hot
 // matrix gathers and tallies are not carried over: amp (422 KB on the
 // deck) is read as float32 with __ldg and stays in L2; p, q, the z
 // aliases and the emission group tables (a few KB) sit in shared memory;
 // the block ceilings (1,681 blocks, 6.7 KB on the deck; the JAX package's
-// bf16-bumped values, a majorant) and the inverse-CDF row (9,001 steps,
-// 72 KB) go to shared memory when they fit the per-block budget (kept so
-// that two 256-thread blocks share an SM), else they are read with __ldg.
-// Flux up/down and net column absorption (3 x 105,625 floats on the deck)
-// go to global atomics; the z profile accumulates in shared memory and is
-// flushed once per block per launch.
+// bf16-bumped values, a majorant) and the inverse-CDF row go to shared
+// memory where that costs no blocks an SM (mcb::table_layout): the deck's
+// 9,001-step row (72 KB) would hold 2 blocks an SM and is read with __ldg
+// (11% faster on the deck's configuration than the row in shared memory
+// at its 2 blocks an SM; within a few percent at equal slots). Flux up/down and net column
+// absorption (3 x 105,625 floats on the deck) go to global atomics; the z
+// profile accumulates in shared memory and is flushed once per block per
+// launch; the launch counters are int64.
 //
 // What bounds it on this card: like the record and column kernels, the
 // latency of the dependent per-step math (divisions, log1pf, sqrtf,
-// sincosf, the table or HG sampling) with at most 65,536 lanes in flight,
-// and the global atomics of the tallies; its bytes (state, the amplitude
-// column, small tables) and its operations are both far below the card's
-// rates. It does no matrix work, so wgmma and TMA do not apply.
+// sincosf, the table or HG sampling) and of the births (7.4 live
+// lane-steps a photon on the LW headline, so a slot spends much of its
+// time starting photons), with 32 warps an SM in flight (64 registers a
+// thread), and the atomics of the tallies and the pre-credits; its bytes
+// (state, the amplitude column, small tables) and its operations are both
+// far below the card's rates. It does no matrix work, so wgmma and TMA do
+// not apply.
 //
 // Arithmetic follows the JAX kernel operation by operation in float32, and
 // the library is built with -fmad=false so no multiply-add is contracted
@@ -67,10 +80,6 @@ using mcb::uniform;
 using mcb::wrap;
 
 constexpr int kThreads = 256;
-// Most shared memory a block may take (the card's opt-in limit); the
-// caller's table budget (sep_kernel.TABLE_SMEM: two blocks per SM) is held
-// under it.
-constexpr size_t kMaxSmem = 227 * 1024;
 constexpr int kGroup = 128;  // columns per emission group
 
 // params[] slots (mcbrat3d_tpu_torch/transport/sep_kernel.py P_*).
@@ -111,7 +120,8 @@ sep_steps(const float* __restrict__ prm, const float* __restrict__ amp,
           float* __restrict__ uzs, float* __restrict__ ws,
           float* __restrict__ blss, int* __restrict__ quotas,
           int* __restrict__ alives, float* __restrict__ acc,
-          int* __restrict__ counts, int n_lanes, int nx, int ny, int nz,
+          unsigned long long* __restrict__ counts, int n_lanes, int nx,
+          int ny, int nz,
           int mf, int nby, int n_blk, int n_groups, int inv_n, int blk_smem,
           int inv_smem, uint32_t seed, uint32_t step0, int k_steps) {
   constexpr bool EMISSION = SRC == SRC_EMISSION;
@@ -179,6 +189,8 @@ sep_steps(const float* __restrict__ prm, const float* __restrict__ amp,
     const uint32_t ul = static_cast<uint32_t>(lane);
 
     for (int k = 0; k < k_steps; ++k) {
+      // a lane with no photon, no claim and no quota has no work left
+      if (st == 0 && quota <= 0) break;
       const uint32_t ctr = step0 + static_cast<uint32_t>(k);
       // ---- refill a dead lane (or retry a claimed proposal) ----
       if (st == 2 || (st == 0 && quota > 0)) {
@@ -428,7 +440,9 @@ sep_steps(const float* __restrict__ prm, const float* __restrict__ amp,
     if (v != 0.f) atomicAdd(&acc_prof[i], v);
   }
   for (int i = threadIdx.x; i < 3; i += blockDim.x) {
-    if (s_counts[i]) atomicAdd(&counts[i], s_counts[i]);
+    if (s_counts[i]) {
+      atomicAdd(&counts[i], static_cast<unsigned long long>(s_counts[i]));
+    }
   }
 }
 
@@ -437,36 +451,36 @@ struct Args {
   float *x, *y, *z, *ux, *uy, *uz, *w, *bls;
   int *quota, *alive;
   float* acc;
-  int* counts;
+  unsigned long long* counts;
   int n_lanes, nx, ny, nz, mf, nby, n_blk, n_groups, inv_n;
   uint32_t seed, step0;
   int k_steps;
-  size_t table_smem;
+  int* occ = nullptr;  // set: fill this occupancy record, do not launch
 };
 
 template <int SRC, bool ANALYTIC, bool RR, bool LW>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   auto kernel = sep_steps<SRC, ANALYTIC, RR, LW>;
   // the profile, p, q and (emission) the z aliases and group tables, then
-  // the block ceilings and the inverse-CDF row while the block stays within
-  // the table budget (else the kernel reads them with __ldg)
+  // the block ceilings and the inverse-CDF row where mcb::table_layout puts
+  // them (else the kernel reads them with __ldg)
   const bool emission = SRC == SRC_EMISSION;
-  size_t smem = sizeof(float) *
-                (3 * static_cast<size_t>(a.nz) +
-                 (emission ? 4 * static_cast<size_t>(a.nz) +
-                                 3 * static_cast<size_t>(a.n_groups)
-                           : 0));
-  const size_t blk_bytes = static_cast<size_t>(a.n_blk) * sizeof(float);
-  const size_t inv_bytes = 2 * static_cast<size_t>(a.inv_n) * sizeof(float);
-  const int blk_smem = smem + blk_bytes <= a.table_smem;
-  if (blk_smem) smem += blk_bytes;
-  const int inv_smem = !ANALYTIC && smem + inv_bytes <= a.table_smem;
-  if (inv_smem) smem += inv_bytes;
-  if (smem > 47 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+  const size_t base = sizeof(float) *
+                      (3 * static_cast<size_t>(a.nz) +
+                       (emission ? 4 * static_cast<size_t>(a.nz) +
+                                       3 * static_cast<size_t>(a.n_groups)
+                                 : 0));
+  const size_t bytes[2] = {
+      static_cast<size_t>(a.n_blk) * sizeof(float),
+      ANALYTIC ? 0 : 2 * static_cast<size_t>(a.inv_n) * sizeof(float)};
+  size_t smem = 0;
+  int in_smem[2] = {0, 0};
+  const cudaError_t e = mcb::table_layout(kernel, kThreads, base, bytes,
+                                          -1, &smem, in_smem);
+  if (e != cudaSuccess) return e;
+  const int blk_smem = in_smem[0], inv_smem = in_smem[1];
+  if (a.occ != nullptr) {
+    return mcb::occupancy_record(kernel, kThreads, smem, a.occ);
   }
   const int blocks = (a.n_lanes + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, smem, stream>>>(
@@ -494,6 +508,22 @@ cudaError_t launch_hg(const Args& a, int analytic, int rr, int lw,
                   : launch_rr_lw<SRC, false>(a, rr, lw, s);
 }
 
+cudaError_t dispatch(const Args& a, int source_kind, int analytic, int rr,
+                     int lw, cudaStream_t s) {
+  switch (source_kind) {
+    case SRC_DIRECTIONAL:
+      return launch_hg<SRC_DIRECTIONAL>(a, analytic, rr, lw, s);
+    case SRC_RANDOM_AZIMUTH:
+      return launch_hg<SRC_RANDOM_AZIMUTH>(a, analytic, rr, lw, s);
+    case SRC_FLUX:
+      return launch_hg<SRC_FLUX>(a, analytic, rr, lw, s);
+    case SRC_EMISSION:
+      return launch_hg<SRC_EMISSION>(a, analytic, rr, lw, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int sep_kernel_num_params() { return N_PARAMS; }
@@ -501,47 +531,51 @@ extern "C" int sep_kernel_num_params() { return N_PARAMS; }
 // Advance every lane by k_steps transport steps. Adds the tallies into acc
 // ([up nxy | down nxy | net absorbed nxy | net profile nz]), the photons
 // started into counts[0], the lanes with work left (state > 0 or quota > 0)
-// into counts[1] and the lane-steps run with a live photon into counts[2].
-// table_smem is a block's shared-memory budget in bytes: the block
-// ceilings and the inverse-CDF row go to shared memory while the block
-// stays within it. Returns cudaGetLastError().
+// into counts[1] and the lane-steps run with a live photon into counts[2]
+// (int64: a launch of 2^18 lanes x 8,192 steps reaches 2^31 lane-steps); a
+// lane with no photon, claim or quota stops stepping. The block ceilings
+// and the inverse-CDF row go to shared memory where that costs no blocks
+// an SM. Returns cudaGetLastError().
 extern "C" int sep_kernel_launch(
     const float* prm, const float* amp, const float* pz, const float* qz,
     const float* blk, const float* zpa, const float* grp,
     const float* inv_a0, const float* inv_dd, float* x, float* y, float* z,
     float* ux, float* uy, float* uz, float* w, float* bls, int* quota,
-    int* alive, float* acc, int* counts, int n_lanes, int nx, int ny, int nz,
+    int* alive, float* acc, unsigned long long* counts, int n_lanes, int nx,
+    int ny, int nz,
     int macro_factor, int nby, int n_blk, int n_groups, int zb, int zt,
     int inv_n, int n_acc, uint32_t seed, uint32_t step0, int k_steps,
-    int analytic, int use_rr, int lw, int source_kind, int table_smem,
-    void* stream) {
+    int analytic, int use_rr, int lw, int source_kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nxy = static_cast<long long>(nx) * ny;
   if (n_acc != 3 * nxy + nz || nz > 256 || nxy > 128 * 128 * 8 ||
       macro_factor <= 0 || n_blk <= 0 || n_groups * kGroup < nxy ||
-      zb < 0 || zt > nz || zb >= zt || (!analytic && inv_n < 2) ||
-      table_smem < 0 || static_cast<size_t>(table_smem) > kMaxSmem) {
+      zb < 0 || zt > nz || zb >= zt || (!analytic && inv_n < 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{prm,    amp,   pz,     qz,   blk,   zpa,     grp,
                inv_a0, inv_dd, x,     y,    z,     ux,      uy,
                uz,     w,     bls,    quota, alive, acc,    counts,
                n_lanes, nx,   ny,     nz,   macro_factor, nby, n_blk,
-               n_groups, inv_n, seed, step0, k_steps,
-               static_cast<size_t>(table_smem)};
-  switch (source_kind) {
-    case SRC_DIRECTIONAL:
-      return static_cast<int>(
-          launch_hg<SRC_DIRECTIONAL>(a, analytic, use_rr, lw, s));
-    case SRC_RANDOM_AZIMUTH:
-      return static_cast<int>(
-          launch_hg<SRC_RANDOM_AZIMUTH>(a, analytic, use_rr, lw, s));
-    case SRC_FLUX:
-      return static_cast<int>(launch_hg<SRC_FLUX>(a, analytic, use_rr, lw, s));
-    case SRC_EMISSION:
-      return static_cast<int>(
-          launch_hg<SRC_EMISSION>(a, analytic, use_rr, lw, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+               n_groups, inv_n, seed, step0, k_steps};
+  return static_cast<int>(dispatch(a, source_kind, analytic, use_rr, lw, s));
+}
+
+// The occupancy record (mcb::OCC_*) of the instantiation and shared-memory
+// layout that sep_kernel_launch would take for these arguments, on the
+// current card. Returns 0 or the CUDA error.
+extern "C" int sep_kernel_occupancy(int nz, int n_groups, int n_blk,
+                                    int inv_n, int analytic, int use_rr,
+                                    int lw, int source_kind, int* out) {
+  if (nz < 1 || nz > 256 || n_blk <= 0 || (!analytic && inv_n < 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  Args a{};
+  a.nz = nz;
+  a.n_groups = n_groups;
+  a.n_blk = n_blk;
+  a.inv_n = inv_n;
+  a.occ = out;
+  return static_cast<int>(
+      dispatch(a, source_kind, analytic, use_rr, lw, nullptr));
 }

@@ -11,9 +11,10 @@ Landsat-scale domains whose extinction is a column template,
     beta(x, y, z) = col_scale[col] * (iz < col_height[col]) [+ col_qz[iz]],
 
 so two per-column values (at most 16,384 columns) carry a field of
-millions of cells. Every lane carries one photon through ``steps_per_call``
-steps per launch: refill from a directional, random-azimuth or flux
-source or from the domain's thermal emission; a Woodcock jump against the carried xy-block majorant below the
+millions of cells. Every lane (slot) carries one photon at a time through
+``steps_per_call`` steps per launch: refill from a directional,
+random-azimuth or flux source or from the domain's thermal emission; a
+Woodcock jump against the carried xy-block majorant below the
 block's cloud-top plane and a geometric advance above it, clipped at the
 block faces (clamped to the domain edge) and, descending, at the plane; the
 column gather; the null-collision test; absorption by the uniform ssa;
@@ -82,6 +83,15 @@ Two implementations of one launch:
   falls between the two takes the other column there; the alias targets
   and their heights are exact in both.
 
+The flux path runs the refill schedule by default (``run_batch_col_tallies``,
+``rk.RefillSchedule``): as many slots as the card holds resident threads
+for the kernel's instantiation (``occupancy``, the occupancy query;
+``rk.PLAIN_SLOTS`` on the CPU), each starting its share of the batch's
+photons in the kernel, in launches of ``rk.REFILL_STEPS`` steps under
+``rk.relaunch_loop``; ``rk.jax_geometry`` gives the JAX package's 512 rows
+of 128 lanes and 128 steps a launch. Radiance runs keep the JAX package's
+4,096 lanes and 128 steps.
+
 ``col_launch`` sends CUDA tensors to the kernel and CPU tensors to the
 plain step; there is no fallback between them. Both draw the counter
 uniforms of ``core.rng`` at K3's sites, so for one seed they follow the
@@ -95,6 +105,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -163,6 +174,7 @@ SOURCE_KINDS = (illumination.DIRECTIONAL, illumination.RANDOM_AZIMUTH,
 # left, lane-steps with a live photon, local-estimate events, walks cut by
 # the iteration bound, atmospheric emission births.
 N_COUNTS = 6
+
 
 _TINY = rk._TINY
 _BIG = 3e38
@@ -409,7 +421,9 @@ def _col_ab(domain: OpticalDomain) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class ColTables:
-    """Device tables the step reads: the column fields, the xy-block table
+    """Device tables the step reads: the column fields (``col_hs`` [nx*ny,
+    2], each column's (height, scale) interleaved, the kernel's one 8-byte
+    load; ``col_height`` and ``col_scale`` are its columns), the xy-block table
     [nbx*nby, 2] (majorant scale, cloud-top height) flattened, the cloud's
     inverse-CDF row with its forward differences, the gas profile ``qz``
     with ``qcb[k]``, the gas optical depth from the bottom of level k to
@@ -424,8 +438,7 @@ class ColTables:
     in row 3, 1 where x is the direction's fast axis (``_dir_keys``), which
     decides how the walk's first column is found."""
 
-    col_scale: torch.Tensor
-    col_height: torch.Tensor
+    col_hs: torch.Tensor
     blocks: torch.Tensor
     inv_a0: torch.Tensor
     inv_dd: torch.Tensor
@@ -482,15 +495,23 @@ class ColTables:
         alb = (column_albedo(surface, nx, ny, domain.device)
                if surface is not None and not surface.is_uniform_lambertian
                else zero)
-        return ColTables(col_scale=domain.col_scale.contiguous(),
-                         col_height=domain.col_height.contiguous(),
-                         blocks=blocks, inv_a0=a0, inv_dd=dd, qz=qz,
-                         qcb=qcb, col_ab=col_ab, dirs=dvec,
+        col_hs = torch.stack([domain.col_height, domain.col_scale],
+                             dim=1).to(torch.float32).contiguous()
+        return ColTables(col_hs=col_hs, blocks=blocks, inv_a0=a0,
+                         inv_dd=dd, qz=qz, qcb=qcb, col_ab=col_ab, dirs=dvec,
                          fwd_v0=v0, fwd_dd=fdd,
                          em_prob=em[0].contiguous(),
                          em_alias=em[1].contiguous(),
                          em_halias=em[2].contiguous(),
                          em_fcum=em[3].contiguous(), albedo=alb)
+
+    @property
+    def col_height(self) -> torch.Tensor:
+        return self.col_hs[:, 0]
+
+    @property
+    def col_scale(self) -> torch.Tensor:
+        return self.col_hs[:, 1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -629,9 +650,10 @@ class ColParams:
 @dataclasses.dataclass(frozen=True)
 class ColTally:
     """What a launch adds into: ``acc`` the tallies [prm.n_acc] f32,
-    ``img`` the radiance image [prm.n_img] f32, ``counts`` int32 [photons
+    ``img`` the radiance image [prm.n_img] f32, ``counts`` int64 [photons
     started, lanes with work left, lane-steps run with a live photon,
-    local-estimate events, walks cut] (``rk.relaunch_loop`` layout),
+    local-estimate events, walks cut, atmospheric emission births]
+    (``rk.relaunch_loop`` layout),
     ``walk`` int64 [1] the column-walk iterations and, for the kernel's
     radiance launches, ``queue`` the event queue they reuse."""
 
@@ -655,7 +677,7 @@ class ColTally:
             acc=torch.zeros(prm.n_acc, dtype=torch.float32, device=dev),
             img=torch.zeros(max(1, prm.n_img), dtype=torch.float32,
                             device=dev),
-            counts=torch.zeros(N_COUNTS, dtype=torch.int32, device=dev),
+            counts=torch.zeros(N_COUNTS, dtype=torch.int64, device=dev),
             walk=torch.zeros(1, dtype=torch.int64, device=dev), queue=queue)
 
 
@@ -692,7 +714,7 @@ def col_step_plain(st: ColState, tab: ColTables, prm: ColParams,
         x = torch.where(need, xb, x)
         y = torch.where(need, yb, y)
         z = torch.where(need, zb, z)
-        tally.counts[5] += (need & from_atm).sum().to(torch.int32)
+        tally.counts[5] += (need & from_atm).sum()
     else:
         x = torch.where(need, x0 + u(ctr, SITE_X) * lx, x)
         y = torch.where(need, y0 + u(ctr, SITE_Y) * ly, y)
@@ -720,7 +742,7 @@ def col_step_plain(st: ColState, tab: ColTables, prm: ColParams,
     alive = alive | need
     quota = st.quota - need.to(torch.int32)
     started = need.sum()
-    tally.counts[2] += alive.sum().to(torch.int32)
+    tally.counts[2] += alive.sum()
     # fresh photons carry the (always valid) global ceiling
     bls = torch.where(need, beta_max, bls)
     blh = torch.where(need, float(nz), blh)
@@ -882,7 +904,7 @@ def col_step_plain(st: ColState, tab: ColTables, prm: ColParams,
                         2 * nxy + col)
     acc = tally.acc
     acc.index_add_(0, t_idx.long(), t_val)
-    acc.index_add_(0, (3 * nxy + iz).long(), absorbed)
+    acc[3 * nxy:3 * nxy + nz] += rk.level_sums(iz, absorbed, nz)
     if p.need_vol:
         acc.index_add_(0, p.off_vol + col_l * nz + iz.long(), absorbed)
     if p.lw:
@@ -893,7 +915,7 @@ def col_step_plain(st: ColState, tab: ColTables, prm: ColParams,
         neg = torch.where(need & from_atm, -1.0, 0.0)
         lvl = torch.clamp(lvl_b, max=nz - 1).long()
         acc.index_add_(0, (2 * nxy + col_b).long(), neg)
-        acc.index_add_(0, p.off_pre + lvl, neg)
+        acc[p.off_pre:p.off_pre + nz] += rk.level_sums(lvl, neg, nz)
         if p.need_vol:
             acc.index_add_(0, p.off_vol + col_b.long() * nz + lvl, neg)
 
@@ -1069,7 +1091,7 @@ def col_local_estimate_plain(tab: ColTables, prm: ColParams, seed: int,
         ty = torch.where(go_y, face_y(jy), ty)
         t = torch.where(act, tn, t)
     tally.walk.add_(n_walk)
-    tally.counts[4] += act.sum().to(torch.int32)
+    tally.counts[4] += act.sum()
     hit = ~act
     tau_f = tau_cl / ddz
     if p.has_gas:  # closed form from the cumulative profile (:908-923)
@@ -1104,14 +1126,17 @@ def col_launch_plain(st: ColState, tab: ColTables, prm: ColParams,
                      tally: ColTally) -> None:
     """``k_steps`` plain steps; adds [started, lanes with work left,
     lane-steps, ...] into ``tally.counts`` -- the contract of one kernel
-    launch."""
+    launch. Once no lane has a photon or quota the remaining steps would
+    change nothing, and are not run (as the kernel's lanes stop)."""
     lane = torch.arange(st.x.shape[0], dtype=torch.int64, device=st.x.device)
     started = torch.zeros((), dtype=torch.int64, device=st.x.device)
     for k in range(k_steps):
+        if not ((st.alive > 0) | (st.quota > 0)).any():
+            break
         started = started + col_step_plain(st, tab, prm, lane, seed,
                                            step0 + k, tally)
     work = ((st.alive > 0) | (st.quota > 0)).sum()
-    tally.counts[:2] += torch.stack([started, work]).to(torch.int32)
+    tally.counts[:2] += torch.stack([started, work])
 
 
 # ---------------------------------------------------------------------------
@@ -1131,7 +1156,9 @@ def _library():
         lib.col_kernel_num_params.argtypes = []
         lib.col_kernel_launch.restype = _I
         lib.col_kernel_launch.argtypes = (
-            [_P] * 28 + [_I] * 9 + [_U, _U] + [_I] * 10 + [_P])
+            [_P] * 27 + [_I] * 9 + [_U, _U] + [_I] * 10 + [_P])
+        lib.col_kernel_occupancy.restype = _I
+        lib.col_kernel_occupancy.argtypes = [_I] * 10 + [_P]
         lib.col_walk_launch.restype = _I
         lib.col_walk_launch.argtypes = (
             [_P] * 4 + [_I] + [_P] * 9 + [_I] * 3 + [_U] + [_I] * 6 + [_P])
@@ -1154,8 +1181,7 @@ def _launch_cuda(st: ColState, tab: ColTables, prm: ColParams, seed: int,
         check(getattr(st, name), name, torch.int32, n, dev)
     nxy = prm.nx * prm.ny
     n_blk = prm.nbx * prm.nby
-    check(tab.col_scale, "col_scale", torch.float32, nxy, dev)
-    check(tab.col_height, "col_height", torch.float32, nxy, dev)
+    check(tab.col_hs, "col_hs", torch.float32, 2 * nxy, dev)
     check(tab.blocks, "blocks", torch.float32, max(1, 2 * n_blk), dev)
     inv_n = tab.inv_a0.numel()
     if not prm.analytic_hg and inv_n != prm.inv_n_steps:
@@ -1168,7 +1194,7 @@ def _launch_cuda(st: ColState, tab: ColTables, prm: ColParams, seed: int,
     check(tab.qcb, "qcb", torch.float32, n_q, dev)
     check(prm.device_values, "params", torch.float32, N_PARAMS, dev)
     check(tally.acc, "acc", torch.float32, prm.n_acc, dev)
-    check(tally.counts, "counts", torch.int32, N_COUNTS, dev)
+    check(tally.counts, "counts", torch.int64, N_COUNTS, dev)
     if prm.nz > MAX_NZ:
         raise ValueError(f"nz={prm.nz} > {MAX_NZ}: the kernel's profile "
                          "tally lives in shared memory")
@@ -1191,7 +1217,7 @@ def _launch_cuda(st: ColState, tab: ColTables, prm: ColParams, seed: int,
     # the queue's buffers (none on the flux path)
     q_ptrs = ([queue.f.data_ptr(), queue.i.data_ptr(), queue.ctl.data_ptr()]
               if prm.n_dirs else [0, 0, 0])
-    ptrs = [prm.device_values, tab.col_scale, tab.col_height, tab.blocks,
+    ptrs = [prm.device_values, tab.col_hs, tab.blocks,
             tab.inv_a0, tab.inv_dd,
             *(getattr(st, k) for k in ColState.FLOAT_FIELDS),
             st.quota, st.alive, tally.acc, tally.counts, tab.qz]
@@ -1247,7 +1273,7 @@ def _walk_cuda(tab: ColTables, prm: ColParams, seed: int,
         check(tab.fwd_v0, "fwd_v0", torch.float32, n_f, dev)
         check(tab.fwd_dd, "fwd_dd", torch.float32, n_f, dev)
     check(tally.img, "img", torch.float32, prm.n_img, dev)
-    check(tally.counts, "counts", torch.int32, N_COUNTS, dev)
+    check(tally.counts, "counts", torch.int64, N_COUNTS, dev)
     check(tally.walk, "walk", torch.int64, 1, dev)
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1262,6 +1288,21 @@ def _walk_cuda(tab: ColTables, prm: ColParams, seed: int,
     COL_WALK_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f"col_walk launch failed: CUDA error {err}")
+
+
+def occupancy(prm: ColParams) -> dict:
+    """The transport kernel's occupancy record for ``prm``'s instantiation
+    and the shared-memory layout ``col_launch`` takes for it, on the
+    current card (``rk.OCCUPANCY_KEYS``)."""
+    out = (ctypes.c_int * len(rk.OCCUPANCY_KEYS))()
+    err = _library().col_kernel_occupancy(
+        prm.nz, prm.macro_factor, prm.nbx * prm.nby, prm.inv_n_steps,
+        int(prm.analytic_hg), int(prm.need_vol), int(prm.use_rr),
+        prm.source_kind, prm.n_dirs, int(prm.lw), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"col_kernel occupancy query failed: CUDA error "
+                           f"{err}")
+    return dict(zip(rk.OCCUPANCY_KEYS, out))
 
 
 def col_launch(st: ColState, tab: ColTables, prm: ColParams, seed: int,
@@ -1282,7 +1323,7 @@ def col_launch(st: ColState, tab: ColTables, prm: ColParams, seed: int,
 
 def run_batch_col(domain: OpticalDomain, surface: Surface,
                   source: illumination.Source, seed: int,
-                  ccfg: rk.RecordConfig, photons_per_lane: int,
+                  ccfg, photons_per_lane: Optional[int] = None,
                   n_photons=None, use_russian_roulette: bool = True,
                   russian_roulette_weight: float = 1.0,
                   launch=col_launch, intensity_config=None,
@@ -1297,12 +1338,18 @@ def run_batch_col(domain: OpticalDomain, surface: Surface,
     emission source the absorption tallies are net of the births'
     pre-credits.
 
-    ``ccfg`` gives the launch geometry (rows of 128 lanes, steps per
-    launch, the step cap) and whether the 3D field is tallied; ``seed`` is
+    ``ccfg`` is a ``rk.RecordConfig``, the launch geometry (rows of 128
+    lanes, ``photons_per_lane`` photons each at most, steps per launch, the
+    step cap) and whether the 3D field is tallied, or a
+    ``rk.RefillSchedule``: the card's resident slots for this kernel
+    instantiation (``occupancy``, or the schedule's own count), at most
+    the batch's ``n_photons`` (required then), each starting its share of
+    them in the kernel, in launches of ``k_steps``
+    (``rk.resolve_schedule``). ``seed`` is
     the uint32 kernel seed; ``launch`` is ``col_launch`` (or, to compare
     the two on one device, ``col_launch_plain``). ``n_bad`` counts photons
     still alive at the step cap and walks cut by their bound (``n_cut``,
-    0 in every eligible run)."""
+    0 in every eligible run); ``n_steps`` is launches x steps a launch."""
     icfg = intensity_config
     if icfg is None:
         reasons = col_ineligibility_reasons(
@@ -1328,6 +1375,8 @@ def run_batch_col(domain: OpticalDomain, surface: Surface,
     tab = ColTables.from_domain(
         domain, icfg, dirs, emission=source.kind == illumination.EMISSION,
         surface=surface)
+    ccfg, photons_per_lane = rk.resolve_schedule(
+        ccfg, n_photons, photons_per_lane, lambda: occupancy(prm), dev)
     quota0 = rk.initial_quota(ccfg.n_lanes, photons_per_lane, n_photons, dev)
     st = ColState.initial(quota0, prm[C_BETA_MAX], prm.nz)
     k = ccfg.steps_per_call
@@ -1368,23 +1417,32 @@ def run_batch_col(domain: OpticalDomain, surface: Surface,
 
 def run_batch_col_tallies(domain, surface, source, seed: int, config,
                           n_photons=None, launch=col_launch,
-                          intensity_config=None,
-                          intensity_dirs=None) -> Tallies:
+                          intensity_config=None, intensity_dirs=None,
+                          ccfg=None) -> Tallies:
     """``run_batch``-compatible entry (port of
-    ``run_batch_pallas_col_tallies``): the record kernel's launch geometry
-    (``rk.config_for``: at most 512 rows of 128 lanes, the rest of the
-    batch folded into per-lane quota), the 3D field when
+    ``run_batch_pallas_col_tallies``), with the 3D field when
     ``config.need_volume_absorption`` and the emission pre-credits with
-    ``config.lw_mode``. A radiance run takes at most 32
-    rows (4,096 lanes) and folds the rest into per-lane quota
-    (pallas_col.py:1514-1525), so its lanes carry JAX's photons."""
-    ccfg, ppl = rk.config_for(config.n_lanes, config.photons_per_lane,
-                              config.max_steps,
-                              vol_tally=config.need_volume_absorption)
+    ``config.lw_mode``. A flux run takes the refill schedule by default
+    (``rk.RefillSchedule``: the card's resident slots, launches of
+    ``rk.REFILL_STEPS`` steps, ``config.max_steps`` rounded up to whole
+    launches), or the launch geometry ``ccfg`` (``rk.jax_geometry(config)``
+    is the JAX package's: at most 512 rows of 128 lanes, 128 steps a
+    launch, so that its lanes carry the JAX kernel's photons); the 3D
+    field is ``config``'s choice whatever ``ccfg`` says. A radiance
+    run takes the JAX package's geometry at most 32 rows (4,096 lanes) and
+    folds the rest into per-lane quota (pallas_col.py:1514-1525)."""
+    vol = config.need_volume_absorption
+    ppl = None
     if intensity_config is not None:
+        ccfg, ppl = rk.config_for(config.n_lanes, config.photons_per_lane,
+                                  config.max_steps, vol_tally=vol)
         rows = min(ccfg.rows, rk.RADIANCE_ROWS)
         ppl = -(-config.photons_per_batch // (rows * rk.LANES_PER_ROW))
         ccfg = dataclasses.replace(ccfg, rows=rows)
+    elif ccfg is None:
+        ccfg = rk.RefillSchedule(config.max_steps, vol_tally=vol)
+    else:
+        ccfg = dataclasses.replace(ccfg, vol_tally=vol)
     if n_photons is None:
         n_photons = config.photons_per_batch
     return run_batch_col(

@@ -172,6 +172,93 @@ def config_for(n_lanes: int, photons_per_lane: int, max_steps: int,
                         vol_tally=vol_tally), ppl
 
 
+def jax_geometry(config) -> RecordConfig:
+    """The JAX package's launch geometry for a ``KernelConfig`` (its
+    ``config_for``: at most 512 rows of 128 lanes, 128 steps a launch, the
+    3D tally with ``config.need_volume_absorption``): what the column and
+    separable kernels' flux paths run when it is asked for, so that their
+    lanes carry the JAX kernels' photons."""
+    return config_for(config.n_lanes, config.photons_per_lane,
+                      config.max_steps,
+                      vol_tally=config.need_volume_absorption)[0]
+
+
+# The flux schedule of the column and separable kernels (K3, K4): the
+# card's resident thread slots, each starting its quota of photons in the
+# kernel, under relaunch_loop at REFILL_STEPS steps a launch (chosen on the
+# card from 128-8,192: PERF.md). Where no occupancy query runs (the plain
+# twins on the CPU) the slots are JAX's 65,536 lanes.
+REFILL_STEPS = 4096
+PLAIN_SLOTS = 512 * LANES_PER_ROW
+
+# Entries of a kernel's occupancy record (csrc/mcb_common.cuh OCC_*):
+# blocks resident on one SM (the occupancy query), threads a block, dynamic
+# shared memory, registers and spilled bytes a thread, SMs.
+OCCUPANCY_KEYS = ("blocks_per_sm", "threads", "smem", "registers",
+                  "local_bytes", "n_sm")
+
+
+def resident_threads(occ: dict) -> int:
+    """The thread slots the card holds resident for a kernel: blocks an SM
+    x threads a block x SMs of its occupancy record."""
+    return occ["blocks_per_sm"] * occ["threads"] * occ["n_sm"]
+
+
+def refill_rows(n_photons: int, resident: int) -> int:
+    """Rows of 128 slots of the refill schedule: the ``resident`` thread
+    slots the card holds for the kernel, in whole rows (at least one), and
+    no more rows than the batch's photons fill."""
+    rows = max(1, resident // LANES_PER_ROW)
+    return min(rows, max(1, -(-int(n_photons) // LANES_PER_ROW)))
+
+
+@dataclasses.dataclass(frozen=True)
+class RefillSchedule:
+    """The refill schedule's request: the step cap (rounded up to whole
+    launches of ``k_steps``), the 3D tally, and the resident slots (None:
+    the occupancy query on the card, ``PLAIN_SLOTS`` on the CPU)."""
+
+    max_steps: int
+    vol_tally: bool = False
+    k_steps: int = REFILL_STEPS
+    resident: Optional[int] = None
+
+    def geometry(self, n_photons: int, resident: int) -> tuple:
+        """(RecordConfig, photons per slot) for a batch of ``n_photons``
+        on ``resident`` slots."""
+        k = self.k_steps
+        cfg = RecordConfig(rows=refill_rows(n_photons, resident),
+                           steps_per_call=k,
+                           max_steps=max(1, -(-self.max_steps // k)) * k,
+                           vol_tally=self.vol_tally)
+        return cfg, max(1, -(-int(n_photons) // cfg.n_lanes))
+
+
+def resolve_schedule(cfg, n_photons, photons_per_lane, occupancy,
+                     device) -> tuple:
+    """(RecordConfig, photons per lane) of a column or separable batch.
+
+    ``cfg`` is a ``RecordConfig`` (a launch geometry; ``photons_per_lane``
+    defaults to what ``n_photons`` needs) or a ``RefillSchedule``, whose
+    slots are its own count, else ``occupancy()``'s resident threads (the
+    kernel's occupancy record, asked only on a CUDA device), else
+    ``PLAIN_SLOTS`` for the plain step on the CPU."""
+    if isinstance(cfg, RecordConfig):
+        if photons_per_lane is None:
+            if n_photons is None:
+                raise ValueError("a launch geometry needs photons_per_lane "
+                                 "or n_photons")
+            photons_per_lane = max(1, -(-int(n_photons) // cfg.n_lanes))
+        return cfg, photons_per_lane
+    if n_photons is None:
+        raise ValueError("the refill schedule needs the batch's n_photons")
+    resident = cfg.resident
+    if resident is None:
+        resident = (resident_threads(occupancy())
+                    if torch.device(device).type == "cuda" else PLAIN_SLOTS)
+    return cfg.geometry(n_photons, resident)
+
+
 def surface_px_ok(surface: Surface, grid, lw_mode: bool,
                   max_cols: int = LANES_PER_ROW * SURF_PX_MAX_ROWS) -> bool:
     """Whether a kernel takes ``surface`` as a per-pixel Lambertian albedo
@@ -1342,8 +1429,10 @@ def relaunch_loop(st, counts: torch.Tensor, launch_steps,
     left or at ``max_steps``.
 
     ``st`` is the state (its int32 ``quota`` is rebound), ``counts`` the
-    int32 launch counters [started, work left, lane-steps with a live
-    photon, real collisions (``n_per_launch`` = 4), ...]; the first
+    launch counters [started, work left, lane-steps with a live photon,
+    real collisions (``n_per_launch`` = 4), ...] (int32 for the record
+    kernel's launches of 65,536 lanes x 128 steps, int64 for the refill
+    schedules of the column, separable and tiled kernels); the first
     ``n_per_launch`` are zeroed before each launch, so none overflows.
     Returns (photons started, launches, lane-steps with a live photon,
     real collisions or 0)."""
@@ -1365,6 +1454,19 @@ def relaunch_loop(st, counts: torch.Tensor, launch_steps,
                     + (lane_i < total_q % n_lanes)).to(torch.int32)
         n_calls += 1
     return n_started, n_calls, lane_steps, n_real
+
+
+def level_sums(level: torch.Tensor, value: torch.Tensor,
+               n: int) -> torch.Tensor:
+    """One step's ``value`` summed by ``level`` (n levels), in float64 and
+    returned as float32: what a plain step adds into a z-profile tally
+    once. Added lane by lane, each value would round against a float32
+    level total that, on a batch of 2^20 photons, makes a lane's
+    absorption a few ulps: the Landsat headline's batch lost 1.6e-3 of a
+    level that way (chip_smoke.py 4c on an H100). The kernels sum a
+    block's share in shared memory first."""
+    sums = torch.zeros(n, dtype=torch.float64, device=value.device)
+    return sums.index_add_(0, level.long(), value.double()).float()
 
 
 def initial_quota(n_lanes: int, photons_per_lane: int, n_photons,

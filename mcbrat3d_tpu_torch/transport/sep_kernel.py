@@ -12,8 +12,8 @@ extinction is separable,
 a rank-1 scattering cloud over a horizontally uniform pure absorber, so one
 value per column (at most 131,072 columns) and two per level carry a field
 of millions of cells (the 325 x 325 x 150 broadband-LW flagship, reference:
-run/I3RC_bench_LW.deck:45). Every lane carries one photon through
-``steps_per_call`` steps per launch:
+run/I3RC_bench_LW.deck:45). Every lane (slot) carries one photon at a time
+through ``steps_per_call`` steps per launch:
 
 * refill from a directional, random-azimuth or flux source, or from the
   separable thermal emission: the atmosphere/surface split, a cloud or gas
@@ -47,16 +47,26 @@ Two implementations of one launch:
   one-hot products) and the tallies add exact float32 values (the JAX
   kernel rounds exit weights to bf16 and absorption to a bf16 hi/lo pair).
 
+``run_batch_sep_tallies`` runs the refill schedule by default
+(``rk.RefillSchedule``): as many slots as the card holds resident threads
+for the kernel's instantiation (``occupancy``, the occupancy query;
+``rk.PLAIN_SLOTS`` on the CPU), each starting its share of the batch's
+photons in the kernel, in launches of ``rk.REFILL_STEPS`` steps under
+``rk.relaunch_loop``; ``rk.jax_geometry`` gives the JAX package's 512 rows
+of 128 lanes and 128 steps a launch.
+
 ``sep_launch`` sends CUDA tensors to the kernel and CPU tensors to the plain
 step; there is no fallback between them. Both draw the counter uniforms of
-``core.rng`` at K4's sites, so for one seed they follow the JAX kernel's
-photon paths (interpret mode, whose uniforms are the counter mixer).
+``core.rng`` at K4's sites, so for one seed and lane geometry they follow
+the JAX kernel's photon paths (interpret mode, whose uniforms are the
+counter mixer).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -76,10 +86,6 @@ MAX_COLS = 128 * 128 * 8
 MAX_BLOCKS = 128 * 128
 MAX_NZ = 256
 GROUP = 128  # columns per group of the emission column sampler
-# Shared memory a kernel block may take for its tables (two 256-thread
-# blocks per SM): the block ceilings and the inverse-CDF row go there while
-# the block stays within it, else the kernel reads them from global memory.
-TABLE_SMEM = 96 * 1024
 
 # Kernel launches made by ``_launch_cuda`` in this process.
 SEP_LAUNCHES = 0
@@ -350,7 +356,7 @@ class SepParams:
 @dataclasses.dataclass(frozen=True)
 class SepTally:
     """What a launch adds into: ``acc`` the tallies [prm.n_acc] f32 and
-    ``counts`` int32 [photons started, lanes with work left, lane-steps run
+    ``counts`` int64 [photons started, lanes with work left, lane-steps run
     with a live photon] (``rk.relaunch_loop`` layout)."""
 
     acc: torch.Tensor
@@ -360,7 +366,7 @@ class SepTally:
     def zeros(prm: SepParams, device) -> "SepTally":
         return SepTally(
             acc=torch.zeros(prm.n_acc, dtype=torch.float32, device=device),
-            counts=torch.zeros(3, dtype=torch.int32, device=device))
+            counts=torch.zeros(3, dtype=torch.int64, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -487,7 +493,7 @@ def sep_step_plain(st: SepState, tab: SepTables, prm: SepParams,
     claim = go_now if pending is None else go_now | (pending & dead_new)
     quota = quota - claim.to(torch.int32)
     started = go_now.sum()
-    tally.counts[2] += alive.sum().to(torch.int32)
+    tally.counts[2] += alive.sum()
     bls = torch.where(need, ceil_in, bls)
 
     # ---- Woodcock jump with the three-region ceiling ----
@@ -637,7 +643,7 @@ def sep_step_plain(st: SepState, tab: SepTables, prm: SepParams,
     acc.index_add_(0, col_s, v_up)
     acc.index_add_(0, nxy + col_s, v_dn)
     acc.index_add_(0, 2 * nxy + col_s, absorbed)
-    acc.index_add_(0, 3 * nxy + iz, absorbed)
+    acc[3 * nxy:] += rk.level_sums(iz, absorbed, prm.nz)
 
     st.x, st.y, st.z, st.ux, st.uy, st.uz, st.w = x, y, z, ux, uy, uz, w
     st.bls, st.quota = bls, quota
@@ -654,14 +660,17 @@ def sep_launch_plain(st: SepState, tab: SepTables, prm: SepParams,
                      tally: SepTally) -> None:
     """``k_steps`` plain steps; adds [started, lanes with work left,
     lane-steps] into ``tally.counts`` -- the contract of one kernel
-    launch."""
+    launch. Once no lane has a photon, a claim or quota the remaining steps
+    would change nothing, and are not run (as the kernel's lanes stop)."""
     lane = torch.arange(st.x.shape[0], dtype=torch.int64, device=st.x.device)
     started = torch.zeros((), dtype=torch.int64, device=st.x.device)
     for k in range(k_steps):
+        if not ((st.alive > 0) | (st.quota > 0)).any():
+            break
         started = started + sep_step_plain(st, tab, prm, lane, seed,
                                            step0 + k, tally)
     work = ((st.alive > 0) | (st.quota > 0)).sum()
-    tally.counts[:2] += torch.stack([started, work]).to(torch.int32)
+    tally.counts[:2] += torch.stack([started, work])
 
 
 # ---------------------------------------------------------------------------
@@ -681,7 +690,9 @@ def _library():
         lib.sep_kernel_num_params.argtypes = []
         lib.sep_kernel_launch.restype = _I
         lib.sep_kernel_launch.argtypes = (
-            [_P] * 21 + [_I] * 12 + [_U, _U] + [_I] * 6 + [_P])
+            [_P] * 21 + [_I] * 12 + [_U, _U] + [_I] * 5 + [_P])
+        lib.sep_kernel_occupancy.restype = _I
+        lib.sep_kernel_occupancy.argtypes = [_I] * 8 + [_P]
         if lib.sep_kernel_num_params() != N_PARAMS:
             raise RuntimeError("csrc/sep_kernel.cu and sep_kernel.py "
                                "disagree on the parameter layout")
@@ -690,8 +701,7 @@ def _library():
 
 
 def _launch_cuda(st: SepState, tab: SepTables, prm: SepParams, seed: int,
-                 step0: int, k_steps: int, tally: SepTally,
-                 table_smem: int) -> None:
+                 step0: int, k_steps: int, tally: SepTally) -> None:
     global SEP_LAUNCHES
     dev = st.x.device
     n = st.x.shape[0]
@@ -716,7 +726,7 @@ def _launch_cuda(st: SepState, tab: SepTables, prm: SepParams, seed: int,
     check(tab.inv_dd, "inv_dd", torch.float32, inv_n, dev)
     check(prm.device_values, "params", torch.float32, N_PARAMS, dev)
     check(tally.acc, "acc", torch.float32, prm.n_acc, dev)
-    check(tally.counts, "counts", torch.int32, 3, dev)
+    check(tally.counts, "counts", torch.int64, 3, dev)
     if prm.nz > MAX_NZ or prm.nx * prm.ny > MAX_COLS:
         raise ValueError(f"{prm.nx}x{prm.ny}x{prm.nz} is past the kernel's "
                          f"envelope ({MAX_COLS} columns, nz <= {MAX_NZ})")
@@ -731,22 +741,33 @@ def _launch_cuda(st: SepState, tab: SepTables, prm: SepParams, seed: int,
         prm.macro_factor, prm.nby, prm.n_blk, prm.n_groups, prm.zb, prm.zt,
         prm.inv_n_steps, prm.n_acc, seed & 0xFFFF_FFFF, step0 & 0xFFFF_FFFF,
         k_steps, int(prm.analytic_hg), int(prm.use_rr), int(prm.lw),
-        prm.source_kind, table_smem, stream)
+        prm.source_kind, stream)
     SEP_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f"sep_kernel launch failed: CUDA error {err}")
 
 
+def occupancy(prm: SepParams) -> dict:
+    """The kernel's occupancy record for ``prm``'s instantiation and the
+    shared-memory layout ``sep_launch`` takes for it, on the current card
+    (``rk.OCCUPANCY_KEYS``)."""
+    out = (ctypes.c_int * len(rk.OCCUPANCY_KEYS))()
+    err = _library().sep_kernel_occupancy(
+        prm.nz, prm.n_groups, prm.n_blk, prm.inv_n_steps,
+        int(prm.analytic_hg), int(prm.use_rr), int(prm.lw),
+        prm.source_kind, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"sep_kernel occupancy query failed: CUDA error "
+                           f"{err}")
+    return dict(zip(rk.OCCUPANCY_KEYS, out))
+
+
 def sep_launch(st: SepState, tab: SepTables, prm: SepParams, seed: int,
-               step0: int, k_steps: int, tally: SepTally,
-               table_smem: int = TABLE_SMEM) -> None:
+               step0: int, k_steps: int, tally: SepTally) -> None:
     """Advance every lane by ``k_steps`` steps: the CUDA kernel for state on
-    a CUDA device, the plain PyTorch step for state on the CPU.
-    ``table_smem`` is the kernel block's shared-memory budget in bytes (a
-    smaller one sends the block ceilings and the inverse-CDF row to global
-    reads; the plain step has no such choice)."""
+    a CUDA device, the plain PyTorch step for state on the CPU."""
     if st.x.is_cuda:
-        _launch_cuda(st, tab, prm, seed, step0, k_steps, tally, table_smem)
+        _launch_cuda(st, tab, prm, seed, step0, k_steps, tally)
     elif st.x.device.type == "cpu":
         sep_launch_plain(st, tab, prm, seed, step0, k_steps, tally)
     else:
@@ -759,7 +780,7 @@ def sep_launch(st: SepState, tab: SepTables, prm: SepParams, seed: int,
 
 def run_batch_sep(domain: OpticalDomain, surface: Surface,
                   source: illumination.Source, seed: int,
-                  scfg: rk.RecordConfig, photons_per_lane: int,
+                  scfg, photons_per_lane: Optional[int] = None,
                   n_photons=None, use_russian_roulette: bool = True,
                   russian_roulette_weight: float = 1.0,
                   lw_mode: bool = False, launch=sep_launch) -> Tallies:
@@ -768,11 +789,17 @@ def run_batch_sep(domain: OpticalDomain, surface: Surface,
     column absorption (LW pre-credits included) in ``flux_absorbed`` and
     its z marginal in ``absorption_profile``.
 
-    ``scfg`` gives the launch geometry (rows of 128 lanes, steps per
-    launch, the step cap); ``seed`` is the uint32 kernel seed; ``launch``
-    is ``sep_launch`` (or, to compare the two on one device,
-    ``sep_launch_plain``). ``n_bad`` counts lanes still holding a photon
-    or a claimed emission proposal at the step cap."""
+    ``scfg`` is a ``rk.RecordConfig``, the launch geometry (rows of 128
+    lanes, ``photons_per_lane`` photons each at most, steps per launch, the
+    step cap), or a ``rk.RefillSchedule``: the card's resident slots for
+    this kernel instantiation (``occupancy``, or the schedule's own
+    count), at most the batch's ``n_photons`` (required then), each
+    starting its share of them in the kernel, in launches of ``k_steps``
+    (``rk.resolve_schedule``).
+    ``seed`` is the uint32 kernel seed; ``launch`` is ``sep_launch`` (or,
+    to compare the two on one device, ``sep_launch_plain``). ``n_bad``
+    counts lanes still holding a photon or a claimed emission proposal at
+    the step cap; ``n_steps`` is launches x steps a launch."""
     reasons = sep_ineligibility_reasons(
         domain, surface, source, lw_mode, compute_intensity=False,
         record_scattering_orders=0, use_ray_tracing=False,
@@ -785,6 +812,8 @@ def run_batch_sep(domain: OpticalDomain, surface: Surface,
     prm = SepParams.make(domain, surface, source, use_russian_roulette,
                          russian_roulette_weight, lw_mode)
     tab = SepTables.from_domain(domain, source)
+    scfg, photons_per_lane = rk.resolve_schedule(
+        scfg, n_photons, photons_per_lane, lambda: occupancy(prm), dev)
     quota0 = rk.initial_quota(scfg.n_lanes, photons_per_lane, n_photons, dev)
     st = SepState.initial(quota0, prm[P_CEIL_IN])
     tally = SepTally.zeros(prm, dev)
@@ -807,17 +836,21 @@ def run_batch_sep(domain: OpticalDomain, surface: Surface,
 
 
 def run_batch_sep_tallies(domain, surface, source, seed: int, config,
-                          n_photons=None, launch=sep_launch) -> Tallies:
+                          n_photons=None, launch=sep_launch,
+                          scfg=None) -> Tallies:
     """``run_batch``-compatible entry (port of
-    ``run_batch_pallas_sep_tallies``): the record kernel's launch geometry
-    (``rk.config_for``: at most 512 rows of 128 lanes, the rest of the
-    batch folded into per-lane quota)."""
-    scfg, ppl = rk.config_for(config.n_lanes, config.photons_per_lane,
-                              config.max_steps, vol_tally=False)
+    ``run_batch_pallas_sep_tallies``): the refill schedule by default
+    (``rk.RefillSchedule``: the card's resident slots, launches of
+    ``rk.REFILL_STEPS`` steps, ``config.max_steps`` rounded up to whole
+    launches), or the launch geometry ``scfg`` (``rk.jax_geometry(config)``
+    is the JAX package's: at most 512 rows of 128 lanes, 128 steps a
+    launch, so that its lanes carry the JAX kernel's photons)."""
+    if scfg is None:
+        scfg = rk.RefillSchedule(config.max_steps)
     if n_photons is None:
         n_photons = config.photons_per_batch
     return run_batch_sep(
-        domain, surface, source, seed, scfg, ppl, n_photons=n_photons,
+        domain, surface, source, seed, scfg, n_photons=n_photons,
         use_russian_roulette=config.use_russian_roulette,
         russian_roulette_weight=config.russian_roulette_weight,
         lw_mode=config.lw_mode, launch=launch)

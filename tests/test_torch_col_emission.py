@@ -35,6 +35,8 @@ level histogram against the truncated Planck density, the column marginal
 of a thin atmosphere, the pre-credit count and the net tallies' marginals.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -367,7 +369,9 @@ def test_run_batch_matches_jax_past_the_record_kernel(monkeypatch,
     kernel; the same folded seed and lane geometry give the same paths, so
     up and down fluxes and the net column absorption are JAX's to the
     plain-step test's tolerances, widened only by the weight of parted
-    births (within their bound)."""
+    births (within their bound). The port's column kernel runs the JAX
+    package's launch geometry here (``rk.jax_geometry``), where its lanes
+    carry JAX's photons; by default it runs the refill schedule."""
     jd, td, temps = lw_domains((64, 32, 32), 8, ssa=0.5)
     jsrc, tsrc = emission_sources(jd, td, temps)
     key = jrng.batch_key(5, 0)
@@ -376,6 +380,8 @@ def test_run_batch_matches_jax_past_the_record_kernel(monkeypatch,
               need_absorption_profile=True)
     cfg = KernelConfig(**kw)
     assert select_kernel(td, Surface.lambertian(0.05), tsrc, cfg)[0] == "col"
+    monkeypatch.setattr(ck, "run_batch_col_tallies", functools.partial(
+        ck.run_batch_col_tallies, ccfg=rk.jax_geometry(cfg)))
     picked = []
     orig = jpc.run_batch_pallas_col_tallies
 
