@@ -10,7 +10,8 @@ Phases, each asserting; any failure exits non-zero:
    libraries with their walk kernels) and the probe kernels from
    mcbrat3d_tpu_torch/csrc (one nvcc each, started together), reporting
    the build times and ptxas registers/spills;
-2. flux kernel against its plain PyTorch version on the card, same seeds:
+2. flux kernel against its plain PyTorch version on the card, same seeds,
+   both on run_batch's refill schedule (the card's resident slots):
    the step cloud at 2^20 photons for macro_factor 0 and 8, both tally
    layouts, plus the tabulated-phase configuration the namelist deck runs
    and a reflecting surface without roulette; then, at 2^18 photons, the
@@ -227,19 +228,27 @@ Phases, each asserting; any failure exits non-zero:
    with the RPV branch on every launch, no plain step, n_bad == 0, R/T/A
    and the 32 columns of the up flux within 4.5 combined sigma of values
    frozen from the JAX package's XLA path
-   (tools/record_surface_reference.py); then the RPV flux path's ms per
-   launch (CUDA events) and the plain step's;
+   (tools/record_surface_reference.py); then the RPV flux path (2^20
+   photons) as 4f;
 3m. path D through run_simulation: the step cloud over the 8 x 1 albedo
    mosaic, a flux run (16 x 2^20 photons) and a radiance run with the
    radiance deck's 6 directions (8 x 262,144): the record kernel alone
    with the per-pixel branch on every launch (and the local estimate on
    every radiance launch), no plain step, n_bad == 0, R/T/A and the up
    flux's columns or the 6 radiances within 4.5 combined sigma of values
-   frozen from the JAX package's XLA path; then the per-pixel flux path's
-   ms per launch and the plain step's;
-4. one headline batch (macro_factor 16, 2^16 lanes x 1024 photons, flux
-   tallies only): photons/s of the kernel, and of the plain version at the
-   same lane count;
+   frozen from the JAX package's XLA path; then the per-pixel flux path
+   as 3l's;
+4. the flux headline (macro_factor 16, 2^16 lanes x 1024 photons, flux
+   tallies only, through run_batch_record_tallies): the A/B of the refill
+   schedule (run_batch's) and JAX's geometry in turns (refill, JAX, JAX,
+   refill), each with photons/s, launches a batch, kernel and wall ms a
+   launch from CUDA events and busy share; the refill schedule at 128 to
+   8,192 steps a launch and at 0.25 to 2 x the resident slots; the
+   occupancy record (blocks an SM, registers, spills); the first refill
+   launch of a 2^20-photon batch (the deck's) on the resident slots,
+   kernel against plain twin (equal photons, steps, lane-steps and n_bad,
+   columns within 1e-5 of the photons a column) with both ms; 4f, 4g, 3l
+   and 3m do the same on theirs, without the sweeps;
 4b. a radiance headline: one step-cloud batch of the radiance deck at 6
    and at 64 directions (32 rows of 128 lanes), kernel and plain
    photons/s and ms per launch (the kernel's also from CUDA events, the
@@ -271,19 +280,17 @@ Phases, each asserting; any failure exits non-zero:
    package's pool / 64 drain floor alone; and kernel and plain ms of the
    refill schedule's first launch;
 4f. the 3-component headline (bench.py:150-170: gas + cloud + Rayleigh,
-   analytic, macro_factor 8, 2^16 lanes x 256 photons, 3D tally, through
-   run_batch): kernel photons/s, launches per batch, kernel ms per launch
-   from CUDA events, the card's busy share, and plain ms per launch over 4
-   launches at the same lanes;
+   analytic, macro_factor 8, 2^16 lanes x 256 photons, 3D tally): as 4
+   without the sweeps (the A/B, the occupancy, the first refill launch
+   kernel against twin and its bound, charging the component choice per
+   real collision);
 4g. the LW emission headline (bench.py:173-218: 32 x 32 x 24 random
    cloud + gas, per-voxel emission, analytic, macro_factor 8, albedo 0.05,
-   lw_mode, 2^16 lanes x 256 photons, through run_batch): kernel
-   photons/s, launches per batch, kernel ms per launch from CUDA events,
-   the card's busy share, and plain ms per launch over 4 launches; then
-   bench.py:269-303's radar_scale (640 x 1 x 54, the 3D tally, 2^16
-   lanes x 64 photons) the same way, kernel only; and the occupancy of
-   both 3D-tally launches (blocks an SM), with the flux columns alone in
-   shared memory and with the whole tally there;
+   lw_mode, 2^16 lanes x 256 photons): as 4f; then bench.py:269-303's
+   radar_scale (640 x 1 x 54, the 3D tally, 2^16 lanes x 64 photons): the
+   A/B and the occupancy; and the occupancy of the 3D-tally launches
+   (blocks an SM), with the flux columns alone in shared memory and with
+   the whole tally there;
 4h. the Landsat radiance headline (bench.py:547-573: the broken cloud with
    analytic HG and the hybrid forward row, macro_factor 8, 16 directions,
    2^13 lanes x 256 photons, through run_batch): column-kernel local
@@ -329,7 +336,6 @@ RTA_TOL_KERNEL_VS_PLAIN = 2e-3
 # fifteen cases of phase 2 on the H100; the limit leaves room for a few
 # photons parted by float32 rounding.
 REAL_TOL_KERNEL_VS_PLAIN = 1e-4
-HEADLINE_PLAIN_PPL = 16
 # Radiance kernel vs plain, same seeds and so the same photon paths: the
 # per-direction domain means differ by float rounding (~1e-6) unless a
 # photon's path diverges after a 1-ulp difference in a transcendental (the
@@ -733,6 +739,12 @@ def phase_compare(rk, make_step_cloud, make_step_cloud_multi, Surface,
         assert tk.n_photons == tp.n_photons == ppl << 16, (tk.n_photons,
                                                            tp.n_photons)
         assert tk.n_bad == 0 and tp.n_bad == 0, (tk.n_bad, tp.n_bad)
+        # run_batch's refill schedule on the same slots for both: the same
+        # launches and live lane-steps
+        assert tk.n_steps % rk.REFILL_STEPS == 0, tk.n_steps
+        assert (tk.n_steps, tk.n_lane_steps) == (tp.n_steps,
+                                                 tp.n_lane_steps), (
+            tk.n_steps, tp.n_steps, tk.n_lane_steps, tp.n_lane_steps)
         rta_k, rta_p = _rta(tk), _rta(tp)
         gap = max(abs(a - b) for a, b in zip(rta_k, rta_p))
         z_max, err = _pixel_z(
@@ -746,7 +758,10 @@ def phase_compare(rk, make_step_cloud, make_step_cloud_multi, Surface,
               f"source={src}: "
               f"kernel R/T/A={rta_k} plain={rta_p} gap={gap:.3e} "
               f"pixel z_max={z_max:.2f} rerun rel={rerun:.1e} "
-              f"real collisions {tk.n_real}/{tp.n_real} "
+              f"real collisions {tk.n_real}/{tp.n_real} lane-steps "
+              f"{tk.n_lane_steps}/{tp.n_lane_steps} launches "
+              f"{tk.n_steps // rk.REFILL_STEPS}/"
+              f"{tp.n_steps // rk.REFILL_STEPS} "
               f"kernel {sk:.3f} s plain {sp:.3f} s",
               flush=True)
         assert gap < RTA_TOL_KERNEL_VS_PLAIN, gap
@@ -1243,38 +1258,80 @@ def phase_radiance_headline(rk, le, config, make_step_cloud, Surface,
     return res
 
 
+# K1's first refill launch held against its plain twin: a batch of the main
+# deck's 2^20 photons on the card's resident slots (about eight a slot),
+# whose one launch of REFILL_STEPS steps starts and ends its photons as the
+# deck's batches do
+RECORD_FIRST_PHOTONS = 1 << 20
+# Per column, of the photons a column, K1 against its plain twin on that
+# launch: both follow the same paths, the twin sums each step's tallies in
+# float64 (record_kernel.level_sums) and the kernel a block's share in
+# shared memory, so float32 atomic order parts them; the twin's float32
+# columns added lane by lane drifted ~2e-5 on the step cloud.
+RECORD_COLUMN_TOL_KERNEL_VS_PLAIN = 1e-5
+
+
+def _record_flux_timing(rk, label, dom, sfc, src, cfg, seed, table_bytes,
+                        tally_bytes, extra_ops=None, sweep=False,
+                        first=True):
+    """``_flux_timing`` of a record-kernel flux path through
+    run_batch_record_tallies (as run_batch runs it), on the batch of
+    ``cfg``; with ``first``, the first refill launch of a batch of
+    RECORD_FIRST_PHOTONS photons on the resident slots. Its bounds take
+    40 bytes of state a slot and 300 operations a live lane-step."""
+    vol = (cfg.need_volume_absorption or cfg.need_absorption_profile
+           or cfg.lw_mode)
+    prm = rk.RecordParams.make(dom, sfc, src, cfg.use_russian_roulette,
+                               cfg.russian_roulette_weight, vol,
+                               lw_mode=cfg.lw_mode)
+    jax_cfg = rk.jax_geometry(cfg)
+
+    def run(sd, sched, n_photons=None, launch=rk.record_launch):
+        sched = {"refill": None, "jax": jax_cfg}.get(sched, sched)
+        return rk.run_batch_record_tallies(dom, sfc, src, sd, cfg,
+                                           n_photons=n_photons,
+                                           launch=launch, rcfg=sched)
+
+    def run_first(slots, launch):
+        one = rk.RefillSchedule(rk.REFILL_STEPS, resident=slots)
+        return run(seed, one, RECORD_FIRST_PHOTONS,
+                   launch or rk.record_launch)
+
+    return _flux_timing(
+        rk, rk, label, "record_steps", rk.occupancy(prm), run,
+        run_first if first else None, rk.record_launch_plain, cfg, seed,
+        OPS_PER_LANE_STEP["record_kernel"], 40, table_bytes, tally_bytes,
+        RECORD_COLUMN_TOL_KERNEL_VS_PLAIN, extra_ops=extra_ops, sweep=sweep)
+
+
 def phase_headline(rk, make_step_cloud, Surface, illumination, KernelConfig,
                    rng):
-    """One headline batch: kernel and plain photons/s and time per launch
-    (128 steps of 65,536 lanes)."""
+    """The flux headline (macro_factor 16, 2^16 lanes x 1024 photons, flux
+    tallies only) through run_batch_record_tallies: the A/B of the refill
+    schedule and JAX's geometry, the launch-length and slot sweeps, the
+    occupancy record, and the first refill launch of a 2^20-photon batch
+    kernel against plain twin (``_record_flux_timing``); prints the
+    ``headline kernel:`` (the refill batch, means of its two turns) and
+    ``headline plain first launch:`` (the twin's first refill launch) lines
+    that mcbrat3d_tpu_torch/tools/ab_headline.py reads."""
     dom = make_step_cloud(ssa=0.99, macro_factor=16, device="cuda")
-    surface = Surface.lambertian(0.0)
-    source = illumination.directional(0.5, 0.0)
-    res = {}
-    for name, ppl, launch in (
-            ("kernel", 1024, rk.record_launch),
-            ("plain", HEADLINE_PLAIN_PPL, rk.record_launch_plain)):
-        cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=ppl,
-                           max_steps=1_600_000, need_volume_absorption=False)
-        if name == "kernel":  # warm-up batch
-            rk.run_batch_record_tallies(dom, surface, source,
-                                        rng.batch_seed(0, 99), cfg)
-        t, sec = _timed(lambda: rk.run_batch_record_tallies(
-            dom, surface, source, rng.batch_seed(0, 0), cfg, launch=launch))
-        assert t.volume_absorption is None and t.n_bad == 0
-        assert t.n_photons == (1 << 16) * ppl
-        n_launch = t.n_steps // 128
-        res[name] = dict(photons_per_s=t.n_photons / sec,
-                         ms_per_launch=1e3 * sec / n_launch,
-                         photons=t.n_photons, seconds=sec,
-                         launches=n_launch, rta=_rta(t),
-                         lane_steps=t.n_lane_steps,
-                         table_bytes=4 * dom.cell_records.numel(),
-                         tally_bytes=4 * 3 * dom.grid.nx * dom.grid.ny)
-        print(f"headline {name}: {t.n_photons} photons in {sec:.3f} s = "
-              f"{t.n_photons / sec:.6g} photons/s, {n_launch} launches, "
-              f"{1e3 * sec / n_launch:.4f} ms/launch, R/T/A={_rta(t)}",
-              flush=True)
+    nxy = dom.grid.nx * dom.grid.ny
+    cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=1024,
+                       max_steps=1_600_000, need_volume_absorption=False)
+    res = _record_flux_timing(
+        rk, "flux headline", dom, Surface.lambertian(0.0),
+        illumination.directional(0.5, 0.0), cfg, rng.batch_seed(0, 0),
+        4 * dom.cell_records.numel(), 4 * 3 * nxy, sweep=True)
+    r = res["ab"]["refill"]
+    n_launch = int(round(r["launches"]))
+    print(f"headline kernel: {cfg.photons_per_batch} photons in "
+          f"{r['seconds']:.3f} s = {r['photons_per_s']:.6g} photons/s, "
+          f"{n_launch} launches, {r['wall_ms_per_launch']:.4f} ms/launch, "
+          f"R/T/A={res['ab']['turns']['refill'][0]['rta']}", flush=True)
+    t, ms = res["first_tallies"], res["plain_ms_first"]
+    print(f"headline plain first launch: {t.n_photons} photons in "
+          f"{ms / 1e3:.3f} s = {t.n_photons / (ms / 1e3):.6g} photons/s, "
+          f"1 launches, {ms:.4f} ms/launch", flush=True)
     return res
 
 
@@ -1448,8 +1505,9 @@ def phase_landsat_deck(ck, rk, cli):
 def _evented_batch(mod, run, seed, label):
     """One batch through ``run(seed)`` with CUDA events around every launch
     of ``mod``'s kernel (``mod._launch_cuda``): photons/s, launches, kernel
-    and wall ms per launch, live lane-steps per launch and per photon, and
-    the card's busy share (kernel time over the batch's wall time)."""
+    and wall ms per launch, live lane-steps per launch and per photon, the
+    card's busy share (kernel time over the batch's wall time) and the
+    batch's ``n_steps``."""
     orig = mod._launch_cuda
     mod._launch_cuda, events = _event_timed(orig)
     try:
@@ -1467,7 +1525,7 @@ def _evented_batch(mod, run, seed, label):
                lane_steps_per_launch=t.n_lane_steps / n,
                lane_steps_per_photon=t.n_lane_steps / t.n_photons,
                busy=kernel_ms / (1e3 * sec), n_bad=t.n_bad,
-               n_photons=t.n_photons, rta=_rta(t))
+               n_photons=t.n_photons, n_steps=t.n_steps, rta=_rta(t))
     print(f"{label}: {t.n_photons} photons in {sec:.4f} s = "
           f"{res['photons_per_s']:.6g} photons/s, {n} launches, kernel "
           f"{res['kernel_ms_per_launch']:.4f} ms/launch, wall "
@@ -1495,24 +1553,35 @@ def _occupancy_line(label, occ):
 FLUX_SLOTS_SWEEP = (0.25, 0.5, 1.0, 2.0)
 
 
-def _flux_ab(mod, rk, run, resident, seed, label, max_steps, sweep=True):
-    """The A/B of K3's or K4's flux schedules on one batch through
-    ``run(seed, schedule)``, in turns refill, JAX, JAX, refill (the refill
-    schedule as run_batch runs it, JAX's geometry ``rk.jax_geometry``);
-    with ``sweep`` the refill schedule at STEPS_SWEEP steps a launch on
-    the ``resident`` slots and at FLUX_SLOTS_SWEEP x resident slots. Each
-    batch with CUDA events around every launch (``_evented_batch``):
-    returns {"refill": mean, "jax": mean, "turns": ..., "k_sweep": {k:
-    photons/s}, "slot_sweep": {slots: photons/s}}."""
+def _flux_ab(mod, rk, run, resident, seed, label, cfg, sweep=True):
+    """The A/B of a transport kernel's flux schedules (K1, K3, K4) on the
+    batch of ``cfg`` through ``run(seed, schedule)``, in turns refill, JAX,
+    JAX, refill (the refill schedule as run_batch runs it, JAX's geometry
+    ``rk.jax_geometry``); with ``sweep`` the refill schedule at
+    STEPS_SWEEP steps a launch on the ``resident`` slots and at
+    FLUX_SLOTS_SWEEP x resident slots. Each batch with CUDA events around
+    every launch (``_evented_batch``), whose count must equal the batch's
+    scheduled launches (its steps over its schedule's steps a launch):
+    returns {"refill": mean, "jax": mean, "turns": ..., "tallies": the
+    last refill turn's, "k_sweep": {k: photons/s}, "slot_sweep": {slots:
+    photons/s}}."""
+    def batch(sched, k, name):
+        t, r = _evented_batch(mod, lambda sd: run(sd, sched), seed,
+                              f"{label} [{name}]")
+        assert r["n_steps"] == r["launches"] * k, (
+            name, r["n_steps"], r["launches"], k)
+        return t, r
+
+    steps = {"refill": rk.REFILL_STEPS,
+             "jax": rk.jax_geometry(cfg).steps_per_call}
     turns = {"refill": [], "jax": []}
     for name in ("refill", "jax", "jax", "refill"):
-        _, r = _evented_batch(mod, lambda sd: run(sd, name), seed,
-                              f"{label} [{name} schedule]")
+        t, r = batch(name, steps[name], f"{name} schedule")
         assert r["n_bad"] == 0, (name, r["n_bad"])
         turns[name].append(r)
     res = {name: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]
                   if k != "rta"} for name, rs in turns.items()}
-    res["turns"] = turns
+    res.update(turns=turns, tallies=t)
     gain = res["refill"]["photons_per_s"] / res["jax"]["photons_per_s"]
     print(f"{label} A/B (means of two turns): refill "
           f"{res['refill']['photons_per_s']:.6g} photons/s, "
@@ -1528,15 +1597,14 @@ def _flux_ab(mod, rk, run, resident, seed, label, max_steps, sweep=True):
         return res
     res["k_sweep"], res["slot_sweep"] = {}, {}
     for k in STEPS_SWEEP:
-        sched = rk.RefillSchedule(max_steps, k_steps=k, resident=resident)
-        _, r = _evented_batch(mod, lambda sd: run(sd, sched), seed,
-                              f"{label} [refill, {k} steps a launch]")
+        sched = rk.RefillSchedule(cfg.max_steps, k_steps=k,
+                                  resident=resident)
+        _, r = batch(sched, k, f"refill, {k} steps a launch")
         res["k_sweep"][k] = r["photons_per_s"]
     for f in FLUX_SLOTS_SWEEP:
         slots = int(f * resident) // 128 * 128
-        sched = rk.RefillSchedule(max_steps, resident=slots)
-        _, r = _evented_batch(mod, lambda sd: run(sd, sched), seed,
-                              f"{label} [refill, {slots} slots]")
+        sched = rk.RefillSchedule(cfg.max_steps, resident=slots)
+        _, r = batch(sched, rk.REFILL_STEPS, f"refill, {slots} slots")
         res["slot_sweep"][slots] = r["photons_per_s"]
     print(f"{label}, refill photons/s by steps a launch: "
           + ", ".join(f"{k}: {v:.6g}" for k, v in res["k_sweep"].items())
@@ -1546,14 +1614,15 @@ def _flux_ab(mod, rk, run, resident, seed, label, max_steps, sweep=True):
     return res
 
 
-def _first_launch(mod, plain, run_one, column_tol, profile_tol):
+def _first_launch(mod, plain, run_one, column_tol, profile_tol=None):
     """Kernel and plain ms (CUDA events) of the refill schedule's first
     launch: ``run_one(launch)`` runs one launch of the same batch through
     ``launch`` (``mod``'s kernel, then ``plain``) and returns its tallies.
     The two are held equal in photons, steps, lane-steps and n_bad, with
     per-column fluxes (and a 3D field) within ``column_tol`` of the
-    photons a column and the z profile within ``profile_tol`` of its
-    largest level."""
+    photons a column and, where the kernel tallies one (K3, K4), the z
+    profile within ``profile_tol`` of its largest level. Returns the two
+    ms and the kernel's tallies."""
     out, tallies = {}, {}
     for name, fn in (("kernel", mod._launch_cuda), ("plain", plain)):
         timed, ev = _event_timed(fn)
@@ -1577,6 +1646,13 @@ def _first_launch(mod, plain, run_one, column_tol, profile_tol):
     if tk.volume_absorption is not None:
         pairs.append((tk.volume_absorption, tp.volume_absorption))
     _, err = _pixel_z(pairs, tk.n_photons)
+    out["tallies"] = tk
+    if tk.absorption_profile is None:
+        print(f"first launch kernel vs plain: photons, steps, lane-steps, "
+              f"n_bad {counts[0]}; column gap {err:.2e}; real collisions "
+              f"{tk.n_real}/{tp.n_real}", flush=True)
+        assert err < column_tol, err
+        return out
     prof_gap = float((tk.absorption_profile.double()
                       - tp.absorption_profile.double()).abs().max()
                      / tp.absorption_profile.double().abs().max())
@@ -1594,52 +1670,85 @@ def _first_launch(mod, plain, run_one, column_tol, profile_tol):
     return out
 
 
+def _flux_timing(mod, rk, label, kernel, occ, run, run_first, plain, cfg,
+                 seed, ops_per_step, state_bytes, table_bytes, tally_bytes,
+                 column_tol, profile_tol=None, extra_ops=None, sweep=False):
+    """A transport kernel's flux path through its run_batch entry, shared by
+    K1, K3 and K4: the occupancy record ``occ`` of its instantiation
+    ``kernel``; the A/B of the refill schedule and JAX's geometry in turns
+    (``_flux_ab`` on ``run(seed, schedule)``, with ``sweep`` the
+    launch-length and slot sweeps) on the batch of ``cfg``, every turn of
+    its photons; the bound of the refill schedule's mean launch; with
+    ``run_first``, its first launch on the resident slots, kernel against
+    ``plain`` twin (``_first_launch`` on ``run_first(slots, launch)``),
+    and the bound of that launch. A bound takes the slots' ``state_bytes``
+    read and written once, ``table_bytes`` read and ``tally_bytes``
+    written once, ``ops_per_step`` operations a live lane-step and
+    ``extra_ops(tallies)``, the operations the kernel counts besides its
+    steps."""
+    slots = _occupancy_line(f"{label} ({kernel})", occ)
+
+    def bound(t, lane_steps, n_launch):
+        return _bound(lane_steps, n_launch, ops_per_step, slots, state_bytes,
+                      table_bytes, tally_bytes,
+                      extra_ops=extra_ops(t) if extra_ops else 0)
+
+    for name in ("refill", "jax"):  # warm-up batches
+        run((seed + 1) & 0xFFFF_FFFF, name)
+    ab = _flux_ab(mod, rk, run, slots, seed, label, cfg, sweep=sweep)
+    for rt in ab["turns"]["refill"] + ab["turns"]["jax"]:
+        assert rt["n_photons"] == cfg.photons_per_batch, rt["n_photons"]
+    r, j, t = ab["refill"], ab["jax"], ab["tallies"]
+    out = dict(ab=ab, occupancy=occ, slots=slots, tallies=t,
+               kernel_ms_per_launch=r["kernel_ms_per_launch"],
+               launches_per_batch=r["launches"], busy=r["busy"],
+               photons_per_s=r["photons_per_s"],
+               jax_kernel_ms_per_launch=j["kernel_ms_per_launch"],
+               jax_launches_per_batch=j["launches"],
+               bound=bound(t, r["lane_steps"], r["launches"]))
+    print(f"{label}: refill kernel {r['kernel_ms_per_launch']:.4f} "
+          f"ms/launch of {rk.REFILL_STEPS} steps on {slots} slots (bound "
+          f"{out['bound'][0]:.4f} ms by {out['bound'][1]}), "
+          f"{r['launches']:.1f} launches a batch, busy share "
+          f"{r['busy']:.3f}, {r['lane_steps_per_photon']:.2f} live "
+          f"lane-steps per photon; JAX's geometry "
+          f"{j['kernel_ms_per_launch']:.4f} ms/launch of "
+          f"{rk.jax_geometry(cfg).steps_per_call} steps, "
+          f"{j['launches']:.1f} launches, busy share {j['busy']:.3f}",
+          flush=True)
+    if run_first is None:
+        return out
+    first = _first_launch(mod, plain, lambda launch: run_first(slots, launch),
+                          column_tol, profile_tol)
+    ft = first.pop("tallies")
+    out.update(first, first_tallies=ft,
+               plain_ms_per_launch=first["plain_ms_first"],
+               bound_first=bound(ft, ft.n_lane_steps, 1))
+    print(f"{label}, first refill launch ({ft.n_photons} photons, "
+          f"{slots} slots, {ft.n_lane_steps / ft.n_photons:.2f} live "
+          f"lane-steps per photon): kernel {out['kernel_ms_first']:.4f} ms "
+          f"(bound {out['bound_first'][0]:.4f} ms by "
+          f"{out['bound_first'][1]}), plain {out['plain_ms_first']:.4f} ms",
+          flush=True)
+    return out
+
+
 def phase_col_headline(ck, broken_cloud_scene, build_domain, Surface,
                        illumination, KernelConfig, rng):
     """The Landsat headline of bench.py:497-545 (2^20 photons, through
-    run_batch_col_tallies): the A/B of the refill schedule and JAX's
-    geometry, the launch-length and slot sweeps (``_flux_ab``), the
-    occupancy record of the flux instantiation, kernel and plain ms of the
-    refill schedule's first launch on the resident slots, held against
-    each other (``_first_launch``)."""
-    from mcbrat3d_tpu_torch.transport import record_kernel as rk
-
+    run_batch_col_tallies): ``_col_flux_timing`` with the launch-length
+    and slot sweeps."""
     dom = _broken_cloud(broken_cloud_scene, build_domain, 8, 201)
-    surface = Surface.lambertian(0.2)
-    source = illumination.directional(0.5, 0.0)
     cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=16,
                        max_steps=400_000, need_volume_absorption=False)
-    prm = ck.ColParams.make(dom, surface, source, True, 1.0, False)
-    occ = ck.occupancy(prm)
-    resident = _occupancy_line("landsat headline (col_steps)", occ)
-    jax_cfg = rk.jax_geometry(cfg)
-
-    def run(seed, sched):
-        sched = {"refill": None, "jax": jax_cfg}.get(sched, sched)
-        return ck.run_batch_col_tallies(dom, surface, source, seed, cfg,
-                                        ccfg=sched)
-
-    for name in ("refill", "jax"):  # warm-up batches
-        run(rng.batch_seed(0, 99), name)
-    res = _flux_ab(ck, rk, run, resident, rng.batch_seed(0, 0),
-                   "landsat headline", cfg.max_steps)
-    t = run(rng.batch_seed(0, 0), "refill")
-    assert t.volume_absorption is None and t.n_bad == 0
-    assert t.n_photons == cfg.photons_per_batch
-    assert t.n_steps == res["refill"]["launches"] * rk.REFILL_STEPS
-    one = rk.RefillSchedule(rk.REFILL_STEPS, resident=resident)
-    res.update(_first_launch(ck, ck.col_launch_plain, lambda launch: (
-        ck.run_batch_col(dom, surface, source, rng.batch_seed(0, 0), one,
-                         n_photons=cfg.photons_per_batch,
-                         launch=launch or ck.col_launch)),
-        COL_PIXEL_TOL_KERNEL_VS_PLAIN, COL_PROFILE_TOL_KERNEL_VS_PLAIN))
-    res.update(resident=resident, occupancy=occ, rta=_rta(t),
-               nxy=dom.grid.nx * dom.grid.ny, nz=dom.grid.nz,
-               n_blk=dom.macro_table.shape[0])
-    print(f"landsat headline, refill schedule's first launch "
-          f"({rk.REFILL_STEPS} steps, {resident} slots): kernel "
-          f"{res['kernel_ms_first']:.4f} ms, plain "
-          f"{res['plain_ms_first']:.4f} ms", flush=True)
+    nxy, nz = dom.grid.nx * dom.grid.ny, dom.grid.nz
+    res = _col_flux_timing(
+        ck, "landsat headline", dom, Surface.lambertian(0.2),
+        illumination.directional(0.5, 0.0), cfg, rng.batch_seed(0, 0),
+        OPS_PER_LANE_STEP["col_kernel"],
+        4 * (2 * nxy + 2 * dom.macro_table.shape[0]), 4 * (3 * nxy + nz),
+        sweep=True)
+    assert res["tallies"].volume_absorption is None
     return res
 
 
@@ -1887,62 +1996,36 @@ def phase_landsat_radiance_deck(ck, rk, cli):
 
 
 def _col_flux_timing(ck, label, dom, sfc, src, cfg, seed, ops_per_step,
-                     table_bytes, tally_bytes, extra_ops=None):
-    """A column-kernel flux path's times through run_batch_col_tallies (as
-    run_batch runs it): the A/B of the refill schedule and JAX's geometry
-    in turns (``_flux_ab``), the occupancy record of its instantiation,
-    kernel and plain ms of the refill schedule's first launch, held
-    against each other (``_first_launch``), and the bound of a refill
-    launch (per launch: the slots' state read and
-    written once, ``table_bytes`` read and ``tally_bytes`` written once;
-    ``extra_ops(tallies)``, the operations the kernel counts besides its
-    steps)."""
+                     table_bytes, tally_bytes, extra_ops=None, sweep=False):
+    """``_flux_timing`` of a column-kernel flux path through
+    run_batch_col_tallies (as run_batch runs it), on the batch of ``cfg``,
+    with the first refill launch of that batch on the resident slots. Its
+    bounds take 44 bytes of state a slot."""
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
 
     vol = cfg.need_volume_absorption
     prm = ck.ColParams.make(dom, sfc, src, cfg.use_russian_roulette,
                             cfg.russian_roulette_weight, vol,
                             lw_mode=cfg.lw_mode)
-    occ = ck.occupancy(prm)
-    slots = _occupancy_line(f"{label} (col_steps)", occ)
     jax_cfg = rk.jax_geometry(cfg)
 
     def run(sd, sched):
         sched = {"refill": None, "jax": jax_cfg}.get(sched, sched)
         return ck.run_batch_col_tallies(dom, sfc, src, sd, cfg, ccfg=sched)
 
-    ab = _flux_ab(ck, rk, run, slots, seed, label, cfg.max_steps,
-                  sweep=False)
-    t = run(seed, "refill")
-    r = ab["refill"]
-    assert t.n_bad == 0 and t.n_photons == cfg.photons_per_batch
-    assert t.n_steps == r["launches"] * rk.REFILL_STEPS, t.n_steps
-    one = rk.RefillSchedule(rk.REFILL_STEPS, vol_tally=vol, resident=slots)
-    first = _first_launch(ck, ck.col_launch_plain, lambda launch: (
-        ck.run_batch_col(dom, sfc, src, seed, one,
-                         n_photons=cfg.photons_per_batch,
-                         launch=launch or ck.col_launch,
-                         lw_mode=cfg.lw_mode)),
-        COL_PIXEL_TOL_KERNEL_VS_PLAIN, COL_PROFILE_TOL_KERNEL_VS_PLAIN)
-    out = dict(ab=ab, occupancy=occ, slots=slots, tallies=t,
-               kernel_ms_per_launch=r["kernel_ms_per_launch"],
-               launches_per_batch=r["launches"], busy=r["busy"],
-               jax_kernel_ms_per_launch=ab["jax"]["kernel_ms_per_launch"],
-               plain_ms_per_launch=first["plain_ms_first"],
-               kernel_ms_first=first["kernel_ms_first"])
-    out["bound"] = _bound(r["lane_steps"], r["launches"], ops_per_step,
-                          slots, 44, table_bytes, tally_bytes,
-                          extra_ops=extra_ops(t) if extra_ops else 0)
-    print(f"{label}: refill kernel {out['kernel_ms_per_launch']:.4f} "
-          f"ms/launch of {rk.REFILL_STEPS} steps on {slots} slots (bound "
-          f"{out['bound'][0]:.4f} ms by {out['bound'][1]}), "
-          f"{r['launches']:.1f} launches a batch, busy share "
-          f"{r['busy']:.3f}, {r['lane_steps_per_photon']:.2f} live "
-          f"lane-steps per photon; JAX's geometry "
-          f"{out['jax_kernel_ms_per_launch']:.4f} ms/launch of 128 steps; "
-          f"first launch kernel {first['kernel_ms_first']:.4f} ms, plain "
-          f"{first['plain_ms_first']:.4f} ms", flush=True)
-    return out
+    def run_first(slots, launch):
+        one = rk.RefillSchedule(rk.REFILL_STEPS, vol_tally=vol,
+                                resident=slots)
+        return ck.run_batch_col(dom, sfc, src, seed, one,
+                                n_photons=cfg.photons_per_batch,
+                                launch=launch or ck.col_launch,
+                                lw_mode=cfg.lw_mode)
+
+    return _flux_timing(
+        ck, rk, label, "col_steps", ck.occupancy(prm), run, run_first,
+        ck.col_launch_plain, cfg, seed, ops_per_step, 44, table_bytes,
+        tally_bytes, COL_PIXEL_TOL_KERNEL_VS_PLAIN,
+        COL_PROFILE_TOL_KERNEL_VS_PLAIN, extra_ops=extra_ops, sweep=sweep)
 
 
 def phase_gas(ck, rk, m, le, KernelConfig, run_batch, rng):
@@ -3063,58 +3146,46 @@ def phase_lw_deck(sk, ck, rk, cli, write_lw_flagship_inputs):
 def phase_sep_headline(sk, lw_flagship_scene, build_domain, Surface,
                        illumination, KernelConfig, rng):
     """The separable headline of bench.py:454-494 (2^24 photons, through
-    run_batch_sep_tallies): the A/B of the refill schedule and JAX's
-    geometry, the launch-length and slot sweeps (``_flux_ab``), the
-    occupancy record, and kernel and plain ms of the refill schedule's
-    first launch on the resident slots, held against each other
-    (``_first_launch``)."""
+    run_batch_sep_tallies): ``_flux_timing`` with the launch-length and
+    slot sweeps, its bounds at 40 bytes of state a slot."""
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
 
     t0 = time.perf_counter()
     dom = _lw_scene(lw_flagship_scene, build_domain, 325, 150, 8)
-    build_s = time.perf_counter() - t0
+    print(f"separable headline: domain build "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     surface = Surface.lambertian(0.05)
     source = illumination.emission_separable(dom, 288.0, 0.95)
     cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=256,
                        max_steps=1_600_000, lw_mode=True,
                        need_volume_absorption=False)
     prm = sk.SepParams.make(dom, surface, source, True, 1.0, True)
-    occ = sk.occupancy(prm)
-    resident = _occupancy_line("separable headline (sep_steps)", occ)
+    seed = rng.batch_seed(0, 0)
     jax_cfg = rk.jax_geometry(cfg)
 
-    def run(seed, sched):
+    def run(sd, sched):
         sched = {"refill": None, "jax": jax_cfg}.get(sched, sched)
-        return sk.run_batch_sep_tallies(dom, surface, source, seed, cfg,
+        return sk.run_batch_sep_tallies(dom, surface, source, sd, cfg,
                                         scfg=sched)
 
-    for name in ("refill", "jax"):  # warm-up batches
-        run(rng.batch_seed(0, 99), name)
-    res = _flux_ab(sk, rk, run, resident, rng.batch_seed(0, 0),
-                   "separable headline", cfg.max_steps)
-    t = run(rng.batch_seed(0, 0), "refill")
-    assert t.volume_absorption is None and t.n_bad == 0
-    assert t.n_photons == cfg.photons_per_batch
-    assert t.n_steps == res["refill"]["launches"] * rk.REFILL_STEPS
-    one = rk.RefillSchedule(rk.REFILL_STEPS, resident=resident)
-    res.update(_first_launch(sk, sk.sep_launch_plain, lambda launch: (
-        sk.run_batch_sep(dom, surface, source, rng.batch_seed(0, 0), one,
-                         n_photons=cfg.photons_per_batch, lw_mode=True,
-                         launch=launch or sk.sep_launch)),
-        SEP_COLUMN_TOL_KERNEL_VS_PLAIN, SEP_PROFILE_TOL_KERNEL_VS_PLAIN))
+    def run_first(slots, launch):
+        one = rk.RefillSchedule(rk.REFILL_STEPS, resident=slots)
+        return sk.run_batch_sep(dom, surface, source, seed, one,
+                                n_photons=cfg.photons_per_batch,
+                                lw_mode=True, launch=launch or sk.sep_launch)
+
     nxy = dom.grid.nx * dom.grid.ny
-    res.update(
-        resident=resident, occupancy=occ, rta=_rta(t),
+    res = _flux_timing(
+        sk, rk, "separable headline", "sep_steps", sk.occupancy(prm), run,
+        run_first, sk.sep_launch_plain, cfg, seed,
+        OPS_PER_LANE_STEP["sep_kernel"], 40,
         # amp (padded to whole groups), block ceilings, p, q, z aliases,
         # group tables; tallies: 3 per column + the profile
-        table_bytes=4 * (-(-nxy // 128) * (128 + 3)
-                         + dom.sep_block.numel() + 6 * dom.grid.nz),
-        tally_bytes=4 * (3 * nxy + dom.grid.nz))
-    print(f"separable headline, refill schedule's first launch "
-          f"({rk.REFILL_STEPS} steps, {resident} slots): kernel "
-          f"{res['kernel_ms_first']:.4f} ms, plain "
-          f"{res['plain_ms_first']:.4f} ms (domain build {build_s:.2f} s)",
-          flush=True)
+        4 * (-(-nxy // 128) * (128 + 3) + dom.sep_block.numel()
+             + 6 * dom.grid.nz),
+        4 * (3 * nxy + dom.grid.nz), SEP_COLUMN_TOL_KERNEL_VS_PLAIN,
+        SEP_PROFILE_TOL_KERNEL_VS_PLAIN, sweep=True)
+    assert res["tallies"].volume_absorption is None
     return res
 
 
@@ -3482,60 +3553,27 @@ def phase_multi_deck(rk, ck, sk, tk, cli, io_netcdf, step_cloud_multi_scene):
 
 
 def phase_multi_headline(rk, make_step_cloud_multi, Surface, illumination,
-                         KernelConfig, run_batch, rng):
-    """bench.py:150-170's multi_component_3_step_cloud through run_batch:
-    kernel photons/s, launches per batch, kernel ms per launch (CUDA events)
-    and the card's busy share; plain ms per launch over 4 launches at the
-    same lanes."""
+                         KernelConfig, rng):
+    """bench.py:150-170's multi_component_3_step_cloud (2^16 lanes x 256
+    photons, 3D tally) through run_batch_record_tallies, as run_batch
+    runs it: the A/B of the refill schedule and JAX's geometry (photons/s,
+    launches per batch, kernel ms per launch from CUDA events, busy
+    share), the occupancy, and the first refill launch of a 2^20-photon
+    batch kernel against plain twin, with its bound
+    (``_record_flux_timing``)."""
     dom = make_step_cloud_multi(ssa=0.99, n_components=3, macro_factor=8,
                                 device="cuda")
-    surface = Surface.lambertian(0.0)
-    source = illumination.directional(0.5, 0.0)
     cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=256,
                        max_steps=800_000)
-    run_batch(dom, surface, source, rng.batch_seed(0, 99), cfg)  # warm-up
-    orig = rk._launch_cuda
-    rk._launch_cuda, events = _event_timed(orig)
-    try:
-        t, sec = _timed(lambda: run_batch(dom, surface, source,
-                                          rng.batch_seed(0, 0), cfg))
-    finally:
-        rk._launch_cuda = orig
-    _sync()
-    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
-    n_launch = len(events)
-    assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
-    assert t.n_photons == 1 << 24 and t.volume_absorption is not None
-    assert 0 < t.n_real <= t.n_lane_steps, (t.n_real, t.n_lane_steps)
     nx, ny, nz = dom.grid.shape
-    res = dict(photons_per_s=t.n_photons / sec, seconds=sec,
-               launches=n_launch, kernel_ms_per_launch=kernel_ms / n_launch,
-               wall_ms_per_launch=1e3 * sec / n_launch,
-               busy=kernel_ms / (1e3 * sec), lane_steps=t.n_lane_steps,
-               real_collisions=t.n_real, table_bytes=4 * 8 * nx * ny * nz,
-               tally_bytes=4 * (2 * nx * ny + nx * ny * nz))
-    bound_ms, bound_by = _bound(
-        t.n_lane_steps, n_launch, OPS_PER_LANE_STEP["record_kernel"],
-        1 << 16, 40, res["table_bytes"], res["tally_bytes"],
-        extra_ops=t.n_real * OPS_PER_COMPONENT_CHOICE)
-    print(f"3-component headline (run_batch): {t.n_photons} photons in "
-          f"{sec:.3f} s = {res['photons_per_s']:.6g} photons/s, {n_launch} "
-          f"launches, kernel {res['kernel_ms_per_launch']:.4f} ms/launch "
-          f"(bound {bound_ms:.4f} ms by {bound_by}), wall "
-          f"{res['wall_ms_per_launch']:.4f} ms/launch, busy share "
-          f"{res['busy']:.3f}, {t.n_lane_steps / t.n_photons:.2f} lane-steps"
-          f"/photon, {t.n_real / t.n_photons:.2f} real collisions/photon, "
-          f"R/T/A={_rta(t)}", flush=True)
-    res["bound"] = (bound_ms, bound_by)
-    plain, ev = _event_timed(rk.record_launch_plain)
-    rk.run_batch_record(dom, surface, source, rng.batch_seed(0, 1),
-                        rk.RecordConfig(rows=512, max_steps=4 * 128), 256,
-                        launch=plain)
-    _sync()
-    res["plain_ms_per_launch"] = sum(a.elapsed_time(b)
-                                     for a, b in ev) / len(ev)
-    print(f"3-component headline: plain {res['plain_ms_per_launch']:.4f} "
-          f"ms/launch over {len(ev)} launches", flush=True)
+    res = _record_flux_timing(
+        rk, "3-component headline", dom, Surface.lambertian(0.0),
+        illumination.directional(0.5, 0.0), cfg, rng.batch_seed(0, 0),
+        4 * 8 * nx * ny * nz, 4 * (2 * nx * ny + nx * ny * nz),
+        extra_ops=lambda t: t.n_real * OPS_PER_COMPONENT_CHOICE)
+    t = res["tallies"]
+    assert t.volume_absorption is not None and t.n_bad == 0
+    assert 0 < t.n_real <= t.n_lane_steps, (t.n_real, t.n_lane_steps)
     return res
 
 
@@ -3812,97 +3850,48 @@ def phase_lw_generic_deck(rk, ck, sk, tk, cli, write_lw_broadband_inputs):
                 seconds=seconds, out=out, transport_s=transport_s)
 
 
-def phase_lw_headline(rk, m, KernelConfig, run_batch, rng):
-    """bench.py:173-218's lw_emission_2comp through run_batch (macro 8,
-    albedo 0.05, lw_mode, 2^16 lanes x 256 photons): kernel photons/s,
-    launches per batch, kernel ms per launch (CUDA events), the card's busy
-    share; plain ms per launch over 4 launches at the same lanes."""
+def phase_lw_headline(rk, m, KernelConfig, rng):
+    """bench.py:173-218's lw_emission_2comp (macro 8, albedo 0.05,
+    lw_mode, 2^16 lanes x 256 photons) through run_batch_record_tallies,
+    as run_batch runs it: the A/B of the refill schedule and JAX's
+    geometry, the occupancy, and the first refill launch of a 2^20-photon
+    batch kernel against plain twin, with its bound (the births' refill
+    operations besides the steps'; ``_record_flux_timing``)."""
     dom, source = lw_emission_scene(m)
-    surface = m.Surface.lambertian(0.05)
     cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=256,
                        max_steps=800_000, lw_mode=True)
-    run_batch(dom, surface, source, rng.batch_seed(0, 98), cfg)  # warm-up
-    orig = rk._launch_cuda
-    rk._launch_cuda, events = _event_timed(orig)
-    try:
-        t, sec = _timed(lambda: run_batch(dom, surface, source,
-                                          rng.batch_seed(0, 0), cfg))
-    finally:
-        rk._launch_cuda = orig
-    _sync()
-    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
-    n_launch = len(events)
-    assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
-    assert t.n_photons == 1 << 24 and t.volume_absorption is not None
     nx, ny, nz = dom.grid.shape
     n_cells = nx * ny * nz
-    res = dict(photons_per_s=t.n_photons / sec, seconds=sec,
-               launches=n_launch, kernel_ms_per_launch=kernel_ms / n_launch,
-               wall_ms_per_launch=1e3 * sec / n_launch,
-               busy=kernel_ms / (1e3 * sec), lane_steps=t.n_lane_steps,
-               real_collisions=t.n_real,
-               # 8-float records and the alias pair, read once
-               table_bytes=4 * (8 + 2) * n_cells,
-               tally_bytes=4 * (2 * nx * ny + n_cells))
-    bound_ms, bound_by = _bound(
-        t.n_lane_steps, n_launch, OPS_PER_LANE_STEP["record_kernel"],
-        1 << 16, 40, res["table_bytes"], res["tally_bytes"],
-        extra_ops=(t.n_real * OPS_PER_COMPONENT_CHOICE
-                   + _emission_birth_ops(t.n_photons, source.atms_fraction)))
-    res["bound"] = (bound_ms, bound_by)
-    print(f"LW emission headline (run_batch): {t.n_photons} photons in "
-          f"{sec:.3f} s = {res['photons_per_s']:.6g} photons/s, {n_launch} "
-          f"launches, kernel {res['kernel_ms_per_launch']:.4f} ms/launch "
-          f"(bound {bound_ms:.4f} ms by {bound_by}), wall "
-          f"{res['wall_ms_per_launch']:.4f} ms/launch, busy share "
-          f"{res['busy']:.3f}, {t.n_lane_steps / t.n_photons:.2f} lane-steps"
-          f"/photon, {t.n_real / t.n_photons:.2f} real collisions/photon, "
-          f"up/down/net per photon={_rta(t)}", flush=True)
-    plain, ev = _event_timed(rk.record_launch_plain)
-    rk.run_batch_record(dom, surface, source, rng.batch_seed(0, 1),
-                        rk.RecordConfig(rows=512, max_steps=4 * 128), 256,
-                        launch=plain, lw_mode=True)
-    _sync()
-    res["plain_ms_per_launch"] = sum(a.elapsed_time(b)
-                                     for a, b in ev) / len(ev)
-    print(f"LW emission headline: plain {res['plain_ms_per_launch']:.4f} "
-          f"ms/launch over {len(ev)} launches", flush=True)
+    res = _record_flux_timing(
+        rk, "LW emission headline", dom, m.Surface.lambertian(0.05), source,
+        cfg, rng.batch_seed(0, 0),
+        # 8-float records and the alias pair, read once
+        4 * (8 + 2) * n_cells, 4 * (2 * nx * ny + n_cells),
+        extra_ops=lambda t: (t.n_real * OPS_PER_COMPONENT_CHOICE
+                             + _emission_birth_ops(t.n_photons,
+                                                   source.atms_fraction)))
+    t = res["tallies"]
+    assert t.volume_absorption is not None and t.n_bad == 0
+    assert _rta(t)[2] < 0, "no pre-credit landed"
     return res
 
 
-def phase_radar_headline(rk, m, KernelConfig, run_batch, rng):
-    """bench.py:269-303's radar_scale through run_batch (640 x 1 x 54,
-    macro 8, albedo 0.1, the 3D tally, 2^16 lanes x 64 photons): kernel
-    photons/s, launches per batch, kernel ms per launch from CUDA events
-    and the card's busy share."""
-    dom = radar_scene(m)
-    surface = m.Surface.lambertian(0.1)
-    source = m.illumination.directional(0.5, 0.0)
+def phase_radar_headline(rk, m, KernelConfig, rng):
+    """bench.py:269-303's radar_scale (640 x 1 x 54, macro 8, albedo 0.1,
+    the 3D tally, 2^16 lanes x 64 photons) through
+    run_batch_record_tallies, as run_batch runs it: the occupancy and the
+    A/B of the refill schedule and JAX's geometry (``_record_flux_timing``
+    without the first launch; the bound of a refill launch reads the
+    records once and writes the columns and the 3D tally once)."""
     cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=64,
                        max_steps=800_000, need_volume_absorption=True)
-    run_batch(dom, surface, source, rng.batch_seed(0, 98), cfg)  # warm-up
-    orig = rk._launch_cuda
-    rk._launch_cuda, events = _event_timed(orig)
-    try:
-        t, sec = _timed(lambda: run_batch(dom, surface, source,
-                                          rng.batch_seed(0, 0), cfg))
-    finally:
-        rk._launch_cuda = orig
-    _sync()
-    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
-    n_launch = len(events)
-    assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
-    assert t.n_photons == 1 << 22 and t.volume_absorption is not None
-    res = dict(photons_per_s=t.n_photons / sec, seconds=sec,
-               launches=n_launch, kernel_ms_per_launch=kernel_ms / n_launch,
-               wall_ms_per_launch=1e3 * sec / n_launch,
-               busy=kernel_ms / (1e3 * sec))
-    print(f"radar_scale headline (run_batch, 3D tally): {t.n_photons} "
-          f"photons in {sec:.3f} s = {res['photons_per_s']:.6g} photons/s, "
-          f"{n_launch} launches, kernel {res['kernel_ms_per_launch']:.4f} "
-          f"ms/launch, wall {res['wall_ms_per_launch']:.4f} ms/launch, busy "
-          f"share {res['busy']:.3f}, R/T/A={_rta(t)}", flush=True)
-    return res
+    dom = radar_scene(m)
+    nx, ny, nz = dom.grid.shape
+    return _record_flux_timing(
+        rk, "radar_scale headline", dom, m.Surface.lambertian(0.1),
+        m.illumination.directional(0.5, 0.0), cfg, rng.batch_seed(0, 0),
+        4 * dom.cell_records.numel(), 4 * (2 * nx * ny + nx * ny * nz),
+        first=False)
 
 
 def vol_tally_occupancy(rk, m):
@@ -3920,14 +3909,16 @@ def vol_tally_occupancy(rk, m):
             ("radar_scale", (radar_scene(m), src, False))):
         prm = rk.RecordParams.make(dom, m.Surface.lambertian(0.1), source,
                                    True, 1.0, True, None, None, lw)
-        now, now_b = rk.occupancy(prm)
-        whole, whole_b = rk.occupancy(prm, 4 * prm.n_acc)
-        res[name] = dict(blocks=now, smem=now_b, blocks_whole=whole,
-                         smem_whole=whole_b)
+        now = rk.occupancy(prm)
+        whole = rk.occupancy(prm, 4 * prm.n_acc)
+        res[name] = dict(blocks=now["blocks_per_sm"], smem=now["smem"],
+                         blocks_whole=whole["blocks_per_sm"],
+                         smem_whole=whole["smem"])
         print(f"occupancy {name} (3D tally of {prm.n_acc} floats): "
-              f"{now} blocks of 128 an SM with {now_b} B of shared "
-              f"tallies; {whole} with the whole tally ({whole_b} B)",
-              flush=True)
+              f"{now['blocks_per_sm']} blocks of 128 an SM with "
+              f"{now['smem']} B of shared tallies; "
+              f"{whole['blocks_per_sm']} with the whole tally "
+              f"({whole['smem']} B)", flush=True)
     return res
 
 
@@ -4135,42 +4126,22 @@ def _step_row(res, radiance=False):
     return got, se
 
 
-def _record_flux_path_timing(rk, dom, sfc, src, KernelConfig, rng, seed):
-    """One batch of 2^16 lanes x 16 photons (flux, column absorption)
-    through the record kernel with CUDA events around each launch, and the
-    plain step over 2 launches: ms per launch, launches, lane-steps, busy
-    share, and the bound (the state read and written once, the records
-    and the albedo per column read once, the tallies written once; 300
-    operations a live lane-step, the RPV weight's ~150 per reflection not
-    charged, as no launch counts its reflections)."""
+def _record_flux_path_timing(rk, label, dom, sfc, src, KernelConfig, rng,
+                             seed):
+    """A K1-d flux path's times on one batch of 2^16 lanes x 16 photons
+    (flux, column absorption) through ``_record_flux_timing``: the A/B of
+    the refill schedule and JAX's geometry and the first refill launch
+    kernel against plain twin, with its bound (the state read and written
+    once, the records and the albedo per column read once, the tallies
+    written once; 300 operations a live lane-step, the RPV weight's ~150
+    per reflection not charged, as no launch counts its reflections)."""
     cfg = KernelConfig(n_lanes=1 << 16, photons_per_lane=16,
                        max_steps=400_000, need_volume_absorption=False)
-    rk.run_batch_record_tallies(dom, sfc, src, rng.batch_seed(seed, 99),
-                                cfg, n_photons=1 << 18)  # warm-up
-    orig = rk._launch_cuda
-    rk._launch_cuda, events = _event_timed(orig)
-    try:
-        t, wall = _timed(lambda: rk.run_batch_record_tallies(
-            dom, sfc, src, rng.batch_seed(seed, 0), cfg))
-    finally:
-        rk._launch_cuda = orig
-    _sync()
-    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
-    n_launch = len(events)
-    assert n_launch == t.n_steps // 128 > 0 and t.n_bad == 0
-    plain, ev = _event_timed(rk.record_launch_plain)
-    rk.run_batch_record(dom, sfc, src, rng.batch_seed(seed, 1),
-                        rk.RecordConfig(rows=512, max_steps=2 * 128,
-                                        vol_tally=False), 16, launch=plain)
-    _sync()
     nxy = dom.grid.nx * dom.grid.ny
-    res = dict(launches=n_launch, kernel_ms_per_launch=kernel_ms / n_launch,
-               plain_ms_per_launch=sum(a.elapsed_time(b) for a, b in ev)
-               / len(ev), busy=kernel_ms / (1e3 * wall),
-               lane_steps=t.n_lane_steps, photons=t.n_photons)
-    res["bound"] = _bound(
-        t.n_lane_steps, n_launch, OPS_PER_LANE_STEP["record_kernel"],
-        1 << 16, 40, 4 * (dom.cell_records.numel() + nxy), 4 * 3 * nxy)
+    res = _record_flux_timing(
+        rk, label, dom, sfc, src, cfg, rng.batch_seed(seed, 0),
+        4 * (dom.cell_records.numel() + nxy), 4 * 3 * nxy)
+    assert res["tallies"].n_bad == 0
     return res
 
 
@@ -4182,8 +4153,9 @@ def phase_rpv_step_cloud(rk, ck, sk, tk, m, make_step_cloud, run_simulation,
     kernel alone with the RPV branch on every launch, no plain step, n_bad
     0, R, T, A and the 32 columns of the up flux within 4.5 combined sigma
     of the JAX package's XLA path (tools/record_surface_reference.py rpv);
-    then the RPV flux path's ms per launch (CUDA events) and the plain
-    step's."""
+    then the RPV flux path's times (``_record_flux_path_timing``: the A/B
+    against JAX's geometry and the first refill launch against the plain
+    twin)."""
     dom = make_step_cloud(ssa=0.99, device="cuda")
     sfc = m.Surface.rpv(*STEP_RPV)
     src = m.illumination.directional(0.5, 0.0)
@@ -4201,15 +4173,9 @@ def phase_rpv_step_cloud(rk, ck, sk, tk, m, make_step_cloud, run_simulation,
           f"{se[:3]}, launches (record, RPV) {launches[0]}, "
           f"{launches[5]}; largest gap to JAX's XLA path "
           f"{worst:.2f} combined sigma", flush=True)
-    out = _record_flux_path_timing(rk, dom, sfc, src, KernelConfig, rng, 35)
+    out = _record_flux_path_timing(rk, "RPV flux path", dom, sfc, src,
+                                   KernelConfig, rng, 35)
     out.update(rpv_launches=launches[5], seconds=sec, worst=worst)
-    print(f"RPV flux path: {out['photons']} photons, {out['launches']} "
-          f"launches, kernel {out['kernel_ms_per_launch']:.4f} ms/launch "
-          f"(bound {out['bound'][0]:.4f} ms by {out['bound'][1]}), busy "
-          f"share {out['busy']:.3f}, "
-          f"{out['lane_steps'] / out['photons']:.2f} live lane-steps per "
-          f"photon, plain {out['plain_ms_per_launch']:.4f} ms/launch",
-          flush=True)
     return out
 
 
@@ -4225,7 +4191,7 @@ def phase_px_step_cloud(rk, ck, sk, tk, m, make_step_cloud, run_simulation,
     R, T, A and the up flux's 32 columns, or the 6 domain-mean radiances,
     within 4.5 combined sigma of the JAX package's XLA path
     (tools/record_surface_reference.py px, px_radiance); then the
-    per-pixel flux path's ms per launch and the plain step's."""
+    per-pixel flux path's times, as path C's."""
     import numpy as np
 
     sfc = m.Surface(params=step_checker(np))
@@ -4272,16 +4238,10 @@ def phase_px_step_cloud(rk, ck, sk, tk, m, make_step_cloud, run_simulation,
           f"per-pixel, radiance) {launches_r[0]}, {launches_r[6]}, "
           f"{launches_r[7]}; largest gap to JAX's XLA path {worst_r:.2f} "
           f"combined sigma", flush=True)
-    out = _record_flux_path_timing(rk, dom, sfc, src, KernelConfig, rng, 36)
+    out = _record_flux_path_timing(rk, "per-pixel flux path", dom, sfc, src,
+                                   KernelConfig, rng, 36)
     out.update(px_launches=launches[6] + launches_r[6], seconds=sec + sec_r,
                worst=max(worst, worst_r))
-    print(f"per-pixel flux path: {out['photons']} photons, "
-          f"{out['launches']} launches, kernel "
-          f"{out['kernel_ms_per_launch']:.4f} ms/launch (bound "
-          f"{out['bound'][0]:.4f} ms by {out['bound'][1]}), busy share "
-          f"{out['busy']:.3f}, {out['lane_steps'] / out['photons']:.2f} live "
-          f"lane-steps per photon, plain {out['plain_ms_per_launch']:.4f} "
-          f"ms/launch", flush=True)
     return out
 
 
@@ -4613,13 +4573,11 @@ def main(argv=None) -> int:
     if "4f" in only:
         out["multi_head"] = phase_multi_headline(
             rk, make_step_cloud_multi, Surface, illumination, KernelConfig,
-            run_batch, rng)
+            rng)
     mark("4g")
     if "4g" in only:
-        out["lw_head"] = phase_lw_headline(rk, m, KernelConfig, run_batch,
-                                           rng)
-        out["radar_head"] = phase_radar_headline(rk, m, KernelConfig,
-                                                 run_batch, rng)
+        out["lw_head"] = phase_lw_headline(rk, m, KernelConfig, rng)
+        out["radar_head"] = phase_radar_headline(rk, m, KernelConfig, rng)
         out["occupancy"] = vol_tally_occupancy(rk, m)
     mark("4h")
     if "4h" in only:
@@ -4655,10 +4613,9 @@ def main(argv=None) -> int:
     rec_walk_err = max(v["max_err"] for k, v in walk.items()
                        if k.startswith("K2"))
     bounds = {
-        "record_kernel": _bound(
-            head["kernel"]["lane_steps"], head["kernel"]["launches"],
-            OPS_PER_LANE_STEP["record_kernel"], 1 << 16, 40,
-            head["kernel"]["table_bytes"], head["kernel"]["tally_bytes"]),
+        # K1, K1-a/b, K1-c, K1-d: the first refill launch of a 2^20-photon
+        # batch on the resident slots
+        "record_kernel": head["bound_first"],
         "record_kernel_radiance": _bound(
             rad6["lane_steps"], rad6["launches"],
             OPS_PER_LANE_STEP["record_kernel"], rad6["n_lanes"], 40,
@@ -4667,15 +4624,8 @@ def main(argv=None) -> int:
                        + rad6["events"] * 6 * OPS_PER_K2_DIRECTION)),
         # K3 and K4: per launch of the refill schedule on the headline's
         # resident slots
-        "col_kernel": _bound(
-            col_head["refill"]["lane_steps"], col_head["refill"]["launches"],
-            OPS_PER_LANE_STEP["col_kernel"], col_head["resident"], 44,
-            4 * (2 * col_head["nxy"] + 2 * col_head["n_blk"]),
-            4 * (3 * col_head["nxy"] + col_head["nz"])),
-        "sep_kernel": _bound(
-            sep_head["refill"]["lane_steps"], sep_head["refill"]["launches"],
-            OPS_PER_LANE_STEP["sep_kernel"], sep_head["resident"], 40,
-            sep_head["table_bytes"], sep_head["tally_bytes"]),
+        "col_kernel": col_head["bound"],
+        "sep_kernel": sep_head["bound"],
         # per launch: the slots' state (7 floats, the tile id and the
         # quota) read and written once, the fields read once, the tallies
         # written once; the births' operations besides the steps'
@@ -4685,14 +4635,14 @@ def main(argv=None) -> int:
             4 * tile_head["n_f"] * tile_head["n_cells"],
             4 * 3 * tile_head["nxy"],
             extra_ops=tile_run["n_photons"] * OPS_PER_TILE_BIRTH),
-        "record_kernel_multi3": multi_head["bound"],
-        "record_kernel_lw": lw_head["bound"],
+        "record_kernel_multi3": multi_head["bound_first"],
+        "record_kernel_lw": lw_head["bound_first"],
         "col_kernel_radiance": out["col_le_head"]["bound"],
         "col_kernel_gas": out["gas"]["bound"],
         "col_kernel_lw": out["lw_landsat_head"]["bound"],
         "col_kernel_px": out["px_landsat"]["bound"],
-        "record_kernel_rpv": out["rpv_step"]["bound"],
-        "record_kernel_px": out["px_step"]["bound"],
+        "record_kernel_rpv": out["rpv_step"]["bound_first"],
+        "record_kernel_px": out["px_step"]["bound_first"],
         "col_walk": col_walk["bound"],
         "record_walk": rec_walk["bound"],
         "probe_gather": out["probes"]["probe_gather"]["bound"],
@@ -4705,8 +4655,8 @@ def main(argv=None) -> int:
         "replaces": "mcbrat3d_tpu/transport/pallas_kernel.py:712",
         "launches": out["launches"],
         "max_abs_err": out["max_err"],
-        "ms": head["kernel"]["ms_per_launch"],
-        "plain_ms": head["plain"]["ms_per_launch"],
+        "ms": head["kernel_ms_first"],
+        "plain_ms": head["plain_ms_first"],
     }, {
         "name": "record_kernel_radiance",
         "route": "cuda",
@@ -4723,7 +4673,7 @@ def main(argv=None) -> int:
         "replaces": "mcbrat3d_tpu/transport/pallas_col.py:280",
         "launches": out["col_launches"],
         "max_abs_err": out["col_max_err"],
-        "ms": col_head["refill"]["kernel_ms_per_launch"],
+        "ms": col_head["kernel_ms_per_launch"],
         "plain_ms": col_head["plain_ms_first"],
     }, {
         "name": "sep_kernel",
@@ -4732,7 +4682,7 @@ def main(argv=None) -> int:
         "replaces": "mcbrat3d_tpu/transport/pallas_sep.py:295",
         "launches": out["lw_deck"]["launches"],
         "max_abs_err": out["sep_max_err"],
-        "ms": sep_head["refill"]["kernel_ms_per_launch"],
+        "ms": sep_head["kernel_ms_per_launch"],
         "plain_ms": sep_head["plain_ms_first"],
     }, {
         "name": "tile_kernel",
@@ -4753,8 +4703,8 @@ def main(argv=None) -> int:
         "replaces": "mcbrat3d_tpu/transport/pallas_kernel.py:1296",
         "launches": out["multi_deck"]["launches"],
         "max_abs_err": out["env_max_err"],
-        "ms": multi_head["kernel_ms_per_launch"],
-        "plain_ms": multi_head["plain_ms_per_launch"],
+        "ms": multi_head["kernel_ms_first"],
+        "plain_ms": multi_head["plain_ms_first"],
     }, {
         # the same kernel's emission refill and pre-credits (K1-c):
         # launches on run/broadband_lw.nml, times on bench.py's
@@ -4765,8 +4715,8 @@ def main(argv=None) -> int:
         "replaces": "mcbrat3d_tpu/transport/pallas_kernel.py:897",
         "launches": out["lw_generic_deck"]["lw_launches"],
         "max_abs_err": out["lw_max_err"],
-        "ms": lw_head["kernel_ms_per_launch"],
-        "plain_ms": lw_head["plain_ms_per_launch"],
+        "ms": lw_head["kernel_ms_first"],
+        "plain_ms": lw_head["plain_ms_first"],
     }, {
         # the column kernel's local estimate (K3-d): launches on
         # run/landsat_radiance.nml, times on bench.py's
@@ -4821,8 +4771,8 @@ def main(argv=None) -> int:
         "replaces": "mcbrat3d_tpu/transport/pallas_kernel.py:1436",
         "launches": out["rpv_step"]["rpv_launches"],
         "max_abs_err": out["rpv_max_err"],
-        "ms": out["rpv_step"]["kernel_ms_per_launch"],
-        "plain_ms": out["rpv_step"]["plain_ms_per_launch"],
+        "ms": out["rpv_step"]["kernel_ms_first"],
+        "plain_ms": out["rpv_step"]["plain_ms_first"],
     }, {
         # the record kernel's per-pixel albedo (K1-d): launches on path D's
         # flux and radiance runs, times on its flux path (phase 3m)
@@ -4832,8 +4782,8 @@ def main(argv=None) -> int:
         "replaces": "mcbrat3d_tpu/transport/pallas_kernel.py:1436",
         "launches": out["px_step"]["px_launches"],
         "max_abs_err": out["k1_px_max_err"],
-        "ms": out["px_step"]["kernel_ms_per_launch"],
-        "plain_ms": out["px_step"]["plain_ms_per_launch"],
+        "ms": out["px_step"]["kernel_ms_first"],
+        "plain_ms": out["px_step"]["plain_ms_first"],
     }, {
         # the column kernel's walk kernel (K3-d's estimates, one thread per
         # (event, direction) pair, launched after each radiance launch):
@@ -4879,6 +4829,18 @@ def main(argv=None) -> int:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         # no single PyTorch call computes a transport step
         k.setdefault("library_ms", None)
+    # K1's flux paths on JAX's geometry in the same call (the kernels line
+    # gives their refill launches)
+    k1 = {"record_kernel": head, "record_kernel_multi3": multi_head,
+          "record_kernel_lw": lw_head, "record_kernel_rpv": out["rpv_step"],
+          "record_kernel_px": out["px_step"]}
+    print("K1 flux paths, kernel ms a launch (CUDA events) and launches a "
+          "batch: " + "; ".join(
+              f"{name} refill {r['kernel_ms_per_launch']:.4f} x "
+              f"{r['launches_per_batch']:.1f}, JAX's geometry "
+              f"{r['jax_kernel_ms_per_launch']:.4f} x "
+              f"{r['jax_launches_per_batch']:.1f}"
+              for name, r in k1.items()), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,12 +19,23 @@
 // estimator, optional contribution capping, and the tally at the exit
 // column.
 //
-// Design. One thread per photon lane; lane = blockIdx.x * 128 + threadIdx.x,
-// the TPU kernel's row * 128 + lane, so the counter-based uniforms (the
-// murmur3 mixer keyed by (lane, step * 256 + site, seed)) are the same
-// numbers the JAX kernel and the plain PyTorch step draw. A thread loads
-// its SoA state into registers, runs `k_steps` transport steps and writes
-// the state back. The record table ([n_cells, stride] f32) and the
+// Design. One thread per photon slot; lane = blockIdx.x * 128 + threadIdx.x
+// keys the counter-based uniforms (the murmur3 mixer keyed by (lane,
+// step * 256 + site, seed)) as the TPU kernel's row * 128 + lane does, so
+// the kernel and the plain PyTorch step draw the same numbers, and on the
+// JAX package's geometry the numbers of the JAX kernel. A thread loads its
+// SoA state into registers, runs `k_steps` transport steps, starting its
+// quota of photons one after another, and writes the state back; a slot
+// with no photon and no quota left stops. The flux path runs the refill
+// schedule (record_kernel.RefillSchedule): as many slots as the card holds
+// resident threads for the instantiation (record_kernel_occupancy), no
+// more than the batch's photons, launches of 4,096 steps under the host's
+// relaunch loop, where the JAX package ran 65,536 lanes (a quarter of the
+// card's threads) and 128-step launches with a host read-back after each;
+// the launch counters are int64 (2^18 slots x 8,192 steps reach 2^31
+// lane-steps). A radiance launch keeps the JAX package's geometry (at most
+// 4,096 lanes, 128 steps: its event queue holds lanes x steps records).
+// The record table ([n_cells, stride] f32) and the
 // inverse-CDF angle table are read with per-thread loads through L1/L2
 // (the step cloud's 1,024 x 6 floats stay cached). A domain of 2-3
 // components has 8-float records [beta, majorant, ssa_eff, cs_0, cs_1,
@@ -76,10 +87,11 @@
 // 128] lane blocks) are not carried over.
 //
 // What bounds it on this card: the latency of the dependent per-step math
-// (divisions, log1p, sqrt, sincos) and of the record gathers, with at most
-// 65,536 lanes in flight (a quarter of the H100's thread slots), plus
-// atomic contention on hot tally entries. It does no matrix work and
-// streams no large tiles, so wgmma and TMA do not apply.
+// (divisions, log1p, sqrt, sincos) and of the record gathers, with the
+// card's resident warps in flight (registers hold them there), plus atomic
+// contention on hot tally entries; at the end of a batch the slowest
+// slots' serial chains of steps. It does no matrix work and streams no
+// large tiles, so wgmma and TMA do not apply.
 //
 // Radiance (template flag LE), in two kernels. The transport kernel's LE
 // instantiation queues every event instead of estimating it: a scatter, a
@@ -408,7 +420,8 @@ record_steps(const float* __restrict__ prm,
              float* __restrict__ uys, float* __restrict__ uzs,
              float* __restrict__ ws, float* __restrict__ bls,
              int* __restrict__ quotas, int* __restrict__ alives,
-             float* __restrict__ acc, int* __restrict__ counts, Queue q,
+             float* __restrict__ acc,
+             unsigned long long* __restrict__ counts, Queue q,
              const float* __restrict__ em_prob,
              const float* __restrict__ em_alias,
              const float* __restrict__ alb, int n_lanes, int nx, int ny,
@@ -455,11 +468,13 @@ record_steps(const float* __restrict__ prm,
     const uint32_t ul = static_cast<uint32_t>(lane);
 
     for (int k = 0; k < k_steps; ++k) {
+      // a lane with no photon and no quota has no work left this launch
+      if (!alive && quota <= 0) break;
       const uint32_t ctr = step0 + static_cast<uint32_t>(k);
       // ---- refill a dead lane from the source (pallas_kernel.py
       // :897-1027) ----
       bool born = false, born_atm = false;
-      if (!alive && quota > 0) {
+      if (!alive) {
         born = true;
         float em_mu = 0.f;  // emission: mu of the birth
         if (src == SRC_EMISSION) {
@@ -535,7 +550,6 @@ record_steps(const float* __restrict__ prm,
         started += 1;
         if (MACRO) bl = beta_max;
       }
-      if (!alive) continue;
       steps += 1;
       if constexpr (LE) {
         // LW radiance: a newly emitted lane queues its emission local
@@ -732,7 +746,9 @@ record_steps(const float* __restrict__ prm,
     if (v != 0.f) atomicAdd(&acc[i], v);
   }
   for (int i = threadIdx.x; i < kCounts; i += blockDim.x) {
-    if (s_counts[i]) atomicAdd(&counts[i], s_counts[i]);
+    if (s_counts[i]) {
+      atomicAdd(&counts[i], static_cast<unsigned long long>(s_counts[i]));
+    }
   }
 }
 
@@ -748,7 +764,8 @@ record_walk(const float* __restrict__ prm, const float* __restrict__ beta,
             Queue q, const float* __restrict__ dirs,
             const float* __restrict__ fwd_v0,
             const float* __restrict__ fwd_dd, float* __restrict__ g_img,
-            float* __restrict__ g_exc, int* __restrict__ counts,
+            float* __restrict__ g_exc,
+            unsigned long long* __restrict__ counts,
             unsigned long long* __restrict__ g_march, LeArgs le, int nx,
             int ny, int nz, uint32_t seed) {
   extern __shared__ float s_walk_mem[];
@@ -808,22 +825,10 @@ record_walk(const float* __restrict__ prm, const float* __restrict__ beta,
   }
   if (threadIdx.x == 0) {
     if (s_march) atomicAdd(g_march, s_march);
-    if (s_cut) atomicAdd(&counts[4], s_cut);
+    if (s_cut) {
+      atomicAdd(&counts[4], static_cast<unsigned long long>(s_cut));
+    }
   }
-}
-
-// Blocks of a kernel resident on one SM with smem bytes of dynamic shared
-// memory (raising its opt-in past 48 KB first).
-template <typename Kernel>
-cudaError_t blocks_per_sm(Kernel kernel, size_t smem, int* blocks) {
-  if (smem > 47 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
-                                                       kThreads, smem);
 }
 
 // The tally layout of a launch of record_steps<MACRO, VOL, ANALYTIC, LE>:
@@ -842,8 +847,12 @@ cudaError_t tally_layout(int nxy, int n_acc, size_t* smem, int* vol_global) {
   if (nxy != last_nxy || n_acc != last_n_acc) {
     int whole = 0, split = 0;
     cudaError_t e = cudaSuccess;
-    if (*smem <= kMaxSmem) e = blocks_per_sm(kernel, *smem, &whole);
-    if (e == cudaSuccess) e = blocks_per_sm(kernel, cols, &split);
+    if (*smem <= kMaxSmem) {
+      e = mcb::smem_blocks(kernel, kThreads, *smem, &whole);
+    }
+    if (e == cudaSuccess) {
+      e = mcb::smem_blocks(kernel, kThreads, cols, &split);
+    }
     if (e != cudaSuccess) return e;
     last_nxy = nxy;
     last_n_acc = n_acc;
@@ -860,13 +869,14 @@ template <bool MACRO, bool VOL, bool ANALYTIC, bool LE>
 cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
                    const float* inv_dd, float* x, float* y, float* z,
                    float* ux, float* uy, float* uz, float* w, float* bl,
-                   int* quota, int* alive, float* acc, int* counts,
-                   const Queue& q, const float* em_prob,
-                   const float* em_alias, const float* alb, int n_lanes,
-                   int nx, int ny, int nz, int stride, int off_ssa,
-                   int off_f2, int inv_n_steps, int use_rr, int n_acc,
-                   uint32_t seed, uint32_t step0, int k_steps, int src,
-                   int ncomp, int lw, int surf, cudaStream_t stream) {
+                   int* quota, int* alive, float* acc,
+                   unsigned long long* counts, const Queue& q,
+                   const float* em_prob, const float* em_alias,
+                   const float* alb, int n_lanes, int nx, int ny, int nz,
+                   int stride, int off_ssa, int off_f2, int inv_n_steps,
+                   int use_rr, int n_acc, uint32_t seed, uint32_t step0,
+                   int k_steps, int src, int ncomp, int lw, int surf,
+                   cudaStream_t stream) {
   auto kernel = record_steps<MACRO, VOL, ANALYTIC, LE>;
   size_t smem = 0;
   int vol_global = 0;
@@ -890,44 +900,49 @@ cudaError_t launch(const float* prm, const float* rec, const float* inv_a0,
   return cudaGetLastError();
 }
 
-// Blocks of record_steps<MACRO, VOL, ANALYTIC, LE> resident on one SM
-// with smem bytes of dynamic shared memory (smem < 0: what a launch on
-// the tally of nxy columns and n_acc entries takes), or minus the CUDA
-// error; *smem_used the bytes.
+// The occupancy record (mcb::OCC_*) of record_steps<MACRO, VOL, ANALYTIC,
+// LE> with smem bytes of dynamic shared memory (smem < 0: what a launch on
+// the tally of nxy columns and n_acc entries takes).
 template <bool MACRO, bool VOL, bool ANALYTIC, bool LE>
-int occupancy(int smem, int nxy, int n_acc, int* smem_used) {
+cudaError_t occupancy(int smem, int nxy, int n_acc, int* out) {
   size_t bytes = static_cast<size_t>(smem);
   int vol_global = 0;
-  cudaError_t e = cudaSuccess;
   if (smem < 0) {
-    e = tally_layout<MACRO, VOL, ANALYTIC, LE>(nxy, n_acc, &bytes,
-                                               &vol_global);
+    const cudaError_t e = tally_layout<MACRO, VOL, ANALYTIC, LE>(
+        nxy, n_acc, &bytes, &vol_global);
+    if (e != cudaSuccess) return e;
   }
-  int per_sm = 0;
-  if (e == cudaSuccess) {
-    e = blocks_per_sm(record_steps<MACRO, VOL, ANALYTIC, LE>, bytes, &per_sm);
+  auto kernel = record_steps<MACRO, VOL, ANALYTIC, LE>;
+  if (bytes > 47 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
   }
-  *smem_used = static_cast<int>(bytes);
-  return e == cudaSuccess ? per_sm : -static_cast<int>(e);
+  return mcb::occupancy_record(kernel, kThreads, bytes, out);
 }
 
 }  // namespace
 
 extern "C" int record_kernel_num_params() { return N_PARAMS; }
 
-// Blocks of the transport kernel's (macro, vol, analytic, le) instantiation
-// that fit one SM with smem_bytes of dynamic shared memory (the occupancy
-// query; smem_bytes < 0: what a launch on a tally of nxy columns and n_acc
-// entries takes, written to *smem_used), or minus the CUDA error.
+// The occupancy record (mcb::OCC_*: blocks of 128 threads resident on one
+// SM, threads, dynamic shared memory, registers and spilled bytes a
+// thread, SMs) of the transport kernel's (macro, vol, analytic, le)
+// instantiation on the current card, with smem_bytes of dynamic shared
+// memory (smem_bytes < 0: the tally layout a launch on a tally of nxy
+// columns and n_acc entries takes). Returns 0 or the CUDA error.
 extern "C" int record_kernel_occupancy(int macro, int vol, int analytic,
                                        int le, int smem_bytes, int nxy,
-                                       int n_acc, int* smem_used) {
+                                       int n_acc, int* out) {
   const int i = (macro ? 8 : 0) + (vol ? 4 : 0) + (analytic ? 2 : 0) +
                 (le ? 1 : 0);
+  cudaError_t e;
   switch (i) {
 #define MCB_OCC(I, M, V, A, L) \
   case I:                     \
-    return occupancy<M, V, A, L>(smem_bytes, nxy, n_acc, smem_used);
+    e = occupancy<M, V, A, L>(smem_bytes, nxy, n_acc, out); \
+    break;
     MCB_OCC(0, false, false, false, false)
     MCB_OCC(1, false, false, false, true)
     MCB_OCC(2, false, false, true, false)
@@ -944,12 +959,11 @@ extern "C" int record_kernel_occupancy(int macro, int vol, int analytic,
     MCB_OCC(13, true, true, false, true)
     MCB_OCC(14, true, true, true, false)
     default:
-      return occupancy<true, true, true, true>(smem_bytes, nxy, n_acc,
-                                              smem_used);
+      e = occupancy<true, true, true, true>(smem_bytes, nxy, n_acc, out);
 #undef MCB_OCC
   }
+  return static_cast<int>(e);
 }
-
 
 // Advance every lane by k_steps transport steps, refilling from source kind
 // src (SRC_*; emission draws from the alias pair em_prob/em_alias over the
@@ -963,12 +977,14 @@ extern "C" int record_kernel_occupancy(int macro, int vol, int analytic,
 // radiance (n_dirs > 0), the local-estimate events into counts[5]; every
 // event is queued into the struct-of-arrays queue (qf [N_QF][cap], qi
 // [N_QI][cap]) after its fill qctl[0] is set to 0, and record_walk_launch
-// then computes the estimates. Returns cudaGetLastError().
+// then computes the estimates. The counters are int64 (a launch of 2^18
+// lanes x 8,192 steps reaches 2^31 lane-steps); a lane with no photon and
+// no quota stops stepping. Returns cudaGetLastError().
 extern "C" int record_kernel_launch(
     const float* prm, const float* rec, const float* inv_a0,
     const float* inv_dd, float* x, float* y, float* z, float* ux,
     float* uy, float* uz, float* w, float* bl, int* quota, int* alive,
-    float* acc, int* counts, float* qf, int* qi, int* qctl,
+    float* acc, unsigned long long* counts, float* qf, int* qi, int* qctl,
     const float* em_prob, const float* em_alias, const float* alb,
     int n_lanes, int nx, int ny, int nz, int stride, int off_ssa,
     int off_f2, int inv_n_steps, int use_rr, int n_acc, uint32_t seed,
@@ -1030,7 +1046,8 @@ extern "C" int record_kernel_launch(
 extern "C" int record_walk_launch(
     const float* prm, const float* beta, float* qf, int* qi, int* qctl,
     int cap, const float* dirs, const float* fwd_v0, const float* fwd_dd,
-    float* img, float* exc, int* counts, unsigned long long* march, int nx,
+    float* img, float* exc, unsigned long long* counts,
+    unsigned long long* march, int nx,
     int ny, int nz, uint32_t seed, int n_dirs, int le_phase, int fwd_n_s,
     int le_rr, int le_cap, int k_dda, int n_img, int n_exc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

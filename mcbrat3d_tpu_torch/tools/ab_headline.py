@@ -6,10 +6,14 @@ card, in turns: A, B, B, A.
 
 Each turn runs ``python3 chip_smoke.py --only 4`` from that checkout's root
 in its own process (so each builds its own kernels into its own
-``build/torch_kernels/``) and reads the ``headline kernel:`` and
-``headline plain:`` lines. Prints one line per turn and, last, a JSON
-object with the card (nvidia-smi name and power limit) and every turn's
-photons/s and ms per launch. Exits non-zero if a turn fails.
+``build/torch_kernels/``) and reads the ``headline kernel:`` line (a
+batch of 2^26 photons through run_batch_record_tallies) and the
+``headline plain first launch:`` line (the plain twin's first launch of
+the refill schedule). Prints one line per turn and, last, a JSON object
+with the card (nvidia-smi name and power limit) and every turn's
+photons/s and ms per launch. Exits non-zero if a turn fails, and refuses
+a checkout whose chip_smoke.py prints the older ``headline plain:`` line
+(the plain batch on JAX's geometry, not the same quantity).
 """
 
 import argparse
@@ -19,8 +23,10 @@ import subprocess
 import sys
 from pathlib import Path
 
-LINE = re.compile(r"headline (kernel|plain): (\d+) photons in ([\d.]+) s = "
-                  r"([\d.e+]+) photons/s, (\d+) launches, ([\d.]+) ms/launch")
+LINE = re.compile(r"headline (kernel|plain first launch): (\d+) photons in "
+                  r"([\d.]+) s = ([\d.e+]+) photons/s, (\d+) launches, "
+                  r"([\d.]+) ms/launch")
+OLD_PLAIN = re.compile(r"^headline plain: ", re.M)
 
 
 def turn(root: Path) -> dict:
@@ -30,11 +36,14 @@ def turn(root: Path) -> dict:
     if proc.returncode != 0:
         raise RuntimeError(f"{root}: chip_smoke.py --only 4 failed:\n"
                            f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    if OLD_PLAIN.search(proc.stdout):
+        raise RuntimeError(f"{root}: its headline plain line is the plain "
+                           "batch on JAX's geometry, not comparable")
     out = {}
     for m in LINE.finditer(proc.stdout):
-        out[m.group(1)] = dict(photons_per_s=float(m.group(4)),
-                               ms_per_launch=float(m.group(6)),
-                               launches=int(m.group(5)))
+        out[m.group(1).split()[0]] = dict(
+            photons_per_s=float(m.group(4)), ms_per_launch=float(m.group(6)),
+            launches=int(m.group(5)))
     if set(out) != {"kernel", "plain"}:
         raise RuntimeError(f"{root}: no headline lines in\n{proc.stdout}")
     return out

@@ -12,7 +12,9 @@ checkouts): the LW emission headline (bench.py:173-218, K1-c with the 3D
 tally, chip_smoke 4g), radar_scale with the 3D tally (bench.py:269-303),
 the 3-component headline (bench.py:150-170, the 3D tally on the 1,024-cell
 step cloud, chip_smoke 4f) and the flux headline (the column tally,
-chip_smoke 4), the control. Prints
+chip_smoke 4), the control, each on the refill schedule (so both
+checkouts' record kernels take ``run_batch_record_tallies(rcfg=)``).
+Prints
 one line per turn and, last, a JSON object with the card (nvidia-smi name
 and power limit) and every turn's numbers. Exits non-zero if a turn fails.
 """
@@ -45,7 +47,7 @@ def measure(root: Path) -> dict:
     from mcbrat3d_tpu_torch.sources import illumination
     from mcbrat3d_tpu_torch.spectral import weights
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
-    from mcbrat3d_tpu_torch.transport.integrator import KernelConfig, run_batch
+    from mcbrat3d_tpu_torch.transport.integrator import KernelConfig
 
     if not Path(rk.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {rk.__file__}, not {root}'s package")
@@ -58,28 +60,18 @@ def measure(root: Path) -> dict:
         build_domain=build_domain, weights=weights,
         illumination=illumination, Surface=Surface, planck=planck,
         make_step_cloud=make_step_cloud)
-    lw = cs.phase_lw_headline(rk, m, KernelConfig, run_batch, rng)
-    radar = cs.phase_radar_headline(rk, m, KernelConfig, run_batch, rng)
-    multi = cs.phase_multi_headline(rk, make_step_cloud_multi, Surface,
-                                    illumination, KernelConfig, run_batch,
-                                    rng)
-    flux = cs.phase_headline(rk, make_step_cloud, Surface, illumination,
-                             KernelConfig, rng)["kernel"]
-    out = dict(
-        lw_emission=dict(ms_per_launch=lw["kernel_ms_per_launch"],
-                         photons_per_s=lw["photons_per_s"],
-                         busy=lw["busy"], launches=lw["launches"]),
-        radar_scale=dict(ms_per_launch=radar["kernel_ms_per_launch"],
-                         photons_per_s=radar["photons_per_s"],
-                         busy=radar["busy"], launches=radar["launches"]),
-        multi3=dict(ms_per_launch=multi["kernel_ms_per_launch"],
-                    photons_per_s=multi["photons_per_s"],
-                    busy=multi["busy"], launches=multi["launches"]),
-        flux=dict(ms_per_launch=flux["ms_per_launch"],
-                  photons_per_s=flux["photons_per_s"],
-                  launches=flux["launches"]))
-    if hasattr(rk, "occupancy"):
-        out["occupancy"] = cs.vol_tally_occupancy(rk, m)
+    runs = dict(
+        lw_emission=cs.phase_lw_headline(rk, m, KernelConfig, rng),
+        radar_scale=cs.phase_radar_headline(rk, m, KernelConfig, rng),
+        multi3=cs.phase_multi_headline(rk, make_step_cloud_multi, Surface,
+                                       illumination, KernelConfig, rng),
+        flux=cs.phase_headline(rk, make_step_cloud, Surface, illumination,
+                               KernelConfig, rng))
+    out = {name: dict(ms_per_launch=r["kernel_ms_per_launch"],
+                      photons_per_s=r["photons_per_s"], busy=r["busy"],
+                      launches=r["launches_per_batch"])
+           for name, r in runs.items()}
+    out["occupancy"] = cs.vol_tally_occupancy(rk, m)
     return out
 
 

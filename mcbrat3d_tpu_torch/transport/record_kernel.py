@@ -40,6 +40,15 @@ Two implementations of one launch:
   marches every (event, direction) pair of the step's event buffer, in the
   queue's layout, at once.
 
+The flux path runs the refill schedule by default
+(``run_batch_record_tallies``, ``RefillSchedule``): as many slots as the
+card holds resident threads for the kernel's instantiation (``occupancy``,
+the occupancy query; ``PLAIN_SLOTS`` on the CPU), each starting its share
+of the batch's photons in the kernel, in launches of ``REFILL_STEPS`` steps
+under ``relaunch_loop``; ``jax_geometry`` gives the JAX package's 512 rows
+of 128 lanes and 128 steps a launch. Radiance runs keep the JAX package's
+geometry at most ``RADIANCE_ROWS`` rows.
+
 ``record_launch`` sends CUDA tensors to the kernel and CPU tensors to the
 plain step; there is no fallback between them. Both draw the same counter
 uniforms (``core.rng``), so for a given seed they follow the same photon
@@ -175,19 +184,19 @@ def config_for(n_lanes: int, photons_per_lane: int, max_steps: int,
 def jax_geometry(config) -> RecordConfig:
     """The JAX package's launch geometry for a ``KernelConfig`` (its
     ``config_for``: at most 512 rows of 128 lanes, 128 steps a launch, the
-    3D tally with ``config.need_volume_absorption``): what the column and
-    separable kernels' flux paths run when it is asked for, so that their
-    lanes carry the JAX kernels' photons."""
+    3D tally with ``config.need_volume_absorption``): what the record,
+    column and separable kernels' flux paths run when it is asked for, so
+    that their lanes carry the JAX kernels' photons."""
     return config_for(config.n_lanes, config.photons_per_lane,
                       config.max_steps,
                       vol_tally=config.need_volume_absorption)[0]
 
 
-# The flux schedule of the column and separable kernels (K3, K4): the
-# card's resident thread slots, each starting its quota of photons in the
-# kernel, under relaunch_loop at REFILL_STEPS steps a launch (chosen on the
-# card from 128-8,192: PERF.md). Where no occupancy query runs (the plain
-# twins on the CPU) the slots are JAX's 65,536 lanes.
+# The flux schedule of the record, column and separable kernels (K1, K3,
+# K4): the card's resident thread slots, each starting its quota of
+# photons in the kernel, under relaunch_loop at REFILL_STEPS steps a launch
+# (chosen on the card from 128-8,192: PERF.md). Where no occupancy query
+# runs (the plain twins on the CPU) the slots are JAX's 65,536 lanes.
 REFILL_STEPS = 4096
 PLAIN_SLOTS = 512 * LANES_PER_ROW
 
@@ -236,7 +245,8 @@ class RefillSchedule:
 
 def resolve_schedule(cfg, n_photons, photons_per_lane, occupancy,
                      device) -> tuple:
-    """(RecordConfig, photons per lane) of a column or separable batch.
+    """(RecordConfig, photons per lane) of a record, column or separable
+    batch.
 
     ``cfg`` is a ``RecordConfig`` (a launch geometry; ``photons_per_lane``
     defaults to what ``n_photons`` needs) or a ``RefillSchedule``, whose
@@ -797,7 +807,7 @@ def rpv_weight(rho0: float, k: float, theta: float, ux, uy, uz, mu_new,
 class RecordTally:
     """What a launch adds into: ``acc`` the flux tally [prm.n_acc] f32,
     ``img`` the radiance tally [max(1, prm.n_img)] f32, ``exc`` the capped
-    excess [max(1, prm.n_exc)] f32, ``counts`` int32 [photons started,
+    excess [max(1, prm.n_exc)] f32, ``counts`` int64 [photons started,
     lanes with work left, lane-steps run with a live photon, real
     collisions, radiance marches cut by the iteration bound, local-estimate
     events] (``relaunch_loop`` layout, the first four per launch),
@@ -827,7 +837,7 @@ class RecordTally:
             queue = le.EventQueue.empty(len(QUEUE_FLOATS), len(QUEUE_INTS),
                                         queue_capacity, dev)
         return RecordTally(acc=z(prm.n_acc), img=z(prm.n_img),
-                           exc=z(prm.n_exc), counts=z(N_COUNTS, torch.int32),
+                           exc=z(prm.n_exc), counts=z(N_COUNTS, torch.int64),
                            march=z(1, torch.int64), queue=queue)
 
 
@@ -894,7 +904,7 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     alive = alive | need
     quota = st.quota - need.to(torch.int32)
     started = need.sum()
-    tally.counts[2] += alive.sum().to(torch.int32)
+    tally.counts[2] += alive.sum()
     # LW radiance: a newly emitted photon contributes its emission local
     # estimate this step and moves from the next one (pallas_kernel.py:986)
     held = need if p.lw and p.n_dirs > 0 else None
@@ -973,7 +983,7 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
     # then carry the destination block's majorant
     ceiling = bl if macro else beta_max
     real = collide & (u(ctr, rng.SITE_COLLIDE) * ceiling < beta)
-    tally.counts[3] += real.sum().to(torch.int32)
+    tally.counts[3] += real.sum()
     if macro:
         bl = torch.where(moved, rec[:, 1], bl)
     absorbed = torch.where(real, w * (1.0 - ssa), 0.0)
@@ -1064,18 +1074,19 @@ def record_step_plain(st: RecordState, tab: RecordTables, prm: RecordParams,
                                  torch.int32)
             local_estimate_plain(tab, prm, seed, f, i, tally)
 
-    # ---- fused tally: one entry per lane (exit or absorption) ----
+    # ---- fused tally: one entry per lane (exit or absorption), the
+    # step's entries summed in float64 before the float32 add ----
     t_val = torch.where(exit_top, w, torch.where(exit_bot, w_down, absorbed))
     t_val = torch.where(exits | real, t_val, 0.0)
     t_idx = torch.where(exits, torch.where(exit_top, col_e, nxy + col_e),
                         2 * nxy + (cell if p.vol_tally else col_c))
-    acc.index_add_(0, t_idx.long(), t_val)
     if p.lw:
         # LW pre-credit: -1 at the birth cell of every atmospheric emission,
         # the lane's second tally this step (pallas_kernel.py:2189-2213)
         atm_emit = need & from_atm
-        acc.index_add_(0, (2 * nxy + birth[atm_emit]).long(),
-                       torch.full_like(x[atm_emit], -1.0))
+        t_idx = torch.cat([t_idx.long(), (2 * nxy + birth[atm_emit]).long()])
+        t_val = torch.cat([t_val, torch.full_like(x[atm_emit], -1.0)])
+    acc += level_sums(t_idx, t_val, acc.numel())
 
     st.x, st.y, st.z, st.ux, st.uy, st.uz, st.w, st.bl = (
         x, y, z, ux, uy, uz, w, bl)
@@ -1203,7 +1214,7 @@ def local_estimate_plain(tab: RecordTables, prm: RecordParams, seed: int,
     exy = y0 + torch.remainder((top_y + ddy * tb) - y0, ly)
     ex_col = (((exx - x0) * inv_dx).to(torch.int32).clamp(0, nx - 1) * ny
               + ((exy - y0) * inv_dy).to(torch.int32).clamp(0, ny - 1)).long()
-    tally.counts[4] += act.sum().to(torch.int32)
+    tally.counts[4] += act.sum()
     tally.march.add_(n_march)
     hit = ~act
     w_p = pairs(w_ev)
@@ -1235,14 +1246,18 @@ def record_launch_plain(st: RecordState, tab: RecordTables,
                         k_steps: int, tally: RecordTally) -> None:
     """``k_steps`` plain steps; adds [started, lanes with work left,
     lane-steps, real collisions, cut marches] into ``tally.counts`` -- the
-    contract of one kernel launch."""
+    contract of one kernel launch. Once no lane has a photon or quota the
+    remaining steps would change nothing, and are not run (as the kernel's
+    lanes stop)."""
     lane = torch.arange(st.x.shape[0], dtype=torch.int64, device=st.x.device)
     started = torch.zeros((), dtype=torch.int64, device=st.x.device)
     for k in range(k_steps):
+        if not ((st.alive > 0) | (st.quota > 0)).any():
+            break
         started = started + record_step_plain(st, tab, prm, lane, seed,
                                               step0 + k, tally)
     work = ((st.alive > 0) | (st.quota > 0)).sum()
-    tally.counts[:2] += torch.stack([started, work]).to(torch.int32)
+    tally.counts[:2] += torch.stack([started, work])
 
 
 # ---------------------------------------------------------------------------
@@ -1304,7 +1319,7 @@ def _launch_cuda(st: RecordState, tab: RecordTables, prm: RecordParams,
     _check(tab.inv_dd, "inv_dd", torch.float32, tab.inv_a0.numel(), dev)
     _check(prm.device_values, "params", torch.float32, N_PARAMS, dev)
     _check(tally.acc, "acc", torch.float32, prm.n_acc, dev)
-    _check(tally.counts, "counts", torch.int32, N_COUNTS, dev)
+    _check(tally.counts, "counts", torch.int64, N_COUNTS, dev)
     emission = SOURCE_KINDS[prm.source_kind] == illumination.EMISSION
     if emission:
         _check(tab.em_prob, "em_prob", torch.float32, n_cells, dev)
@@ -1366,7 +1381,7 @@ def _walk_cuda(tab: RecordTables, prm: RecordParams, seed: int,
         _check(tab.fwd_dd, "fwd_dd", torch.float32, tab.fwd_v0.numel(), dev)
     _check(tally.img, "img", torch.float32, prm.n_img, dev)
     _check(tally.exc, "exc", torch.float32, max(1, prm.n_exc), dev)
-    _check(tally.counts, "counts", torch.int32, N_COUNTS, dev)
+    _check(tally.counts, "counts", torch.int64, N_COUNTS, dev)
     _check(tally.march, "march", torch.int64, 1, dev)
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1384,20 +1399,23 @@ def _walk_cuda(tab: RecordTables, prm: RecordParams, seed: int,
         raise RuntimeError(f"record_walk launch failed: CUDA error {err}")
 
 
-def occupancy(prm: RecordParams, smem_bytes: Optional[int] = None) -> tuple:
-    """(blocks of 128 threads resident on one SM, dynamic shared-memory
-    bytes) of the transport kernel's instantiation for ``prm`` on the
-    current card: with ``smem_bytes`` as given, by default what a launch
-    takes (the whole tally in shared memory, or the flux columns alone
-    where a block's copy of the 3D tally would cost blocks an SM)."""
-    used = ctypes.c_int(0)
-    blocks = _library().record_kernel_occupancy(
+def occupancy(prm: RecordParams, smem_bytes: Optional[int] = None) -> dict:
+    """The transport kernel's occupancy record (``OCCUPANCY_KEYS``: blocks
+    of 128 threads resident on one SM, threads, dynamic shared memory,
+    registers, spilled bytes, SMs) for ``prm``'s instantiation on the
+    current card: with ``smem_bytes`` of dynamic shared memory as given, by
+    default the tally layout a launch takes (the whole tally in shared
+    memory, or the flux columns alone where a block's copy of the 3D tally
+    would cost blocks an SM)."""
+    out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    err = _library().record_kernel_occupancy(
         int(prm.macro_factor > 0), int(prm.vol_tally), int(prm.analytic_hg),
         int(prm.n_dirs > 0), -1 if smem_bytes is None else int(smem_bytes),
-        prm.nx * prm.ny, prm.n_acc, ctypes.byref(used))
-    if blocks < 0:
-        raise RuntimeError(f"occupancy query failed: CUDA error {-blocks}")
-    return blocks, used.value
+        prm.nx * prm.ny, prm.n_acc, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"record_kernel occupancy query failed: CUDA "
+                           f"error {err}")
+    return dict(zip(OCCUPANCY_KEYS, out))
 
 
 def record_launch(st: RecordState, tab: RecordTables, prm: RecordParams,
@@ -1429,11 +1447,9 @@ def relaunch_loop(st, counts: torch.Tensor, launch_steps,
     left or at ``max_steps``.
 
     ``st`` is the state (its int32 ``quota`` is rebound), ``counts`` the
-    launch counters [started, work left, lane-steps with a live photon,
-    real collisions (``n_per_launch`` = 4), ...] (int32 for the record
-    kernel's launches of 65,536 lanes x 128 steps, int64 for the refill
-    schedules of the column, separable and tiled kernels); the first
-    ``n_per_launch`` are zeroed before each launch, so none overflows.
+    int64 launch counters [started, work left, lane-steps with a live
+    photon, real collisions (``n_per_launch`` = 4), ...]; the first
+    ``n_per_launch`` are zeroed before each launch.
     Returns (photons started, launches, lane-steps with a live photon,
     real collisions or 0)."""
     n_lanes = st.quota.shape[0]
@@ -1458,13 +1474,14 @@ def relaunch_loop(st, counts: torch.Tensor, launch_steps,
 
 def level_sums(level: torch.Tensor, value: torch.Tensor,
                n: int) -> torch.Tensor:
-    """One step's ``value`` summed by ``level`` (n levels), in float64 and
-    returned as float32: what a plain step adds into a z-profile tally
-    once. Added lane by lane, each value would round against a float32
-    level total that, on a batch of 2^20 photons, makes a lane's
-    absorption a few ulps: the Landsat headline's batch lost 1.6e-3 of a
-    level that way (chip_smoke.py 4c on an H100). The kernels sum a
-    block's share in shared memory first."""
+    """One step's ``value`` summed by ``level`` (n levels or tally
+    entries), in float64 and returned as float32: what a plain step adds
+    into a z-profile tally (K3, K4) or its whole tally (K1) once. Added
+    lane by lane, each value would round against a float32 total that, on
+    a batch of 2^20 photons, makes a lane's absorption a few ulps: the
+    Landsat headline's batch lost 1.6e-3 of a level that way (chip_smoke.py
+    4c on an H100), and K1's 32 step-cloud columns ~2e-5 of theirs. The
+    kernels sum a block's share in shared memory first."""
     sums = torch.zeros(n, dtype=torch.float64, device=value.device)
     return sums.index_add_(0, level.long(), value.double()).float()
 
@@ -1490,15 +1507,20 @@ def initial_quota(n_lanes: int, photons_per_lane: int, n_photons,
 def _record_batch(domain, surface, source, seed, rcfg, photons_per_lane,
                   n_photons, use_russian_roulette, russian_roulette_weight,
                   launch, intensity_config, intensity_dirs, lw_mode):
-    """``run_batch_record``'s tuple, the lane-steps with a live photon, the
-    real collisions and the local estimate's (events, march
-    iterations)."""
+    """``run_batch_record``'s tuple, the launch geometry it ran, the
+    lane-steps with a live photon, the real collisions and the local
+    estimate's (events, march iterations). ``rcfg`` is a launch geometry
+    (``RecordConfig``) or a ``RefillSchedule`` (``resolve_schedule``)."""
     dev = domain.device
     prm = RecordParams.make(domain, surface, source, use_russian_roulette,
                             russian_roulette_weight, rcfg.vol_tally,
                             intensity_config, intensity_dirs, lw_mode)
     tab = RecordTables.from_domain(domain, intensity_config, intensity_dirs,
                                    source, surface)
+    # the slots of a refill schedule from the device the state lives on,
+    # so that the kernel and the plain twin run the same slots
+    rcfg, photons_per_lane = resolve_schedule(
+        rcfg, n_photons, photons_per_lane, lambda: occupancy(prm), dev)
     quota0 = initial_quota(rcfg.n_lanes, photons_per_lane, n_photons, dev)
     st = RecordState.initial(quota0, prm[P_BETA_MAX])
     k = rcfg.steps_per_call
@@ -1521,15 +1543,15 @@ def _record_batch(domain, surface, source, seed, rcfg, photons_per_lane,
     out = (flux_up, flux_down, absorbed, n_started, n_bad, n_calls)
     le_counts = (int(tally.counts[5]), int(tally.march))
     if not prm.n_dirs:
-        return out, lane_steps, n_real, le_counts
+        return out, rcfg, lane_steps, n_real, le_counts
     img = tally.img[:prm.n_img].reshape(prm.n_sec, prm.n_dirs, nxy)
     if prm.le_cap:
         excess = tally.exc.reshape(prm.n_sec, prm.n_dirs).T
         image = le.redistribute_excess(img.sum(dim=0), img, excess)
     else:
         image = img[0]
-    return (out + (image.T.reshape(nx, ny, prm.n_dirs), n_cut), lane_steps,
-            n_real, le_counts)
+    return (out + (image.T.reshape(nx, ny, prm.n_dirs), n_cut), rcfg,
+            lane_steps, n_real, le_counts)
 
 
 def run_batch_record(domain: OpticalDomain, surface: Surface,
@@ -1562,24 +1584,36 @@ def run_batch_record(domain: OpticalDomain, surface: Surface,
 def run_batch_record_tallies(domain, surface, source, seed: int, config,
                              n_photons=None, launch=record_launch,
                              intensity_config=None, intensity_dirs=None,
-                             radiance_rows: int = RADIANCE_ROWS):
+                             radiance_rows: int = RADIANCE_ROWS, rcfg=None):
     """``run_batch``-compatible entry (port of ``run_batch_pallas_tallies``):
-    returns a ``transport.integrator.Tallies``. A radiance run uses at most
-    ``radiance_rows`` rows of 128 lanes and folds the rest of the batch
-    into per-lane quota (pallas_kernel.py:3278-3291)."""
+    returns a ``transport.integrator.Tallies``. A flux run takes the refill
+    schedule by default (``RefillSchedule``: the card's resident slots,
+    launches of ``REFILL_STEPS`` steps, ``config.max_steps`` rounded up to
+    whole launches), or the launch geometry ``rcfg`` (``jax_geometry(config)``
+    is the JAX package's: at most 512 rows of 128 lanes, 128 steps a launch,
+    so that its lanes carry the JAX kernel's photons); the tally layout is
+    ``config``'s choice whatever ``rcfg`` says. A radiance run takes the
+    JAX package's geometry at most ``radiance_rows`` rows of 128 lanes and
+    folds the rest of the batch into per-lane quota
+    (pallas_kernel.py:3278-3291)."""
     # absorption per column unless the 3D field or its profile is wanted,
     # or lw_mode pre-credits the births (pallas_kernel.py:3272-3277)
     vol = (config.need_volume_absorption or config.need_absorption_profile
            or config.lw_mode)
-    rcfg, ppl = config_for(config.n_lanes, config.photons_per_lane,
-                           config.max_steps, vol_tally=vol)
+    ppl = None
     if intensity_config is not None:
+        rcfg, _ = config_for(config.n_lanes, config.photons_per_lane,
+                             config.max_steps, vol_tally=vol)
         rows = min(rcfg.rows, radiance_rows)
         ppl = -(-config.photons_per_batch // (rows * LANES_PER_ROW))
         rcfg = dataclasses.replace(rcfg, rows=rows)
+    elif rcfg is None:
+        rcfg = RefillSchedule(config.max_steps, vol_tally=vol)
+    else:
+        rcfg = dataclasses.replace(rcfg, vol_tally=vol)
     if n_photons is None:
         n_photons = config.photons_per_batch
-    out, lane_steps, n_real, (n_events, n_march) = _record_batch(
+    out, rcfg, lane_steps, n_real, (n_events, n_march) = _record_batch(
         domain, surface, source, seed, rcfg, ppl, n_photons,
         config.use_russian_roulette, config.russian_roulette_weight,
         launch, intensity_config, intensity_dirs, config.lw_mode)

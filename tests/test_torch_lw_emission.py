@@ -428,19 +428,29 @@ def test_run_broadband_generic_path_matches_jax(deck_cut, monkeypatch):
     with K1 in interpret mode, photon for photon: every bin takes the
     generic build and the per-voxel source (below MAX_CELLS neither
     package probes the plan), the port's batches take the seeds the JAX
-    kernel folds from its batch keys, and both launch 32 steps at a time.
-    Bounds: the total flux and the schedule exactly; the domain means of
-    flux up and down within 2^-9 relative, net absorption per column and
-    its profile within 1e-4 of the largest magnitude (the bounds of
-    tests/test_torch_broadband.py's test_run_broadband_matches_jax)."""
+    kernel folds from its batch keys, and both run the JAX package's
+    launch geometry (the port's by rk.jax_geometry, not its refill
+    schedule), 32 steps at a time. Bounds: the total flux and the schedule
+    exactly; the domain means of flux up and down within 2^-9 relative,
+    net absorption per column and its profile within 1e-4 of the largest
+    magnitude (the bounds of tests/test_torch_broadband.py's
+    test_run_broadband_matches_jax)."""
     def steps32(config_for):
         def cut(*args, **kwargs):
             cfg, ppl = config_for(*args, **kwargs)
             return dataclasses.replace(cfg, steps_per_call=32), ppl
         return cut
 
+    def jax_geometry32(tallies):
+        def run(*args, **kwargs):
+            cfg = dataclasses.replace(rk.jax_geometry(args[4]),
+                                      steps_per_call=32)
+            return tallies(*args, rcfg=cfg, **kwargs)
+        return run
+
     monkeypatch.setattr(jpk, "config_for", steps32(jpk.config_for))
-    monkeypatch.setattr(rk, "config_for", steps32(rk.config_for))
+    monkeypatch.setattr(rk, "run_batch_record_tallies",
+                        jax_geometry32(rk.run_batch_record_tallies))
     monkeypatch.setattr(broadband.rng, "batch_seed", _folded_batch_seed)
     monkeypatch.setattr(
         jbb, "run_batch",
