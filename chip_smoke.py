@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py [--only PHASE,...]
 
-Phases, each asserting; any failure exits non-zero:
+Phases, each asserting; any failure exits non-zero. The kernel-against-
+plain phases 2-2j run in COMPARE_WORKERS processes started together once
+the kernels are built (their plain steps are host-bound), each printed
+when all have ended; the rest run one after another in this process,
+alone on the card:
 
 1. print the card (nvidia-smi name and power limit) and build the CUDA
    record, column, separable and tiled kernels (the record and column
@@ -238,6 +242,30 @@ Phases, each asserting; any failure exits non-zero:
    flux's columns or the 6 radiances within 4.5 combined sigma of values
    frozen from the JAX package's XLA path; then the per-pixel flux path
    as 3l's;
+3n. the broadband-SW deck through the command line: the port's
+   tools/sw_inputs.py writes common_sw.nc, ssp_solar.nc and solar.nc
+   (bench.py:576-650's scene: 16 bins at 0.4-1.0 um, 32 x 32 x 32 cells,
+   cloud water and Rayleigh, 9,001 CDF steps) into a temporary directory,
+   then run/broadband_sw.nml (16 x 262,144 photons) on cuda: every bin on
+   the record kernel, no batch on the wave kernel, no plain step, n_bad ==
+   0, flux and netCDF files written, the incident flux equal to the JAX
+   package's and the domain-mean fluxes within 4.5 combined sigma of its
+   frozen values (tools/wave_reference.py sw); prints the wall clock split
+   into setup, the later bins' host builds and the rest, and K1's
+   launches; then the deck's bin 0 (2 components, 9,001-step phase rows)
+   built as run_broadband builds it, its first refill launch of 2^18
+   photons K1 against its plain twin;
+3o. the wave kernel (plain PyTorch, the JAX package's XLA path) on cuda:
+   one 2^20-photon batch of run/step_cloud_mono.nml's step cloud on it and
+   on K1 through run_batch (ms a wave step, photons/s of each); then
+   through the command line the deck with usePallas = 'off' (as many
+   batches of 2^20 as fit in about 60 s), the step cloud with
+   useRayTracing and numRecScatOrd = 3 (2 x 2^18 photons, its auxhist01
+   file) and run/step_cloud_radiance.nml with one direction at mu 0.1 (2
+   x 16,384), each deck's wave steps and ms a step: no kernel launched,
+   every batch on the wave kernel, n_bad == 0, R/T/A (and the fluxes by order, the radiance) within 4.5 combined
+   sigma of values frozen from the JAX package's XLA path
+   (tools/wave_reference.py step, rt, rad);
 4. the flux headline (macro_factor 16, 2^16 lanes x 1024 photons, flux
    tallies only, through run_batch_record_tallies): the A/B of the refill
    schedule (run_batch's) and JAX's geometry in turns (refill, JAX, JAX,
@@ -311,7 +339,8 @@ Phases, each asserting; any failure exits non-zero:
 Prints the card line, then one JSON line describing each kernel (with its
 time, the least time the card could take for the same work and what bounds
 that), then the final JSON status line. ``--only`` runs a subset of the phases (1 always
-runs) and prints no result lines.
+runs) and prints no result lines; with ``--out-json PATH`` (how a compare
+worker is started) it writes the phases' results to PATH.
 """
 
 import contextlib
@@ -511,6 +540,44 @@ DENSE_DECK_MAX_BAD = 16
 JAX_MULTI3_RTA = (0.2938315160572529, 0.10033707739785314,
                   0.6058054529130459)
 JAX_MULTI3_RTA_SE = (2.32650321e-04, 1.21101785e-04, 2.88821516e-04)
+# run/broadband_sw.nml (bench.py:576-650's scene from
+# mcbrat3d_tpu_torch/tools/sw_inputs.py: 16 bins, 32 x 32 x 32 cells, cloud
+# water and Rayleigh, 9,001 CDF steps) from the JAX package on the CPU with
+# usePallas = 'off' (its XLA wave kernel, threefry streams, independent of
+# the port's kernels): tools/wave_reference.py sw, 16 unchanged runs of the
+# deck with 16,384 photons each (nLanes 2,048, iseed 100-115); the domain-mean
+# up, down and absorbed flux, their standard errors over the runs, and the
+# incident flux that scales them (deterministic).
+JAX_SW = (93.96829697485768, 99.93653854053916, 12.313683640720386)
+JAX_SW_SE = (0.199601199, 0.198697789, 0.0113732373)
+JAX_SW_TOTAL_FLUX = 206.2188826054112
+# The step cloud of run/step_cloud_mono.nml (the file of `mkdomain
+# step_cloud StepCloud.dom ssa=0.99 n_legendre=512`, 10,001 CDF steps,
+# macro factor 8) on the JAX package's XLA wave kernel on the CPU
+# (tools/wave_reference.py): ``step`` the deck (R, T, A; 32 batches of
+# 16,384 photons, seed 16), ``rt`` with useRayTracing and numRecScatOrd = 3
+# (R, T, A, the domain-mean up flux of orders 0-2 and the overflow, then
+# the down flux's; 16 batches of 8,192, seed 17), ``rad``
+# run/step_cloud_radiance.nml with one direction at mu 0.1 (R, T, A and the
+# domain-mean radiance; 16 batches of 4,096, seed 18); means and standard
+# errors over batches.
+JAX_WAVE_STEP = (0.4770482499152422, 0.32438609562814236,
+                 0.19845135835930705)
+JAX_WAVE_STEP_SE = (0.000553607139, 0.000525647394, 0.00021271404)
+JAX_WAVE_RT = (0.4771347641944885, 0.32405420392751694, 0.19860131293535233,
+               0.0, 0.026428296372614568, 0.02604437620357203,
+               0.4246621649945155, 0.0, 0.002409439090115484,
+               0.007290630721399793, 0.3143541438621469)
+JAX_WAVE_RT_SE = (0.00111847286, 0.00110267872, 0.000318644933, 0.0,
+                  0.000431338604, 0.000397213096, 0.00102939422, 0.0,
+                  0.000190910744, 0.000188685832, 0.000929704079)
+JAX_WAVE_RAD = (0.4786494877189398, 0.3231675662100315, 0.19812197610735893,
+                0.6656596236280166)
+JAX_WAVE_RAD_SE = (0.00216906272, 0.00192910139, 0.000549273439,
+                   0.0117856575)
+# Phase 3o's wall seconds for the step-cloud deck on the wave kernel,
+# sized by one timed batch.
+WAVE_DECK_SECONDS = 60.0
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): device
 # memory bytes/s and float32 operations/s outside
 # the tensor cores.
@@ -780,15 +847,19 @@ STEP_CLOUD_DOMAIN = ("step_cloud", "StepCloud.dom", "ssa=0.99",
 
 
 def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
-                  sk=None, tk=None):
+                  sk=None, tk=None, kernel=True):
     """mkdomain (unless ``domain`` is None) + run a deck through the CLI on
     cuda in the current directory; returns the JSON line, the seconds and
     the launches of the run (record kernel, its radiance launches, column
     kernel, separable kernel, tiled kernel, record-kernel launches with the
     emission refill, column-kernel launches with the local estimate, the
     record kernel's and the column kernel's walk kernels), and asserts
-    that no plain step ran. Every count is set to 0 just before the run
+    that no plain step ran and (``kernel``) that a kernel launched and no
+    batch ran on the wave kernel. Every
+    count, the wave kernel's batches too, is set to 0 just before the run
     and read just after it."""
+    from mcbrat3d_tpu_torch.transport import integrator
+
     Path("deck.nml").write_text(deck_text)
     if domain is not None:
         assert cli.main(["mkdomain", *domain]) == 0
@@ -819,6 +890,7 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
         sk.SEP_LAUNCHES = 0
     if tk is not None:
         tk.TILE_LAUNCHES = 0
+    integrator.WAVE_BATCHES = 0
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
@@ -835,10 +907,14 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
                 rk.WALK_LAUNCHES,
                 ck.COL_WALK_LAUNCHES if ck is not None else 0)
     assert rc == 0
-    assert launches[0] + sum(launches[2:5]) > 0, "the deck launched no kernel"
+    assert not kernel or launches[0] + sum(launches[2:5]) > 0, \
+        "the deck launched no kernel"
     assert not plain_steps, "the deck ran a plain PyTorch step"
-    return json.loads(buf.getvalue().strip().splitlines()[-1]), seconds, \
-        launches
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert integrator.WAVE_BATCHES == out["launches"]["wave_kernel_batches"]
+    assert not kernel or out["launches"]["wave_kernel_batches"] == 0, \
+        "a batch of the deck left the hand-written kernels"
+    return out, seconds, launches
 
 
 def phase_main_path(rk, cli):
@@ -4327,10 +4403,352 @@ def phase_probes(probes):
     return line
 
 
+def phase_sw_deck(rk, ck, sk, tk, cli, write_sw_broadband_inputs):
+    """3n: run/broadband_sw.nml at full width through the CLI on cuda, on
+    the inputs of mcbrat3d_tpu_torch/tools/sw_inputs.py (16 bins, 16 x
+    262,144 photons): every bin on the record kernel (2 components, the
+    directional beam), no batch on the wave kernel, no plain step, n_bad
+    0, flux and netCDF files written; the incident flux equal to the JAX
+    package's and the domain-mean fluxes within 4.5 combined sigma of its
+    frozen values."""
+    deck = (ROOT / "run" / "broadband_sw.nml").read_text()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            write_sw_broadband_inputs(".")
+            gen_s = time.perf_counter() - t0
+            out, seconds, launches = _run_cli_deck(
+                cli, rk, deck, ck=ck, domain=None, sk=sk, tk=tk)
+            for f in ("SW_flux.out", "SW_results.nc"):
+                assert (tmp / f).stat().st_size > 0, f
+            means, se, flux = _flux_file_means(tmp / "SW_flux.out")
+            first = _sw_first_bin_launch(rk)
+        finally:
+            os.chdir(cwd)
+    n, wave = out["total_photons"], out["launches"]["wave_kernel_batches"]
+    transport_s = (out["elapsed_seconds"] - out["setup_seconds"]
+                   - out["build_seconds"])
+    print(f"SW deck: inputs written in {gen_s:.2f} s; {n} photons in "
+          f"{out['n_batches']} batches, n_bad={out['n_bad']}, up/down/"
+          f"absorbed={means} +- {se}, incident flux {flux!r}; CLI "
+          f"{seconds:.2f} s (run {out['elapsed_seconds']} s: setup "
+          f"{out['setup_seconds']} s before the first transport, later bins' "
+          f"host builds {out['build_seconds']} s, transport and the rest "
+          f"{transport_s:.3f} s), K1 launches {launches[0]}, launches "
+          f"record/radiance/column/separable/tiled/emission {launches[:6]}, "
+          f"wave-kernel batches {wave}; JAX package {JAX_SW} +- {JAX_SW_SE}, "
+          f"incident flux {JAX_SW_TOTAL_FLUX!r}", flush=True)
+    assert n == 16 * 262_144 and out["n_bad"] == 0, (n, out["n_bad"])
+    assert wave == 0, wave
+    assert launches[0] >= out["n_batches"] > 0, launches
+    assert sum(launches[1:6]) == 0, launches
+    assert abs(flux / JAX_SW_TOTAL_FLUX - 1.0) < 1e-12, flux
+    worst = _within_sigma(means, se, JAX_SW, JAX_SW_SE,
+                          ("up", "down", "absorbed"))
+    return dict(launches=launches[0], seconds=seconds, out=out,
+                transport_s=transport_s, worst=worst, first=first)
+
+
+SW_FIRST_PHOTONS = 1 << 18
+
+
+def _sw_first_bin_launch(rk):
+    """The deck's first bin as run_broadband builds it (components_from_ssp,
+    build_domain with the deck's 9,001 CDF steps; 2 components on 32^3
+    cells), from the inputs in the current directory on cuda: the first
+    refill launch of a SW_FIRST_PHOTONS-photon batch on the resident
+    slots, K1 against its plain twin (``_first_launch``: equal photons,
+    steps, lane-steps and n_bad, columns and the 3D field within
+    RECORD_COLUMN_TOL_KERNEL_VS_PLAIN)."""
+    from mcbrat3d_tpu_torch.core import rng
+    from mcbrat3d_tpu_torch.domain.common import read_common
+    from mcbrat3d_tpu_torch.domain.domain import build_domain
+    from mcbrat3d_tpu_torch.domain.ssp import (components_from_ssp,
+                                               read_ssp_table)
+    from mcbrat3d_tpu_torch.driver import config
+    from mcbrat3d_tpu_torch.driver.run import kernel_config_from
+    from mcbrat3d_tpu_torch.physics.surface import Surface
+    from mcbrat3d_tpu_torch.sources import illumination
+    from mcbrat3d_tpu_torch.transport.integrator import select_kernel
+
+    cfg = config.load_config("deck.nml")
+    common = read_common(cfg.phys_domain_file, device="cuda")
+    ssp = [read_ssp_table(f) for f in cfg.ssp_file_names if f]
+    comps, albedo, lam_um = components_from_ssp(
+        common, ssp, 0, setup=False, calc_rayleigh=cfg.calc_rayleigh)
+    dom = build_domain(common.grid, comps, n_cdf_steps=cfg.n_phase_intervals,
+                       temps=common.temps, macro_factor=cfg.macro_factor,
+                       lambda_um=lam_um)
+    sfc = Surface.lambertian(albedo, temperature=cfg.surface_temp,
+                             emissivity=1.0 - albedo)
+    src = illumination.directional(cfg.solar_mu, cfg.solar_azimuth)
+    kcfg = kernel_config_from(cfg)
+    assert select_kernel(dom, sfc, src, kcfg)[0] == "record"
+    assert dom.n_components == 2, dom.n_components
+    assert dom.tables.inverse.shape[1] == cfg.n_phase_intervals == 9001
+    vol = (kcfg.need_volume_absorption or kcfg.need_absorption_profile
+           or kcfg.lw_mode)
+    prm = rk.RecordParams.make(dom, sfc, src, kcfg.use_russian_roulette,
+                               kcfg.russian_roulette_weight, vol,
+                               lw_mode=kcfg.lw_mode)
+    slots = _occupancy_line("SW deck bin 0 (record_steps)", rk.occupancy(prm))
+    seed = rng.batch_seed(cfg.iseed, 0)
+
+    def run_one(launch):
+        one = rk.RefillSchedule(rk.REFILL_STEPS, vol_tally=vol,
+                                resident=slots)
+        return rk.run_batch_record_tallies(
+            dom, sfc, src, seed, kcfg, n_photons=SW_FIRST_PHOTONS,
+            launch=launch or rk.record_launch, rcfg=one)
+
+    run_one(None)  # warm-up
+    res = _first_launch(rk, rk.record_launch_plain, run_one,
+                        RECORD_COLUMN_TOL_KERNEL_VS_PLAIN)
+    t = res.pop("tallies")
+    print(f"SW deck bin 0 ({lam_um:.4g} um, {dom.tables.inverse.shape[0]} "
+          f"phase rows of {dom.tables.inverse.shape[1]} steps), first refill "
+          f"launch of {SW_FIRST_PHOTONS} photons: kernel "
+          f"{res['kernel_ms_first']:.4f} ms, plain "
+          f"{res['plain_ms_first']:.4f} ms, {t.n_photons} photons done, "
+          f"n_bad {t.n_bad}", flush=True)
+    return res
+
+
+def _with_batches(text, n):
+    return re.sub(r"numBatches = \d+", f"numBatches = {n}", text)
+
+
+def _wave_deck(cli, rk, ck, sk, tk, text, n):
+    """A deck that runs on the wave kernel, with ``n`` batches, through the
+    CLI on cuda in the current directory (its domain file already there).
+    Asserts no kernel launched, every batch on the wave kernel and n_bad
+    0; returns the JSON line, the seconds, the flux file's means and
+    errors, and the wave batches' steps and seconds (each batch timed
+    between synchronizations of the card)."""
+    import torch
+
+    from mcbrat3d_tpu_torch.transport import integrator
+
+    wave, steps, wave_s = integrator.run_wave_kernel, [], []
+
+    def timed_wave(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = wave(*args, **kwargs)
+        torch.cuda.synchronize()
+        wave_s.append(time.perf_counter() - t0)
+        steps.append(int(t.n_steps))
+        return t
+
+    integrator.run_wave_kernel = timed_wave
+    try:
+        out, seconds, launches = _run_cli_deck(
+            cli, rk, _with_batches(text, n), ck=ck, domain=None, sk=sk,
+            tk=tk, kernel=False)
+    finally:
+        integrator.run_wave_kernel = wave
+    assert sum(launches) == 0, launches
+    assert len(steps) == n, (len(steps), n)
+    assert out["launches"]["wave_kernel_batches"] == n == out["n_batches"]
+    assert out["n_bad"] == 0, out["n_bad"]
+    path = re.search(r"outputFluxFile = '([^']+)'", text).group(1)
+    means, se, _ = _flux_file_means(path)
+    return out, seconds, list(means), list(se), sum(steps), sum(wave_s)
+
+
+def phase_wave_kernel(rk, ck, sk, tk, cli, io_netcdf, build_domain, Surface,
+                      illumination, config, integrator, rng):
+    """3o: the wave kernel (plain PyTorch, the JAX package's XLA path) on
+    the card. First one 2^20-photon batch of run/step_cloud_mono.nml's step
+    cloud on the wave kernel and on K1 (median of 3) through run_batch,
+    each timed around a synchronized call: the wave kernel's ms a step and
+    photons/s against K1's. Then through the CLI: the deck with usePallas
+    = 'off' at its grid and numPhotonsPerBatch (2^20), as many batches as
+    that batch's time fits in WAVE_DECK_SECONDS (2-16); the step cloud with
+    useRayTracing and numRecScatOrd = 3 ('auto': no kernel takes it), 2 x
+    2^18 photons, with its auxhist01 file; run/step_cloud_radiance.nml
+    with its one direction at mu 0.1 (below every kernel's mu floor), 2 x
+    16,384 photons; each deck's wave steps and ms a step. No kernel
+    launched, every batch on the wave kernel,
+    n_bad 0, R, T, A (and the fluxes by order, the radiance) within 4.5
+    combined sigma of the JAX package's frozen values."""
+    import dataclasses
+
+    import torch
+
+    from mcbrat3d_tpu_torch.driver.run import kernel_config_from
+
+    mono = (ROOT / "run" / "step_cloud_mono.nml").read_text()
+    step_deck = mono.replace("&algorithms", "&algorithms\n  usePallas = 'off'")
+    rt_deck = (mono.replace("useRayTracing = .false.",
+                            "useRayTracing = .true.")
+               .replace("numPhotonsPerBatch = 1048576",
+                        "numPhotonsPerBatch = 262144")
+               .replace("reportVolumeAbsorption = .true.",
+                        "reportVolumeAbsorption = .true.\n  recScatOrd = "
+                        ".true.\n  numRecScatOrd = 3\n  auxhist01_fluxFile "
+                        "= 'StepCloud_aux.out'"))
+    rad_deck = re.sub(r"  angleFill.*\n.*\n.*\n",
+                      "  intensityMus = 0.1\n  intensityPhis = 0.\n",
+                      (ROOT / "run" / "step_cloud_radiance.nml").read_text())
+    rad_deck = (rad_deck.replace("numPhotonsPerBatch = 262144",
+                                 "numPhotonsPerBatch = 16384")
+                .replace("outputRadFile = 'StepCloud_radiance.out'",
+                         "outputRadFile = 'StepCloud_radiance.out'\n  "
+                         "outputFluxFile = 'StepCloud_rad_flux.out'"))
+    assert "usePallas" in step_deck and "numRecScatOrd" in rt_deck
+    assert "262144" in rt_deck and "16384" in rad_deck
+    assert "intensityMus = 0.1" in rad_deck and "angleFill" not in rad_deck
+    res = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                assert cli.main(["mkdomain", *STEP_CLOUD_DOMAIN]) == 0
+            Path("deck.nml").write_text(step_deck)
+            cfg = config.load_config("deck.nml")
+            grid, comps, temps, attrs = io_netcdf.read_domain(
+                "StepCloud.dom", device="cuda")
+            dom = build_domain(grid, comps, n_cdf_steps=cfg.n_phase_intervals,
+                               temps=temps, macro_factor=cfg.macro_factor)
+            sfc = Surface.lambertian(attrs.get("surface_albedo", 0.0))
+            src = illumination.directional(cfg.solar_mu, cfg.solar_azimuth)
+            kcfg = kernel_config_from(cfg)
+            n = cfg.num_photons_per_batch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wave = integrator.run_batch(dom, sfc, src, rng.batch_seed(5, 0),
+                                        kcfg, n_photons=n,
+                                        key=rng.batch_key(5, 0))
+            torch.cuda.synchronize()
+            wave_s = time.perf_counter() - t0
+            k1_cfg = dataclasses.replace(kcfg, use_pallas="auto")
+            k1_s = []
+            for _ in range(3):
+                rk.LAUNCHES = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                k1 = integrator.run_batch(dom, sfc, src, rng.batch_seed(5, 0),
+                                          k1_cfg, n_photons=n)
+                torch.cuda.synchronize()
+                k1_s.append(time.perf_counter() - t0)
+                assert rk.LAUNCHES > 0
+            k1_s = sorted(k1_s)[1]
+            ms_step = 1e3 * wave_s / wave.n_steps
+            print(f"wave kernel on the card: one batch of {wave.n_photons} "
+                  f"photons of the deck's step cloud, {wave.n_steps} steps, "
+                  f"{wave.n_lane_steps} live lane-steps on {kcfg.n_lanes} "
+                  f"lanes, {wave_s:.2f} s: {ms_step:.3f} ms a step, "
+                  f"{wave.n_photons / wave_s:.4g} photons/s; K1 (run_batch "
+                  f"'auto', median of 3) {k1_s * 1e3:.2f} ms, "
+                  f"{k1.n_photons / k1_s:.4g} photons/s: the wave kernel "
+                  f"{wave_s / k1_s:.1f}x slower", flush=True)
+            assert wave.n_photons == k1.n_photons == n and wave.n_bad == 0
+            n_step = max(2, min(16, int(WAVE_DECK_SECONDS / wave_s)))
+            for name, text, nb in (("step", step_deck, n_step),
+                                   ("rt", rt_deck, 2), ("rad", rad_deck, 2)):
+                res[name] = _wave_deck(cli, rk, ck, sk, tk, text, nb)
+            assert Path("StepCloud_aux.out").stat().st_size > 0
+        finally:
+            os.chdir(cwd)
+    worst = 0.0
+    for name, want, want_se, labels in (
+            ("step", JAX_WAVE_STEP, JAX_WAVE_STEP_SE, ("R", "T", "A")),
+            ("rt", JAX_WAVE_RT, JAX_WAVE_RT_SE,
+             ("R", "T", "A", *(f"up order {k}" for k in range(4)),
+              *(f"down order {k}" for k in range(4)))),
+            ("rad", JAX_WAVE_RAD, JAX_WAVE_RAD_SE,
+             ("R", "T", "A", "radiance mu 0.1"))):
+        out, seconds, got, got_se, n_steps, wave_s = res[name]
+        for key in ("mean_flux_up_by_order", "mean_flux_down_by_order",
+                    "mean_intensity"):
+            if key in out:
+                got += out[key]
+                got_se += out[key + "_stderr"]
+        if name == "rt":
+            # the down flux of order 0: the direct beam crosses the thick
+            # half, optical depth >= 17.5 on every path, so 0 in JAX's
+            # sample and at most a stray photon in the port's; not held
+            got, got_se = got[:7] + got[8:], got_se[:7] + got_se[8:]
+            want, want_se = want[:7] + want[8:], want_se[:7] + want_se[8:]
+            labels = labels[:7] + labels[8:]
+        print(f"wave deck {name}: {out['total_photons']} photons in "
+              f"{out['n_batches']} batches, CLI {seconds:.2f} s, "
+              f"{out['total_photons'] / seconds:.4g} photons/s; wave kernel "
+              f"{n_steps} steps in {wave_s:.2f} s, "
+              f"{1e3 * wave_s / n_steps:.3f} ms a step, "
+              f"{out['total_photons'] / wave_s:.4g} photons/s; port {got} "
+              f"+- {got_se}; JAX package {want} +- {want_se}", flush=True)
+        worst = max(worst, _within_sigma(got, got_se, want, want_se, labels))
+    return dict(ms_per_step=ms_step, photons_per_s=wave.n_photons / wave_s,
+                k1_photons_per_s=k1.n_photons / k1_s, worst=worst,
+                batches={k: v[0]["n_batches"] for k, v in res.items()},
+                ms_per_step_by_deck={k: 1e3 * v[5] / v[4]
+                                     for k, v in res.items()})
+
+
+# The kernel-against-plain phases, one process each group, the groups
+# about equal in time (one call's seconds of each phase on the H100: 2d
+# 208; 2b 132, 2j 40, 2g 28, 2e 12; 2f 126, 2 84; 2h 148, 2i 90). 2k
+# times its walks and stays in the main process.
+COMPARE_WORKERS = (("2d",), ("2b", "2j", "2g", "2e", "2c"), ("2f", "2"),
+                   ("2h", "2i"))
+
+
+def _run_compare_workers(groups):
+    """Run each group of phases in a process of its own (``chip_smoke.py
+    --only GROUP --out-json``), all started together on the one card;
+    print each process's output once all have ended, with its exit code
+    and seconds; fail if any failed. Every process is stopped before
+    this returns. Returns the phases' results, merged."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    workers, results, failed = [], {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for i, group in enumerate(groups):
+                log, res = Path(tmp) / f"{i}.log", Path(tmp) / f"{i}.json"
+                with open(log, "w") as f:
+                    proc = subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()),
+                         "--only", ",".join(group), "--out-json", str(res)],
+                        stdout=f, stderr=subprocess.STDOUT, env=env)
+                workers.append(dict(group=group, proc=proc, log=log, res=res,
+                                    seconds=None))
+            while any(w["seconds"] is None for w in workers):
+                time.sleep(0.5)
+                for w in workers:
+                    if w["seconds"] is None and w["proc"].poll() is not None:
+                        w["seconds"] = time.perf_counter() - t0
+        finally:
+            for w in workers:
+                if w["proc"].poll() is None:
+                    w["proc"].kill()
+                    w["proc"].wait()
+        for w in workers:
+            name, rc = ",".join(w["group"]), w["proc"].returncode
+            print(f"--- compare worker {name}: exit {rc}, "
+                  f"{w['seconds']:.1f} s ---", flush=True)
+            print(w["log"].read_text().rstrip(), flush=True)
+            if rc != 0:
+                failed.append(name)
+            else:
+                results.update(json.loads(w["res"].read_text()))
+    print(f"compare workers {[','.join(g) for g in groups]}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    assert not failed, f"compare phases failed: {failed}"
+    return results
+
+
 PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "2g", "2h", "2i", "2j", "2k",
           "3",
           "3b", "3c", "3d", "3e", "3f", "3g", "3h", "3i", "3j", "3k", "3l",
-          "3m", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "4i", "5")
+          "3m", "3n", "3o", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h",
+          "4i", "5")
 
 
 def main(argv=None) -> int:
@@ -4339,9 +4757,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run after the build")
-    only = set(ap.parse_args(argv).only.split(","))
-    if not only <= set(PHASES):
+    ap.add_argument("--out-json", default=None,
+                    help="write the phases' results to this file (a "
+                         "compare worker)")
+    opts = ap.parse_args(argv)
+    selected = set(opts.only.split(","))
+    if not selected <= set(PHASES):
         ap.error(f"phases are {PHASES}")
+    only = set(selected)
 
     import types
 
@@ -4376,6 +4799,8 @@ def main(argv=None) -> int:
     from mcbrat3d_tpu_torch.spectral import weights
     from mcbrat3d_tpu_torch.tools import probes
     from mcbrat3d_tpu_torch.tools.lw_inputs import write_lw_broadband_inputs
+    from mcbrat3d_tpu_torch.tools.sw_inputs import write_sw_broadband_inputs
+    from mcbrat3d_tpu_torch.transport import integrator
     from mcbrat3d_tpu_torch.transport import col_kernel as ck
     from mcbrat3d_tpu_torch.transport import local_estimate as le
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
@@ -4446,6 +4871,11 @@ def main(argv=None) -> int:
         marks.append((phase, now))
 
     out = {}
+    groups = [tuple(p for p in g if p in only) for g in COMPARE_WORKERS]
+    groups = [g for g in groups if g]
+    if opts.out_json is None and len(groups) > 1:
+        out.update(_run_compare_workers(groups))
+        only -= {p for g in groups for p in g}
     mark("2")
     if "2" in only:
         out["max_err"], out["env_max_err"] = phase_compare(
@@ -4550,6 +4980,15 @@ def main(argv=None) -> int:
         out["px_step"] = phase_px_step_cloud(
             rk, ck, sk, tk, m, make_step_cloud, run_simulation,
             config.SimulationConfig, KernelConfig, rng)
+    mark("3n")
+    if "3n" in only:
+        out["sw_deck"] = phase_sw_deck(rk, ck, sk, tk, cli,
+                                       write_sw_broadband_inputs)
+    mark("3o")
+    if "3o" in only:
+        out["wave"] = phase_wave_kernel(
+            rk, ck, sk, tk, cli, io_netcdf, build_domain, Surface,
+            illumination, config, integrator, rng)
     mark("4")
     if "4" in only:
         out["head"] = phase_headline(*args)
@@ -4591,9 +5030,11 @@ def main(argv=None) -> int:
     if "5" in only:
         out["probes"] = phase_probes(probes)
     mark(None)
-    if only != set(PHASES):
-        print(f"chip_smoke: phases {sorted(only)} passed; no result lines "
-              "for a partial run")
+    if opts.out_json is not None:
+        Path(opts.out_json).write_text(json.dumps(out, default=float))
+    if selected != set(PHASES):
+        print(f"chip_smoke: phases {sorted(selected)} passed; no result "
+              "lines for a partial run")
         return 0
 
     head, rad_head = out["head"], out["rad_head"]

@@ -148,7 +148,9 @@ class DeviceMomentAccumulator:
         means and the horizontally averaged absorption profile (reference:
         Integrators/monteCarloRadiativeTransfer.f95:845-1042), the 3D field
         where it was tallied, and the radiance image with its per-direction
-        domain mean, so that mean has its standard error."""
+        domain mean, so that mean has its standard error, and the boundary
+        fluxes by scattering order where they were tallied, with their
+        per-order domain means."""
         tn = t.normalized(grid)
         arrays = {
             "flux_up": tn.flux_up,
@@ -170,6 +172,10 @@ class DeviceMomentAccumulator:
         if tn.intensity is not None:
             arrays["intensity"] = tn.intensity
             arrays["mean_intensity"] = tn.intensity.mean(dim=(0, 1))
+        if tn.flux_up_by_order is not None:
+            for name in ("flux_up_by_order", "flux_down_by_order"):
+                arrays[name] = getattr(tn, name)
+                arrays["mean_" + name] = arrays[name].mean(dim=(0, 1))
         self.add(float(t.n_photons), arrays)
 
     @property

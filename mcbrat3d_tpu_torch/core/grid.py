@@ -92,3 +92,69 @@ class Grid:
     @property
     def shape(self):
         return (self.nx, self.ny, self.nz)
+
+    # ---- geometry on tensors (the XLA wave kernel's; JAX's Grid) ----
+    @property
+    def x0(self):
+        return self.x_edges[0]
+
+    @property
+    def y0(self):
+        return self.y_edges[0]
+
+    @property
+    def z0(self):
+        return self.z_edges[0]
+
+    @property
+    def x_max(self):
+        return self.x_edges[-1]
+
+    @property
+    def y_max(self):
+        return self.y_edges[-1]
+
+    @property
+    def z_max(self):
+        return self.z_edges[-1]
+
+    def wrap_x(self, x):
+        """Periodic wrap in x (reference:
+        Integrators/monteCarloRadiativeTransfer.f95:1898-1917)."""
+        return self.x0 + torch.remainder(x - self.x0, self.x_max - self.x0)
+
+    def wrap_y(self, y):
+        return self.y0 + torch.remainder(y - self.y0, self.y_max - self.y0)
+
+    def locate_x(self, x):
+        """Cell index (int64) along x of positions inside the domain."""
+        return _locate(x, self.x_edges, self.xy_regular)
+
+    def locate_y(self, y):
+        return _locate(y, self.y_edges, self.xy_regular)
+
+    def locate_z(self, z):
+        return _locate(z, self.z_edges, self.z_regular)
+
+    def z_from_fraction(self, zf):
+        """A fractional height in [0, 1] as a physical z, layerwise so each
+        layer gets a uniform share (reference:
+        Integrators/monteCarloRadiativeTransfer.f95:484-494)."""
+        if self.z_regular:
+            return self.z0 + zf * (self.z_max - self.z0)
+        t = zf * self.nz
+        k = torch.clamp(torch.floor(t).long(), 0, self.nz - 1)
+        frac = t - k.to(torch.float32)
+        lo = self.z_edges[k]
+        return lo + frac * (self.z_edges[k + 1] - lo)
+
+
+def _locate(pos, edges, regular: bool):
+    """Index of the cell holding ``pos``, clipped to the valid range."""
+    n = edges.shape[0] - 1
+    if regular:
+        inv_d = n / (edges[-1] - edges[0])
+        idx = torch.floor((pos - edges[0]) * inv_d).long()
+    else:
+        idx = torch.searchsorted(edges, pos.contiguous(), right=True) - 1
+    return torch.clamp(idx, 0, n - 1)

@@ -8,7 +8,8 @@ Counterpart of ``mcbrat3d_tpu.driver.cli`` (reference:
 Drivers/monteCarloDriver.f95:103-121,230-238) with the ``run`` and
 ``mkdomain step_cloud|broken_cloud`` subcommands. ``--device`` defaults to ``cuda`` and
 fails when no CUDA device is present; pass ``cpu`` to run the plain
-PyTorch path.
+PyTorch path. The deck's ``usePallas`` ('auto', 'on', 'off') chooses
+between the hand-written kernels and the wave kernel.
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ from mcbrat3d_tpu_torch.core.device import resolve
 
 
 def _launches() -> dict:
-    """Kernel launches of this process, per kernel."""
+    """Kernel launches of this process, per kernel, and the batches run on
+    the wave kernel (plain PyTorch, ``KernelConfig.use_pallas``)."""
     from mcbrat3d_tpu_torch.transport import col_kernel as ck
+    from mcbrat3d_tpu_torch.transport import integrator
     from mcbrat3d_tpu_torch.transport import record_kernel as rk
     from mcbrat3d_tpu_torch.transport import sep_kernel as sk
     from mcbrat3d_tpu_torch.transport import tile_kernel as tk
@@ -32,7 +35,8 @@ def _launches() -> dict:
             "col_kernel": ck.COL_LAUNCHES,
             "col_kernel_radiance": ck.COL_LE_LAUNCHES,
             "sep_kernel": sk.SEP_LAUNCHES,
-            "tile_kernel": tk.TILE_LAUNCHES}
+            "tile_kernel": tk.TILE_LAUNCHES,
+            "wave_kernel_batches": integrator.WAVE_BATCHES}
 
 
 def _cmd_run(args) -> int:
@@ -43,11 +47,11 @@ def _cmd_run(args) -> int:
     cfg = load_config(args.namelist)
     results, written = simulate_from_config(cfg, device)
     radiance = {}
-    if "mean_intensity" in results.mean:
-        radiance = {
-            "mean_intensity": results.mean["mean_intensity"].tolist(),
-            "mean_intensity_stderr":
-                results.stderr["mean_intensity"].tolist()}
+    for name in ("mean_intensity", "mean_flux_up_by_order",
+                 "mean_flux_down_by_order"):
+        if name in results.mean:
+            radiance[name] = results.mean[name].tolist()
+            radiance[name + "_stderr"] = results.stderr[name].tolist()
     print(json.dumps({
         "total_photons": results.total_photons,
         "n_batches": results.n_batches,

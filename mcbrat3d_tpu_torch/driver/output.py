@@ -1,10 +1,9 @@
 """Result writers: ASCII files with provenance headers, mirroring the
 reference's output structure (flux, absorption profile, 3D absorption,
-radiance; reference: Drivers/monteCarloDriver.f95:1324-1495
-writeResults_ASCII), in the JAX driver's format. Per-order outputs arrive
-with the port's scattering-order tallies. Every value carries its standard
-error. The netCDF writer lives in domain/io_netcdf.py-adjacent module
-results_netcdf().
+radiance, the fluxes by scattering order; reference:
+Drivers/monteCarloDriver.f95:1324-1495 writeResults_ASCII), in the JAX
+driver's format. Every value carries its standard error. The netCDF
+writer lives in domain/io_netcdf.py-adjacent module results_netcdf().
 """
 
 from __future__ import annotations
@@ -98,10 +97,33 @@ def write_radiance_file(path: str, results: Results, grid) -> None:
                             f"{rad[i, j, d]:.8e} {err[i, j, d]:.8e}\n")
 
 
+def write_aux_flux_by_order(path: str, results: Results, grid) -> None:
+    """Per-scattering-order boundary fluxes (the reference's auxhist01
+    output; reference: Drivers/monteCarloDriver.f95:95-101)."""
+    up = results.mean["flux_up_by_order"]
+    dn = results.mean["flux_down_by_order"]
+    eu = results.stderr["flux_up_by_order"]
+    ed = results.stderr["flux_down_by_order"]
+    nx, ny, nk = up.shape
+    with open(path, "w") as f:
+        f.write(_header(results, extra=f"numScatteringOrders = {nk - 1} "
+                                       "(last bin = overflow)"))
+        f.write("! order ix iy fluxUp stderr fluxDown stderr\n")
+        for k in range(nk):
+            for j in range(ny):
+                for i in range(nx):
+                    f.write(f"{k:4d} {i + 1:5d} {j + 1:5d} "
+                            f"{up[i, j, k]:.8e} {eu[i, j, k]:.8e} "
+                            f"{dn[i, j, k]:.8e} {ed[i, j, k]:.8e}\n")
+
+
 def write_all(results: Results, grid) -> list:
     """Write every output the config names; return the paths written."""
     cfg = results.config
     written = []
+    if cfg.auxhist01_flux_file and "flux_up_by_order" in results.mean:
+        write_aux_flux_by_order(cfg.auxhist01_flux_file, results, grid)
+        written.append(cfg.auxhist01_flux_file)
     if cfg.output_flux_file:
         write_flux_file(cfg.output_flux_file, results, grid)
         written.append(cfg.output_flux_file)

@@ -7,9 +7,12 @@ second moments on the domain's device (``DeviceMomentAccumulator``, the
 layout the broadband loop uses too; one host fetch at the end); the mean
 is scaled by the incident flux and the standard error is
 sqrt(max(0, E[x^2] - E[x]^2)/(nBatches - 1)). Batch b runs with the kernel
-seed ``rng.batch_seed(iseed, b)``. Decks with radiance directions also
+seed ``rng.batch_seed(iseed, b)`` and the wave kernel's threefry key
+``rng.batch_key(iseed, b)`` (the JAX package's, so a deck with usePallas =
+'off' follows its paths). Decks with radiance directions also
 accumulate the top-of-domain radiance image and its
-per-direction domain mean.
+per-direction domain mean, decks with numRecScatOrd the boundary fluxes by
+scattering order.
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ def kernel_config_from(cfg: SimulationConfig) -> KernelConfig:
                                 or bool(cfg.output_abs_volume_file)),
         need_absorption_profile=(cfg.report_absorption_profile
                                  or bool(cfg.output_abs_prof_file)),
+        use_pallas=cfg.use_pallas,
     )
 
 
@@ -101,7 +105,8 @@ def run_simulation(domain: OpticalDomain,
     for b in range(cfg.num_batches):
         t = run_batch(domain, surface, source, rng.batch_seed(cfg.iseed, b),
                       kcfg, n_photons=cfg.num_photons_per_batch,
-                      intensity_config=icfg, intensity_dirs=idirs)
+                      intensity_config=icfg, intensity_dirs=idirs,
+                      key=rng.batch_key(cfg.iseed, b))
         n_bad += int(t.n_bad)
         n_passes += int(t.n_passes)
         dacc.add_tallies(t, domain.grid)

@@ -2,9 +2,8 @@
 
 PyTorch counterpart of ``mcbrat3d_tpu.driver.simulate``: the
 monochromatic path (read domain, directional solar source, batches) and
-the broadband path through ``spectral.broadband.run_broadband`` (longwave
-decks with a separable per-bin plan; reference:
-Drivers/monteCarloDriver.f95:289-505).
+the broadband path through ``spectral.broadband.run_broadband`` (shortwave
+and longwave decks; reference: Drivers/monteCarloDriver.f95:289-505).
 """
 
 from __future__ import annotations

@@ -11,9 +11,9 @@ parameters (and, for per-voxel emission, its alias tables on the device).
 The record kernel takes every kind but separable emission; the tiled
 kernel every kind but emission; the column kernel directional, random
 azimuth, flux and per-voxel emission (sampled from the domain's column
-tables); the separable kernel those and both emission sources.
-The XLA wave kernel's sampler (``sample``, ``_sample_emission``) is not
-ported yet (ROADMAP Queue 1 item 6).
+tables); the separable kernel those and both emission sources. The XLA
+wave kernel (``transport.integrator``) samples every kind but separable
+emission with ``sample``, on JAX's threefry streams.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from mcbrat3d_tpu_torch.core import rng
 from mcbrat3d_tpu_torch.core.device import resolve
 
 DIRECTIONAL = "directional"
@@ -30,6 +31,10 @@ RANDOM_AZIMUTH = "random_azimuth"
 FLUX = "flux"
 SPOTLIGHT = "spotlight"
 EMISSION = "emission"
+
+_TOP = float(np.float32(1.0 - 2.0 ** -23))  # z fraction just below the top
+_MIN_MU = float(np.float32(1e-6))  # guard against horizontally trapped photons
+_TWO_PI = float(np.float32(2.0 * np.pi))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,3 +195,69 @@ def _walker_alias(p: np.ndarray):
     for i in small:  # numerical leftovers
         prob[i] = 1.0
     return prob, alias
+
+
+def sample(source: Source, key: tuple, n: int, device):
+    """Draw ``n`` photons for the XLA wave kernel: fractional (x, y, z)
+    and the direction (mu, phi), float32 tensors on ``device``
+    (``illumination.sample`` of the JAX package). Field i draws
+    ``uniform(fold_in(key, i), n)`` on the threefry stream ``key``."""
+    def u(i):
+        return rng.uniform(rng.fold_in(key, i), n, device)
+
+    def full(v):
+        return torch.full((n,), v, dtype=torch.float32, device=device)
+
+    if source.kind == DIRECTIONAL:
+        return (u(0), u(1), full(_TOP), full(-source.solar_mu),
+                full(source.solar_azimuth))
+    if source.kind == RANDOM_AZIMUTH:
+        return (u(0), u(1), full(_TOP), full(-source.solar_mu),
+                _TWO_PI * u(2))
+    if source.kind == FLUX:
+        # mu = -sqrt(u): daytime-average weighting
+        # (reference: src/monteCarloIllumination.f95:142-176)
+        return (u(0), u(1), full(_TOP),
+                -torch.sqrt(torch.clamp(u(2), min=1e-12)), _TWO_PI * u(3))
+    if source.kind == SPOTLIGHT:
+        return (full(source.solar_x), full(source.solar_y), full(_TOP),
+                full(-source.solar_mu), full(source.solar_azimuth))
+    if source.kind == EMISSION:
+        if source.em_sep:
+            raise ValueError("a separable emission source is sampled by the "
+                             "separable kernel only")
+        return _sample_emission(source, [u(i) for i in range(7)], n, key,
+                                device)
+    raise ValueError(f"unknown source kind {source.kind!r}")
+
+
+def _sample_emission(source: Source, u, n: int, key: tuple, device):
+    """BBEmission (reference: src/monteCarloIllumination.f95:431-522): the
+    atmosphere or the surface, the emitting voxel from the Walker alias
+    (bin on stream 7, acceptance on stream 8; the table in kernel cell order
+    (ix*ny + iy)*nz + iz), a uniform position inside it and an isotropic
+    direction; surface photons leave from a uniform (x, y) at z = 0,
+    Lambertian up. The azimuth has its own stream."""
+    nx, ny, nz = source.grid_shape
+    n_vox = nx * ny * nz
+    from_atm = u[0] < source.atms_fraction
+    bin_ = rng.randint(rng.fold_in(key, 7), n, n_vox, device)
+    acc = rng.uniform(rng.fold_in(key, 8), n, device)
+    prob = source.em_prob[bin_]
+    alias = source.em_alias[bin_].long()
+    flat = torch.clamp(torch.where(acc < prob, bin_, alias), 0, n_vox - 1)
+    ii = flat // (ny * nz)
+    ij = (flat // nz) % ny
+    ik = flat % nz
+    xf_a = (ii.to(torch.float32) + u[2]) / nx
+    yf_a = (ij.to(torch.float32) + u[3]) / ny
+    zf_a = torch.clamp((ik.to(torch.float32) + u[4]) / nz, 2.0 ** -24, _TOP)
+    mu_a = 1.0 - 2.0 * u[5]
+    mu_a = torch.where(mu_a.abs() < _MIN_MU,
+                       torch.sign(mu_a + 1e-30) * _MIN_MU, mu_a)
+    mu_s = torch.sqrt(torch.clamp(u[5], min=1e-12))
+    xf = torch.where(from_atm, xf_a, u[1])
+    yf = torch.where(from_atm, yf_a, u[2])
+    zf = torch.where(from_atm, zf_a, torch.zeros_like(u[1]))
+    mu = torch.where(from_atm, mu_a, mu_s)
+    return xf, yf, zf, mu, _TWO_PI * u[6]

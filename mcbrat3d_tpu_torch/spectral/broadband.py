@@ -1,32 +1,38 @@
-"""Broadband longwave simulation driver (PyTorch port).
+"""Broadband simulation driver (PyTorch port).
 
-Counterpart of ``mcbrat3d_tpu.spectral.broadband.run_broadband`` for the
-longwave path (reference: Drivers/monteCarloDriver.f95:289-505 setup,
-:889-1129 worker loop): the per-bin emitted flux -> spectral flux CDF over
-bins -> a seeded multinomial photon schedule -> per bin a domain, the
-thermal emission source and transport in chunks of ``numPhotonsPerBatch``,
-moments accumulated on the device. Per bin, as the JAX package decides:
+Counterpart of ``mcbrat3d_tpu.spectral.broadband.run_broadband``
+(reference: Drivers/monteCarloDriver.f95:289-505 setup, :889-1129 worker
+loop):
+
+  SW: the solar spectral CDF (``solar_weighting`` of the namelist's solar
+      source file) -> a seeded multinomial photon schedule over bins -> per
+      bin a domain and the directional solar beam;
+  LW: the per-bin emitted flux -> spectral flux CDF over bins -> the same
+      schedule -> per bin a domain and the thermal emission source with the
+      lw_mode pre-credits;
+
+an instrument response file (SRF) weights either CDF. Each bin runs in
+chunks of ``numPhotonsPerBatch``, moments accumulated on the device. Per
+bin, as the JAX package decides:
 
   * past the record kernel's ``MAX_CELLS``, when the lambda-independent
     factorization of the physical fields (``domain.sep_plan``) exists and
     its first bin runs on the separable kernel (K4): O(nz) compact
-    rebuilds from the plan and the separable emission source;
+    rebuilds from the plan (and, LW, the separable emission source);
   * otherwise the generic build (``components_from_ssp``,
-    ``build_domain(temps=...)``, ``absorption_coefficient``,
+    ``build_domain(temps=...)`` and, LW, ``absorption_coefficient``,
     ``emission_weighting`` and the per-voxel emission source), which the
-    record kernel (K1) runs within its envelope; once a bin is seen to run
-    on K4 the later bins switch to compact builds. A vacuum bin of a plan
-    falls back to the generic build for that bin only.
+    record kernel (K1) runs within its envelope and the wave kernel
+    beyond every kernel's; once a bin is seen to run on K4 the later bins
+    switch to compact builds. A vacuum bin of a plan falls back to the
+    generic build for that bin only.
 
-Batch b of the run (counted over all bins) runs with the kernel seed
-``rng.batch_seed(iseed, b)``, the counterpart of the JAX package's
-``rng.batch_key(iseed, b)``. Not ported yet, each raising
-NotImplementedError: the shortwave path (``solar_weighting``,
-``spectral/solar.py``), an instrument response file and the device mesh;
-a deck with checkpoints raises in ``driver.simulate.simulate_from_config``
-before it gets here. A bin that no ported kernel takes raises in
-``run_batch``, naming every failing predicate (the XLA wave kernel is not
-ported yet).
+With ``usePallas = 'off'`` there is no plan and every bin runs on the wave
+kernel, as in the JAX package. Batch b of the run (counted over all bins)
+runs with the kernel seed ``rng.batch_seed(iseed, b)`` and the wave
+kernel's key ``rng.batch_key(iseed, b)``, the JAX package's. Not ported
+yet: the device mesh; a deck with checkpoints raises in
+``driver.simulate.simulate_from_config`` before it gets here.
 """
 
 from __future__ import annotations
@@ -45,11 +51,13 @@ from mcbrat3d_tpu_torch.driver.config import SimulationConfig
 from mcbrat3d_tpu_torch.driver.run import Results, kernel_config_from
 from mcbrat3d_tpu_torch.physics.surface import Surface
 from mcbrat3d_tpu_torch.sources import illumination
+from mcbrat3d_tpu_torch.spectral import solar as solar_io
 from mcbrat3d_tpu_torch.spectral.weights import (absorption_coefficient,
                                                  emission_weighting,
                                                  frequency_distribution,
                                                  lambda_widths,
-                                                 lw_setup_fluxes)
+                                                 lw_setup_fluxes,
+                                                 solar_weighting)
 from mcbrat3d_tpu_torch.transport import record_kernel as rk
 from mcbrat3d_tpu_torch.transport import sep_kernel as sk
 from mcbrat3d_tpu_torch.transport.integrator import (run_batch,
@@ -66,9 +74,10 @@ def _bin_surface(cfg: SimulationConfig, albedo: float) -> Surface:
 def _plan_is_separable(plan, grid, ssp_tables, freq, cfg, kcfg, icfg):
     """The plan probe (broadband.py:218-253 of the JAX package), run only
     past the record kernel's ``MAX_CELLS``: does the first bin with
-    photons, built from the plan, run on the separable kernel? Then every
-    bin is built compact from the plan, skipping the full-domain build and
-    the per-voxel emission weighting."""
+    photons, built from the plan, run on the separable kernel (with the
+    separable emission source, or the solar beam)? Then every bin is built
+    compact from the plan, skipping the full-domain build and the
+    per-voxel emission weighting."""
     nx, ny, nz = grid.shape
     li0 = next((int(li) for li in range(freq.size) if freq[li] > 0), None)
     if plan is None or nx * ny * nz <= rk.MAX_CELLS or li0 is None:
@@ -83,8 +92,10 @@ def _plan_is_separable(plan, grid, ssp_tables, freq, cfg, kcfg, icfg):
         return False
     alb0 = float(ssp_tables[0].surface_albedo[li0])
     try:
-        src0 = illumination.emission_separable(d0, cfg.surface_temp,
-                                               1.0 - alb0)
+        src0 = (illumination.emission_separable(d0, cfg.surface_temp,
+                                                1.0 - alb0)
+                if cfg.is_longwave else
+                illumination.directional(cfg.solar_mu, cfg.solar_azimuth))
     except ValueError:  # no emission tables (non-uniform temps)
         return False
     return not sk.sep_ineligibility_reasons(
@@ -97,21 +108,14 @@ def _plan_is_separable(plan, grid, ssp_tables, freq, cfg, kcfg, icfg):
 
 def run_broadband(cfg: SimulationConfig, device, common=None,
                   ssp_tables=None) -> Results:
-    """Broadband longwave run on ``device``; ``common`` and ``ssp_tables``
-    default to the namelist's files. Returns the finalized ``Results``
-    (means scaled by the total emitted flux), with ``grid``, ``n_bad``,
-    the seconds spent before the first bin's transport
-    (``setup_seconds``) and those spent building the later bins' domains
-    and sources on the host (``build_seconds``)."""
+    """Broadband run on ``device``, shortwave or longwave as the namelist
+    says; ``common`` and ``ssp_tables`` default to the namelist's files.
+    Returns the finalized ``Results`` (means scaled by the total incident
+    or emitted flux), with ``grid``, ``n_bad``, the seconds spent before
+    the first bin's transport (``setup_seconds``) and those spent building
+    the later bins' domains and sources on the host
+    (``build_seconds``)."""
     t_start = time.time()
-    if not cfg.is_longwave:
-        raise NotImplementedError(
-            "shortwave broadband runs (solar_weighting, spectral/solar.py) "
-            "are not in the PyTorch port yet")
-    if cfg.instr_response_file:
-        raise NotImplementedError(
-            "an instrument response file (spectral/solar.py) is not in the "
-            "PyTorch port yet")
     if common is None:
         common = read_common(cfg.phys_domain_file, device=device)
     if ssp_tables is None:
@@ -125,20 +129,35 @@ def run_broadband(cfg: SimulationConfig, device, common=None,
         raise ValueError(f"namelist numLambda={n_lambda} but SSP tables have "
                          f"{lambdas.size} wavelengths")
     d_lambda = lambda_widths(lambdas)
+    srf = None
+    if cfg.instr_response_file:
+        srf = solar_io.read_spectral_response(cfg.instr_response_file,
+                                              n_lambda)
 
     # lambda-independent factorization of the physical fields (None on
-    # structures the separable kernel cannot carry): with it, per-bin
-    # rebuilds are O(nz) and the setup Planck sweep factorizes too
-    plan = make_separable_bin_plan(common, ssp_tables, cfg.calc_rayleigh,
-                                   cfg.macro_factor)
+    # structures the separable kernel cannot carry, and with usePallas =
+    # 'off'): with it, per-bin rebuilds are O(nz) and the setup Planck
+    # sweep factorizes too
+    plan = None
+    if cfg.use_pallas != "off":
+        plan = make_separable_bin_plan(common, ssp_tables,
+                                       cfg.calc_rayleigh, cfg.macro_factor)
 
-    # setup pass: per-lambda total emitted flux (atmosphere + surface)
-    # (reference: Drivers/monteCarloDriver.f95:304-450)
-    fluxes = lw_setup_fluxes(common, ssp_tables, d_lambda, cfg.surface_temp,
-                             plan=plan)
-    cdf = kahan_cumsum(fluxes)
-    total_flux = float(cdf[-1])
-    cdf = cdf / total_flux
+    if cfg.is_longwave:
+        # setup pass: per-lambda total emitted flux (atmosphere + surface)
+        # (reference: Drivers/monteCarloDriver.f95:304-450)
+        fluxes = lw_setup_fluxes(common, ssp_tables, d_lambda,
+                                 cfg.surface_temp, plan=plan)
+        if srf is not None:
+            fluxes = fluxes * srf
+        cdf = kahan_cumsum(fluxes)
+        total_flux = float(cdf[-1])
+        cdf = cdf / total_flux
+    else:
+        lam_file, solar = solar_io.read_solar_source(cfg.solar_source_file,
+                                                     n_lambda)
+        cdf, total_flux = solar_weighting(lam_file, solar, cfg.solar_mu,
+                                          srf=srf)
 
     # static photon schedule
     total_photons = cfg.num_photons_per_batch * cfg.num_batches
@@ -203,7 +222,10 @@ def run_broadband(cfg: SimulationConfig, device, common=None,
             if domain is None:
                 domain = build_domain(grid, comps, **build)
         surface = _bin_surface(cfg, albedo)
-        if bin_compact:
+        if not cfg.is_longwave:
+            source = illumination.directional(cfg.solar_mu,
+                                              cfg.solar_azimuth)
+        elif bin_compact:
             source = illumination.emission_separable(domain, cfg.surface_temp,
                                                      1.0 - albedo)
         else:
@@ -212,7 +234,7 @@ def run_broadband(cfg: SimulationConfig, device, common=None,
                                    cfg.surface_temp, 1.0 - albedo, lam_um)
             source = illumination.emission(w.voxel_cdf, w.frac_atms_power,
                                            grid.shape, device=device)
-        if not compact:
+        if not compact and kcfg.use_pallas != "off":
             # this bin runs on the separable kernel: so will the later ones
             # (broadband.py:66-94 of the JAX package)
             compact = select_kernel(domain, surface, source, kcfg, icfg,
@@ -227,7 +249,8 @@ def run_broadband(cfg: SimulationConfig, device, common=None,
             t = run_batch(domain, surface, source,
                           rng.batch_seed(cfg.iseed, global_batch), kcfg,
                           n_photons=n, intensity_config=icfg,
-                          intensity_dirs=idirs)
+                          intensity_dirs=idirs,
+                          key=rng.batch_key(cfg.iseed, global_batch))
             n_bad += int(t.n_bad)
             acc.add_tallies(t, grid)
             remaining -= n

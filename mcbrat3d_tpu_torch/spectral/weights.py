@@ -1,8 +1,7 @@
 """Spectral and emission weighting (PyTorch port).
 
-Copy of ``mcbrat3d_tpu.spectral.weights`` (host-side float64 NumPy) for the
-longwave path; the shortwave ``solar_weighting`` raises until the SW
-broadband path is ported. Re-implementation of the reference's
+Copy of ``mcbrat3d_tpu.spectral.weights`` (host-side float64 NumPy).
+Re-implementation of the reference's
 emissionAndBBWeights module (reference:
 src/emissionAndBroadBandWeights.f95): the spectral power CDF
 for solar (SW) and thermal (LW) sources, the per-voxel emission CDF, and
@@ -36,11 +35,21 @@ def lambda_widths(lambdas: np.ndarray) -> np.ndarray:
 
 
 def solar_weighting(lambdas, source_function, solar_mu, srf=None):
-    """Spectral power CDF for a solar source (the SW broadband path,
-    ``weights.solar_weighting``): not ported yet."""
-    raise NotImplementedError(
-        "solar_weighting (shortwave broadband, with spectral/solar.py) is "
-        "not in the PyTorch port yet (ROADMAP Queue 1 item 4)")
+    """Spectral power CDF for a solar source.
+
+    Kahan-summed integral of dLambda * |mu0| * S(lambda) (* SRF); returns
+    (cdf [nLambda], total_flux) (reference:
+    src/emissionAndBroadBandWeights.f95:149-217).
+    """
+    lam = np.asarray(lambdas, np.float64)
+    s = np.asarray(source_function, np.float64)
+    d = lambda_widths(lam)
+    terms = d * abs(solar_mu) * s
+    if srf is not None:
+        terms = terms * np.asarray(srf, np.float64)
+    cdf = kahan_cumsum(terms)
+    total = float(cdf[-1])
+    return cdf / total, total
 
 
 @dataclasses.dataclass

@@ -26,7 +26,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from mcbrat3d_tpu_torch.core import rng
 from mcbrat3d_tpu_torch.core.device import resolve
+from mcbrat3d_tpu_torch.transport import dda
 
 # Directions per kernel pass. The per-direction Iwabuchi roulette draws use
 # sites 16 + 2d and 17 + 2d of the counter uniform, whose step stride is 256
@@ -197,3 +199,147 @@ def redistribute_excess(intensity: torch.Tensor, by_component: torch.Tensor,
     sums = by_component.sum(dim=2)
     weightings = by_component / torch.clamp(sums[:, :, None], min=1e-30)
     return intensity + torch.einsum("cdp,dc->dp", weightings, excess)
+
+
+_F32_PI = float(np.float32(np.pi))
+_F32_INV_PI = float(np.float32(1.0 / np.pi))
+_F32_4PI = float(np.float32(4.0 * np.pi))
+
+
+def _phase_value(domain, cell, comp, cos_scat, orig: bool):
+    """The tabulated (hybrid or original) forward phase function at the
+    event's scattering cosine, linear in angle (reference:
+    lookUpPhaseFuncValsFromTable,
+    Integrators/monteCarloRadiativeTransfer.f95:1834-1873); an all-HG
+    domain without tables evaluates HG from the cell record's g."""
+    table = domain.tables.forward_orig if orig else domain.tables.forward
+    n_angles = table.shape[1]
+    nc = domain.n_components
+    if n_angles == 1 and domain.all_hg:
+        g = domain.cell_records[cell, 2 + 3 * nc + comp]
+        c = torch.clamp(cos_scat, -1.0, 1.0)
+        return (1.0 - g * g) * ((1.0 + g * g) - (2.0 * g) * c) ** -1.5
+    flat = table.reshape(-1)
+    pfi = domain.phase_index.reshape(-1)[cell * nc + comp].long()
+    row = domain.tables.offsets.long()[comp] + pfi
+    theta = torch.arccos(torch.clamp(cos_scat, -1.0, 1.0))
+    t = theta * float(np.float32((n_angles - 1) / np.pi))
+    k = torch.clamp(t.long(), 0, n_angles - 2)
+    frac = t - k.to(torch.float32)
+    base = row * n_angles + k
+    return (1.0 - frac) * flat[base] + frac * flat[base + 1]
+
+
+def accumulate_local_estimate(intensity, domain, dirs, icfg: IntensityConfig,
+                              mask, weight, x, y, z, ux, uy, uz, cell, comp,
+                              kind: str, key: tuple, by_component=None,
+                              excess=None, order=None, surface=None,
+                              in_dir=None, weight_pre=None) -> None:
+    """Add one wave's event contributions to the flat image ``intensity``
+    [n_dirs * nx * ny] in place (port of
+    ``local_estimate.accumulate_local_estimate``).
+
+    ``kind``: 'scatter' (phase value P / (4 pi |mu_d|); ``comp`` the
+    scattering component), 'surface' (1/pi, or with a non-Lambertian
+    ``surface`` its BRDF toward each direction, Rf(in -> d) / pi, times
+    the pre-reflection ``weight_pre``, ``in_dir`` the incoming direction)
+    or 'emission' (1 / (4 pi |mu_d|)). Each direction's transmittance is a
+    ``dda.trace`` march; with ``icfg.use_russian_roulette`` the Iwabuchi
+    roulette (reference:
+    Integrators/monteCarloRadiativeTransfer.f95:1753-1813) draws
+    ``uniform(fold_in(key, d))`` and the free path on
+    ``fold_in(fold_in(key, d), 1)``. With ``icfg.limit_contributions``
+    ``by_component`` [(ncomp+1) * n_dirs * nx * ny] (slot 0 the surface and
+    emission) and ``excess`` [n_dirs, ncomp+1] take the capped excess
+    (reference: :1815-1826)."""
+    grid = domain.grid
+    nx, ny, _ = grid.shape
+    nxy = nx * ny
+    n_dirs = icfg.n_dirs
+    limit = icfg.limit_contributions
+    dev = x.device
+    comp_slot = comp + 1 if kind == "scatter" else torch.zeros_like(cell)
+    zeta = float(np.float32(icfg.zeta_min))
+    brdf = (kind == "surface" and surface is not None
+            and not surface.is_uniform_lambertian)
+    if brdf:
+        xfrac = (x - grid.x0) / (grid.x_max - grid.x0)
+        yfrac = (y - grid.y0) / (grid.y_max - grid.y0)
+        phi_in = torch.atan2(in_dir[1], in_dir[0])
+    for d in range(n_dirs):
+        dx, dy, dz = dirs[0, d], dirs[1, d], dirs[2, d]
+        mu_abs = dz.abs()
+        wgt = weight
+        if kind == "surface":
+            if brdf:
+                phi_out = torch.atan2(dy, dx).expand_as(x)
+                rf = surface.reflectance(xfrac, yfrac, in_dir[2],
+                                         mu_abs.expand_as(x), phi_in, phi_out)
+                npf = rf * _F32_INV_PI
+                wgt = weight_pre
+            else:
+                npf = torch.full_like(weight, _F32_INV_PI)
+        elif kind == "emission":
+            npf = (1.0 / (_F32_4PI * mu_abs)) * torch.ones_like(weight)
+        else:
+            cos_scat = (ux * dx + uy * dy) + uz * dz
+            pv = _phase_value(domain, cell, comp, cos_scat,
+                              orig=not icfg.use_hybrid_phase)
+            if (icfg.use_hybrid_phase and icfg.n_orders_orig_phase > 0
+                    and order is not None):
+                # the first k orders use the original phase function
+                # (reference: :1713-1725)
+                pv_orig = _phase_value(domain, cell, comp, cos_scat,
+                                       orig=True)
+                pv = torch.where(order <= icfg.n_orders_orig_phase,
+                                 pv_orig, pv)
+            npf = pv / (_F32_4PI * mu_abs)
+        ddx, ddy, ddz = dx.expand_as(x), dy.expand_as(x), dz.expand_as(x)
+        if not icfg.use_russian_roulette:
+            r = dda.trace(domain, x, y, z, ddx, ddy, ddz, mask)
+            ok = r["exit_top"] & (r["tau"] >= 0)
+            contrib = torch.where(ok, (wgt * npf) * torch.exp(-r["tau"]),
+                                  0.0)
+            col = r["ix"] * ny + r["iy"]
+        else:
+            # Iwabuchi 2006 Eqs 13-14: a small contribution marches to the
+            # free path and is accepted with probability npf pi / zeta; a
+            # large one marches to tau_max = -log(zeta / (npf pi)) and, if
+            # still inside, continues by roulette to the free path
+            kk = rng.fold_in(key, d)
+            n = x.shape[0]
+            u1 = rng.uniform(kk, n, dev)
+            tau_free = rng.exponential_deviate(rng.fold_in(kk, 1), n, dev)
+            npf_pi = _F32_PI * npf
+            small = npf_pi <= zeta
+            tau_max = -rng.xla_log(zeta / torch.clamp(npf_pi, min=1e-30))
+            tau_cap = torch.where(small, tau_free, tau_max)
+            r = dda.trace(domain, x, y, z, ddx, ddy, ddz, mask,
+                          tau_stop=tau_cap)
+            escaped = r["exit_top"] & (r["tau"] >= 0)
+            contrib_a = torch.where(escaped & (u1 <= npf_pi / zeta),
+                                    (wgt * zeta) / _F32_PI, 0.0)
+            contrib_b = torch.where(
+                escaped, (wgt * npf) * torch.exp(-r["tau"]), 0.0)
+            cont = mask & ~small & r["stopped"]
+            r2 = dda.trace(domain, r["x"], r["y"], r["z"], ddx, ddy, ddz,
+                           cont, tau_stop=tau_free)
+            contrib_rr = torch.where(cont & r2["exit_top"],
+                                     (wgt * zeta) / _F32_PI, 0.0)
+            contrib = torch.where(small, contrib_a, contrib_b + contrib_rr)
+            col = torch.where(cont, r2["ix"] * ny + r2["iy"],
+                              r["ix"] * ny + r["iy"])
+        if limit:
+            cap = float(np.float32(icfg.max_contribution))
+            over = torch.where(mask, torch.clamp(contrib - cap, min=0.0), 0.0)
+            contrib = torch.clamp(contrib, max=cap)
+            excess[d].index_add_(0, torch.where(mask, comp_slot, 0).long(),
+                                 over)
+        hit = mask & (contrib > 0)
+        val = torch.where(mask, contrib, 0.0)
+        intensity.index_add_(0, torch.where(hit, d * nxy + col, 0), val)
+        if limit:
+            by_component.index_add_(
+                0, torch.where(hit, (comp_slot * n_dirs + d) * nxy + col, 0),
+                val)
+

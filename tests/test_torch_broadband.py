@@ -190,8 +190,10 @@ def test_setup_fluxes_and_schedule_match_jax(inputs):
     np.testing.assert_array_equal(
         weights.frequency_distribution(cdf, 67_108_864, seed=31),
         jweights.frequency_distribution(cdf, 67_108_864, seed=31))
-    with pytest.raises(NotImplementedError, match="solar"):
-        weights.solar_weighting(ts[0].lambdas_um, np.ones(4), 0.5)
+    for a, b in zip(weights.solar_weighting(ts[0].lambdas_um, np.ones(4), 0.5),
+                    jweights.solar_weighting(js[0].lambdas_um, np.ones(4),
+                                             0.5)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_device_moments_match_host_moments():
@@ -275,8 +277,12 @@ def test_run_broadband_matches_jax(inputs, monkeypatch):
 def test_lw_deck_through_the_cli(inputs, capsys, monkeypatch):
     """The cut deck through the port's command line on the CPU: the plain
     separable step runs every bin, the JSON line carries n_bad and the
-    launch counts, and the flux and netCDF files are written."""
+    launch counts (no batch on the wave kernel), and the flux and netCDF
+    files are written."""
+    from mcbrat3d_tpu_torch.transport import integrator
+
     monkeypatch.chdir(inputs)
+    monkeypatch.setattr(integrator, "WAVE_BATCHES", 0)
     capsys.readouterr()
     assert cli.main(["run", "deck.nml", "--device", "cpu"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -286,7 +292,7 @@ def test_lw_deck_through_the_cli(inputs, capsys, monkeypatch):
                                "record_kernel_lw": 0,
                                "col_kernel": 0,
                                "col_kernel_radiance": 0, "sep_kernel": 0,
-                               "tile_kernel": 0}
+                               "tile_kernel": 0, "wave_kernel_batches": 0}
     assert sorted(out["outputs"]) == ["LW325_flux.out", "LW325_results.nc"]
     with netcdf_file(str(inputs / "LW325_results.nc"), "r",
                      mmap=False) as nc:
@@ -300,21 +306,18 @@ def test_lw_deck_through_the_cli(inputs, capsys, monkeypatch):
 
 
 def test_unported_broadband_paths_raise(inputs, monkeypatch):
-    """Shortwave is not ported. With Rayleigh the deck has no separable
-    plan, so its bins take the generic build: 38,400 cells of three
-    components, which no ported kernel takes (K1 past MAX_CELLS, K4 not
-    separable, K5 not emission) and which the JAX package's megakernels
-    refuse too (only its XLA wave kernel runs them): run_batch raises,
-    naming each kernel's failing predicates."""
+    """With Rayleigh the deck has no separable plan, so its bins take the
+    generic build: 38,400 cells of three components, which no
+    hand-written kernel takes (K1 past MAX_CELLS, K4 not separable, K5 not
+    emission) and which the JAX package's megakernels refuse too (its XLA
+    wave kernel runs them, as the port's does under usePallas = 'auto'):
+    with usePallas = 'on' run_batch raises, naming each kernel's failing
+    predicates."""
     monkeypatch.chdir(inputs)
     cfg = load_config("deck.nml")
-    with pytest.raises(NotImplementedError, match="shortwave"):
-        broadband.run_broadband(dataclasses.replace(cfg, lw_flag=-1.0),
-                                "cpu")
-    with pytest.raises(NotImplementedError,
-                       match="n_cells=38400 > 36864") as err:
-        broadband.run_broadband(dataclasses.replace(cfg, calc_rayleigh=True),
-                                "cpu")
+    with pytest.raises(ValueError, match="n_cells=38400 > 36864") as err:
+        broadband.run_broadband(dataclasses.replace(
+            cfg, calc_rayleigh=True, use_pallas="on"), "cpu")
     assert "domain is not separable" in str(err.value)
     assert "emission source" in str(err.value)
     # the JAX package's dispatch of the same first bin

@@ -565,9 +565,10 @@ def test_each_column_radiance_refusal_is_named(refusal):
         jd, JSurface.lambertian(0.2), jsrc, lw, 0, False, jicfg, jdirs,
         jpk.dirs_mu_floor_ok(jicfg, jdirs), False)
     if refusal == "mu_floor":  # and run_batch says so
-        with pytest.raises(NotImplementedError, match="pallas_min_mu=0.4"):
+        with pytest.raises(ValueError, match="pallas_min_mu=0.4"):
             run_batch(td, Surface.lambertian(0.2), src, 0,
-                      KernelConfig(n_lanes=1024, photons_per_lane=1),
+                      KernelConfig(n_lanes=1024, photons_per_lane=1,
+                                   use_pallas="on"),
                       intensity_config=icfg, intensity_dirs=dirs)
 
 
@@ -614,9 +615,10 @@ def test_mu_floor_reads_pallas_min_mu(step_clouds, min_mu, mu, ok):
                                                  False, icfg, dirs)
     if not ok:
         assert any(f"pallas_min_mu={min_mu}" in r for r in reasons)
-        with pytest.raises(NotImplementedError, match="pallas_min_mu"):
-            run_batch(dom, sfc, src, 0, cfg, intensity_config=icfg,
-                      intensity_dirs=dirs)
+        with pytest.raises(ValueError, match="pallas_min_mu"):
+            run_batch(dom, sfc, src, 0,
+                      dataclasses.replace(cfg, use_pallas="on"),
+                      intensity_config=icfg, intensity_dirs=dirs)
         return
     assert not reasons
     prm = rk.RecordParams.make(dom, sfc, src, True, 1.0, True, icfg, dirs)

@@ -180,16 +180,16 @@ def test_dispatch_raises_outside_the_port():
     """Past the record kernel's cells, a domain that is no template, with
     the absorption profile (which the tiled kernel does not tally), is
     outside every ported kernel; the error names the tiled kernel's
-    failing predicate."""
+    failing predicate when use_pallas='on' (with 'auto' the wave kernel
+    runs it)."""
     dense = make_step_cloud(ssa=0.99, n_columns=32, n_layers=1200,
                             n_cdf_steps=101, device="cpu")
     cfg = KernelConfig(n_lanes=1024, photons_per_lane=1,
                        need_volume_absorption=False,
-                       need_absorption_profile=True)
-    with pytest.raises(NotImplementedError,
-                       match="K5.*need_absorption_profile"):
+                       need_absorption_profile=True, use_pallas="on")
+    with pytest.raises(ValueError, match="K5.*need_absorption_profile"):
         run_batch(dense, Surface.lambertian(0.0), SRC, 0, cfg)
-    with pytest.raises(NotImplementedError, match="use_ray_tracing"):
+    with pytest.raises(ValueError, match="use_ray_tracing"):
         run_batch(make_step_cloud(n_cdf_steps=101, device="cpu"),
                   Surface.lambertian(0.0), SRC, 0,
                   dataclasses.replace(cfg, use_ray_tracing=True))
