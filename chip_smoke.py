@@ -13,7 +13,9 @@ alone on the card:
    record, column, separable and tiled kernels (the record and column
    libraries with their walk kernels) and the probe kernels from
    mcbrat3d_tpu_torch/csrc (one nvcc each, started together), reporting
-   the build times and ptxas registers/spills;
+   the build times and ptxas registers/spills, then the host libraries of
+   csrc/host (the alias-table builder, the Mie series, the reference
+   tracer; g++ each);
 2. flux kernel against its plain PyTorch version on the card, same seeds,
    both on run_batch's refill schedule (the card's resident slots):
    the step cloud at 2^20 photons for macro_factor 0 and 8, both tally
@@ -258,14 +260,40 @@ alone on the card:
 3o. the wave kernel (plain PyTorch, the JAX package's XLA path) on cuda:
    one 2^20-photon batch of run/step_cloud_mono.nml's step cloud on it and
    on K1 through run_batch (ms a wave step, photons/s of each); then
-   through the command line the deck with usePallas = 'off' (as many
-   batches of 2^20 as fit in about 60 s), the step cloud with
+   tests/test_golden.py's four step-cloud cases (10^6 photons each) on it,
+   n_bad 0 and R/T/A within that test's 4.5 sigma of its frozen table;
+   then through the command line the deck with usePallas = 'off' (as many
+   batches of 2^20 as fit in what the goldens leave of about 60 s, at
+   least 2), the step cloud with
    useRayTracing and numRecScatOrd = 3 (2 x 2^18 photons, its auxhist01
    file) and run/step_cloud_radiance.nml with one direction at mu 0.1 (2
    x 16,384), each deck's wave steps and ms a step: no kernel launched,
    every batch on the wave kernel, n_bad == 0, R/T/A (and the fluxes by order, the radiance) within 4.5 combined
    sigma of values frozen from the JAX package's XLA path
    (tools/wave_reference.py step, rt, rad);
+3p. checkpoints, observability and the domain-building toolchain, each
+   deck through the command line on cuda (a kernel launched, no plain
+   step, no batch on the wave kernel): (a) run/step_cloud_mono.nml without
+   a break (twice), then stopped at 8 of its 16 batches with
+   checkpointFile and a checkpoint a batch, then resumed to 16: every
+   mean and standard error within 10 x the gap between the two
+   uninterrupted runs (the kernels' float32 atomics add a batch's tallies
+   in no fixed order), and the checkpoint arithmetic replayed on the
+   uninterrupted run's batches on the card within 1e-12 (means) and 1e-9
+   (standard errors); (b) run/broadband_sw.nml the same way, interrupted
+   once the checkpoint after half of its global batches is saved, the resume
+   building no domain for the whole bins it skips; (c) the toolchain at
+   the dense deck's MODIS class, 128 x 128 x 64: ``mie`` (a water table
+   at 0.67 um, Reff rows 8 and 12 um), a synthetic LWC/Reff particle file
+   from a seed, ``physprops``, then ``run`` with usePallas = 'on' (JAX's
+   dispatch order names the tiled kernel, which runs it), n_bad <= 16,
+   every flux finite, R + T + A = 1 within 1e-5 over a black surface
+   without roulette; (d) observability.profiler_trace around one
+   main-deck batch (the exported trace names the record kernel's
+   launches) and device_memory_stats (the card); then the emission alias
+   table over the LW flagship's 15,843,750 voxels by csrc/host/alias.cpp
+   and by the Python loop on the card's host, equal bit for bit, both
+   timed;
 4. the flux headline (macro_factor 16, 2^16 lanes x 1024 photons, flux
    tallies only, through run_batch_record_tallies): the A/B of the refill
    schedule (run_batch's) and JAX's geometry in turns (refill, JAX, JAX,
@@ -360,6 +388,15 @@ ROOT = Path(__file__).resolve().parent
 # (ssa, mu0) = (0.99, 0.5) row of tests/test_golden.py: frozen from the
 # native C++ tracer at 40M photons (one-sigma ~8e-5).
 GOLDEN_RTA = (0.47656, 0.32485, 0.19860)
+# tests/test_golden.py's whole table, (ssa, mu0) -> (R, T, A), which 3o
+# holds the wave kernel against at GOLDEN_PHOTONS photons a case
+GOLDEN = {
+    (1.00, 1.0): (0.32774, 0.67226, 0.00000),
+    (1.00, 0.5): (0.58060, 0.41940, 0.00000),
+    (0.99, 1.0): (0.26101, 0.59801, 0.14098),
+    (0.99, 0.5): (0.47656, 0.32485, 0.19860),
+}
+GOLDEN_PHOTONS = 1_000_000
 RTA_TOL_KERNEL_VS_PLAIN = 2e-3
 # Real collisions of K1 against its plain step, relative: equal on all
 # fifteen cases of phase 2 on the H100; the limit leaves room for a few
@@ -575,9 +612,23 @@ JAX_WAVE_RAD = (0.4786494877189398, 0.3231675662100315, 0.19812197610735893,
                 0.6656596236280166)
 JAX_WAVE_RAD_SE = (0.00216906272, 0.00192910139, 0.000549273439,
                    0.0117856575)
-# Phase 3o's wall seconds for the step-cloud deck on the wave kernel,
-# sized by one timed batch.
+# Phase 3o's wall seconds for the golden cases and the step-cloud deck on
+# the wave kernel together: the deck gets what the goldens leave, in
+# batches of one timed batch's time (2-16)
 WAVE_DECK_SECONDS = 60.0
+# Phase 3p: a resumed run against the uninterrupted one (the tolerances of
+# tests/test_driver.py:129-155: the resumed run adds the checkpoint's
+# float64 sums to its own instead of carrying one compensated sum)
+RESUME_MEAN_RTOL = 1e-12
+RESUME_STDERR_RTOL = 1e-9
+# on the card a deck's batches differ run to run in the last bits (float32
+# atomics): the resumed deck is held within this factor of the gap between
+# two uninterrupted runs (a wrong resume moves the means by a batch's
+# statistical weight, ~1e-3)
+RESUME_FLOOR_FACTOR = 10.0
+# the toolchain deck's energy balance with a black surface and no roulette
+# (at most DENSE_DECK_MAX_BAD photons of 8 x 2^20 cut by the step cap)
+TOOLCHAIN_BALANCE_TOL = 1e-5
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): device
 # memory bytes/s and float32 operations/s outside
 # the tensor cores.
@@ -847,7 +898,7 @@ STEP_CLOUD_DOMAIN = ("step_cloud", "StepCloud.dom", "ssa=0.99",
 
 
 def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
-                  sk=None, tk=None, kernel=True):
+                  sk=None, tk=None, kernel=True, stop=None):
     """mkdomain (unless ``domain`` is None) + run a deck through the CLI on
     cuda in the current directory; returns the JSON line, the seconds and
     the launches of the run (record kernel, its radiance launches, column
@@ -857,7 +908,8 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
     that no plain step ran and (``kernel``) that a kernel launched and no
     batch ran on the wave kernel. Every
     count, the wave kernel's batches too, is set to 0 just before the run
-    and read just after it."""
+    and read just after it. With ``stop`` (an exception class) the run
+    must end by raising it (an interrupted run): the JSON line is None."""
     from mcbrat3d_tpu_torch.transport import integrator
 
     Path("deck.nml").write_text(deck_text)
@@ -895,6 +947,11 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
     try:
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["run", "deck.nml", "--device", "cuda"])
+        assert stop is None, "the run was not interrupted"
+    except Exception as e:
+        if stop is None or not isinstance(e, stop):
+            raise
+        rc = None
     finally:
         for (m, name), plain in zip(patched, originals):
             setattr(m, name, plain)
@@ -906,10 +963,13 @@ def _run_cli_deck(cli, rk, deck_text, ck=None, domain=STEP_CLOUD_DOMAIN,
                 ck.COL_LE_LAUNCHES if ck is not None else 0,
                 rk.WALK_LAUNCHES,
                 ck.COL_WALK_LAUNCHES if ck is not None else 0)
-    assert rc == 0
+    assert rc == (0 if stop is None else None)
     assert not kernel or launches[0] + sum(launches[2:5]) > 0, \
         "the deck launched no kernel"
     assert not plain_steps, "the deck ran a plain PyTorch step"
+    if stop is not None:
+        assert not kernel or integrator.WAVE_BATCHES == 0
+        return None, seconds, launches
     out = json.loads(buf.getvalue().strip().splitlines()[-1])
     assert integrator.WAVE_BATCHES == out["launches"]["wave_kernel_batches"]
     assert not kernel or out["launches"]["wave_kernel_batches"] == 0, \
@@ -4559,15 +4619,65 @@ def _wave_deck(cli, rk, ck, sk, tk, text, n):
     return out, seconds, list(means), list(se), sum(steps), sum(wave_s)
 
 
+def _wave_goldens(integrator, rng, Surface, illumination):
+    """3o: the wave kernel on tests/test_golden.py's four step-cloud cases
+    (analytic HG, 2,001 CDF steps, black surface), GOLDEN_PHOTONS photons a
+    case on 2^17 lanes through run_batch with use_pallas "off": n_bad 0,
+    R, T and A within that test's 4.5 sigma (sqrt(R(1 - R)/N) + 8e-5) of
+    the frozen table, R + T + A within 2e-4 of 1. Returns each case's
+    seconds and largest gap in its sigma."""
+    import torch
+
+    from mcbrat3d_tpu_torch.scenes.step_cloud import make_step_cloud
+    from mcbrat3d_tpu_torch.transport.integrator import KernelConfig
+
+    cfg = KernelConfig(n_lanes=1 << 17, photons_per_lane=8,
+                       max_steps=600_000, use_pallas="off")
+    rows = {}
+    for ssa, mu0 in sorted(GOLDEN):
+        dom = make_step_cloud(ssa=ssa, n_cdf_steps=2001, device="cuda")
+        integrator.WAVE_BATCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = integrator.run_batch(dom, Surface.lambertian(0.0),
+                                 illumination.directional(mu0, 0.0),
+                                 rng.batch_seed(7, 0), cfg,
+                                 n_photons=GOLDEN_PHOTONS,
+                                 key=rng.batch_key(7, 0))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        assert integrator.WAVE_BATCHES == 1
+        n = int(t.n_photons)
+        assert n == GOLDEN_PHOTONS and int(t.n_bad) == 0, (n, t.n_bad)
+        got = [float(f.sum()) / n
+               for f in (t.flux_up, t.flux_down, t.flux_absorbed)]
+        worst = 0.0
+        for g, want, name in zip(got, GOLDEN[(ssa, mu0)], "RTA"):
+            sigma = (max(want * (1 - want), 1e-8) / n) ** 0.5 + 8e-5
+            worst = max(worst, abs(g - want) / sigma)
+            assert abs(g - want) < 4.5 * sigma, (ssa, mu0, name, g, want)
+        assert abs(sum(got) - 1.0) < 2e-4, (ssa, mu0, got)
+        print(f"wave kernel golden ssa={ssa} mu0={mu0}: R/T/A {got}, "
+              f"frozen {GOLDEN[(ssa, mu0)]}, largest gap {worst:.2f} "
+              f"sigma; {t.n_steps} steps in {secs:.2f} s "
+              f"({1e3 * secs / t.n_steps:.3f} ms a step, "
+              f"{n / secs:.4g} photons/s)", flush=True)
+        rows[(ssa, mu0)] = dict(seconds=secs, worst=worst)
+    return rows
+
+
 def phase_wave_kernel(rk, ck, sk, tk, cli, io_netcdf, build_domain, Surface,
                       illumination, config, integrator, rng):
     """3o: the wave kernel (plain PyTorch, the JAX package's XLA path) on
     the card. First one 2^20-photon batch of run/step_cloud_mono.nml's step
     cloud on the wave kernel and on K1 (median of 3) through run_batch,
     each timed around a synchronized call: the wave kernel's ms a step and
-    photons/s against K1's. Then through the CLI: the deck with usePallas
+    photons/s against K1's. Then tests/test_golden.py's four step-cloud
+    cases on the wave kernel against its frozen table (``_wave_goldens``).
+    Then through the CLI: the deck with usePallas
     = 'off' at its grid and numPhotonsPerBatch (2^20), as many batches as
-    that batch's time fits in WAVE_DECK_SECONDS (2-16); the step cloud with
+    that batch's time fits in what the goldens leave of WAVE_DECK_SECONDS
+    (2-16); the step cloud with
     useRayTracing and numRecScatOrd = 3 ('auto': no kernel takes it), 2 x
     2^18 photons, with its auxhist01 file; run/step_cloud_radiance.nml
     with its one direction at mu 0.1 (below every kernel's mu floor), 2 x
@@ -4648,7 +4758,10 @@ def phase_wave_kernel(rk, ck, sk, tk, cli, io_netcdf, build_domain, Surface,
                   f"{k1.n_photons / k1_s:.4g} photons/s: the wave kernel "
                   f"{wave_s / k1_s:.1f}x slower", flush=True)
             assert wave.n_photons == k1.n_photons == n and wave.n_bad == 0
-            n_step = max(2, min(16, int(WAVE_DECK_SECONDS / wave_s)))
+            goldens = _wave_goldens(integrator, rng, Surface, illumination)
+            golden_s = sum(r["seconds"] for r in goldens.values())
+            n_step = max(2, min(16, int((WAVE_DECK_SECONDS - golden_s)
+                                        / wave_s)))
             for name, text, nb in (("step", step_deck, n_step),
                                    ("rt", rt_deck, 2), ("rad", rad_deck, 2)):
                 res[name] = _wave_deck(cli, rk, ck, sk, tk, text, nb)
@@ -4686,9 +4799,504 @@ def phase_wave_kernel(rk, ck, sk, tk, cli, io_netcdf, build_domain, Surface,
         worst = max(worst, _within_sigma(got, got_se, want, want_se, labels))
     return dict(ms_per_step=ms_step, photons_per_s=wave.n_photons / wave_s,
                 k1_photons_per_s=k1.n_photons / k1_s, worst=worst,
+                goldens=goldens,
                 batches={k: v[0]["n_batches"] for k, v in res.items()},
                 ms_per_step_by_deck={k: 1e3 * v[5] / v[4]
                                      for k, v in res.items()})
+
+
+class _Interrupt(Exception):
+    """Raised by phase 3p's checkpoint hook to stop a run where a kill
+    would."""
+
+
+def _capture_results(fn):
+    """Run ``fn()`` with ``driver.simulate.simulate_from_config`` wrapped so
+    that the CLI's Results are kept; returns (fn's value, [Results])."""
+    from mcbrat3d_tpu_torch.driver import simulate
+
+    kept, original = [], simulate.simulate_from_config
+
+    def keeping(*args, **kwargs):
+        results, written = original(*args, **kwargs)
+        kept.append(results)
+        return results, written
+
+    simulate.simulate_from_config = keeping
+    try:
+        return fn(), kept
+    finally:
+        simulate.simulate_from_config = original
+
+
+def _result_gaps(got, want, label):
+    """The largest relative gaps of ``got``'s means and standard errors to
+    ``want``'s over every array (equal photons, batches and arrays
+    asserted)."""
+    import numpy as np
+
+    assert (got.total_photons, got.n_batches) == (want.total_photons,
+                                                  want.n_batches), label
+    assert sorted(got.mean) == sorted(want.mean), label
+    gaps = [0.0, 0.0]
+    for k in want.mean:
+        for i, (a, b) in enumerate(((got.mean[k], want.mean[k]),
+                                    (got.stderr[k], want.stderr[k]))):
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            gap = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
+            gaps[i] = max(gaps[i], float(np.where(a == b, 0.0, gap).max()))
+    return gaps
+
+
+def _replay_resume(batches, stop, chunk):
+    """The checkpoint arithmetic on the card, on the batches an
+    uninterrupted run added ((weight, arrays on cuda) each): one
+    DeviceMomentAccumulator over all of them against one over the first
+    ``stop`` batches, saved and loaded as a checkpoint file, then the base
+    of another over the rest. Asserts every mean within RESUME_MEAN_RTOL
+    and every standard error within RESUME_STDERR_RTOL; returns the
+    largest gaps."""
+    import numpy as np
+
+    from mcbrat3d_tpu_torch.core.accumulate import DeviceMomentAccumulator
+    from mcbrat3d_tpu_torch.driver import checkpoint
+
+    whole, first = DeviceMomentAccumulator(), DeviceMomentAccumulator()
+    for i, (w, arrays) in enumerate(batches):
+        whole.add(w, arrays)
+        if i < stop:
+            first.add(w, arrays)
+    checkpoint.save_checkpoint("replay.npz", stop, first, chunk)
+    next_batch, base = checkpoint.load_checkpoint("replay.npz")
+    assert next_batch == stop
+    rest = DeviceMomentAccumulator(base=base)
+    for w, arrays in batches[stop:]:
+        rest.add(w, arrays)
+    a, b = rest.finalize(), whole.finalize()
+    assert (a.n_batches, a.total_weight) == (b.n_batches, b.total_weight)
+    gaps = [0.0, 0.0]
+    for k in b._sum_wx:
+        for i, (x, y, tol) in enumerate((
+                (a.mean(k), b.mean(k), RESUME_MEAN_RTOL),
+                (a.stderr(k), b.stderr(k), RESUME_STDERR_RTOL))):
+            np.testing.assert_allclose(x, y, rtol=tol, err_msg=k)
+            gap = np.abs(x - y) / np.maximum(np.abs(y), 1e-300)
+            gaps[i] = max(gaps[i], float(np.where(x == y, 0.0, gap).max()))
+    return gaps
+
+
+def _recording_batches(fn):
+    """Run ``fn()`` keeping a copy of every batch a DeviceMomentAccumulator
+    adds ((weight, arrays)); returns (fn's value, the batches)."""
+    from mcbrat3d_tpu_torch.core.accumulate import DeviceMomentAccumulator
+
+    kept, add = [], DeviceMomentAccumulator.add
+
+    def keeping(self, weight, arrays):
+        kept.append((float(weight), {k: v.clone() for k, v in arrays.items()}))
+        return add(self, weight, arrays)
+
+    DeviceMomentAccumulator.add = keeping
+    try:
+        return fn(), kept
+    finally:
+        DeviceMomentAccumulator.add = add
+
+
+def _check_resumed(resumed, full, again, batches, stop, chunk, label):
+    """A resumed deck against the uninterrupted one. The kernels add their
+    float32 tallies with atomics in no fixed order, so a deck run twice
+    differs in the last bits of a batch (``again`` against ``full``: the
+    floor); the resumed run, whose batches are run again too, must be
+    within RESUME_FLOOR_FACTOR x that floor (or the stated tolerances where
+    the floor is 0), and the checkpoint arithmetic, replayed on the
+    uninterrupted run's own batches, within RESUME_MEAN_RTOL and
+    RESUME_STDERR_RTOL. Returns the gaps (resumed, floor, replay)."""
+    floor = _result_gaps(again, full, label)
+    gaps = _result_gaps(resumed, full, label)
+    for i, tol in enumerate((RESUME_MEAN_RTOL, RESUME_STDERR_RTOL)):
+        assert gaps[i] <= max(tol, RESUME_FLOOR_FACTOR * floor[i]), (
+            label, i, gaps, floor)
+    replay = _replay_resume(batches, stop, chunk)
+    return dict(resumed=gaps, floor=floor, replay=replay)
+
+
+def _with_checkpoint(text, iseed_line):
+    assert iseed_line in text
+    return text.replace(iseed_line, iseed_line + "  checkpointFile = "
+                        "'run.ckpt.npz'\n  checkpointEveryBatches = 1\n")
+
+
+def _resume_main_deck(cli, rk):
+    """3p (a): run/step_cloud_mono.nml without a break (twice), then
+    stopped at 8 of its 16 batches with a checkpoint a batch, then resumed
+    to 16 (``_check_resumed``)."""
+    mono = (ROOT / "run" / "step_cloud_mono.nml").read_text()
+    ck_deck = _with_checkpoint(mono, "  iseed = 10\n")
+    ((full, secs, (launches, *_)), (res_full,)), batches = \
+        _recording_batches(lambda: _capture_results(
+            lambda: _run_cli_deck(cli, rk, mono)))
+    _, (res_again,) = _capture_results(
+        lambda: _run_cli_deck(cli, rk, mono, domain=None))
+    (half, half_s, (half_launches, *_)), (res_half,) = _capture_results(
+        lambda: _run_cli_deck(cli, rk, _with_batches(ck_deck, 8),
+                              domain=None))
+    (res, res_s, (res_launches, *_)), (res_resumed,) = _capture_results(
+        lambda: _run_cli_deck(cli, rk, ck_deck, domain=None))
+    assert half["n_batches"] == 8 and res["n_batches"] == 16
+    assert full["n_bad"] == res["n_bad"] == 0 and len(batches) == 16
+    assert launches == half_launches + res_launches, (
+        launches, half_launches, res_launches)
+    gaps = _check_resumed(res_resumed, res_full, res_again, batches, 8,
+                          1 << 20, "main deck")
+    print(f"3p main deck resumed: uninterrupted {secs:.3f} s "
+          f"({launches} K1 launches), stopped at 8 of 16 batches with a "
+          f"checkpoint a batch {half_s:.3f} s ({half_launches}), resumed "
+          f"{res_s:.3f} s ({res_launches}); {len(res_full.mean)} arrays, "
+          f"largest relative gaps (means, standard errors): resumed "
+          f"{gaps['resumed']}, uninterrupted run twice {gaps['floor']}, "
+          f"the checkpoint replayed on the run's batches {gaps['replay']}",
+          flush=True)
+    return dict(seconds=(secs, half_s, res_s), gaps=gaps,
+                launches=(launches, half_launches, res_launches))
+
+
+def _resume_sw_deck(cli, rk, ck, sk, tk, write_sw_broadband_inputs):
+    """3p (b): run/broadband_sw.nml without a break, then interrupted after
+    half of its global batches (the checkpoint hook raises once it has
+    saved that batch), then resumed: whole bins are skipped unbuilt."""
+    from mcbrat3d_tpu_torch.driver import checkpoint
+    from mcbrat3d_tpu_torch.spectral import broadband
+
+    deck = (ROOT / "run" / "broadband_sw.nml").read_text()
+    ck_deck = _with_checkpoint(deck, "  iseed = 11\n")
+    t0 = time.perf_counter()
+    write_sw_broadband_inputs(".")
+    gen_s = time.perf_counter() - t0
+    built, build = [], broadband.components_from_ssp
+
+    def counting(common, ssp, li, **kw):
+        built.append(li)
+        return build(common, ssp, li, **kw)
+
+    broadband.components_from_ssp = counting
+    save = checkpoint.save_checkpoint
+    try:
+        ((full, secs, launches), (res_full,)), batches = \
+            _recording_batches(lambda: _capture_results(
+                lambda: _run_cli_deck(cli, rk, deck, ck=ck, domain=None,
+                                      sk=sk, tk=tk)))
+        bins = list(built)
+        half_b = full["n_batches"] // 2
+        _, (res_again,) = _capture_results(
+            lambda: _run_cli_deck(cli, rk, deck, ck=ck, domain=None, sk=sk,
+                                  tk=tk))
+
+        def save_then_stop(path, b, acc, chunk=0):
+            save(path, b, acc, chunk)
+            if b == half_b:
+                raise _Interrupt
+
+        checkpoint.save_checkpoint = save_then_stop
+        built.clear()
+        (_, cut_s, cut_launches), _ = _capture_results(
+            lambda: _run_cli_deck(cli, rk, ck_deck, ck=ck, domain=None,
+                                  sk=sk, tk=tk, stop=_Interrupt))
+        checkpoint.save_checkpoint = save
+        cut_bins = list(built)
+        built.clear()
+        (res, res_s, res_launches), (res_resumed,) = _capture_results(
+            lambda: _run_cli_deck(cli, rk, ck_deck, ck=ck, domain=None,
+                                  sk=sk, tk=tk))
+        res_bins = list(built)
+    finally:
+        broadband.components_from_ssp = build
+        checkpoint.save_checkpoint = save
+    assert checkpoint.load_checkpoint("run.ckpt.npz")[0] == full["n_batches"]
+    skipped = [b for b in bins if b not in res_bins]
+    assert skipped and res_bins == bins[len(skipped):], (bins, res_bins)
+    assert full["n_bad"] == res["n_bad"] == 0
+    assert len(batches) == full["n_batches"]
+    assert res_full.solar_flux == res_resumed.solar_flux
+    gaps = _check_resumed(res_resumed, res_full, res_again, batches, half_b,
+                          262_144, "SW deck")
+    print(f"3p SW deck resumed: inputs {gen_s:.2f} s; uninterrupted "
+          f"{secs:.3f} s ({full['n_batches']} batches, {launches[0]} K1 "
+          f"launches, {len(bins)} bins built), interrupted after "
+          f"{half_b} batches {cut_s:.3f} s ({cut_launches[0]} launches, "
+          f"{len(cut_bins)} bins built), resumed {res_s:.3f} s "
+          f"({res_launches[0]} launches, {len(res_bins)} bins built, "
+          f"{len(skipped)} whole bins skipped); largest relative gaps "
+          f"(means, standard errors): resumed {gaps['resumed']}, "
+          f"uninterrupted run twice {gaps['floor']}, the checkpoint "
+          f"replayed on the run's batches {gaps['replay']}", flush=True)
+    return dict(seconds=(secs, cut_s, res_s), gaps=gaps,
+                bins=(len(bins), len(cut_bins), len(res_bins)),
+                launches=(launches[0], cut_launches[0], res_launches[0]))
+
+
+TOOLCHAIN_MIE_NML = """&mie_table_input
+  wavelen1 = 0.67
+  partype = 'W'
+  distflag = 'G'
+  alpha = 7.0
+  nretab = 2
+  sretab = 8.0
+  eretab = 12.0
+  maxradius = 40.0
+  mietabfile = 'water067.pft'
+/
+"""
+TOOLCHAIN_PHYSPROPS_NML = """&physprops
+  particlefilename = 'particles.txt'
+  scattablefiles = 'water067.pft'
+  outputfilename = 'Toolchain.dom'
+/
+"""
+# the dense deck's shape and pool (run/dense_cloud_mono.nml) on the domain
+# the toolchain builds; a black surface and no roulette, so the weight is
+# conserved up to the photons the step cap cuts; 'on', so a refusal raises
+TOOLCHAIN_DECK = """&radiativeTransfer
+  solarMu = 0.5
+  solarAzimuth = 0.
+  LW_flag = -1.
+  numLambda = 1
+/
+&monteCarlo
+  numPhotonsPerBatch = 2097152
+  numBatches = 4
+  iseed = 21
+  nLanes = 262144
+/
+&algorithms
+  useRayTracing = .false.
+  useRussianRoulette = .false.
+  usePallas = 'on'
+/
+&output
+  reportAbsorptionProfile = .false.
+  reportVolumeAbsorption = .false.
+/
+&fileNames
+  domainFileName = 'Toolchain.dom'
+  outputFluxFile = 'toolchain_flux.out'
+  outputNetcdfFile = 'toolchain_results.nc'
+/
+"""
+
+
+def write_toolchain_particles(path, nx=128, ny=128, nz=64, seed=12):
+    """A synthetic type-2 particle file (physprops' input) of the dense
+    deck's MODIS class: liquid water content [g m^-3] = 0.2 x a correlated
+    horizontal amplitude x an adiabatic-like vertical ramp x per-cell noise
+    (full rank: neither column-template nor separable), effective radius
+    8-12 um growing with height (the Mie table's two rows), on 30 m x 30 m
+    x 20 m cells; the cells without water are left out. Returns the cells
+    written."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    f = rs.rand(nx, ny)
+    for _ in range(3):
+        f = (f + np.roll(f, 1, 0) + np.roll(f, -1, 0)
+             + np.roll(f, 1, 1) + np.roll(f, -1, 1)) / 5.0
+    amp = (f > np.quantile(f, 0.5)) * f
+    zc = (np.arange(nz) + 0.5) / nz
+    prof = np.clip(1.5 * zc - 0.2, 0.0, 1.0) * (zc < 0.8)
+    lwc = 0.2 * amp[:, :, None] * prof[None, None, :]
+    lwc *= 0.5 + rs.rand(nx, ny, nz)
+    reff = np.broadcast_to(8.0 + 4.0 * zc, (nx, ny, nz))
+    ix, iy, iz = np.nonzero(lwc > 0)
+    z = 0.02 * np.arange(nz + 1)
+    temps = 288.0 - 6.5 * z
+    rows = np.column_stack([ix + 1, iy + 1, iz + 1, lwc[ix, iy, iz],
+                            reff[ix, iy, iz]])
+    with open(path, "w") as out:
+        out.write(f"2\n{nx} {ny} {nz}\n0.03 0.03\n")
+        out.write(" ".join(f"{v:.4f}" for v in z) + "\n")
+        out.write(" ".join(f"{v:.3f}" for v in temps) + "\n")
+        np.savetxt(out, rows, fmt=["%d", "%d", "%d", "%.6e", "%.5f"])
+    return ix.size
+
+
+def _toolchain_deck(cli, rk, ck, sk, tk, tiled_kernel_name):
+    """3p (c): the domain-building toolchain at the dense deck's MODIS
+    class (bench.py:306-342: 128 x 128 x 64): ``cli mie`` (a water table
+    at 0.67 um, Reff rows 8 and 12 um), a synthetic LWC/Reff particle file
+    from a seed, ``cli physprops`` (the domain), then ``cli run`` with
+    usePallas = 'on'. Asserts JAX's dispatch order names the tiled kernel
+    (K5), the deck ran on it, n_bad within 3e's allowance, every flux
+    finite and R + T + A = 1 within TOOLCHAIN_BALANCE_TOL."""
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    from mcbrat3d_tpu_torch.domain import io_netcdf
+    from mcbrat3d_tpu_torch.domain.domain import build_domain
+    from mcbrat3d_tpu_torch.driver import config
+    from mcbrat3d_tpu_torch.driver.run import kernel_config_from
+    from mcbrat3d_tpu_torch.physics.surface import Surface
+    from mcbrat3d_tpu_torch.sources import illumination
+    from mcbrat3d_tpu_torch.transport.integrator import select_kernel
+
+    steps = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            value = fn()
+        steps[name] = time.perf_counter() - t0
+        return value
+
+    Path("mie.nml").write_text(TOOLCHAIN_MIE_NML)
+    Path("physprops.nml").write_text(TOOLCHAIN_PHYSPROPS_NML)
+    assert step("mie", lambda: cli.main(["mie", "mie.nml"])) == 0
+    n_cells = step("particle file",
+                   lambda: write_toolchain_particles("particles.txt"))
+    assert step("physprops",
+                lambda: cli.main(["physprops", "physprops.nml"])) == 0
+    Path("deck.nml").write_text(TOOLCHAIN_DECK)
+    cfg = config.load_config("deck.nml")
+    grid, comps, temps, attrs = io_netcdf.read_domain("Toolchain.dom",
+                                                      device="cuda")
+    table = comps[0].phase_function_table
+    dom = build_domain(grid, comps, n_cdf_steps=cfg.n_phase_intervals,
+                       temps=temps, macro_factor=cfg.macro_factor)
+    kind = select_kernel(dom, Surface.lambertian(attrs["surface_albedo"]),
+                         illumination.directional(cfg.solar_mu,
+                                                  cfg.solar_azimuth),
+                         kernel_config_from(cfg))[0]
+    assert kind == tiled_kernel_name, kind
+    out, secs, launches = _run_cli_deck(cli, rk, TOOLCHAIN_DECK, ck=ck,
+                                        domain=None, sk=sk, tk=tk)
+    with netcdf_file("toolchain_results.nc", "r", mmap=False) as nc:
+        for v in ("fluxUp", "fluxDown", "fluxAbsorbed"):
+            a = np.array(nc.variables[v][:])
+            assert a.shape == (128, 128) and np.isfinite(a).all(), v
+    rta = (out["mean_flux_up"], out["mean_flux_down"],
+           out["mean_flux_absorbed"])
+    balance = sum(rta) - 1.0
+    print(f"3p toolchain deck (128 x 128 x 64, {n_cells} cloudy cells, "
+          f"{table.n_entries} Mie rows of "
+          f"{[pf.n_moments for pf in table.phase_functions]} moments): "
+          f"host steps "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in steps.items())
+          + f"; JAX's dispatch order: {kind}; run {secs:.2f} s, "
+          f"{out['total_photons']} photons, tiled launches {launches[4]}, "
+          f"other kernels {sum(launches) - launches[4]}, n_bad "
+          f"{out['n_bad']}, R/T/A {rta}, R + T + A - 1 = {balance:.3g}",
+          flush=True)
+    assert launches[4] > 0 and sum(launches) == launches[4], launches
+    assert out["total_photons"] == 4 * 2_097_152
+    assert out["n_bad"] <= DENSE_DECK_MAX_BAD, out["n_bad"]
+    assert abs(balance) < TOOLCHAIN_BALANCE_TOL, balance
+    return dict(steps=steps, seconds=secs, kernel=kind,
+                launches=launches[4], n_bad=out["n_bad"], balance=balance)
+
+
+def _profiled_batch(rk):
+    """3p (d): one batch of the main deck (its step-cloud domain, 2^20
+    photons, K1) inside ``observability.profiler_trace``: the exported
+    trace names the record kernel's launch; ``device_memory_stats``
+    reports the card."""
+    import torch
+
+    from mcbrat3d_tpu_torch.core import observability, rng
+    from mcbrat3d_tpu_torch.domain import io_netcdf
+    from mcbrat3d_tpu_torch.domain.domain import build_domain
+    from mcbrat3d_tpu_torch.driver import config
+    from mcbrat3d_tpu_torch.driver.run import kernel_config_from
+    from mcbrat3d_tpu_torch.physics.surface import Surface
+    from mcbrat3d_tpu_torch.sources import illumination
+    from mcbrat3d_tpu_torch.transport.integrator import run_batch
+
+    cfg = config.load_config(str(ROOT / "run" / "step_cloud_mono.nml"))
+    grid, comps, temps, _ = io_netcdf.read_domain("StepCloud.dom",
+                                                  device="cuda")
+    dom = build_domain(grid, comps, n_cdf_steps=cfg.n_phase_intervals,
+                       temps=temps, macro_factor=cfg.macro_factor)
+    args = (dom, Surface.lambertian(0.0),
+            illumination.directional(cfg.solar_mu, cfg.solar_azimuth),
+            rng.batch_seed(cfg.iseed, 0), kernel_config_from(cfg))
+    run_batch(*args)  # warm-up
+    rk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with observability.profiler_trace("trace") as prof:
+        t = run_batch(*args)
+    secs = time.perf_counter() - t0
+    assert rk.LAUNCHES > 0 and t.n_photons == cfg.num_photons_per_batch
+    events = json.loads(Path("trace/trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if "record_steps" in e.get("name", "")
+               and e.get("cat") == "kernel"]
+    assert kernels, sorted({e.get("cat") for e in events})
+    device_us = sum(e.get("dur", 0) for e in kernels)
+    mem = observability.device_memory_stats()
+    card = mem["cuda:0"]
+    assert card["name"] == torch.cuda.get_device_name(0), card
+    assert card["total_bytes"] > 0 and card["peak_bytes_in_use"] > 0, card
+    print(f"3p profiler: one 2^20-photon main-deck batch in "
+          f"{secs * 1e3:.1f} ms under the profiler, {len(kernels)} record "
+          f"kernel launches traced ({device_us / 1e3:.3f} ms of device "
+          f"time), {len(events)} events, "
+          f"{len(prof.key_averages())} names; device memory {card}",
+          flush=True)
+    return dict(seconds=secs, traced_launches=len(kernels),
+                device_ms=device_us / 1e3)
+
+
+def _alias_timing():
+    """The emission alias table on the LW flagship's 325 x 325 x 150 =
+    15,843,750 voxels (a seeded distribution, a third of it zero):
+    ``walker_alias`` (csrc/host/alias.cpp) against ``_walker_alias``, its
+    plain Python loop, on this host; the two tables equal bit for bit."""
+    import numpy as np
+
+    from mcbrat3d_tpu_torch.sources import illumination
+
+    p = np.random.RandomState(16).rand(325 * 325 * 150)
+    p[p < 0.33] = 0.0
+    t0 = time.perf_counter()
+    native = illumination.walker_alias(p)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = illumination._walker_alias(p)
+    plain_s = time.perf_counter() - t0
+    for a, b in zip(native, plain):
+        assert np.array_equal(a, b)
+    print(f"3p alias table of {p.size} voxels: alias.cpp {native_s:.3f} s, "
+          f"the Python loop {plain_s:.2f} s ({plain_s / native_s:.1f}x), "
+          f"bit-equal", flush=True)
+    return dict(native_s=native_s, plain_s=plain_s)
+
+
+def phase_resume_and_toolchain(rk, ck, sk, tk, cli,
+                               write_sw_broadband_inputs):
+    """3p: the port's checkpoints, observability and toolchain on the
+    card, each deck through the CLI on cuda (a kernel launched, no plain
+    step, no batch on the wave kernel): (a) the main deck resumed, (b) the
+    SW deck resumed, (c) the toolchain deck, (d) the profiler around a
+    main-deck batch; then the native alias table's time."""
+    cwd = os.getcwd()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            Path("main").mkdir()
+            os.chdir("main")
+            res["main"] = _resume_main_deck(cli, rk)
+            res["profile"] = _profiled_batch(rk)
+            os.chdir(tmp)
+            Path("sw").mkdir()
+            os.chdir("sw")
+            res["sw"] = _resume_sw_deck(cli, rk, ck, sk, tk,
+                                        write_sw_broadband_inputs)
+            os.chdir(tmp)
+            Path("toolchain").mkdir()
+            os.chdir("toolchain")
+            res["toolchain"] = _toolchain_deck(cli, rk, ck, sk, tk, "tile")
+        finally:
+            os.chdir(cwd)
+    res["alias"] = _alias_timing()
+    return res
 
 
 # The kernel-against-plain phases, one process each group, the groups
@@ -4747,8 +5355,8 @@ def _run_compare_workers(groups):
 PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "2g", "2h", "2i", "2j", "2k",
           "3",
           "3b", "3c", "3d", "3e", "3f", "3g", "3h", "3i", "3j", "3k", "3l",
-          "3m", "3n", "3o", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h",
-          "4i", "5")
+          "3m", "3n", "3o", "3p", "4", "4b", "4c", "4d", "4e", "4f", "4g",
+          "4h", "4i", "5")
 
 
 def main(argv=None) -> int:
@@ -4820,6 +5428,12 @@ def main(argv=None) -> int:
                       "tile_kernel", "probe_kernels"])
     print(f"kernels built in {time.perf_counter() - t0:.2f} s (one nvcc "
           "each, started together)", flush=True)
+    for name in sorted(_build.HOST_FLAGS):
+        t0 = time.perf_counter()
+        _build.build_host(name)
+        print(f"host library csrc/host/{name}.cpp built in "
+              f"{time.perf_counter() - t0:.2f} s (g++ "
+              f"{' '.join(_build.HOST_FLAGS[name])})", flush=True)
     # record_steps<MACRO, VOL, ANALYTIC, LE>, record_walk,
     # col_steps<MACRO, ANALYTIC, VOL, RR, LE>, col_walk,
     # sep_steps<SRC, ANALYTIC, RR, LW>, tile_steps<NCOMP, ANALYTIC, RR>
@@ -4989,6 +5603,10 @@ def main(argv=None) -> int:
         out["wave"] = phase_wave_kernel(
             rk, ck, sk, tk, cli, io_netcdf, build_domain, Surface,
             illumination, config, integrator, rng)
+    mark("3p")
+    if "3p" in only:
+        out["resume"] = phase_resume_and_toolchain(
+            rk, ck, sk, tk, cli, write_sw_broadband_inputs)
     mark("4")
     if "4" in only:
         out["head"] = phase_headline(*args)

@@ -98,6 +98,39 @@ class MomentAccumulator:
         var = np.maximum(0.0, ex2 - ex * ex)
         return np.sqrt(var / (self._n_batches - 1))
 
+    def merge(self, other: "MomentAccumulator") -> None:
+        """Add another accumulator's moments into this one (a resumed
+        run's base, a reduction across processes)."""
+        self._sum_w += other._sum_w
+        self._n_batches += other._n_batches
+        for name in other._sum_wx:
+            if name not in self._sum_wx:
+                self._sum_wx[name] = other._sum_wx[name].copy()
+                self._sum_wx2[name] = other._sum_wx2[name].copy()
+            else:
+                self._sum_wx[name] += other._sum_wx[name]
+                self._sum_wx2[name] += other._sum_wx2[name]
+
+    def state_dict(self) -> dict:
+        """The state a checkpoint saves (``driver.checkpoint``)."""
+        return {
+            "sum_w": self._sum_w,
+            "n_batches": self._n_batches,
+            "sum_wx": dict(self._sum_wx),
+            "sum_wx2": dict(self._sum_wx2),
+        }
+
+    @staticmethod
+    def from_state_dict(state: dict) -> "MomentAccumulator":
+        acc = MomentAccumulator()
+        acc._sum_w = float(state["sum_w"])
+        acc._n_batches = int(state["n_batches"])
+        acc._sum_wx = {k: np.asarray(v, np.float64)
+                       for k, v in state["sum_wx"].items()}
+        acc._sum_wx2 = {k: np.asarray(v, np.float64)
+                        for k, v in state["sum_wx2"].items()}
+        return acc
+
 
 def _neumaier(s: torch.Tensor, c: torch.Tensor, v: torch.Tensor) -> None:
     """s + c += v, Neumaier-compensated, in place."""
@@ -116,9 +149,12 @@ class DeviceMomentAccumulator:
     host ``MomentAccumulator`` (sum + carry in float64). The JAX package
     keeps float32 pairs; float64 on the card costs nothing here (a few
     hundred thousand values per batch) and makes the carry a formality.
+    A resumed run passes the checkpoint's moments as ``base``; ``finalize``
+    adds them in.
     """
 
-    def __init__(self):
+    def __init__(self, base: MomentAccumulator = None):
+        self._base = base if base is not None else MomentAccumulator()
         self._state = {}    # name -> [s_wx, c_wx, s_wx2, c_wx2]
         self._w = None      # [s_w, c_w]
         self._n_batches = 0
@@ -180,17 +216,25 @@ class DeviceMomentAccumulator:
 
     @property
     def n_batches(self) -> int:
-        return self._n_batches
+        return self._n_batches + self._base.n_batches
 
     def finalize(self) -> MomentAccumulator:
         """The one host fetch: the device sums as a host float64
-        ``MomentAccumulator``."""
+        ``MomentAccumulator``, merged with the ``base``."""
         out = MomentAccumulator()
+        out.merge(self._base)
         if self._w is None:
             return out
-        out._sum_w = float(self._w[0]) + float(self._w[1])
-        out._n_batches = self._n_batches
+        dev = MomentAccumulator()
+        dev._sum_w = float(self._w[0]) + float(self._w[1])
+        dev._n_batches = self._n_batches
         for name, (s1, c1, s2, c2) in self._state.items():
-            out._sum_wx[name] = (s1 + c1).cpu().numpy()
-            out._sum_wx2[name] = (s2 + c2).cpu().numpy()
+            dev._sum_wx[name] = (s1 + c1).cpu().numpy()
+            dev._sum_wx2[name] = (s2 + c2).cpu().numpy()
+        out.merge(dev)
         return out
+
+    def state_dict(self) -> dict:
+        """What a checkpoint saves: ``finalize``'s state, so a checkpoint
+        costs one host fetch of the moments."""
+        return self.finalize().state_dict()

@@ -58,3 +58,22 @@ def lobatto(n: int):
     if n < 2:
         raise ValueError("Lobatto quadrature needs n >= 2")
     return _lobatto_cached(n)
+
+
+def legendre_moments_from_values(mus: np.ndarray, weights: np.ndarray,
+                                 values: np.ndarray, n_moments: int) -> np.ndarray:
+    """Project tabulated phase-function values onto Legendre moments c_1..c_L.
+
+    c_l = (1/2) * integral P(mu) P_l(mu) dmu  (so that c_0 = 1 for a phase
+    function normalized to integrate to 2 over mu; reference:
+    src/scatteringPhaseFunctions.f95:652-750).
+    Quadrature nodes/weights must resolve the product P * P_l.
+    """
+    out = np.empty(n_moments, np.float64)
+    p_prev = np.ones_like(mus)
+    p = mus.copy()
+    for l in range(1, n_moments + 1):
+        out[l - 1] = 0.5 * np.sum(weights * values * p)
+        p_next = ((2 * l + 1) * mus * p - l * p_prev) / (l + 1)
+        p_prev, p = p, p_next
+    return out

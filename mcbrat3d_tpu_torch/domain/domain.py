@@ -540,7 +540,7 @@ def column_emission_tables(scale: np.ndarray, height: np.ndarray, temps,
     Reference sampling being replaced: the 3-level CDF scan of
     src/monteCarloIllumination.f95:495-498."""
     from mcbrat3d_tpu_torch.core.planck import planck_radiance
-    from mcbrat3d_tpu_torch.sources.illumination import _walker_alias
+    from mcbrat3d_tpu_torch.sources.illumination import walker_alias
 
     t = np.asarray(temps)
     if not bool(np.all(t == t[0:1, 0:1, :])):
@@ -555,7 +555,7 @@ def column_emission_tables(scale: np.ndarray, height: np.ndarray, temps,
     ws = wcol.sum()
     if not ws > 0:
         return {}
-    prob, alias = _walker_alias(wcol / ws)
+    prob, alias = walker_alias(wcol / ws)
     return dict(col_em_prob=prob.astype(np.float32),
                 col_em_alias=alias.astype(np.float32),
                 col_em_halias=h[alias].astype(np.float32),
@@ -590,7 +590,7 @@ def sep_emission_tables(p: np.ndarray, q: np.ndarray, tz: np.ndarray,
     replaced: the 3-level CDF scan of src/monteCarloIllumination.f95:
     495-498."""
     from mcbrat3d_tpu_torch.core.planck import planck_radiance
-    from mcbrat3d_tpu_torch.sources.illumination import _walker_alias
+    from mcbrat3d_tpu_torch.sources.illumination import walker_alias
 
     b = np.where(tz > 0, planck_radiance(lambda_um, np.maximum(tz, 1.0)),
                  0.0)
@@ -603,7 +603,7 @@ def sep_emission_tables(p: np.ndarray, q: np.ndarray, tz: np.ndarray,
 
     def z_alias(dens):
         s = dens.sum()
-        return _walker_alias(dens / s if s > 0 else np.full(nz, 1.0 / nz))
+        return walker_alias(dens / s if s > 0 else np.full(nz, 1.0 / nz))
 
     zp_c, za_c = z_alias(p1)
     zp_g, za_g = z_alias(q1)

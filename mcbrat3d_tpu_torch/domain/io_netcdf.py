@@ -133,6 +133,18 @@ def read_phase_function_table(nc, prefix: str = "") -> PhaseFunctionTable:
                               single_scattering_albedo=ssa, description=desc)
 
 
+def write_phase_function_table(table: PhaseFunctionTable, path: str) -> None:
+    """A phase-function table alone in a file (the Mie table tool's
+    output, ``physprops``' input)."""
+    with netcdf_file(path, "w") as nc:
+        add_phase_function_table(nc, table)
+
+
+def read_phase_function_table_file(path: str) -> PhaseFunctionTable:
+    with netcdf_file(path, "r", mmap=False) as nc:
+        return read_phase_function_table(nc)
+
+
 # ---------------------------------------------------------------------------
 # Domain files
 # ---------------------------------------------------------------------------

@@ -1,15 +1,22 @@
 """Command-line driver of the PyTorch port.
 
     python -m mcbrat3d_tpu_torch.driver.cli mkdomain step_cloud Step.dom ssa=0.99
-    python -m mcbrat3d_tpu_torch.driver.cli mkdomain broken_cloud BrokenCloud.dom
     python -m mcbrat3d_tpu_torch.driver.cli run deck.nml [--device cuda]
+    python -m mcbrat3d_tpu_torch.driver.cli mie|mkssp|physprops table.nml
+    python -m mcbrat3d_tpu_torch.driver.cli optprops shdom.txt out.dom
+    python -m mcbrat3d_tpu_torch.driver.cli rayleightrans common.nc
+    python -m mcbrat3d_tpu_torch.driver.cli analyze results.nc
 
 Counterpart of ``mcbrat3d_tpu.driver.cli`` (reference:
-Drivers/monteCarloDriver.f95:103-121,230-238) with the ``run`` and
-``mkdomain step_cloud|broken_cloud`` subcommands. ``--device`` defaults to ``cuda`` and
-fails when no CUDA device is present; pass ``cpu`` to run the plain
-PyTorch path. The deck's ``usePallas`` ('auto', 'on', 'off') chooses
-between the hand-written kernels and the wave kernel.
+Drivers/monteCarloDriver.f95:103-121,230-238) with its subcommands: ``run``
+a deck (``--device`` defaults to ``cuda`` and fails when no CUDA device is
+present; pass ``cpu`` to run the plain PyTorch path; the deck's
+``usePallas`` ('auto', 'on', 'off') chooses between the hand-written
+kernels and the wave kernel, its ``checkpointFile`` resumes and saves),
+``mkdomain`` any scene of ``tools/scene_cli.py``, and the offline tool
+suite of the reference's Tools/ executables: Mie tables, SSP tables,
+physical- and optical-properties converters, the Rayleigh transmission
+spectrum and the results summary.
 """
 
 from __future__ import annotations
@@ -71,35 +78,69 @@ def _cmd_run(args) -> int:
     return 0
 
 
-def _parse_params(pairs):
-    out = {}
-    for p in pairs or []:
-        k, _, v = p.partition("=")
-        try:
-            out[k] = int(v)
-        except ValueError:
-            try:
-                out[k] = float(v)
-            except ValueError:
-                out[k] = v
-    return out
-
-
 def _cmd_mkdomain(args) -> int:
-    from mcbrat3d_tpu_torch.domain import io_netcdf
-    from mcbrat3d_tpu_torch.scenes.collection import broken_cloud_scene
-    from mcbrat3d_tpu_torch.scenes.step_cloud import step_cloud_scene
+    from mcbrat3d_tpu_torch.tools import scene_cli
+    return scene_cli.main(args.scene, args.output, args.params)
 
-    scenes = {"step_cloud": step_cloud_scene,
-              "broken_cloud": broken_cloud_scene}
-    if args.scene not in scenes:
-        print(f"unknown scene {args.scene!r}; available: {sorted(scenes)}")
-        return 2
-    # the scene is only written to the file: build it on the host
-    grid, components, temps = scenes[args.scene](
-        **{"device": "cpu", **_parse_params(args.params)})
-    io_netcdf.write_domain(args.output, grid, components, temps=temps)
+
+def _cmd_mie(args) -> int:
+    from mcbrat3d_tpu_torch.tools import mie_table
+    return mie_table.main(args.namelist)
+
+
+def _cmd_mkssp(args) -> int:
+    from mcbrat3d_tpu_torch.tools import ssp_create
+    return ssp_create.main(args.namelist)
+
+
+def _cmd_rayleightrans(args) -> int:
+    from mcbrat3d_tpu_torch.tools import molec_scatt_trans
+    molec_scatt_trans.main(args.common_domain, args.output,
+                           lambda_start_um=args.lambda_start,
+                           lambda_stop_um=args.lambda_stop,
+                           n_lambda=args.n_lambda)
     print(f"wrote {args.output}")
+    return 0
+
+
+def _cmd_optprops(args) -> int:
+    from mcbrat3d_tpu_torch.tools import optical_to_domain
+    optical_to_domain.convert(args.input, args.output,
+                              surface_albedo=args.surface_albedo)
+    print(f"wrote {args.output}")
+    return 0
+
+
+def _cmd_physprops(args) -> int:
+    from mcbrat3d_tpu_torch.driver.config import parse_namelist
+    from mcbrat3d_tpu_torch.tools import physical_to_domain
+
+    with open(args.namelist) as f:
+        groups = parse_namelist(f.read())
+    nml = {}
+    for g in groups.values():
+        nml.update(g)
+    scat = nml.get("scattablefiles", [])
+    if isinstance(scat, dict):
+        scat = [scat[k] for k in sorted(scat)]
+    if isinstance(scat, str):
+        scat = [scat]
+    physical_to_domain.convert(
+        particle_file=nml["particlefilename"],
+        scat_table_files=scat,
+        output_file=nml.get("outputfilename", "domain.dom"),
+        molec_abs_file=nml.get("molecabsfilename", ""),
+        rayleigh_wavelen=nml.get("rayleighwavelength", 0.0),
+        drop_num_conc=nml.get("dropnumconc", 100.0),
+    )
+    print(f"wrote {nml.get('outputfilename', 'domain.dom')}")
+    return 0
+
+
+def _cmd_analyze(args) -> int:
+    from mcbrat3d_tpu_torch.tools.analyze_results import summarize
+    for f in args.files:
+        print(summarize(f))
     return 0
 
 
@@ -116,10 +157,50 @@ def main(argv=None) -> int:
     p_run.set_defaults(fn=_cmd_run)
 
     p_dom = sub.add_parser("mkdomain", help="generate a scene domain file")
-    p_dom.add_argument("scene", help="step_cloud or broken_cloud")
+    p_dom.add_argument("scene", help="step_cloud | plane_parallel | ...")
     p_dom.add_argument("output")
     p_dom.add_argument("params", nargs="*", help="key=value overrides")
     p_dom.set_defaults(fn=_cmd_mkdomain)
+
+    p_mie = sub.add_parser("mie", help="build a Mie phase-function table")
+    p_mie.add_argument("namelist")
+    p_mie.set_defaults(fn=_cmd_mie)
+
+    p_ssp = sub.add_parser("mkssp",
+                           help="build a multi-wavelength SSP table")
+    p_ssp.add_argument("namelist")
+    p_ssp.set_defaults(fn=_cmd_mkssp)
+
+    p_pp = sub.add_parser(
+        "physprops",
+        help="convert ASCII physical particle properties to a domain file")
+    p_pp.add_argument("namelist")
+    p_pp.set_defaults(fn=_cmd_physprops)
+
+    p_mst = sub.add_parser(
+        "rayleightrans",
+        help="Rayleigh transmission spectrum from a common domain "
+             "(molecScattTrans equivalent)")
+    p_mst.add_argument("common_domain")
+    p_mst.add_argument("-o", "--output", default="RayleighTrans.txt")
+    p_mst.add_argument("--lambda-start", type=float, default=0.201)
+    p_mst.add_argument("--lambda-stop", type=float, default=1.2)
+    p_mst.add_argument("--n-lambda", type=int, default=1000)
+    p_mst.set_defaults(fn=_cmd_rayleightrans)
+
+    p_od = sub.add_parser(
+        "optprops",
+        help="convert SHDOM-style ASCII optical properties to a domain file")
+    p_od.add_argument("input")
+    p_od.add_argument("output")
+    p_od.add_argument("--surface-albedo", type=float, default=0.0)
+    p_od.set_defaults(fn=_cmd_optprops)
+
+    p_an = sub.add_parser(
+        "analyze",
+        help="summarize results netCDF files (analysis-deck equivalent)")
+    p_an.add_argument("files", nargs="+")
+    p_an.set_defaults(fn=_cmd_analyze)
 
     args = ap.parse_args(argv)
     return args.fn(args)

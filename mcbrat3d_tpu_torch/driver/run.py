@@ -12,7 +12,9 @@ seed ``rng.batch_seed(iseed, b)`` and the wave kernel's threefry key
 'off' follows its paths). Decks with radiance directions also
 accumulate the top-of-domain radiance image and its
 per-direction domain mean, decks with numRecScatOrd the boundary fluxes by
-scattering order.
+scattering order. A resumed run passes the checkpoint's moments and its
+next batch (``driver.checkpoint``) and goes on from there; every
+``checkpointEveryBatches`` batches ``checkpoint_cb`` saves the state.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import time
 from typing import Optional
 
 from mcbrat3d_tpu_torch.core import rng
-from mcbrat3d_tpu_torch.core.accumulate import DeviceMomentAccumulator
+from mcbrat3d_tpu_torch.core.accumulate import (DeviceMomentAccumulator,
+                                                MomentAccumulator)
 from mcbrat3d_tpu_torch.domain.domain import OpticalDomain
 from mcbrat3d_tpu_torch.driver.config import SimulationConfig
 from mcbrat3d_tpu_torch.physics.surface import Surface
@@ -81,11 +84,26 @@ def run_simulation(domain: OpticalDomain,
                    surface: Surface,
                    source: illumination.Source,
                    cfg: SimulationConfig,
-                   solar_flux: float = 1.0) -> Results:
-    """Run cfg.num_batches batches on the domain's device and return
-    finalized statistics. ``solar_flux`` scales all outputs (reference:
-    Drivers/monteCarloDriver.f95:1188-1228)."""
+                   solar_flux: float = 1.0,
+                   accumulator: Optional[MomentAccumulator] = None,
+                   start_batch: int = 0,
+                   checkpoint_cb=None,
+                   resume_chunk_size: Optional[int] = None) -> Results:
+    """Run batches ``start_batch`` .. cfg.num_batches - 1 on the domain's
+    device and return finalized statistics. ``solar_flux`` scales all
+    outputs (reference: Drivers/monteCarloDriver.f95:1188-1228).
+    ``accumulator`` holds the moments of the batches before
+    ``start_batch`` (a checkpoint's), ``resume_chunk_size`` the photons a
+    batch of the run that wrote it; ``checkpoint_cb(next_batch, acc,
+    chunk_size)`` is called every cfg.checkpoint_every_batches batches.
+    ``n_bad`` and ``n_passes`` count the batches this call runs."""
     kcfg = kernel_config_from(cfg)
+    if start_batch > 0 and resume_chunk_size is not None \
+            and resume_chunk_size != kcfg.photons_per_batch:
+        raise ValueError(
+            f"checkpoint was written with chunk size {resume_chunk_size} "
+            f"but this run uses {kcfg.photons_per_batch}; resume with the "
+            "same batch size")
     icfg = idirs = None
     if cfg.compute_intensity:
         mus, phis = cfg.radiance_directions()
@@ -99,10 +117,10 @@ def run_simulation(domain: OpticalDomain,
             limit_contributions=cfg.limit_intensity_contributions,
             max_contribution=cfg.max_intensity_contribution,
         )
-    dacc = DeviceMomentAccumulator()
+    dacc = DeviceMomentAccumulator(base=accumulator)
     n_bad = n_passes = 0
     t0 = time.time()
-    for b in range(cfg.num_batches):
+    for b in range(start_batch, cfg.num_batches):
         t = run_batch(domain, surface, source, rng.batch_seed(cfg.iseed, b),
                       kcfg, n_photons=cfg.num_photons_per_batch,
                       intensity_config=icfg, intensity_dirs=idirs,
@@ -110,6 +128,9 @@ def run_simulation(domain: OpticalDomain,
         n_bad += int(t.n_bad)
         n_passes += int(t.n_passes)
         dacc.add_tallies(t, domain.grid)
+        if checkpoint_cb is not None and cfg.checkpoint_every_batches > 0 \
+                and (b + 1) % cfg.checkpoint_every_batches == 0:
+            checkpoint_cb(b + 1, dacc, kcfg.photons_per_batch)
     acc = dacc.finalize()
 
     elapsed = time.time() - t0

@@ -3,15 +3,18 @@
 PyTorch counterpart of ``mcbrat3d_tpu.driver.simulate``: the
 monochromatic path (read domain, directional solar source, batches) and
 the broadband path through ``spectral.broadband.run_broadband`` (shortwave
-and longwave decks; reference: Drivers/monteCarloDriver.f95:289-505).
+and longwave decks; reference: Drivers/monteCarloDriver.f95:289-505),
+both resumed from and saved to the deck's checkpointFile.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Tuple
 
 from mcbrat3d_tpu_torch.domain import io_netcdf
 from mcbrat3d_tpu_torch.domain.domain import build_domain
+from mcbrat3d_tpu_torch.driver import checkpoint as ckpt
 from mcbrat3d_tpu_torch.driver import output as output_mod
 from mcbrat3d_tpu_torch.driver.config import SimulationConfig
 from mcbrat3d_tpu_torch.driver.run import Results, run_simulation
@@ -19,18 +22,34 @@ from mcbrat3d_tpu_torch.physics.surface import Surface
 from mcbrat3d_tpu_torch.sources import illumination
 
 
+def _checkpoint_hooks(cfg: SimulationConfig) -> dict:
+    """The resume and periodic-save arguments of the run functions, from
+    the namelist's checkpointFile and checkpointEveryBatches (the
+    checkpoints the reference designed but disabled; reference:
+    Drivers/monteCarloDriver.f95:127-134,753-801): an existing file is
+    resumed from, and with checkpointEveryBatches > 0 the file is
+    rewritten every that many batches."""
+    if not cfg.checkpoint_file:
+        return {}
+    out: dict = {}
+    if os.path.exists(cfg.checkpoint_file):
+        next_batch, acc, chunk = ckpt.load_checkpoint(cfg.checkpoint_file,
+                                                      with_meta=True)
+        out["accumulator"] = acc
+        out["start_batch"] = next_batch
+        out["resume_chunk_size"] = chunk or None
+    if cfg.checkpoint_every_batches > 0:
+        out["checkpoint_cb"] = (
+            lambda b, acc, chunk: ckpt.save_checkpoint(
+                cfg.checkpoint_file, b, acc, chunk))
+    return out
+
+
 def simulate_from_config(cfg: SimulationConfig,
                          device) -> Tuple[Results, List[str]]:
-    if cfg.checkpoint_file:
-        # JAX saves and resumes here (mcbrat3d_tpu/driver/simulate.py
-        # :25-47); a deck that asks for it must not run without it
-        raise NotImplementedError(
-            f"checkpointFile = {cfg.checkpoint_file!r}: checkpoints (save "
-            "and resume) are not in the PyTorch port yet (ROADMAP Queue 1 "
-            "item 8)")
     if cfg.num_lambda > 1 or cfg.is_longwave:
         from mcbrat3d_tpu_torch.spectral.broadband import run_broadband
-        results = run_broadband(cfg, device)
+        results = run_broadband(cfg, device, **_checkpoint_hooks(cfg))
         written = output_mod.write_all(results, results.grid)
         return results, written
     if not cfg.domain_file:
@@ -51,7 +70,8 @@ def simulate_from_config(cfg: SimulationConfig,
     # monochromatic runs take solarFlux from the namelist, default 1.0
     # (reference: Drivers/OLDmonteCarloDriver.f95:56,98)
     results = run_simulation(domain, surface, source, cfg,
-                             solar_flux=cfg.solar_flux)
+                             solar_flux=cfg.solar_flux,
+                             **_checkpoint_hooks(cfg))
     results.grid = grid
     written = output_mod.write_all(results, grid)
     return results, written

@@ -1,11 +1,16 @@
-"""Landsat-class broken-cloud, dense MODIS-class and broadband-LW flagship
+"""The I3RC, broadband, Landsat-class, MODIS-class and broadband-LW flagship
 scenes.
 
-PyTorch-port counterparts of ``broken_cloud_scene``, ``dense_cloud_scene``,
-``lw_flagship_scene``, ``lw_flagship_physical`` and
-``write_lw_flagship_inputs`` in
-``mcbrat3d_tpu.scenes.collection`` (pure NumPy, copied so the port stands
-alone):
+PyTorch-port counterpart of ``mcbrat3d_tpu.scenes.collection`` (pure
+NumPy, copied so the port stands alone). Each scene returns (grid,
+components, temps) for build_domain or io_netcdf.write_domain, the grid on
+``device`` (the card unless told otherwise). The reference's Domain-Files
+programs (reference: Domain-Files/: stepcloud_2tau, homogBBDomain,
+inhomogBBDomain, i3rcLandsatCloud, i3rcRadarCloud, MODISreToDomain, cubic,
+write_HG) become ``step_cloud_2tau_scene``, ``homog_bb_scene``,
+``inhomog_bb_scene``, ``landsat_cloud_scene`` and ``radar_cloud_scene``
+(from their ASCII field files), ``modis_scene`` (LWC/Reff fields through a
+Mie table), ``cubic_cloud_scene`` and ``hg_phase_values``. Besides them:
 
 * the broken cloud, a spatially correlated column-template field,
   beta = col_scale * (iz < col_height), the shape of the reference's I3RC
@@ -36,6 +41,221 @@ from mcbrat3d_tpu_torch.physics.phase_function import (PhaseFunction,
 def _hg_table(g: float, n_legendre: int, description: str = ""):
     return PhaseFunctionTable([PhaseFunction.henyey_greenstein(g, n_legendre)],
                               key=[1.0], description=description)
+
+
+def step_cloud_2tau_scene(ssa: float = 1.0, tau_thin: float = 0.2,
+                          tau_thick: float = 3.0, n_columns: int = 1000,
+                          n_layers: int = 50, domain_size: float = 10000.0,
+                          thickness: float = 500.0, g: float = 0.85,
+                          n_legendre: int = 120, device="cuda"):
+    """Semi-infinite two-tau step cloud (reference:
+    Domain-Files/stepcloud_2tau.f95:36-49)."""
+    grid = Grid.regular(nx=n_columns, ny=1, nz=n_layers,
+                        dx=domain_size / n_columns, dy=domain_size,
+                        dz=thickness / n_layers, device=device)
+    ext = np.empty((n_columns, 1, n_layers))
+    ext[: n_columns // 2] = tau_thin / thickness
+    ext[n_columns // 2:] = tau_thick / thickness
+    comp = OpticalComponent(
+        name="step cloud 2tau", extinction=ext,
+        single_scattering_albedo=np.full_like(ext, ssa),
+        phase_function_index=np.zeros(ext.shape, np.int32),
+        phase_function_table=_hg_table(g, n_legendre))
+    return grid, [comp], None
+
+
+def cubic_cloud_scene(tau: float = 10.0, ssa: float = 1.0, g: float = 0.85,
+                      nx: int = 32, ny: int = 32, nz: int = 32,
+                      cube_fraction: float = 0.5,
+                      domain_size: float = 1000.0,
+                      thickness: float = 1000.0,
+                      n_legendre: int = 64, device="cuda"):
+    """Cubic cloud centered in an empty domain (reference:
+    Domain-Files/cubic.f95)."""
+    grid = Grid.regular(nx=nx, ny=ny, nz=nz, dx=domain_size / nx,
+                        dy=domain_size / ny, dz=thickness / nz,
+                        device=device)
+    ext = np.zeros((nx, ny, nz))
+    lo = [int(n * (1 - cube_fraction) / 2) for n in (nx, ny, nz)]
+    hi = [int(n * (1 + cube_fraction) / 2) for n in (nx, ny, nz)]
+    side_m = cube_fraction * thickness
+    ext[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = tau / side_m
+    comp = OpticalComponent(
+        name="cubic cloud", extinction=ext,
+        single_scattering_albedo=np.full_like(ext, ssa),
+        phase_function_index=np.zeros(ext.shape, np.int32),
+        phase_function_table=_hg_table(g, n_legendre))
+    return grid, [comp], None
+
+
+def homog_bb_scene(beta_ext: float = 10.0, ssa: float = 0.99,
+                   g: float = 0.85, iso_temp: float = 288.0,
+                   nx: int = 10, ny: int = 10, nz: int = 10,
+                   dx: float = 0.1, dy: float = 0.1, dz: float = 0.1,
+                   hg_phase: bool = True, n_legendre: int = 64,
+                   device="cuda"):
+    """Broadband homogeneous isothermal domain (reference:
+    Domain-Files/homogBBDomain.f95:33-60; stdin parameters become
+    keyword arguments)."""
+    grid = Grid.regular(nx=nx, ny=ny, nz=nz, dx=dx, dy=dy, dz=dz,
+                        device=device)
+    ext = np.full((nx, ny, nz), beta_ext)
+    table = (_hg_table(g, n_legendre) if hg_phase
+             else PhaseFunctionTable([PhaseFunction.isotropic()], key=[1.0]))
+    comp = OpticalComponent(
+        name="homogeneous medium", extinction=ext,
+        single_scattering_albedo=np.full_like(ext, ssa),
+        phase_function_index=np.zeros(ext.shape, np.int32),
+        phase_function_table=table)
+    temps = np.full((nx, ny, nz), iso_temp)
+    return grid, [comp], temps
+
+
+def inhomog_bb_scene(pattern: str = "gaussian", beta_max: float = 30.0,
+                     beta_min: float = 0.1, ssa: float = 0.99,
+                     g: float = 0.85, surface_temp: float = 300.0,
+                     lapse_rate_k_per_km: float = 6.5,
+                     nx: int = 32, ny: int = 32, nz: int = 16,
+                     dx: float = 0.1, dy: float = 0.1, dz: float = 0.1,
+                     n_legendre: int = 64, device="cuda"):
+    """Broadband inhomogeneous domain with shape-coded extinction fields
+    (reference: Domain-Files/inhomogBBDomain.f95 builds analogous
+    shape-parameterized fields). Patterns: gaussian | step | checker."""
+    grid = Grid.regular(nx=nx, ny=ny, nz=nz, dx=dx, dy=dy, dz=dz,
+                        device=device)
+    i, j, k = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                          indexing="ij")
+    if pattern == "gaussian":
+        r2 = (((i - nx / 2) / (nx / 4)) ** 2 + ((j - ny / 2) / (ny / 4)) ** 2
+              + ((k - nz / 2) / (nz / 4)) ** 2)
+        ext = beta_min + (beta_max - beta_min) * np.exp(-r2)
+    elif pattern == "step":
+        ext = np.where(i < nx // 2, beta_min, beta_max).astype(np.float64)
+    elif pattern == "checker":
+        ext = np.where((i // 4 + j // 4) % 2 == 0, beta_max, beta_min)
+        ext = ext.astype(np.float64)
+    else:
+        raise ValueError(f"unknown pattern {pattern!r}")
+    comp = OpticalComponent(
+        name=f"inhomogeneous {pattern}", extinction=ext,
+        single_scattering_albedo=np.full_like(ext, float(ssa)),
+        phase_function_index=np.zeros(ext.shape, np.int32),
+        phase_function_table=_hg_table(g, n_legendre))
+    ze = grid.edges_np()[2]
+    z_mid = 0.5 * (ze[:-1] + ze[1:])
+    temps = np.broadcast_to(
+        surface_temp - lapse_rate_k_per_km * z_mid, (nx, ny, nz)).copy()
+    return grid, [comp], temps
+
+
+def _read_fixed_width_field(path: str, nx: int, ny: int) -> np.ndarray:
+    """Read an [ny rows x nx columns] ASCII field (fixed-width f7.2 rows in
+    the reference data files, but any whitespace/width-separated floats
+    work). Returns [nx, ny]."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line.strip():
+                continue
+            vals = line.split()
+            if len(vals) != nx:  # fixed-width without separators
+                vals = [line[i * 7:(i + 1) * 7] for i in range(nx)]
+            rows.append([float(v) for v in vals])
+    arr = np.asarray(rows)
+    if arr.shape != (ny, nx):
+        raise ValueError(f"{path}: expected {ny}x{nx}, got {arr.shape}")
+    return arr.T  # [nx, ny]
+
+
+def landsat_cloud_scene(tau_file: str, dz_file: str, ssa: float = 1.0,
+                        g: float = 0.85, nx: int = 128, ny: int = 128,
+                        delta_xy: float = 30.0, delta_z: float = 20.0,
+                        n_legendre: int = 299, device="cuda"):
+    """I3RC case-4 Landsat scene from optical-depth and thickness fields
+    (reference: Domain-Files/i3rcLandsatCloud.f95:27-90). Clouds fill the
+    lowest ceil(thickness/deltaZ) layers of each column with extinction
+    tau/thickness."""
+    tau = _read_fixed_width_field(tau_file, nx, ny)
+    thick = _read_fixed_width_field(dz_file, nx, ny) * 1000.0  # km -> m
+    n_layers = int(np.ceil((thick.max() + delta_z / 2) / delta_z))
+    grid = Grid.regular(nx=nx, ny=ny, nz=n_layers, dx=delta_xy, dy=delta_xy,
+                        dz=delta_z, device=device)
+    ext = np.zeros((nx, ny, n_layers))
+    n_cells = np.minimum(np.ceil(thick / delta_z).astype(int), n_layers)
+    # Spread tau over the discretized thickness so the column optical depth
+    # is preserved exactly (the cloud is geometrically rounded up to whole
+    # cells but optically exact).
+    with np.errstate(divide="ignore", invalid="ignore"):
+        beta = np.where(n_cells > 0,
+                        tau / np.maximum(n_cells * delta_z, 1e-30), 0.0)
+    for k in range(n_layers):
+        ext[:, :, k] = np.where(k < n_cells, beta, 0.0)
+    comp = OpticalComponent(
+        name="Landsat cloud", extinction=ext,
+        single_scattering_albedo=np.full_like(ext, ssa),
+        phase_function_index=np.zeros(ext.shape, np.int32),
+        phase_function_table=_hg_table(g, n_legendre,
+                                       "Henyey-Greenstein with g = 0.85"))
+    return grid, [comp], None
+
+
+def radar_cloud_scene(tau_file: str, ssa: float = 1.0, g: float = 0.85,
+                      n_columns: int = 640, n_layers: int = 54,
+                      delta_x: float = 50.0, delta_z: float = 45.0,
+                      phase_table: PhaseFunctionTable | None = None,
+                      n_legendre: int = 299, device="cuda"):
+    """I3RC case-3 radar cloud: [n_columns x n_layers] extinction field
+    (reference: Domain-Files/i3rcRadarCloud.f95:28-75; the C1 droplet phase
+    function may be passed instead of Henyey-Greenstein)."""
+    field = _read_fixed_width_field(tau_file, n_columns, n_layers)
+    grid = Grid.regular(nx=n_columns, ny=1, nz=n_layers,
+                        dx=delta_x, dy=n_columns * delta_x, dz=delta_z,
+                        device=device)
+    ext = field[:, None, :]
+    comp = OpticalComponent(
+        name="radar cloud", extinction=ext,
+        single_scattering_albedo=np.full_like(ext, ssa),
+        phase_function_index=np.zeros(ext.shape, np.int32),
+        phase_function_table=phase_table or _hg_table(g, n_legendre))
+    return grid, [comp], None
+
+
+def modis_scene(lwc: np.ndarray, reff: np.ndarray,
+                mie_table: PhaseFunctionTable,
+                dx: float, dy: float, z_edges,
+                temps: np.ndarray | None = None, device="cuda"):
+    """MODIS-retrieved LWC/Reff fields -> domain component via a Mie table
+    (reference: Domain-Files/MODISreToDomain.f95). LWC [g/m^3],
+    Reff [um], table keyed by Reff with mass extinction [km^-1/(g m^-3)]."""
+    lwc = np.atleast_3d(np.asarray(lwc, np.float64))
+    reff = np.atleast_3d(np.asarray(reff, np.float64))
+    nx, ny, nz = lwc.shape
+    z_edges = np.asarray(z_edges, np.float64)
+    grid = Grid.from_edges(dx * np.arange(nx + 1), dy * np.arange(ny + 1),
+                           z_edges, device=device)
+    key = np.asarray(mie_table.key)
+    ext_t = np.asarray(mie_table.extinction)
+    ssa_t = np.asarray(mie_table.single_scattering_albedo)
+    active = lwc > 0
+    il = np.clip(np.searchsorted(key, reff) - 1, 0, key.size - 2)
+    f = np.clip((reff - key[il]) / (key[il + 1] - key[il]), 0.0, 1.0)
+    ext = np.where(active, lwc * ((1 - f) * ext_t[il] + f * ext_t[il + 1]), 0)
+    ssa = np.where(active, (1 - f) * ssa_t[il] + f * ssa_t[il + 1], 0.0)
+    pfi = np.where(active, np.where(f < 0.5, il, il + 1), 0).astype(np.int32)
+    comp = OpticalComponent(
+        name="MODIS cloud", extinction=ext, single_scattering_albedo=ssa,
+        phase_function_index=pfi, phase_function_table=mie_table)
+    return grid, [comp], temps
+
+
+def hg_phase_values(g: float = 0.85, n_angles: int = 181) -> np.ndarray:
+    """[n_angles, 2] (angle_deg, value) dump of an HG phase function
+    (reference: Domain-Files/write_HG.f95)."""
+    ang = np.linspace(0.0, 180.0, n_angles)
+    mu = np.cos(np.deg2rad(ang))
+    vals = (1 - g**2) / (1 + g**2 - 2 * g * mu) ** 1.5
+    return np.stack([ang, vals], axis=1)
 
 
 def broken_cloud_scene(nx: int = 128, ny: int = 128, nz: int = 64,

@@ -121,7 +121,7 @@ def emission(voxel_cdf, atms_fraction: float, grid_shape,
     p = p / s if s > 0 else np.full_like(p, 1.0 / p.size)
     # [nz, ny, nx] C-order -> kernel order (ix*ny + iy)*nz + iz
     pk = p.reshape(nz, ny, nx).transpose(2, 1, 0).reshape(-1)
-    prob, alias = _walker_alias(pk)
+    prob, alias = walker_alias(pk)
     device = resolve(device)
     return Source(
         kind=EMISSION, atms_fraction=float(np.float32(atms_fraction)),
@@ -163,10 +163,47 @@ def emission_separable(domain, surface_temp: float,
                   grid_shape=(int(nx), int(ny), int(nz)), em_sep=True)
 
 
+_ALIAS_FN = None
+
+
+def _alias_native():
+    """``walker_alias`` of ``csrc/host/alias.cpp`` through ctypes, built
+    with g++ at first use (``_build.load_host``); a failed build or load
+    raises."""
+    global _ALIAS_FN
+    if _ALIAS_FN is None:
+        import ctypes
+
+        from mcbrat3d_tpu_torch import _build
+        fn = _build.load_host("alias").walker_alias
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_longlong,
+                       np.ctypeslib.ndpointer(np.float64, flags="C"),
+                       np.ctypeslib.ndpointer(np.float64, flags="C"),
+                       np.ctypeslib.ndpointer(np.int64, flags="C")]
+        _ALIAS_FN = fn
+    return _ALIAS_FN
+
+
+def walker_alias(p: np.ndarray):
+    """Vose's alias table of the distribution ``p`` (need not be
+    normalized), built by ``csrc/host/alias.cpp``: the construction is
+    sequential and runs per wavelength bin over up to ~16 M voxels.
+    Returns (prob f64, alias int64), bit-equal to ``_walker_alias``, its
+    plain version. An empty or all-zero ``p``, which alias.cpp refuses,
+    takes ``_walker_alias``'s rule, as the JAX package does."""
+    p = np.ascontiguousarray(p, np.float64)
+    prob = np.zeros(p.size, np.float64)
+    alias = np.zeros(p.size, np.int64)
+    if _alias_native()(p.size, p, prob, alias) != 0:
+        return _walker_alias(p)
+    return prob, alias
+
+
 def _walker_alias(p: np.ndarray):
     """Vose's O(n) alias table of the distribution ``p`` (need not be
     normalized): sample j uniform in {0..n-1}, accept j with probability
-    prob[j], else take alias[j].
+    prob[j], else take alias[j]. The plain version of ``walker_alias``.
 
     Builds the tables the JAX package builds with ``native/alias.cpp``
     (``illumination._walker_alias``): p scaled by n / sum(p), the sum taken

@@ -30,9 +30,10 @@ bin, as the JAX package decides:
 With ``usePallas = 'off'`` there is no plan and every bin runs on the wave
 kernel, as in the JAX package. Batch b of the run (counted over all bins)
 runs with the kernel seed ``rng.batch_seed(iseed, b)`` and the wave
-kernel's key ``rng.batch_key(iseed, b)``, the JAX package's. Not ported
-yet: the device mesh; a deck with checkpoints raises in
-``driver.simulate.simulate_from_config`` before it gets here.
+kernel's key ``rng.batch_key(iseed, b)``, the JAX package's. A resumed
+run skips the bins and batches its checkpoint covers, and every
+``checkpointEveryBatches`` global batches the state is saved, as
+``driver.run.run_simulation`` does. Not ported yet: the device mesh.
 """
 
 from __future__ import annotations
@@ -107,15 +108,27 @@ def _plan_is_separable(plan, grid, ssp_tables, freq, cfg, kcfg, icfg):
 
 
 def run_broadband(cfg: SimulationConfig, device, common=None,
-                  ssp_tables=None) -> Results:
+                  ssp_tables=None, accumulator=None, start_batch: int = 0,
+                  checkpoint_cb=None, resume_chunk_size=None) -> Results:
     """Broadband run on ``device``, shortwave or longwave as the namelist
     says; ``common`` and ``ssp_tables`` default to the namelist's files.
     Returns the finalized ``Results`` (means scaled by the total incident
     or emitted flux), with ``grid``, ``n_bad``, the seconds spent before
     the first bin's transport (``setup_seconds``) and those spent building
     the later bins' domains and sources on the host
-    (``build_seconds``)."""
+    (``build_seconds``). ``accumulator``, ``start_batch``,
+    ``checkpoint_cb`` and ``resume_chunk_size`` resume and save as in
+    ``driver.run.run_simulation``: the global batches below
+    ``start_batch`` are skipped, whole bins without building them."""
     t_start = time.time()
+    kcfg = kernel_config_from(cfg)
+    chunk_size = kcfg.photons_per_batch
+    if start_batch > 0 and resume_chunk_size is not None \
+            and resume_chunk_size != chunk_size:
+        raise ValueError(
+            f"checkpoint was written with chunk size {resume_chunk_size} "
+            f"but this run uses {chunk_size}; resume with the same batch "
+            "size")
     if common is None:
         common = read_common(cfg.phys_domain_file, device=device)
     if ssp_tables is None:
@@ -163,8 +176,6 @@ def run_broadband(cfg: SimulationConfig, device, common=None,
     total_photons = cfg.num_photons_per_batch * cfg.num_batches
     freq = frequency_distribution(cdf, total_photons, seed=cfg.iseed)
 
-    kcfg = kernel_config_from(cfg)
-    chunk_size = kcfg.photons_per_batch
     icfg = idirs = None
     if cfg.compute_intensity:
         mus, phis = cfg.radiance_directions()
@@ -184,12 +195,17 @@ def run_broadband(cfg: SimulationConfig, device, common=None,
 
     hybrid_width = (cfg.hybrid_phase_fun_width
                     if cfg.use_hybrid_phase_funs else 0.0)
-    acc = DeviceMomentAccumulator()
+    acc = DeviceMomentAccumulator(base=accumulator)
     global_batch = n_bad = 0
     setup_seconds = None
     build_seconds = 0.0
     for li in range(n_lambda):
         if freq[li] <= 0:
+            continue
+        n_chunks = -(-int(freq[li]) // chunk_size)
+        if global_batch + n_chunks <= start_batch:
+            # a bin the checkpoint covers: not built
+            global_batch += n_chunks
             continue
         t_bin = time.time()
         lam_um = float(ssp_tables[0].lambdas_um[li])
@@ -246,6 +262,10 @@ def run_broadband(cfg: SimulationConfig, device, common=None,
         remaining = int(freq[li])
         while remaining > 0:
             n = min(remaining, chunk_size)
+            if global_batch < start_batch:
+                remaining -= n
+                global_batch += 1
+                continue
             t = run_batch(domain, surface, source,
                           rng.batch_seed(cfg.iseed, global_batch), kcfg,
                           n_photons=n, intensity_config=icfg,
@@ -255,6 +275,10 @@ def run_broadband(cfg: SimulationConfig, device, common=None,
             acc.add_tallies(t, grid)
             remaining -= n
             global_batch += 1
+            if (checkpoint_cb is not None
+                    and cfg.checkpoint_every_batches > 0
+                    and global_batch % cfg.checkpoint_every_batches == 0):
+                checkpoint_cb(global_batch, acc, chunk_size)
 
     moments = acc.finalize()  # the loop's only fetch of the moments
     mean = {k: total_flux * moments.mean(k) for k in moments._sum_wx}

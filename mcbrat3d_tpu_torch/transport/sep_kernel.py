@@ -169,7 +169,7 @@ def sep_emission_groups(amp_np: np.ndarray) -> np.ndarray:
     gmax = np.pad(amp_f32, (0, n_groups * GROUP - nxy)).reshape(
         n_groups, GROUP).max(axis=1)
     if gmax.sum() > 0:
-        prob, alias = illumination._walker_alias(gmax / gmax.sum())
+        prob, alias = illumination.walker_alias(gmax / gmax.sum())
     else:  # no cloud emission anywhere: never drawn (cloud branch p = 0)
         prob = np.ones(n_groups)
         alias = np.arange(n_groups, dtype=np.float64)

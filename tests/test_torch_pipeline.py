@@ -5,7 +5,9 @@ the output files must carry the JAX driver's schema, the domain means must
 match the frozen step-cloud goldens, and the port must not import JAX.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -207,15 +209,23 @@ def test_cli_matches_step_cloud_goldens(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("deck", ["step_cloud_mono.nml", "broadband_lw.nml"])
-def test_checkpoint_decks_raise(deck):
-    """A deck that sets checkpointFile is refused, monochromatic or
-    broadband, before it reads any input: the port has no save and
-    resume yet, and a deck must not run without the checkpoints it asks
-    for."""
+def test_checkpoint_decks_raise(deck, tmp_path):
+    """A deck whose checkpointFile was written with another batch size is
+    refused, monochromatic or broadband, before any batch runs (the
+    broadband deck before it reads its inputs): batch b's streams depend
+    on the batch size, so such a resume would redo or skip photons."""
+    ck = str(tmp_path / "run.ckpt.npz")
+    np.savez(ck, next_batch=np.int64(2), chunk_size=np.int64(12345),
+             sum_w=np.float64(24690.0), n_batches=np.int64(2))
     cfg = dataclasses.replace(load_config(os.path.join(ROOT, "run", deck)),
-                              checkpoint_file="run.ckpt",
+                              checkpoint_file=ck,
                               checkpoint_every_batches=2)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    if not cfg.is_longwave:
+        dom = str(tmp_path / "StepCloud.dom")
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert cli.main(["mkdomain", "step_cloud", dom]) == 0
+        cfg = dataclasses.replace(cfg, domain_file=dom)
+    with pytest.raises(ValueError, match="chunk size 12345"):
         simulate_from_config(cfg, "cpu")
 
 
