@@ -294,6 +294,23 @@ alone on the card:
    table over the LW flagship's 15,843,750 voxels by csrc/host/alias.cpp
    and by the Python loop on the card's host, equal bit for bit, both
    timed;
+3q. multi-device on the one card (parallel/): (a) a one-rank NCCL group
+   on cuda:0 runs run/step_cloud_mono.nml's 16 batches through
+   run_simulation(mesh=...), 16 K1 launches, every mean within 1e-6 of
+   one process's run of the same domain (the deck's run-to-run floor is
+   ~8e-8), its seconds split into the group's start, a warm-up
+   all-reduce, the deck in the warm group and the deck again with each
+   batch's all-reduce timed; (b) four gloo ranks share cuda:0 (launch.spawn) for one
+   global batch of 2^20 photons on the step cloud (2^18 a rank, K1 on
+   every rank): every rank's tallies equal bit for bit, and against the
+   serial sub-batches 4g .. 4g + 3 run in this process equal photons,
+   lane-steps and n_bad, columns and cells within 1e-5 of the photons a
+   column; (c) the same ranks run run/step_cloud_mono.nml through the
+   command line: rank 0 alone writes the files and prints the line
+   (world_size 4), 16 K1 launches a rank, the domain means within 4.5
+   combined sigma of the deck run in one process; (d)
+   launch.dryrun_multichip(4, device="cuda:0", backend="gloo"); prints
+   each rank's device and the seconds;
 4. the flux headline (macro_factor 16, 2^16 lanes x 1024 photons, flux
    tallies only, through run_batch_record_tallies): the A/B of the refill
    schedule (run_batch's) and JAX's geometry in turns (refill, JAX, JAX,
@@ -4992,8 +5009,8 @@ def _resume_sw_deck(cli, rk, ck, sk, tk, write_sw_broadband_inputs):
             lambda: _run_cli_deck(cli, rk, deck, ck=ck, domain=None, sk=sk,
                                   tk=tk))
 
-        def save_then_stop(path, b, acc, chunk=0):
-            save(path, b, acc, chunk)
+        def save_then_stop(path, b, acc, chunk=0, **kw):
+            save(path, b, acc, chunk, **kw)
             if b == half_b:
                 raise _Interrupt
 
@@ -5299,12 +5316,252 @@ def phase_resume_and_toolchain(rk, ck, sk, tk, cli,
     return res
 
 
+MULTI_DEVICE_RANKS = 4
+# 3q (a): a one-rank NCCL group against one process, both on the card: the
+# same streams, so only the kernels' float32 tally atomics part them (the
+# deck's run-to-run floor is 7.8e-8-8.5e-8 in its means, 3p)
+MESH_MEAN_RTOL = 1e-6
+
+
+def _rank_multi_device(device, deck_dir, seed, batch, cfg_kw):
+    """3q (b) and (c) on one gloo rank sharing the card: one global batch of
+    the step cloud over the group, then run/step_cloud_mono.nml through the
+    command line (mesh "auto"); returns the rank's device, its tallies and
+    K1 launches, and the deck's JSON line and Results (rank 0's)."""
+    from mcbrat3d_tpu_torch.driver import cli
+    from mcbrat3d_tpu_torch.parallel import distributed
+    from mcbrat3d_tpu_torch.parallel.mesh import make_mesh, run_batch_sharded
+    from mcbrat3d_tpu_torch.physics.surface import Surface
+    from mcbrat3d_tpu_torch.scenes.step_cloud import make_step_cloud
+    from mcbrat3d_tpu_torch.sources import illumination
+    from mcbrat3d_tpu_torch.transport import record_kernel as rk
+    from mcbrat3d_tpu_torch.transport.integrator import KernelConfig
+
+    dom = make_step_cloud(ssa=0.99, device=device)
+    rk.LAUNCHES = 0
+    t = run_batch_sharded(dom, Surface.lambertian(0.0),
+                          illumination.directional(0.5, 0.0), seed, batch,
+                          KernelConfig(**cfg_kw), make_mesh())
+    out = dict(device=str(device), rank=distributed.rank(),
+               launches=rk.LAUNCHES,
+               tallies={k: getattr(t, k).cpu().numpy() for k in (
+                   "flux_up", "flux_down", "flux_absorbed",
+                   "volume_absorption")},
+               counts=(t.n_photons, t.n_lane_steps, t.n_bad))
+    os.chdir(deck_dir)
+    rk.LAUNCHES = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, kept = _capture_results(
+            lambda: cli.main(["run", "deck.nml", "--device", str(device)]))
+    assert rc == 0
+    lines = buf.getvalue().strip().splitlines()
+    out.update(deck_launches=rk.LAUNCHES,
+               line=json.loads(lines[-1]) if lines else None,
+               results=dict(mean=kept[0].mean, stderr=kept[0].stderr,
+                            total_photons=kept[0].total_photons))
+    return out
+
+
+def _one_rank_nccl(rk, cfg, domain_file):
+    """3q (a): the main deck's 16 batches through run_simulation on a
+    one-rank NCCL group against one process without a group. The group's
+    seconds are split: its start, one warm-up all-reduce (NCCL forms its
+    communicator at the first collective), the deck run in the warm group,
+    and the deck again with each batch's all-reduce timed on its own (the
+    card synchronized around it)."""
+    import statistics
+
+    import torch
+
+    from mcbrat3d_tpu_torch.domain import io_netcdf
+    from mcbrat3d_tpu_torch.domain.domain import build_domain
+    from mcbrat3d_tpu_torch.driver.run import run_simulation
+    from mcbrat3d_tpu_torch.parallel import distributed
+    from mcbrat3d_tpu_torch.parallel import mesh as pmesh
+    from mcbrat3d_tpu_torch.physics.surface import Surface
+    from mcbrat3d_tpu_torch.sources import illumination
+
+    grid, comps, temps, attrs = io_netcdf.read_domain(domain_file,
+                                                      device="cuda")
+    dom = build_domain(grid, comps, n_cdf_steps=cfg.n_phase_intervals,
+                       temps=temps, macro_factor=cfg.macro_factor)
+    args = (dom, Surface.lambertian(attrs.get("surface_albedo", 0.0)),
+            illumination.directional(cfg.solar_mu, cfg.solar_azimuth), cfg)
+    alone, secs = _timed(lambda: run_simulation(*args))
+    reduce_ms = []
+    all_reduce = pmesh._all_reduce
+
+    def timed_all_reduce(t):
+        out, s = _timed(lambda: all_reduce(t))
+        reduce_ms.append(1e3 * s)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dev = distributed.initialize(init_method=f"file://{tmp}/store",
+                                     world_size=1, rank=0, backend="nccl",
+                                     device="cuda:0")
+        try:
+            mesh = pmesh.make_mesh()
+            start_secs = time.perf_counter() - t0
+            backend = torch.distributed.get_backend()
+            _, warm_secs = _timed(lambda: torch.distributed.all_reduce(
+                torch.zeros(1, device=dev)))
+            rk.LAUNCHES = 0
+            grouped, mesh_secs = _timed(
+                lambda: run_simulation(*args, mesh=mesh))
+            launches = rk.LAUNCHES
+            pmesh._all_reduce = timed_all_reduce
+            try:
+                again, again_secs = _timed(
+                    lambda: run_simulation(*args, mesh=mesh))
+            finally:
+                pmesh._all_reduce = all_reduce
+        finally:
+            distributed.shutdown()
+    gaps = _result_gaps(grouped, alone, "one-rank NCCL group")
+    again_gaps = _result_gaps(again, alone, "one-rank NCCL group, again")
+    print(f"3q (a) one-rank group on {dev} ({mesh.size} rank, backend "
+          f"{backend}): group start {start_secs:.3f} s, first all-reduce "
+          f"{warm_secs:.3f} s; run/step_cloud_mono.nml's {grouped.n_batches} "
+          f"batches through run_simulation(mesh=...) {mesh_secs:.3f} s, "
+          f"{launches} K1 launches; again with each all-reduce timed "
+          f"{again_secs:.3f} s, all-reduce a batch median "
+          f"{statistics.median(reduce_ms):.3f} ms, max {max(reduce_ms):.3f} "
+          f"ms, sum {sum(reduce_ms):.3f} ms over {len(reduce_ms)}; one "
+          f"process {secs:.3f} s; largest relative gaps (means, standard "
+          f"errors) {gaps}, again {again_gaps}", flush=True)
+    assert launches == cfg.num_batches == 16, launches
+    assert len(reduce_ms) == cfg.num_batches, reduce_ms
+    assert grouped.n_bad == again.n_bad == 0
+    assert gaps[0] <= MESH_MEAN_RTOL and again_gaps[0] <= MESH_MEAN_RTOL, (
+        gaps, again_gaps)
+    return dict(gaps=gaps, launches=launches,
+                seconds=dict(alone=secs, start=start_secs,
+                             first_all_reduce=warm_secs, group=mesh_secs,
+                             again=again_secs),
+                all_reduce_ms=reduce_ms)
+
+
+def phase_multi_device(rk, cli):
+    """3q: multi-device on the one card. (a) a one-rank NCCL group runs the
+    main deck through run_simulation and equals one process; (b) four gloo
+    ranks share cuda:0 for one global batch of 2^20 photons on the step
+    cloud (2^18 a rank): every rank holds the same tallies, equal to the
+    serial sum of sub-batches 4g .. 4g + 3 run here (equal photons,
+    lane-steps and n_bad, columns within RECORD_COLUMN_TOL_KERNEL_VS_PLAIN
+    of the photons a column); (c) the same ranks run
+    run/step_cloud_mono.nml through the command line: rank 0 alone writes
+    the files and prints the line, the domain means within 4.5 combined
+    sigma of the deck run here in one process; (d) dryrun_multichip over
+    four gloo ranks on cuda:0."""
+    import numpy as np
+    import torch
+
+    from mcbrat3d_tpu_torch.core import rng
+    from mcbrat3d_tpu_torch.driver.config import load_config
+    from mcbrat3d_tpu_torch.parallel import launch
+    from mcbrat3d_tpu_torch.physics.surface import Surface
+    from mcbrat3d_tpu_torch.scenes.step_cloud import make_step_cloud
+    from mcbrat3d_tpu_torch.sources import illumination
+    from mcbrat3d_tpu_torch.transport.integrator import (KernelConfig,
+                                                          run_batch)
+
+    n = MULTI_DEVICE_RANKS
+    seed, batch = 5, 2
+    cfg_kw = dict(n_lanes=1 << 16, photons_per_lane=4)
+    res = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            (alone, _, _), (alone_res,) = _capture_results(
+                lambda: _run_cli_deck(
+                    cli, rk,
+                    (ROOT / "run" / "step_cloud_mono.nml").read_text()))
+            for f in ("StepCloud_flux.out", "StepCloud_results.nc"):
+                os.remove(f)
+            res["nccl"] = _one_rank_nccl(
+                rk, load_config("deck.nml"), "StepCloud.dom")
+        finally:
+            os.chdir(cwd)
+        t0 = time.perf_counter()
+        ranks = launch.spawn(_rank_multi_device, n, "cuda:0",
+                             backend="gloo",
+                             args=(tmp, seed, batch, cfg_kw), timeout=300)
+        rank_secs = time.perf_counter() - t0
+        written = sorted(p.name for p in Path(tmp).iterdir())
+    # (b) the global batch against the serial sub-batches, run here
+    dom = make_step_cloud(ssa=0.99, device="cuda")
+    cfg = KernelConfig(**cfg_kw)
+    parts = [run_batch(dom, Surface.lambertian(0.0),
+                       illumination.directional(0.5, 0.0),
+                       rng.batch_seed(seed, batch * n + d), cfg)
+             for d in range(n)]
+    counts = tuple(sum(getattr(t, k) for t in parts)
+                   for k in ("n_photons", "n_lane_steps", "n_bad"))
+    first = ranks[0]
+    for r in ranks:
+        assert r["counts"] == first["counts"]
+        for k, v in r["tallies"].items():
+            assert np.array_equal(v, first["tallies"][k]), (r["rank"], k)
+    _, gap = _pixel_z([(torch.from_numpy(v), sum(getattr(t, k) for t in parts))
+                       for k, v in first["tallies"].items()], counts[0])
+    print(f"3q (b) {n} gloo ranks on the card, ranks' devices "
+          f"{[r['device'] for r in ranks]}: one global batch of "
+          f"{first['counts'][0]} photons (2^18 a rank), K1 launches a rank "
+          f"{[r['launches'] for r in ranks]}; every rank's tallies equal "
+          f"bit for bit; against the {n} serial sub-batches run here: "
+          f"photons, lane-steps, n_bad {first['counts']} vs {counts}, "
+          f"largest column gap {gap:.3g} of the photons a column",
+          flush=True)
+    assert first["counts"] == counts and counts[0] == 1 << 20, (
+        first["counts"], counts)
+    assert all(r["launches"] > 0 for r in ranks)
+    assert gap <= RECORD_COLUMN_TOL_KERNEL_VS_PLAIN, gap
+    # (c) the deck through the command line under the ranks
+    lines = [r["line"] for r in ranks]
+    assert lines[0] is not None and lines[1:] == [None] * (n - 1), lines
+    line = lines[0]
+    assert line["world_size"] == n and line["n_bad"] == 0
+    assert line["total_photons"] == alone["total_photons"]
+    assert sorted(line["outputs"]) == ["StepCloud_flux.out",
+                                       "StepCloud_results.nc"]
+    assert {"StepCloud_flux.out", "StepCloud_results.nc"} <= set(written)
+    got = ranks[0]["results"]
+    z = max(abs(got["mean"][k] - alone_res.mean[k])
+            / math.hypot(got["stderr"][k], alone_res.stderr[k])
+            for k in ("mean_flux_up", "mean_flux_down",
+                      "mean_flux_absorbed"))
+    print(f"3q (c) run/step_cloud_mono.nml through the command line under "
+          f"{n} gloo ranks: {line['total_photons']} photons, K1 launches "
+          f"a rank {[r['deck_launches'] for r in ranks]}, files written by "
+          f"rank 0 {line['outputs']}; R/T/A {line['mean_flux_up']}, "
+          f"{line['mean_flux_down']}, {line['mean_flux_absorbed']} against "
+          f"one process's {alone['mean_flux_up']}, "
+          f"{alone['mean_flux_down']}, {alone['mean_flux_absorbed']}: "
+          f"largest gap {z:.2f} combined sigma; ranks started, ran (b) and "
+          f"(c) and stopped in {rank_secs:.1f} s", flush=True)
+    assert z < 4.5, z
+    assert all(r["deck_launches"] == 16 for r in ranks), ranks
+    # (d) the dry run
+    t0 = time.perf_counter()
+    launch.dryrun_multichip(n, device="cuda:0", backend="gloo")
+    print(f"3q (d) dryrun_multichip({n}) on cuda:0: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    res.update(column_gap=gap, z=z, rank_seconds=rank_secs,
+               launches=[r["launches"] for r in ranks])
+    return res
+
+
 # The kernel-against-plain phases, one process each group, the groups
-# about equal in time (one call's seconds of each phase on the H100: 2d
-# 208; 2b 132, 2j 40, 2g 28, 2e 12; 2f 126, 2 84; 2h 148, 2i 90). 2k
-# times its walks and stays in the main process.
-COMPARE_WORKERS = (("2d",), ("2b", "2j", "2g", "2e", "2c"), ("2f", "2"),
-                   ("2h", "2i"))
+# about equal in time (two calls' seconds of each phase on the H100: 2h
+# 282-320; 2d 181-206, 2i 83-85; 2b 158-164, 2j 35-49, 2g 29-38, 2e
+# 12-13; 2f 130-150, 2 68-77). 2k times its walks and stays in the main
+# process.
+COMPARE_WORKERS = (("2h",), ("2d", "2i"), ("2b", "2j", "2g", "2e", "2c"),
+                   ("2f", "2"))
 
 
 def _run_compare_workers(groups):
@@ -5355,7 +5612,8 @@ def _run_compare_workers(groups):
 PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "2g", "2h", "2i", "2j", "2k",
           "3",
           "3b", "3c", "3d", "3e", "3f", "3g", "3h", "3i", "3j", "3k", "3l",
-          "3m", "3n", "3o", "3p", "4", "4b", "4c", "4d", "4e", "4f", "4g",
+          "3m", "3n", "3o", "3p", "3q", "4", "4b", "4c", "4d", "4e", "4f",
+          "4g",
           "4h", "4i", "5")
 
 
@@ -5607,6 +5865,9 @@ def main(argv=None) -> int:
     if "3p" in only:
         out["resume"] = phase_resume_and_toolchain(
             rk, ck, sk, tk, cli, write_sw_broadband_inputs)
+    mark("3q")
+    if "3q" in only:
+        out["multi_device"] = phase_multi_device(rk, cli)
     mark("4")
     if "4" in only:
         out["head"] = phase_headline(*args)

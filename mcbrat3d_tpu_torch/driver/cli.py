@@ -2,6 +2,7 @@
 
     python -m mcbrat3d_tpu_torch.driver.cli mkdomain step_cloud Step.dom ssa=0.99
     python -m mcbrat3d_tpu_torch.driver.cli run deck.nml [--device cuda]
+    torchrun --nproc-per-node N -m mcbrat3d_tpu_torch.driver.cli run deck
     python -m mcbrat3d_tpu_torch.driver.cli mie|mkssp|physprops table.nml
     python -m mcbrat3d_tpu_torch.driver.cli optprops shdom.txt out.dom
     python -m mcbrat3d_tpu_torch.driver.cli rayleightrans common.nc
@@ -12,7 +13,10 @@ Drivers/monteCarloDriver.f95:103-121,230-238) with its subcommands: ``run``
 a deck (``--device`` defaults to ``cuda`` and fails when no CUDA device is
 present; pass ``cpu`` to run the plain PyTorch path; the deck's
 ``usePallas`` ('auto', 'on', 'off') chooses between the hand-written
-kernels and the wave kernel, its ``checkpointFile`` resumes and saves),
+kernels and the wave kernel, its ``checkpointFile`` resumes and saves;
+under torchrun each rank joins one process group on its own card,
+``cuda:LOCAL_RANK``, and every batch is spread over the ranks, rank 0
+writing the files and the JSON line),
 ``mkdomain`` any scene of ``tools/scene_cli.py``, and the offline tool
 suite of the reference's Tools/ executables: Mie tables, SSP tables,
 physical- and optical-properties converters, the Rayleigh transmission
@@ -49,10 +53,20 @@ def _launches() -> dict:
 def _cmd_run(args) -> int:
     from mcbrat3d_tpu_torch.driver.config import load_config
     from mcbrat3d_tpu_torch.driver.simulate import simulate_from_config
+    from mcbrat3d_tpu_torch.parallel import distributed
 
-    device = resolve(args.device)
-    cfg = load_config(args.namelist)
-    results, written = simulate_from_config(cfg, device)
+    joined = distributed.is_initialized()
+    try:
+        device = (distributed.initialize(device=args.device)
+                  or resolve(args.device))
+        rank, world_size = distributed.rank(), distributed.world_size()
+        cfg = load_config(args.namelist)
+        results, written = simulate_from_config(cfg, device)
+    finally:
+        if not joined:  # leave only a group this command formed
+            distributed.shutdown()
+    if rank != 0:
+        return 0
     radiance = {}
     for name in ("mean_intensity", "mean_flux_up_by_order",
                  "mean_flux_down_by_order"):
@@ -73,6 +87,7 @@ def _cmd_run(args) -> int:
         "launches": _launches(),
         "tile_passes": results.n_passes,
         "device": str(device),
+        "world_size": world_size,
         "outputs": written,
     }))
     return 0

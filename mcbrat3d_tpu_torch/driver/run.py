@@ -1,7 +1,7 @@
 """Batch-loop driver: runs batches, accumulates moments, finalizes results.
 
-PyTorch counterpart of ``mcbrat3d_tpu.driver.run`` for one device
-(reference: Drivers/monteCarloDriver.f95:889-1228): per batch the
+PyTorch counterpart of ``mcbrat3d_tpu.driver.run`` (reference:
+Drivers/monteCarloDriver.f95:889-1228): per batch the
 per-photon-normalized tallies are accumulated as photon-weighted first and
 second moments on the domain's device (``DeviceMomentAccumulator``, the
 layout the broadband loop uses too; one host fetch at the end); the mean
@@ -9,7 +9,10 @@ is scaled by the incident flux and the standard error is
 sqrt(max(0, E[x^2] - E[x]^2)/(nBatches - 1)). Batch b runs with the kernel
 seed ``rng.batch_seed(iseed, b)`` and the wave kernel's threefry key
 ``rng.batch_key(iseed, b)`` (the JAX package's, so a deck with usePallas =
-'off' follows its paths). Decks with radiance directions also
+'off' follows its paths). With a ``parallel.mesh.PhotonGroup`` of n
+ranks batch b is one global batch over them: rank d runs sub-batch stream
+b * n + d (``parallel.mesh.run_batch_sharded``), as the JAX package's
+mesh does. Decks with radiance directions also
 accumulate the top-of-domain radiance image and its
 per-direction domain mean, decks with numRecScatOrd the boundary fluxes by
 scattering order. A resumed run passes the checkpoint's moments and its
@@ -23,14 +26,16 @@ import dataclasses
 import time
 from typing import Optional
 
-from mcbrat3d_tpu_torch.core import rng
 from mcbrat3d_tpu_torch.core.accumulate import (DeviceMomentAccumulator,
                                                 MomentAccumulator)
 from mcbrat3d_tpu_torch.domain.domain import OpticalDomain
+from mcbrat3d_tpu_torch.driver.checkpoint import check_resume
 from mcbrat3d_tpu_torch.driver.config import SimulationConfig
+from mcbrat3d_tpu_torch.parallel.mesh import (resolve_mesh,
+                                              run_batch_sharded)
 from mcbrat3d_tpu_torch.physics.surface import Surface
 from mcbrat3d_tpu_torch.sources import illumination
-from mcbrat3d_tpu_torch.transport.integrator import KernelConfig, run_batch
+from mcbrat3d_tpu_torch.transport.integrator import KernelConfig
 from mcbrat3d_tpu_torch.transport.local_estimate import (
     IntensityConfig, make_intensity_directions)
 
@@ -57,10 +62,13 @@ class Results:
         return self.mean[name]
 
 
-def kernel_config_from(cfg: SimulationConfig) -> KernelConfig:
-    """Kernel config for one device; the exact n_photons clamp honors
-    numPhotonsPerBatch when it is not a multiple of the lane count."""
-    per_dev = max(1, cfg.num_photons_per_batch)
+def kernel_config_from(cfg: SimulationConfig,
+                       n_devices: int = 1) -> KernelConfig:
+    """Kernel config of one rank: numPhotonsPerBatch is the global batch,
+    split over ``n_devices`` ranks. Capacity is rounded up at both splits
+    and the exact n_photons clamp honors numPhotonsPerBatch when it is not
+    a multiple of n_devices * the lane count."""
+    per_dev = max(1, -(-cfg.num_photons_per_batch // max(1, n_devices)))
     n_lanes = min(cfg.n_lanes, per_dev)
     ppl = max(1, -(-per_dev // n_lanes))
     return KernelConfig(
@@ -85,25 +93,33 @@ def run_simulation(domain: OpticalDomain,
                    source: illumination.Source,
                    cfg: SimulationConfig,
                    solar_flux: float = 1.0,
+                   mesh=None,
                    accumulator: Optional[MomentAccumulator] = None,
                    start_batch: int = 0,
                    checkpoint_cb=None,
-                   resume_chunk_size: Optional[int] = None) -> Results:
+                   resume_chunk_size: Optional[int] = None,
+                   resume_ranks: Optional[int] = None) -> Results:
     """Run batches ``start_batch`` .. cfg.num_batches - 1 on the domain's
     device and return finalized statistics. ``solar_flux`` scales all
     outputs (reference: Drivers/monteCarloDriver.f95:1188-1228).
+    ``mesh`` (None, a ``parallel.mesh.PhotonGroup`` or "auto": the default
+    process group when it has more than one rank) spreads each batch over
+    its ranks; every rank calls this and gets the same results.
     ``accumulator`` holds the moments of the batches before
-    ``start_batch`` (a checkpoint's), ``resume_chunk_size`` the photons a
-    batch of the run that wrote it; ``checkpoint_cb(next_batch, acc,
-    chunk_size)`` is called every cfg.checkpoint_every_batches batches.
+    ``start_batch`` (a checkpoint's), ``resume_chunk_size`` and
+    ``resume_ranks`` the photons a batch (photons_per_batch x ranks) and
+    the ranks of the run that wrote it, where recorded: a resume under
+    another chunk size or rank count raises
+    (``driver.checkpoint.check_resume``); ``checkpoint_cb(next_batch,
+    acc, chunk_size)`` is called every cfg.checkpoint_every_batches
+    batches.
     ``n_bad`` and ``n_passes`` count the batches this call runs."""
-    kcfg = kernel_config_from(cfg)
-    if start_batch > 0 and resume_chunk_size is not None \
-            and resume_chunk_size != kcfg.photons_per_batch:
-        raise ValueError(
-            f"checkpoint was written with chunk size {resume_chunk_size} "
-            f"but this run uses {kcfg.photons_per_batch}; resume with the "
-            "same batch size")
+    mesh = resolve_mesh(mesh)
+    n_dev = 1 if mesh is None else mesh.size
+    kcfg = kernel_config_from(cfg, n_devices=n_dev)
+    chunk_size = kcfg.photons_per_batch * n_dev
+    if start_batch > 0:
+        check_resume(chunk_size, n_dev, resume_chunk_size, resume_ranks)
     icfg = idirs = None
     if cfg.compute_intensity:
         mus, phis = cfg.radiance_directions()
@@ -121,16 +137,15 @@ def run_simulation(domain: OpticalDomain,
     n_bad = n_passes = 0
     t0 = time.time()
     for b in range(start_batch, cfg.num_batches):
-        t = run_batch(domain, surface, source, rng.batch_seed(cfg.iseed, b),
-                      kcfg, n_photons=cfg.num_photons_per_batch,
-                      intensity_config=icfg, intensity_dirs=idirs,
-                      key=rng.batch_key(cfg.iseed, b))
+        t = run_batch_sharded(domain, surface, source, cfg.iseed, b, kcfg,
+                              mesh, icfg, idirs,
+                              n_photons=cfg.num_photons_per_batch)
         n_bad += int(t.n_bad)
         n_passes += int(t.n_passes)
         dacc.add_tallies(t, domain.grid)
         if checkpoint_cb is not None and cfg.checkpoint_every_batches > 0 \
                 and (b + 1) % cfg.checkpoint_every_batches == 0:
-            checkpoint_cb(b + 1, dacc, kcfg.photons_per_batch)
+            checkpoint_cb(b + 1, dacc, chunk_size)
     acc = dacc.finalize()
 
     elapsed = time.time() - t0

@@ -33,14 +33,17 @@ runs with the kernel seed ``rng.batch_seed(iseed, b)`` and the wave
 kernel's key ``rng.batch_key(iseed, b)``, the JAX package's. A resumed
 run skips the bins and batches its checkpoint covers, and every
 ``checkpointEveryBatches`` global batches the state is saved, as
-``driver.run.run_simulation`` does. Not ported yet: the device mesh.
+``driver.run.run_simulation`` does. With a ``parallel.mesh.PhotonGroup``
+of n ranks a chunk is numPhotonsPerBatch photons spread over the ranks
+(``parallel.mesh.run_batch_sharded``: rank d runs sub-batch stream
+b * n + d), as the JAX package's mesh does; the chunk size, and so the
+batch numbering a checkpoint records, is photons_per_batch x n.
 """
 
 from __future__ import annotations
 
 import time
 
-from mcbrat3d_tpu_torch.core import rng
 from mcbrat3d_tpu_torch.core.accumulate import (DeviceMomentAccumulator,
                                                 kahan_cumsum)
 from mcbrat3d_tpu_torch.domain.common import read_common
@@ -48,8 +51,11 @@ from mcbrat3d_tpu_torch.domain.domain import build_domain
 from mcbrat3d_tpu_torch.domain.sep_plan import (build_domain_from_plan,
                                                 make_separable_bin_plan)
 from mcbrat3d_tpu_torch.domain.ssp import components_from_ssp, read_ssp_table
+from mcbrat3d_tpu_torch.driver.checkpoint import check_resume
 from mcbrat3d_tpu_torch.driver.config import SimulationConfig
 from mcbrat3d_tpu_torch.driver.run import Results, kernel_config_from
+from mcbrat3d_tpu_torch.parallel.mesh import (resolve_mesh,
+                                              run_batch_sharded)
 from mcbrat3d_tpu_torch.physics.surface import Surface
 from mcbrat3d_tpu_torch.sources import illumination
 from mcbrat3d_tpu_torch.spectral import solar as solar_io
@@ -61,8 +67,7 @@ from mcbrat3d_tpu_torch.spectral.weights import (absorption_coefficient,
                                                  solar_weighting)
 from mcbrat3d_tpu_torch.transport import record_kernel as rk
 from mcbrat3d_tpu_torch.transport import sep_kernel as sk
-from mcbrat3d_tpu_torch.transport.integrator import (run_batch,
-                                                      select_kernel)
+from mcbrat3d_tpu_torch.transport.integrator import select_kernel
 from mcbrat3d_tpu_torch.transport.local_estimate import (
     IntensityConfig, make_intensity_directions)
 
@@ -108,27 +113,27 @@ def _plan_is_separable(plan, grid, ssp_tables, freq, cfg, kcfg, icfg):
 
 
 def run_broadband(cfg: SimulationConfig, device, common=None,
-                  ssp_tables=None, accumulator=None, start_batch: int = 0,
-                  checkpoint_cb=None, resume_chunk_size=None) -> Results:
+                  ssp_tables=None, mesh=None, accumulator=None,
+                  start_batch: int = 0, checkpoint_cb=None,
+                  resume_chunk_size=None, resume_ranks=None) -> Results:
     """Broadband run on ``device``, shortwave or longwave as the namelist
     says; ``common`` and ``ssp_tables`` default to the namelist's files.
     Returns the finalized ``Results`` (means scaled by the total incident
     or emitted flux), with ``grid``, ``n_bad``, the seconds spent before
     the first bin's transport (``setup_seconds``) and those spent building
     the later bins' domains and sources on the host
-    (``build_seconds``). ``accumulator``, ``start_batch``,
-    ``checkpoint_cb`` and ``resume_chunk_size`` resume and save as in
-    ``driver.run.run_simulation``: the global batches below
+    (``build_seconds``). ``mesh`` spreads each chunk over the ranks of a
+    process group as in ``driver.run.run_simulation``. ``accumulator``,
+    ``start_batch``, ``checkpoint_cb``, ``resume_chunk_size`` and
+    ``resume_ranks`` resume and save as there: the global batches below
     ``start_batch`` are skipped, whole bins without building them."""
     t_start = time.time()
-    kcfg = kernel_config_from(cfg)
-    chunk_size = kcfg.photons_per_batch
-    if start_batch > 0 and resume_chunk_size is not None \
-            and resume_chunk_size != chunk_size:
-        raise ValueError(
-            f"checkpoint was written with chunk size {resume_chunk_size} "
-            f"but this run uses {chunk_size}; resume with the same batch "
-            "size")
+    mesh = resolve_mesh(mesh)
+    n_dev = 1 if mesh is None else mesh.size
+    kcfg = kernel_config_from(cfg, n_devices=n_dev)
+    chunk_size = kcfg.photons_per_batch * n_dev
+    if start_batch > 0:
+        check_resume(chunk_size, n_dev, resume_chunk_size, resume_ranks)
     if common is None:
         common = read_common(cfg.phys_domain_file, device=device)
     if ssp_tables is None:
@@ -266,11 +271,9 @@ def run_broadband(cfg: SimulationConfig, device, common=None,
                 remaining -= n
                 global_batch += 1
                 continue
-            t = run_batch(domain, surface, source,
-                          rng.batch_seed(cfg.iseed, global_batch), kcfg,
-                          n_photons=n, intensity_config=icfg,
-                          intensity_dirs=idirs,
-                          key=rng.batch_key(cfg.iseed, global_batch))
+            t = run_batch_sharded(domain, surface, source, cfg.iseed,
+                                  global_batch, kcfg, mesh, icfg, idirs,
+                                  n_photons=n)
             n_bad += int(t.n_bad)
             acc.add_tallies(t, grid)
             remaining -= n

@@ -32,7 +32,7 @@ from mcbrat3d_tpu.spectral import weights as jweights
 from mcbrat3d_tpu.transport import pallas_kernel as jpk
 from mcbrat3d_tpu.transport import pallas_sep as jsep
 from mcbrat3d_tpu.transport import pallas_tile as jpt
-from mcbrat3d_tpu_torch.core import accumulate
+from mcbrat3d_tpu_torch.core import accumulate, rng
 from mcbrat3d_tpu_torch.domain import common, sep_plan, ssp
 from mcbrat3d_tpu_torch.domain.domain import build_domain
 from mcbrat3d_tpu_torch.driver import cli
@@ -244,7 +244,7 @@ def test_run_broadband_matches_jax(inputs, monkeypatch):
 
     monkeypatch.setattr(jpk, "config_for", steps32(jpk.config_for))
     monkeypatch.setattr(rk, "config_for", steps32(rk.config_for))
-    monkeypatch.setattr(broadband.rng, "batch_seed", _folded_seed)
+    monkeypatch.setattr(rng, "batch_seed", _folded_seed)
     monkeypatch.setattr(
         jbb, "run_batch",
         lambda dom, sfc, src, key, cfg, icfg, idirs, n_photons:

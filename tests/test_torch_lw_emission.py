@@ -49,7 +49,7 @@ from mcbrat3d_tpu.transport.integrator import run_batch as jrun_batch
 from mcbrat3d_tpu.transport.local_estimate import IntensityConfig as JIcfg
 from mcbrat3d_tpu.transport.local_estimate import \
     make_intensity_directions as jdirections
-from mcbrat3d_tpu_torch.core import planck
+from mcbrat3d_tpu_torch.core import planck, rng
 from mcbrat3d_tpu_torch.core.grid import Grid
 from mcbrat3d_tpu_torch.domain import ssp
 from mcbrat3d_tpu_torch.domain.common import read_common
@@ -451,7 +451,7 @@ def test_run_broadband_generic_path_matches_jax(deck_cut, monkeypatch):
     monkeypatch.setattr(jpk, "config_for", steps32(jpk.config_for))
     monkeypatch.setattr(rk, "run_batch_record_tallies",
                         jax_geometry32(rk.run_batch_record_tallies))
-    monkeypatch.setattr(broadband.rng, "batch_seed", _folded_batch_seed)
+    monkeypatch.setattr(rng, "batch_seed", _folded_batch_seed)
     monkeypatch.setattr(
         jbb, "run_batch",
         lambda dom, sfc, src, key, cfg, icfg, idirs, n_photons:

@@ -240,6 +240,9 @@ def test_port_imports_no_jax():
             "import mcbrat3d_tpu_torch.transport.sep_kernel\n"
             "import mcbrat3d_tpu_torch.transport.tile_kernel\n"
             "import mcbrat3d_tpu_torch.physics.rayleigh\n"
+            "import mcbrat3d_tpu_torch.parallel.distributed\n"
+            "import mcbrat3d_tpu_torch.parallel.launch\n"
+            "import mcbrat3d_tpu_torch.parallel.mesh\n"
             "import mcbrat3d_tpu_torch._build\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'mcbrat3d_tpu.'))]\n"
